@@ -7,18 +7,23 @@
    nvcc (one process per source, in parallel) and prints the build time and
    the compiler's register / shared-memory report.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card, in bf16, at the shapes the serving main path gives it (the
-   qwen3-moe-30b-a3b prefill of 8 requests x 64 tokens through fused_flat:
-   T = 512 tokens, 128 experts, top-8, capacity 64; and the decode shape),
-   and times kernel, plain version and a PyTorch yardstick with CUDA events.
-3. Serve phase: zeroes the kernels' launch counters, serves the full-width
-   qwen3-moe-30b-a3b (4 layers, random bf16 weights from a seed) through
-   ``repro_torch.launch.serve``, reads the counters and fails if a kernel of
-   the path never launched.  Then profiles one prefill and one decode step
-   of the same path (torch.profiler) and prints the device's busy time
-   beside the step's wall time, and the kernels with the most device time.
+   card, in bf16, at the shapes the two serving paths give it, and times
+   kernel, plain version and a PyTorch yardstick with CUDA events:
+   - the MoE kernels at the qwen3-moe-30b-a3b prefill of 8 requests x 64
+     tokens through fused_flat (T = 512 tokens, 128 experts, top-8,
+     capacity 64; and the decode shape), and at the moe-tx-stream prefill
+     of 8 x 512 tokens (T = 4096, 64 experts, top-4, capacity 512);
+   - the flash attention at both prefill shapes and at the shifted query
+     stripe of one EP lane (with and without a window).
+3. Serve phases, one per path: zero the kernels' launch counters, serve the
+   full-width model through ``repro_torch.launch.serve`` (qwen3-moe-30b-a3b
+   at 4 layers; moe-tx-stream-1b at all 16), read the counters and fail if a
+   kernel of the path never launched.  Then profile one prefill and one
+   decode step of the same path (torch.profiler) and print the device's busy
+   time beside the step's wall time, and the kernels with the most device
+   time.
 4. Checks the outputs: finite logits and in-vocabulary tokens of the right
-   shape, and the reduced model's logits on the card (kernels) against the
+   shape, and each reduced model's logits on the card (kernels) against the
    same model on the CPU (plain versions).
 5. Prints the card's name and power limit, the kernels' numbers as one JSON
    line, and last ``{"ok": true, "device": {...}}``.
@@ -45,16 +50,31 @@ BF16_PEAK = 989e12      # dense bf16 tensor-core flop/s
 F32_PEAK = 67e12        # float32 flop/s outside the tensor cores
 SLEEP_CYCLES = 50_000_000   # ~25 ms of device sleep ahead of each timed round
 
-# the serving main path (qwen3-moe-30b-a3b, --requests 8 --prompt-len 64)
-MAIN = dict(t=512, d=2048, n_experts=128, top_k=8, f=768, decode_t=8)
-SERVE_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat",
-              "--layers", "4", "--requests", "8", "--prompt-len", "64",
-              "--gen", "16"]
+# the serving paths: arch -> (serve flags, MoE shapes, attention shape)
+PATHS = {
+    "qwen3-moe-30b-a3b": (
+        ["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
+         "4", "--requests", "8", "--prompt-len", "64", "--gen", "16"],
+        dict(t=512, d=2048, n_experts=128, top_k=8, f=768, decode_t=8),
+        dict(b=8, sq=64, sk=64, hq=32, hkv=4, hd=128)),
+    "moe-tx-stream": (
+        ["--arch", "moe-tx-stream", "--engine", "fused_flat", "--requests",
+         "8", "--prompt-len", "512", "--gen", "16"],
+        dict(t=4096, d=1024, n_experts=64, top_k=4, f=1024, decode_t=8),
+        dict(b=8, sq=512, sk=512, hq=16, hkv=4, hd=64)),
+}
+# the query stripe of EP lane 1 of 4 against the gathered keys
+SHIFTED = dict(b=8, sq=128, sk=512, hq=16, hkv=4, hd=64, q0=128)
+WINDOW = 192
 
 # tolerances on the card, bf16 outputs against the plain versions
 TOL_GATHER = 0.0          # a copy: exact
 TOL_REL = 1e-2            # f32 sums in another order, then one bf16 rounding:
-                          # 1% of the output's largest magnitude (~2 bf16 steps)
+                          # 1% of the output's largest magnitude (~2 bf16 steps);
+                          # flash: 1% of each (batch, query, head) row's largest
+                          # |out|, as its rows differ ~10x in magnitude
+TOL_LSE = 1e-3            # flash log-sum-exp, f32 in both: sums in another
+                          # order and exp2 for exp
 TOL_REDUCED = 1e-3        # reduced model in f32, card vs CPU, on logits
 
 
@@ -133,9 +153,11 @@ def main_path_inputs(device, t, d, n_experts, top_k, f, decode_t, seed=0):
                                          dtype=torch.int32, device=device))
 
 
-def kernel_phase(inp, timer=time_ms) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes.
-    Returns one row per kernel and shape, without the launch counts."""
+def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
+    """Each MoE kernel against its plain version at a serving path's shapes
+    (``main_path_inputs``); ``fma`` also holds and times fused_swiglu's FMA
+    variant.  Returns one row per kernel and shape, without the launch
+    counts."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
     from repro_torch.kernels import segment_gather as g_k
@@ -207,6 +229,7 @@ def kernel_phase(inp, timer=time_ms) -> list[dict]:
             library_ms=timer(bmm_swiglu, reps=5)))
         if name == "fused_swiglu":
             expert_out = y
+        if name == "fused_swiglu" and fma:
             # the FMA variant (what the kernel takes off the tensor-core
             # path), held and timed at the same shape for comparison
             fma = lambda: fs_k._launch_fma(xs, w1, w3, w2, counts,
@@ -247,11 +270,78 @@ def kernel_phase(inp, timer=time_ms) -> list[dict]:
     return rows
 
 
+def attention_inputs(device, b, sq, sk, hq, hkv, hd, q0=0, seed=0):
+    """bf16 q/k/v and int32 positions of an attention call: queries at
+    positions q0 .. q0 + sq - 1 against keys at 0 .. sk - 1."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=device).to(torch.bfloat16)
+    return (randn(b, sq, hq, hd), randn(b, sk, hkv, hd), randn(b, sk, hkv, hd),
+            torch.arange(q0, q0 + sq, dtype=torch.int32, device=device),
+            torch.arange(sk, dtype=torch.int32, device=device))
+
+
+def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
+    """The flash kernel against its plain version on one attention call:
+    output and lse, times, the bound and the SDPA yardstick."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels.ref import attention_mask
+    out, lse = fa_k.flash_attention(q, k, v, qp, kp, True, window)
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, qp, kp, True, window)
+    err = max_err(out, want)
+    # each row held to 1% of its own largest |out|: the first query rows see
+    # one key (|out| up to ~4), most rows average hundreds (~10x smaller)
+    row_err = (out.float() - want.float()).abs().amax(-1)
+    row_tol = TOL_REL * want.float().abs().amax(-1)
+    worst_row = (row_err / row_tol).max().item()
+    tol = row_tol.max().item()
+    err_lse = max_err(lse, want_lse)
+    if not (worst_row <= 1.0 and err_lse <= TOL_LSE):
+        raise AssertionError(f"flash_attention: worst row error {worst_row} of "
+                             f"its row's tolerance (max_abs_err {err}), lse "
+                             f"{err_lse} (tol {TOL_LSE})")
+    b, sq, hq, hd = q.shape
+    g = hq // k.shape[2]
+    es = q.element_size()
+    mask = attention_mask(qp, kp, True, window)
+    visible = int(mask.sum()) * b * hq
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * es
+              + lse.numel() * 4 + (qp.numel() + kp.numel()) * 4)
+    b_ms, b_by = bound(nbytes, 4 * hd * visible, BF16_PEAK)
+    # yardstick: one SDPA call in its (B, H, S, hd) layout, kv heads repeated
+    # for the groups and the mask built from the positions
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask)
+    row = dict(
+        name="flash_attention",
+        shape=(f"q ({b}, {sq}, {hq}, {hd}) at {int(qp[0])}.. k ({k.shape[1]}, "
+               f"{k.shape[2]}) window {window} bf16"),
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:97",
+        max_abs_err=err, tol=tol, max_abs_err_lse=err_lse,
+        worst_row_share=worst_row,
+        ms=timer(lambda: fa_k.flash_attention(q, k, v, qp, kp, True, window)),
+        plain_ms=timer(lambda: fa_k.flash_attention_plain(q, k, v, qp, kp,
+                                                          True, window),
+                       reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library="F.scaled_dot_product_attention (bool mask from positions, "
+                "kv heads repeated)",
+        library_ms=timer(sdpa))
+    return row
+
+
 def counters():
-    from repro_torch.kernels import fused_staging, segment_gather, segment_scatter_add
+    from repro_torch.kernels import (flash_attention, fused_staging,
+                                     segment_gather, segment_scatter_add)
     return {"segment_gather": segment_gather.segment_gather,
             "segment_scatter_add": segment_scatter_add.segment_scatter_add,
-            "fused_swiglu": fused_staging.fused_swiglu}
+            "fused_swiglu": fused_staging.fused_swiglu,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def serve_phase(argv, device="cuda"):
@@ -326,14 +416,14 @@ def profile_phase(argv, device="cuda") -> dict:
     return out
 
 
-def reduced_check(device="cuda") -> float:
+def reduced_check(arch: str, device="cuda") -> float:
     """The reduced model (float32) on the card through the kernels against
     the same model on the CPU through the plain versions: prefill and three
     decode steps fed the same tokens.  Returns the max logit error."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
-    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    cfg = get_arch(arch).reduced()
     f32 = torch.float32
     ctxs = {dev: lm.make_context(cfg, dev, compute_dtype=f32)
             for dev in ("cpu", device)}
@@ -360,8 +450,61 @@ def reduced_check(device="cuda") -> float:
     fed = [lg.argmax(-1) for lg in on_cpu[:-1]]
     worst = max(max_err(a, b) for a, b in zip(on_cpu, run(device, fed)))
     if not worst <= TOL_REDUCED:
-        raise AssertionError(f"reduced model card vs CPU: {worst} > {TOL_REDUCED}")
+        raise AssertionError(f"reduced {arch} card vs CPU: {worst} > "
+                             f"{TOL_REDUCED}")
     return worst
+
+
+def print_row(r: dict) -> None:
+    lse = (f", worst row {r['worst_row_share']:.3f} of its row's tolerance, "
+           f"lse {r['max_abs_err_lse']:.4g} (tol {TOL_LSE})"
+           if "max_abs_err_lse" in r else "")
+    print(f"kernel {r['name']:<20} {r['shape']}: max_abs_err "
+          f"{r['max_abs_err']:.4g} (tol {r['tol']:.4g}){lse}  {r['ms']:.4f} ms  "
+          f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})  library {r['library_ms']:.4f} ms "
+          f"[{r['library']}]")
+
+
+def serve_and_profile(arch: str) -> dict:
+    """One serving path at full width: the serve phase with its launch
+    counts, then the profile phase.  Returns the launch counts."""
+    import torch
+    argv = PATHS[arch][0]
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = serve_phase(argv)
+    cfg = out["cfg"]
+    if arch == "moe-tx-stream" and launches["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError(f"moe-tx-stream: flash launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"2 prefills x {cfg.n_layers} layers")
+    print(f"serve {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{' '.join(argv[argv.index('--requests'):])}: ttft "
+          f"{out['ttft_s'] * 1e3:.3f} ms  decode "
+          f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
+          f"{out['warmup_s']:.2f} s  peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches on the {arch} path: {json.dumps(launches)}")
+    print(f"sample tokens: {out['tokens'][0].tolist()}")
+    unprofiled = {"prefill": out["ttft_s"] * 1e3,
+                  "decode": out["decode_s_per_tok"] * 1e3}
+    del out
+    torch.cuda.empty_cache()
+
+    for step, p in profile_phase(argv).items():
+        if p is None:
+            print(f"profile {arch} {step}: the trace shows no device activity: "
+                  "device busy time not measured")
+            continue
+        top = ", ".join(f"{name[:60]} {ms:.4f} ms"
+                        for name, ms in p["by_kernel"][:6])
+        print(f"profile {arch} {step}: device busy {p['busy_ms']:.4f} ms over "
+              f"{p['activities']} device activities; host wall under the "
+              f"profiler {p['wall_ms']:.3f} ms; busy share of the unprofiled "
+              f"{unprofiled[step]:.3f} ms: {p['busy_ms'] / unprofiled[step]:.3f}"
+              f"\n  top device time: {top}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -389,57 +532,41 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
+    rows = []
     with torch.inference_mode():
-        rows = kernel_phase(main_path_inputs("cuda", **MAIN))
+        for arch, (_, moe_shape, attn_shape) in PATHS.items():
+            path_rows = kernel_phase(main_path_inputs("cuda", **moe_shape),
+                                     fma=arch == "qwen3-moe-30b-a3b")
+            path_rows.append(flash_row(*attention_inputs("cuda", **attn_shape),
+                                       window=None))
+            rows += [dict(r, path=arch) for r in path_rows]
+            torch.cuda.empty_cache()
+        shifted = attention_inputs("cuda", **SHIFTED)
+        for window in (None, WINDOW):
+            rows.append(dict(flash_row(*shifted, window=window),
+                             path="moe-tx-stream", main_path=False))
+        del shifted
     for r in rows:
-        print(f"kernel {r['name']:<20} {r['shape']}: max_abs_err "
-              f"{r['max_abs_err']:.4g} (tol {r['tol']:.4g})  {r['ms']:.4f} ms  "
-              f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  library {r['library_ms']:.4f} ms "
-              f"[{r['library']}]")
+        print_row(r)
     torch.cuda.empty_cache()
 
-    torch.cuda.reset_peak_memory_stats()
-    out, launches = serve_phase(SERVE_ARGS)
-    print(f"serve qwen3-moe-30b-a3b full width, 4 layers, 8 requests x 64 "
-          f"prompt, 16 generated: ttft {out['ttft_s'] * 1e3:.3f} ms  decode "
-          f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
-          f"{out['warmup_s']:.2f} s  peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches on the main path: {json.dumps(launches)}")
-    print(f"sample tokens: {out['tokens'][0].tolist()}")
-    unprofiled = {"prefill": out["ttft_s"] * 1e3,
-                  "decode": out["decode_s_per_tok"] * 1e3}
-    del out
-    torch.cuda.empty_cache()
-
-    for step, p in profile_phase(SERVE_ARGS).items():
-        if p is None:
-            print(f"profile {step}: the trace shows no device activity: "
-                  "device busy time not measured")
-            continue
-        top = ", ".join(f"{name[:60]} {ms:.4f} ms"
-                        for name, ms in p["by_kernel"][:6])
-        print(f"profile {step}: device busy {p['busy_ms']:.4f} ms over "
-              f"{p['activities']} device activities; host wall under the "
-              f"profiler {p['wall_ms']:.3f} ms; busy share of the unprofiled "
-              f"{unprofiled[step]:.3f} ms: {p['busy_ms'] / unprofiled[step]:.3f}"
-              f"\n  top device time: {top}")
-    torch.cuda.empty_cache()
-
-    worst = reduced_check()
-    print(f"reduced model f32, card (kernels) vs CPU (plain): max logit error "
-          f"{worst:.3g} (tol {TOL_REDUCED})")
+    launches = {arch: serve_and_profile(arch) for arch in PATHS}
+    for arch in PATHS:
+        worst = reduced_check(arch)
+        print(f"reduced {arch} f32, card (kernels) vs CPU (plain): max logit "
+              f"error {worst:.3g} (tol {TOL_REDUCED})")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "path", "launches_by_phase")
     for r in rows:
-        r["launches"] = launches["fused_swiglu" if r["name"].startswith(
-            "fused_swiglu") else r["name"]]
+        counter = next(c for c in launches[r["path"]] if r["name"].startswith(c))
+        r["launches_by_phase"] = {a: n[counter] for a, n in launches.items()}
+        r["launches"] = r["launches_by_phase"][r["path"]]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows
                                   if r.get("main_path", True)]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ from importlib import import_module
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "moe-tx-stream": "moe_tx_stream",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,7 +1,8 @@
 """Parameters of the JAX package -> parameters of the port.
 
 ``params_from_jax`` takes the tree that ``repro.models.lm.init_params``
-builds (lm.py:210-233) for a ``moe``-family model, as numpy arrays (e.g.
+builds (lm.py:210-233) for a ``moe``- or ``moe_tx``-family model (the same
+keys; moe_tx has no q/k norms), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
 keys and the same layouts, leaf for leaf, as torch tensors on ``device``.
 """
@@ -38,8 +39,8 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """Map the reference's moe-family parameter tree onto the port's, on
-    ``device`` (pass ``"cpu"`` for the plain path)."""
+    """Map the reference's moe- or moe_tx-family parameter tree onto the
+    port's, on ``device`` (pass ``"cpu"`` for the plain path)."""
     paths = {p for p, _ in _flatten(tree)}
     missing = _MOE_KEYS - paths
     extra = paths - _MOE_KEYS - _OPTIONAL

@@ -53,6 +53,32 @@ def group_size(group: dist.ProcessGroup | None) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def seq_stripe(x: torch.Tensor, group: dist.ProcessGroup | None) -> torch.Tensor:
+    """This rank's stripe of the sequence (dim 1) of a (B, S, ...) tensor:
+    the reference islands' ``x_spec`` shards the sequence over the EP axes
+    (``repro/layers/moe.py:70``).  Raises if the group does not divide S."""
+    ep, s = group_size(group), x.shape[1]
+    if s % ep:
+        raise ValueError(f"sequence of {s} does not split over {ep} EP lanes")
+    r = lane_index(group)
+    return x[:, r * (s // ep):(r + 1) * (s // ep)]
+
+
+def all_gather_seq(x: torch.Tensor,
+                   group: dist.ProcessGroup | None) -> torch.Tensor:
+    """The stripes of every rank joined along the sequence (dim 1), in lane
+    order: the reference's tiled ``all_gather`` over the EP axis.  The
+    identity for one lane, with no collective."""
+    ep = group_size(group)
+    if ep == 1:
+        return x
+    b, s = x.shape[:2]
+    buf = torch.empty((ep * b, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
+    return buf.reshape(ep, b, *x.shape[1:]).movedim(0, 1).reshape(
+        b, ep * s, *x.shape[2:])
+
+
 class DispatchResult(NamedTuple):
     """What the expert FFN consumes: a landed buffer already grouped by local
     expert, plus what combine() needs to route outputs home."""

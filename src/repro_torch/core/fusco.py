@@ -1,10 +1,13 @@
 """FUSCO public API: the MoE shuffle plus expert compute (port of
-``repro/core/fusco.py``, the ``fused_flat`` engine).
+``repro/core/fusco.py``, the ``fused_flat`` engine, and the per-layer-barrier
+form of the attention-separated ``moe_tx`` stream).
 
 A model layer calls :func:`moe_shuffle_ffn` on this rank's (T, d) tokens and
 its lane's expert weights, with the EP process group, and gets back the
-combined expert outputs in token order.  :func:`dense_moe_reference` is the
-per-token dense oracle the tests hold every engine to.
+combined expert outputs in token order.  :func:`tx_layer_stream` chains
+parallel attention+MoE blocks over this rank's sequence stripe.
+:func:`dense_moe_reference` and :func:`tx_dense_reference` are the oracles
+the tests hold them to.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from repro_torch.core import dcomm
 from repro_torch.core.dcomm import DcommConfig, DispatchResult
 from repro_torch.core.routing import ExpertPlacement, router_logits, top_k_routing
 from repro_torch.kernels import ops as kops
+from repro_torch.layers.attention import gqa_project
+from repro_torch.layers.common import apply_rope, rms_norm
 
 _LATER = {
     "fused_pipe": "ROADMAP queue 1 item 4 (fused_pipe)",
@@ -100,3 +105,110 @@ def dense_moe_reference(x: torch.Tensor, w_router: torch.Tensor,
     u = (xk @ w3_all[e]).squeeze(2)
     y = ((torch.nn.functional.silu(h) * u)[:, :, None, :] @ w2_all[e]).squeeze(2)
     return (y * gates.to(x.dtype)[..., None]).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Attention-separated stream (moe_tx), per-layer-barrier form
+# ---------------------------------------------------------------------------
+
+def tx_attention(h: torch.Tensor, lp, pos_q: torch.Tensor,
+                 pos_k: torch.Tensor, *, n_heads: int, n_kv: int,
+                 head_dim: int, rope_theta: float = 1e6,
+                 group: dist.ProcessGroup | None = None,
+                 return_kv: bool = False):
+    """Attention sub-layer of a ``moe_tx`` parallel block.
+
+    ``h`` is (b, s_local, d), this rank's stripe of the sequence.  q/k/v are
+    projected from the local rows and RoPE'd at their absolute positions
+    ``pos_q``; k and v are all-gathered along the sequence over the EP
+    ``group`` (the identity, with no collective, for one lane); the flash
+    attention masks the shifted stripe from the actual positions.
+    ``return_kv`` also returns the gathered, RoPE'd (k, v), the same on every
+    rank."""
+    u = rms_norm(h, lp["ln1"])
+    q, k, v = gqa_project(u, lp["wq"], lp["wk"], lp["wv"], n_heads, n_kv,
+                          head_dim)
+    q = apply_rope(q, pos_q, rope_theta)
+    k = dcomm.all_gather_seq(apply_rope(k, pos_q, rope_theta), group)
+    v = dcomm.all_gather_seq(v, group)
+    a = kops.flash_attention(q, k, v, pos_q, pos_k, causal=True)
+    b, s = h.shape[0], h.shape[1]
+    out = a.reshape(b, s, n_heads * head_dim) @ lp["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
+                    placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
+                    *, n_heads: int, n_kv: int, head_dim: int,
+                    rope_theta: float = 1e6, norm_topk: bool = True,
+                    stream: bool = True, interleave: int = 1, traffic=None,
+                    observe=None, return_kv: bool = False,
+                    group: dist.ProcessGroup | None = None):
+    """Chain N parallel attention+MoE blocks,
+    ``h <- h + attn(rms_norm(h, ln1)) + moe(rms_norm(h, ln2))``, each layer
+    behind a full barrier (the reference's branch for every engine but a
+    streamed ``fused_pipe``, fusco.py:426-451).
+
+    ``x`` is (b, s_local, d), this rank's stripe of the sequence (lane
+    ``rank in group``); ``positions`` the full (S,) absolute positions;
+    ``params`` the stacked per-layer dict ``{ln1, wq, wk, wv, wo, ln2,
+    router, w1, w3, w2}`` (attention weights replicated, expert weights this
+    lane's (N, E_local, ...)).  Returns ``h``, and with ``return_kv`` also
+    the per-layer gathered RoPE'd (k, v) stacks (N, b, S, n_kv, hd)."""
+    if stream and cfg.engine == "fused_pipe":
+        raise NotImplementedError(
+            "the streamed fused_pipe moe_tx schedule is not ported yet: "
+            "ROADMAP queue 1 items 4/5 (fused_pipe, tx_layer_stream)")
+    if interleave > 1:
+        raise NotImplementedError(
+            "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
+            "1 item 5 (interleaved_layer_stream)")
+    if traffic is not None or observe is not None:
+        raise NotImplementedError(
+            "traffic observation is not ported yet: ROADMAP queue 1 item 6")
+    b, s_l, d = x.shape
+    chunk = dcomm.lane_index(group)
+    pos_q = positions[chunk * s_l:(chunk + 1) * s_l]
+    h = x
+    ks, vs = [], []
+    for i in range(params["router"].shape[0]):
+        lp = {k: w[i] for k, w in params.items()}
+        a = tx_attention(h, lp, pos_q, positions, n_heads=n_heads, n_kv=n_kv,
+                         head_dim=head_dim, rope_theta=rope_theta,
+                         group=group, return_kv=return_kv)
+        if return_kv:
+            a, (k, v) = a
+            ks.append(k)
+            vs.append(v)
+        u2 = rms_norm(h, lp["ln2"]).reshape(b * s_l, d)
+        A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
+                                 normalize=norm_topk)
+        y = shuffle_ffn(u2, A, gates.to(h.dtype), lp["w1"], lp["w3"],
+                        lp["w2"], placement, cfg, group)
+        h = h + a + y.reshape(b, s_l, d)
+    if return_kv:
+        return h, (torch.stack(ks), torch.stack(vs))
+    return h
+
+
+def tx_dense_reference(x: torch.Tensor, positions: torch.Tensor, params,
+                       top_k: int, *, n_heads: int, n_kv: int, head_dim: int,
+                       rope_theta: float = 1e6,
+                       norm_topk: bool = True) -> torch.Tensor:
+    """Oracle for the attention-separated stream: the same parallel chain
+    with full-sequence attention and the per-token dense MoE.  ``params``
+    holds ALL experts per layer (w1/w3 (N, E, d, f), w2 (N, E, f, d));
+    ``x`` is the full (b, S, d) batch."""
+    b, s, d = x.shape
+    h = x
+    for i in range(params["router"].shape[0]):
+        lp = {k: w[i] for k, w in params.items()}
+        a = tx_attention(h, lp, positions, positions, n_heads=n_heads,
+                         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta)
+        u2 = rms_norm(h, lp["ln2"]).reshape(b * s, d)
+        m = dense_moe_reference(u2, lp["router"], lp["w1"], lp["w3"],
+                                lp["w2"], top_k, norm_topk=norm_topk)
+        h = h + a + m.reshape(b, s, d)
+    return h

@@ -1,10 +1,10 @@
-"""Entry points of the staging kernels, dispatched by the tensor's device
-(port of ``repro/kernels/ops.py``, forward only).
+"""Entry points of the kernels, dispatched by the tensor's device (port of
+``repro/kernels/ops.py``, forward only).
 
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``).  A CUDA
 tensor takes the hand-written kernel, which raises if it cannot build or
 launch.  There is no environment switch and no fallback: this replaces the
-reference's ``use_pallas()`` choice (ops.py:38-51).  Gradients
+reference's ``use_pallas()`` choices (ops.py:38-51, 171-183).  Gradients
 (``torch.autograd.Function``s mirroring the reference's custom VJPs) come with
 the training slice.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import fused_staging, ref
 from repro_torch.kernels import segment_gather as gather_k
 from repro_torch.kernels import segment_scatter_add as scatter_k
@@ -59,3 +60,22 @@ def fused_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             x.contiguous(), w1.contiguous(), w3.contiguous(), w2.contiguous(),
             counts.to(torch.int32).contiguous())
     return ref.fused_swiglu_ref(x, w1, w3, w2, counts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, k_positions: torch.Tensor,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Position-safe GQA attention: masked from the actual positions, so a
+    shifted query stripe against the gathered k/v is right.  q: (B, Sq, Hq,
+    hd); k/v: (B, Sk, Hkv, hd); positions (Sq,)/(Sk,).  Returns (B, Sq, Hq,
+    hd) in q's dtype; the block sizes are the kernel's own choice."""
+    if _on_cuda("flash_attention", q):
+        out, _ = flash_k.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            q_positions.to(torch.int32).contiguous(),
+            k_positions.to(torch.int32).contiguous(), causal, window)
+        return out
+    out, _ = ref.flash_attention_ref(q, k, v, q_positions, k_positions,
+                                     causal, window)
+    return out

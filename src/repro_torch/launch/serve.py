@@ -4,6 +4,10 @@ greedy decode (port of the lock-step path of ``repro/launch/serve.py``).
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --engine fused_flat
 --layers 4 --requests 8 --prompt-len 64 --gen 16``
 
+``python -m repro_torch.launch.serve --arch moe-tx-stream --engine fused_flat
+--requests 8 --prompt-len 512 --gen 16`` (the moe_tx family, per-layer
+barriers: the reference's ``--moe-stream 0``)
+
 Runs on the card (``cuda``).  Weights and prompts are random, drawn from
 seed 0.  A warm-up prefill and two decode steps (which also build the
 kernels) run before the clock starts; every timed region ends in

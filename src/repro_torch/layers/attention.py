@@ -1,10 +1,11 @@
 """Attention: GQA with qk-norm, RoPE, position-masked causal attention and
 the decode KV cache (port of ``repro/layers/attention.py``, the parts the
-moe family's lock-step serving uses).
+lock-step serving of the moe and moe_tx families uses).
 
 :func:`causal_attention` stands in for the reference's lax flash attention
-(attention.py:35-244), which XLA, not Pallas, computes: plain PyTorch,
-materialised per block of queries, masked from the actual positions.
+(attention.py:35-244), which follows the same position contract as the
+Pallas flash kernel: it is ``kernels.ops.flash_attention``, the hand-written
+kernel on the card and its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -13,50 +14,19 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.layers.common import rms_norm
-
-NEG_INF = -1e30
-
-
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
-          window: int | None) -> torch.Tensor:
-    """(Sq, Sk) bool, True = attend: causal, and within ``window``."""
-    m = q_pos[:, None] >= k_pos[None, :]
-    if window is not None:
-        m &= q_pos[:, None] - k_pos[None, :] < window
-    return m
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_positions: torch.Tensor, k_positions: torch.Tensor,
-                     window: int | None = None,
-                     q_block: int = 512) -> torch.Tensor:
-    """Causal GQA attention with position-based masking, one block of queries
-    at a time.  q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd); positions (Sq,)/(Sk,).
-    Scores and softmax in float32; like the flash reference, the
-    unnormalised probabilities meet v in v's dtype and the row sums divide
-    afterwards.  Returns (B, Sq, Hq, hd)."""
-    b, sq, hq, hd = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    scale = hd ** -0.5
-    kf = k.float().permute(0, 2, 3, 1)                       # (B, Hkv, hd, Sk)
-    vv = v.permute(0, 2, 1, 3)                               # (B, Hkv, Sk, hd)
-    outs = []
-    for q0 in range(0, sq, q_block):
-        qc = q[:, q0:q0 + q_block]
-        n = qc.shape[1]
-        qr = qc.reshape(b, n, hkv, g, hd).permute(0, 2, 3, 1, 4).float()
-        s = (qr.reshape(b, hkv, g * n, hd) @ kf).reshape(b, hkv, g, n, -1) * scale
-        mask = _mask(q_positions[q0:q0 + q_block], k_positions, window)
-        s = torch.where(mask, s, NEG_INF)
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m)
-        l = p.sum(dim=-1, keepdim=True)
-        o = (p.to(v.dtype).reshape(b, hkv, g * n, -1) @ vv).reshape(b, hkv, g, n, hd)
-        o = o / l.clamp_min(1e-30).to(o.dtype)
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, hq, hd))
-    return torch.cat(outs, dim=1)
+                     window: int | None = None) -> torch.Tensor:
+    """Causal GQA attention masked from the actual positions.  q: (B, Sq,
+    Hq, hd); k/v: (B, Sk, Hkv, hd); positions (Sq,)/(Sk,).  Returns (B, Sq,
+    Hq, hd)."""
+    return kops.flash_attention(q, k, v, q_positions, k_positions,
+                                causal=True, window=window)
 
 
 class KVCache(NamedTuple):

@@ -1,9 +1,10 @@
 """MoE layer: the FUSCO-integrated expert-parallel feed-forward (port of
-``repro/layers/moe.py``: ``moe_block`` and ``moe_decode_block``, without
-traffic statistics, FSDP or pods).
+``repro/layers/moe.py``: ``moe_block``, ``stream_tx_layers`` and
+``moe_decode_block``, without traffic statistics, FSDP or pods).
 
-The reference runs each layer in a shard_map island over the EP axis; here
-each rank of the EP process group calls these functions on its own tokens.
+The reference runs each layer in a shard_map island over the EP axis, with
+the batch's sequence sharded over it; here each rank of the EP process group
+calls these functions on its own stripe of the sequence.
 Expert weights keep the reference's lane-major layout (EP, E_local, d, f) /
 (EP, E_local, f, d): this rank uses lane ``rank in group`` of it.
 """
@@ -43,6 +44,42 @@ def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
     y = fusco.shuffle_ffn(xt, A, gates.to(xt.dtype), w1, w3, w2, placement,
                           dcfg, group)
     return y.reshape(b, s, d)
+
+
+def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
+                     ln1: torch.Tensor, ln2: torch.Tensor, *,
+                     placement: ExpertPlacement, dcfg: DcommConfig,
+                     top_k: int, positions: torch.Tensor, n_heads: int,
+                     n_kv: int, head_dim: int, rope_theta: float = 1e6,
+                     norm_topk: bool = True, stream: bool = True,
+                     fsdp: bool = False, interleave: int = 1, traffic=None,
+                     return_kv: bool = False,
+                     group: dist.ProcessGroup | None = None):
+    """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
+    by ``fusco.tx_layer_stream``.  ``x``: (B, S/ep, d), this rank's stripe of
+    the sequence; ``positions``: the full (S,) positions; ``moe_params``:
+    stacked router (N, d, E) and lane-major w1/w3/w2 (N, EP, E_local, ...);
+    ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
+    (N, d).  Returns ``y``, and with ``return_kv`` the per-layer gathered
+    (k, v) stacks (N, B, S, n_kv, hd)."""
+    if fsdp:
+        raise NotImplementedError("FSDP expert weights are not ported yet: "
+                                  "ROADMAP queue 1 item 8 (parallel/sharding)")
+    if traffic is not None:
+        raise NotImplementedError(
+            "traffic observation is not ported yet: ROADMAP queue 1 item 6")
+    if moe_params["w1"].shape[1] != placement.ep:
+        raise ValueError(f"expert weights hold {moe_params['w1'].shape[1]} "
+                         f"lanes, placement ep={placement.ep}")
+    lane = lane_index(group)
+    params = {"ln1": ln1, "ln2": ln2, **attn_params,
+              "router": moe_params["router"],
+              **{w: moe_params[w][:, lane] for w in ("w1", "w3", "w2")}}
+    return fusco.tx_layer_stream(
+        x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
+        n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,
+        norm_topk=norm_topk, stream=stream, interleave=interleave,
+        return_kv=return_kv, group=group)
 
 
 def moe_decode_block(x: torch.Tensor, moe_params, *,

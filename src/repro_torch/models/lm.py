@@ -1,11 +1,15 @@
-"""Decoder-only LM, ``moe`` family: parameters, prefill and single-token
-decode (port of ``repro/models/lm.py``, the lock-step serving path).
+"""Decoder-only LM, ``moe`` and ``moe_tx`` families: parameters, prefill and
+single-token decode (port of ``repro/models/lm.py``, the lock-step serving
+path).
 
-Prefill runs every MoE layer through the FUSCO shuffle (``layers/moe.moe_block``);
-decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).  The
-reference scans one compiled layer body; here a Python loop walks the layers
-of the stacked (L, ...) parameter tree, which keeps the reference's layout so
-``convert.params_from_jax`` maps one onto the other leaf by leaf.
+Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
+(moe: sequential blocks) or ``layers/moe.stream_tx_layers`` (moe_tx: parallel
+attention+MoE blocks), each EP rank on its stripe of the sequence, as the
+reference's islands shard it.  Decode uses the replicated-token MoE
+(``layers/moe.moe_decode_block``).  The reference scans one compiled layer
+body; here a Python loop walks the layers of the stacked (L, ...) parameter
+tree, which keeps the reference's layout so ``convert.params_from_jax`` maps
+one onto the other leaf by leaf.
 """
 
 from __future__ import annotations
@@ -17,13 +21,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.dcomm import DcommConfig, group_size
+from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
+                                    seq_stripe)
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
                                           gqa_project)
 from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
-from repro_torch.layers.moe import moe_block, moe_decode_block
+from repro_torch.layers.moe import moe_block, moe_decode_block, stream_tx_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,12 +45,13 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  ep_group: dist.ProcessGroup | None = None,
                  engine: str = "fused_flat", capacity_factor: float = 2.0,
                  compute_dtype: torch.dtype = torch.bfloat16) -> ModelContext:
-    """Context of a ``moe``-family model whose EP domain is ``ep_group``
-    (None: one lane).  Raises if ``device`` is CUDA and no card is there."""
-    if cfg.family != "moe":
+    """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
+    ``ep_group`` (None: one lane).  Raises if ``device`` is CUDA and no card
+    is there."""
+    if cfg.family not in ("moe", "moe_tx"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (moe only): ROADMAP "
-            "queue 1 items 3 and 8")
+            f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
+            "ROADMAP queue 1 items 3, 5 and 8")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
@@ -87,11 +93,12 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     }
 
 
-def _layer(tree, i: int, cd: torch.dtype):
-    """Layer ``i`` of a stacked parameter tree, float leaves in ``cd``."""
+def _layer(tree, i: int | None, cd: torch.dtype):
+    """Layer ``i`` of a stacked parameter tree (every layer for None), float
+    leaves in ``cd``."""
     if isinstance(tree, dict):
         return {k: _layer(v, i, cd) for k, v in tree.items()}
-    leaf = tree[i]
+    leaf = tree if i is None else tree[i]
     return leaf.to(cd) if leaf.is_floating_point() else leaf
 
 
@@ -122,15 +129,58 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
                        0)
 
 
+def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
+    """The decode cache of a prefill's (..., B, S, Hkv, hd) keys or values:
+    the last ``cap`` positions at slot p % cap, or zero-padded to ``cap``."""
+    if s >= cap:
+        return torch.roll(kv[..., -cap:, :, :], s % cap, dims=-3)
+    return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, cap - s))
+
+
+def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext):
+    """One MoE layer as the reference's island runs it: this rank's stripe of
+    the sequence through the shuffle, then every rank's stripes gathered."""
+    cfg = ctx.cfg
+    y = moe_block(seq_stripe(x, ctx.ep_group), moe_params,
+                  placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
+                  norm_topk=cfg.moe.norm_topk, group=ctx.ep_group)
+    return all_gather_seq(y, ctx.ep_group)
+
+
+def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
+                ctx: ModelContext):
+    """moe_tx stack over this rank's stripe of the sequence (one block of
+    all layers, per-layer barriers); returns the final-normed (B, S, d) and
+    the per-layer gathered k/v stacks (L, B, S, Hkv, hd)."""
+    cfg, cd = ctx.cfg, ctx.compute_dtype
+    lp = _layer(params["layers"], None, cd)
+    h, (k, v) = stream_tx_layers(
+        seq_stripe(h, ctx.ep_group), lp["moe"], lp["attn"], lp["ln1"],
+        lp["ln2"], placement=ctx.placement, dcfg=ctx.dcfg,
+        top_k=cfg.moe.top_k, positions=positions, n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads, head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+        norm_topk=cfg.moe.norm_topk, stream=False, return_kv=True,
+        group=ctx.ep_group)
+    h = all_gather_seq(h, ctx.ep_group)
+    return rms_norm(h, params["final_norm"].to(cd)), k, v
+
+
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
             ctx: ModelContext, max_len: int):
     """Full-sequence forward over (B, S) tokens; returns the last position's
     logits (B, V) in float32 and the decode state with every layer's RoPE'd
-    k and v in its cache (the last ``cap`` positions, at slot p % cap)."""
+    k and v in its cache (the last ``cap`` positions, at slot p % cap).  In
+    an EP group each rank runs the MoE on its stripe of the sequence (S must
+    split evenly) and all ranks return the same result."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs]
     b, s, _ = h.shape
     cap = _kv_capacity(cfg, max_len)
+    if cfg.family == "moe_tx":
+        h, k, v = _tx_prefill(params, h, positions, ctx)
+        logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
+        return logits, DecodeState({"k": _cache_slots(k, s, cap),
+                                    "v": _cache_slots(v, s, cap)}, s)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
@@ -138,19 +188,9 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
         q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
         o = causal_attention(q, k, v, positions, positions, window=cfg.window)
         h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        if s >= cap:
-            k = torch.roll(k[:, -cap:], s % cap, dims=1)
-            v = torch.roll(v[:, -cap:], s % cap, dims=1)
-        else:
-            pad = (0, 0, 0, 0, 0, cap - s)
-            k = torch.nn.functional.pad(k, pad)
-            v = torch.nn.functional.pad(v, pad)
-        ks.append(k)
-        vs.append(v)
-        x = rms_norm(h, lp["ln2"])
-        h = h + moe_block(x, lp["moe"], placement=ctx.placement, dcfg=ctx.dcfg,
-                          top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
-                          group=ctx.ep_group)
+        ks.append(_cache_slots(k, s, cap))
+        vs.append(_cache_slots(v, s, cap))
+        h = h + _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx)
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
     return logits, DecodeState({"k": torch.stack(ks), "v": torch.stack(vs)}, s)
@@ -172,13 +212,15 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
         q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
         cache = cache_update(KVCache(state.kv["k"][i], state.kv["v"][i], pos,
                                      max_len), k, v)
-        a = decode_attention(q, cache)
-        h = h + a.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        x = rms_norm(h, lp["ln2"])
-        h = h + moe_decode_block(x, lp["moe"], placement=ctx.placement,
-                                 dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
-                                 norm_topk=cfg.moe.norm_topk,
-                                 group=ctx.ep_group)
+        mix = decode_attention(q, cache).reshape(
+            b, 1, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+        if cfg.family == "moe":      # sequential block: the MoE reads h + attn
+            h, mix = h + mix, 0
+        y = moe_decode_block(rms_norm(h, lp["ln2"]), lp["moe"],
+                             placement=ctx.placement, dcfg=ctx.dcfg,
+                             top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
+                             group=ctx.ep_group)
+        h = h + mix + y              # moe_tx: the parallel block, both read h
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, 0] @ params["lm_head"].to(cd)).float()
     return logits, DecodeState(state.kv, pos + 1)

@@ -1,0 +1,164 @@
+"""The port's position-safe flash attention against the JAX package.
+
+The plain version (``kernels/ref.flash_attention_ref``, what the CPU runs)
+against the Pallas kernel in interpret mode, output and log-sum-exp, on the
+shifted layouts of ``tests/test_flash_attention.py``; the moe family's
+``causal_attention`` against the JAX lax flash; and the CUDA kernel's
+wrapper against its C signature (the kernel itself is held against the plain
+version on the card by ``chip_smoke.py``).  float32, tolerance 2e-5 (sums in
+another order; the Pallas kernel walks 16-key blocks with an online softmax).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import _flash_fwd_pallas
+from repro.layers.attention import flash_attention as lax_flash
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as flash_k
+from repro_torch.layers.attention import causal_attention
+
+TOL = 2e-5
+
+
+def _qkv(seed, b, sq, sk, hq, hkv, hd):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return (rng.standard_normal((b, sq, hq, hd)).astype(f32),
+            rng.standard_normal((b, sk, hkv, hd)).astype(f32),
+            rng.standard_normal((b, sk, hkv, hd)).astype(f32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("offset,window,hq,hkv", [
+    (0, None, 4, 2), (32, None, 4, 2), (32, 24, 8, 2), (7, None, 2, 1),
+])
+def test_flash_ref_matches_pallas_out_and_lse(offset, window, hq, hkv):
+    b, sq, sk, hd, blk = 2, 32, 64, 16, 16
+    q, k, v = _qkv(7, b, sq, sk, hq, hkv, hd)
+    qp = np.arange(sq, dtype=np.int32) + offset
+    kp = np.arange(sk, dtype=np.int32)
+    out_j, lse_j = _flash_fwd_pallas(*map(jnp.asarray, (q, k, v, qp, kp)),
+                                     True, window, blk, blk, True)
+    # (B, nq, Hkv, G, qb) -> (B, Hq, Sq)
+    lse_j = np.moveaxis(np.asarray(lse_j), 1, 3).reshape(b, hq, sq)
+    out, lse = ref.flash_attention_ref(*_t(q, k, v, qp, kp), True, window)
+    assert out.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, rtol=TOL, atol=TOL)
+    # the query-block size of the plain version does not change the result
+    out8, lse8 = ref.flash_attention_ref(*_t(q, k, v, qp, kp), True, window,
+                                         q_block=8)
+    np.testing.assert_allclose(out8.numpy(), out.numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse8.numpy(), lse.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None)])
+def test_ops_flash_on_cpu_is_the_plain_version(causal, window):
+    q, k, v = _t(*_qkv(1, 2, 12, 20, 6, 2, 32))
+    qp, kp = torch.arange(8, 20), torch.arange(20)
+    got = ops.flash_attention(q, k, v, qp, kp, causal, window)
+    want, _ = ref.flash_attention_ref(q, k, v, qp, kp, causal, window)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.shape == q.shape
+
+
+@pytest.mark.parametrize("offset,window", [(0, None), (16, None), (16, 12)])
+def test_causal_attention_matches_the_lax_flash(offset, window):
+    """The moe family's attention (now ``ops.flash_attention``) against the
+    reference's lax flash, which that family's prefill runs."""
+    b, sq, sk, hq, hkv, hd = 2, 16, 32, 4, 2, 16
+    q, k, v = _qkv(3, b, sq, sk, hq, hkv, hd)
+    qp = np.arange(sq, dtype=np.int32) + offset
+    kp = np.arange(sk, dtype=np.int32)
+    want = lax_flash(*map(jnp.asarray, (q, k, v, qp, kp)), True, window, 8, 8)
+    got = causal_attention(*_t(q, k, v, qp, kp), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def _fake_kernel(monkeypatch, calls):
+    """Replace the C entry by a recorder that checks each call against its
+    signature in csrc/flash_attention.cu: CUDA is not here."""
+    import re
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    kinds = {fn: "".join("p" if "*" in p else "i" for p in params.split(","))
+             for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                          src)}
+    assert set(kinds) == {"flash_attention_fwd"}
+
+    def fake_bind(name, fn, n_ptr, n_int):
+        assert name == "flash_attention"
+        assert kinds[fn] == "p" * n_ptr + "i" * n_int + "p", (fn, kinds[fn])
+
+        def call(*args):
+            assert len(args) == len(kinds[fn])
+            assert all(isinstance(a, int) for a in args), args
+            calls.append((fn, args))
+            return 0
+        return call
+
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+
+
+def test_flash_wrapper_passes_what_the_c_entries_take(monkeypatch):
+    """bf16 and float32 reach the one C entry with their dtype codes (the
+    entry picks the tensor-core or the FMA form by it); one call counts one
+    launch."""
+    calls = []
+    _fake_kernel(monkeypatch, calls)
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
+               for s in ((2, 8, 4, 64), (2, 12, 2, 64), (2, 12, 2, 64)))
+    qp = torch.arange(4, 12, dtype=torch.int32)
+    kp = torch.arange(12, dtype=torch.int32)
+    before = flash_k.flash_attention.launches
+    out, lse = flash_k.flash_attention(q, k, v, qp, kp, True, 6)
+    assert flash_k.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (2, 4, 8) and lse.dtype == torch.float32
+    # after the 7 pointers: b, sq, sk, hq, hkv, hd, dtype, causal, window
+    fn, args = calls[0]
+    assert (fn, args[7:16]) == ("flash_attention_fwd",
+                                (2, 8, 12, 4, 2, 64, 1, 1, 6))
+    flash_k.flash_attention(q.float(), k.float(), v.float(), qp, kp, False)
+    fn, args = calls[1]
+    assert (fn, args[7:16]) == ("flash_attention_fwd",
+                                (2, 8, 12, 4, 2, 64, 0, 0, 0))
+    assert flash_k.flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("what", ["hd", "gqa", "dtype", "positions", "window"])
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, what):
+    _fake_kernel(monkeypatch, [])
+    q, k, v = torch.zeros(1, 4, 4, 32), torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32)
+    qp = kp = torch.arange(4, dtype=torch.int32)
+    window = None
+    if what == "hd":
+        q, k, v = q[..., :24].contiguous(), k[..., :24].contiguous(), v[..., :24].contiguous()
+    elif what == "gqa":
+        q = torch.zeros(1, 4, 3, 32)
+    elif what == "dtype":
+        k = k.to(torch.bfloat16)
+    elif what == "positions":
+        qp = qp.long()
+    else:
+        window = 0
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_k.flash_attention(q, k, v, qp, kp, True, window)
+
+
+def test_flash_wrapper_takes_cuda_tensors_only():
+    q = torch.zeros(1, 4, 2, 16)
+    p = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_k.flash_attention(q, q, q, p, p)
+    assert "flash_attention" in _build.KERNELS

@@ -105,7 +105,7 @@ def test_port_params_have_the_reference_tree_and_layouts():
 
 
 def test_configs_are_copies_of_the_reference():
-    for name in ("qwen3-moe-30b-a3b", "qwen3-1.7b"):
+    for name in ("qwen3-moe-30b-a3b", "qwen3-1.7b", "moe-tx-stream"):
         for mk in (lambda c: c, lambda c: c.reduced()):
             ref = dataclasses.asdict(mk(jget_arch(name)))
             port = dataclasses.asdict(mk(get_arch(name)))
@@ -120,5 +120,5 @@ def test_convert_rejects_other_trees_and_serve_flags():
         ARCH, "fused_flat", 4, 64, 16)
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "fused_hier"])
-    with pytest.raises(NotImplementedError, match="moe only"):
+    with pytest.raises(NotImplementedError, match="moe and moe_tx only"):
         lm.make_context(get_arch("qwen3-1.7b"), "cpu")
