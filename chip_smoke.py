@@ -7,25 +7,38 @@
    nvcc (one process per source, in parallel) and prints the build time and
    the compiler's register / shared-memory report.
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
-   card, in bf16, at the shapes the two serving paths give it, and times
-   kernel, plain version and a PyTorch yardstick with CUDA events:
+   card, in bf16, at the shapes its paths give it, and times kernel, plain
+   version and a PyTorch yardstick with CUDA events:
    - the MoE kernels at the qwen3-moe-30b-a3b prefill of 8 requests x 64
      tokens through fused_flat (T = 512 tokens, 128 experts, top-8,
      capacity 64; and the decode shape), and at the moe-tx-stream prefill
      of 8 x 512 tokens (T = 4096, 64 experts, top-4, capacity 512);
    - the flash attention at both prefill shapes and at the shifted query
-     stripe of one EP lane (with and without a window).
-3. Serve phases, one per path: zero the kernels' launch counters, serve the
+     stripe of one EP lane (with and without a window);
+   - grouped_matmul at the training shape of qwen3-moe-30b-a3b (B 4 x S 512:
+     T = 2048, capacity 256), 2048 -> 768 and 768 -> 2048 through a
+     transposed weight view.
+3. Backward rows: each autograd Function's backward (gather, scatter-add,
+   fused SwiGLU, flash) on the card against the same backward on the plain
+   versions, at the training shapes, with times.
+4. Serve phases, one per path: zero the kernels' launch counters, serve the
    full-width model through ``repro_torch.launch.serve`` (qwen3-moe-30b-a3b
    at 4 layers; moe-tx-stream-1b at all 16), read the counters and fail if a
    kernel of the path never launched.  Then profile one prefill and one
    decode step of the same path (torch.profiler) and print the device's busy
    time beside the step's wall time, and the kernels with the most device
    time.
-4. Checks the outputs: finite logits and in-vocabulary tokens of the right
-   shape, and each reduced model's logits on the card (kernels) against the
-   same model on the CPU (plain versions).
-5. Prints the card's name and power limit, the kernels' numbers as one JSON
+5. Train phase: zero the counters, train full-width qwen3-moe-30b-a3b (4 of
+   48 layers) for 8 AdamW steps through ``repro_torch.launch.train``, read
+   the counters and fail if one of the five kernels never launched or a
+   loss is not finite; print the losses, ms/step, tokens/s and peak memory,
+   then profile one step, its forward+backward and its optimizer update.
+6. Checks the outputs: finite logits and in-vocabulary tokens of the right
+   shape, each reduced model's logits on the card (kernels) against the
+   same model on the CPU (plain versions), and one reduced train step in
+   float32 on the card against the CPU (loss, every grad leaf, every updated
+   param).
+7. Prints the card's name and power limit, the kernels' numbers as one JSON
    line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a CUDA
@@ -63,6 +76,15 @@ PATHS = {
         dict(t=4096, d=1024, n_experts=64, top_k=4, f=1024, decode_t=8),
         dict(b=8, sq=512, sk=512, hq=16, hkv=4, hd=64)),
 }
+# the training path: launch/train.py's flags, the MoE shapes it gives the kernels
+# (T = 4 x 512 tokens, capacity 256) and its attention shape
+TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
+          "4", "--batch", "4", "--seq", "512", "--steps", "8", "--data",
+          "zipf"],
+         dict(t=2048, d=2048, n_experts=128, top_k=8, f=768, decode_t=8),
+         dict(b=4, sq=512, sk=512, hq=32, hkv=4, hd=128))
+SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
+                 "flash_attention")
 # the query stripe of EP lane 1 of 4 against the gathered keys
 SHIFTED = dict(b=8, sq=128, sk=512, hq=16, hkv=4, hd=64, q0=128)
 WINDOW = 192
@@ -76,6 +98,16 @@ TOL_REL = 1e-2            # f32 sums in another order, then one bf16 rounding:
 TOL_LSE = 1e-3            # flash log-sum-exp, f32 in both: sums in another
                           # order and exp2 for exp
 TOL_REDUCED = 1e-3        # reduced model in f32, card vs CPU, on logits
+TOL_BWD = 2e-2            # backward rows, bf16, against the same backward on
+                          # the plain versions: 2% of each gradient's largest
+                          # magnitude.  The products round their outputs to
+                          # bf16 (h, u, da in the SwiGLU backward; P and dS in
+                          # the flash backward; the scatter-add's atomics sum
+                          # in another order), so an element may land one bf16
+                          # step away and carry it through a second product.
+TOL_TRAIN = 1e-4          # reduced train step in f32, card vs CPU: loss, and
+                          # each grad leaf relative to max(1, its max |grad|)
+                          # (f32 sums in another order, atomics)
 
 
 def fail(msg: str) -> None:
@@ -337,11 +369,20 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
 
 def counters():
     from repro_torch.kernels import (flash_attention, fused_staging,
-                                     segment_gather, segment_scatter_add)
+                                     grouped_matmul, segment_gather,
+                                     segment_scatter_add)
     return {"segment_gather": segment_gather.segment_gather,
             "segment_scatter_add": segment_scatter_add.segment_scatter_add,
             "fused_swiglu": fused_staging.fused_swiglu,
-            "flash_attention": flash_attention.flash_attention}
+            "flash_attention": flash_attention.flash_attention,
+            "grouped_matmul": grouped_matmul.grouped_matmul}
+
+
+def zero_counters() -> dict:
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
 
 
 def serve_phase(argv, device="cuda"):
@@ -350,12 +391,10 @@ def serve_phase(argv, device="cuda"):
     import torch
     from repro_torch.launch import serve
     args = serve.parse_args(argv)
-    wrappers = counters()
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_counters()
     out = serve.run(args, device=device)
     launches = {k: w.launches for k, w in wrappers.items()}
-    never = [k for k, n in launches.items() if n == 0]
+    never = [k for k in SERVE_KERNELS if launches[k] == 0]
     if never:
         raise AssertionError(f"main path never launched {never}: {launches}")
     toks, logits = out["tokens"], out["logits"]
@@ -377,7 +416,6 @@ def profile_phase(argv, device="cuda") -> dict:
     by kernel, most first; None for a step whose trace shows no device
     activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -398,22 +436,26 @@ def profile_phase(argv, device="cuda") -> dict:
                 fn()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                           for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-            if not spans:
-                out[step] = None
-                continue
-            busy_us, reach, by_name = 0.0, float("-inf"), {}
-            for a, b, name in spans:
-                busy_us += max(0.0, b - max(a, reach))
-                reach = max(reach, b)
-                by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-            out[step] = dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3,
-                             activities=len(spans),
-                             by_kernel=sorted(by_name.items(),
-                                              key=lambda kv: -kv[1]))
+            out[step] = device_summary(prof, wall_ms)
     return out
+
+
+def device_summary(prof, wall_ms: float) -> dict | None:
+    """The device's busy time in a torch.profiler trace (the union of its
+    activities' intervals) and its time by kernel, most first; None when the
+    trace shows no device activity."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, activities=len(spans),
+                by_kernel=sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
 def reduced_check(arch: str, device="cuda") -> float:
@@ -455,6 +497,300 @@ def reduced_check(arch: str, device="cuda") -> float:
     return worst
 
 
+def gmm_rows(inp, timer=time_ms) -> list[dict]:
+    """grouped_matmul against its plain version at the training shapes: the
+    landed buffer (128 experts x capacity 256, the rows routing fills) times
+    w1 (2048 -> 768, the h and u products of the SwiGLU backward), and
+    768-wide rows times the transposed view of w1 (768 -> 2048, the dx
+    products), with torch.bmm over all rows as the yardstick."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as gmm_k
+    from repro_torch.kernels.ref import segment_gather_ref
+    x, w1, cap = inp["x"], inp["w1"], inp["cap"]
+    n_e, d, f = w1.shape
+    counts = inp["counts"].reshape(-1)
+    landed = segment_gather_ref(x, inp["idx"]).reshape(n_e, cap, d)
+    g = torch.Generator(device=x.device).manual_seed(1)
+    dh = torch.randn((n_e, cap, f), generator=g, device=x.device).to(x.dtype)
+    es = x.element_size()
+    live = counts.clamp(max=cap)
+    live_rows, live_experts = int(live.sum()), int((live > 0).sum())
+    rows = []
+    for a, w, what in ((landed, w1, "x @ w1"), (dh, w1.transpose(1, 2),
+                                                "dh @ w1^T (view)")):
+        got = gmm_k.grouped_matmul(a, w, counts)
+        want = gmm_k.grouped_matmul_plain(a, w, counts)
+        err = max_err(got, want)
+        tol = TOL_REL * want.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"grouped_matmul {what}: max_abs_err {err} > {tol}")
+        k, n = w.shape[1], w.shape[2]
+        nbytes = (live_experts * k * n * es + live_rows * k * es
+                  + a.shape[0] * cap * n * es + counts.numel() * 4)
+        b_ms, b_by = bound(nbytes, 2 * k * n * live_rows, BF16_PEAK)
+        rows.append(dict(
+            name="grouped_matmul",
+            shape=f"{what}: ({n_e}, {cap}, {k}) -> {n}, live rows {live_rows} bf16",
+            route="cuda", source="src/repro_torch/csrc/grouped_matmul.cu",
+            replaces="src/repro/kernels/grouped_matmul.py:60",
+            max_abs_err=err, tol=tol,
+            ms=timer(lambda: gmm_k.grouped_matmul(a, w, counts)),
+            plain_ms=timer(lambda: gmm_k.grouped_matmul_plain(a, w, counts),
+                           reps=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library="torch.bmm (all rows)",
+            library_ms=timer(lambda: torch.bmm(a, w))))
+    return rows
+
+
+def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
+    """Each autograd Function's backward on the card (``torch.autograd.grad``
+    through ``kernels.ops``, the kernels inside) against the same backward
+    on the plain versions (``ref.*_bwd`` with the plain gather / grouped
+    matmul; for flash, from the plain forward's output and lse), at the
+    training shapes; times of the backward alone (the graph is kept), of the
+    plain backward, and of torch's autograd through a library forward."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    x, idx, gates = inp["x"], inp["idx"], inp["gates"]
+    w1, w3, w2, cap, counts = inp["w1"], inp["w3"], inp["w2"], inp["cap"], inp["counts"]
+    t, d = x.shape
+    n_e, _, f = w1.shape
+    r = idx.shape[0]
+    es = x.element_size()
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev).to(x.dtype)
+    leaf = lambda v: v.detach().clone().requires_grad_()
+
+    def back(out, inputs, cot):
+        return lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+    def row(name, parts, got, want, nbytes, ops_, ms, plain, library, lib_ms):
+        errs = {}
+        for k, a, b in zip(parts, got, want):
+            err = max_err(a, b)
+            tol = TOL_BWD * b.float().abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{name} {k}: max_abs_err {err} > {tol}")
+            errs[k] = (err, tol)
+        b_ms, b_by = bound(nbytes, ops_, BF16_PEAK)
+        return dict(name=name, parts=errs, ms=ms,
+                    plain_ms=timer(plain, reps=3, warmup=1), bound_ms=b_ms,
+                    bound_by=b_by, library=library, library_ms=lib_ms)
+
+    rows = []
+    live_rows = int((idx >= 0).sum())
+    safe_idx = idx.clamp_min(0).long()
+    # gather: the backward is the scatter-add of the cotangent, unit gates
+    src, dout = leaf(x), randn(r, d)
+    out = ops.segment_gather(src, idx)
+    ones = torch.ones(r, device=dev)
+    lib_src = leaf(x)
+    lib_out = torch.index_select(lib_src, 0, safe_idx)
+    rows.append(row(
+        "segment_gather backward", ("dsrc",), back(out, src, dout)(),
+        (ref.segment_scatter_add_ref(dout, idx, ones, t),),
+        live_rows * d * es + r * 4 + t * d * es, live_rows * d,
+        timer(back(out, src, dout)),
+        lambda: ref.segment_scatter_add_ref(dout, idx, ones, t),
+        "autograd of index_select (index_add_)",
+        timer(back(lib_out, lib_src, dout))))
+    del out, lib_out
+    # scatter-add: the gather of the cotangent times the gates, and dgates
+    buf = ref.segment_gather_ref(x, idx)
+    src, gts, dout = leaf(buf), leaf(gates), randn(t, d)
+    out = ops.segment_scatter_add(src, idx, gts, t)
+    plain = lambda: ref.segment_scatter_add_bwd(buf, idx, gates, dout,
+                                                gather=ref.segment_gather_ref)
+    lib_src, lib_g = leaf(buf), leaf(gates)
+    dump = torch.where(idx < 0, t, idx).long()
+    lib_out = torch.zeros(t + 1, d, device=dev).index_add(
+        0, dump, lib_src.float() * lib_g[:, None])[:t]
+    rows.append(row(
+        "segment_scatter_add backward", ("dsrc", "dgates"),
+        back(out, (src, gts), dout)(), plain(),
+        t * d * es + r * 8 + 2 * r * d * es + r * 4, 3 * r * d,
+        timer(back(out, (src, gts), dout)), plain,
+        "autograd of index_add (f32, pre-gated rows)",
+        timer(back(lib_out, (lib_src, lib_g), dout.float()))))
+    del out, lib_out, buf
+    # fused SwiGLU: the recompute, its products on the grouped matmul
+    xs = ref.segment_gather_ref(x, idx).reshape(1, n_e, cap, d)
+    leaves = [leaf(v) for v in (xs, w1, w3, w2)]
+    out = ops.fused_swiglu(*leaves, counts)
+    dy = randn(1, n_e, cap, d)
+    plain = lambda: ref.fused_swiglu_bwd(xs, w1, w3, w2, counts, dy,
+                                         gmm=ref.grouped_matmul_ref)
+    live = counts.clamp(max=cap)
+    live_n, live_e = int(live.sum()), int((live > 0).sum())
+    lib = [leaf(v) for v in (xs.reshape(n_e, cap, d), w1, w3, w2)]
+    lib_out = torch.bmm(torch.nn.functional.silu(torch.bmm(lib[0], lib[1]))
+                        * torch.bmm(lib[0], lib[2]), lib[3])
+    rows.append(row(
+        "fused_swiglu backward", ("dx", "dw1", "dw3", "dw2"),
+        back(out, leaves, dy)(), plain(),
+        3 * live_e * d * f * es + 2 * live_n * d * es + xs.numel() * es
+        + 3 * n_e * d * f * es, 16 * d * f * live_n,
+        timer(back(out, leaves, dy), reps=3), plain,
+        "autograd of 3 x torch.bmm + silu*mul (all rows)",
+        timer(back(lib_out, lib, dy.reshape(n_e, cap, d)), reps=3)))
+    del out, lib_out, leaves, lib, xs
+    # flash: the blockwise recompute from the forward's lse
+    q, k, v, qp, kp = attention_inputs(dev, **attn)
+    leaves = [leaf(a) for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, qp, kp, True, None)
+    dout = randn(*out.shape)
+    p_out, p_lse = ref.flash_attention_ref(q, k, v, qp, kp, True, None)
+    plain = lambda: ref.flash_attention_bwd(q, k, v, qp, kp, p_out, p_lse,
+                                            dout, True, None)
+    from repro_torch.kernels.ref import attention_mask
+    mask = attention_mask(qp, kp, True, None)
+    b, sq, hq, hd = q.shape
+    visible = int(mask.sum()) * b * hq
+    grp = hq // k.shape[2]
+    lib = [leaf(a.transpose(1, 2)) for a in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        lib[0], lib[1].repeat_interleave(grp, dim=1),
+        lib[2].repeat_interleave(grp, dim=1), attn_mask=mask)
+    rows.append(row(
+        "flash_attention backward", ("dq", "dk", "dv"),
+        back(out, leaves, dout)(), plain(),
+        (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) * es
+        + p_lse.numel() * 4, 10 * hd * visible,
+        timer(back(out, leaves, dout), reps=3), plain,
+        "autograd of F.scaled_dot_product_attention (bool mask, kv heads "
+        "repeated)",
+        timer(back(lib_out, lib, dout.transpose(1, 2)), reps=3)))
+    return rows
+
+
+def train_phase(argv, device="cuda"):
+    """The training path once, with every launch counter zeroed just before
+    it and read just after: ``launch/train.run`` at full width.  Fails if a
+    loss is not finite or a kernel of the path never launched."""
+    import math
+    from repro_torch.launch import train
+    wrappers = zero_counters()
+    out = train.run(train.parse_args(argv), device=device)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    never = [k for k, n in launches.items() if n == 0]
+    if never:
+        raise AssertionError(f"train path never launched {never}: {launches}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"train losses not finite: {out['losses']}")
+    return out, launches
+
+
+def train_profile(argv, device="cuda") -> dict:
+    """Where a train step's device time goes: after one warm-up step, one
+    whole step under torch.profiler, then its two parts apart, the forward
+    and backward (loss and ``torch.autograd.grad``) and the AdamW update."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    args = train.parse_args(argv)
+    s = train.setup(args, device)
+    model = steps.bundle(s.ctx)
+    step = steps.make_train_step(model, s.opt_cfg, args.accum)
+    params, opt = s.params, adamw.init(s.params)
+    batch = to_device(s.source.batch_at(0), device)
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    grads = []
+
+    def fwd_bwd():
+        loss, _ = model.loss(params, batch)
+        grads[:] = torch.autograd.grad(loss, adamw.leaves(params))
+
+    parts = (("step", lambda: step(params, opt, batch)), ("forward+backward", fwd_bwd),
+             ("adamw.update", lambda: adamw.update(
+                 adamw.unflatten(params, grads), opt, params, s.opt_cfg)))
+    out = {}
+    for name, fn in parts:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out[name] = device_summary(prof, wall_ms)
+    return out
+
+
+# device time by kind: the port's hand-written kernels by their names in
+# csrc/, cuBLAS products, PyTorch's elementwise and reduction kernels
+KINDS = (("hand-written", ("swiglu_tile", "gmm_", "flash_fwd", "gather_rows",
+                           "scatter_add_rows")),
+         ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+         ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
+
+
+def device_kinds(by_kernel) -> dict:
+    """Device ms summed by kind (``KINDS``, then "other")."""
+    out = {k: 0.0 for k, _ in KINDS}
+    out["other"] = 0.0
+    for name, ms in by_kernel:
+        kind = next((k for k, keys in KINDS if any(x in name for x in keys)),
+                    "other")
+        out[kind] += ms
+    return out
+
+
+def reduced_train_check(device="cuda") -> dict:
+    """One ``make_train_step`` of reduced qwen3-moe-30b-a3b in float32 from
+    the same params and batch on the card (kernels, all five launched) and
+    on the CPU (plain versions): max errors of the loss, of every grad leaf
+    and of every updated param.  Params are held to 2 * lr + 1e-5: AdamW's
+    first step moves each element by about lr * sign(g), so an element whose
+    gradient is within float32 noise of zero may move the other way."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    f32 = torch.float32
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
+    res = {}
+    for dev in ("cpu", device):
+        ctx = lm.make_context(cfg, dev, compute_dtype=f32)
+        model = steps.bundle(ctx)
+        params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
+        batch = to_device(host, dev)
+        leaves = adamw.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        wrappers = zero_counters()
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        params, _, _ = steps.make_train_step(model, opt_cfg)(
+            params, adamw.init(params), batch)
+        res[dev] = (float(loss.detach()), [x.cpu() for x in grads],
+                    [x.detach().cpu() for x in adamw.leaves(params)],
+                    {k: w.launches for k, w in wrappers.items()})
+    (l0, g0, p0, _), (l1, g1, p1, launched) = res["cpu"], res[device]
+    err = dict(loss=abs(l0 - l1),
+               grads=max(max_err(a, b) / max(1.0, a.abs().max().item())
+                         for a, b in zip(g0, g1)),
+               params=max(max_err(a, b) for a, b in zip(p0, p1)))
+    p_tol = 2 * adamw.schedule(opt_cfg, 1) + 1e-5
+    if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+            and err["params"] <= p_tol):
+        raise AssertionError(f"reduced train step card vs CPU: {err} (tol "
+                             f"{TOL_TRAIN}, params {p_tol})")
+    never = [k for k, n in launched.items() if n == 0]
+    if never:
+        raise AssertionError(f"reduced train step on the card never launched "
+                             f"{never}: {launched}")
+    return dict(err, params_tol=p_tol, launches=launched)
+
+
 def print_row(r: dict) -> None:
     lse = (f", worst row {r['worst_row_share']:.3f} of its row's tolerance, "
            f"lse {r['max_abs_err_lse']:.4g} (tol {TOL_LSE})"
@@ -492,17 +828,59 @@ def serve_and_profile(arch: str) -> dict:
     torch.cuda.empty_cache()
 
     for step, p in profile_phase(argv).items():
-        if p is None:
-            print(f"profile {arch} {step}: the trace shows no device activity: "
-                  "device busy time not measured")
-            continue
-        top = ", ".join(f"{name[:60]} {ms:.4f} ms"
-                        for name, ms in p["by_kernel"][:6])
-        print(f"profile {arch} {step}: device busy {p['busy_ms']:.4f} ms over "
-              f"{p['activities']} device activities; host wall under the "
-              f"profiler {p['wall_ms']:.3f} ms; busy share of the unprofiled "
-              f"{unprofiled[step]:.3f} ms: {p['busy_ms'] / unprofiled[step]:.3f}"
-              f"\n  top device time: {top}")
+        print_profile(f"{arch} {step}", p, unprofiled[step])
+    torch.cuda.empty_cache()
+    return launches
+
+
+def short_name(name: str, width: int = 90) -> str:
+    """A device item's name without its namespaces and return type, cut to
+    ``width``: enough to tell PyTorch's elementwise functors apart."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "c10::"):
+        name = name.replace(noise, "")
+    return name[:width]
+
+
+def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
+    if p is None:
+        print(f"profile {label}: the trace shows no device activity: device "
+              "busy time not measured")
+        return
+    top = ", ".join(f"{short_name(name)} {ms:.4f} ms"
+                    for name, ms in p["by_kernel"][:8])
+    print(f"profile {label}: device busy {p['busy_ms']:.4f} ms over "
+          f"{p['activities']} device activities; host wall under the "
+          f"profiler {p['wall_ms']:.3f} ms; busy share of the unprofiled "
+          f"{unprofiled_ms:.3f} ms: {p['busy_ms'] / unprofiled_ms:.3f}"
+          f"\n  top device time: {top}")
+
+
+def train_and_profile() -> dict:
+    """The training path at full width: the train phase with its launch
+    counts, then one profiled step.  Returns the launch counts."""
+    import torch
+    from repro_torch.launch.train import WARMUP
+    argv = TRAIN[0]
+    torch.cuda.empty_cache()
+    out, launches = train_phase(argv)
+    cfg, n = out["cfg"], len(out["losses"])
+    print(f"train {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{' '.join(argv[argv.index('--batch'):])}: "
+          f"{out['ms_per_step']:.3f} ms/step (median of {n - WARMUP} timed), "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{out['peak_mem_gib']:.2f} GiB")
+    print("train loss per step: " + " ".join(f"{x:.5f}" for x in out["losses"]))
+    print("train ms per step: " + " ".join(f"{x:.3f}" for x in out["step_ms"]))
+    print(f"launches on the train path ({n} steps): {json.dumps(launches)}; "
+          f"per step: {json.dumps({k: v / n for k, v in launches.items()})}")
+    unprofiled = out["ms_per_step"]
+    del out
+    torch.cuda.empty_cache()
+    for part, p in train_profile(argv).items():
+        print_profile(f"train {part}", p, unprofiled)
+        if p is not None:
+            print("  device ms by kind: " + ", ".join(
+                f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items()))
     torch.cuda.empty_cache()
     return launches
 
@@ -546,15 +924,35 @@ def main() -> None:
             rows.append(dict(flash_row(*shifted, window=window),
                              path="moe-tx-stream", main_path=False))
         del shifted
+    # the training shapes, made outside inference mode: the backward rows
+    # save them for autograd
+    train_inp = main_path_inputs("cuda", **TRAIN[1])
+    with torch.no_grad():
+        rows += [dict(r, path="train") for r in gmm_rows(train_inp)]
     for r in rows:
         print_row(r)
+    for r in backward_rows(train_inp, TRAIN[2]):
+        parts = ", ".join(f"{k} {e:.4g} (tol {t:.4g})"
+                          for k, (e, t) in r["parts"].items())
+        print(f"backward {r['name']:<29} at the train shape: max_abs_err "
+              f"{parts}  {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+              f"{r['library_ms']:.4f} ms [{r['library']}]")
+    del train_inp
     torch.cuda.empty_cache()
 
     launches = {arch: serve_and_profile(arch) for arch in PATHS}
+    launches["train"] = train_and_profile()
     for arch in PATHS:
         worst = reduced_check(arch)
         print(f"reduced {arch} f32, card (kernels) vs CPU (plain): max logit "
               f"error {worst:.3g} (tol {TOL_REDUCED})")
+    err = reduced_train_check()
+    print(f"reduced qwen3-moe-30b-a3b train step f32, card (kernels) vs CPU "
+          f"(plain): loss {err['loss']:.3g}, grads {err['grads']:.3g} of "
+          f"max(1, max |grad|) (tol {TOL_TRAIN}), updated params "
+          f"{err['params']:.3g} (tol {err['params_tol']:.3g}); launches on the "
+          f"card {json.dumps(err['launches'])}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

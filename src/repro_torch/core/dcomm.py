@@ -9,6 +9,10 @@ becomes an optional ``torch.distributed`` process group (the EP group): this
 rank's lane is its rank in the group, and with no group (or a group of one)
 the exchange is the identity.
 
+Both collectives, the exchange and the sequence all-gather, are
+differentiable (``torch.autograd.Function``s that transpose as the
+reference's shard_map collectives do); the counts exchange carries none.
+
 Other engines (fused_pipe, fused_hier, disagg, ragged), the dedup wire and
 the two-level multi-pod exchange are later slices of the port.
 """
@@ -64,19 +68,38 @@ def seq_stripe(x: torch.Tensor, group: dist.ProcessGroup | None) -> torch.Tensor
     return x[:, r * (s // ep):(r + 1) * (s // ep)]
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Tiled all-gather along the sequence.  Its transpose keeps this rank's
+    stripe of the cotangent summed over the group (the reference's
+    ``psum_scatter``, written as all_reduce + stripe so gloo runs it too):
+    the loss the ranks differentiate is the sum of their own losses."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ep = group_size(group)
+        b, s = x.shape[:2]
+        buf = torch.empty((ep * b, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
+        return buf.reshape(ep, b, *x.shape[1:]).movedim(0, 1).reshape(
+            b, ep * s, *x.shape[2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return seq_stripe(g, ctx.group), None
+
+
 def all_gather_seq(x: torch.Tensor,
                    group: dist.ProcessGroup | None) -> torch.Tensor:
     """The stripes of every rank joined along the sequence (dim 1), in lane
     order: the reference's tiled ``all_gather`` over the EP axis.  The
-    identity for one lane, with no collective."""
-    ep = group_size(group)
-    if ep == 1:
+    identity for one lane, with no collective.  Differentiable: see
+    :class:`_GatherSeq` for whose loss the backward sums."""
+    if group_size(group) == 1:
         return x
-    b, s = x.shape[:2]
-    buf = torch.empty((ep * b, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
-    return buf.reshape(ep, b, *x.shape[1:]).movedim(0, 1).reshape(
-        b, ep * s, *x.shape[2:])
+    return _GatherSeq.apply(x, group)
 
 
 class DispatchResult(NamedTuple):
@@ -86,6 +109,28 @@ class DispatchResult(NamedTuple):
     state: Any                    # engine-private
     dropped: torch.Tensor | None = None   # this shard's capacity overflow
     counts: torch.Tensor | None = None    # (S, E_local) landed occupancy
+
+
+def _all_to_all(buf: torch.Tensor, group) -> torch.Tensor:
+    buf = buf.contiguous()
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all of a lane-major buffer; single-level, so its
+    transpose is the same exchange of the cotangent (the reference's
+    all_to_all transposes into all_to_all)."""
+
+    @staticmethod
+    def forward(ctx, buf, group):
+        ctx.group = group
+        return _all_to_all(buf, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
 
 
 def _flat_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
@@ -105,10 +150,7 @@ def _flat_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
     if buf.shape[0] != ep or group_size(group) != ep:
         raise ValueError(f"exchange of {buf.shape[0]} lanes over a group of "
                          f"{group_size(group)}, placement ep={ep}")
-    buf = buf.contiguous()
-    out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=group)
-    return out
+    return _AllToAll.apply(buf, group)
 
 
 def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,

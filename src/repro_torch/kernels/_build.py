@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
-           "flash_attention")
+           "flash_attention", "grouped_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

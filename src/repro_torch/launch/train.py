@@ -1,0 +1,128 @@
+"""Training entry point (port of the core loop of ``repro/launch/train.py``): a
+few AdamW steps of next-token loss through the FUSCO shuffle, on one card.
+
+``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
+--batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
+
+Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
+path.  Weights are random; the batches come from the reference's synthetic
+streams (``--data zipf``: the 2-gram Zipf language;
+``uniform``: hash tokens), deterministic in (seed, step); weights and
+batches come from seed 0.  The first ``WARMUP`` steps (which also build the
+kernels) are not timed; each timed step ends in
+``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
+No checkpoint, relayout or fault-tolerance loop yet (ROADMAP queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ArchConfig
+from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, iterate
+from repro_torch.launch import steps
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+
+WARMUP = 2        # untimed steps before the clock starts
+SEED = 0
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reference's tiny smoke-test dims")
+    ap.add_argument("--engine", default="fused_flat", choices=["fused_flat"])
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (depth only)")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--data", default="zipf", choices=["zipf", "uniform"])
+    ap.add_argument("--capacity-factor", type=float, default=2.0)
+    ap.add_argument("--accum", type=int, default=1)
+    args = ap.parse_args(argv)
+    if args.steps <= WARMUP:
+        ap.error(f"--steps must exceed the {WARMUP} warm-up steps")
+    return args
+
+
+class Setup(NamedTuple):
+    cfg: ArchConfig
+    ctx: lm.ModelContext
+    params: dict
+    source: object            # batch_at(step) -> host batch
+    opt_cfg: adamw.AdamWConfig
+
+
+def setup(args, device="cuda") -> Setup:
+    """The model, its random bf16 parameters, the data source and the
+    optimizer's config of a train run, all from seed 0."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    ctx = lm.make_context(cfg, device, engine=args.engine,
+                          capacity_factor=args.capacity_factor)
+    params = lm.init_params(
+        cfg, ctx, torch.Generator(device=ctx.device).manual_seed(SEED))
+    src_cls = ZipfNgramLM if args.data == "zipf" else SyntheticLM
+    source = src_cls(cfg.vocab, args.seq, args.batch, seed=SEED)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr,
+                                warmup_steps=max(5, args.steps // 20),
+                                total_steps=args.steps)
+    return Setup(cfg, ctx, params, source, opt_cfg)
+
+
+def run(args, device="cuda") -> dict:
+    """Train ``--steps`` steps; returns the loss of every step, the median
+    ms per timed step, tokens per second, and on the card the peak device
+    memory (GiB, params and optimizer state included)."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    cfg, ctx, params, source, opt_cfg = setup(args, device)
+    train_step = steps.make_train_step(steps.bundle(ctx), opt_cfg, args.accum)
+    opt_state = adamw.init(params)
+    losses, step_s = [], []
+    batches = iterate(source, ctx.device)
+    for _ in range(args.steps):
+        batch = next(batches)
+        if on_card:
+            torch.cuda.synchronize(ctx.device)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        if on_card:
+            torch.cuda.synchronize(ctx.device)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    timed = statistics.median(step_s[WARMUP:])
+    return {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+            "ms_per_step": timed * 1e3,
+            "tokens_per_s": args.batch * args.seq / timed,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
+                             if on_card else None),
+            "cfg": cfg}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    out = run(args)
+    print("loss per step:", " ".join(f"{x:.4f}" for x in out["losses"]))
+    print(f"{out['ms_per_step']:.1f} ms/step  {out['tokens_per_s']:.0f} "
+          f"tokens/s  peak memory {out['peak_mem_gib']:.2f} GiB")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """Attention: GQA with qk-norm, RoPE, position-masked causal attention and
 the decode KV cache (port of ``repro/layers/attention.py``, the parts the
-lock-step serving of the moe and moe_tx families uses).
+lock-step serving of the moe and moe_tx families and the moe family's
+training use).
 
 :func:`causal_attention` stands in for the reference's lax flash attention
 (attention.py:35-244), which follows the same position contract as the
 Pallas flash kernel: it is ``kernels.ops.flash_attention``, the hand-written
-kernel on the card and its plain version on the CPU.
+kernel on the card and its plain version on the CPU, differentiable through
+its blockwise backward.
 """
 
 from __future__ import annotations

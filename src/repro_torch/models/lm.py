@@ -1,6 +1,6 @@
 """Decoder-only LM, ``moe`` and ``moe_tx`` families: parameters, prefill and
 single-token decode (port of ``repro/models/lm.py``, the lock-step serving
-path).
+path), and the ``moe`` family's training forward and chunked CE loss.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
 (moe: sequential blocks) or ``layers/moe.stream_tx_layers`` (moe_tx: parallel
@@ -19,6 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
@@ -147,6 +148,94 @@ def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext):
     return all_gather_seq(y, ctx.ep_group)
 
 
+def _moe_layer(h: torch.Tensor, lp, positions: torch.Tensor,
+               ctx: ModelContext):
+    """One sequential ``moe`` block, h + attn(ln1 h), then + moe(ln2 h),
+    with ``lp`` this layer's parameters in the compute dtype (the
+    reference's ``layer_fn``, lm.py:445-510, moe branch).  Returns the new h
+    and the layer's RoPE'd k and v (B, S, Hkv, hd)."""
+    cfg = ctx.cfg
+    b, s, _ = h.shape
+    x = rms_norm(h, lp["ln1"])
+    q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
+    o = causal_attention(q, k, v, positions, positions, window=cfg.window)
+    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+    h = h + _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx)
+    return h, k, v
+
+
+def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
+                   ctx: ModelContext) -> torch.Tensor:
+    """Training forward of the ``moe`` family (the reference's
+    ``forward_hidden``, lm.py:358-535, moe branch): (B, S) tokens to the
+    final-normed hidden states (B, S, d) in the compute dtype.  Each layer's
+    parameters are cast to the compute dtype as it runs (lm.py:445), so a
+    gradient reaches the stored leaves in their own dtype.  In an EP group
+    each rank runs the MoE on its stripe of the sequence, as ``prefill``
+    does; the stripes' all-gather sums the ranks' cotangents in its
+    backward, so a loop training over an EP group divides each rank's
+    (replicated) loss by the group size and all-reduces the replicated
+    weights' gradients (not ported yet: ROADMAP queue 1 item 3).  The reference rematerialises each layer in its backward
+    (``jax.checkpoint`` around the scanned body); at the depths the port
+    trains (4 layers of 48 at full width) the activations fit, so the
+    layers keep theirs.  The reference also shards the expert weights over
+    its DP axis when a lane's expert bytes exceed 4 GB (``fsdp_experts``,
+    lm.py:144-147, true at 4 full-width layers); with one DP rank that is a
+    no-op, and the port has no DP group yet."""
+    cfg, cd = ctx.cfg, ctx.compute_dtype
+    if cfg.family != "moe":
+        raise NotImplementedError(
+            f"training forward of family {cfg.family!r} is not ported yet "
+            "(moe only): ROADMAP queue 1 items 3 and 5")
+    h = params["embed"].to(cd)[inputs]
+    for i in range(cfg.n_layers):
+        h, _, _ = _moe_layer(h, _layer(params["layers"], i, cd), positions, ctx)
+    return rms_norm(h, params["final_norm"].to(cd))
+
+
+def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):
+    """Summed next-token CE and the count of valid labels of one chunk:
+    (B, c, d) hidden, (d, V) head, (B, c) labels (-1 = no label)."""
+    logits = (hx @ head).float()                             # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    valid = lx >= 0
+    gold = logits.gather(-1, lx.clamp_min(0)[..., None].long())[..., 0]
+    return torch.where(valid, logz - gold, 0.0).sum(), valid.sum().float()
+
+
+LOSS_CHUNK = 512   # sequence positions per CE chunk (the reference's default)
+
+
+def lm_loss(params, batch, ctx: ModelContext):
+    """Next-token CE over ``batch`` {"tokens", "labels"} (B, S), labels
+    already shifted, -1 for none (the reference's ``lm_loss``,
+    lm.py:538-580): chunked over the sequence by ``LOSS_CHUNK``, each chunk
+    under ``torch.utils.checkpoint`` as the reference wraps it in
+    ``jax.checkpoint``, so the (B, c, V) float32 logits of every chunk are
+    recomputed in the backward, not kept; the denominator counts the valid
+    labels.  Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h = forward_hidden(params, tokens, positions, ctx)
+    labels = batch["labels"]
+    head = params["lm_head"].to(ctx.compute_dtype)
+    s = h.shape[1]
+    c = min(LOSS_CHUNK, s)
+    if s % c:
+        raise ValueError(f"sequence {s} does not split into chunks of {c}")
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for c0 in range(0, s, c):
+        part, n = torch.utils.checkpoint.checkpoint(
+            _ce_chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
+            use_reentrant=False)
+        tot, cnt = tot + part, cnt + n
+    loss = tot / cnt.clamp_min(1.0)
+    return loss, {"loss": loss.detach(), "tokens": cnt}
+
+
 def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
                 ctx: ModelContext):
     """moe_tx stack over this rank's stripe of the sequence (one block of
@@ -174,7 +263,7 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     split evenly) and all ranks return the same result."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs]
-    b, s, _ = h.shape
+    s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
     if cfg.family == "moe_tx":
         h, k, v = _tx_prefill(params, h, positions, ctx)
@@ -183,14 +272,9 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
                                     "v": _cache_slots(v, s, cap)}, s)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i, cd)
-        x = rms_norm(h, lp["ln1"])
-        q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
-        o = causal_attention(q, k, v, positions, positions, window=cfg.window)
-        h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+        h, k, v = _moe_layer(h, _layer(params["layers"], i, cd), positions, ctx)
         ks.append(_cache_slots(k, s, cap))
         vs.append(_cache_slots(v, s, cap))
-        h = h + _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx)
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
     return logits, DecodeState({"k": torch.stack(ks), "v": torch.stack(vs)}, s)
