@@ -5,7 +5,10 @@
 
 1. Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the build time and
-   the compiler's register / shared-memory report.
+   the compiler's register / shared-memory / spill report (fails if a
+   Hopper-form kernel, ``*_wgmma``, spills), then the count of HGMMA (wgmma)
+   and UTMALDG (TMA load) instructions that ``cuobjdump -sass`` finds in the
+   fused_swiglu and grouped_matmul libraries (fails if either is 0).
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes its paths give it, and times kernel, plain
    version and a PyTorch yardstick with CUDA events:
@@ -15,9 +18,14 @@
      of 8 x 512 tokens (T = 4096, 64 experts, top-4, capacity 512);
    - the flash attention at both prefill shapes and at the shifted query
      stripe of one EP lane (with and without a window);
-   - grouped_matmul at the training shape of qwen3-moe-30b-a3b (B 4 x S 512:
-     T = 2048, capacity 256), 2048 -> 768 and 768 -> 2048 through a
-     transposed weight view.
+   - at the training shape of qwen3-moe-30b-a3b (B 4 x S 512: T = 2048,
+     capacity 256): grouped_matmul 2048 -> 768 and 768 -> 2048 through a
+     transposed weight view, and fused_swiglu's forward;
+   - odd shapes of the Hopper forms of fused_swiglu and grouped_matmul
+     (``odd_shape_checks``), held only.
+   Each Hopper-form row also gives the time of the kernel's loads alone and
+   of its products alone (``time_split``: builds with the consumers issuing
+   no wgmma, and with the producer loading nothing).
 3. Backward rows: each autograd Function's backward (gather, scatter-add,
    fused SwiGLU, flash) on the card against the same backward on the plain
    versions, at the training shapes, with times.
@@ -49,6 +57,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +94,11 @@ TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
          dict(b=4, sq=512, sk=512, hq=32, hkv=4, hd=128))
 SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
+# the time split of the Hopper forms (csrc/hopper.cuh): each is built again
+# with the consumers issuing no wgmma, and with the producer loading nothing
+SPLIT_KERNELS = ("fused_swiglu", "grouped_matmul")
+SPLIT = {"loads_only_ms": "-DREPRO_LOADS_ONLY",
+         "products_only_ms": "-DREPRO_PRODUCTS_ONLY"}
 # the query stripe of EP lane 1 of 4 against the gathered keys
 SHIFTED = dict(b=8, sq=128, sk=512, hq=16, hkv=4, hd=64, q0=128)
 WINDOW = 192
@@ -185,6 +199,173 @@ def main_path_inputs(device, t, d, n_experts, top_k, f, decode_t, seed=0):
                                          dtype=torch.int32, device=device))
 
 
+def time_split(name: str, fn, timer=time_ms, **kw) -> dict:
+    """``fn`` (a call of kernel ``name``'s wrapper) timed on the builds of
+    ``SPLIT``: its loads alone and its products alone."""
+    from repro_torch.kernels import _build
+    out = {}
+    for key, define in SPLIT.items():
+        with _build.use_variant(name, define):
+            out[key] = timer(fn, **kw)
+    return out
+
+
+def swiglu_row(name, xs, w1, w3, w2, counts, timer=time_ms):
+    """fused_swiglu against its plain version on one landed buffer ``xs``
+    (S, E, C, d) with its counts: the row (times, bound, the 3 x bmm
+    yardstick over all rows) and the kernel's output."""
+    import torch
+    from repro_torch.kernels import fused_staging as fs_k
+    n_e, d, f = w1.shape
+    es = xs.element_size()
+    y = fs_k.fused_swiglu(xs, w1, w3, w2, counts)
+    want = fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts)
+    err = max_err(y, want)
+    tol = TOL_REL * want.float().abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    c = xs.shape[2]
+    live = counts.clamp(max=c)
+    live_rows = int(live.sum())
+    live_experts = int((live.sum(0) > 0).sum())
+    nbytes = (live_experts * 3 * d * f * es + live_rows * d * es
+              + xs.numel() * es + counts.numel() * 4)
+    b_ms, b_by = bound(nbytes, 6 * d * f * live_rows, BF16_PEAK)
+    xb = xs.reshape(-1, n_e, c, d).transpose(0, 1).reshape(n_e, -1, d)
+
+    def bmm_swiglu():
+        h = torch.bmm(xb, w1)
+        u = torch.bmm(xb, w3)
+        return torch.bmm(torch.nn.functional.silu(h) * u, w2)
+
+    row = dict(
+        name=name, shape=f"x {tuple(xs.shape)} live rows {live_rows} bf16",
+        route="cuda", source="src/repro_torch/csrc/fused_swiglu.cu",
+        replaces="src/repro/kernels/fused_staging.py:83",
+        max_abs_err=err, tol=tol,
+        ms=timer(lambda: fs_k.fused_swiglu(xs, w1, w3, w2, counts), reps=5),
+        plain_ms=timer(lambda: fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts),
+                       reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library="torch.bmm x3 + silu*mul (all rows, bf16 hidden)",
+        library_ms=timer(bmm_swiglu, reps=5),
+        **time_split("fused_swiglu",
+                     lambda: fs_k.fused_swiglu(xs, w1, w3, w2, counts), timer,
+                     reps=5))
+    return row, y
+
+
+def odd_shape_checks(device="cuda") -> list[str]:
+    """The Hopper forms of fused_swiglu and grouped_matmul against their
+    plain versions at the shapes the main paths do not give them: C = 8
+    (decode), a C that is not a multiple of the row tile, counts of 0, of C
+    and of more than C, a partial last tile, S = 2 source lanes sharing E
+    weights (g % E), and d, f, K, N that are not multiples of the tiles;
+    grouped_matmul with row-major weights (MN-major loads) and with a
+    transposed view (K-major loads).  bf16, held to TOL_REL of each output's
+    largest magnitude.  Returns one line per case."""
+    import torch
+    from repro_torch.kernels import fused_staging as fs_k
+    from repro_torch.kernels import grouped_matmul as gmm_k
+    g = torch.Generator(device=device).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
+    bf16 = torch.bfloat16
+    lines = []
+
+    def hold(what, got, want):
+        err = max_err(got, want)
+        tol = TOL_REL * want.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{what}: max_abs_err {err} > {tol}")
+        lines.append(f"{what}: max_abs_err {err:.4g} (tol {tol:.4g})")
+
+    # fused_swiglu: (S, E, C, d, f, counts)
+    for s_, e, c, d, f, counts in (
+            (1, 4, 8, 512, 256, [[0, 3, 8, 12]]),
+            (2, 3, 100, 384, 320, [[0, 100, 130], [64, 65, 37]]),
+            (1, 2, 70, 136, 72, [[70, 5]])):
+        x = randn(s_, e, c, d).to(bf16)
+        w1 = (randn(e, d, f) * d ** -0.5).to(bf16)
+        w3 = (randn(e, d, f) * d ** -0.5).to(bf16)
+        w2 = (randn(e, f, d) * f ** -0.5).to(bf16)
+        cnt = torch.tensor(counts, dtype=torch.int32, device=device)
+        if not fs_k.use_tensor_cores(x, (w1, w3, w2)):
+            raise AssertionError(f"fused_swiglu S{s_} E{e} C{c} d{d} f{f}: "
+                                 "not taken by the Hopper form")
+        hold(f"fused_swiglu S {s_} E {e} C {c} d {d} f {f} counts {counts}",
+             fs_k.fused_swiglu(x, w1, w3, w2, cnt),
+             fs_k.fused_swiglu_plain(x, w1, w3, w2, cnt))
+
+    # grouped_matmul: (S, E, C, K, N, counts), both weight layouts
+    for s_, e, c, k, n, counts in (
+            (2, 2, 8, 200, 136, [0, 3, 8, 20]),
+            (2, 3, 100, 64, 264, [0, 100, 130, 64, 65, 37]),
+            (2, 1, 300, 96, 8, [300, 129])):
+        x = randn(s_ * e, c, k).to(bf16)
+        cnt = torch.tensor(counts, dtype=torch.int32, device=device)
+        row_major = (randn(e, k, n) * k ** -0.5).to(bf16)
+        view = (randn(e, n, k) * k ** -0.5).to(bf16).transpose(1, 2)
+        for w, layout in ((row_major, "row-major w"), (view, "transposed view")):
+            hold(f"grouped_matmul G {s_ * e} E {e} C {c} K {k} N {n} {layout} "
+                 f"counts {counts}", gmm_k.grouped_matmul(x, w, cnt),
+                 gmm_k.grouped_matmul_plain(x, w, cnt))
+    return lines
+
+
+def sass_counts() -> dict:
+    """``cuobjdump -sass`` of the built fused_swiglu and grouped_matmul
+    libraries: the number of HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in each.  Fails if either is 0."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = {}
+    for name in ("fused_swiglu", "grouped_matmul"):
+        sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        out[name] = {op: sum(op in line for line in sass.splitlines())
+                     for op in ("HGMMA", "UTMALDG")}
+        if 0 in out[name].values():
+            raise AssertionError(f"{name}: SASS counts {out[name]}")
+    return out
+
+
+def ptxas_report() -> tuple[list[str], list[str]]:
+    """One line per compiled kernel from the ``-Xptxas -v`` build logs
+    (registers, shared memory, spill stores / loads), and the Hopper-form
+    kernels (``*_wgmma``) that spill."""
+    import shutil
+    from repro_torch.kernels import _build
+    found = []                      # [library, mangled name, report]
+    for k in _build.KERNELS:
+        log = _build.library_path(k).with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "Compiling entry function" in line:
+                found.append([k, line.split("'")[1], {}])
+            elif found and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                found[-1][2]["spills"] = (int(m.group(1)), int(m.group(2)))
+            elif found and (m := re.search(r"Used (\d+) registers", line)):
+                smem = re.search(r"(\d+) bytes smem", line)
+                found[-1][2]["registers"] = int(m.group(1))
+                found[-1][2]["smem"] = int(smem.group(1)) if smem else 0
+    names = [name for _, name, _ in found]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    lines, spilling = [], []
+    for (k, mangled, rep), name in zip(found, names):
+        spills = rep.get("spills", (0, 0))
+        short = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        lines.append(f"  ptxas {k}: {short.split('(')[0]}: {rep.get('registers')} "
+                     f"registers, {rep.get('smem')} B static smem, spill "
+                     f"stores/loads {spills[0]}/{spills[1]} B")
+        if "wgmma" in mangled and spills != (0, 0):
+            spilling.append(name)
+    return lines, spilling
+
+
 def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
     """Each MoE kernel against its plain version at a serving path's shapes
     (``main_path_inputs``); ``fma`` also holds and times fused_swiglu's FMA
@@ -198,7 +379,7 @@ def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
     x, idx, gates = inp["x"], inp["idx"], inp["gates"]
     w1, w3, w2 = inp["w1"], inp["w3"], inp["w2"]
     t, d = x.shape
-    n_e, _, f = w1.shape
+    n_e = w1.shape[0]
     es = x.element_size()
     rows = []
 
@@ -228,51 +409,24 @@ def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
     for name, xs, counts in (("fused_swiglu", buf, inp["counts"]),
                              ("fused_swiglu_decode", inp["decode_rows"],
                               inp["decode_counts"])):
-        y = fs_k.fused_swiglu(xs, w1, w3, w2, counts)
-        want = fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts)
-        err = max_err(y, want)
-        tol = TOL_REL * want.float().abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-        c = xs.shape[2]
-        live = counts.clamp(max=c)
-        live_rows = int(live.sum())
-        live_experts = int((live.sum(0) > 0).sum())
-        nbytes = (live_experts * 3 * d * f * es + live_rows * d * es
-                  + xs.numel() * es + counts.numel() * 4)
-        b_ms, b_by = bound(nbytes, 6 * d * f * live_rows, BF16_PEAK)
-        xb = xs.reshape(n_e, c, d)
-
-        def bmm_swiglu():
-            h = torch.bmm(xb, w1)
-            u = torch.bmm(xb, w3)
-            return torch.bmm(torch.nn.functional.silu(h) * u, w2)
-
-        rows.append(dict(
-            name=name, shape=f"x {tuple(xs.shape)} live rows {live_rows} bf16",
-            route="cuda", source="src/repro_torch/csrc/fused_swiglu.cu",
-            replaces="src/repro/kernels/fused_staging.py:83",
-            max_abs_err=err, tol=tol,
-            ms=timer(lambda: fs_k.fused_swiglu(xs, w1, w3, w2, counts), reps=5),
-            plain_ms=timer(lambda: fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts),
-                           reps=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by,
-            library="torch.bmm x3 + silu*mul (all rows, bf16 hidden)",
-            library_ms=timer(bmm_swiglu, reps=5)))
+        row, y = swiglu_row(name, xs, w1, w3, w2, counts, timer)
+        rows.append(row)
         if name == "fused_swiglu":
             expert_out = y
         if name == "fused_swiglu" and fma:
-            # the FMA variant (what the kernel takes off the tensor-core
-            # path), held and timed at the same shape for comparison
+            # the FMA form (what the kernel takes off the Hopper path), held
+            # and timed at the same shape for comparison
+            want = fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts)
             fma = lambda: fs_k._launch_fma(xs, w1, w3, w2, counts,
                                            torch.empty_like(xs))
             y_fma = torch.empty_like(xs)
             fs_k._launch_fma(xs, w1, w3, w2, counts, y_fma)
             err_fma = max_err(y_fma, want)
-            if not err_fma <= tol:
-                raise AssertionError(f"fused_swiglu FMA variant: max_abs_err "
-                                     f"{err_fma} > {tol}")
-            rows.append(dict(rows[-1], name="fused_swiglu_fma", main_path=False,
+            if not err_fma <= row["tol"]:
+                raise AssertionError(f"fused_swiglu FMA form: max_abs_err "
+                                     f"{err_fma} > {row['tol']}")
+            rows.append(dict({k: v for k, v in row.items() if k not in SPLIT},
+                             name="fused_swiglu_fma", main_path=False,
                              max_abs_err=err_fma, ms=timer(fma, reps=5)))
 
     # segment_scatter_add: (R, d) -> T rows, gated
@@ -538,8 +692,21 @@ def gmm_rows(inp, timer=time_ms) -> list[dict]:
             plain_ms=timer(lambda: gmm_k.grouped_matmul_plain(a, w, counts),
                            reps=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library="torch.bmm (all rows)",
-            library_ms=timer(lambda: torch.bmm(a, w))))
+            library_ms=timer(lambda: torch.bmm(a, w)),
+            **time_split("grouped_matmul",
+                         lambda: gmm_k.grouped_matmul(a, w, counts), timer)))
     return rows
+
+
+def train_swiglu_row(inp, timer=time_ms) -> dict:
+    """fused_swiglu at the training forward's shape: the landed buffer of
+    128 experts x capacity 256 with the rows routing fills."""
+    from repro_torch.kernels.ref import segment_gather_ref
+    x, w1, cap = inp["x"], inp["w1"], inp["cap"]
+    n_e, d, _ = w1.shape
+    xs = segment_gather_ref(x, inp["idx"]).reshape(1, n_e, cap, d)
+    return swiglu_row("fused_swiglu_train", xs, w1, inp["w3"], inp["w2"],
+                      inp["counts"], timer)[0]
 
 
 def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
@@ -721,7 +888,7 @@ def train_profile(argv, device="cuda") -> dict:
 
 # device time by kind: the port's hand-written kernels by their names in
 # csrc/, cuBLAS products, PyTorch's elementwise and reduction kernels
-KINDS = (("hand-written", ("swiglu_tile", "gmm_", "flash_fwd", "gather_rows",
+KINDS = (("hand-written", ("swiglu_", "gmm_", "flash_fwd", "gather_rows",
                            "scatter_add_rows")),
          ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
          ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
@@ -795,11 +962,13 @@ def print_row(r: dict) -> None:
     lse = (f", worst row {r['worst_row_share']:.3f} of its row's tolerance, "
            f"lse {r['max_abs_err_lse']:.4g} (tol {TOL_LSE})"
            if "max_abs_err_lse" in r else "")
+    split = (f"  loads only {r['loads_only_ms']:.4f} ms, products only "
+             f"{r['products_only_ms']:.4f} ms" if "loads_only_ms" in r else "")
     print(f"kernel {r['name']:<20} {r['shape']}: max_abs_err "
           f"{r['max_abs_err']:.4g} (tol {r['tol']:.4g}){lse}  {r['ms']:.4f} ms  "
           f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']})  library {r['library_ms']:.4f} ms "
-          f"[{r['library']}]")
+          f"[{r['library']}]{split}")
 
 
 def serve_and_profile(arch: str) -> dict:
@@ -901,14 +1070,21 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     print(f"device {name}  torch {torch.__version__}  cuda {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s "
-          f"into {_build.BUILD}")
-    for k, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {k}: {line.strip()}")
+    with ThreadPoolExecutor(2) as ex:   # every nvcc started together
+        split = ex.submit(_build.build_all, SPLIT_KERNELS,
+                          tuple((d,) for d in SPLIT.values()))
+        logs = _build.build_all()
+        print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.2f} s "
+              f"into {_build.BUILD}")
+        split.result()
+    print(f"build with the time-split variants: {time.perf_counter() - t0:.2f} s")
+    lines, spilling = ptxas_report()
+    print("\n".join(lines))
+    if spilling:
+        fail(f"the Hopper-form kernels spill registers: {spilling}")
+    print(f"SASS of the Hopper forms: {json.dumps(sass_counts())}")
 
     rows = []
     with torch.inference_mode():
@@ -929,6 +1105,9 @@ def main() -> None:
     train_inp = main_path_inputs("cuda", **TRAIN[1])
     with torch.no_grad():
         rows += [dict(r, path="train") for r in gmm_rows(train_inp)]
+        rows.append(dict(train_swiglu_row(train_inp), path="train"))
+        for line in odd_shape_checks():
+            print(f"odd shape {line}")
     for r in rows:
         print_row(r)
     for r in backward_rows(train_inp, TRAIN[2]):

@@ -7,61 +7,82 @@
 // shuffle (repro/core/fusco.py:55) and of the decode MoE
 // (repro/layers/moe.py:374).
 //
-// Bound on the H100: bytes for the shapes serving gives it.  Every call
-// reads the weights of each expert with a live row: at the main-path shape
-// (128 experts, d 2048, f 768, bf16) that is 3 * 128 * 2048 * 768 * 2 B
-// ~= 1.2 GB (~0.36 ms at 3.35 TB/s), against 2 * 3 * d * f flops per live
-// row (4096 live rows: ~39 GFLOP, ~39 us at the bf16 tensor-core peak).
+// Bound on the H100: bytes.  Every call reads the weights of each expert
+// with a live row: at the qwen3-moe-30b-a3b shape (128 experts, d 2048, f
+// 768, bf16) that is 3 * 128 * 2048 * 768 * 2 B ~= 1.2 GB (~0.36 ms at
+// 3.35 TB/s), against 6 * d * f flops per live row (4096 live rows: ~39
+// GFLOP, ~39 us at the bf16 tensor-core peak).
 //
-// Design, shared by both variants.  One block of 8 warps per (s, e, tile of
-// rows).  A tile whose first row is at or past counts[s, e] writes zeros and
-// returns without reading weights.  Otherwise the block keeps its x tile
-// (rows x d) in dynamic shared memory and the tile's hidden activations never
-// leave the SM: the (C, f) activations never reach device memory -- the
-// property the Pallas kernel got from VMEM -- and no sum crosses blocks.
-// Tiles of one expert are neighbours in the grid (blockIdx.x is the tile),
-// so they run together and share the expert's weights through the L2.
+// Two kernels; the wrapper (repro_torch/kernels/fused_staging.py) picks the
+// C entry from the inputs.  Both keep a tile's (rows, f) hidden activations
+// on the SM -- the property the Pallas kernel got from VMEM -- so they
+// never reach device memory; a tile whose first row is at or past counts[s,
+// e] writes zeros and reads no weights; tiles of one expert are neighbours
+// in the grid (blockIdx.x), so they run together and share its weights
+// through the L2.
 //
-// swiglu_tile_tc (bf16, d and f multiples of 16): 16-row tiles on the
-// tensor cores through WMMA (mma.sync, bf16 in, f32 accumulate).  It keeps
-// the whole activation row block, silu(h) * u for all f (16 x f bf16), in
-// shared memory instead of an f32 output accumulator: first each warp
-// takes 16-column tiles of h and u and runs the whole d reduction, then
-// each warp takes 16-column tiles of the output and runs the whole f
-// reduction, so each output tile is written once, with no accumulator in
-// shared memory.  Every warp streams its weight tiles through a private
-// ring of kTcStages slots filled by cp.async (one 16-byte copy per lane per
-// tile), which keeps ~8 KiB of weights in flight per warp, as WMMA loads
-// straight from global memory cannot (the card stays latency-bound).  silu(h) * u
-// is formed in f32 and rounded to bf16 as the down product's A operand.
-// wgmma, TMA and warp specialisation are later work.
+// swiglu_wgmma (bf16, d and f multiples of 8; the Hopper form).  A 64-row
+// tile of one (s, e) group is taken by a cluster of kSplit = 2 CTAs of 288
+// threads: two consumer warpgroups on wgmma and one producer warp whose
+// first lane streams every operand tile with TMA into a ring of
+// kStageBytes slots (hopper.cuh), guarded by full/empty mbarriers.
+//   phase 1 (gate/up): f in chunks of kFChunk = 128, CTA r taking the
+//     chunks r mod 2; d in k steps of kBK = 32.  A stage holds the x k-tile
+//     (64 x 32, 64-byte swizzle) and, per warpgroup, its 64 columns of w1
+//     and of w3 as two adjacent boxes, so one m64n128k16 wgmma (B MN-major,
+//     LBO = the box stride) forms h and u together: accumulator elements i
+//     and i + 32 are h and u of the same (row, column).  The chunk's
+//     epilogue writes silu(h) * u, f32 rounded to bf16, into `act` (64 x f,
+//     resident in shared memory) in the 128-byte-swizzled K-major layout
+//     that phase 2's A descriptor reads -- in this CTA and, through
+//     distributed shared memory, in its neighbour.  Every consumer thread of
+//     both CTAs then arrives on both CTAs' act_ready barrier.
+//   phase 2 (down): d in chunks of kDChunk = 256, CTA r taking the chunks r
+//     mod 2; f in k steps of 32; A is the whole `act`, B the w2 tile (32 x
+//     256, four boxes) from the same ring; each warpgroup owns 64 x 128 of
+//     the output, stored as bf16 with the rows at or past counts zeroed.
+// So each expert's weights pass once through each tile's cluster, half
+// through each SM.  What bounds it on this card: what one SM's TMA stream
+// delivers (~45-65 GB/s measured, PERF.md), not the L2's total or HBM's,
+// except at qwen3-moe's one tile per expert (HBM).  A 64-row tile gets
+// 52-64 flop per byte loaded, so that feed caps an SM near half its tensor
+// peak; `act` (96 KiB at f 768, 128 KiB at f 1024) leaves the ring the rest
+// of the 227 KiB; splitting the tile over two SMs halves each SM's bytes
+// and doubles the SMs a decode call (one tile per expert) can use.  The x
+// tile is not kept whole (at d 2048 it is 256 KiB): its k-tiles are re-read
+// from the L2 once per f chunk.  Ragged edges come from TMA: elements past
+// d, f, C (the x map is 3-D, so a tile never reads the next group's rows)
+// or the box read as zeros; silu(0) * 0 = 0 pads `act`; stores are masked.
 //
 // swiglu_tile (any dtype and shape, BC rows per tile): FMA on the CUDA
 // cores, with an f32 output accumulator (BC x d) in shared memory, walking f
 // in chunks.  The 8 warps split d to form h and u for kFC = 32
 // columns (each thread owns one column, so every weight element is read once
 // per block, coalesced along f) and reduce their partials in shared memory;
-// silu(h) * u stays in f32.
+// silu(h) * u stays in f32.  float32 runs here (no TF32: the card-vs-CPU
+// checks hold f32 to 1e-3), and so does a bf16 shape swiglu_wgmma refuses.
 //
-// Shared memory per block (must match repro_torch/kernels/fused_staging.py):
-//   swiglu_tile:    BC*d*4 (acc) + kWarps*2*BC*kFC*4 (partials)
-//                   + BC*kFC*4 (act) + BC*d*sizeof(T) (x)
-//   swiglu_tile_tc: 16*d*2 (x) + 16*f*2 (act) + kWarps*kTcWarpBytes (rings)
-// At d = 2048, f = 768 in bf16: 231,424 B (BC = 16) and 172,032 B of the
-// 232,448 B a block may opt into.
-#include <mma.h>
+// Shared memory per CTA (mirrored by repro_torch/kernels/fused_staging.py):
+//   swiglu_tile:  BC*d*4 (acc) + kWarps*2*BC*kFC*4 (partials)
+//                 + BC*kFC*4 (act) + BC*d*sizeof(T) (x)
+//   swiglu_wgmma: kSmemFixed (alignment slack, barriers)
+//                 + 64 * round_up(f, 64) * 2 (act) + stages * kStageBytes,
+//                 stages = min(kMaxStages, what fits in kSmemOptin), >= 2
+// At d 2048, f 768 in bf16: 231,424 B (swiglu_tile, BC = 16) and 222,464 B
+// (swiglu_wgmma, 6 stages) of the 232,448 B a block may opt into; at f 1024
+// swiglu_wgmma has 4 stages (214,272 B).
+#include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kFC = 32;    // swiglu_tile: f columns per chunk, one warp's width
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTcStages = 8;  // swiglu_tile_tc: weight tiles in flight per warp
-// swiglu_tile_tc, per warp: a ring of kTcStages slots of two 16 x 16 bf16
-// tiles (1 KiB each), then two 16 x 16 f32 tiles of scratch
-constexpr int kTcWarpBytes = kTcStages * 1024 + 2 * 16 * 16 * 4;
 
 size_t smem_bytes(int bc, int d, int elem_bytes) {
   return static_cast<size_t>(bc) * d * 4 +
@@ -172,161 +193,223 @@ __global__ void __launch_bounds__(kThreads)
     o[k] = repro::from_f32<T>(k < live * d ? acc[k] : 0.f);
 }
 
-size_t smem_bytes_tc(int d, int f) {
-  return static_cast<size_t>(16) * d * 2 + static_cast<size_t>(16) * f * 2 +
-         static_cast<size_t>(kWarps) * kTcWarpBytes;
+// ------------------------------------------------- swiglu_wgmma (bf16, sm_90a)
+
+constexpr int kTileM = 64;         // rows of x per block
+constexpr int kBK = 32;            // contraction depth of a stage
+constexpr int kFChunk = 128;       // phase 1: f columns per step, 64 per warpgroup
+constexpr int kDChunk = 256;       // phase 2: d columns per step, 128 per warpgroup
+constexpr int kXBytes = kTileM * kBK * 2;  // x k-tile: 64 rows of 64 bytes
+constexpr int kWBytes = 64 * kBK * 2;      // weight box: kBK rows of 64 columns
+constexpr int kActBlock = kTileM * 64 * 2; // act: 64 rows of 64 columns
+constexpr int kStageBytes = kXBytes + 4 * kWBytes;  // x + 2 x (w1, w3)
+constexpr int kMaxStages = 8;
+constexpr int kSmemOptin = 232448;       // bytes a Hopper block may opt into
+constexpr int kSmemFixed = 1024 + 256;   // 1024-byte alignment slack, barriers
+constexpr int kHopperThreads = 288;      // two consumer warpgroups, one producer warp
+constexpr int kSplit = 2;                // CTAs (a cluster) per row tile
+
+size_t act_bytes(int f) {
+  return static_cast<size_t>((f + 63) / 64) * kActBlock;
 }
 
-// 16-byte asynchronous copy global -> shared (sm_80+), and its groups
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+int hopper_stages(int f) {
+  const long room = kSmemOptin - kSmemFixed - static_cast<long>(act_bytes(f));
+  return static_cast<int>(std::min<long>(kMaxStages, room / kStageBytes));
 }
 
-// Lane `lane` copies its 16 bytes of the 16 x 16 bf16 tile at `src` (row
-// stride `ld` elements) into the dense 16 x 16 tile at `dst`.
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int ld,
-                                          int lane) {
-  const int r = lane >> 1, h = (lane & 1) * 8;
-  cp_async16(dst + r * 16 + h, src + static_cast<size_t>(r) * ld + h);
+size_t smem_bytes_hopper(int f) {
+  return kSmemFixed + act_bytes(f) +
+         static_cast<size_t>(hopper_stages(f)) * kStageBytes;
 }
 
-// bf16 on the tensor cores; needs d % 16 == 0, f % 16 == 0 and 32-byte
-// aligned x, w1, w3, w2 (the wrapper checks).
-__global__ void __launch_bounds__(kThreads)
-    swiglu_tile_tc(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w1,
-                   const __nv_bfloat16* __restrict__ w3,
-                   const __nv_bfloat16* __restrict__ w2,
-                   const int* __restrict__ counts,
-                   __nv_bfloat16* __restrict__ out, int E, int C, int d,
-                   int f) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const int tile = blockIdx.x;
+__device__ __forceinline__ float silu_mul(float h, float u) {
+  return h / (1.f + __expf(-h)) * u;
+}
+
+// kSplit CTAs, a thread-block cluster, share one row tile: CTA r takes the
+// f chunks j = r mod kSplit in phase 1 and writes its silu(h) * u columns
+// into both CTAs' `act` (its own and, through distributed shared memory,
+// its neighbour's); once every consumer thread of both has arrived on
+// act_ready, each CTA holds the whole `act` and takes the d chunks r mod
+// kSplit in phase 2.  So each CTA streams half of the expert's weights,
+// and twice as many SMs work on a call with few live tiles (decode).
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    swiglu_wgmma(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap w1map,
+                 const __grid_constant__ CUtensorMap w3map,
+                 const __grid_constant__ CUtensorMap w2map,
+                 const int* __restrict__ counts, bf16* __restrict__ out, int E,
+                 int C, int d, int f, int stages) {
+  using namespace hopper;
   const int e = blockIdx.y;
-  const int s = blockIdx.z;
+  const int se = blockIdx.z * E + e;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int c0 = tile * 16;
-  const int rows = min(16, C - c0);
-  const int live = max(0, min(rows, counts[s * E + e] - c0));
-  const size_t first = (static_cast<size_t>(s) * E + e) * C + c0;
-  bf16* o = out + first * d;
-
+  const int rank = static_cast<int>(cluster_rank());
+  const int c0 = blockIdx.x / kSplit * kTileM;
+  const int rows = min(kTileM, C - c0);
+  const int live = max(0, min(rows, counts[se] - c0));
+  bf16* o = out + (static_cast<size_t>(se) * C + c0) * d;
   if (live == 0) {  // the whole tile is past the group's occupancy
-    for (int k = tid; k < rows * d; k += kThreads) o[k] = __float2bfloat16(0.f);
-    return;
+    if (rank == 0) zero_rows(o, d, rows, d, tid, kHopperThreads);
+    return;  // (both CTAs of a cluster return here, before any barrier)
   }
 
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_tc);  // [16][d]
-  bf16* act = xs + 16 * d;                      // [16][f]
-  unsigned char* mine = smem_tc + 32 * d + 32 * f + warp * kTcWarpBytes;
-  bf16* ring = reinterpret_cast<bf16*>(mine);   // [kTcStages][2][16][16]
-  float* scratch = reinterpret_cast<float*>(mine + kTcStages * 1024);  // [2][16][16]
+  extern __shared__ __align__(1024) unsigned char smem_h[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_h);  // [kMaxStages]
+  uint64_t* empty = full + kMaxStages;                    // [kMaxStages]
+  uint64_t* act_ready = empty + kMaxStages;  // both CTAs' act columns written
+  const uint32_t s0 = smem_addr(smem_h);
+  unsigned char* act = smem_h + (((s0 + 256 + 1023) & ~1023u) - s0);
+  const int nkb = (f + 63) / 64;  // 64-column blocks of act: [nkb][64][128 B]
+  unsigned char* ring = act + static_cast<size_t>(nkb) * kActBlock;
+  const int nk1 = (d + kBK - 1) / kBK;  // phase 1 k steps per f chunk
+  const int nf1 = (f + kFChunk - 1) / kFChunk;
+  const int nk2 = (f + kBK - 1) / kBK;  // phase 2 k steps per d chunk
+  const int nd2 = (d + kDChunk - 1) / kDChunk;
 
-  const bf16* xg = x + first * d;
-  for (int k = tid; k < 16 * d; k += kThreads)
-    xs[k] = k < live * d ? xg[k] : __float2bfloat16(0.f);
-  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(act_ready, 256 * kSplit);  // every consumer thread of the cluster
+    fence_barrier_init();
+  }
+  cluster_sync();  // the neighbour's act and act_ready exist before use
 
-  const bf16* w1e = w1 + static_cast<size_t>(e) * d * f;
-  const bf16* w3e = w3 + static_cast<size_t>(e) * d * f;
-  const bf16* w2e = w2 + static_cast<size_t>(e) * f * d;
-  FragA a;
-  FragB b;
-
-  // gate/up: each warp takes 16-column tiles j of h and u and runs the whole
-  // d reduction, streaming the weight tiles through its own ring.
-  const int nkd = d / 16;
-  for (int j = warp; j < f / 16; j += kWarps) {
-    const int col = 16 * j;
-    auto issue = [&](int kt) {
-      bf16* slot = ring + (kt % kTcStages) * 512;
-      copy_tile(slot, w1e + static_cast<size_t>(16 * kt) * f + col, f, lane);
-      copy_tile(slot + 256, w3e + static_cast<size_t>(16 * kt) * f + col, f, lane);
+  const int warp = tid / 32;
+  if (warp == 8) {  // producer: one lane issues every load
+    if (tid % 32 == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&w1map);
+      prefetch_map(&w3map);
+      prefetch_map(&w2map);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int j = rank; j < nf1; j += kSplit) {
+        for (int kt = 0; kt < nk1; ++kt) {
+          mbar_wait(&empty[st], ph ^ 1);
+          unsigned char* slot = ring + st * kStageBytes;
+          if constexpr (kLoads) {
+            mbar_expect_tx(&full[st], kStageBytes);
+            tma_load_3d(slot, &xmap, &full[st], kt * kBK, c0, se);
+            for (int h = 0; h < 2; ++h) {  // warpgroup h's w1 box, then its w3 box
+              const int col = j * kFChunk + 64 * h;
+              tma_load_3d(slot + kXBytes + 2 * h * kWBytes, &w1map, &full[st],
+                          col, kt * kBK, e);
+              tma_load_3d(slot + kXBytes + (2 * h + 1) * kWBytes, &w3map,
+                          &full[st], col, kt * kBK, e);
+            }
+          } else {
+            mbar_arrive(&full[st]);
+          }
+          if (++st == stages) { st = 0; ph ^= 1; }
+        }
+      }
+      for (int dc = rank; dc < nd2; dc += kSplit) {
+        for (int kt = 0; kt < nk2; ++kt) {
+          mbar_wait(&empty[st], ph ^ 1);
+          unsigned char* slot = ring + st * kStageBytes;
+          if constexpr (kLoads) {
+            mbar_expect_tx(&full[st], 4 * kWBytes);
+            for (int q = 0; q < 4; ++q)
+              tma_load_3d(slot + q * kWBytes, &w2map, &full[st],
+                          dc * kDChunk + 64 * q, kt * kBK, e);
+          } else {
+            mbar_arrive(&full[st]);
+          }
+          if (++st == stages) { st = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns half of each chunk's columns
+    const int wg = warp / 4;
+    const int t = tid % 128;
+    float acc[64];  // the first product of every chunk overwrites it
+    int st = 0, prev = -1;
+    uint32_t ph = 0;
+    auto release = [&](int slot) {
+      if (t % 32 == 0) mbar_arrive(&empty[slot]);
     };
-    FragC hc, uc;
-    wmma::fill_fragment(hc, 0.f);
-    wmma::fill_fragment(uc, 0.f);
-    for (int kt = 0; kt < kTcStages - 1; ++kt) {
-      if (kt < nkd) issue(kt);
-      cp_async_commit();
-    }
-    for (int kt = 0; kt < nkd; ++kt) {
-      if (kt + kTcStages - 1 < nkd) issue(kt + kTcStages - 1);
-      cp_async_commit();
-      cp_async_wait<kTcStages - 1>();  // tile kt has landed
-      __syncwarp();
-      const bf16* slot = ring + (kt % kTcStages) * 512;
-      wmma::load_matrix_sync(a, xs + 16 * kt, d);
-      wmma::load_matrix_sync(b, slot, 16);
-      wmma::mma_sync(hc, a, b, hc);
-      wmma::load_matrix_sync(b, slot + 256, 16);
-      wmma::mma_sync(uc, a, b, uc);
-      __syncwarp();  // the slot is refilled next iteration
-    }
-    wmma::store_matrix_sync(scratch, hc, 16, wmma::mem_row_major);
-    wmma::store_matrix_sync(scratch + 256, uc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int q = lane; q < 256; q += 32) {  // silu(h) * u in f32 -> bf16
-      const float h = scratch[q];
-      act[(q / 16) * f + col + q % 16] =
-          __float2bfloat16(h / (1.f + expf(-h)) * scratch[256 + q]);
-    }
-    __syncwarp();
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // act complete
-
-  // down: each warp takes 16-column tiles n of the output and runs the
-  // whole f reduction, streaming w2's tiles through its ring
-  const int nkf = f / 16;
-  for (int n = warp; n < d / 16; n += kWarps) {
-    auto issue = [&](int kt) {
-      copy_tile(ring + (kt % kTcStages) * 512,
-                w2e + static_cast<size_t>(16 * kt) * d + 16 * n, d, lane);
+    // One k step's products stay in flight: after issuing step st, wait for
+    // the step before it and release its stage; at the end of a chunk, wait
+    // for all and release the last.
+    auto release_previous = [&](float (&a)[64], int cur) {
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(a);
+      if (prev >= 0) release(prev);
+      prev = cur;
     };
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    for (int kt = 0; kt < kTcStages - 1; ++kt) {
-      if (kt < nkf) issue(kt);
-      cp_async_commit();
+    auto drain = [&](float (&a)[64]) {
+      wgmma_wait<0>();
+      fence_acc(a);
+      release(prev);
+      prev = -1;
+    };
+
+    // act's address in the neighbouring CTA of the cluster
+    const uint32_t act_peer = map_shared(smem_addr(act), (rank + 1) % kSplit);
+    for (int j = rank; j < nf1; j += kSplit) {  // phase 1: h | u, 64 columns of f
+      for (int kt = 0; kt < nk1; ++kt) {
+        mbar_wait(&full[st], ph);
+        const unsigned char* slot = ring + st * kStageBytes;
+        const unsigned char* b = slot + kXBytes + 2 * wg * kWBytes;  // w1 | w3
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16 && kProducts; ++kk)
+          wgmma_m64n128k16<1>(acc, desc<64>(slot + 32 * kk, 16, 512),
+                              desc(b + 2048 * kk, kWBytes, 1024),
+                              (kt | kk) != 0);
+        release_previous(acc, st);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+      drain(acc);
+      const int kb = 2 * j + wg;  // this warpgroup's 64 columns of act
+      if (kb < nkb) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int r = acc_row(t, i), c = acc_col(t, i);
+          const int at = kb * kActBlock + r * 128 + (((c >> 3) ^ (r & 7)) << 4) +
+                         (c & 7) * 2;
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(silu_mul(acc[i], acc[i + 32]),
+                                    silu_mul(acc[i + 1], acc[i + 33]));
+          *reinterpret_cast<__nv_bfloat162*>(act + at) = v;
+          st_cluster_b32(act_peer + at, *reinterpret_cast<const uint32_t*>(&v));
+        }
+      }
     }
-    for (int kt = 0; kt < nkf; ++kt) {
-      if (kt + kTcStages - 1 < nkf) issue(kt + kTcStages - 1);
-      cp_async_commit();
-      cp_async_wait<kTcStages - 1>();
-      __syncwarp();
-      wmma::load_matrix_sync(a, act + 16 * kt, f);
-      wmma::load_matrix_sync(b, ring + (kt % kTcStages) * 512, 16);
-      wmma::mma_sync(c, a, b, c);
-      __syncwarp();
+    // act is read by wgmma next, here and in the neighbour
+    // every consumer thread of both CTAs: its act writes, local and remote,
+    // are read by wgmma next
+    fence_proxy_async();
+    mbar_arrive(act_ready);
+    mbar_arrive_cluster(map_shared(smem_addr(act_ready), (rank + 1) % kSplit));
+    mbar_wait<true>(act_ready, 0);
+
+    for (int dc = rank; dc < nd2; dc += kSplit) {  // phase 2: 64 x 128 of the output
+      for (int kt = 0; kt < nk2; ++kt) {
+        mbar_wait(&full[st], ph);
+        const unsigned char* b = ring + st * kStageBytes + 2 * wg * kWBytes;
+        const unsigned char* a = act + (kt / 2) * kActBlock + (kt % 2) * 64;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16 && kProducts; ++kk)
+          wgmma_m64n128k16<1>(acc, desc(a + 32 * kk, 16, 1024),
+                              desc(b + 2048 * kk, kWBytes, 1024),
+                              (kt | kk) != 0);
+        release_previous(acc, st);
+        if (++st == stages) { st = 0; ph ^= 1; }
+      }
+      drain(acc);
+      const int col = dc * kDChunk + wg * 128;
+      store_acc(o + col, d, rows, live, d - col, acc, t);
     }
-    wmma::store_matrix_sync(scratch, c, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int q = lane; q < 256; q += 32) {
-      const int r = q / 16;
-      if (r < rows)
-        o[static_cast<size_t>(r) * d + 16 * n + q % 16] =
-            __float2bfloat16(r < live ? scratch[q] : 0.f);
-    }
-    __syncwarp();
   }
-  cp_async_wait<0>();
 }
 
 template <typename T, int BC>
@@ -362,6 +445,7 @@ int launch_bc(int bc, const void* x, const void* w1, const void* w3,
 
 }  // namespace
 
+
 // x: (S, E, C, d); w1/w3: (E, d, f); w2: (E, f, d); counts: (S, E) int32;
 // out: (S, E, C, d); all contiguous, x/w/out of one dtype.  bc: rows per
 // tile, one of 1, 2, 4, 8, 16.
@@ -382,24 +466,48 @@ extern "C" int fused_swiglu(const void* x, const void* w1, const void* w3,
   }
 }
 
-// The tensor-core variant: bf16 only, d % 16 == 0, f % 16 == 0, 32-byte
-// aligned x, w1, w3, w2 and out; 16-row tiles.  Same arguments otherwise.
+// The Hopper form: bf16 only, d and f multiples of 8, 16-byte aligned x,
+// w1, w3, w2 and out, and f small enough for the resident activations and
+// two stages (the wrapper checks; otherwise it takes fused_swiglu).  Same
+// arguments as fused_swiglu without dtype and bc.  Returns
+// hopper::kErrTensorMap if a tensor map cannot be encoded.
 extern "C" int fused_swiglu_tc(const void* x, const void* w1, const void* w3,
                                const void* w2, const void* counts, void* out,
                                int S, int E, int C, int d, int f,
                                void* stream) {
   if (S == 0 || E == 0 || C == 0 || d == 0) return static_cast<int>(cudaSuccess);
-  if (d % 16 != 0 || f % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes_tc(d, f);
+  if (d % 8 != 0 || f % 8 != 0 || f <= 0 || hopper_stages(f) < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t es = sizeof(bf16);
+  const uint64_t ud = d, uf = f, uc = C;
+  CUtensorMap xm, w1m, w3m, w2m;
+  if (!hopper::make_map_3d(&xm, x, ud, uc, static_cast<uint64_t>(S) * E,
+                           ud * es, uc * ud * es, kBK, kTileM,
+                           CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper::make_map_3d(&w1m, w1, uf, ud, E, uf * es, ud * uf * es, 64, kBK) ||
+      !hopper::make_map_3d(&w3m, w3, uf, ud, E, uf * es, ud * uf * es, 64, kBK) ||
+      !hopper::make_map_3d(&w2m, w2, ud, uf, E, ud * es, uf * ud * es, 64, kBK))
+    return hopper::kErrTensorMap;
+  const size_t smem = smem_bytes_hopper(f);
   cudaError_t err = cudaFuncSetAttribute(
-      swiglu_tile_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swiglu_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + 15) / 16, E, S);
-  swiglu_tile_tc<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(w3), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const int*>(counts), static_cast<__nv_bfloat16*>(out), E, C,
-      d, f);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((C + kTileM - 1) / kTileM * kSplit, E, S);
+  cfg.blockDim = dim3(kHopperThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, swiglu_wgmma, xm, w1m, w3m, w2m,
+                           static_cast<const int*>(counts),
+                           static_cast<bf16*>(out), E, C, d, f, hopper_stages(f));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

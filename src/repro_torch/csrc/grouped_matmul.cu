@@ -23,65 +23,47 @@
 // 128 experts, top-8, capacity 256 = _cap(2048 * 8 / 128, 2.0)): each
 // (128, 256, 2048) x (128, 2048, 768) bf16 product reads 403 MB of weights,
 // ~0.12 ms at 3.35 TB/s, and does 103 GFLOP over all rows, ~0.10 ms at
-// 989 TFLOP/s; with about half the rows live it is bytes-bound.
+// 989 TFLOP/s; with about half the rows live it is bytes-bound.  A weight
+// tile is read once per live 128-row tile of its group (from the L2 after
+// the first), and an x row tile once per 256-column tile.  What holds the
+// kernel back on this card is one SM's TMA stream (a loads-only build takes
+// ~0.96 of its time; PERF.md): ~48 KiB a k step out of the L2.  A
+// persistent form that overlapped the blocks' fill and drain, with static
+// or dynamic tile order, was no faster.
 //
-// Design.  One block per (column tile, row tile, group); the blocks run in
-// no order and nothing carries between them: the contraction is a loop
-// inside the block.  The block reads counts[g] itself; a tile wholly at or
-// past it writes zeros without reading x or w.  Rows at or past counts[g]
-// inside a partial tile are never read (zero-filled in shared memory) and
-// are written as zeros.  Any C, K and N are taken (the ragged edges are
-// masked); the reduced model's K 64 / N 32 runs.
+// gmm_wgmma (bf16; the Hopper form, on the core of hopper.cuh).  One block
+// per (256-column tile, 128-row tile, group), flattened into blockIdx.x
+// with the column tiles fastest, so the tiles of one group run together and
+// share its expert's weights and its x rows through the L2; no G limit.
+// 288 threads: two consumer warpgroups (64 rows each, a 64 x 256 f32
+// accumulator on wgmma m64n256k16) and one producer warp whose first lane
+// streams (x 128 x 64, w 64 x 256) k-steps with TMA through a kGStages
+// ring guarded by full/empty mbarriers; a warpgroup keeps one k-step's
+// products in flight and releases the stage before it.  x is loaded
+// K-major through a 3-D (K, C, G) map, so a tile crossing C reads zeros,
+// never the next group's rows.  Both weight layouts come from the same storage with no copy: a
+// row-major w (n contiguous) is loaded MN-major as four 64 x 64 boxes and
+// fed to wgmma with its B-transpose bit; a transposed view (k contiguous)
+// is loaded K-major as one 64 x 256 box; each map is built over the
+// tensor's own strides.  A tile wholly at or past counts[g] writes zeros
+// without loads; the second 64-row half of x is not loaded when all its
+// rows are past it (both warpgroups still multiply, so the wgmma path is
+// uniform); rows at or past counts are stored as zeros, whatever was read.
+// Ragged K and N read zeros past the extents (TMA), and stores are masked.
 //
-// gmm_tc (bf16): 64 x 64 output tiles, 4 warps of 32 x 32, WMMA
-// (mma.sync, bf16 in, f32 accumulate) over 32-deep k steps; the x and w
-// tiles of step k + 1 are copied by cp.async (16 bytes a thread) while step
-// k multiplies (two stages).  It needs K and N multiples of 8, 16-byte
-// aligned operands, and w with unit stride along n or along k (the wrapper
-// checks).  gmm_fma (float32): the same tiling with FMA on the CUDA cores,
-// any strides; no TF32, so f32 stays exact enough for the 1e-3 card-vs-CPU
-// check.
-//
-// What the simple design leaves on the table: each row tile re-reads its
-// expert's weights (from L2 when the tiles of one group run together), and
-// WMMA from a two-stage ring does not reach the wgmma rate.  One pass over
-// each expert's weights with wgmma and TMA is later work.
-#include <mma.h>
-
-#include <type_traits>
+// gmm_fma (float32): 64 x 64 tiles, FMA on the CUDA cores, any strides; no
+// TF32, so f32 stays exact enough for the 1e-3 card-vs-CPU check.
+#include <climits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 64;   // rows of x per tile
-constexpr int kBN = 64;   // output columns per tile
-constexpr int kBK = 32;   // contraction depth per step (gmm_tc)
-constexpr int kPad = 8;   // bf16 of padding per shared row (16 bytes)
-constexpr int kTcThreads = 128;
-constexpr int kLdA = kBK + kPad;                 // As [2][kBM][kLdA]
-constexpr int kLdBRow = kBN + kPad;              // Bs [2][kBK][kLdBRow] (n unit stride)
-constexpr int kLdBCol = kBK + kPad;              // Bs [2][kBN][kLdBCol] (k unit stride)
-constexpr int kLdC = kBN + 4;                    // Cs [kBM][kLdC] f32
-constexpr int kABytes = 2 * kBM * kLdA * 2;
-constexpr int kBBytes = 2 * kBN * kLdBCol * 2;   // >= 2 * kBK * kLdBRow * 2
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void zero16(void* smem) {
-  *reinterpret_cast<uint4*>(smem) = make_uint4(0, 0, 0, 0);
-}
+constexpr int kBM = 64;   // gmm_fma: rows of x per tile
+constexpr int kBN = 64;   // gmm_fma: output columns per tile
 
 // Zeros for the rows [0, rows) x columns [n0, n0 + kBN) of a tile.
 template <typename T>
@@ -90,129 +72,6 @@ __device__ void write_zero_tile(T* o, int rows, int n0, int N, int tid,
   const int cols = min(kBN, N - n0);
   for (int q = tid; q < rows * cols; q += threads)
     o[static_cast<size_t>(q / cols) * N + n0 + q % cols] = repro::from_f32<T>(0.f);
-}
-
-// kKMajorB: w's unit stride is along k (a transposed view); else along n.
-template <bool kKMajorB>
-__global__ void __launch_bounds__(kTcThreads)
-    gmm_tc(const bf16* __restrict__ x, const bf16* __restrict__ w,
-           const int* __restrict__ counts, bf16* __restrict__ out, int E,
-           int C, int K, int N, int sw_e, int ldw) {
-  using namespace nvcuda;
-  using LayoutB = std::conditional_t<kKMajorB, wmma::col_major, wmma::row_major>;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int g = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int rows = min(kBM, C - m0);
-  const int live = max(0, min(rows, counts[g] - m0));
-  bf16* o = out + (static_cast<size_t>(g) * C + m0) * N;
-  if (live == 0) {  // the whole tile is past the group's occupancy
-    write_zero_tile(o, rows, n0, N, tid, kTcThreads);
-    return;
-  }
-
-  __shared__ __align__(128) unsigned char smem[kABytes + kBBytes + kBM * kLdC * 4];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + kABytes);
-  float* Cs = reinterpret_cast<float*>(smem + kABytes + kBBytes);
-
-  const bf16* xg = x + (static_cast<size_t>(g) * C + m0) * K;
-  const bf16* wg = w + static_cast<size_t>(g % E) * sw_e;
-
-  // one k step's tiles into stage st: 256 chunks of 8 bf16 for each of A
-  // and B, two of each per thread; chunks outside the live rows or the
-  // matrix are zero-filled, never read
-  auto load = [&](int k0, int st) {
-    bf16* a = As + st * kBM * kLdA;
-    bf16* b = Bs + st * kBN * kLdBCol;
-    for (int q = tid; q < kBM * (kBK / 8); q += kTcThreads) {
-      const int r = q / (kBK / 8), kc = (q % (kBK / 8)) * 8;
-      bf16* dst = a + r * kLdA + kc;
-      if (r < live && k0 + kc < K)
-        cp_async16(dst, xg + static_cast<size_t>(r) * K + k0 + kc);
-      else
-        zero16(dst);
-    }
-    if constexpr (kKMajorB) {  // element (k, n) at wg[n * ldw + k] -> b[n][k]
-      for (int q = tid; q < kBN * (kBK / 8); q += kTcThreads) {
-        const int n = q / (kBK / 8), kc = (q % (kBK / 8)) * 8;
-        bf16* dst = b + n * kLdBCol + kc;
-        if (n0 + n < N && k0 + kc < K)
-          cp_async16(dst, wg + static_cast<size_t>(n0 + n) * ldw + k0 + kc);
-        else
-          zero16(dst);
-      }
-    } else {  // element (k, n) at wg[k * ldw + n] -> b[k][n]
-      for (int q = tid; q < kBK * (kBN / 8); q += kTcThreads) {
-        const int k = q / (kBN / 8), nc = (q % (kBN / 8)) * 8;
-        bf16* dst = b + k * kLdBRow + nc;
-        if (k0 + k < K && n0 + nc < N)
-          cp_async16(dst, wg + static_cast<size_t>(k0 + k) * ldw + n0 + nc);
-        else
-          zero16(dst);
-      }
-    }
-  };
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (K + kBK - 1) / kBK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) * kBK, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // step kt has landed
-    __syncthreads();
-    const bf16* a = As + (kt & 1) * kBM * kLdA;
-    const bf16* b = Bs + (kt & 1) * kBN * kLdBCol;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA fa[2];
-      FragB fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm + 16 * i) * kLdA + kk, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (kKMajorB)
-          wmma::load_matrix_sync(fb[j], b + (wn + 16 * j) * kLdBCol + kk, kLdBCol);
-        else
-          wmma::load_matrix_sync(fb[j], b + kk * kLdBRow + wn + 16 * j, kLdBRow);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();  // the stage is refilled by the next step
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kLdC + wn + 16 * j, acc[i][j],
-                              kLdC, wmma::mem_row_major);
-  __syncthreads();
-  const int cols = min(kBN, N - n0);
-  for (int q = tid; q < rows * cols; q += kTcThreads) {
-    const int r = q / cols, c = q % cols;
-    o[static_cast<size_t>(r) * N + n0 + c] =
-        __float2bfloat16(r < live ? Cs[r * kLdC + c] : 0.f);
-  }
 }
 
 constexpr int kFmaThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
@@ -281,47 +140,192 @@ __global__ void __launch_bounds__(kFmaThreads)
   }
 }
 
+constexpr int kGBM = 128;  // gmm_wgmma: rows per tile, 64 per warpgroup
+constexpr int kGBN = 256;  // gmm_wgmma: output columns per tile
+constexpr int kGBK = 64;   // contraction depth of a stage
+constexpr int kGStages = 4;
+constexpr int kGABytes = kGBM * kGBK * 2;  // 16 KiB
+constexpr int kGBBytes = kGBK * kGBN * 2;  // 32 KiB
+constexpr int kGStageBytes = kGABytes + kGBBytes;
+constexpr int kGSmem = 1024 + 256 + kGStages * kGStageBytes;  // slack, barriers, ring
+constexpr int kGThreads = 288;
+
+// kKMajorB: w's unit stride is along k (a transposed view); else along n.
+template <bool kKMajorB>
+__global__ void __launch_bounds__(kGThreads, 1)
+    gmm_wgmma(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              const int* __restrict__ counts, bf16* __restrict__ out, int E,
+              int C, int K, int N, int m_tiles, int n_tiles) {
+  using namespace hopper;
+  const int n_t = blockIdx.x % n_tiles;
+  const int m_t = (blockIdx.x / n_tiles) % m_tiles;
+  const int g = blockIdx.x / n_tiles / m_tiles;
+  const int n0 = n_t * kGBN, m0 = m_t * kGBM;
+  const int tid = threadIdx.x;
+  const int rows = min(kGBM, C - m0);
+  const int cols = min(kGBN, N - n0);
+  const int live = max(0, min(rows, counts[g] - m0));
+  bf16* o = out + (static_cast<size_t>(g) * C + m0) * N + n0;
+  if (live == 0) {  // the whole tile is past the group's occupancy
+    zero_rows(o, N, rows, cols, tid, kGThreads);
+    return;
+  }
+
+  extern __shared__ __align__(1024) unsigned char smem_g[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_g);  // [kGStages]
+  uint64_t* empty = full + kGStages;                      // [kGStages]
+  const uint32_t s0 = smem_addr(smem_g);
+  unsigned char* ring = smem_g + (((s0 + 256 + 1023) & ~1023u) - s0);
+  const int nk = (K + kGBK - 1) / kGBK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kGStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = tid / 32;
+  if (warp == 8) {  // producer: one lane issues every load
+    if (tid % 32 == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&wmap);
+      const int e = g % E;
+      const bool two_halves = live > 64;
+      const int stage_bytes = kGStageBytes - (two_halves ? 0 : kGABytes / 2);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* slot = ring + st * kGStageBytes;
+        if constexpr (!kLoads) {
+          mbar_arrive(&full[st]);
+        } else {
+          mbar_expect_tx(&full[st], stage_bytes);
+          // x: two 64-row boxes; a second half wholly past counts[g] is not
+          // read (its stale rows are stored as zeros)
+          tma_load_3d(slot, &xmap, &full[st], kt * kGBK, m0, g);
+          if (two_halves)
+            tma_load_3d(slot + kGABytes / 2, &xmap, &full[st], kt * kGBK, m0 + 64,
+                        g);
+          if constexpr (kKMajorB) {  // one 64 (k) x 256 (n rows) box
+            tma_load_3d(slot + kGABytes, &wmap, &full[st], kt * kGBK, n0, e);
+          } else {  // four 64 (n) x 64 (k rows) boxes
+            for (int q = 0; q < 4; ++q)
+              tma_load_3d(slot + kGABytes + q * kBoxBytes, &wmap, &full[st],
+                          n0 + 64 * q, kt * kGBK, e);
+          }
+        }
+        if (++st == kGStages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64)
+    const int wg = warp / 4;
+    const int t = tid % 128;
+    float acc[128];  // the first product (kt = 0, kk = 0) overwrites it
+    int st = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full[st], ph);
+      {
+        const unsigned char* slot = ring + st * kGStageBytes;
+        const unsigned char* a = slot + wg * (kGABytes / 2);
+        const unsigned char* b = slot + kGABytes;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGBK / 16 && kProducts; ++kk) {
+          const uint64_t da = desc(a + 32 * kk, 16, 1024);
+          if constexpr (kKMajorB)
+            wgmma_m64n256k16<0>(acc, da, desc(b + 32 * kk, 16, 1024),
+                                (kt | kk) != 0);
+          else
+            wgmma_m64n256k16<1>(acc, da, desc(b + 2048 * kk, kBoxBytes, 1024),
+                                (kt | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_acc(acc);
+      }
+      if (prev >= 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
+      prev = st;
+      if (++st == kGStages) { st = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    store_acc(o + static_cast<size_t>(64 * wg) * N, N, rows - 64 * wg,
+              live - 64 * wg, cols, acc, t);
+  }
+}
+
+int launch_wgmma(const void* x, const void* w, const void* counts, void* out,
+                 int G, int E, int C, int K, int N, int sw_e, int sw_k,
+                 int sw_n, cudaStream_t st) {
+  if (K % 8 != 0 || N % 8 != 0 || sw_e % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool mn_major = sw_n == 1 && sw_k % 8 == 0;
+  const bool k_major = !mn_major && sw_k == 1 && sw_n % 8 == 0;
+  if (!mn_major && !k_major) return static_cast<int>(cudaErrorInvalidValue);
+  if (K == 0)  // an empty contraction: every row is zero
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(G) * C * N * sizeof(bf16), st));
+  const int m_tiles = (C + kGBM - 1) / kGBM, n_tiles = (N + kGBN - 1) / kGBN;
+  const long long blocks = static_cast<long long>(G) * m_tiles * n_tiles;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t es = sizeof(bf16);
+  const uint64_t uk = K, un = N, uc = C;
+  CUtensorMap xm, wm;
+  bool ok = hopper::make_map_3d(&xm, x, uk, uc, G, uk * es, uc * uk * es,
+                                kGBK, kGBM / 2);
+  if (mn_major)
+    ok = ok && hopper::make_map_3d(&wm, w, un, uk, E, sw_k * es, sw_e * es, 64,
+                                   kGBK);
+  else
+    ok = ok && hopper::make_map_3d(&wm, w, uk, un, E, sw_n * es, sw_e * es,
+                                   kGBK, kGBN);
+  if (!ok) return hopper::kErrTensorMap;
+  const auto kernel = mn_major ? gmm_wgmma<false> : gmm_wgmma<true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kGThreads, kGSmem, st>>>(
+      xm, wm, static_cast<const int*>(counts), static_cast<bf16*>(out), E, C,
+      K, N, m_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (G, C, K) contiguous; w: E weights, element (e, k, n) at
 // w[e * sw_e + k * sw_k + n * sw_n]; group g reads weight g % E; counts:
-// (G,) int32; out: (G, C, N) contiguous.  dtype kBF16 takes the tensor
-// cores and needs sw_n == 1 or sw_k == 1, K % 8 == 0, N % 8 == 0, sw_e and
-// the other stride multiples of 8 and 16-byte aligned x, w and out; kF32
-// takes FMA and any strides.
+// (G,) int32; out: (G, C, N) contiguous.  dtype kBF16 takes the Hopper form
+// and needs sw_n == 1 or sw_k == 1, K % 8 == 0, N % 8 == 0, sw_e and the
+// other stride multiples of 8 and 16-byte aligned x, w and out (returns
+// hopper::kErrTensorMap if TMA refuses a map); kF32 takes FMA, any strides
+// and G <= 65535.
 extern "C" int grouped_matmul(const void* x, const void* w, const void* counts,
                               void* out, int G, int E, int C, int K, int N,
                               int sw_e, int sw_k, int sw_n, int dtype,
                               void* stream) {
   if (G == 0 || C == 0 || N == 0) return static_cast<int>(cudaSuccess);
-  if (E <= 0 || G > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kBN - 1) / kBN, (C + kBM - 1) / kBM, G);
+  if (E <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case repro::kF32:
+    case repro::kF32: {
+      if (G > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      const dim3 grid((N + kBN - 1) / kBN, (C + kBM - 1) / kBM, G);
       gmm_fma<<<grid, kFmaThreads, 0, st>>>(
           static_cast<const float*>(x), static_cast<const float*>(w),
           static_cast<const int*>(counts), static_cast<float*>(out), E, C, K,
           N, sw_e, sw_k, sw_n);
-      break;
+      return static_cast<int>(cudaGetLastError());
+    }
     case repro::kBF16:
-      if (K % 8 != 0 || N % 8 != 0 || sw_e % 8 != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-      if (sw_n == 1 && sw_k % 8 == 0)
-        gmm_tc<false><<<grid, kTcThreads, 0, st>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-            static_cast<const int*>(counts), static_cast<bf16*>(out), E, C, K,
-            N, sw_e, sw_k);
-      else if (sw_k == 1 && sw_n % 8 == 0)
-        gmm_tc<true><<<grid, kTcThreads, 0, st>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-            static_cast<const int*>(counts), static_cast<bf16*>(out), E, C, K,
-            N, sw_e, sw_n);
-      else
-        return static_cast<int>(cudaErrorInvalidValue);
-      break;
+      return launch_wgmma(x, w, counts, out, G, E, C, K, N, sw_e, sw_k, sw_n, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,381 @@
+// The Hopper (sm_90a) grouped-GEMM core shared by csrc/fused_swiglu.cu and
+// csrc/grouped_matmul.cu: TMA tensor maps encoded on the host, a ring of
+// shared-memory stages filled by one producer thread with TMA loads and
+// guarded by full/empty mbarriers, and consumer warpgroups that run
+// wgmma.mma_async (bf16 in, f32 accumulate) on the stages that have landed;
+// and, for CTAs that share work as a thread-block cluster, stores into a
+// neighbour's shared memory and arrivals on its barriers.
+//
+// Layouts.  Every tile in shared memory is stored with the 128-byte swizzle
+// (Swizzle<3,4,3>: the 16-byte chunk c of 128-byte row r sits at chunk
+// c ^ (r % 8)), which is what a CU_TENSOR_MAP_SWIZZLE_128B load writes and
+// what a wgmma descriptor of layout type 1 reads.  A TMA box is at most 64
+// bf16 (128 bytes) wide, so a tile is a stack of 128-byte rows:
+//   K-major operand (k contiguous): one row per m (or n), 64 k per row; a
+//     k16 step advances the descriptor's start by 32 bytes; 8-row groups
+//     are 1024 bytes apart (SBO).
+//   MN-major operand (n contiguous; B only): one row per k, 64 n per row,
+//     one box of k-rows per 64 columns; a k16 step advances the start by
+//     16 rows (2048 bytes); 8-k-row groups are 1024 bytes apart (SBO) and
+//     the 64-column boxes one box apart (LBO).
+//   A K-major operand may also be stored with the 64-byte swizzle (32 k per
+//     64-byte row, 8-row groups 512 bytes apart; chunk c of row r at
+//     c ^ ((r / 2) % 4)), for a k step of 32.
+// Tile bases are 1024-byte aligned, so the swizzle phase is the address's.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver entry is looked up
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace hopper {
+
+// ---------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, taken from the driver at run time through the
+// runtime, so the libraries need no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Returned by a C entry when a tensor map cannot be encoded (no driver
+// entry, or a base, stride or extent TMA refuses); the wrappers say so.
+constexpr int kErrTensorMap = -1;
+
+// A 3-D bf16 tensor map: extents innermost first, byte strides of dims 1
+// and 2, a box of box0 x box1 x 1, rows swizzled by `swizzle` (the box's
+// inner extent, box0 * 2 bytes, must not exceed the swizzle's width).
+// Elements past an extent read as zeros.  Needs a 16-byte aligned base and
+// strides.
+inline bool make_map_3d(CUtensorMap* map, const void* base, uint64_t n0,
+                        uint64_t n1, uint64_t n2, uint64_t stride1,
+                        uint64_t stride2, uint32_t box0, uint32_t box1,
+                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Time split (chip_smoke.py): built with -DREPRO_LOADS_ONLY a kernel's
+// consumers issue no wgmma, with -DREPRO_PRODUCTS_ONLY its producer
+// arrives on each full barrier without loading.  Either build computes
+// garbage and serves only to time the kernel's loads or its products alone.
+#if defined(REPRO_LOADS_ONLY)
+constexpr bool kLoads = true, kProducts = false;
+#elif defined(REPRO_PRODUCTS_ONLY)
+constexpr bool kLoads = false, kProducts = true;
+#else
+constexpr bool kLoads = true, kProducts = true;
+#endif
+
+// -------------------------------------------------------------- device side
+
+constexpr int kBoxBytes = 64 * 64 * 2;  // a 64 x 64 bf16 box, 8 KiB
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async (TMA) proxy.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer's arrival on a full barrier, announcing the bytes its TMA
+// loads will deliver to this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the barrier's current phase differs from `parity`, with
+// acquire at CTA scope, or at cluster scope (kCluster) for a barrier that
+// cluster neighbours arrive on after writing this CTA's shared memory.  A
+// wait that lasts ~2^32 clocks (seconds) traps, so a fault in the protocol
+// ends the launch with an error instead of hanging the card; the clock is
+// read only once the first try has failed.
+template <bool kCluster>
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  if constexpr (kCluster)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  return done != 0;
+}
+
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try_wait<kCluster>(a, parity)) return;
+  const long long start = clock64();
+  for (uint32_t n = 1;; ++n) {
+    if (mbar_try_wait<kCluster>(a, parity)) return;
+    if (n % 1024 == 0 && clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// One TMA load of a box at coordinates (c0, c1, c2) into shared memory,
+// completing on `bar` (its bytes count against the barrier's expect_tx).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA in the cluster: a CTA's shared memory and
+// barriers exist for its neighbours only after this (and __syncthreads is
+// implied).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+                   : "memory");
+}
+
+// The shared-memory address in CTA `cta` of the cluster that corresponds
+// to this CTA's shared address `a`.
+__device__ __forceinline__ uint32_t map_shared(uint32_t a, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(cta));
+  return r;
+}
+
+// Arrival, with release at cluster scope, on the barrier at shared::cluster
+// address `a` (a neighbour's, from map_shared): the neighbour's acquiring
+// wait then sees this thread's earlier writes to its shared memory.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared::cluster.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile starting at `p` (byte
+// offsets lbo and sbo as in the header comment), rows swizzled by 128 bytes
+// (kSwizzle 128, layout type 1) or 64 bytes (kSwizzle 64, layout type 2: a
+// K-major tile of 32 k per 64-byte row, 8-row groups 512 bytes apart).
+template <int kSwizzle = 128>
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64, "128- or 64-byte swizzle");
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(kSwizzle == 128 ? 1 : 2) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to the accumulator across the
+// asynchronous wgmma's issue and wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Generic-proxy writes to shared memory (this CTA's or, through
+// st_cluster_b32, a cluster neighbour's) made visible to the async proxy
+// (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Where a warpgroup's accumulator element i (of N/2, for a 64 x N tile)
+// lives: thread t of the warpgroup holds row 16 * (t / 32) + (t % 32) / 4 +
+// 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
+__device__ __forceinline__ int acc_row(int t, int i) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int t, int i) {
+  return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+}
+
+// Stores a warpgroup's 64 x N f32 accumulator as bf16 rows of `out` (row
+// stride ld elements): rows below `live` get the product, rows in [live,
+// rows) zeros, and nothing is written at or past `rows` or `cols` (cols is a
+// multiple of 2).
+template <int R>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
+                                          int rows, int live, int cols,
+                                          const float (&d)[R], int t) {
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int r = acc_row(t, i), c = acc_col(t, i);
+    if (r < rows && c < cols) {
+      const __nv_bfloat162 v =
+          r < live ? __floats2bfloat162_rn(d[i], d[i + 1])
+                   : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(out + r * ld + c) = v;
+    }
+  }
+}
+
+// Zeros for rows [0, rows) x columns [0, cols) of `out` (row stride ld),
+// 16 bytes a thread where the row allows it.
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* out, size_t ld,
+                                          int rows, int cols, int tid,
+                                          int threads) {
+  const int chunks = (cols + 7) / 8;  // cols is a multiple of 8
+  for (int q = tid; q < rows * chunks; q += threads)
+    *reinterpret_cast<uint4*>(out + (q / chunks) * ld + 8 * (q % chunks)) =
+        make_uint4(0, 0, 0, 0);
+}
+
+// D(64 x 128, f32) (+)= A(64 x 16, bf16, K-major) * B(16 x 128, bf16), A and B
+// read from shared memory through their descriptors; kTransB = 1 when B is
+// MN-major (n contiguous).  scale_d = 0 overwrites D.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// D(64 x 256, f32) (+)= A(64 x 16, bf16, K-major) * B(16 x 256, bf16), A and B
+// read from shared memory through their descriptors; kTransB = 1 when B is
+// MN-major (n contiguous).  scale_d = 0 overwrites D.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+
+}  // namespace hopper

@@ -6,11 +6,14 @@ after a hash of the sources and flags, so an edited source is rebuilt; the
 library is loaded with ``ctypes``.  Nothing is built at import: a wrapper
 builds its kernel at first use, and :func:`build_all` builds them all at once,
 one ``nvcc`` per source running in parallel.  A failed build raises; nothing
-falls back.
+falls back.  A variant built with extra ``-D`` defines (the time split of
+``csrc/hopper.cuh``) is a library of its own, which :func:`use_variant` puts
+behind the ordinary wrappers for a while.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +33,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+_VARIANT: dict[str, tuple[str, ...]] = {}    # kernel -> defines now in use
 
 
 def nvcc() -> str:
@@ -47,21 +51,22 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*FLAGS, *defines)).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    tag = "".join(f"-{d.removeprefix('-D').lower()}" for d in defines)
+    return BUILD / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    so = library_path(name)
+def _start(name: str, defines: tuple[str, ...] = ()):
+    so = library_path(name, defines)
     if so.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
@@ -79,16 +84,18 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all(names=KERNELS) -> dict[str, str]:
-    """Build every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns the compiler's output (register
-    and shared-memory use from ``-Xptxas -v``) by kernel, or '' for a library
-    that was already built."""
-    jobs = {name: _start(name) for name in names}
+def build_all(names=KERNELS, variants=((),)) -> dict[str, str]:
+    """Build every kernel library (each of ``names`` with each tuple of
+    defines in ``variants``) that is not built yet, one ``nvcc`` per
+    library, all started together.  Returns the compiler's output (register
+    and shared-memory use from ``-Xptxas -v``) by library file name, or ''
+    for a library that was already built."""
+    jobs = {(name, v): _start(name, v) for v in variants for name in names}
     logs, errors = {}, []
-    for name, job in jobs.items():      # wait for every job, then raise
+    for (name, v), job in jobs.items():      # wait for every job, then raise
         try:
-            logs[name] = _finish(name, job) if job is not None else ""
+            logs[library_path(name, v).name] = (
+                _finish(name, job) if job is not None else "")
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
@@ -97,14 +104,29 @@ def build_all(names=KERNELS) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+    """The loaded library of kernel ``name`` (of the variant in use, see
+    :func:`use_variant`), built first if needed."""
+    key = (name, _VARIANT.get(name, ()))
+    lib = _LIBS.get(key)
     if lib is None:
-        job = _start(name)
+        job = _start(*key)
         if job is not None:
             _finish(name, job)
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        lib = _LIBS[key] = ctypes.CDLL(str(library_path(*key)))
     return lib
+
+
+@contextlib.contextmanager
+def use_variant(name: str, *defines: str):
+    """Within the block, kernel ``name``'s wrapper launches its library built
+    with ``defines`` (such as ``-DREPRO_LOADS_ONLY``, which computes garbage
+    and serves only to time a kernel's loads)."""
+    before = _VARIANT.get(name, ())
+    _VARIANT[name] = tuple(defines)
+    try:
+        yield
+    finally:
+        _VARIANT[name] = before
 
 
 def bind(name: str, fn: str, n_ptr: int, n_int: int):
@@ -122,7 +144,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+TENSOR_MAP_ERROR = -1   # csrc/hopper.cuh: kErrTensorMap
+
+
 def check(err: int, what: str) -> None:
+    if err == TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: a TMA tensor map could not be encoded "
+                           "(base, stride or extent refused)")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

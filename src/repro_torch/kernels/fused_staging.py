@@ -1,15 +1,18 @@
 """Fused grouped SwiGLU over the landed dispatch buffer, on Hopper.
 
 Port of the Pallas kernel ``repro/kernels/fused_staging.py``
-(``fused_swiglu_pallas``).  The CUDA kernel is ``csrc/fused_swiglu.cu``: one
-block per (source lane, local expert, tile of rows) keeps its x tile and the
-tile's hidden activations in shared memory, so the (C, f) activations never
-reach device memory; a tile past the group's occupancy writes zeros and
-skips its weights.  It has two variants, chosen from the inputs: bf16 with d
-and f multiples of 16 runs on the tensor cores (WMMA, 16-row tiles, weights
-streamed by ``cp.async``); anything else runs with FMA on the CUDA cores,
-walking f in chunks into an f32 output accumulator.
-:func:`fused_swiglu_plain` is its plain PyTorch version.
+(``fused_swiglu_pallas``).  The CUDA kernels are in ``csrc/fused_swiglu.cu``
+(its header says what bounds them on the H100 and how they are laid out):
+one block per (source lane, local expert, tile of rows) keeps the tile's
+hidden activations in shared memory, so the (C, f) activations never reach
+device memory; a tile past the group's occupancy writes zeros and skips its
+weights.  Two forms, chosen from the inputs: bf16 with d and f multiples of 8
+and 16-byte aligned operands runs the Hopper form (64-row tiles, each split
+over a two-CTA cluster; TMA into a shared-memory ring, ``wgmma`` on two
+consumer warpgroups; :func:`hopper_plan` mirrors its shared-memory plan);
+anything else runs with FMA on the CUDA cores, walking f in chunks into an
+f32 output accumulator.  :func:`fused_swiglu_plain` is its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -20,34 +23,51 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_swiglu_ref as fused_swiglu_plain
 
 # tile geometry of csrc/fused_swiglu.cu
-FC = 32          # f columns per chunk (FMA variant)
+FC = 32          # f columns per chunk (FMA form)
 WARPS = 8
-TC_WARP_BYTES = 8 * 1024 + 2 * 16 * 16 * 4   # per-warp weight ring + scratch
 TILE_ROWS = (16, 8, 4, 2, 1)
 SMEM_OPTIN = 232448   # bytes of shared memory a Hopper block may opt into
+# the Hopper form (swiglu_wgmma): 64-row tiles, the resident activations
+# (64 x f rounded up to 64 columns, bf16) and SMEM_FIXED bytes of alignment
+# slack and barriers, then stages of one x k-tile (64 x BK) and four BK x 64
+# weight boxes, as many as fit up to MAX_STAGES
+TILE_M = 64
+BK = 32
+ACT_BLOCK = TILE_M * 64 * 2
+STAGE_BYTES = TILE_M * BK * 2 + 4 * BK * 64 * 2
+MAX_STAGES = 8
+MIN_STAGES = 2
+SMEM_FIXED = 1024 + 256
 
 
 def smem_bytes(bc: int, d: int, elem_bytes: int) -> int:
-    """Dynamic shared memory of one FMA-variant block
+    """Dynamic shared memory of one FMA-form block
     (csrc/fused_swiglu.cu:smem_bytes): f32 accumulator, warp partials,
     activation chunk, x tile."""
     return bc * d * 4 + WARPS * 2 * bc * FC * 4 + bc * FC * 4 + bc * d * elem_bytes
 
 
-def smem_bytes_tc(d: int, f: int) -> int:
-    """Dynamic shared memory of one tensor-core-variant block
-    (csrc/fused_swiglu.cu:smem_bytes_tc): bf16 x tile and activation rows
-    (16 rows each), then each warp's weight ring and scratch."""
-    return 16 * d * 2 + 16 * f * 2 + WARPS * TC_WARP_BYTES
+def hopper_plan(f: int, limit: int = SMEM_OPTIN) -> tuple[int, int]:
+    """(stages, shared-memory bytes) of one Hopper-form block
+    (csrc/fused_swiglu.cu:hopper_stages, smem_bytes_hopper): the resident
+    bf16 activations, 64 rows by f rounded up to 64, then as many stages as
+    fit, at most MAX_STAGES.  Fewer than MIN_STAGES stages means the form
+    cannot take this f."""
+    act = -(-f // 64) * ACT_BLOCK
+    stages = min(MAX_STAGES, (SMEM_OPTIN - SMEM_FIXED - act) // STAGE_BYTES)
+    smem = SMEM_FIXED + act + max(stages, 0) * STAGE_BYTES
+    return (stages if smem <= limit else 0), smem
 
 
 def use_tensor_cores(x: torch.Tensor, ws, limit: int = SMEM_OPTIN) -> bool:
-    """Whether the tensor-core variant takes these inputs: bf16, d and f
-    multiples of 16, 32-byte aligned operands, and the tile fits."""
+    """Whether the Hopper form takes these inputs: bf16, d and f positive
+    multiples of 8 (TMA's 16-byte strides), 16-byte aligned operands, and at
+    least MIN_STAGES stages beside the resident activations."""
     d, f = x.shape[-1], ws[0].shape[-1]
-    return (x.dtype == torch.bfloat16 and d % 16 == 0 and f % 16 == 0
-            and all(t.data_ptr() % 32 == 0 for t in (x, *ws))
-            and smem_bytes_tc(d, f) <= limit)
+    return (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+            and d > 0 and f > 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *ws))
+            and hopper_plan(f, limit)[0] >= MIN_STAGES)
 
 
 def tile_rows(c: int, d: int, elem_bytes: int, limit: int = SMEM_OPTIN) -> int:

@@ -4,11 +4,13 @@ Port of the Pallas kernel ``repro/kernels/grouped_matmul.py``.  The CUDA
 kernel is ``csrc/grouped_matmul.cu`` (its header says what bounds it and how
 it is laid out): one block per (column tile, row tile, group), the
 contraction looped inside the block, a tile past the group's occupancy
-written as zeros without reading x or w.  bf16 runs on the tensor cores
-(WMMA); float32 runs with FMA.  The weights are read through their strides,
-so a transposed view (``w.transpose(1, 2)``) is taken without a copy, and
-group g reads weight ``g % E``, so the S source lanes of a landed (S, E, C,
-.) buffer share their experts' weights in one launch.
+written as zeros without reading x or w.  bf16 runs the Hopper form (128 x
+256 tiles, TMA into a four-stage shared-memory ring, ``wgmma`` on two
+consumer warpgroups); float32 runs with FMA.  The weights are read through
+their strides, so a transposed view (``w.transpose(1, 2)``) is taken without
+a copy (loaded K-major; a row-major weight is loaded MN-major), and group g
+reads weight ``g % E``, so the S source lanes of a landed (S, E, C, .) buffer
+share their experts' weights in one launch.
 :func:`grouped_matmul_plain` is its plain PyTorch version.
 """
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_matmul_ref as grouped_matmul_plain
 
-MAX_GROUPS = 65535     # the grid's z extent
+MAX_GROUPS = 65535     # the FMA form's grid z extent (float32 only)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -27,9 +29,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     """out[g] = x[g] @ w[g % E] on the card, rows at or past counts[g] zero.
 
     x: (G, C, K) contiguous; w: (E, K, N) with G % E == 0, any strides
-    (bf16: unit stride along N or along K, 16-byte aligned rows); counts:
-    (G,) int32; x and w of one dtype (float32 or bfloat16).  Returns (G, C,
-    N) in x's dtype."""
+    (bf16: unit stride along N or along K, 16-byte aligned rows; float32: G
+    <= MAX_GROUPS); counts: (G,) int32; x and w of one dtype (float32 or
+    bfloat16).  Returns (G, C, N) in x's dtype."""
     _build.require_cuda("grouped_matmul", x, counts)
     if w.device != x.device:
         raise ValueError(f"grouped_matmul: w on {w.device}, x on {x.device}")
@@ -38,9 +40,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(x.shape)} {tuple(w.shape)}")
     g, c, k = x.shape
     e, _, n = w.shape
-    if e == 0 or g % e or g > MAX_GROUPS:
+    if e == 0 or g % e or (x.dtype == torch.float32 and g > MAX_GROUPS):
         raise ValueError(f"grouped_matmul: {g} groups over {e} weights "
-                         f"(G % E == 0, G <= {MAX_GROUPS})")
+                         f"(G % E == 0; float32: G <= {MAX_GROUPS})")
     if counts.shape != (g,) or counts.dtype != torch.int32:
         raise ValueError(f"grouped_matmul: counts ({g},) int32; got "
                          f"{tuple(counts.shape)} {counts.dtype}")
@@ -70,10 +72,11 @@ grouped_matmul.launches = 0
 
 
 def tensor_core_layout(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether the bf16 tensor-core form takes these operands: K and N
-    multiples of 8, 16-byte aligned pointers, w's expert stride a multiple
-    of 8, and w unit-strided along N (row-major) or along K (a transposed
-    view) with the other stride a multiple of 8."""
+    """Whether the bf16 Hopper form takes these operands, which is what its
+    TMA maps need: K and N multiples of 8, 16-byte aligned pointers, w's
+    expert stride a multiple of 8, and w unit-strided along N (row-major,
+    loaded MN-major) or along K (a transposed view, loaded K-major) with the
+    other stride a multiple of 8."""
     k, n = w.shape[1], w.shape[2]
     s_e, s_k, s_n = w.stride()
     unit = (s_n == 1 and s_k % 8 == 0) or (s_k == 1 and s_n % 8 == 0)

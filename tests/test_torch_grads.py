@@ -150,7 +150,8 @@ def test_grouped_matmul_wrapper_passes_what_the_c_entry_takes(monkeypatch):
     assert "grouped_matmul" in _build.KERNELS
 
 
-@pytest.mark.parametrize("what", ["groups", "counts", "dtype", "layout", "cpu"])
+@pytest.mark.parametrize("what", ["groups", "counts", "dtype", "layout",
+                                  "ragged_k", "cpu"])
 def test_grouped_matmul_wrapper_refuses_what_the_kernel_does_not_take(
         monkeypatch, what):
     if what != "cpu":
@@ -166,8 +167,34 @@ def test_grouped_matmul_wrapper_refuses_what_the_kernel_does_not_take(
     elif what == "layout":        # bf16 with neither n nor k unit-strided
         x, w = x.to(torch.bfloat16), torch.zeros(2, 16, 8, 2,
                                                  dtype=torch.bfloat16)[..., 0]
+    elif what == "ragged_k":      # bf16 with K % 8 != 0: no TMA map for x
+        x, w = (torch.zeros(4, 8, 12, dtype=torch.bfloat16),
+                torch.zeros(2, 12, 8, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="grouped_matmul"):
         gmm_k.grouped_matmul(x, w, counts)
+
+
+@pytest.mark.parametrize("dtype,launched", [(torch.bfloat16, True),
+                                            (torch.float32, False)])
+def test_grouped_matmul_group_limit_is_the_fma_forms(monkeypatch, dtype,
+                                                    launched):
+    """The Hopper form flattens its grid, so bf16 takes more than 65535
+    groups; the float32 FMA form keeps the grid's z limit and refuses."""
+    calls = []
+    monkeypatch.setattr(_build, "bind", lambda *a: (
+        lambda *args: calls.append(args) or 0))
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    g = gmm_k.MAX_GROUPS + 1
+    x, w = torch.zeros(g, 1, 8, dtype=dtype), torch.zeros(1, 8, 8, dtype=dtype)
+    counts = torch.ones(g, dtype=torch.int32)
+    if launched:
+        assert gmm_k.grouped_matmul(x, w, counts).shape == (g, 1, 8)
+        assert calls[0][4] == g
+    else:
+        with pytest.raises(ValueError, match="groups"):
+            gmm_k.grouped_matmul(x, w, counts)
+        assert not calls
 
 
 # ------------------------------------------------------ kernel entry VJPs

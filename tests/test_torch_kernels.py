@@ -223,12 +223,93 @@ def test_wrappers_pass_what_the_c_entries_take(monkeypatch):
 
 @pytest.mark.parametrize("dtype,d,f,tc", [("bf16", 2048, 768, True),
                                           ("bf16", 64, 32, True),
-                                          ("bf16", 16, 24, False),
+                                          ("bf16", 16, 24, True),
+                                          ("bf16", 16, 20, False),
+                                          ("bf16", 2048, 8192, False),
                                           ("f32", 2048, 768, False)])
 def test_fused_swiglu_variant_follows_the_inputs(dtype, d, f, tc):
+    """bf16 with d and f multiples of 8 (TMA's 16-byte strides) and room
+    for two stages beside the resident activations takes the Hopper form;
+    anything else the FMA form."""
     td = DTYPES[dtype][1]
     x = torch.empty(1, 1, 1, d, dtype=td)
     ws = (torch.empty(1, d, f, dtype=td), torch.empty(1, d, f, dtype=td),
           torch.empty(1, f, d, dtype=td))
     assert fused_staging.use_tensor_cores(x, ws) is tc
-    assert fused_staging.smem_bytes_tc(2048, 768) == 172032
+    assert fused_staging.hopper_plan(768) == (6, 222464)
+
+
+def _c_constants(name: str) -> dict:
+    """The ``constexpr int`` constants of csrc/<name>.cu (and of the
+    headers it names), evaluated in order."""
+    import re
+    from repro_torch.kernels import _build
+    env = {}
+    for src in ("common.cuh", "hopper.cuh", f"{name}.cu"):
+        text = (_build.CSRC / src).read_text()
+        for key, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+            expr = re.sub(r"//.*", "", expr).replace("hopper::", "")
+            env[key] = eval(expr, {}, dict(env))
+    return env
+
+
+def test_hopper_plan_mirrors_the_c_source():
+    """fused_staging's plan of the Hopper form uses csrc/fused_swiglu.cu's
+    tile geometry and shared-memory budget."""
+    c = _c_constants("fused_swiglu")
+    fs = fused_staging
+    assert (fs.TILE_M, fs.BK, fs.ACT_BLOCK, fs.STAGE_BYTES, fs.MAX_STAGES,
+            fs.SMEM_OPTIN, fs.SMEM_FIXED) == (
+        c["kTileM"], c["kBK"], c["kActBlock"], c["kStageBytes"],
+        c["kMaxStages"], c["kSmemOptin"], c["kSmemFixed"])
+    g = _c_constants("grouped_matmul")
+    assert g["kGSmem"] <= fs.SMEM_OPTIN     # grouped_matmul's fixed ring fits
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moe-tx-stream"])
+@pytest.mark.parametrize("reduced", [False, True])
+def test_hopper_plan_takes_every_config(arch, reduced):
+    """Every MoE configuration the port serves or trains, at full width and
+    reduced, fits the Hopper form's shared memory with at least two stages
+    and takes it in bf16."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    stages, smem = fused_staging.hopper_plan(f)
+    assert stages >= fused_staging.MIN_STAGES
+    assert smem <= fused_staging.SMEM_OPTIN
+    assert smem == (fused_staging.SMEM_FIXED + -(-f // 64) * fused_staging.ACT_BLOCK
+                    + stages * fused_staging.STAGE_BYTES)
+    bf = dict(dtype=torch.bfloat16)
+    x = torch.empty(1, 1, 8, d, **bf)
+    ws = (torch.empty(1, d, f, **bf), torch.empty(1, d, f, **bf),
+          torch.empty(1, f, d, **bf))
+    assert fused_staging.use_tensor_cores(x, ws)
+
+
+def test_fused_swiglu_bf16_the_hopper_form_refuses_runs_fma(monkeypatch):
+    """A bf16 shape the Hopper form cannot take (f not a multiple of 8) is
+    routed to the FMA entry, with its rows-per-tile argument."""
+    from repro_torch.kernels import _build
+    calls = []
+
+    def fake_bind(name, fn, n_ptr, n_int):
+        return lambda *args: calls.append((fn, args)) or 0
+
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: object())
+    bf = dict(dtype=torch.bfloat16)
+    counts = torch.ones(1, 2, dtype=torch.int32)
+    fused_staging.fused_swiglu(torch.zeros(1, 2, 3, 16, **bf),
+                               torch.zeros(2, 16, 20, **bf),
+                               torch.zeros(2, 16, 20, **bf),
+                               torch.zeros(2, 20, 16, **bf), counts)
+    (fn, args), = calls
+    assert fn == "fused_swiglu"
+    assert args[6:11] == (1, 2, 3, 16, 20)
+    assert args[11] == _build.DTYPE_CODE[torch.bfloat16]
+    assert args[12] == fused_staging.tile_rows(3, 16, 2)
