@@ -8,44 +8,57 @@
    the compiler's register / shared-memory / spill report (fails if a
    Hopper-form kernel, ``*_wgmma``, spills), then the count of HGMMA (wgmma)
    and UTMALDG (TMA load) instructions that ``cuobjdump -sass`` finds in the
-   fused_swiglu and grouped_matmul libraries (fails if either is 0).
+   libraries of the Hopper forms, fused_swiglu, grouped_matmul and
+   flash_attention (fails if any is 0).
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card, in bf16, at the shapes its paths give it, and times kernel, plain
-   version and a PyTorch yardstick with CUDA events:
+   version and a PyTorch yardstick with CUDA events (the median of 5 rounds,
+   printed with the fastest and slowest round):
    - the MoE kernels at the qwen3-moe-30b-a3b prefill of 8 requests x 64
      tokens through fused_flat (T = 512 tokens, 128 experts, top-8,
      capacity 64; and the decode shape), and at the moe-tx-stream prefill
-     of 8 x 512 tokens (T = 4096, 64 experts, top-4, capacity 512);
+     of 8 x 512 tokens (T = 4096, 64 experts, top-4, capacity 512); the
+     combine (segment_scatter_add over the plan's slot table) must give the
+     same bits on two calls (so must the unit-gate form, the gather's
+     backward), and its path without owner lists (the counting build, then
+     the reduce) is held against it;
    - the flash attention at both prefill shapes and at the shifted query
-     stripe of one EP lane (with and without a window);
+     stripe of one EP lane (with and without a window), beside SDPA with a
+     boolean mask and, where the positions are plain, with is_causal;
    - at the training shape of qwen3-moe-30b-a3b (B 4 x S 512: T = 2048,
      capacity 256): grouped_matmul 2048 -> 768 and 768 -> 2048 through a
-     transposed weight view, and fused_swiglu's forward;
-   - odd shapes of the Hopper forms of fused_swiglu and grouped_matmul
-     (``odd_shape_checks``), held only.
+     transposed weight view, fused_swiglu's forward, the flash forward and
+     the combine;
+   - odd shapes of the Hopper forms, of the flash tensor-core form (the
+     bf16 shapes the Hopper form refuses) and of the scatter-add and its
+     backward (``odd_shape_checks``), held only.
    Each Hopper-form row also gives the time of the kernel's loads alone and
    of its products alone (``time_split``: builds with the consumers issuing
    no wgmma, and with the producer loading nothing).
 3. Backward rows: each autograd Function's backward (gather, scatter-add,
    fused SwiGLU, flash) on the card against the same backward on the plain
-   versions, at the training shapes, with times.
+   versions, at the training shapes, with times; the gather's and the
+   scatter-add's must give the same bits on two calls.
 4. Serve phases, one per path: zero the kernels' launch counters, serve the
    full-width model through ``repro_torch.launch.serve`` (qwen3-moe-30b-a3b
    at 4 layers; moe-tx-stream-1b at all 16), read the counters and fail if a
    kernel of the path never launched.  Then profile one prefill and one
    decode step of the same path (torch.profiler) and print the device's busy
    time beside the step's wall time, and the kernels with the most device
-   time.
+   time; fails if a profile shows a kernel no full-width step may run
+   (``OFF_PATH``) or a prefill's shows no ``flash_fwd_wgmma``.
 5. Train phase: zero the counters, train full-width qwen3-moe-30b-a3b (4 of
    48 layers) for 8 AdamW steps through ``repro_torch.launch.train``, read
-   the counters and fail if one of the five kernels never launched or a
-   loss is not finite; print the losses, ms/step, tokens/s and peak memory,
-   then profile one step, its forward+backward and its optimizer update.
+   the counters and fail if a kernel of the path (the five, and the
+   scatter-add's backward) never launched or a loss is not finite; print
+   the losses, ms/step, tokens/s and peak memory, then profile one step, its
+   forward+backward and its optimizer update.
 6. Checks the outputs: finite logits and in-vocabulary tokens of the right
    shape, each reduced model's logits on the card (kernels) against the
-   same model on the CPU (plain versions), and one reduced train step in
-   float32 on the card against the CPU (loss, every grad leaf, every updated
-   param).
+   same model on the CPU (plain versions), the reduced models served and
+   trained on the card in bf16 (their attention on the flash tensor-core
+   form), and one reduced train step in float32 on the card against the
+   CPU (loss, every grad leaf, every updated param).
 7. Prints the card's name and power limit, the kernels' numbers as one JSON
    line, and last ``{"ok": true, "device": {...}}``.
 
@@ -96,7 +109,7 @@ SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
-SPLIT_KERNELS = ("fused_swiglu", "grouped_matmul")
+SPLIT_KERNELS = ("fused_swiglu", "grouped_matmul", "flash_attention")
 SPLIT = {"loads_only_ms": "-DREPRO_LOADS_ONLY",
          "products_only_ms": "-DREPRO_PRODUCTS_ONLY"}
 # the query stripe of EP lane 1 of 4 against the gathered keys
@@ -129,11 +142,26 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
+class Timing(float):
+    """A median device time in ms, with its fastest and slowest round."""
+
+    def __new__(cls, median: float, lo: float, hi: float):
+        t = super().__new__(cls, median)
+        t.lo, t.hi = lo, hi
+        return t
+
+
+def spread(t) -> str:
+    """' [min-max]' of a Timing, '' for a plain number."""
+    return f" [{t.lo:.4f}-{t.hi:.4f}]" if hasattr(t, "lo") else ""
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 5) -> Timing:
     """Device time of one call of ``fn``: CUDA events around ``reps``
-    back-to-back calls, divided by ``reps``; the median of ``rounds``.  Each
-    round is queued behind a device-side sleep, so the host has issued every
-    call before the first event fires and its launch overhead is not timed."""
+    back-to-back calls, divided by ``reps``; the median of ``rounds``, with
+    the fastest and slowest round beside it.  Each round is queued behind a
+    device-side sleep, so the host has issued every call before the first
+    event fires and its launch overhead is not timed."""
     import torch
     for _ in range(warmup):
         fn()
@@ -155,7 +183,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 3) -> float:
             raise AssertionError(f"issuing {reps} calls took {issue_ms:.3f} ms, "
                                  "longer than the device sleep ahead of them")
         ts.append(start.elapsed_time(end) / reps)
-    return statistics.median(ts)
+    return Timing(statistics.median(ts), min(ts), max(ts))
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -194,6 +222,7 @@ def main_path_inputs(device, t, d, n_experts, top_k, f, decode_t, seed=0):
     return dict(x=x, w1=w1, w3=w3, w2=w2, cap=cap, counts=counts,
                 idx=plan.src_of_slot.contiguous(),
                 gates=plan.gate_of_slot.float().contiguous(),
+                owners=plan.slots.slot.contiguous(),
                 decode_rows=xd[None, None].expand(1, n_experts, decode_t, d).contiguous(),
                 decode_counts=torch.full((1, n_experts), decode_t,
                                          dtype=torch.int32, device=device))
@@ -256,14 +285,18 @@ def swiglu_row(name, xs, w1, w3, w2, counts, timer=time_ms):
 
 
 def odd_shape_checks(device="cuda") -> list[str]:
-    """The Hopper forms of fused_swiglu and grouped_matmul against their
-    plain versions at the shapes the main paths do not give them: C = 8
+    """The Hopper forms of fused_swiglu, grouped_matmul and the flash
+    forward, the flash tensor-core form on the bf16 shapes the Hopper form
+    refuses, and the scatter-add's forward (both paths) and backward,
+    against their plain versions at the shapes the main paths do not give
+    them.  fused_swiglu and grouped_matmul: C = 8
     (decode), a C that is not a multiple of the row tile, counts of 0, of C
     and of more than C, a partial last tile, S = 2 source lanes sharing E
     weights (g % E), and d, f, K, N that are not multiples of the tiles;
     grouped_matmul with row-major weights (MN-major loads) and with a
-    transposed view (K-major loads).  bf16, held to TOL_REL of each output's
-    largest magnitude.  Returns one line per case."""
+    transposed view (K-major loads); bf16, held to TOL_REL of each output's
+    largest magnitude.  The flash cases as ``flash_row`` holds them.
+    Returns one line per case."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
     from repro_torch.kernels import grouped_matmul as gmm_k
@@ -309,17 +342,64 @@ def odd_shape_checks(device="cuda") -> list[str]:
             hold(f"grouped_matmul G {s_ * e} E {e} C {c} K {k} N {n} {layout} "
                  f"counts {counts}", gmm_k.grouped_matmul(x, w, cnt),
                  gmm_k.grouped_matmul_plain(x, w, cnt))
+
+    # flash: the Hopper form with ragged Sq and Sk, G 1 / 4 / 8, windows, a
+    # shifted stripe, hd 64 and 128; then the tensor-core form on the bf16
+    # shapes the Hopper form refuses (hd 16 and 32, the reduced models' hd
+    # 16 at their (Sq, G), G 3 and 5): (B, Sq, Sk, Hq, Hkv, hd, first query
+    # position, window), every query at or below the last key's position
+    from repro_torch.kernels import flash_attention as fa_k
+    for b_, sq, sk, hq, hkv, hd, q0, window in (
+            (2, 50, 77, 4, 4, 64, 27, None), (1, 100, 100, 16, 4, 64, 0, 40),
+            (1, 128, 512, 16, 4, 64, 128, 192), (2, 33, 200, 16, 2, 128, 167, None),
+            (1, 130, 130, 32, 4, 128, 0, None), (1, 64, 70, 8, 8, 128, 6, 16),
+            (4, 16, 16, 4, 2, 16, 0, None), (2, 50, 77, 8, 4, 16, 27, 16),
+            (1, 100, 100, 8, 4, 32, 0, 40), (1, 128, 512, 12, 4, 64, 128, 192),
+            (2, 33, 200, 10, 2, 128, 167, None)):
+        form = ("tensor-core" if fa_k.hopper_refusal(hd, hq, hkv, sk)
+                else "Hopper")
+        what = (f"flash ({form} form) B {b_} Sq {sq} at {q0}.. Sk {sk} G "
+                f"{hq // hkv} hd {hd} window {window}")
+        _, _, err, tol, worst, err_lse = hold_flash(
+            what, *attention_inputs(device, b_, sq, sk, hq, hkv, hd, q0, seed=4),
+            window)
+        lines.append(f"{what}: max_abs_err {err:.4g} (tol {tol:.4g}), worst row "
+                     f"{worst:.3f} of its tolerance, lse {err_lse:.4g}")
+
+    # segment_scatter_add and its backward: no owners (the counting build)
+    # and an owner table, f32 and bf16, d off the 16-byte vector, rows with
+    # no owner
+    from repro_torch.kernels import segment_scatter_add as s_k
+    for r, t, d, dtype in ((40, 7, 100, torch.float32), (64, 16, 24, bf16),
+                           (10, 30, 64, bf16), (33, 5, 36, bf16)):
+        src = randn(r, d).to(dtype)
+        dst = torch.randint(-1, t, (r,), generator=g, device=device,
+                            dtype=torch.int32)
+        gates = torch.rand(r, generator=g, device=device)
+        dout = randn(t, d).to(dtype)
+        table = s_k.owner_table(*s_k.build_owners_plain(dst, t))
+        want = s_k.segment_scatter_add_plain(src, dst, gates, t)
+        what = f"segment_scatter_add R {r} -> {t} d {d} {dtype}"
+        hold(f"{what} (counting build)", s_k.segment_scatter_add(src, dst, gates, t),
+             want)
+        hold(f"{what} (owner table)", s_k.segment_scatter_add(src, dst, gates, t,
+                                                              table), want)
+        for part, got, plain in zip(
+                ("dsrc", "dgates"), s_k.segment_scatter_add_bwd(src, dst, gates, dout),
+                s_k.segment_scatter_add_bwd_plain(src, dst, gates, dout)):
+            hold(f"{what} backward {part}", got, plain)
     return lines
 
 
 def sass_counts() -> dict:
-    """``cuobjdump -sass`` of the built fused_swiglu and grouped_matmul
-    libraries: the number of HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in each.  Fails if either is 0."""
+    """``cuobjdump -sass`` of the libraries of the Hopper forms
+    (fused_swiglu, grouped_matmul, flash_attention): the number of HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions in each.  Fails if either is
+    0."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     out = {}
-    for name in ("fused_swiglu", "grouped_matmul"):
+    for name in SPLIT_KERNELS:
         sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -429,31 +509,83 @@ def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
                              name="fused_swiglu_fma", main_path=False,
                              max_abs_err=err_fma, ms=timer(fma, reps=5)))
 
-    # segment_scatter_add: (R, d) -> T rows, gated
-    src = expert_out.reshape(-1, d)
-    got = s_k.segment_scatter_add(src, idx, gates, t)
-    want = s_k.segment_scatter_add_plain(src, idx, gates, t)
-    err = max_err(got, want)
-    tol = TOL_REL * want.float().abs().max().item()
-    if not err <= tol:
-        raise AssertionError(f"segment_scatter_add: max_abs_err {err} > {tol}")
+    # segment_scatter_add: (R, d) -> T rows, gated, over the plan's owners
+    return rows + scatter_rows(expert_out.reshape(-1, d), inp, t, timer)
+
+
+def same_bits(a, b) -> bool:
+    """a and b hold the same bytes."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def scatter_rows(src, inp, t, timer=time_ms) -> list[dict]:
+    """segment_scatter_add at one shape: the owner-reduce over the flat
+    plan's slot table (the main path) against the plain owner-reduce and
+    the reference's scatter-add, two calls bitwise equal (gated, and with
+    the unit gates of the gather's backward); then the path of a
+    caller with no owners (the counting build, then the reduce), its lists
+    equal to the plain build's, its output held against the main path's
+    and bitwise repeatable (held and timed, not on the main path)."""
+    import torch
+    from repro_torch.kernels import segment_scatter_add as s_k
+    idx, gates, owners = inp["idx"], inp["gates"], inp["owners"]
+    r, d = src.shape
+    es = src.element_size()
+    got = s_k.segment_scatter_add(src, idx, gates, t, owners)
+    ones = torch.ones_like(gates)     # as the gather's backward calls it
+    unit = lambda: s_k.segment_scatter_add(src, idx, ones, t, owners)
+    if not (same_bits(got, s_k.segment_scatter_add(src, idx, gates, t, owners))
+            and same_bits(unit(), unit())):
+        raise AssertionError(f"segment_scatter_add ({r}, {d}) -> {t}: two "
+                             "calls differ (gated, or with unit gates)")
+    want = s_k.owner_reduce_plain(src, gates, owners, t)
+    oracle = s_k.segment_scatter_add_plain(src, idx, gates, t)
+    tol = TOL_REL * oracle.float().abs().max().item()
+    err, err_oracle = max_err(got, want), max_err(got, oracle)
+    if not (err <= tol and err_oracle <= tol):
+        raise AssertionError(f"segment_scatter_add: max_abs_err {err} against "
+                             f"the plain owner-reduce, {err_oracle} against "
+                             f"the scatter-add, tol {tol}")
     live_rows = int((idx >= 0).sum())
-    b_ms, b_by = bound(live_rows * d * es + r * 8 + t * d * es,
-                       2 * live_rows * d, F32_PEAK)
+    b_ms, b_by = bound(live_rows * (d * es + 4) + owners.numel() * 4
+                       + t * d * es, 2 * live_rows * d, F32_PEAK)
     dump = torch.where(idx < 0, t, idx).long()
     scaled = src.float() * gates[:, None]
-    acc = torch.zeros(t + 1, d, device=x.device)
-    rows.append(dict(
+    acc = torch.zeros(t + 1, d, device=src.device)
+    row = dict(
         name="segment_scatter_add", shape=f"src ({r}, {d}) -> ({t}, {d}) bf16",
         route="cuda", source="src/repro_torch/csrc/segment_scatter_add.cu",
         replaces="src/repro/kernels/segment_scatter_add.py:37",
         max_abs_err=err, tol=tol,
-        ms=timer(lambda: s_k.segment_scatter_add(src, idx, gates, t)),
-        plain_ms=timer(lambda: s_k.segment_scatter_add_plain(src, idx, gates, t)),
+        ms=timer(lambda: s_k.segment_scatter_add(src, idx, gates, t, owners)),
+        plain_ms=timer(lambda: s_k.owner_reduce_plain(src, gates, owners, t),
+                       reps=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         library="Tensor.index_add_ (f32, pre-gated rows, dump row for -1)",
-        library_ms=timer(lambda: acc.index_add_(0, dump, scaled))))
-    return rows
+        library_ms=timer(lambda: acc.index_add_(0, dump, scaled)))
+    # no owners: the counting build on the card
+    offsets, lists = s_k.build_owners(idx, t)
+    p_off, p_lists = s_k.build_owners_plain(idx, t)
+    if not (torch.equal(offsets, p_off)
+            and torch.equal(lists[:p_lists.numel()], p_lists)):
+        raise AssertionError("segment_scatter_add: the counting build's lists "
+                             "differ from the plain build's")
+    counted = s_k.segment_scatter_add(src, idx, gates, t)
+    err_c = max_err(counted, got)
+    if not (err_c <= tol and same_bits(
+            counted, s_k.segment_scatter_add(src, idx, gates, t))):
+        raise AssertionError(f"segment_scatter_add without owners: "
+                             f"max_abs_err {err_c} (tol {tol}) against the "
+                             "owners path, or two calls differ")
+    counting = dict(row, name="segment_scatter_add_counting", main_path=False,
+                    shape=row["shape"] + " (no owners: counting build + reduce)",
+                    max_abs_err=err_c,
+                    ms=timer(lambda: s_k.segment_scatter_add(src, idx, gates, t)),
+                    plain_ms=timer(lambda: s_k.segment_scatter_add_plain(
+                        src, idx, gates, t), reps=3, warmup=1))
+    return [row, counting]
 
 
 def attention_inputs(device, b, sq, sk, hq, hkv, hd, q0=0, seed=0):
@@ -467,12 +599,11 @@ def attention_inputs(device, b, sq, sk, hq, hkv, hd, q0=0, seed=0):
             torch.arange(sk, dtype=torch.int32, device=device))
 
 
-def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
-    """The flash kernel against its plain version on one attention call:
-    output and lse, times, the bound and the SDPA yardstick."""
-    import torch
+def hold_flash(what, q, k, v, qp, kp, window):
+    """The flash kernel against its plain version on one attention call;
+    returns (output, lse, max_abs_err, its tolerance, worst row's share of
+    its tolerance, lse error)."""
     from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.kernels.ref import attention_mask
     out, lse = fa_k.flash_attention(q, k, v, qp, kp, True, window)
     want, want_lse = fa_k.flash_attention_plain(q, k, v, qp, kp, True, window)
     err = max_err(out, want)
@@ -481,12 +612,25 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
     row_err = (out.float() - want.float()).abs().amax(-1)
     row_tol = TOL_REL * want.float().abs().amax(-1)
     worst_row = (row_err / row_tol).max().item()
-    tol = row_tol.max().item()
     err_lse = max_err(lse, want_lse)
     if not (worst_row <= 1.0 and err_lse <= TOL_LSE):
-        raise AssertionError(f"flash_attention: worst row error {worst_row} of "
+        raise AssertionError(f"{what}: worst row error {worst_row} of "
                              f"its row's tolerance (max_abs_err {err}), lse "
                              f"{err_lse} (tol {TOL_LSE})")
+    return out, lse, err, row_tol.max().item(), worst_row, err_lse
+
+
+def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
+    """The flash kernel against its plain version on one attention call:
+    output and lse, times, the bound, its time split and the SDPA
+    yardsticks: with the boolean mask from the positions, and, where the
+    positions are plain aranges over one length and there is no window,
+    with ``is_causal=True`` and no mask (SDPA's flash backend)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels.ref import attention_mask
+    out, lse, err, tol, worst_row, err_lse = hold_flash(
+        "flash_attention", q, k, v, qp, kp, window)
     b, sq, hq, hd = q.shape
     g = hq // k.shape[2]
     es = q.element_size()
@@ -502,6 +646,14 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
     vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask)
+    call = lambda: fa_k.flash_attention(q, k, v, qp, kp, True, window)
+    arange = torch.arange(sq, dtype=qp.dtype, device=qp.device)
+    causal = {}
+    if window is None and k.shape[1] == sq and torch.equal(qp, arange) \
+            and torch.equal(kp, arange):
+        causal["library_causal_ms"] = timer(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
     row = dict(
         name="flash_attention",
         shape=(f"q ({b}, {sq}, {hq}, {hd}) at {int(qp[0])}.. k ({k.shape[1]}, "
@@ -510,14 +662,15 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
         replaces="src/repro/kernels/flash_attention.py:97",
         max_abs_err=err, tol=tol, max_abs_err_lse=err_lse,
         worst_row_share=worst_row,
-        ms=timer(lambda: fa_k.flash_attention(q, k, v, qp, kp, True, window)),
+        ms=timer(call),
         plain_ms=timer(lambda: fa_k.flash_attention_plain(q, k, v, qp, kp,
                                                           True, window),
                        reps=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         library="F.scaled_dot_product_attention (bool mask from positions, "
                 "kv heads repeated)",
-        library_ms=timer(sdpa))
+        library_ms=timer(sdpa), **causal,
+        **time_split("flash_attention", call, timer))
     return row
 
 
@@ -527,6 +680,8 @@ def counters():
                                      segment_scatter_add)
     return {"segment_gather": segment_gather.segment_gather,
             "segment_scatter_add": segment_scatter_add.segment_scatter_add,
+            "segment_scatter_add_bwd":
+                segment_scatter_add.segment_scatter_add_bwd,
             "fused_swiglu": fused_staging.fused_swiglu,
             "flash_attention": flash_attention.flash_attention,
             "grouped_matmul": grouped_matmul.grouped_matmul}
@@ -610,6 +765,37 @@ def device_summary(prof, wall_ms: float) -> dict | None:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, activities=len(spans),
                 by_kernel=sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def reduced_bf16_runs(device="cuda") -> dict:
+    """``serve.run`` of each path's reduced model and a ``train.run`` of the
+    reduced qwen3-moe on the card in their default bf16: their head dim 16
+    sends attention to the flash tensor-core form.  The serve and train
+    phases' checks, and every flash launch through
+    ``flash_attention_fwd_tc``.  Returns the launch counts per run."""
+    from repro_torch.kernels import _build
+    runs, entries, bind = {}, [], _build.bind
+
+    def recording(name, fn, *a):
+        entries.append(fn)
+        return bind(name, fn, *a)
+
+    _build.bind = recording
+    try:
+        for arch in PATHS:
+            runs[f"serve {arch}"] = serve_phase(
+                ["--arch", arch, "--reduced", "--requests", "3",
+                 "--prompt-len", "8", "--gen", "4"], device)[1]
+        runs["train qwen3-moe-30b-a3b"] = train_phase(
+            ["--reduced", "--steps", "3", "--seq", "32", "--batch", "2"],
+            device)[1]
+    finally:
+        _build.bind = bind
+    flash = {e for e in entries if e.startswith("flash_attention_fwd")}
+    if flash != {"flash_attention_fwd_tc"}:
+        raise AssertionError(f"reduced bf16 runs: flash entries {flash}, "
+                             "expected the tensor-core form alone")
+    return runs
 
 
 def reduced_check(arch: str, device="cuda") -> float:
@@ -712,7 +898,7 @@ def train_swiglu_row(inp, timer=time_ms) -> dict:
 def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     """Each autograd Function's backward on the card (``torch.autograd.grad``
     through ``kernels.ops``, the kernels inside) against the same backward
-    on the plain versions (``ref.*_bwd`` with the plain gather / grouped
+    on the plain versions (``ref.*_bwd``, the SwiGLU's on the plain grouped
     matmul; for flash, from the plain forward's output and lse), at the
     training shapes; times of the backward alone (the graph is kept), of the
     plain backward, and of torch's autograd through a library forward."""
@@ -732,7 +918,8 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     def back(out, inputs, cot):
         return lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)
 
-    def row(name, parts, got, want, nbytes, ops_, ms, plain, library, lib_ms):
+    def row(name, parts, got, want, nbytes, ops_, ms, plain, library, lib_ms,
+            kernel=None):
         errs = {}
         for k, a, b in zip(parts, got, want):
             err = max_err(a, b)
@@ -741,21 +928,29 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
                 raise AssertionError(f"{name} {k}: max_abs_err {err} > {tol}")
             errs[k] = (err, tol)
         b_ms, b_by = bound(nbytes, ops_, BF16_PEAK)
-        return dict(name=name, parts=errs, ms=ms,
-                    plain_ms=timer(plain, reps=3, warmup=1), bound_ms=b_ms,
-                    bound_by=b_by, library=library, library_ms=lib_ms)
+        out = dict(name=name, parts=errs, ms=ms,
+                   plain_ms=timer(plain, reps=3, warmup=1), bound_ms=b_ms,
+                   bound_by=b_by, library=library, library_ms=lib_ms)
+        if kernel is not None:    # a backward with a kernel of its own
+            out.update(kernel, max_abs_err=max(e for e, _ in errs.values()))
+        return out
 
     rows = []
     live_rows = int((idx >= 0).sum())
     safe_idx = idx.clamp_min(0).long()
-    # gather: the backward is the scatter-add of the cotangent, unit gates
+    owners = inp["owners"]
+    # gather: the backward is the scatter-add of the cotangent, unit gates,
+    # over the plan's owners (as flat_dispatch passes them)
     src, dout = leaf(x), randn(r, d)
-    out = ops.segment_gather(src, idx)
+    out = ops.segment_gather(src, idx, owners)
     ones = torch.ones(r, device=dev)
     lib_src = leaf(x)
     lib_out = torch.index_select(lib_src, 0, safe_idx)
+    got = back(out, src, dout)()
+    if not same_bits(got[0], back(out, src, dout)()[0]):
+        raise AssertionError("segment_gather backward: two calls differ")
     rows.append(row(
-        "segment_gather backward", ("dsrc",), back(out, src, dout)(),
+        "segment_gather backward", ("dsrc",), got,
         (ref.segment_scatter_add_ref(dout, idx, ones, t),),
         live_rows * d * es + r * 4 + t * d * es, live_rows * d,
         timer(back(out, src, dout)),
@@ -766,20 +961,31 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     # scatter-add: the gather of the cotangent times the gates, and dgates
     buf = ref.segment_gather_ref(x, idx)
     src, gts, dout = leaf(buf), leaf(gates), randn(t, d)
-    out = ops.segment_scatter_add(src, idx, gts, t)
-    plain = lambda: ref.segment_scatter_add_bwd(buf, idx, gates, dout,
-                                                gather=ref.segment_gather_ref)
+    out = ops.segment_scatter_add(src, idx, gts, t, owners)
+    plain = lambda: ref.segment_scatter_add_bwd(buf, idx, gates, dout)
     lib_src, lib_g = leaf(buf), leaf(gates)
     dump = torch.where(idx < 0, t, idx).long()
     lib_out = torch.zeros(t + 1, d, device=dev).index_add(
         0, dump, lib_src.float() * lib_g[:, None])[:t]
+    got = back(out, (src, gts), dout)()
+    again = back(out, (src, gts), dout)()
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError("segment_scatter_add backward: two calls differ")
+    # what the one pass must move: dst, and dgates written, for every row;
+    # for a live row its gate and its src row read (a dropped row reads
+    # neither: its dsrc is written as zeros); each dout row some live row
+    # lands on read once; dsrc written
+    n_dst = int(torch.unique(idx[idx >= 0]).numel())
     rows.append(row(
-        "segment_scatter_add backward", ("dsrc", "dgates"),
-        back(out, (src, gts), dout)(), plain(),
-        t * d * es + r * 8 + 2 * r * d * es + r * 4, 3 * r * d,
+        "segment_scatter_add backward", ("dsrc", "dgates"), got, plain(),
+        n_dst * d * es + r * 8 + live_rows * (d * es + 4) + r * d * es,
+        3 * live_rows * d,
         timer(back(out, (src, gts), dout)), plain,
         "autograd of index_add (f32, pre-gated rows)",
-        timer(back(lib_out, (lib_src, lib_g), dout.float()))))
+        timer(back(lib_out, (lib_src, lib_g), dout.float())),
+        dict(route="cuda", source="src/repro_torch/csrc/segment_scatter_add.cu",
+             replaces="src/repro/kernels/ops.py:93 (_scatter_bwd: the gather "
+                      "of src/repro/kernels/segment_gather.py:56, then jnp)")))
     del out, lib_out, buf
     # fused SwiGLU: the recompute, its products on the grouped matmul
     xs = ref.segment_gather_ref(x, idx).reshape(1, n_e, cap, d)
@@ -889,7 +1095,7 @@ def train_profile(argv, device="cuda") -> dict:
 # device time by kind: the port's hand-written kernels by their names in
 # csrc/, cuBLAS products, PyTorch's elementwise and reduction kernels
 KINDS = (("hand-written", ("swiglu_", "gmm_", "flash_fwd", "gather_rows",
-                           "scatter_add_rows")),
+                           "owner_reduce", "scatter_add_bwd")),
          ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
          ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
 
@@ -964,11 +1170,15 @@ def print_row(r: dict) -> None:
            if "max_abs_err_lse" in r else "")
     split = (f"  loads only {r['loads_only_ms']:.4f} ms, products only "
              f"{r['products_only_ms']:.4f} ms" if "loads_only_ms" in r else "")
+    causal = (f"  SDPA is_causal {r['library_causal_ms']:.4f} ms"
+              f"{spread(r['library_causal_ms'])}"
+              if "library_causal_ms" in r else "")
     print(f"kernel {r['name']:<20} {r['shape']}: max_abs_err "
-          f"{r['max_abs_err']:.4g} (tol {r['tol']:.4g}){lse}  {r['ms']:.4f} ms  "
-          f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']})  library {r['library_ms']:.4f} ms "
-          f"[{r['library']}]{split}")
+          f"{r['max_abs_err']:.4g} (tol {r['tol']:.4g}){lse}  {r['ms']:.4f} ms"
+          f"{spread(r['ms'])}  plain {r['plain_ms']:.4f} ms  bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+          f"{r['library_ms']:.4f} ms{spread(r['library_ms'])} "
+          f"[{r['library']}]{causal}{split}")
 
 
 def serve_and_profile(arch: str) -> dict:
@@ -998,6 +1208,7 @@ def serve_and_profile(arch: str) -> dict:
 
     for step, p in profile_phase(argv).items():
         print_profile(f"{arch} {step}", p, unprofiled[step])
+        check_profile(f"{arch} {step}", p, flash=step == "prefill")
     torch.cuda.empty_cache()
     return launches
 
@@ -1008,6 +1219,27 @@ def short_name(name: str, width: int = 90) -> str:
     for noise in ("void ", "at::native::", "(anonymous namespace)::", "c10::"):
         name = name.replace(noise, "")
     return name[:width]
+
+
+# kernels of earlier forms that no profile may show any more
+# kernels no full-width step may run: the combine's retired zero fill,
+# atomics and cast, and the flash tensor-core form (the bf16 shapes the
+# Hopper form refuses; no full-width shape is one)
+OFF_PATH = ("scatter_add_rows", "cast_from_f32", "flash_fwd_tc")
+
+
+def check_profile(label: str, p: dict | None, flash: bool) -> None:
+    """Fails if a profiled step ran a kernel of ``OFF_PATH``, or
+    (``flash``) ran no ``flash_fwd_wgmma``."""
+    if p is None:
+        return
+    names = [name for name, _ in p["by_kernel"]]
+    off = [n for n in names if any(x in n for x in OFF_PATH)]
+    if off:
+        raise AssertionError(f"profile {label} shows kernels off the "
+                             f"full-width path {off}")
+    if flash and not any("flash_fwd_wgmma" in n for n in names):
+        raise AssertionError(f"profile {label} shows no flash_fwd_wgmma")
 
 
 def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
@@ -1047,6 +1279,7 @@ def train_and_profile() -> dict:
     torch.cuda.empty_cache()
     for part, p in train_profile(argv).items():
         print_profile(f"train {part}", p, unprofiled)
+        check_profile(f"train {part}", p, flash=part != "adamw.update")
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items()))
@@ -1106,6 +1339,13 @@ def main() -> None:
     with torch.no_grad():
         rows += [dict(r, path="train") for r in gmm_rows(train_inp)]
         rows.append(dict(train_swiglu_row(train_inp), path="train"))
+        # the forwards of the train step's flash and combine
+        rows.append(dict(flash_row(*attention_inputs("cuda", **TRAIN[2]),
+                                   window=None), path="train"))
+        from repro_torch.kernels.ref import segment_gather_ref
+        rows += [dict(r, path="train") for r in scatter_rows(
+            segment_gather_ref(train_inp["x"], train_inp["idx"]), train_inp,
+            train_inp["x"].shape[0])]
         for line in odd_shape_checks():
             print(f"odd shape {line}")
     for r in rows:
@@ -1114,9 +1354,15 @@ def main() -> None:
         parts = ", ".join(f"{k} {e:.4g} (tol {t:.4g})"
                           for k, (e, t) in r["parts"].items())
         print(f"backward {r['name']:<29} at the train shape: max_abs_err "
-              f"{parts}  {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  library "
-              f"{r['library_ms']:.4f} ms [{r['library']}]")
+              f"{parts}  {r['ms']:.4f} ms{spread(r['ms'])}  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']:.4f} ms"
+              f"{spread(r['library_ms'])} [{r['library']}]")
+        if "source" in r:      # a backward with a kernel of its own
+            (t, d), n = train_inp["x"].shape, train_inp["idx"].shape[0]
+            rows.append(dict(r, name="segment_scatter_add_bwd", path="train",
+                             shape=f"train backward: dout ({t}, {d}) -> dsrc "
+                                   f"({n}, {d}), dgates ({n},) bf16"))
     del train_inp
     torch.cuda.empty_cache()
 
@@ -1126,6 +1372,9 @@ def main() -> None:
         worst = reduced_check(arch)
         print(f"reduced {arch} f32, card (kernels) vs CPU (plain): max logit "
               f"error {worst:.3g} (tol {TOL_REDUCED})")
+    for run, n in reduced_bf16_runs().items():
+        print(f"reduced {run} bf16 on the card (flash tensor-core form): "
+              f"launches {json.dumps(n)}")
     err = reduced_train_check()
     print(f"reduced qwen3-moe-30b-a3b train step f32, card (kernels) vs CPU "
           f"(plain): loss {err['loss']:.3g}, grads {err['grads']:.3g} of "
@@ -1139,9 +1388,13 @@ def main() -> None:
     print(smi.splitlines()[0])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "path", "launches_by_phase")
+            "path", "launches_by_phase", "ms_min", "ms_max")
     for r in rows:
-        counter = next(c for c in launches[r["path"]] if r["name"].startswith(c))
+        r["ms_min"], r["ms_max"] = (getattr(r["ms"], "lo", None),
+                                    getattr(r["ms"], "hi", None))
+    for r in rows:
+        counter = max((c for c in launches[r["path"]] if r["name"].startswith(c)),
+                      key=len)
         r["launches_by_phase"] = {a: n[counter] for a, n in launches.items()}
         r["launches"] = r["launches_by_phase"][r["path"]]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows

@@ -163,7 +163,7 @@ def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
     plan = planner_lib.build_flat_plan(A, gates, placement, cap)
 
     # ONE fused gather: token layout -> comm buffer (EP * E_local * C, d)
-    buf = kops.segment_gather(x, plan.src_of_slot)
+    buf = kops.segment_gather(x, plan.src_of_slot, plan.slots.slot)
     buf = _flat_exchange(buf.reshape(placement.ep, e_local * cap, d), cfg,
                          placement.ep, group)
     # landed layout: (source lane, E_local, C, d), expert-grouped already.
@@ -184,5 +184,7 @@ def flat_combine(expert_out: torch.Tensor, res: DispatchResult,
     buf = _flat_exchange(expert_out.reshape(placement.ep, e_local * cap, d),
                          cfg, placement.ep, group, reverse=True)
     buf = buf.reshape(placement.ep * e_local * cap, d)
-    # fused gated scatter-add straight into the original token layout
-    return kops.segment_scatter_add(buf, plan.src_of_slot, plan.gate_of_slot, t)
+    # fused gated scatter-add straight into the original token layout, each
+    # token summed over its slots: the slot table is src_of_slot's inverse
+    return kops.segment_scatter_add(buf, plan.src_of_slot, plan.gate_of_slot, t,
+                                    plan.slots.slot)

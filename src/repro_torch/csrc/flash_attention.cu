@@ -3,21 +3,38 @@
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:_flash_fwd_pallas
 // (_flash_kernel), the attention of every moe_tx layer
 // (repro/core/fusco.py:tx_attention) and, in the port, of the moe family's
-// prefill.  q (B, Sq, Hq, hd), k/v (B, Sk, Hkv, hd) with Hq % Hkv == 0, and
-// int32 positions (Sq,) / (Sk,); out (B, Sq, Hq, hd) in q's dtype and the
-// log-sum-exp (B, Hq, Sq) in float32.  Masking comes from the actual
-// positions (causal: kpos <= qpos; window: qpos - kpos < window), so the
-// shifted query stripe of an EP lane (positions lane*S/ep + arange) is right.
+// prefill and training step.  q (B, Sq, Hq, hd), k/v (B, Sk, Hkv, hd) with
+// Hq % Hkv == 0, and int32 positions (Sq,) / (Sk,); out (B, Sq, Hq, hd) in
+// q's dtype and the log-sum-exp (B, Hq, Sq) in float32.  Masking comes from
+// the actual positions (causal: kpos <= qpos; window: qpos - kpos < window),
+// so the shifted query stripe of an EP lane (positions lane*S/ep + arange)
+// is right.
 //
 // Bound on the H100: bytes.  At the moe_tx prefill shape (B 8, S 512, Hq 16,
 // Hkv 4, hd 64, bf16) it must read q 8 MiB, k and v 2 MiB each and write out
 // 8 MiB and lse 0.25 MiB: ~21 MB, ~6.3 us at 3.35 TB/s, against ~4.3 GFLOP
 // of causally visible work, ~4.4 us at 989 TFLOP/s.
 //
-// Two forms, chosen by the element type at the one C entry below.  bf16, what
-// serving runs, goes to the tensor cores (flash_fwd_tc, mma.sync).  float32,
-// which the reduced models' card-vs-CPU check runs, stays on FMA on the CUDA
-// cores (flash_fwd): tf32 would round the scores to ~3 digits.
+// Three forms.  bf16, what serving and training run, goes to the Hopper form
+// (flash_fwd_wgmma: TMA, an mbarrier ring, wgmma) at hd 64 and 128 and the
+// group sizes that divide 64: every full-width path.  The bf16 shapes it
+// refuses (the reduced models' hd 16, other group sizes) go to the
+// tensor-core form (flash_fwd_tc, mma.sync) through a C entry of their own;
+// the wrapper chooses by shape.  float32, which the reduced models'
+// card-vs-CPU checks run, stays on FMA on the CUDA cores (flash_fwd): tf32
+// would round the scores to ~3 digits.
+//
+// Skipping: the TPU kernel scalar-prefetched per-block position bounds; here
+// a block computes min/max of its own query positions and skips a kv tile
+// only when the bounds prove every entry masked (causal: min kpos > max
+// qpos; window: min qpos - max kpos >= window).  Otherwise each entry is
+// masked from the actual positions, the ragged edge of Sk included.
+//
+// A masked entry scores -1e30, as in the Pallas kernel, so a row whose first
+// visible key comes in a later tile carries weight 1 on masked (zeroed or
+// real) values until that key rescales it by exp(-1e30 - m) = 0.  Rows that
+// see no key at all come from no path of the system: their output is
+// unspecified.
 //
 // FMA form (f32): one block of 256 threads per (batch row, kv head,
 // tile of query rows), where the rows are the (query, head-in-group) pairs of
@@ -28,21 +45,10 @@
 // held by hd/32 threads (one for hd <= 32), each with 32 (or hd) dims of q
 // and of the accumulator, reduced by warp shuffles; scores and the product
 // with v run with FMA in float32.  Each block reads its q rows once and each
-// visible k/v tile once.
-//
-// Skipping: the TPU kernel scalar-prefetched per-block position bounds; here
-// the block computes min/max of its own query positions and, per kv tile,
-// skips the tile only when the bounds prove every entry masked
-// (causal: min kpos > max qpos; window: min qpos - max kpos >= window), via
-// two __syncthreads_or over the tile's positions.  Otherwise each entry is
-// masked from the actual positions, the ragged edge of Sk included.
-//
-// A masked entry scores -1e30, as in the Pallas kernel, so a row whose first
-// visible key comes in a later tile carries weight 1 on masked (zeroed or
-// real) values until that key rescales it by exp(-1e30 - m) = 0.  Rows that
-// see no key at all come from no path of the system: their output is
-// unspecified.
+// visible k/v tile once.  The tile test runs as two __syncthreads_or over
+// the tile's positions.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <climits>
 
@@ -224,19 +230,19 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core form (bf16): mma.sync m16n8k16 with f32 accumulators.  Four
-// warps, each owning 16 of the block's 64 (query, head-in-group) rows; k/v
-// tiles of 64 keys in shared memory, rows padded by 16 bytes so that the
-// fragment loads of the 8 rows of a quad hit distinct banks.  S = Q K^T per
-// 8-key column tile, the online softmax on S's accumulator fragments (a
-// row's 4 lanes combine by shuffles), then P times V with V's fragments
-// loaded by ldmatrix.trans.  P is rounded to bf16 for the tensor cores (the
-// reference's lax flash does the same, p.astype(v.dtype)); the row sums and
-// the accumulators stay f32.  Same skipping, masking and -1e30 sentinel as
-// the FMA form.  Against the byte bound, what remains is latency: a block
-// loads each k/v tile with plain 16-byte loads and waits on a barrier before
-// its warps compute, with no copy in flight behind the compute (cp.async or
-// TMA double buffering is the next step).
+// Tensor-core form (bf16): flash_fwd_tc, mma.sync m16n8k16 with f32
+// accumulators.  It takes the bf16 shapes the Hopper form below refuses:
+// head dims 16 and 32 (the reduced models') and group sizes that do not
+// divide 64.  Four warps, each owning 16 of the block's 64 (query,
+// head-in-group) rows; k/v tiles of 64 keys in shared memory, rows padded
+// by 16 bytes so that the fragment loads of the 8 rows of a quad hit
+// distinct banks.  S = Q K^T per 8-key column tile, the online softmax on
+// S's accumulator fragments (a row's 4 lanes combine by shuffles), then P
+// times V with V's fragments loaded by ldmatrix.trans.  P is rounded to
+// bf16 for the tensor cores, as in the Hopper form; the row sums and the
+// accumulators stay f32.  Same skipping, masking and -1e30 sentinel as the
+// FMA form.  A block loads each k/v tile with plain 16-byte loads and waits
+// on a barrier before its warps compute.
 // ---------------------------------------------------------------------------
 
 constexpr int kTcWarps = 4;
@@ -451,41 +457,498 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Hopper form (bf16): flash_fwd_wgmma, on the core of hopper.cuh.
+//
+// One CTA per (tile of 64 (query, head-in-group) rows, kv head, batch row):
+// for a fixed (b, hk) the G query heads of one query are neighbours in
+// memory, so one 4-D TMA map (hd, Hq, Sq, B) cuts the tile as a (64 hd, G
+// heads, 64 / G queries) box from head hk * G.  160 threads: one consumer
+// warpgroup and one producer warp.  Q is loaded once per CTA; K and V tiles
+// of 64 keys go by TMA (a map (hd, Hkv, Sk, B), so the ragged Sk edge reads
+// zeros) into a ring of two stages, K and V on barriers of their own so
+// that S = Q K^T starts while V is still landing.  64 keys a tile at both
+// head dims: a CTA covers only 64 / G queries (8 or 16), so a wider tile
+// would add masked work on the diagonal, and 64 keys keep S at 32 f32
+// registers a thread.  CTAs are launched heaviest first: the last query
+// tiles, which see the most keys, do not form the tail.
+//
+// The producer warp walks the kv tiles in order: its lanes reduce the tile's
+// key positions to (min, max), it skips a tile the bounds prove masked for
+// every row of the CTA, and for each tile it loads it writes the tile's
+// positions, its index and a "wholly visible" bit into the stage before its
+// arrival on the full barrier, then ends the sequence with a stage marked
+// -1.  The consumers read the tile sequence from there, so producer and
+// consumers agree on it by construction and no one waits on a tile that is
+// never loaded.
+//
+// The consumer warpgroup: S (64 x 64, f32) = Q K^T on wgmma m64n64k16, both
+// operands K-major in 128-byte-swizzled rows; scale, mask from the stage's
+// positions (skipped for a wholly visible tile), and the online softmax on
+// the accumulator fragments (a row's max and sum across the 4 lanes that
+// hold it).  P is rounded to bf16 in registers (the reference's lax flash
+// does the same, p.astype(v.dtype)) and is the register A operand of
+// O += P V (m64n{64,128}k16), its fragments being S's accumulator layout;
+// V is read MN-major through the transpose bit.  O, the row max and the row
+// sum stay in f32 registers.  At the end O is written as bf16 into the Q
+// tile (read for the last time by the last S product) and leaves by TMA
+// stores of the Q boxes' shape; lse is written directly.
+// Each visible K and V tile is read once per CTA, Q once, out written once.
+//
+// What holds it back (a per-CTA globaltimer trace, PERF.md): each CTA is a
+// chain of latencies (Q and first-tile loads ~1.5 us, then ~1 us a tile
+// for S, softmax and P V in turn), so the card is kept busy by CTAs side by
+// side: four an SM at hd 64, two at hd 128.  Overlapping a tile's softmax
+// with the next tile's S product, or a CTA of two consumer warpgroups, was
+// slower (fewer CTAs an SM).
+// ---------------------------------------------------------------------------
+
+constexpr int kFlashRows = 64;     // (query, head-in-group) rows per CTA
+constexpr int kFlashKeys = 64;     // keys per kv tile
+constexpr int kFlashThreads = 160;  // a consumer warpgroup, a producer warp
+constexpr int kFlashStages64 = 2;  // ring depth at hd 64 (four CTAs an SM)
+constexpr int kFlashStages128 = 2; // at hd 128
+constexpr int kFlashFixed = 1024 + 256;  // alignment slack, barriers, tile table
+// CTAs an SM must hold, which bounds the registers of each thread (a
+// sub-partition holds 16384 of them): at hd 64 the consumer fits in the 96
+// of four CTAs of 5 warps, at hd 128 (64 f32 of O a thread, ~143) two
+constexpr int kFlashMinCtas64 = 4;
+constexpr int kFlashMinCtas128 = 2;
+// a stage: a K and a V tile, and the tile's key positions
+constexpr int kFlashStage64 = 2 * kFlashKeys * 64 * 2 + kFlashKeys * 4;
+constexpr int kFlashStage128 = 2 * kFlashKeys * 128 * 2 + kFlashKeys * 4;
+constexpr int kFlashSmem64 =
+    kFlashFixed + kFlashRows * 64 * 2 + kFlashStages64 * kFlashStage64;
+constexpr int kFlashSmem128 =
+    kFlashFixed + kFlashRows * 128 * 2 + kFlashStages128 * kFlashStage128;
+
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kpos, void* out, void* lse, int b, int sq, int sk,
-           int hq, int hkv, int dtype, int causal, int window,
-           cudaStream_t stream) {
-  const long long rows = static_cast<long long>(sq) * (hq / hkv);
-  const int* qp = static_cast<const int*>(qpos);
-  const int* kp = static_cast<const int*>(kpos);
-  float* ls = static_cast<float*>(lse);
-  if (dtype == repro::kBF16) {
-    const dim3 grid(static_cast<unsigned>((rows + kTcRows - 1) / kTcRows),
-                    hkv, b);
-    using T = __nv_bfloat16;
-    flash_fwd_tc<HD><<<grid, kTcWarps * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), qp, kp, static_cast<T*>(out), ls, sq, sk,
-        hq, hkv, causal, window);
-  } else if (dtype == repro::kF32) {
-    const dim3 grid(static_cast<unsigned>((rows + Geo<HD>::ROWS - 1) /
-                                          Geo<HD>::ROWS),
-                    hkv, b);
-    flash_fwd<HD><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), qp, kp, static_cast<float*>(out), ls,
-        sq, sk, hq, hkv, causal, window);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_v) {
+  if constexpr (HD == 64)
+    hopper::wgmma_m64n64k16_rs<1>(o, a, desc_v);
+  else
+    hopper::wgmma_m64n128k16_rs<1>(o, a, desc_v);
+}
+
+// S (64 x 64 keys, f32) = Q K^T, issued and committed as one wgmma group
+// (not waited on): qw the Q tile, kt the K tile, both K-major in HD / 64
+// boxes of 128-byte-swizzled rows.
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&s)[32],
+                                             const unsigned char* qw,
+                                             const unsigned char* kt) {
+  using namespace hopper;
+  if constexpr (!kProducts) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
   }
+  fence_acc(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16 && kProducts; ++kk) {
+    const int off = (kk / 4) * kBoxBytes + 32 * (kk % 4);
+    wgmma_m64n64k16<0>(s, desc(qw + off, 16, 1024), desc(kt + off, 16, 1024),
+                       kk != 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V, issued and committed as one wgmma group: P the register A
+// operand (pa), V (64 keys x HD) read MN-major from vt.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         const unsigned char* vt) {
+  using namespace hopper;
+  fence_acc(o);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4 && kProducts; ++ks)
+    pv_product<HD>(o, pa[ks], desc(vt + 2048 * ks, kBoxBytes, 1024));
+  wgmma_commit();
+}
+
+// The online softmax of one tile's scores s (row acc_row(t, i), key k0 +
+// acc_col(t, i) of element i; info = tile index * 2 + wholly visible): scale
+// to log2 units, mask from the tile's key positions kp unless wholly
+// visible, the new row max m (across the 4 lanes of a row), the rescale
+// corr of what came before, l rescaled and grown by this tile's share, and
+// P in bf16 as wgmma A fragments: pa[ks][j] holds columns 16 ks + 8 (j / 2)
+// + 2 (t % 4) and the next of row half j % 2, s[8 ks + 2 j] and the next.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&pa)[4][4], float (&corr)[2], float (&m)[2],
+    float (&l)[2], const int (&qp)[2], const int* kp, int info, int sk,
+    int causal, int window, float scale_log2, int t) {
+  const int k0 = (info >> 1) * kFlashKeys;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+  if (!(info & 1)) {
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int jl = 8 * a + 2 * (t & 3) + c;
+        const int p = kp[jl];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          bool ok = k0 + jl < sk;
+          if (causal) ok = ok && p <= qp[h];
+          if (window > 0)
+            ok = ok && static_cast<long long>(qp[h]) - p < window;
+          if (!ok) s[4 * a + 2 * h + c] = kNegInf;
+        }
+      }
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    corr[h] = exp2f(m[h] - m_new);
+    l[h] *= corr[h];
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = 8 * ks + 2 * j;
+      const float p0 = exp2f(s[e] - m[j & 1]);
+      const float p1 = exp2f(s[e + 1] - m[j & 1]);
+      l[j & 1] += p0 + p1;
+      __nv_bfloat162 v = __floats2bfloat162_rn(p0, p1);
+      pa[ks][j] = *reinterpret_cast<uint32_t*>(&v);
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kFlashMinCtas128)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const int* __restrict__ qpos, const int* __restrict__ kpos,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int sq, int sk, int hq, int hkv, int causal, int window) {
+  using namespace hopper;
+  static_assert(HD == 64 || HD == 128, "head dims of the Hopper form");
+  constexpr int kChunks = HD / 64;  // 64-wide boxes across hd
+  constexpr int kStages = HD == 64 ? kFlashStages64 : kFlashStages128;
+  constexpr int kTile = kFlashKeys * HD * 2;  // one K or V tile
+  const int g = hq / hkv;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  // the heaviest causal tiles (the last queries) first, for a shorter tail
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kFlashRows;
+  const int rows = sq * g;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(1024) unsigned char smem_f[];
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem_f);  // [kStages]
+  uint64_t* full_v = full_k + kStages;                      // [kStages]
+  uint64_t* empty = full_v + kStages;                       // [kStages]
+  uint64_t* q_full = empty + kStages;
+  int* tile_of = reinterpret_cast<int*>(q_full + 1);        // [kStages]
+  int* qbounds = tile_of + kStages;                         // min, max qpos
+  const uint32_t s0 = smem_addr(smem_f);
+  unsigned char* qs = smem_f + (((s0 + 256 + 1023) & ~1023u) - s0);
+  unsigned char* ring = qs + kFlashRows * HD * 2;
+  int* kpos_s = reinterpret_cast<int*>(ring + kStages * 2 * kTile);  // [kStages][64]
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty[i], 4);  // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    qbounds[0] = INT_MAX;
+    qbounds[1] = INT_MIN;
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid < kFlashRows) {  // warps 0-3: this CTA's query positions
+    const bool live = row0 + tid < rows;
+    const int p = live ? qpos[(row0 + tid) / g] : 0;
+    const int lo = __reduce_min_sync(0xffffffffu, live ? p : INT_MAX);
+    const int hi = __reduce_max_sync(0xffffffffu, live ? p : INT_MIN);
+    if (tid % 32 == 0) {
+      atomicMin(&qbounds[0], lo);
+      atomicMax(&qbounds[1], hi);
+    }
+  }
+  __syncthreads();
+  const int qmin = qbounds[0], qmax = qbounds[1];
+
+  if (tid >= 128) {  // the producer warp
+    const int lane = tid - 128;
+    if (lane == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&omap);
+      if constexpr (kLoads) {
+        mbar_expect_tx(q_full, kFlashRows * HD * 2);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(qs + c * kBoxBytes, &qmap, q_full, 64 * c, hk * g,
+                      row0 / g, b);
+      } else {
+        mbar_arrive(q_full);
+      }
+    }
+    // a key is within the window of some query of the CTA only if kpos > wlo
+    const long long wlo =
+        window > 0 ? static_cast<long long>(qmin) - window : LLONG_MIN;
+    int st = 0;
+    uint32_t ph = 0;
+    for (int k0 = 0; k0 < sk; k0 += kFlashKeys) {
+      // keys k0 + lane and k0 + lane + 32; positions past Sk are never read
+      const int j0 = k0 + lane, j1 = j0 + 32;
+      const int p0 = j0 < sk ? kpos[j0] : 0, p1 = j1 < sk ? kpos[j1] : 0;
+      const int lo = __reduce_min_sync(
+          0xffffffffu, min(j0 < sk ? p0 : INT_MAX, j1 < sk ? p1 : INT_MAX));
+      const int hi = __reduce_max_sync(
+          0xffffffffu, max(j0 < sk ? p0 : INT_MIN, j1 < sk ? p1 : INT_MIN));
+      // min kpos <= max qpos, and min qpos - max kpos < window
+      if (!((!causal || lo <= qmax) && static_cast<long long>(hi) > wlo))
+        continue;
+      const bool whole =
+          k0 + kFlashKeys <= sk && (!causal || hi <= qmin) &&
+          (window <= 0 || static_cast<long long>(qmax) - lo < window);
+      if (lane == 0) mbar_wait(&empty[st], ph ^ 1);
+      __syncwarp();  // the stage is free: its positions may be written
+      kpos_s[st * kFlashKeys + lane] = p0;
+      kpos_s[st * kFlashKeys + lane + 32] = p1;
+      __syncwarp();  // lane 0's arrival below publishes the whole warp's writes
+      if (lane == 0) {
+        tile_of[st] = (k0 / kFlashKeys) * 2 + (whole ? 1 : 0);
+        unsigned char* kt = ring + st * 2 * kTile;
+        if constexpr (kLoads) {
+          mbar_expect_tx(&full_k[st], kTile);
+          for (int c = 0; c < kChunks; ++c)
+            tma_load_4d(kt + c * kBoxBytes, &kmap, &full_k[st], 64 * c, hk, k0,
+                        b);
+          mbar_expect_tx(&full_v[st], kTile);
+          for (int c = 0; c < kChunks; ++c)
+            tma_load_4d(kt + kTile + c * kBoxBytes, &vmap, &full_v[st], 64 * c,
+                        hk, k0, b);
+        } else {
+          mbar_arrive(&full_k[st]);
+          mbar_arrive(&full_v[st]);
+        }
+      }
+      if (++st == kStages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    if (lane == 0) {  // the end of the sequence
+      mbar_wait(&empty[st], ph ^ 1);
+      tile_of[st] = -1;
+      mbar_arrive(&full_k[st]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup
+  const int t = tid, lane = t % 32;
+  const float scale_log2 = rsqrtf(static_cast<float>(HD)) * kLog2e;
+  int qp[2];  // the positions of the thread's rows, acc_row(t, 2 h)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + acc_row(t, 2 * h);
+    qp[h] = r < rows ? qpos[r / g] : 0;
+  }
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's share
+
+  mbar_wait(q_full, 0);
+  int st = 0;
+  uint32_t ph = 0;
+  float s[32], corr[2];
+  uint32_t pa[4][4];
+  for (;;) {  // each tile in turn: S, softmax, P V
+    mbar_wait(&full_k[st], ph);
+    const int info = tile_of[st];
+    if (info < 0) break;
+    const unsigned char* kt = ring + st * 2 * kTile;
+    issue_scores<HD>(s, qs, kt);
+    wgmma_wait<0>();
+    fence_acc(s);
+    softmax_tile(s, pa, corr, m, l, qp, kpos_s + st * kFlashKeys, info, sk,
+                 causal, window, scale_log2, t);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    mbar_wait(&full_v[st], ph);
+    issue_pv<HD>(o, pa, kt + kTile);
+    wgmma_wait<0>();
+    fence_acc(o);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) fence_regs(pa[ks]);
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == kStages) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  // O goes out through the Q tile, which the last S product has read: bf16
+  // into the 128-byte-swizzled layout the Q boxes came in (16-byte chunk c
+  // of row r at chunk c ^ (r % 8)), then TMA stores of the same boxes, which
+  // drop the rows past Sq
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int h = (i >> 1) & 1, r = acc_row(t, i), col = acc_col(t, i);
+    const int cc = col % 64;
+    *reinterpret_cast<__nv_bfloat162*>(
+        qs + (col / 64) * kBoxBytes + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) +
+        (cc & 7) * 2) = __floats2bfloat162_rn(o[i] * inv[h], o[i + 1] * inv[h]);
+  }
+  fence_proxy_async();
+  named_barrier(1, 128);
+  if (t == 0) {
+    for (int c = 0; c < kChunks; ++c)
+      tma_store_4d(&omap, qs + c * kBoxBytes, 64 * c, hk * g, row0 / g, b);
+    tma_store_wait_read();
+  }
+  if ((t & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + acc_row(t, 2 * h);
+      if (r < rows)
+        lse[(static_cast<size_t>(b) * hq + hk * g + r % g) * sq + r / g] =
+            m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f));
+    }
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* qpos,
+                 const void* kpos, void* out, void* lse, int b, int sq, int sk,
+                 int hq, int hkv, int causal, int window, cudaStream_t st) {
+  const int g = hq / hkv;
+  if (64 % g != 0 || sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t es = sizeof(__nv_bfloat16);
+  const uint64_t qn[4] = {HD, static_cast<uint64_t>(hq),
+                          static_cast<uint64_t>(sq), static_cast<uint64_t>(b)};
+  const uint64_t qs[3] = {HD * es, hq * HD * es,
+                          static_cast<uint64_t>(sq) * hq * HD * es};
+  const uint32_t qbox[4] = {64, static_cast<uint32_t>(g),
+                            static_cast<uint32_t>(64 / g), 1};
+  const uint64_t kn[4] = {HD, static_cast<uint64_t>(hkv),
+                          static_cast<uint64_t>(sk), static_cast<uint64_t>(b)};
+  const uint64_t ks[3] = {HD * es, hkv * HD * es,
+                          static_cast<uint64_t>(sk) * hkv * HD * es};
+  const uint32_t kbox[4] = {64, 1, kFlashKeys, 1};
+  CUtensorMap qm, km, vm, om;  // out has q's layout: the same boxes
+  if (!(hopper::make_map_4d(&qm, q, qn, qs, qbox) &&
+        hopper::make_map_4d(&km, k, kn, ks, kbox) &&
+        hopper::make_map_4d(&vm, v, kn, ks, kbox) &&
+        hopper::make_map_4d(&om, out, qn, qs, qbox)))
+    return hopper::kErrTensorMap;
+  constexpr int smem = HD == 64 ? kFlashSmem64 : kFlashSmem128;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)  // room for two CTAs an SM where registers allow
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(sq) * g;
+  const dim3 grid(static_cast<unsigned>((rows + kFlashRows - 1) / kFlashRows),
+                  hkv, b);
+  flash_fwd_wgmma<HD><<<grid, kFlashThreads, smem, st>>>(
+      qm, km, vm, om, static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), sq, sk, hq,
+      hkv, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_fma(const void* q, const void* k, const void* v, const void* qpos,
+               const void* kpos, void* out, void* lse, int b, int sq, int sk,
+               int hq, int hkv, int causal, int window, cudaStream_t st) {
+  const long long rows = static_cast<long long>(sq) * (hq / hkv);
+  const dim3 grid(
+      static_cast<unsigned>((rows + Geo<HD>::ROWS - 1) / Geo<HD>::ROWS), hkv, b);
+  flash_fwd<HD><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos), static_cast<float*>(out),
+      static_cast<float*>(lse), sq, sk, hq, hkv, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
+              const void* kpos, void* out, void* lse, int b, int sq, int sk,
+              int hq, int hkv, int causal, int window, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const long long rows = static_cast<long long>(sq) * (hq / hkv);
+  const dim3 grid(static_cast<unsigned>((rows + kTcRows - 1) / kTcRows), hkv,
+                  b);
+  flash_fwd_tc<HD><<<grid, kTcWarps * 32, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos), static_cast<T*>(out),
+      static_cast<float*>(lse), sq, sk, hq, hkv, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The tensor-core form: bf16 (dtype kBF16) only, hd 16, 32, 64 or 128, any
+// group size; the wrapper sends it the bf16 shapes the Hopper form refuses.
+// The arguments are flash_attention_fwd's.
+extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
+                                      const void* v, const void* qpos,
+                                      const void* kpos, void* out, void* lse,
+                                      int b, int sq, int sk, int hq, int hkv,
+                                      int hd, int dtype, int causal,
+                                      int window, void* stream) {
+  if (b == 0 || sq == 0 || hq == 0) return static_cast<int>(cudaSuccess);
+  if (dtype != repro::kBF16 || hkv <= 0 || hq % hkv != 0 || b > 65535 ||
+      hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return launch_tc<16>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                           causal, window, st);
+    case 32:
+      return launch_tc<32>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                           causal, window, st);
+    case 64:
+      return launch_tc<64>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                           causal, window, st);
+    case 128:
+      return launch_tc<128>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                            causal, window, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // window <= 0: no window.  Pointers are 16-byte aligned (the wrapper checks).
-// dtype kBF16 takes the tensor-core form, kF32 the FMA form.
+// dtype kBF16 takes the Hopper form, which needs hd 64 or 128, a group size
+// Hq / Hkv that divides 64 and Sk >= 1 (else cudaErrorInvalidValue; a map
+// TMA refuses gives hopper::kErrTensorMap); kF32 the FMA form, hd 16, 32, 64
+// or 128.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* qpos, const void* kpos,
                                    void* out, void* lse, int b, int sq, int sk,
@@ -495,19 +958,32 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv != 0 || b > 65535 || hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kBF16) {
+    switch (hd) {
+      case 64:
+        return launch_wgmma<64>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq,
+                                hkv, causal, window, st);
+      case 128:
+        return launch_wgmma<128>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq,
+                                 hkv, causal, window, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype != repro::kF32) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
-                        dtype, causal, window, st);
+      return launch_fma<16>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                            causal, window, st);
     case 32:
-      return launch<32>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
-                        dtype, causal, window, st);
+      return launch_fma<32>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                            causal, window, st);
     case 64:
-      return launch<64>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
-                        dtype, causal, window, st);
+      return launch_fma<64>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                            causal, window, st);
     case 128:
-      return launch<128>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
-                         dtype, causal, window, st);
+      return launch_fma<128>(q, k, v, qpos, kpos, out, lse, b, sq, sk, hq, hkv,
+                             causal, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

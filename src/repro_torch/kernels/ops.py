@@ -8,8 +8,9 @@ reference's ``use_pallas()`` choices (ops.py:38-51, 171-183).
 
 Every entry but ``grouped_matmul`` is a ``torch.autograd.Function`` that
 mirrors the reference's custom VJP and dispatches its backward by device the
-same way (``ref.*_bwd``): gather and scatter-add are each other's transpose,
-so each backward is the other kernel; the fused SwiGLU backward recomputes
+same way (``ref.*_bwd``): the gather's backward is the scatter-add kernel
+(over the owner lists the caller passes), the scatter-add's backward a
+one-pass kernel of its own; the fused SwiGLU backward recomputes
 its hidden activations, its row-masked products on the grouped-matmul
 kernel; the flash backward is a blockwise torch recompute from the
 forward's lse, as the reference's is lax and not Pallas.
@@ -37,8 +38,8 @@ def _on_cuda(what: str, t: torch.Tensor) -> bool:
 
 class _SegmentGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, src, idx, owners):
+        ctx.save_for_backward(idx, owners)
         ctx.rows = src.shape[0]
         if _on_cuda("segment_gather", src):
             return gather_k.segment_gather(src.contiguous(),
@@ -48,41 +49,58 @@ class _SegmentGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         # the transpose: a unit-gate scatter-add of the cotangent
-        idx, = ctx.saved_tensors
+        idx, owners = ctx.saved_tensors
         ones = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
-        return segment_scatter_add(dout, idx, ones, ctx.rows), None
+        return segment_scatter_add(dout, idx, ones, ctx.rows, owners), None, None
 
 
-def segment_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = src[idx[i]]; idx == -1 -> zeros.  src: (T, d); idx: (R,).
-    Backward: the scatter-add of the cotangent with unit gates."""
-    return _SegmentGather.apply(src, idx)
+def segment_gather(src: torch.Tensor, idx: torch.Tensor,
+                   owners: torch.Tensor | None = None) -> torch.Tensor:
+    """out[i] = src[idx[i]]; idx == -1 -> zeros.  src: (T, d); idx: (R,);
+    owners: (T, K), row t the rows i with idx[i] == t (-1 for none), or
+    None.  Backward: the scatter-add of the cotangent with unit gates, over
+    ``owners`` when given."""
+    return _SegmentGather.apply(src, idx, owners)
 
 
 class _SegmentScatterAdd(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src, dst, gates, out_rows):
+    def forward(ctx, src, dst, gates, out_rows, owners):
         ctx.save_for_backward(src, dst, gates)
         if _on_cuda("segment_scatter_add", src):
             return scatter_k.segment_scatter_add(
                 src.contiguous(), dst.to(torch.int32).contiguous(),
-                gates.to(torch.float32).contiguous(), out_rows)
+                gates.to(torch.float32).contiguous(), out_rows,
+                None if owners is None else owners.to(torch.int32).contiguous())
+        if owners is not None:
+            return ref.owner_reduce_ref(src, gates, owners, out_rows)
         return ref.segment_scatter_add_ref(src, dst, gates, out_rows)
 
     @staticmethod
     def backward(ctx, dout):
         src, dst, gates = ctx.saved_tensors
-        dsrc, dgates = ref.segment_scatter_add_bwd(src, dst, gates, dout,
-                                                   gather=segment_gather)
-        return dsrc, None, dgates, None
+        if _on_cuda("segment_scatter_add", src):
+            dsrc, dgates = scatter_k.segment_scatter_add_bwd(
+                src.contiguous(), dst.to(torch.int32).contiguous(),
+                gates.to(torch.float32).contiguous(),
+                dout.to(src.dtype).contiguous())
+            dgates = dgates.to(gates.dtype)
+        else:
+            dsrc, dgates = ref.segment_scatter_add_bwd(src, dst, gates, dout)
+        return dsrc, None, dgates, None, None
 
 
 def segment_scatter_add(src: torch.Tensor, dst: torch.Tensor,
-                        gates: torch.Tensor, out_rows: int) -> torch.Tensor:
+                        gates: torch.Tensor, out_rows: int,
+                        owners: torch.Tensor | None = None) -> torch.Tensor:
     """out[dst[i]] += gates[i] * src[i], f32 accumulation; dst == -1
-    dropped.  src: (R, d); dst/gates: (R,).  Backward: the gather of the
+    dropped.  src: (R, d); dst/gates: (R,); owners: (out_rows, K), row t the
+    source rows landing on t (-1 for none; the flat plan's slot table), or
+    None.  The card sums each output row over its owners in a fixed order
+    (lists built from dst when none are given); the CPU takes the plain
+    owner-reduce when owners are given.  Backward: the gather of the
     cotangent times the gates, and per-row dgates."""
-    return _SegmentScatterAdd.apply(src, dst, gates, out_rows)
+    return _SegmentScatterAdd.apply(src, dst, gates, out_rows, owners)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,

@@ -9,9 +9,10 @@ arithmetic: sums in float32, one cast back to the input dtype at the end.
 
 The backwards (``*_bwd``) port the reference's custom VJPs
 (``repro/kernels/ops.py:62-148``, ``repro/layers/attention.py:171-244``).
-Each takes the primitive it calls (gather, grouped matmul) as an argument:
+``fused_swiglu_bwd`` takes the grouped matmul it calls as an argument:
 ``ops`` passes its device-dispatching entry (the kernel on the card), the
-card's check passes the plain version.
+card's check passes the plain version.  The scatter-add's backward has a
+kernel of its own on the card; this one is its CPU path and oracle.
 """
 
 from __future__ import annotations
@@ -39,13 +40,56 @@ def segment_scatter_add_ref(src: torch.Tensor, dst: torch.Tensor,
     return out[:out_rows].to(src.dtype)
 
 
+def owner_reduce_ref(src: torch.Tensor, gates: torch.Tensor,
+                     owners: torch.Tensor, out_rows: int) -> torch.Tensor:
+    """The scatter-add read from the output side: out[t] = sum over row t
+    of the (out_rows, K) owner table of gates[i] * src[i], entries < 0
+    skipped; each product and each partial sum rounded to float32 in the
+    row's order, then one cast to src's dtype.  With the lists of ``dst``
+    it is :func:`segment_scatter_add_ref` summed in another order."""
+    table = owners.long()
+    live = (table >= 0)[..., None]
+    safe = table.clamp_min(0)
+    terms = torch.where(live, src.float()[safe] * gates.float()[safe][..., None],
+                        0.0)                                 # (out_rows, K, d)
+    out = torch.zeros((out_rows, src.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    for j in range(table.shape[1]):          # the list's order, as the kernel
+        out = out + terms[:, j]
+    return out.to(src.dtype)
+
+
+def owner_table(offsets: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:
+    """CSR owner lists as a (out_rows, K) int32 table, K the longest list,
+    -1 past each list's end."""
+    lengths = (offsets[1:] - offsets[:-1]).long()
+    pos = torch.arange(int(lengths.max()) if lengths.numel() else 0,
+                       device=offsets.device)
+    at = offsets[:-1, None].long() + pos
+    live = pos < lengths[:, None]
+    got = owners.reshape(-1)[torch.where(live, at, 0)] if owners.numel() else at
+    return torch.where(live, got, -1).to(torch.int32)
+
+
+def build_owners_ref(dst: torch.Tensor, out_rows: int):
+    """The owner lists of ``dst`` over [0, out_rows) as CSR: offsets
+    (out_rows + 1,) and owners (nnz,) int32, each list ascending (the
+    counting build of the kernel)."""
+    rows = torch.nonzero((dst >= 0) & (dst < out_rows)).flatten()
+    keys = dst[rows].long()
+    owners = rows[torch.sort(keys, stable=True).indices].to(torch.int32)
+    counts = torch.bincount(keys, minlength=out_rows)
+    offsets = torch.zeros(out_rows + 1, dtype=torch.int32, device=dst.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return offsets, owners
+
+
 def segment_scatter_add_bwd(src: torch.Tensor, dst: torch.Tensor,
-                            gates: torch.Tensor, dout: torch.Tensor,
-                            gather=segment_gather_ref):
+                            gates: torch.Tensor, dout: torch.Tensor):
     """VJP of :func:`segment_scatter_add_ref` (reference ops.py:84-98): the
     cotangent gathered back to the rows, times the gates, and per-row
     ``dgates = sum_d back * src`` in float32.  Returns (dsrc, dgates)."""
-    back = gather(dout, dst)                                 # (R, d)
+    back = segment_gather_ref(dout, dst)                     # (R, d)
     dsrc = (back.float() * gates.float()[:, None]).to(src.dtype)
     dgates = (back.float() * src.float()).sum(dim=1).to(gates.dtype)
     return dsrc, dgates

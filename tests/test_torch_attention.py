@@ -92,7 +92,7 @@ def _fake_kernel(monkeypatch, calls):
     kinds = {fn: "".join("p" if "*" in p else "i" for p in params.split(","))
              for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                           src)}
-    assert set(kinds) == {"flash_attention_fwd"}
+    assert set(kinds) == {"flash_attention_fwd", "flash_attention_fwd_tc"}
 
     def fake_bind(name, fn, n_ptr, n_int):
         assert name == "flash_attention"
@@ -111,9 +111,10 @@ def _fake_kernel(monkeypatch, calls):
 
 
 def test_flash_wrapper_passes_what_the_c_entries_take(monkeypatch):
-    """bf16 and float32 reach the one C entry with their dtype codes (the
-    entry picks the tensor-core or the FMA form by it); one call counts one
-    launch."""
+    """bf16 and float32 reach flash_attention_fwd with their dtype codes (the
+    entry picks the Hopper or the FMA form by it), the bf16 shapes the
+    Hopper form refuses (hd 32, a group of 3) reach flash_attention_fwd_tc
+    with the same arguments; one call counts one launch."""
     calls = []
     _fake_kernel(monkeypatch, calls)
     q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
@@ -134,11 +135,23 @@ def test_flash_wrapper_passes_what_the_c_entries_take(monkeypatch):
     assert (fn, args[7:16]) == ("flash_attention_fwd",
                                 (2, 8, 12, 4, 2, 64, 0, 0, 0))
     assert flash_k.flash_attention.launches == before + 2
+    for hq, hkv, hd in ((4, 2, 32), (6, 2, 64)):
+        q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
+                   for s in ((2, 8, hq, hd), (2, 12, hkv, hd), (2, 12, hkv, hd)))
+        flash_k.flash_attention(q, k, v, qp, kp)
+        fn, args = calls[-1]
+        assert (fn, args[7:16]) == ("flash_attention_fwd_tc",
+                                    (2, 8, 12, hq, hkv, hd, 1, 1, 0))
+    assert flash_k.flash_attention.launches == before + 4
 
 
-@pytest.mark.parametrize("what", ["hd", "gqa", "dtype", "positions", "window"])
+@pytest.mark.parametrize("what", ["hd", "gqa", "dtype", "positions", "window",
+                                  "bf16_hd", "bf16_keys"])
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, what):
-    _fake_kernel(monkeypatch, [])
+    """Shapes no form takes, in float32 and in bf16 (a head dim with no
+    template instance; no keys): raised before any launch."""
+    calls = []
+    _fake_kernel(monkeypatch, calls)
     q, k, v = torch.zeros(1, 4, 4, 32), torch.zeros(1, 4, 2, 32), torch.zeros(1, 4, 2, 32)
     qp = kp = torch.arange(4, dtype=torch.int32)
     window = None
@@ -150,10 +163,18 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, what):
         k = k.to(torch.bfloat16)
     elif what == "positions":
         qp = qp.long()
-    else:
+    elif what == "window":
         window = 0
+    elif what == "bf16_hd":
+        q, k, v = (torch.zeros(1, 4, h, 48, dtype=torch.bfloat16)
+                   for h in (4, 2, 2))
+    else:                              # Sk = 0
+        q = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
+        k = v = torch.zeros(1, 0, 2, 64, dtype=torch.bfloat16)
+        kp = kp[:0]
     with pytest.raises(ValueError, match="flash_attention"):
         flash_k.flash_attention(q, k, v, qp, kp, True, window)
+    assert not calls
 
 
 def test_flash_wrapper_takes_cuda_tensors_only():

@@ -222,9 +222,14 @@ def test_segment_gather_vjp_matches_jax():
     idx[:2], idx[2:5] = -1, 4                  # empty slots, repeated rows
     _, vjp = jax.vjp(lambda s: jops.segment_gather(s, jnp.asarray(idx)),
                      jnp.asarray(src))
-    s = _t(src, grad=True)
-    ops.segment_gather(s, torch.from_numpy(idx)).backward(_t(dout))
-    _close(s.grad, vjp(jnp.asarray(dout))[0])
+    want = vjp(jnp.asarray(dout))[0]
+    # without owner lists, and with them (idx's inverse, as a plan's slot
+    # table): the backward's scatter-add then sums each row over its owners
+    table = ref.owner_table(*ref.build_owners_ref(torch.from_numpy(idx), 9))
+    for owners in (None, table):
+        s = _t(src, grad=True)
+        ops.segment_gather(s, torch.from_numpy(idx), owners).backward(_t(dout))
+        _close(s.grad, want)
 
 
 def test_segment_scatter_add_vjp_matches_jax():
@@ -237,11 +242,19 @@ def test_segment_scatter_add_vjp_matches_jax():
     _, vjp = jax.vjp(lambda s, g: jops.segment_scatter_add(
         s, jnp.asarray(dst), g, rows), jnp.asarray(src), jnp.asarray(gates))
     dsrc_j, dgates_j = vjp(jnp.asarray(dout))
-    s, g = _t(src, grad=True), _t(gates, grad=True)
-    ops.segment_scatter_add(s, torch.from_numpy(dst), g, rows).backward(_t(dout))
-    _close(s.grad, dsrc_j, what="dsrc")
-    _close(g.grad, dgates_j, what="dgates")
-    assert g.grad[3] == 0                      # the dropped row's gate
+    want = jops.segment_scatter_add(jnp.asarray(src), jnp.asarray(dst),
+                                    jnp.asarray(gates), rows)
+    # without owner lists (the plain scatter-add), and with them (the plain
+    # owner-reduce, the sums the card takes); one backward for both
+    table = ref.owner_table(*ref.build_owners_ref(torch.from_numpy(dst), rows))
+    for owners in (None, table):
+        s, g = _t(src, grad=True), _t(gates, grad=True)
+        out = ops.segment_scatter_add(s, torch.from_numpy(dst), g, rows, owners)
+        _close(out, want, what="out")
+        out.backward(_t(dout))
+        _close(s.grad, dsrc_j, what="dsrc")
+        _close(g.grad, dgates_j, what="dgates")
+        assert g.grad[3] == 0                  # the dropped row's gate
 
 
 @pytest.mark.parametrize("s,e,c,d,f", [(2, 3, 16, 32, 24), (1, 4, 8, 16, 32)])

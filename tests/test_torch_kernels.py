@@ -19,7 +19,7 @@ from repro.kernels.fused_staging import fused_swiglu_pallas
 from repro.kernels.segment_gather import segment_gather as gather_pallas
 from repro.kernels.segment_scatter_add import (
     segment_scatter_add as scatter_pallas)
-from repro_torch.kernels import fused_staging, ops
+from repro_torch.kernels import fused_staging, ops, ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -58,18 +58,31 @@ def test_segment_gather_matches_pallas(t, r, d, dtype):
     assert not _np(got)[:3].any()
 
 
-@pytest.mark.parametrize("r,out_rows,d,dtype", [(24, 5, 256, "f32"),
-                                                (32, 8, 128, "bf16"),
-                                                (16, 16, 64, "f32")])
-def test_segment_scatter_add_matches_pallas(r, out_rows, d, dtype):
+@pytest.mark.parametrize("r,out_rows,d,dtype,owners", [
+    pytest.param(*case, owners, id="-".join(map(str, case))
+                 + ("-owners" if owners else ""))
+    for case, owners in (
+        ((24, 5, 256, "f32"), False), ((32, 8, 128, "bf16"), False),
+        ((16, 16, 64, "f32"), False),
+        # the owner-reduce (the plain version of the card's kernel): the
+        # same sums read from the output side, rows with no owner among them
+        ((24, 5, 256, "f32"), True), ((32, 8, 128, "bf16"), True),
+        ((12, 30, 64, "f32"), True), ((12, 30, 128, "bf16"), True))])
+def test_segment_scatter_add_matches_pallas(r, out_rows, d, dtype, owners):
     rng = np.random.default_rng(1)
     src_j, src_t = _pair(rng.standard_normal((r, d)), dtype)
     dst = rng.integers(-1, out_rows, r).astype(np.int32)
     dst[:4] = 2                                    # duplicate destinations
     dst[4] = -1                                    # a dropped row
     gates = rng.uniform(size=r).astype(np.float32)
+    table = None
+    if owners:                 # (out_rows, K) lists, -1 padded, as a plan's
+        table = ref.owner_table(*ref.build_owners_ref(torch.from_numpy(dst),
+                                                      out_rows))
+        if out_rows > r:
+            assert (table < 0).all(1).any()        # rows with no owner
     got = ops.segment_scatter_add(src_t, torch.from_numpy(dst),
-                                  torch.from_numpy(gates), out_rows)
+                                  torch.from_numpy(gates), out_rows, table)
     assert got.dtype == src_t.dtype and got.shape == (out_rows, d)
     pallas = scatter_pallas(src_j, jnp.asarray(dst), jnp.asarray(gates),
                             out_rows, block_d=min(d, 128), interpret=True)
@@ -143,13 +156,20 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     """The kernel wrappers never run the plain version: a CPU tensor is
     refused (ops routes it to the plain version before it gets there)."""
     from repro_torch.kernels.segment_gather import segment_gather
-    from repro_torch.kernels.segment_scatter_add import segment_scatter_add
+    from repro_torch.kernels.segment_scatter_add import (
+        build_owners, segment_scatter_add, segment_scatter_add_bwd)
     x = torch.zeros(4, 8)
     i = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         segment_gather(x, i)
     with pytest.raises(ValueError, match="CUDA"):
         segment_scatter_add(x, i, torch.ones(4), 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_scatter_add(x, i, torch.ones(4), 4, i[:, None])
+    with pytest.raises(ValueError, match="CUDA"):
+        build_owners(i, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_scatter_add_bwd(x, i, torch.ones(4), x)
     with pytest.raises(ValueError, match="CUDA"):
         fused_staging.fused_swiglu(x[None, None], torch.zeros(1, 8, 4),
                                    torch.zeros(1, 8, 4), torch.zeros(1, 4, 8),
@@ -202,9 +222,13 @@ def test_wrappers_pass_what_the_c_entries_take(monkeypatch):
     x = torch.zeros(6, 16, dtype=torch.bfloat16)
     i = torch.zeros(4, dtype=torch.int32)
     before = (g_mod.segment_gather.launches, s_mod.segment_scatter_add.launches,
-              fused_staging.fused_swiglu.launches)
+              fused_staging.fused_swiglu.launches, s_mod.build_owners.launches,
+              s_mod.segment_scatter_add_bwd.launches)
     g_mod.segment_gather(x, i)
-    s_mod.segment_scatter_add(x[:4], i, torch.ones(4), 6)
+    s_mod.segment_scatter_add(x[:4], i, torch.ones(4), 6)     # lists built
+    s_mod.segment_scatter_add(x[:4], i, torch.ones(4), 6,
+                              torch.full((6, 2), -1, dtype=torch.int32))
+    s_mod.segment_scatter_add_bwd(x[:4], i, torch.ones(4), x)
     counts = torch.ones(1, 2, dtype=torch.int32)
     fused_staging.fused_swiglu(torch.zeros(1, 2, 3, 16), torch.zeros(2, 16, 8),
                                torch.zeros(2, 16, 8), torch.zeros(2, 8, 16),
@@ -214,11 +238,14 @@ def test_wrappers_pass_what_the_c_entries_take(monkeypatch):
                                torch.zeros(2, 16, 32, **bf),
                                torch.zeros(2, 16, 32, **bf),
                                torch.zeros(2, 32, 16, **bf), counts)  # tensor cores
-    assert calls == ["segment_gather", "segment_scatter_add", "fused_swiglu",
+    assert calls == ["segment_gather", "segment_scatter_add_owners",
+                     "segment_scatter_add", "segment_scatter_add",
+                     "segment_scatter_add_bwd", "fused_swiglu",
                      "fused_swiglu_tc"]
     after = (g_mod.segment_gather.launches, s_mod.segment_scatter_add.launches,
-             fused_staging.fused_swiglu.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 2]
+             fused_staging.fused_swiglu.launches, s_mod.build_owners.launches,
+             s_mod.segment_scatter_add_bwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 2, 1, 1]
 
 
 @pytest.mark.parametrize("dtype,d,f,tc", [("bf16", 2048, 768, True),
@@ -241,14 +268,20 @@ def test_fused_swiglu_variant_follows_the_inputs(dtype, d, f, tc):
 
 def _c_constants(name: str) -> dict:
     """The ``constexpr int`` constants of csrc/<name>.cu (and of the
-    headers it names), evaluated in order."""
+    headers it names), evaluated in order.  A constant that depends on the
+    head-dim template parameter ``HD``, on a template's member (``::``) or
+    on such a constant has no one value and is left out; any other
+    expression must evaluate."""
     import re
     from repro_torch.kernels import _build
-    env = {}
+    env, templated = {}, {"HD"}
     for src in ("common.cuh", "hopper.cuh", f"{name}.cu"):
         text = (_build.CSRC / src).read_text()
-        for key, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        for key, expr in re.findall(r"constexpr int (\w+) =\s+([^;]+);", text):
             expr = re.sub(r"//.*", "", expr).replace("hopper::", "")
+            if "::" in expr or templated & set(re.findall(r"\w+", expr)):
+                templated.add(key)
+                continue
             env[key] = eval(expr, {}, dict(env))
     return env
 
@@ -266,13 +299,40 @@ def test_hopper_plan_mirrors_the_c_source():
     assert g["kGSmem"] <= fs.SMEM_OPTIN     # grouped_matmul's fixed ring fits
 
 
+def test_flash_hopper_plan_mirrors_the_c_source():
+    """flash_attention's plan of the Hopper form uses csrc/flash_attention.cu's
+    tile geometry, stages and shared-memory bytes, and fits a block's
+    shared memory; it takes bf16 at hd 64 and 128 for group sizes that
+    divide 64 (both families: 4 and 8) and refuses the rest, which the
+    wrapper sends to the tensor-core form."""
+    from repro_torch.kernels import flash_attention as fa
+    c = _c_constants("flash_attention")
+    assert (fa.ROWS, fa.KEYS, fa.THREADS, fa.STAGES[64], fa.STAGES[128],
+            fa.SMEM_FIXED) == (c["kFlashRows"], c["kFlashKeys"],
+                               c["kFlashThreads"], c["kFlashStages64"],
+                               c["kFlashStages128"], c["kFlashFixed"])
+    for hd in fa.HOPPER_HEAD_DIMS:
+        stages, smem = fa.hopper_plan(hd)
+        assert stages == c[f"kFlashStages{hd}"]
+        assert smem == c[f"kFlashSmem{hd}"] <= fused_staging.SMEM_OPTIN
+    assert fa.hopper_refusal(64, 16, 4, 512) is None      # moe-tx, G 4
+    assert fa.hopper_refusal(128, 32, 4, 64) is None      # qwen3-moe, G 8
+    assert fa.hopper_refusal(128, 8, 8, 1) is None        # G 1
+    assert "head_dim" in fa.hopper_refusal(32, 4, 4, 8)
+    assert "group" in fa.hopper_refusal(64, 12, 4, 8)
+    assert "keys" in fa.hopper_refusal(64, 4, 4, 0)
+
+
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moe-tx-stream"])
 @pytest.mark.parametrize("reduced", [False, True])
 def test_hopper_plan_takes_every_config(arch, reduced):
     """Every MoE configuration the port serves or trains, at full width and
     reduced, fits the Hopper form's shared memory with at least two stages
-    and takes it in bf16."""
+    and takes it in bf16; its bf16 attention has a flash form on the card:
+    the Hopper form at full width, the tensor-core form (a template
+    instance of its head dim) for the reduced models."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
     cfg = get_arch(arch)
     cfg = cfg.reduced() if reduced else cfg
     d, f = cfg.d_model, cfg.moe.d_ff_expert
@@ -286,6 +346,9 @@ def test_hopper_plan_takes_every_config(arch, reduced):
     ws = (torch.empty(1, d, f, **bf), torch.empty(1, d, f, **bf),
           torch.empty(1, f, d, **bf))
     assert fused_staging.use_tensor_cores(x, ws)
+    why = fa.hopper_refusal(cfg.hd, cfg.n_heads, cfg.n_kv_heads, 1)
+    assert (why is not None) == reduced, why
+    assert cfg.hd in fa.HEAD_DIMS
 
 
 def test_fused_swiglu_bf16_the_hopper_form_refuses_runs_fma(monkeypatch):

@@ -17,11 +17,13 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro.core import fusco as jfusco
+from repro.core import planner as jplanner
 from repro.core.dcomm import DcommConfig as JDcommConfig
 from repro.core.routing import ExpertPlacement as JPlacement
-from repro_torch.core import fusco
-from repro_torch.core.dcomm import DcommConfig, _flat_exchange
+from repro_torch.core import fusco, planner
+from repro_torch.core.dcomm import DcommConfig, _cap, _flat_exchange
 from repro_torch.core.routing import ExpertPlacement
+from repro_torch.kernels import ref
 from repro_torch.layers.moe import moe_decode_block
 
 E, K, D, F, CF = 8, 2, 16, 24, 8.0
@@ -86,6 +88,38 @@ def test_capacity_overflow_drops_like_jax():
         rtol=TOL, atol=TOL)
     dense = fusco.dense_moe_reference(_t(x), _t(wr), _t(w1), _t(w3), _t(w2), K)
     assert not np.allclose(y, dense.numpy(), atol=1e-3)   # something dropped
+
+
+@pytest.mark.parametrize("t,ep,cf", [(24, 1, 8.0), (32, 1, 0.5), (12, 4, 2.0)])
+def test_slot_table_is_the_owner_lists_of_the_combine(t, ep, cf):
+    """The combine's owner lists, the flat plan's slot table (T, K), are the
+    exact inverse of src_of_slot: every live buffer row sits in exactly one
+    list, at its (t, k), and dropped assignments are -1 -- on the port's
+    plan and on the JAX ``build_flat_plan`` from the same routing, which
+    agree.  The counting build's lists (``ref.build_owners_ref``, the plain
+    version of the card's) are the table's rows in ascending order."""
+    rng = np.random.default_rng(5)
+    A = np.stack([rng.choice(E, K, replace=False) for _ in range(t)]).astype(np.int32)
+    gates = rng.uniform(size=(t, K)).astype(np.float32)
+    node = max(1, ep // 2)
+    cap = _cap(t * K / E, cf)
+    plan = planner.build_flat_plan(torch.from_numpy(A), torch.from_numpy(gates),
+                                   ExpertPlacement(E, ep, node), cap)
+    jplan = jplanner.build_flat_plan(jnp.asarray(A), jnp.asarray(gates),
+                                     JPlacement(n_experts=E, ep=ep,
+                                                node_size=node), cap)
+    slot, src = plan.slots.slot.numpy(), plan.src_of_slot.numpy()
+    np.testing.assert_array_equal(slot, np.asarray(jplan.slots.slot))
+    np.testing.assert_array_equal(src, np.asarray(jplan.src_of_slot))
+    tok, _ = np.nonzero(slot >= 0)
+    rows = slot[slot >= 0]
+    assert sorted(rows) == list(np.flatnonzero(src >= 0))   # each exactly once
+    assert (src[rows] == tok).all()                          # at its token
+    assert (int(plan.dropped) > 0) == (cf < 1)               # drops are -1
+    offsets, owners = ref.build_owners_ref(plan.src_of_slot, t)
+    for i in range(t):
+        assert owners[offsets[i]:offsets[i + 1]].tolist() == sorted(
+            x for x in slot[i] if x >= 0)
 
 
 def _rank_main(rank, world, init_file, data, out_dir):
