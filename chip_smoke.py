@@ -22,6 +22,13 @@
      same bits on two calls (so must the unit-gate form, the gather's
      backward), and its path without owner lists (the counting build, then
      the reduce) is held against it;
+   - the same three MoE kernels at the slices of each path's fused_pipe
+     serve phase (``pipe_slice_rows``: qwen3-moe at pipesim's S 32 of
+     Cs 2, moe-tx at its streamed S 4 of Cs 128), from the engine's own
+     sliced plan: every slice's gather, fused_swiglu on the slice's counts
+     and owner-reduce over the slice's owner table held, slice 0 timed, and
+     each slice's fused_swiglu the bits of its rows of one launch over the
+     whole buffer;
    - the flash attention at both prefill shapes and at the shifted query
      stripe of one EP lane (with and without a window), beside SDPA with a
      boolean mask and, where the positions are plain, with is_causal;
@@ -39,28 +46,53 @@
    fused SwiGLU, flash) on the card against the same backward on the plain
    versions, at the training shapes, with times; the gather's and the
    scatter-add's must give the same bits on two calls.
-4. Serve phases, one per path: zero the kernels' launch counters, serve the
+4. Calibration (``calibrate_phase``): ``core.calibrate.calibrate()`` on the
+   card, printed beside the H100 spec point the pipe constants default to,
+   with the slice count and capacity pipesim gives at each (qwen3-moe serve
+   prefill T 512 and train T 2048; the moe-tx streamed prefill, 16 layers).
+5. Engine phase (``engine_rows``): one full-width qwen3-moe MoE layer
+   (``fusco.shuffle_ffn``: 128 experts, top-8) at the serve prefill shape
+   (T 512, capacity 64) and the train shape (T 2048, capacity 256) through
+   fused_flat, fused_pipe at pipesim's slice count (spec point and
+   calibrated), at S = 1 and S = 4, and disagg: S, the rows per slice, the
+   device time (median of 5 rounds behind a device sleep, with the spread)
+   and the host-clock time of the layer, the fused_swiglu launches and the
+   expert weight bytes they read (from the counts each launch was given).
+   fused_pipe at S = 1 must give fused_flat's bits; the others are held to
+   fused_flat in bf16 element by element, within a tolerance from the bf16
+   roundings into the output (``engine_rows``), and in float32 at a
+   reduced width (d 256, f 128, and also at the serve layer's S) to 1e-5
+   (``engine_f32_check``).  One ``{"engines": [...]}`` JSON line.
+6. Serve phases, one per path: zero the kernels' launch counters, serve the
    full-width model through ``repro_torch.launch.serve`` (qwen3-moe-30b-a3b
    at 4 layers; moe-tx-stream-1b at all 16), read the counters and fail if a
    kernel of the path never launched.  Then profile one prefill and one
    decode step of the same path (torch.profiler) and print the device's busy
    time beside the step's wall time, and the kernels with the most device
    time; fails if a profile shows a kernel no full-width step may run
-   (``OFF_PATH``) or a prefill's shows no ``flash_fwd_wgmma``.
-5. Train phase: zero the counters, train full-width qwen3-moe-30b-a3b (4 of
+   (``OFF_PATH``) or a prefill's shows no ``flash_fwd_wgmma``.  The paths
+   are fused_flat's two, then (``ENGINE_SERVE``) qwen3-moe through
+   ``--engine fused_pipe`` and ``--engine disagg`` (whose sort and repack
+   passes are plain torch: the phase fails if it launches the gather or the
+   scatter-add kernel) and moe-tx-stream-1b through ``--engine fused_pipe
+   --moe-stream 16``, the streamed schedule across all 16 layers.
+7. Train phase: zero the counters, train full-width qwen3-moe-30b-a3b (4 of
    48 layers) for 8 AdamW steps through ``repro_torch.launch.train``, read
    the counters and fail if a kernel of the path (the five, and the
    scatter-add's backward) never launched or a loss is not finite; print
    the losses, ms/step, tokens/s and peak memory, then profile one step, its
    forward+backward and its optimizer update.
-6. Checks the outputs: finite logits and in-vocabulary tokens of the right
+8. Checks the outputs: finite logits and in-vocabulary tokens of the right
    shape, each reduced model's logits on the card (kernels) against the
-   same model on the CPU (plain versions), the reduced models served and
-   trained on the card in bf16 (their attention on the flash tensor-core
-   form), and one reduced train step in float32 on the card against the
-   CPU (loss, every grad leaf, every updated param).
-7. Prints the card's name and power limit, the kernels' numbers as one JSON
-   line, and last ``{"ok": true, "device": {...}}``.
+   same model on the CPU (plain versions) through each engine (fused_pipe
+   at 4 slices, moe-tx in one streamed block), the reduced models served
+   and trained on the card in bf16 (their attention on the flash
+   tensor-core form), and one reduced train step in float32 on the card
+   against the CPU (loss, every grad leaf, every updated param) through
+   each engine.
+9. Prints the card's name and power limit, the kernels' numbers as one JSON
+   line (``launches_by_phase`` counts every serve phase), and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a CUDA
 device, or outside a checkout that holds ``src/repro_torch``, it exits
@@ -69,6 +101,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -107,6 +140,47 @@ TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
          dict(b=4, sq=512, sk=512, hq=32, hkv=4, hd=128))
 SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
+# the serve phases of the other engines: (flags, kernels that must launch,
+# kernels that must not); disagg's sort and repack passes are plain torch,
+# the baseline's own cost, so its path has no gather or scatter-add kernel
+DISAGG_PLAIN = ("segment_gather", "segment_scatter_add",
+                "segment_scatter_add_bwd")
+
+
+def engine_argv(arch: str, *engine_flags: str) -> list[str]:
+    """A serving path's flags with ``--engine fused_flat`` replaced by
+    ``--engine`` and ``engine_flags``."""
+    argv = PATHS[arch][0]
+    i = argv.index("--engine")
+    return argv[:i + 1] + list(engine_flags) + argv[i + 2:]
+
+
+TX_LAYERS = 16         # moe-tx-stream-1b's layers, all served
+
+ENGINE_SERVE = {
+    "qwen3-moe-30b-a3b fused_pipe": (
+        engine_argv("qwen3-moe-30b-a3b", "fused_pipe"), SERVE_KERNELS, ()),
+    "qwen3-moe-30b-a3b disagg": (
+        engine_argv("qwen3-moe-30b-a3b", "disagg"),
+        ("fused_swiglu", "flash_attention"), DISAGG_PLAIN[:2]),
+    "moe-tx-stream fused_pipe": (
+        engine_argv("moe-tx-stream", "fused_pipe", "--moe-stream",
+                    str(TX_LAYERS)),
+        SERVE_KERNELS, ()),
+}
+# the engine phase: one full-width qwen3-moe MoE layer (fusco.shuffle_ffn) at
+# the serve prefill and the train shape through each engine, as (label,
+# engine, pipe slices, constants): slices 0 takes pipesim's count at the
+# spec point or at the card's calibrated constants
+ENGINES = (("fused_flat", "fused_flat", 0, "spec"),
+           ("fused_pipe auto (spec point)", "fused_pipe", 0, "spec"),
+           ("fused_pipe auto (calibrated)", "fused_pipe", 0, "calibrated"),
+           ("fused_pipe S=1", "fused_pipe", 1, "spec"),
+           ("fused_pipe S=4", "fused_pipe", 4, "spec"),
+           ("disagg", "disagg", 0, "spec"))
+ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
+# the same layer narrowed for the float32 check (d 256, f 128)
+ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
 SPLIT_KERNELS = ("fused_swiglu", "grouped_matmul", "flash_attention")
@@ -135,6 +209,9 @@ TOL_BWD = 2e-2            # backward rows, bf16, against the same backward on
 TOL_TRAIN = 1e-4          # reduced train step in f32, card vs CPU: loss, and
                           # each grad leaf relative to max(1, its max |grad|)
                           # (f32 sums in another order, atomics)
+BF16_U = 2.0 ** -8        # bf16 unit roundoff
+TOL_ENGINE_F32 = 1e-5     # engines against fused_flat in f32 (reduced width),
+                          # of the largest |output|: sums in another order
 
 
 def fail(msg: str) -> None:
@@ -156,12 +233,13 @@ def spread(t) -> str:
     return f" [{t.lo:.4f}-{t.hi:.4f}]" if hasattr(t, "lo") else ""
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 5) -> Timing:
+def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 5,
+            sleep_cycles: int = SLEEP_CYCLES) -> Timing:
     """Device time of one call of ``fn``: CUDA events around ``reps``
     back-to-back calls, divided by ``reps``; the median of ``rounds``, with
     the fastest and slowest round beside it.  Each round is queued behind a
-    device-side sleep, so the host has issued every call before the first
-    event fires and its launch overhead is not timed."""
+    device-side sleep of ``sleep_cycles``, so the host has issued every call
+    before the first event fires and its launch overhead is not timed."""
     import torch
     for _ in range(warmup):
         fn()
@@ -171,7 +249,7 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, rounds: int = 5) -> Timing:
         slept, start, end = (torch.cuda.Event(enable_timing=True)
                              for _ in range(3))
         slept.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -197,9 +275,10 @@ def max_err(a, b) -> float:
 
 
 def main_path_inputs(device, t, d, n_experts, top_k, f, decode_t, seed=0):
-    """The tensors each kernel meets on the serving main path: routed tokens,
-    the flat plan's descriptors, the landed buffer with its real per-expert
-    counts, the expert weights, and the decode layout."""
+    """The tensors each kernel meets on the serving main path: routed tokens
+    and their routing, the flat plan's descriptors, the landed buffer with
+    its real per-expert counts, the expert weights, and the decode
+    layout."""
     import torch
     from repro_torch.core.dcomm import _cap
     from repro_torch.core.planner import build_flat_plan
@@ -219,7 +298,8 @@ def main_path_inputs(device, t, d, n_experts, top_k, f, decode_t, seed=0):
                            ExpertPlacement(n_experts, 1, 1), cap)
     counts = plan.slots.counts.clamp(max=cap).to(torch.int32).reshape(1, -1)
     xd = randn(decode_t, d).to(bf16)
-    return dict(x=x, w1=w1, w3=w3, w2=w2, cap=cap, counts=counts,
+    return dict(x=x, w1=w1, w3=w3, w2=w2, cap=cap, counts=counts, A=A,
+                route_gates=gates.to(bf16),
                 idx=plan.src_of_slot.contiguous(),
                 gates=plan.gate_of_slot.float().contiguous(),
                 owners=plan.slots.slot.contiguous(),
@@ -290,13 +370,15 @@ def odd_shape_checks(device="cuda") -> list[str]:
     refuses, and the scatter-add's forward (both paths) and backward,
     against their plain versions at the shapes the main paths do not give
     them.  fused_swiglu and grouped_matmul: C = 8
-    (decode), a C that is not a multiple of the row tile, counts of 0, of C
+    (decode), C = 2 and 1 (fused_pipe slices), a C that is not a
+    multiple of the row tile, counts of 0, of C
     and of more than C, a partial last tile, S = 2 source lanes sharing E
     weights (g % E), and d, f, K, N that are not multiples of the tiles;
     grouped_matmul with row-major weights (MN-major loads) and with a
     transposed view (K-major loads); bf16, held to TOL_REL of each output's
-    largest magnitude.  The flash cases as ``flash_row`` holds them.
-    Returns one line per case."""
+    largest magnitude.  The flash cases as ``flash_row`` holds them.  The
+    scatter-add also over fused_pipe's per-slice owner tables.  Returns one
+    line per case."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
     from repro_torch.kernels import grouped_matmul as gmm_k
@@ -315,6 +397,8 @@ def odd_shape_checks(device="cuda") -> list[str]:
     # fused_swiglu: (S, E, C, d, f, counts)
     for s_, e, c, d, f, counts in (
             (1, 4, 8, 512, 256, [[0, 3, 8, 12]]),
+            (1, 4, 2, 2048, 768, [[0, 1, 2, 5]]),     # fused_pipe slices
+            (1, 3, 1, 512, 256, [[0, 1, 4]]),
             (2, 3, 100, 384, 320, [[0, 100, 130], [64, 65, 37]]),
             (1, 2, 70, 136, 72, [[70, 5]])):
         x = randn(s_, e, c, d).to(bf16)
@@ -388,6 +472,27 @@ def odd_shape_checks(device="cuda") -> list[str]:
                 ("dsrc", "dgates"), s_k.segment_scatter_add_bwd(src, dst, gates, dout),
                 s_k.segment_scatter_add_bwd_plain(src, dst, gates, dout)):
             hold(f"{what} backward {part}", got, plain)
+
+    # the owner-reduce over fused_pipe's per-slice owner tables (a flat plan
+    # of 64 tokens, 8 experts, top-2, capacity 16, in 8 slices of 2 rows)
+    from repro_torch.core import planner
+    from repro_torch.core.routing import ExpertPlacement
+    t, e, k, cap, n_s, d = 64, 8, 2, 16, 8, 136
+    placement = ExpertPlacement(e, 1, 1)
+    A = torch.stack([torch.randperm(e, generator=g, device=device)[:k]
+                     for _ in range(t)]).to(torch.int32)
+    plan = planner.build_flat_plan(A, torch.rand(t, k, generator=g,
+                                                 device=device).to(bf16),
+                                   placement, cap)
+    sliced = planner.slice_flat_plan(plan, placement, cap, n_s)
+    owners = planner.slice_owner_table(plan.slots.slot, cap, n_s)
+    for i in (0, 3, n_s - 1):
+        src = randn(e * cap // n_s, d).to(bf16)
+        dst, gates = sliced.src[i].reshape(-1), sliced.gate[i].reshape(-1).float()
+        hold(f"segment_scatter_add over slice {i} of {n_s}'s owner table "
+             f"({src.shape[0]} rows -> {t}, d {d})",
+             s_k.segment_scatter_add(src, dst, gates, t, owners[i]),
+             s_k.segment_scatter_add_plain(src, dst, gates, t))
     return lines
 
 
@@ -446,11 +551,13 @@ def ptxas_report() -> tuple[list[str], list[str]]:
     return lines, spilling
 
 
-def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
+def kernel_phase(inp, timer=time_ms, fma=True, decode=True,
+                 counting=True) -> list[dict]:
     """Each MoE kernel against its plain version at a serving path's shapes
     (``main_path_inputs``); ``fma`` also holds and times fused_swiglu's FMA
-    variant.  Returns one row per kernel and shape, without the launch
-    counts."""
+    variant, ``decode`` fused_swiglu at the decode shape, ``counting`` the
+    combine without owner lists.  Returns one row per kernel and shape,
+    without the launch counts."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
     from repro_torch.kernels import segment_gather as g_k
@@ -486,9 +593,11 @@ def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
 
     # fused_swiglu at the prefill shape (real counts) and the decode shape
     buf = got.reshape(1, n_e, inp["cap"], d)
-    for name, xs, counts in (("fused_swiglu", buf, inp["counts"]),
-                             ("fused_swiglu_decode", inp["decode_rows"],
-                              inp["decode_counts"])):
+    swiglus = [("fused_swiglu", buf, inp["counts"])]
+    if decode:
+        swiglus.append(("fused_swiglu_decode", inp["decode_rows"],
+                        inp["decode_counts"]))
+    for name, xs, counts in swiglus:
         row, y = swiglu_row(name, xs, w1, w3, w2, counts, timer)
         rows.append(row)
         if name == "fused_swiglu":
@@ -510,7 +619,8 @@ def kernel_phase(inp, timer=time_ms, fma=True) -> list[dict]:
                              max_abs_err=err_fma, ms=timer(fma, reps=5)))
 
     # segment_scatter_add: (R, d) -> T rows, gated, over the plan's owners
-    return rows + scatter_rows(expert_out.reshape(-1, d), inp, t, timer)
+    return rows + scatter_rows(expert_out.reshape(-1, d), inp, t, timer,
+                               counting)
 
 
 def same_bits(a, b) -> bool:
@@ -520,14 +630,15 @@ def same_bits(a, b) -> bool:
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
-def scatter_rows(src, inp, t, timer=time_ms) -> list[dict]:
+def scatter_rows(src, inp, t, timer=time_ms, counting=True) -> list[dict]:
     """segment_scatter_add at one shape: the owner-reduce over the flat
     plan's slot table (the main path) against the plain owner-reduce and
     the reference's scatter-add, two calls bitwise equal (gated, and with
     the unit gates of the gather's backward); then the path of a
     caller with no owners (the counting build, then the reduce), its lists
     equal to the plain build's, its output held against the main path's
-    and bitwise repeatable (held and timed, not on the main path)."""
+    and bitwise repeatable (held and timed, not on the main path; only
+    with ``counting``)."""
     import torch
     from repro_torch.kernels import segment_scatter_add as s_k
     idx, gates, owners = inp["idx"], inp["gates"], inp["owners"]
@@ -565,6 +676,8 @@ def scatter_rows(src, inp, t, timer=time_ms) -> list[dict]:
         bound_ms=b_ms, bound_by=b_by,
         library="Tensor.index_add_ (f32, pre-gated rows, dump row for -1)",
         library_ms=timer(lambda: acc.index_add_(0, dump, scaled)))
+    if not counting:
+        return [row]
     # no owners: the counting build on the card
     offsets, lists = s_k.build_owners(idx, t)
     p_off, p_lists = s_k.build_owners_plain(idx, t)
@@ -694,18 +807,21 @@ def zero_counters() -> dict:
     return wrappers
 
 
-def serve_phase(argv, device="cuda"):
+def serve_phase(argv, device="cuda", required=SERVE_KERNELS, absent=()):
     """The main path once, with every launch counter zeroed just before it
-    and read just after.  Returns the serve result and the counts."""
+    and read just after; fails if a kernel of ``required`` never launched
+    or one of ``absent`` did.  Returns the serve result and the counts."""
     import torch
     from repro_torch.launch import serve
     args = serve.parse_args(argv)
     wrappers = zero_counters()
     out = serve.run(args, device=device)
     launches = {k: w.launches for k, w in wrappers.items()}
-    never = [k for k in SERVE_KERNELS if launches[k] == 0]
-    if never:
-        raise AssertionError(f"main path never launched {never}: {launches}")
+    never = [k for k in required if launches[k] == 0]
+    stray = [k for k in absent if launches[k]]
+    if never or stray:
+        raise AssertionError(f"main path never launched {never}, or launched "
+                             f"{stray} off its path: {launches}")
     toks, logits = out["tokens"], out["logits"]
     vocab = out["cfg"].vocab
     if toks.shape != (args.requests, args.gen):
@@ -798,16 +914,27 @@ def reduced_bf16_runs(device="cuda") -> dict:
     return runs
 
 
-def reduced_check(arch: str, device="cuda") -> float:
+def engine_kwargs(engine: str, cfg) -> dict:
+    """``lm.make_context``'s engine options of a reduced check: fused_pipe at
+    4 slices, the moe_tx layers in one streamed block."""
+    if engine != "fused_pipe":
+        return dict(engine=engine)
+    return dict(engine=engine, pipe_slices=4,
+                moe_stream=cfg.n_layers if cfg.family == "moe_tx" else 0)
+
+
+def reduced_check(arch: str, device="cuda", engine="fused_flat") -> float:
     """The reduced model (float32) on the card through the kernels against
-    the same model on the CPU through the plain versions: prefill and three
-    decode steps fed the same tokens.  Returns the max logit error."""
+    the same model on the CPU through the plain versions, both through
+    ``engine``: prefill and three decode steps fed the same tokens.
+    Returns the max logit error."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     cfg = get_arch(arch).reduced()
     f32 = torch.float32
-    ctxs = {dev: lm.make_context(cfg, dev, compute_dtype=f32)
+    ctxs = {dev: lm.make_context(cfg, dev, compute_dtype=f32,
+                                 **engine_kwargs(engine, cfg))
             for dev in ("cpu", device)}
     params = lm.init_params(cfg, ctxs["cpu"], torch.Generator().manual_seed(0),
                             dtype=f32)
@@ -832,7 +959,7 @@ def reduced_check(arch: str, device="cuda") -> float:
     fed = [lg.argmax(-1) for lg in on_cpu[:-1]]
     worst = max(max_err(a, b) for a, b in zip(on_cpu, run(device, fed)))
     if not worst <= TOL_REDUCED:
-        raise AssertionError(f"reduced {arch} card vs CPU: {worst} > "
+        raise AssertionError(f"reduced {arch} {engine} card vs CPU: {worst} > "
                              f"{TOL_REDUCED}")
     return worst
 
@@ -1037,6 +1164,299 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     return rows
 
 
+def wall_ms(fn, rounds: int = 5) -> Timing:
+    """Host-clock time of one call of ``fn`` up to the device's last
+    result (``torch.cuda.synchronize()``): what a caller waits for, launch
+    overhead included; the median of ``rounds`` after one warm-up call."""
+    import torch
+    fn()
+    ts = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return Timing(statistics.median(ts), min(ts), max(ts))
+
+
+def engine_device_ms(fn) -> Timing:
+    """Device time of one engine call (``time_ms`` of one call a round),
+    behind a device sleep four times the host's time to issue it: an engine
+    issues hundreds of launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = max(SLEEP_CYCLES, int(4 * issue_ms * 2e6))   # ~2e6 cycles a ms
+    return time_ms(fn, reps=1, warmup=0, sleep_cycles=cycles)
+
+
+def engine_config(engine: str, slices: int, point: str, table):
+    from repro_torch.core import calibrate
+    from repro_torch.core.dcomm import DcommConfig
+    cfg = DcommConfig(engine=engine, pipe_slices=slices)
+    return calibrate.apply(table, cfg) if point == "calibrated" else cfg
+
+
+def tx_stream_geometry(t, d, n_experts, top_k, cfg) -> tuple[int, int]:
+    """(capacity, S) of the moe-tx streamed prefill at ``cfg``'s constants,
+    as ``fusco.tx_layer_stream`` plans it: pipesim's streamed knee over the
+    path's TX_LAYERS layers, the attention proxy at its attention shape."""
+    from repro_torch.core import dcomm, fusco
+    from repro_torch.core.routing import ExpertPlacement
+    a = PATHS["moe-tx-stream"][2]
+    attn_s = fusco._tx_attn_cost_s(t, a["sq"], a["b"], a["sk"], a["hq"],
+                                   a["hd"], 2, cfg)
+    return dcomm.pipe_geometry(t, top_k, d, 2, ExpertPlacement(n_experts, 1, 1),
+                               cfg, n_layers=TX_LAYERS, attn_s=attn_s)
+
+
+def pipe_config(arch: str):
+    """The DcommConfig of ``arch``'s fused_pipe serve phase, its slice count
+    frozen as that path freezes it: pipesim's one-layer knee at the spec
+    point for qwen3-moe, the streamed knee for moe-tx."""
+    import dataclasses
+    cfg = engine_config("fused_pipe", 0, "spec", None)
+    if arch == "moe-tx-stream":
+        shape = PATHS[arch][1]
+        _, s = tx_stream_geometry(shape["t"], shape["d"], shape["n_experts"],
+                                  shape["top_k"], cfg)
+        cfg = dataclasses.replace(cfg, pipe_slices=s)
+    return cfg
+
+
+def untimed(fn, **kw) -> float:
+    """A timer that runs nothing: for the slices that are held, not timed."""
+    return 0.0
+
+
+def pipe_slice_rows(inp, cfg, timer=time_ms) -> tuple[list[dict], str]:
+    """fused_pipe's kernels at its slices' shapes: the engine's own plan of
+    ``inp``'s routing at ``cfg``'s slice count (``dcomm._pipe_slice_plan``:
+    each slice's src, gates, landed counts and owner table).  Every slice's
+    gather (exact), fused_swiglu on the slice's counts and owner-reduce over
+    the slice's owner table are held against their plain versions with
+    ``kernel_phase``'s checks at TOL_REL; slice 0, the fullest, is timed.
+    Each slice's fused_swiglu must also give, bit for bit, its rows of one
+    launch over the whole landed buffer: the kernel is row-local, which
+    ``engine_rows`` takes as given.  Returns slice 0's rows and a line on
+    all slices."""
+    import torch
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    from repro_torch.kernels import fused_staging as fs_k
+    from repro_torch.kernels import segment_gather as g_k
+    x, w = inp["x"], (inp["w1"], inp["w3"], inp["w2"])
+    t, d = x.shape
+    n_e = w[0].shape[0]
+    pp = dcomm._pipe_slice_plan(x, inp["A"], inp["route_gates"],
+                                ExpertPlacement(n_e, 1, 1), cfg, None)
+    n_s, cs = pp.n_slices, pp.cap // pp.n_slices
+    landed = lambda idx, c: g_k.segment_gather(x, idx).reshape(1, n_e, c, d)
+    whole = fs_k.fused_swiglu(landed(pp.plan.src_of_slot, pp.cap), *w,
+                              pp.counts.sum(0).to(torch.int32))
+    first, share = [], {}
+    for s in range(n_s):
+        sl = dict(inp, cap=cs, counts=pp.counts[s].contiguous(),
+                  idx=pp.sliced.src[s].reshape(-1).contiguous(),
+                  gates=pp.sliced.gate[s].reshape(-1).float().contiguous(),
+                  owners=pp.owners[s].contiguous())
+        got = kernel_phase(sl, timer if s == 0 else untimed, fma=False,
+                           decode=False, counting=False)
+        for r in got:
+            worst = r["max_abs_err"] / r["tol"] if r["tol"] else r["max_abs_err"]
+            share[r["name"]] = max(share.get(r["name"], 0.0), worst)
+        y = fs_k.fused_swiglu(landed(sl["idx"], cs), *w, sl["counts"])
+        if not same_bits(y, whole[:, :, s * cs:(s + 1) * cs]):
+            raise AssertionError(f"fused_swiglu on slice {s} of {n_s}: not the "
+                                 "bits of its rows in one launch over the "
+                                 "whole buffer")
+        if s == 0:
+            first = [dict(r, shape=f"slice 0 of {n_s}: {r['shape']}")
+                     for r in got]
+    line = (f"T {t}, S {n_s} (Cs {cs}): all {n_s} slices held; worst "
+            f"max_abs_err over its tolerance: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in share.items())
+            + "; each slice's fused_swiglu the bits of its rows of one "
+            "launch over the whole buffer")
+    return first, line
+
+
+@contextlib.contextmanager
+def swiglu_counts():
+    """Within the block, each call of the grouped FFN's entry
+    (``kernels.ops.fused_swiglu``, one fused_swiglu launch on the card)
+    first appends its counts argument to the yielded list: the occupancy of
+    each launch.  The kernel wrapper and its launch counter stay as they
+    are."""
+    from repro_torch.kernels import ops
+    seen, entry = [], ops.fused_swiglu
+
+    def recording(x, w1, w3, w2, counts=None):
+        seen.append(counts.clone())
+        return entry(x, w1, w3, w2, counts)
+
+    ops.fused_swiglu = recording
+    try:
+        yield seen
+    finally:
+        ops.fused_swiglu = entry
+
+
+def engine_rows(inp, table, timer=engine_device_ms, wall=wall_ms) -> list[dict]:
+    """One full-width MoE layer (``fusco.shuffle_ffn``, the layer a model
+    runs) through each of ``ENGINES`` at the shape of ``inp``: its slice
+    count and what chose it, its fused_swiglu launches and the expert weight
+    bytes they read (live experts x 3 x d x f x 2 per launch, from the
+    counts each launch was given), its device time and host-clock time, and
+    its output against fused_flat's.
+
+    S = 1 must give fused_flat's bits.  The other engines are held in bf16
+    element by element to (n + 2) u a, where u is bf16's unit roundoff and
+    a = sum over the token's rows of |gate x expert output| (fused_flat's
+    plan, one fused_swiglu launch: the kernel is row-local, so every engine
+    meets the same expert outputs, as ``pipe_slice_rows`` checks).  fused_flat
+    rounds y once (u a).  fused_pipe rounds each slice's combine once (u a
+    over all slices) and each addition into y (u a each), with n = min(S,
+    K) slices holding a row of the token; disagg rounds its K gated
+    products (u a) and their sum, n = K.  One term more covers the float32
+    sums.  A dropped or doubled row of a token moves its element by |gate
+    x expert output|, at least a / K for the token's largest row."""
+    from repro_torch.core import dcomm, fusco
+    from repro_torch.core.routing import ExpertPlacement
+    from repro_torch.kernels import fused_staging as fs_k
+    from repro_torch.kernels import segment_gather as g_k
+    from repro_torch.kernels import segment_scatter_add as s_k
+    x, A, gates = inp["x"], inp["A"], inp["route_gates"]
+    w1, w3, w2 = inp["w1"], inp["w3"], inp["w2"]
+    t, d = x.shape
+    n_e, _, f = w1.shape
+    k = A.shape[1]
+    placement = ExpertPlacement(n_e, 1, 1)
+    e = fs_k.fused_swiglu(g_k.segment_gather(x, inp["idx"]).reshape(
+        1, n_e, inp["cap"], d), w1, w3, w2, inp["counts"])
+    a = s_k.segment_scatter_add_plain(e.float().abs().reshape(-1, d),
+                                      inp["idx"], inp["gates"].abs(), t)
+    rows, flat = [], None
+    for label, engine, slices, point in ENGINES:
+        cfg = engine_config(engine, slices, point, table)
+        call = lambda: fusco.shuffle_ffn(x, A, gates, w1, w3, w2, placement, cfg)
+        wrappers = zero_counters()
+        with swiglu_counts() as counts:
+            y = call()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        if engine == "fused_pipe":
+            cap, s = dcomm.pipe_geometry(t, k, d, x.element_size(), placement,
+                                         cfg)
+        else:
+            cap, s = inp["cap"], 1
+        if launches["fused_swiglu"] != s or len(counts) != s:
+            raise AssertionError(f"engine {label}: {launches['fused_swiglu']} "
+                                 f"fused_swiglu launches ({len(counts)} "
+                                 f"recorded), {s} slices")
+        live = sum(int((c.sum(0) > 0).sum()) for c in counts)
+        err = max_err(y, flat) if flat is not None else 0.0
+        tol = share = 0.0
+        if flat is None:
+            flat = y
+        elif engine == "fused_pipe" and s == 1:
+            if not same_bits(y, flat):
+                raise AssertionError(f"engine {label}: not fused_flat's bits "
+                                     f"(max_abs_err {err})")
+        else:
+            n = min(s, k) if engine == "fused_pipe" else k
+            bound_y = (n + 2) * BF16_U * a
+            diff = (y.float() - flat.float()).abs()
+            if not bool((diff <= bound_y).all()):
+                i = int(((diff - bound_y) / bound_y.clamp_min(1e-30)).argmax())
+                raise AssertionError(
+                    f"engine {label}: element {divmod(i, d)} differs from "
+                    f"fused_flat's by {diff.flatten()[i].item()} > (n + 2) u a "
+                    f"= {bound_y.flatten()[i].item()} (n {n})")
+            tol = bound_y.max().item()
+            share = (diff / bound_y.clamp_min(1e-30)).max().item()
+        rows.append(dict(
+            label=label, engine=engine, t=t, slices=s, slice_rows=cap // s,
+            capacity=cap, constants=point if engine == "fused_pipe" and
+            not slices else None,
+            swiglu_launches=launches["fused_swiglu"], live_expert_launches=live,
+            weight_bytes=live * 3 * d * f * w1.element_size(),
+            launches=launches, max_abs_err=err, tol=tol, tol_share=share,
+            ms=timer(call), wall_ms=wall(call)))
+    return rows
+
+
+def engine_f32_check(table, device="cuda") -> dict:
+    """Each engine against fused_flat in float32 at a reduced width
+    (``ENGINE_F32``: the serve layer's routing, d 256, f 128) on ``device``,
+    with fused_pipe also at the slice count of the full-width serve layer
+    (``pipe_config``; at d 256 pipesim picks another): the max error of
+    each, held to ``TOL_ENGINE_F32`` of the largest |output|."""
+    from repro_torch.core import fusco
+    from repro_torch.core.routing import ExpertPlacement
+    inp = main_path_inputs(device, **ENGINE_F32, seed=5)
+    f32 = lambda v: inp[v].float()
+    x, gates = f32("x"), f32("route_gates")
+    w = [f32(n) for n in ("w1", "w3", "w2")]
+    placement = ExpertPlacement(w[0].shape[0], 1, 1)
+    serve_s = pipe_geometry_of(pipe_config("qwen3-moe-30b-a3b"),
+                               ENGINE_SHAPES["serve"])[1]
+    out = {}
+    for label, engine, slices, point in ENGINES + (
+            (f"fused_pipe S={serve_s} (the serve layer's)", "fused_pipe",
+             serve_s, "spec"),):
+        out[label] = fusco.shuffle_ffn(x, inp["A"], gates, *w, placement,
+                                       engine_config(engine, slices, point,
+                                                     table))
+    want = out.pop("fused_flat")
+    tol = TOL_ENGINE_F32 * want.abs().max().item()
+    errs = {label: max_err(y, want) for label, y in out.items()}
+    bad = {label: e for label, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"engines in f32 against fused_flat: {bad} > {tol}")
+    return dict(errs, tol=tol)
+
+
+def pipe_geometry_of(cfg, shape: dict) -> tuple[int, int]:
+    """fused_pipe's (capacity, S) for one bf16 layer at a MoE shape of
+    ``PATHS``."""
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    return dcomm.pipe_geometry(shape["t"], shape["top_k"], shape["d"], 2,
+                               ExpertPlacement(shape["n_experts"], 1, 1), cfg)
+
+
+def calibrate_phase(device="cuda"):
+    """``calibrate.calibrate()`` on the card, and the slice count and
+    capacity that pipesim gives at the spec point and at the calibrated
+    constants for the engine phase's two shapes and the moe-tx streamed
+    prefill (``tx_stream_geometry``).  Returns the table and one line per
+    shape."""
+    from repro_torch.core import calibrate
+    table = calibrate.calibrate(device=device)
+    spec = engine_config("fused_pipe", 0, "spec", None)
+    tuned = calibrate.apply(table, spec)
+    tx = PATHS["moe-tx-stream"][1]
+    lines = []
+    for label, geometry in (
+            ("qwen3-moe serve prefill",
+             lambda cfg: pipe_geometry_of(cfg, ENGINE_SHAPES["serve"])),
+            ("qwen3-moe train",
+             lambda cfg: pipe_geometry_of(cfg, ENGINE_SHAPES["train"])),
+            (f"moe-tx streamed prefill, {TX_LAYERS} layers",
+             lambda cfg: tx_stream_geometry(tx["t"], tx["d"], tx["n_experts"],
+                                            tx["top_k"], cfg))):
+        got = {"spec point": geometry(spec), "calibrated": geometry(tuned)}
+        lines.append(f"{label}: " + ", ".join(
+            f"{name} S {s} (capacity {cap}, Cs {cap // s})"
+            for name, (cap, s) in got.items()))
+    return table, lines
+
+
 def train_phase(argv, device="cuda"):
     """The training path once, with every launch counter zeroed just before
     it and read just after: ``launch/train.run`` at full width.  Fails if a
@@ -1111,13 +1531,15 @@ def device_kinds(by_kernel) -> dict:
     return out
 
 
-def reduced_train_check(device="cuda") -> dict:
-    """One ``make_train_step`` of reduced qwen3-moe-30b-a3b in float32 from
-    the same params and batch on the card (kernels, all five launched) and
-    on the CPU (plain versions): max errors of the loss, of every grad leaf
-    and of every updated param.  Params are held to 2 * lr + 1e-5: AdamW's
-    first step moves each element by about lr * sign(g), so an element whose
-    gradient is within float32 noise of zero may move the other way."""
+def reduced_train_check(device="cuda", engine="fused_flat") -> dict:
+    """One ``make_train_step`` of reduced qwen3-moe-30b-a3b in float32
+    through ``engine`` from the same params and batch on the card (kernels:
+    all five and the scatter-add's backward launched; disagg's plain passes
+    launch no gather or scatter-add) and on the CPU (plain versions): max
+    errors of the loss, of every grad leaf and of every updated param.
+    Params are held to 2 * lr + 1e-5: AdamW's first step moves each element
+    by about lr * sign(g), so an element whose gradient is within float32
+    noise of zero may move the other way."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import ZipfNgramLM, to_device
@@ -1132,7 +1554,8 @@ def reduced_train_check(device="cuda") -> dict:
     host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
     res = {}
     for dev in ("cpu", device):
-        ctx = lm.make_context(cfg, dev, compute_dtype=f32)
+        ctx = lm.make_context(cfg, dev, compute_dtype=f32,
+                              **engine_kwargs(engine, cfg))
         model = steps.bundle(ctx)
         params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
         batch = to_device(host, dev)
@@ -1155,12 +1578,15 @@ def reduced_train_check(device="cuda") -> dict:
     p_tol = 2 * adamw.schedule(opt_cfg, 1) + 1e-5
     if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
             and err["params"] <= p_tol):
-        raise AssertionError(f"reduced train step card vs CPU: {err} (tol "
-                             f"{TOL_TRAIN}, params {p_tol})")
-    never = [k for k, n in launched.items() if n == 0]
-    if never:
-        raise AssertionError(f"reduced train step on the card never launched "
-                             f"{never}: {launched}")
+        raise AssertionError(f"reduced train step {engine} card vs CPU: {err} "
+                             f"(tol {TOL_TRAIN}, params {p_tol})")
+    plain = DISAGG_PLAIN if engine == "disagg" else ()
+    never = [k for k, n in launched.items() if n == 0 and k not in plain]
+    stray = [k for k in plain if launched[k]]
+    if never or stray:
+        raise AssertionError(f"reduced {engine} train step on the card never "
+                             f"launched {never}, or launched {stray}: "
+                             f"{launched}")
     return dict(err, params_tol=p_tol, launches=launched)
 
 
@@ -1181,36 +1607,41 @@ def print_row(r: dict) -> None:
           f"[{r['library']}]{causal}{split}")
 
 
-def serve_and_profile(arch: str) -> dict:
+def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
+                      absent=()) -> tuple[dict, dict]:
     """One serving path at full width: the serve phase with its launch
-    counts, then the profile phase.  Returns the launch counts."""
+    counts, then the profile phase.  Returns the launch counts and the
+    times (TTFT, decode, and each profiled step's device busy share)."""
     import torch
-    argv = PATHS[arch][0]
     torch.cuda.reset_peak_memory_stats()
-    out, launches = serve_phase(argv)
+    out, launches = serve_phase(argv, required=required, absent=absent)
     cfg = out["cfg"]
-    if arch == "moe-tx-stream" and launches["flash_attention"] != 2 * cfg.n_layers:
-        raise AssertionError(f"moe-tx-stream: flash launched "
+    if cfg.family == "moe_tx" and launches["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError(f"{label}: flash launched "
                              f"{launches['flash_attention']} times, expected "
                              f"2 prefills x {cfg.n_layers} layers")
-    print(f"serve {cfg.name} full width, {cfg.n_layers} layers, "
-          f"{' '.join(argv[argv.index('--requests'):])}: ttft "
+    print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{' '.join(argv[argv.index('--engine'):])}: ttft "
           f"{out['ttft_s'] * 1e3:.3f} ms  decode "
           f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
           f"{out['warmup_s']:.2f} s  peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches on the {arch} path: {json.dumps(launches)}")
+    print(f"launches on the {label} path: {json.dumps(launches)}")
     print(f"sample tokens: {out['tokens'][0].tolist()}")
     unprofiled = {"prefill": out["ttft_s"] * 1e3,
                   "decode": out["decode_s_per_tok"] * 1e3}
+    times = {"ttft_ms": unprofiled["prefill"],
+             "decode_ms_per_token": unprofiled["decode"]}
     del out
     torch.cuda.empty_cache()
 
     for step, p in profile_phase(argv).items():
-        print_profile(f"{arch} {step}", p, unprofiled[step])
-        check_profile(f"{arch} {step}", p, flash=step == "prefill")
+        print_profile(f"{label} {step}", p, unprofiled[step])
+        check_profile(f"{label} {step}", p, flash=step == "prefill")
+        times[f"{step}_busy_share"] = (None if p is None
+                                       else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
-    return launches
+    return launches, times
 
 
 def short_name(name: str, width: int = 90) -> str:
@@ -1322,11 +1753,16 @@ def main() -> None:
     rows = []
     with torch.inference_mode():
         for arch, (_, moe_shape, attn_shape) in PATHS.items():
-            path_rows = kernel_phase(main_path_inputs("cuda", **moe_shape),
-                                     fma=arch == "qwen3-moe-30b-a3b")
+            inp = main_path_inputs("cuda", **moe_shape)
+            path_rows = kernel_phase(inp, fma=arch == "qwen3-moe-30b-a3b")
             path_rows.append(flash_row(*attention_inputs("cuda", **attn_shape),
                                        window=None))
             rows += [dict(r, path=arch) for r in path_rows]
+            # the same kernels at the slices of the path's fused_pipe phase
+            slice_rows, line = pipe_slice_rows(inp, pipe_config(arch))
+            print(f"fused_pipe slices of {arch}: {line}")
+            rows += [dict(r, path=f"{arch} fused_pipe") for r in slice_rows]
+            del inp
             torch.cuda.empty_cache()
         shifted = attention_inputs("cuda", **SHIFTED)
         for window in (None, WINDOW):
@@ -1366,21 +1802,63 @@ def main() -> None:
     del train_inp
     torch.cuda.empty_cache()
 
-    launches = {arch: serve_and_profile(arch) for arch in PATHS}
-    launches["train"] = train_and_profile()
+    # the pipe constants measured on this card, and the slice counts they give
+    table, lines = calibrate_phase()
+    print(f"calibrated pipe constants: {json.dumps(table.as_dict())} (spec "
+          f"point: stage 3.35e12 B/s, wire 4.5e11 B/s, overhead 2e-06 s)")
+    for line in lines:
+        print(f"  slices, {line}")
+    # the engine phase: one full-width MoE layer through every engine
+    engines = []
+    for shape, moe_shape in ENGINE_SHAPES.items():
+        with torch.inference_mode():
+            for r in engine_rows(main_path_inputs("cuda", **moe_shape), table):
+                engines.append(dict(r, shape=shape))
+                print(f"engine {shape} T {r['t']} {r['label']:<29}: S "
+                      f"{r['slices']} (Cs {r['slice_rows']}, capacity "
+                      f"{r['capacity']}); device {r['ms']:.4f} ms"
+                      f"{spread(r['ms'])}, host clock {r['wall_ms']:.4f} ms"
+                      f"{spread(r['wall_ms'])}; fused_swiglu launches "
+                      f"{r['swiglu_launches']}, weight bytes "
+                      f"{r['weight_bytes']} ({r['live_expert_launches']} live "
+                      f"expert-launches); max_abs_err vs fused_flat "
+                      f"{r['max_abs_err']:.4g} (per-element tolerance "
+                      f"(n + 2) u a, at most {r['tol']:.4g}; worst element "
+                      f"at {r['tol_share']:.3f} of its own)")
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
+        errs = engine_f32_check(table)
+    print(f"engines f32 (d 256, f 128) vs fused_flat on the card: "
+          f"{json.dumps(errs)}")
+    print(json.dumps({"engines": [
+        {k: (float(v) if isinstance(v, float) else v) for k, v in r.items()}
+        | {"ms_min": r["ms"].lo, "ms_max": r["ms"].hi}
+        for r in engines]}))
+
+    launches, serve_times = {}, {}
     for arch in PATHS:
-        worst = reduced_check(arch)
-        print(f"reduced {arch} f32, card (kernels) vs CPU (plain): max logit "
-              f"error {worst:.3g} (tol {TOL_REDUCED})")
+        launches[arch], serve_times[arch] = serve_and_profile(arch, PATHS[arch][0])
+    for label, (argv, required, absent) in ENGINE_SERVE.items():
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, required, absent)
+    print(f"serve times by path: {json.dumps(serve_times)}")
+    launches["train"] = train_and_profile()
+    for engine in ("fused_flat", "fused_pipe", "disagg"):
+        for arch in PATHS:
+            worst = reduced_check(arch, engine=engine)
+            print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
+                  f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")
-    err = reduced_train_check()
-    print(f"reduced qwen3-moe-30b-a3b train step f32, card (kernels) vs CPU "
-          f"(plain): loss {err['loss']:.3g}, grads {err['grads']:.3g} of "
-          f"max(1, max |grad|) (tol {TOL_TRAIN}), updated params "
-          f"{err['params']:.3g} (tol {err['params_tol']:.3g}); launches on the "
-          f"card {json.dumps(err['launches'])}")
+    for engine in ("fused_flat", "fused_pipe", "disagg"):
+        err = reduced_train_check(engine=engine)
+        print(f"reduced qwen3-moe-30b-a3b train step {engine} f32, card "
+              f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "
+              f"{err['grads']:.3g} of max(1, max |grad|) (tol {TOL_TRAIN}), "
+              f"updated params {err['params']:.3g} (tol "
+              f"{err['params_tol']:.3g}); launches on the card "
+              f"{json.dumps(err['launches'])}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,33 +1,53 @@
 """dComm, the data-fused communication engine (port of
-``repro/core/dcomm.py``, the ``fused_flat`` engine).
+``repro/core/dcomm.py``: the ``fused_flat`` and ``fused_pipe`` engines and
+the ``disagg`` baseline).
 
-``fused_flat``: ONE descriptor-driven gather stages tokens straight into
-(destination lane x local expert x capacity) sub-slots; the tiled all-to-all
-lands every token already expert-grouped, the FFN consumes it in place, and
-the combine scatter-adds straight home.  The reference's shard_map axis
-becomes an optional ``torch.distributed`` process group (the EP group): this
-rank's lane is its rank in the group, and with no group (or a group of one)
-the exchange is the identity.
+- ``fused_flat``: ONE descriptor-driven gather stages tokens straight into
+  (destination lane x local expert x capacity) sub-slots; the tiled
+  all-to-all lands every token already expert-grouped, the FFN consumes it
+  in place, and the combine scatter-adds straight home.
+- ``fused_pipe``: the same flat plan, its staging buffer split into S slices
+  along the capacity axis and streamed: slice i's grouped FFN and combine
+  run while slice i+1's gather and exchange are in flight (the paper's
+  producer/consumer ring, Fig. 5).  S comes from ``pipesim.plan_slices`` at
+  the config's hardware point, or the ``pipe_slices`` knob.  The slice
+  primitives are split into issue and consume halves, so a shuffle can end
+  with its tail slice's combine exchange still in flight (:class:`PipeTail`),
+  which ``fusco.tx_layer_stream`` carries across an attention block.
+- ``disagg``: the paper's disaggregated baseline (§2.3): a materialised
+  sort by destination lane, the exchange, a second sort by expert, the FFN,
+  and the inverse passes, each a plain torch permutation.
+
+The reference's shard_map axis becomes an optional ``torch.distributed``
+process group (the EP group): this rank's lane is its rank in the group,
+and with no group (or a group of one) the exchange is the identity.
 
 Both collectives, the exchange and the sequence all-gather, are
 differentiable (``torch.autograd.Function``s that transpose as the
 reference's shard_map collectives do); the counts exchange carries none.
+With autograd off, ``fused_pipe`` issues each slice's exchange with
+``async_op=True`` and waits for it just before the slice is consumed.
 
-Other engines (fused_pipe, fused_hier, disagg, ragged), the dedup wire and
-the two-level multi-pod exchange are later slices of the port.
+Other engines (fused_hier, ragged), the dedup wire and the two-level
+multi-pod exchange are later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import functools
+from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import pipesim
 from repro_torch.core import planner as planner_lib
-from repro_torch.core.routing import ExpertPlacement
+from repro_torch.core.descriptors import build_slot_table, gather_rows
+from repro_torch.core.routing import ExpertPlacement, balanced_replica_choice
 from repro_torch.kernels import ops as kops
+
+I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +57,14 @@ class DcommConfig:
     ep_axis: Any = "model"       # a (pod, model) pair asks for the multi-pod exchange
     capacity_factor: float = 2.0
     dedup: bool = False
+    # fused_pipe slice knobs: 0 slices = auto via pipesim.plan_slices at the
+    # hardware point below: spec-sheet values for the NVIDIA H100 80GB HBM3
+    # (HBM3 staging, NVLink 4 wire per direction) until core.calibrate
+    # measures the running card
+    pipe_slices: int = 0
+    pipe_stage_bw: float = 3.35e12
+    pipe_wire_bw: float = 450e9
+    pipe_overhead_s: float = 2e-6
 
     @property
     def pod_axis(self) -> str | None:
@@ -133,6 +161,23 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.group), None
 
 
+def _exchanges(buf: torch.Tensor, cfg: DcommConfig, ep: int,
+               group: dist.ProcessGroup | None) -> bool:
+    """Whether the tiled exchange of a lane-major (EP, rows, ...) buffer
+    over ``group`` moves anything: False for one lane; raises for the
+    multi-pod exchange and for a group that does not match the buffer."""
+    if cfg.pod_axis is not None:
+        raise NotImplementedError(
+            "two-level multi-pod exchange (dcomm.py:188-196): ROADMAP queue 1, "
+            "multipod _flat_exchange")
+    if group_size(group) == 1:
+        return False
+    if buf.shape[0] != ep or group_size(group) != ep:
+        raise ValueError(f"exchange of {buf.shape[0]} lanes over a group of "
+                         f"{group_size(group)}, placement ep={ep}")
+    return True
+
+
 def _flat_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
                    group: dist.ProcessGroup | None = None,
                    reverse: bool = False) -> torch.Tensor:
@@ -141,16 +186,21 @@ def _flat_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
     The leading axis is the destination lane on dispatch and the origin lane
     on combine (single-level, so ``reverse`` is the same exchange)."""
     del reverse
-    if cfg.pod_axis is not None:
-        raise NotImplementedError(
-            "two-level multi-pod exchange (dcomm.py:188-196): ROADMAP queue 1, "
-            "multipod _flat_exchange")
-    if group_size(group) == 1:
+    if not _exchanges(buf, cfg, ep, group):
         return buf
-    if buf.shape[0] != ep or group_size(group) != ep:
-        raise ValueError(f"exchange of {buf.shape[0]} lanes over a group of "
-                         f"{group_size(group)}, placement ep={ep}")
     return _AllToAll.apply(buf, group)
+
+
+def _landed_counts(plan: planner_lib.FlatPlan, placement: ExpertPlacement,
+                   cfg: DcommConfig, cap: int,
+                   group: dist.ProcessGroup | None) -> torch.Tensor:
+    """The (source lane, E_local) occupancy of this lane's landed buffer:
+    the plan's per-group counts clipped at capacity, through one small
+    exchange of their own so the FFN kernel can skip empty row tiles (the
+    reference passes none)."""
+    sent = plan.slots.counts.clamp(max=cap).to(I32)
+    return _flat_exchange(sent.reshape(placement.ep, placement.experts_per_lane),
+                          cfg, placement.ep, group)
 
 
 def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
@@ -166,12 +216,8 @@ def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
     buf = kops.segment_gather(x, plan.src_of_slot, plan.slots.slot)
     buf = _flat_exchange(buf.reshape(placement.ep, e_local * cap, d), cfg,
                          placement.ep, group)
-    # landed layout: (source lane, E_local, C, d), expert-grouped already.
-    # The occupancy of each landed group rides a tiny exchange of its own so
-    # the FFN kernel can skip empty row tiles (the reference passes none).
-    sent = plan.slots.counts.clamp(max=cap).to(torch.int32)
-    counts = _flat_exchange(sent.reshape(placement.ep, e_local), cfg,
-                            placement.ep, group)
+    # landed layout: (source lane, E_local, C, d), expert-grouped already
+    counts = _landed_counts(plan, placement, cfg, cap, group)
     expert_rows = buf.reshape(placement.ep, e_local, cap, d)
     return DispatchResult(expert_rows, (plan, t, d, cap), plan.dropped, counts)
 
@@ -188,3 +234,356 @@ def flat_combine(expert_out: torch.Tensor, res: DispatchResult,
     # token summed over its slots: the slot table is src_of_slot's inverse
     return kops.segment_scatter_add(buf, plan.src_of_slot, plan.gate_of_slot, t,
                                     plan.slots.slot)
+
+
+# ======================================================================
+# fused_pipe: the paper's pipelined engine (Fig. 5) on the flat plan, split
+# into issue/consume slice primitives so a schedule (one shuffle, or the
+# moe_tx stream) can hold slices in flight explicitly.  The reference's
+# lax.scan is a Python loop here, in its order: issue slice i+1, then
+# consume slice i.
+# ======================================================================
+
+class InFlight(NamedTuple):
+    """An exchange issued on the wire: ``out`` is valid once :meth:`wait`
+    returns it.  ``work`` is the collective's handle (None when the exchange
+    ran synchronously or was the identity); ``sent`` keeps the send buffer
+    alive until then."""
+    out: torch.Tensor
+    work: Any = None
+    sent: torch.Tensor | None = None
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+        return self.out
+
+
+def _pipe_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
+                   group: dist.ProcessGroup | None) -> InFlight:
+    """The tiled exchange of one slice.  Over an EP group of more than one
+    rank with autograd off it is issued with ``async_op=True`` (consumed
+    after ``wait``); under autograd it is the synchronous differentiable
+    exchange; with one lane, the identity."""
+    if not _exchanges(buf, cfg, ep, group):
+        return InFlight(buf)
+    if torch.is_grad_enabled():
+        return InFlight(_AllToAll.apply(buf, group))
+    sent = buf.contiguous()
+    out = torch.empty_like(sent)
+    work = dist.all_to_all_single(out, sent, group=group, async_op=True)
+    return InFlight(out, work, sent)
+
+
+@functools.lru_cache(maxsize=256)
+def pipe_geometry(t: int, k: int, d: int, itemsize: int,
+                  placement: ExpertPlacement, cfg: DcommConfig,
+                  n_layers: int = 1, interleave: int = 1,
+                  attn_s: float = 0.0) -> tuple[int, int]:
+    """(capacity, n_slices) for a pipelined shuffle: a static plan, computed
+    once per set of arguments (the reference computes it at trace time; a
+    pipesim sweep costs milliseconds of host time, more than the shuffle).
+
+    ``t`` is the tokens of ONE shuffle.  S is ``cfg.pipe_slices`` when set;
+    else the pipesim knee for the staging buffer's byte volume at the
+    config's hardware point: the attention-filled knee from
+    :func:`pipesim.plan_tx_stream` when ``attn_s > 0`` (the caller's
+    estimate of the attention seconds that fill the tail's window), the
+    interleaved knee from :func:`pipesim.plan_interleaved_stream` when
+    micro-batches are interleaved, the joint cross-layer knee from
+    :func:`pipesim.plan_layer_stream` for one layer of an ``n_layers``
+    stream, else :func:`pipesim.plan_slices`.  Clamped so every slice keeps
+    at least one row per (lane, expert) sub-slot; capacity is rounded up to
+    a multiple of S."""
+    e_local = placement.experts_per_lane
+    cap = _cap(t * k / (placement.ep * e_local), cfg.capacity_factor)
+    if cfg.pipe_slices > 0:
+        s = cfg.pipe_slices
+    else:
+        payload = float(placement.ep * e_local * cap * d * itemsize)
+        p = pipesim.params_from_dcomm(payload, cfg)
+        if attn_s > 0.0:
+            s = pipesim.plan_tx_stream(
+                p, max(1, n_layers), max(1, interleave), attn_s,
+                payload_bytes=payload * max(1, interleave))["n_slices"]
+        elif interleave > 1:
+            s = pipesim.plan_interleaved_stream(
+                p, max(1, n_layers), interleave,
+                payload_bytes=payload * interleave)["n_slices"]
+        elif n_layers > 1:
+            s = pipesim.plan_layer_stream(p, n_layers)["n_slices"]
+        else:
+            s = pipesim.plan_slices(p)["n_slices"]
+    s = max(1, min(int(s), cap))
+    cap = int(-(-cap // s)) * s                       # round up to S slices
+    return cap, s
+
+
+class PipePlan(NamedTuple):
+    """What the slices of one pipelined shuffle read: the sliced
+    descriptors, each slice's owner table (S, T, K) and landed occupancy
+    (S, EP, E_local), from one plan and one counts exchange."""
+    plan: planner_lib.FlatPlan
+    sliced: planner_lib.SlicedFlatPlan
+    owners: torch.Tensor
+    counts: torch.Tensor
+    cap: int
+    n_slices: int
+
+
+def _pipe_slice_plan(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                     placement: ExpertPlacement, cfg: DcommConfig,
+                     group: dist.ProcessGroup | None) -> PipePlan:
+    """The flat plan with capacity rounded so it splits into S slices, and
+    what each slice needs: a slice's occupancy is the landed count less the
+    rows of the slices before it, clamped to [0, Cs], so row tiles past it
+    skip their weights (their rows are empty, and SwiGLU(0) = 0)."""
+    t, d = x.shape
+    cap, s = pipe_geometry(t, A.shape[1], d, x.element_size(), placement, cfg)
+    plan = planner_lib.build_flat_plan(A, gates, placement, cap)
+    sliced = planner_lib.slice_flat_plan(plan, placement, cap, s)
+    cs = cap // s
+    landed = _landed_counts(plan, placement, cfg, cap, group)
+    first = torch.arange(s, dtype=I32, device=landed.device) * cs
+    counts = (landed[None] - first[:, None, None]).clamp(0, cs).to(I32)
+    owners = planner_lib.slice_owner_table(plan.slots.slot, cap, s)
+    return PipePlan(plan, sliced, owners, counts, cap, s)
+
+
+def pipe_issue(x: torch.Tensor, src_slice: torch.Tensor,
+               owners_slice: torch.Tensor, placement: ExpertPlacement,
+               cfg: DcommConfig,
+               group: dist.ProcessGroup | None = None) -> InFlight:
+    """Producer half of one slice: the descriptor gather stages it, the
+    tiled exchange puts it on the wire.  ``src_slice`` is (EP, E_local, Cs);
+    ``owners_slice`` its (T, K) owner table (the gather's backward).  The
+    landed (EP (source lane), E_local, Cs, d) sub-buffer is the
+    ``fused_flat`` layout, one capacity stripe at a time."""
+    ep, d = placement.ep, x.shape[1]
+    _, e_local, cs = src_slice.shape
+    buf = kops.segment_gather(x, src_slice.reshape(-1), owners_slice)
+    return _pipe_exchange(buf.reshape(ep, e_local, cs, d), cfg, ep, group)
+
+
+def pipe_return_issue(out_slice: torch.Tensor, placement: ExpertPlacement,
+                      cfg: DcommConfig,
+                      group: dist.ProcessGroup | None = None) -> InFlight:
+    """Wire half of one slice's combine: the reverse tiled exchange of the
+    expert outputs (EP, E_local, Cs, d), back on their origin lane."""
+    return _pipe_exchange(out_slice, cfg, placement.ep, group)
+
+
+def pipe_return_consume(y: torch.Tensor | None, returned: InFlight,
+                        src_slice: torch.Tensor, gate_slice: torch.Tensor,
+                        owners_slice: torch.Tensor, t: int) -> torch.Tensor:
+    """Local half of one slice's combine: the gated scatter-add (the
+    owner-reduce over the slice's owner table) added into ``y`` in its
+    dtype, as the reference accumulates; ``y`` None starts the sum."""
+    rows = returned.wait()
+    part = kops.segment_scatter_add(rows.reshape(-1, rows.shape[-1]),
+                                    src_slice.reshape(-1),
+                                    gate_slice.reshape(-1), t, owners_slice)
+    return part if y is None else y + part
+
+
+def pipe_consume(y: torch.Tensor | None, landed: InFlight,
+                 src_slice: torch.Tensor, gate_slice: torch.Tensor,
+                 owners_slice: torch.Tensor, counts_slice: torch.Tensor,
+                 ffn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                 t: int, placement: ExpertPlacement, cfg: DcommConfig,
+                 group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    """Consumer half of one slice: grouped FFN and both combine halves.
+    ``landed`` is a slice from :func:`pipe_issue`; ``ffn(rows, counts)``
+    maps it to expert outputs of the same shape."""
+    returned = pipe_return_issue(ffn(landed.wait(), counts_slice), placement,
+                                 cfg, group)
+    return pipe_return_consume(y, returned, src_slice, gate_slice,
+                               owners_slice, t)
+
+
+class PipeTail(NamedTuple):
+    """The in-flight queue entry that survives a shuffle's epilogue: one
+    slice whose combine *exchange* has been issued but whose scatter-add
+    has not landed.  ``fusco.tx_layer_stream`` carries it across a layer's
+    attention block and lands it in the next layer's prologue."""
+    returned: InFlight          # (EP, E_local, Cs, d) reverse-exchanged outputs
+    src: torch.Tensor           # (EP, E_local, Cs) origin token per slot
+    gate: torch.Tensor          # (EP, E_local, Cs) combine weight per slot
+    owners: torch.Tensor        # (T, K) the slice's owner table
+
+
+def pipe_empty_tail(placement: ExpertPlacement, cs: int, d: int, t: int,
+                    k: int, dtype, gate_dtype, device) -> PipeTail:
+    """A tail whose consumption adds zeros (every slot and owner empty): the
+    stream's first carry before any layer has a slice in flight."""
+    ep, e_local = placement.ep, placement.experts_per_lane
+    return PipeTail(
+        InFlight(torch.zeros((ep, e_local, cs, d), dtype=dtype, device=device)),
+        torch.full((ep, e_local, cs), -1, dtype=I32, device=device),
+        torch.zeros((ep, e_local, cs), dtype=gate_dtype, device=device),
+        torch.full((t, k), -1, dtype=I32, device=device))
+
+
+def pipe_tail_consume(y: torch.Tensor, tail: PipeTail, t: int) -> torch.Tensor:
+    """Land a deferred tail slice: the scatter-add that completes ``y``."""
+    return pipe_return_consume(y, tail.returned, tail.src, tail.gate,
+                               tail.owners, t)
+
+
+def pipe_shuffle_ffn_stream(
+        x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+        ffn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        placement: ExpertPlacement, cfg: DcommConfig,
+        y0: torch.Tensor | None = None,
+        group: dist.ProcessGroup | None = None
+) -> tuple[torch.Tensor | None, PipeTail]:
+    """One shuffle of a stream: pipelined like :func:`pipe_shuffle_ffn`, but
+    the tail slice's scatter-add is NOT taken: its combine exchange is
+    issued and handed back as a :class:`PipeTail` for the caller to land
+    later.  ``y0`` seeds the accumulator (the residual stream input), so the
+    returned partial output is ``y0 + all but the tail slice's
+    contribution`` (None when ``y0`` is None and there is one slice)."""
+    t = x.shape[0]
+    pp = _pipe_slice_plan(x, A, gates, placement, cfg, group)
+    src, gate, owners, counts = (pp.sliced.src, pp.sliced.gate, pp.owners,
+                                 pp.counts)
+    y = y0
+    landed = pipe_issue(x, src[0], owners[0], placement, cfg, group)   # prologue
+    for i in range(1, pp.n_slices):
+        landed_next = pipe_issue(x, src[i], owners[i], placement, cfg, group)
+        y = pipe_consume(y, landed, src[i - 1], gate[i - 1], owners[i - 1],
+                         counts[i - 1], ffn, t, placement, cfg, group)
+        landed = landed_next
+    # tail: FFN + combine exchange issued; the scatter-add is deferred
+    out = ffn(landed.wait(), counts[-1])
+    returned = pipe_return_issue(out, placement, cfg, group)
+    return y, PipeTail(returned, src[-1], gate[-1], owners[-1])
+
+
+def pipe_shuffle_ffn(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                     ffn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                     placement: ExpertPlacement, cfg: DcommConfig,
+                     group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    """The fully fused pipelined path: slice i's FFN and combine run while
+    slice i+1's gather and exchange are in flight.  ``ffn(rows, counts)``
+    maps a landed (EP, E_local, Cs, d) slice and its (EP, E_local)
+    occupancy to expert outputs of the same shape."""
+    y, tail = pipe_shuffle_ffn_stream(x, A, gates, ffn, placement, cfg,
+                                      group=group)
+    return pipe_tail_consume(y, tail, x.shape[0])
+
+
+def pipe_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                  placement: ExpertPlacement, cfg: DcommConfig,
+                  group: dist.ProcessGroup | None = None) -> DispatchResult:
+    """Split-phase API: pipelined communication only, the landed buffer
+    identical to ``fused_flat``'s (the FFN-overlapped path is
+    :func:`pipe_shuffle_ffn`)."""
+    t, d = x.shape
+    e_local = placement.experts_per_lane
+    pp = _pipe_slice_plan(x, A, gates, placement, cfg, group)
+    issued = [pipe_issue(x, pp.sliced.src[i], pp.owners[i], placement, cfg,
+                         group) for i in range(pp.n_slices)]
+    landed = torch.stack([f.wait() for f in issued])     # (S, EP, El, Cs, d)
+    # slices are capacity stripes: (S, EP, El, Cs, d) -> (EP, El, C, d)
+    expert_rows = landed.permute(1, 2, 0, 3, 4).reshape(
+        placement.ep, e_local, pp.cap, d)
+    counts = pp.counts.sum(0)                            # (EP, E_local)
+    return DispatchResult(expert_rows, (pp, t, d), pp.plan.dropped, counts)
+
+
+def pipe_combine(expert_out: torch.Tensor, res: DispatchResult,
+                 placement: ExpertPlacement, cfg: DcommConfig,
+                 group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    pp, t, d = res.state
+    e_local, s = placement.experts_per_lane, pp.n_slices
+    out = expert_out.reshape(placement.ep, e_local, s, pp.cap // s, d).permute(
+        2, 0, 1, 3, 4)                                   # (S, EP, El, Cs, d)
+    y = None
+    for i in range(s):
+        returned = pipe_return_issue(out[i], placement, cfg, group)
+        y = pipe_return_consume(y, returned, pp.sliced.src[i],
+                                pp.sliced.gate[i], pp.owners[i], t)
+    return y
+
+
+# ======================================================================
+# disagg: the paper's §2.3 baseline (materialised sort passes, plain torch)
+# ======================================================================
+
+def _inverse_rows(slot: torch.Tensor, values: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(n,) int32: ``values[i]`` at row ``slot[i]``, -1 where no slot
+    lands (the reference's ``full(-1).at[drop_neg(slot)].set(values)``)."""
+    out = torch.full((n + 1,), -1, dtype=I32, device=slot.device)
+    out[torch.where(slot < 0, n, slot).long()] = values.to(I32)
+    return out[:n]
+
+
+def disagg_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                    placement: ExpertPlacement, cfg: DcommConfig,
+                    group: dist.ProcessGroup | None = None) -> DispatchResult:
+    t, d = x.shape
+    k = A.shape[1]
+    ep, e_local = placement.ep, placement.experts_per_lane
+    cap_lane = _cap(t * k / ep, cfg.capacity_factor)
+    cap_e = _cap(t * k / (ep * e_local), cfg.capacity_factor)
+    dev = x.device
+
+    replica = balanced_replica_choice(A, placement)
+    lane = placement.lane_of_expert(A, replica).reshape(-1)       # (T*K,)
+    eloc = placement.local_expert_index(A, replica).reshape(-1)
+    tok = torch.arange(t, dtype=I32, device=dev)[:, None].expand(A.shape).reshape(-1)
+
+    # pass 1: materialised sort by destination lane (the pre-a2a permutation)
+    order = torch.argsort(lane, stable=True)
+    xs = x[tok[order].long()]                                     # (T*K, d)
+    lane_s, eloc_s = lane[order], eloc[order]
+
+    # pass 2: pack into the per-lane capacity buffer (device-major layout)
+    n1 = ep * cap_lane
+    st = build_slot_table(lane_s, ep, cap_lane)
+    inv = _inverse_rows(st.slot, torch.arange(t * k, device=dev), n1)
+    buf = gather_rows(xs, inv)                                    # (EP*cap, d)
+    meta = _inverse_rows(st.slot, eloc_s, n1)
+
+    buf = _flat_exchange(buf.reshape(ep, cap_lane, d), cfg, ep, group)
+    meta = _flat_exchange(meta.reshape(ep, cap_lane), cfg, ep, group)
+    buf = buf.reshape(n1, d)
+    meta = meta.reshape(n1)
+
+    # pass 3: receiver-side materialised sort by expert, then repack
+    order2 = torch.argsort(torch.where(meta >= 0, meta, e_local), stable=True)
+    xr = buf[order2]
+    meta_r = meta[order2]
+    n2 = e_local * cap_e * ep
+    st2 = build_slot_table(meta_r, e_local, cap_e * ep)
+    inv2 = _inverse_rows(st2.slot, torch.arange(n1, device=dev), n2)
+    ebuf = gather_rows(xr, inv2).reshape(1, e_local, cap_e * ep, d)
+    counts = st2.counts.clamp(max=cap_e * ep).to(I32).reshape(1, e_local)
+    state = (order, st, order2, st2, t, d, k, cap_lane)
+    return DispatchResult(ebuf, state, st.dropped() + st2.dropped(), counts)
+
+
+def disagg_combine(expert_out: torch.Tensor, res: DispatchResult,
+                   placement: ExpertPlacement, cfg: DcommConfig,
+                   gates: torch.Tensor,
+                   group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    order, st, order2, st2, t, d, k, cap_lane = res.state
+    ep = placement.ep
+    flat = expert_out.reshape(-1, d)
+    # inverse pass 3: sorted row i lives at expert-buffer slot st2.slot[i]
+    # and came from receive-buffer row order2[i] (a permutation: each row is
+    # written once)
+    vals = gather_rows(flat, st2.slot)
+    back = torch.zeros((ep * cap_lane, d), dtype=flat.dtype,
+                       device=flat.device).index_copy(0, order2, vals)
+    back = _flat_exchange(back.reshape(ep, cap_lane, d), cfg, ep, group,
+                          reverse=True)
+    back = back.reshape(ep * cap_lane, d)
+    # inverse passes 2 + 1: unpack, unsort, gated sum over each token's k
+    srt = gather_rows(back, st.slot)                              # sorted order
+    unsrt = torch.zeros((t * k, d), dtype=srt.dtype,
+                        device=srt.device).index_copy(0, order, srt)
+    w = gates.reshape(-1, 1).to(unsrt.dtype)
+    return (unsrt * w).reshape(t, k, d).sum(dim=1)

@@ -1,5 +1,6 @@
 """Segment descriptors as int32 slot tables (port of
-``repro/core/descriptors.py``, the parts the flat plan uses).
+``repro/core/descriptors.py``, the parts the flat plan and the disagg
+baseline use).
 
 A descriptor list maps each (token, k) routing assignment to its row in a
 communication buffer of (groups x capacity) rows, -1 when dropped.  Where the
@@ -80,3 +81,12 @@ def build_slot_table(keys: torch.Tensor, num_groups: int, capacity: int,
     slot = torch.where(ok, flat * capacity + pos, -1).to(I32)
     counts = group_counts(flat, num_groups)
     return SlotTable(slot.reshape(shape), counts, capacity, num_groups)
+
+
+def gather_rows(buf: torch.Tensor, slot: torch.Tensor,
+                fill: float = 0.0) -> torch.Tensor:
+    """Read buffer rows back through the descriptor table (-1 -> ``fill``),
+    in plain torch: the disagg baseline's materialised passes."""
+    got = buf[slot.long().clamp_min(0)]
+    return torch.where((slot >= 0)[:, None], got,
+                       torch.full((), fill, dtype=buf.dtype, device=buf.device))

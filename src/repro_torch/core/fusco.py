@@ -1,6 +1,7 @@
 """FUSCO public API: the MoE shuffle plus expert compute (port of
-``repro/core/fusco.py``, the ``fused_flat`` engine, and the per-layer-barrier
-form of the attention-separated ``moe_tx`` stream).
+``repro/core/fusco.py``: the ``fused_flat`` and ``fused_pipe`` engines, the
+``disagg`` baseline, and the attention-separated ``moe_tx`` stream, per-layer
+barriers or streamed at K = 1).
 
 A model layer calls :func:`moe_shuffle_ffn` on this rank's (T, d) tokens and
 its lane's expert weights, with the EP process group, and gets back the
@@ -11,6 +12,8 @@ the tests hold them to.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
@@ -23,20 +26,19 @@ from repro_torch.layers.attention import gqa_project
 from repro_torch.layers.common import apply_rope, rms_norm
 
 _LATER = {
-    "fused_pipe": "ROADMAP queue 1 item 4 (fused_pipe)",
     "fused_hier": "ROADMAP queue 1 item 4 (fused_hier)",
-    "disagg": "ROADMAP queue 1 item 4 (disagg)",
     "ragged": "ROADMAP queue 1 item 4 (ragged)",
 }
+_ENGINES = ("fused_flat", "fused_pipe", "disagg")
 
 
 def _check_engine(cfg: DcommConfig) -> None:
     if cfg.engine in _LATER:
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported yet: {_LATER[cfg.engine]}")
-    if cfg.engine != "fused_flat":
+    if cfg.engine not in _ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if cfg.dedup:
+    if cfg.dedup and cfg.engine == "fused_flat":
         raise NotImplementedError(
             "fused_flat with dedup is not ported yet: ROADMAP queue 1 item 4 "
             "(dedup)")
@@ -54,13 +56,24 @@ def swiglu_experts(rows: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def dispatch(x, A, gates, placement: ExpertPlacement, cfg: DcommConfig,
              group: dist.ProcessGroup | None = None) -> DispatchResult:
     _check_engine(cfg)
+    if cfg.engine == "fused_pipe":
+        return dcomm.pipe_dispatch(x, A, gates, placement, cfg, group)
+    if cfg.engine == "disagg":
+        return dcomm.disagg_dispatch(x, A, gates, placement, cfg, group)
     return dcomm.flat_dispatch(x, A, gates, placement, cfg, group)
 
 
 def combine(expert_out, res: DispatchResult, placement: ExpertPlacement,
-            cfg: DcommConfig,
+            cfg: DcommConfig, gates: torch.Tensor | None = None,
             group: dist.ProcessGroup | None = None) -> torch.Tensor:
+    """``gates`` are the routing's (T, K) gates, which ``disagg`` combines
+    with; the other engines carry theirs in the plan."""
     _check_engine(cfg)
+    if cfg.engine == "fused_pipe":
+        return dcomm.pipe_combine(expert_out, res, placement, cfg, group)
+    if cfg.engine == "disagg":
+        return dcomm.disagg_combine(expert_out, res, placement, cfg, gates,
+                                    group)
     return dcomm.flat_combine(expert_out, res, placement, cfg, group)
 
 
@@ -68,10 +81,19 @@ def shuffle_ffn(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
                 w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                 placement: ExpertPlacement, cfg: DcommConfig,
                 group: dist.ProcessGroup | None = None) -> torch.Tensor:
-    """Shuffle + grouped FFN + combine for pre-computed routing."""
+    """Shuffle + grouped FFN + combine for pre-computed routing.  For
+    ``fused_pipe`` this is the sliced pipeline, the grouped FFN run per
+    capacity slice inside the communication loop; the split
+    dispatch()/combine() path stays for communication alone."""
+    if cfg.engine == "fused_pipe":
+        _check_engine(cfg)
+        return dcomm.pipe_shuffle_ffn(
+            x, A, gates, lambda rows, counts: swiglu_experts(rows, w1, w3, w2,
+                                                             counts),
+            placement, cfg, group)
     res = dispatch(x, A, gates, placement, cfg, group)
     out = swiglu_experts(res.expert_rows, w1, w3, w2, res.counts)
-    return combine(out, res, placement, cfg, group)
+    return combine(out, res, placement, cfg, gates, group)
 
 
 def moe_shuffle_ffn(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
@@ -108,7 +130,7 @@ def dense_moe_reference(x: torch.Tensor, w_router: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention-separated stream (moe_tx), per-layer-barrier form
+# Attention-separated stream (moe_tx): per-layer barriers, or streamed
 # ---------------------------------------------------------------------------
 
 def tx_attention(h: torch.Tensor, lp, pos_q: torch.Tensor,
@@ -139,28 +161,46 @@ def tx_attention(h: torch.Tensor, lp, pos_q: torch.Tensor,
     return out
 
 
+def _tx_attn_cost_s(tc: int, s_l: int, bc: int, s_glob: int, n_heads: int,
+                    head_dim: int, itemsize: int, cfg: DcommConfig) -> float:
+    """Planning proxy for the attention window filler: the byte volume the
+    attention block moves through the staging tier (q/k/v/o activations +
+    f32 score/prob tiles), converted to seconds at the config's staging
+    bandwidth.  Deliberately coarse: it only has to place the pipesim knee,
+    not predict wall clock."""
+    attn_bytes = (4.0 * tc * n_heads * head_dim * itemsize
+                  + 2.0 * 4.0 * bc * n_heads * s_l * s_glob)
+    return attn_bytes / cfg.pipe_stage_bw
+
+
 def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                     placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
                     *, n_heads: int, n_kv: int, head_dim: int,
                     rope_theta: float = 1e6, norm_topk: bool = True,
                     stream: bool = True, interleave: int = 1, traffic=None,
-                    observe=None, return_kv: bool = False,
+                    observe=None, return_kv: bool = False, kv_out=None,
                     group: dist.ProcessGroup | None = None):
     """Chain N parallel attention+MoE blocks,
-    ``h <- h + attn(rms_norm(h, ln1)) + moe(rms_norm(h, ln2))``, each layer
-    behind a full barrier (the reference's branch for every engine but a
-    streamed ``fused_pipe``, fusco.py:426-451).
+    ``h <- h + attn(rms_norm(h, ln1)) + moe(rms_norm(h, ln2))``.
+
+    With ``stream`` and the ``fused_pipe`` engine, the blocks run through
+    one schedule (the reference's fusco.py:453-519 at K = 1): each layer's
+    MoE shuffle is issued FIRST and ends with its tail slice's combine
+    exchange in flight (:class:`dcomm.PipeTail`); the attention, which reads
+    the block input and not the tail, runs while it is on the wire; the
+    tail lands in the next layer's prologue, and the last one in an
+    epilogue.  One slice count serves the whole chain, from
+    :func:`pipesim.plan_tx_stream` with the attention cost proxy
+    :func:`_tx_attn_cost_s`.  Otherwise every layer ends in a full barrier
+    (the reference's branch for the other engines, fusco.py:426-451).
 
     ``x`` is (b, s_local, d), this rank's stripe of the sequence (lane
     ``rank in group``); ``positions`` the full (S,) absolute positions;
     ``params`` the stacked per-layer dict ``{ln1, wq, wk, wv, wo, ln2,
     router, w1, w3, w2}`` (attention weights replicated, expert weights this
     lane's (N, E_local, ...)).  Returns ``h``, and with ``return_kv`` also
-    the per-layer gathered RoPE'd (k, v) stacks (N, b, S, n_kv, hd)."""
-    if stream and cfg.engine == "fused_pipe":
-        raise NotImplementedError(
-            "the streamed fused_pipe moe_tx schedule is not ported yet: "
-            "ROADMAP queue 1 items 4/5 (fused_pipe, tx_layer_stream)")
+    the per-layer gathered RoPE'd (k, v) stacks (N, b, S, n_kv, hd): fresh
+    ones, or ``kv_out``, a pair of such stacks written in place."""
     if interleave > 1:
         raise NotImplementedError(
             "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
@@ -169,27 +209,58 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
         raise NotImplementedError(
             "traffic observation is not ported yet: ROADMAP queue 1 item 6")
     b, s_l, d = x.shape
+    tc = b * s_l
     chunk = dcomm.lane_index(group)
     pos_q = positions[chunk * s_l:(chunk + 1) * s_l]
+    n_layers = params["router"].shape[0]
+    streamed = stream and cfg.engine == "fused_pipe"
+    if streamed:
+        attn_s = _tx_attn_cost_s(tc, s_l, b, positions.shape[0], n_heads,
+                                 head_dim, x.element_size(), cfg)
+        cap, ns = dcomm.pipe_geometry(tc, top_k, d, x.element_size(),
+                                      placement, cfg, n_layers=n_layers,
+                                      attn_s=attn_s)
+        cfg = dataclasses.replace(cfg, pipe_slices=ns)   # freeze the joint plan
+        tail = dcomm.pipe_empty_tail(placement, cap // ns, d, tc, top_k,
+                                     x.dtype, x.dtype, x.device)
     h = x
     ks, vs = [], []
-    for i in range(params["router"].shape[0]):
+    for i in range(n_layers):
         lp = {k: w[i] for k, w in params.items()}
+        if streamed:
+            # prologue: the previous layer's tail lands, then the router
+            ht = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc)
+            h = ht.reshape(b, s_l, d)
+        u2 = rms_norm(h, lp["ln2"]).reshape(tc, d)
+        A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
+                                 normalize=norm_topk)
+        if streamed:
+            # the MoE issued first; its tail rides across the attention
+            ffn = lambda rows, counts, lp=lp: swiglu_experts(
+                rows, lp["w1"], lp["w3"], lp["w2"], counts)
+            y, tail = dcomm.pipe_shuffle_ffn_stream(
+                u2, A, gates.to(h.dtype), ffn, placement, cfg, y0=ht,
+                group=group)
+        else:
+            y = shuffle_ffn(u2, A, gates.to(h.dtype), lp["w1"], lp["w3"],
+                            lp["w2"], placement, cfg, group)
         a = tx_attention(h, lp, pos_q, positions, n_heads=n_heads, n_kv=n_kv,
                          head_dim=head_dim, rope_theta=rope_theta,
                          group=group, return_kv=return_kv)
         if return_kv:
             a, (k, v) = a
-            ks.append(k)
-            vs.append(v)
-        u2 = rms_norm(h, lp["ln2"]).reshape(b * s_l, d)
-        A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
-                                 normalize=norm_topk)
-        y = shuffle_ffn(u2, A, gates.to(h.dtype), lp["w1"], lp["w3"],
-                        lp["w2"], placement, cfg, group)
-        h = h + a + y.reshape(b, s_l, d)
+            if kv_out is None:
+                ks.append(k)
+                vs.append(v)
+            else:
+                kv_out[0][i].copy_(k)
+                kv_out[1][i].copy_(v)
+        h = y.reshape(b, s_l, d) + a if streamed else h + a + y.reshape(b, s_l, d)
+    if streamed:       # epilogue: the last layer's tail
+        h = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc).reshape(b, s_l, d)
     if return_kv:
-        return h, (torch.stack(ks), torch.stack(vs))
+        return h, (kv_out if kv_out is not None
+                   else (torch.stack(ks), torch.stack(vs)))
     return h
 
 

@@ -6,7 +6,15 @@ greedy decode (port of the lock-step path of ``repro/launch/serve.py``).
 
 ``python -m repro_torch.launch.serve --arch moe-tx-stream --engine fused_flat
 --requests 8 --prompt-len 512 --gen 16`` (the moe_tx family, per-layer
-barriers: the reference's ``--moe-stream 0``)
+barriers)
+
+``python -m repro_torch.launch.serve --arch moe-tx-stream --engine fused_pipe
+--moe-stream 16 --requests 8 --prompt-len 512 --gen 16`` (the streamed
+schedule: each layer's tail combine in flight across its attention block)
+
+``--engine`` takes ``fused_flat`` (the default), ``fused_pipe`` (the
+pipelined engine; ``--pipe-slices`` fixes its slice count, 0: pipesim's)
+and ``disagg`` (the baseline).
 
 Runs on the card (``cuda``).  Weights and prompts are random, drawn from
 seed 0.  A warm-up prefill and two decode steps (which also build the
@@ -38,12 +46,18 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's tiny smoke-test dims")
-    ap.add_argument("--engine", default="fused_flat", choices=["fused_flat"])
+    ap.add_argument("--engine", default="fused_flat",
+                    choices=["fused_flat", "fused_pipe", "disagg"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers (depth only)")
+    ap.add_argument("--moe-stream", type=int, default=0,
+                    help="moe_tx family: layers per cross-layer stream block "
+                         "(streamed with --engine fused_pipe)")
+    ap.add_argument("--pipe-slices", type=int, default=0,
+                    help="fused_pipe slice count; 0 = auto via pipesim")
     args = ap.parse_args(argv)
     if args.gen < 2:
         ap.error("--gen must be at least 2 (one prefill token, one decode step)")
@@ -67,7 +81,9 @@ def setup(args, device="cuda") -> Setup:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    ctx = lm.make_context(cfg, device, engine=args.engine)
+    ctx = lm.make_context(cfg, device, engine=args.engine,
+                          moe_stream=args.moe_stream,
+                          pipe_slices=args.pipe_slices)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = lm.init_params(cfg, ctx, gen)
     tokens = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),

@@ -4,6 +4,10 @@ few AdamW steps of next-token loss through the FUSCO shuffle, on one card.
 ``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
 --batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
 
+``--engine`` takes ``fused_flat`` (the default), ``fused_pipe`` and
+``disagg``; ``--calibrate`` measures the pipe constants that choose
+fused_pipe's slice count and prints the table it applies.
+
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
 path.  Weights are random; the batches come from the reference's synthetic
 streams (``--data zipf``: the 2-gram Zipf language;
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import calibrate
 from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, iterate
 from repro_torch.launch import steps
 from repro_torch.models import lm
@@ -40,7 +45,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's tiny smoke-test dims")
-    ap.add_argument("--engine", default="fused_flat", choices=["fused_flat"])
+    ap.add_argument("--engine", default="fused_flat",
+                    choices=["fused_flat", "fused_pipe", "disagg"])
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers (depth only)")
     ap.add_argument("--steps", type=int, default=8)
@@ -50,6 +56,12 @@ def parse_args(argv=None):
     ap.add_argument("--data", default="zipf", choices=["zipf", "uniform"])
     ap.add_argument("--capacity-factor", type=float, default=2.0)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--pipe-slices", type=int, default=0,
+                    help="fused_pipe slice count; 0 = auto via pipesim")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="measure the pipe stage/wire/overhead constants on "
+                         "the running device before building the context "
+                         "(replaces the H100 spec-point defaults)")
     args = ap.parse_args(argv)
     if args.steps <= WARMUP:
         ap.error(f"--steps must exceed the {WARMUP} warm-up steps")
@@ -72,8 +84,17 @@ def setup(args, device="cuda") -> Setup:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    calibration = None
+    if args.calibrate:
+        calibration = calibrate.calibrate(device=device)
+        print(f"[calibrate] {calibration.platform}: "
+              f"stage {calibration.stage_bw / 1e9:.1f} GB/s, "
+              f"wire {calibration.wire_bw / 1e9:.1f} GB/s, "
+              f"overhead {calibration.overhead_s * 1e6:.1f} us", flush=True)
     ctx = lm.make_context(cfg, device, engine=args.engine,
-                          capacity_factor=args.capacity_factor)
+                          capacity_factor=args.capacity_factor,
+                          pipe_slices=args.pipe_slices,
+                          calibration=calibration)
     params = lm.init_params(
         cfg, ctx, torch.Generator(device=ctx.device).manual_seed(SEED))
     src_cls = ZipfNgramLM if args.data == "zipf" else SyntheticLM

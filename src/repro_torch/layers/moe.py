@@ -53,15 +53,16 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      n_kv: int, head_dim: int, rope_theta: float = 1e6,
                      norm_topk: bool = True, stream: bool = True,
                      fsdp: bool = False, interleave: int = 1, traffic=None,
-                     return_kv: bool = False,
+                     return_kv: bool = False, kv_out=None,
                      group: dist.ProcessGroup | None = None):
     """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
-    by ``fusco.tx_layer_stream``.  ``x``: (B, S/ep, d), this rank's stripe of
-    the sequence; ``positions``: the full (S,) positions; ``moe_params``:
+    by ``fusco.tx_layer_stream``: one streamed schedule when ``stream`` and
+    the engine is ``fused_pipe``, else per-layer barriers.  ``x``: (B, S/ep,
+    d), this rank's stripe of the sequence; ``positions``: the full (S,) positions; ``moe_params``:
     stacked router (N, d, E) and lane-major w1/w3/w2 (N, EP, E_local, ...);
     ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
     (N, d).  Returns ``y``, and with ``return_kv`` the per-layer gathered
-    (k, v) stacks (N, B, S, n_kv, hd)."""
+    (k, v) stacks (N, B, S, n_kv, hd), written into ``kv_out`` when given."""
     if fsdp:
         raise NotImplementedError("FSDP expert weights are not ported yet: "
                                   "ROADMAP queue 1 item 8 (parallel/sharding)")
@@ -79,7 +80,7 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
         x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,
         norm_topk=norm_topk, stream=stream, interleave=interleave,
-        return_kv=return_kv, group=group)
+        return_kv=return_kv, kv_out=kv_out, group=group)
 
 
 def moe_decode_block(x: torch.Tensor, moe_params, *,

@@ -22,6 +22,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import calibrate
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
                                     seq_stripe)
 from repro_torch.core.routing import ExpertPlacement
@@ -40,15 +41,22 @@ class ModelContext:
     placement: ExpertPlacement
     dcfg: DcommConfig
     compute_dtype: torch.dtype = torch.bfloat16
+    # moe_tx family: layers per stream block (<= 1: one layer a block)
+    moe_stream: int = 0
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
                  ep_group: dist.ProcessGroup | None = None,
                  engine: str = "fused_flat", capacity_factor: float = 2.0,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> ModelContext:
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 moe_stream: int = 0, pipe_slices: int = 0,
+                 calibration=None) -> ModelContext:
     """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
-    ``ep_group`` (None: one lane).  Raises if ``device`` is CUDA and no card
-    is there."""
+    ``ep_group`` (None: one lane).  ``moe_stream`` groups the moe_tx layers
+    into stream blocks; ``pipe_slices`` fixes fused_pipe's slice count (0:
+    pipesim's); ``calibration`` (a ``core.calibrate.CalibrationTable``)
+    replaces the H100 spec-point pipe constants with measured ones.  Raises
+    if ``device`` is CUDA and no card is there."""
     if cfg.family not in ("moe", "moe_tx"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
@@ -60,8 +68,12 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     ep = group_size(ep_group)
     ns = max(1, ep // 2)      # as the reference's serve driver picks it
     placement = ExpertPlacement(n_experts=cfg.moe.n_experts, ep=ep, node_size=ns)
-    dcfg = DcommConfig(engine=engine, capacity_factor=capacity_factor)
-    return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype)
+    dcfg = DcommConfig(engine=engine, capacity_factor=capacity_factor,
+                       pipe_slices=pipe_slices)
+    if calibration is not None:
+        dcfg = calibrate.apply(calibration, dcfg)
+    return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
+                        moe_stream)
 
 
 def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
@@ -94,12 +106,12 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     }
 
 
-def _layer(tree, i: int | None, cd: torch.dtype):
-    """Layer ``i`` of a stacked parameter tree (every layer for None), float
-    leaves in ``cd``."""
+def _layer(tree, i: int | slice, cd: torch.dtype):
+    """Layer ``i`` (or the layers of a slice) of a stacked parameter tree,
+    float leaves in ``cd``."""
     if isinstance(tree, dict):
         return {k: _layer(v, i, cd) for k, v in tree.items()}
-    leaf = tree if i is None else tree[i]
+    leaf = tree[i]
     return leaf.to(cd) if leaf.is_floating_point() else leaf
 
 
@@ -238,18 +250,41 @@ def lm_loss(params, batch, ctx: ModelContext):
 
 def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
                 ctx: ModelContext):
-    """moe_tx stack over this rank's stripe of the sequence (one block of
-    all layers, per-layer barriers); returns the final-normed (B, S, d) and
-    the per-layer gathered k/v stacks (L, B, S, Hkv, hd)."""
+    """moe_tx stack over this rank's stripe of the sequence: with the
+    ``fused_pipe`` engine the layers grouped into stream blocks of
+    ``max(1, moe_stream)``, one streamed ``stream_tx_layers`` call each (the
+    reference's ``_tx_stack``, lm.py:300-350), every block writing its k/v
+    into one preallocated stack; with the other engines one call of all
+    layers with per-layer barriers (blocks change nothing there).  Returns
+    the final-normed (B, S, d) and the per-layer gathered k/v stacks
+    (L, B, S, Hkv, hd)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
-    lp = _layer(params["layers"], None, cd)
-    h, (k, v) = stream_tx_layers(
-        seq_stripe(h, ctx.ep_group), lp["moe"], lp["attn"], lp["ln1"],
-        lp["ln2"], placement=ctx.placement, dcfg=ctx.dcfg,
-        top_k=cfg.moe.top_k, positions=positions, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        norm_topk=cfg.moe.norm_topk, stream=False, return_kv=True,
-        group=ctx.ep_group)
+    L = cfg.n_layers
+    blk = max(1, ctx.moe_stream)
+    if L % blk != 0:
+        raise ValueError(
+            f"moe_stream={ctx.moe_stream} must divide n_layers={L} "
+            "(every stream block needs the same static slice geometry)")
+    if ctx.dcfg.engine != "fused_pipe":
+        blk = L
+    h = seq_stripe(h, ctx.ep_group)
+    kv = None
+    if blk < L:
+        shape = (L, h.shape[0], positions.shape[0], cfg.n_kv_heads, cfg.hd)
+        kv = tuple(torch.empty(shape, dtype=cd, device=h.device)
+                   for _ in range(2))
+    for b0 in range(0, L, blk):
+        bp = _layer(params["layers"], slice(b0, b0 + blk), cd)
+        h, (k, v) = stream_tx_layers(
+            h, bp["moe"], bp["attn"], bp["ln1"], bp["ln2"],
+            placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
+            positions=positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            norm_topk=cfg.moe.norm_topk, return_kv=True,
+            kv_out=None if kv is None else tuple(t[b0:b0 + blk] for t in kv),
+            group=ctx.ep_group)
+    if kv is not None:
+        k, v = kv
     h = all_gather_seq(h, ctx.ep_group)
     return rms_norm(h, params["final_norm"].to(cd)), k, v
 

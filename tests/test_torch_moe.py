@@ -179,7 +179,7 @@ def test_engines_of_later_slices_raise():
     x = torch.zeros(4, D)
     A = torch.zeros(4, K, dtype=torch.int32)
     g = torch.full((4, K), 0.5)
-    for engine in ("fused_pipe", "fused_hier", "disagg", "ragged"):
+    for engine in ("fused_hier", "ragged"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fusco.dispatch(x, A, g, placement, DcommConfig(engine=engine))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

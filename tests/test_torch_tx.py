@@ -1,7 +1,8 @@
 """The port's attention-separated ``moe_tx`` stream against the JAX package:
-``fusco.tx_attention``, ``fusco.tx_layer_stream`` (per-layer barriers,
-``fused_flat``), ``layers/moe.stream_tx_layers`` and the reduced
-``moe-tx-stream`` serve path.
+``fusco.tx_attention``, ``fusco.tx_layer_stream`` (per-layer barriers with
+``fused_flat``, and the streamed K = 1 schedule of ``fused_pipe``),
+``layers/moe.stream_tx_layers`` and the reduced ``moe-tx-stream`` serve
+path (``fused_flat``, and ``fused_pipe`` in stream blocks of 2).
 
 EP = 1 runs in-process; EP = 4 runs four gloo ranks, each holding its stripe
 of the sequence and its lane's experts, compared rank by rank with the JAX
@@ -70,14 +71,16 @@ def _t(tree):
     return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
 
 
-def _jax_stream(ep, p, x, cf=CF):
-    """JAX ``tx_layer_stream`` (fused_flat, per-layer barriers) on ``ep``
-    emulated lanes.  x: (b, S, d) -> h (ep, b, S/ep, d) and the gathered
-    k/v stacks of each lane (ep, N, b, S, Hkv, hd)."""
+def _jax_stream(ep, p, x, cf=CF, engine="fused_flat", slices=0):
+    """JAX ``tx_layer_stream`` on ``ep`` emulated lanes: per-layer barriers
+    for ``fused_flat``, the streamed schedule for ``fused_pipe``.  x: (b, S,
+    d) -> h (ep, b, S/ep, d) and the gathered k/v stacks of each lane (ep,
+    N, b, S, Hkv, hd)."""
     b, s, _ = x.shape
     placement = JPlacement(n_experts=E, ep=ep, node_size=max(1, ep // 2))
-    cfg = JDcommConfig(engine="fused_flat", ep_axis="model",
-                       node_size=placement.node_size, capacity_factor=cf)
+    cfg = JDcommConfig(engine=engine, ep_axis="model",
+                       node_size=placement.node_size, capacity_factor=cf,
+                       pipe_slices=slices)
     rep = {k: jnp.asarray(v) for k, v in p.items() if k not in ("w1", "w3", "w2")}
     lanes = _lanes(p, ep)
     xl = x.reshape(b, ep, s // ep, D).transpose(1, 0, 2, 3)
@@ -85,7 +88,8 @@ def _jax_stream(ep, p, x, cf=CF):
     def fn(xs, w1, w3, w2):
         return jfusco.tx_layer_stream(
             xs, jnp.arange(s), {**rep, "w1": w1, "w3": w3, "w2": w2},
-            placement, cfg, K, **HEADS, stream=False, return_kv=True)
+            placement, cfg, K, **HEADS, stream=engine == "fused_pipe",
+            return_kv=True)
 
     h, (k, v) = jax.jit(jax.vmap(fn, axis_name="model"))(
         jnp.asarray(xl), *(jnp.asarray(lanes[w]) for w in ("w1", "w3", "w2")))
@@ -190,12 +194,84 @@ def test_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
     np.testing.assert_allclose(joined, np.asarray(dense), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("slices", [1, 4])
+def test_streamed_tx_layer_stream_ep1_matches_jax(slices):
+    """fused_pipe's streamed schedule: each layer's tail combine lands in the
+    next layer's prologue (the last in the epilogue)."""
+    p = _params(7)
+    x = _x(8, 2, 8)
+    h_j, k_j, v_j = _jax_stream(1, p, x, engine="fused_pipe", slices=slices)
+    placement = ExpertPlacement(n_experts=E, ep=1, node_size=1)
+    cfg = DcommConfig(engine="fused_pipe", capacity_factor=CF,
+                      pipe_slices=slices)
+    h, (k, v) = fusco.tx_layer_stream(
+        torch.from_numpy(x), torch.arange(8), _t(p), placement, cfg, K,
+        **HEADS, return_kv=True)
+    for got, want in ((h, h_j[0]), (k, k_j[0]), (v, v_j[0])):
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    dense = fusco.tx_dense_reference(torch.from_numpy(x), torch.arange(8),
+                                     _t(p), K, **HEADS)
+    np.testing.assert_allclose(h.numpy(), dense.numpy(), rtol=TOL, atol=TOL)
+
+
+def _streamed_rank_main(rank, world, init_file, data, out_dir):
+    """One EP rank: its stripe through the streamed fused_pipe schedule at
+    S = 1 and 4, through ``stream_tx_layers``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        d = dict(np.load(data))
+        x = torch.from_numpy(d.pop("x"))
+        s_l = x.shape[1] // world
+        placement = ExpertPlacement(n_experts=E, ep=world,
+                                    node_size=max(1, world // 2))
+        p = _t(d)
+        lane = {w: p[w].reshape(N, world, E // world, *p[w].shape[2:])
+                for w in ("w1", "w3", "w2")}
+        out = {}
+        for slices in (1, 4):
+            h, (k, v) = stream_tx_layers(
+                x[:, rank * s_l:(rank + 1) * s_l], {"router": p["router"], **lane},
+                {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
+                placement=placement,
+                dcfg=DcommConfig(engine="fused_pipe", capacity_factor=CF,
+                                 pipe_slices=slices),
+                top_k=K, positions=torch.arange(x.shape[1]), **HEADS,
+                return_kv=True, group=dist.group.WORLD)
+            out.update({f"h{slices}": h.numpy(), f"k{slices}": k.numpy(),
+                        f"v{slices}": v.numpy()})
+        np.savez(f"{out_dir}/rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_streamed_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
+    ep, b, s = 4, 2, 16
+    p = _params(9)
+    x = _x(10, b, s)
+    np.savez(tmp_path / "data.npz", x=x, **p)
+    mp.spawn(_streamed_rank_main,
+             args=(ep, str(tmp_path / "rendezvous"), str(tmp_path / "data.npz"),
+                   str(tmp_path)), nprocs=ep, join=True)
+    got = [np.load(tmp_path / f"rank{r}.npz") for r in range(ep)]
+    for slices in (1, 4):
+        h_j, k_j, v_j = _jax_stream(ep, p, x, engine="fused_pipe",
+                                    slices=slices)
+        for r in range(ep):
+            for name, want in (("h", h_j[r]), ("k", k_j[r]), ("v", v_j[r])):
+                np.testing.assert_allclose(got[r][f"{name}{slices}"], want,
+                                           rtol=TOL, atol=TOL,
+                                           err_msg=f"S {slices} rank {r} {name}")
+
+
 def test_tx_stream_raises_on_what_is_not_ported():
     p = _t(_params(0))
     x = torch.zeros(1, 4, D)
     placement = ExpertPlacement(n_experts=E, ep=1, node_size=1)
     kw = dict(**HEADS, stream=False)
-    for cfg, extra in ((DcommConfig(engine="fused_pipe"), dict(stream=True)),
+    for cfg, extra in ((DcommConfig(engine="fused_pipe"),
+                        dict(stream=True, interleave=2)),
                        (DcommConfig(), dict(interleave=2)),
                        (DcommConfig(), dict(traffic=object()))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -207,10 +283,12 @@ def test_tx_stream_raises_on_what_is_not_ported():
                          **HEADS, fsdp=True)
 
 
-def _jax_serve(cfg, tokens, max_len, steps):
+def _jax_serve(cfg, tokens, max_len, steps, engine="fused_flat",
+               moe_stream=0):
     mesh = make_mesh((1, 1), ("data", "model"))
     ctx = dataclasses.replace(
-        jlm.make_context(cfg, mesh, multi_pod=False, engine="fused_flat"),
+        jlm.make_context(cfg, mesh, multi_pod=False, engine=engine,
+                         moe_stream=moe_stream),
         compute_dtype=jnp.float32)
     params = jlm.init_params(cfg, jax.random.PRNGKey(0), ctx, dtype=jnp.float32)
     s = tokens.shape[1]
@@ -259,6 +337,43 @@ def test_reduced_moe_tx_serve_path_matches_jax():
             np.testing.assert_allclose(state.kv[name].numpy(), step_kv_j[name],
                                        rtol=TOL_MODEL, atol=TOL_MODEL)
     assert state.length == s + steps
+
+
+def test_reduced_moe_tx_streamed_serve_path_matches_jax():
+    """The reduced moe-tx-stream served as ``--engine fused_pipe
+    --moe-stream 2`` (its two layers in one streamed block, pipesim's slice
+    count on each side): prefill logits and caches against the JAX package
+    with the same engine and block, then ``serve.run`` of those flags on the
+    CPU gives in-vocabulary tokens and finite logits."""
+    from repro_torch.launch import serve
+    b, s = 3, 8
+    max_len = s + 2
+    tokens = np.random.default_rng(2).integers(0, CFG.vocab, (b, s)).astype(np.int32)
+    params_np, (logits_j, kv_j), _ = _jax_serve(
+        jget_arch(ARCH).reduced(), tokens, max_len, 0, engine="fused_pipe",
+        moe_stream=2)
+    argv = ["--arch", ARCH, "--reduced", "--engine", "fused_pipe",
+            "--moe-stream", "2", "--requests", str(b), "--prompt-len", str(s),
+            "--gen", "2"]
+    args = serve.parse_args(argv)
+    ctx = lm.make_context(CFG, "cpu", engine=args.engine,
+                          moe_stream=args.moe_stream,
+                          compute_dtype=torch.float32)
+    params = convert.params_from_jax(params_np, device="cpu")
+    logits, state = lm.prefill(params, torch.from_numpy(tokens).long(),
+                               torch.arange(s), ctx, max_len)
+    np.testing.assert_allclose(logits.numpy(), logits_j, rtol=TOL_MODEL,
+                               atol=TOL_MODEL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(state.kv[name].numpy(), kv_j[name],
+                                   rtol=TOL_MODEL, atol=TOL_MODEL)
+    out = serve.run(args, device="cpu")
+    assert out["tokens"].shape == (b, 2)
+    assert bool(((out["tokens"] >= 0) & (out["tokens"] < CFG.vocab)).all())
+    assert bool(torch.isfinite(out["logits"]).all())
+    with pytest.raises(ValueError, match="must divide"):
+        lm.prefill(params, torch.from_numpy(tokens).long(), torch.arange(s),
+                   dataclasses.replace(ctx, moe_stream=3), max_len)
 
 
 def test_convert_takes_the_jax_moe_tx_tree():
