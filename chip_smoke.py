@@ -36,6 +36,11 @@
      capacity 256): grouped_matmul 2048 -> 768 and 768 -> 2048 through a
      transposed weight view, fused_swiglu's forward, the flash forward and
      the combine;
+   - the gathers and scatter-adds of fused_hier (``hier_kernel_rows``: the
+     stage-1 gather, the expansion, the pre-combine over the stage-2 slot
+     table and the origin sum over the stage-1 one) at the serve and train
+     shapes, and ragged's unpack and pack-back gathers at the serve shape
+     (``ragged_kernel_rows``), from the engines' own plans;
    - odd shapes of the Hopper forms, of the flash tensor-core form (the
      bf16 shapes the Hopper form refuses) and of the scatter-add and its
      backward (``odd_shape_checks``), held only.
@@ -54,15 +59,20 @@
    (``fusco.shuffle_ffn``: 128 experts, top-8) at the serve prefill shape
    (T 512, capacity 64) and the train shape (T 2048, capacity 256) through
    fused_flat, fused_pipe at pipesim's slice count (spec point and
-   calibrated), at S = 1 and S = 4, and disagg: S, the rows per slice, the
-   device time (median of 5 rounds behind a device sleep, with the spread)
-   and the host-clock time of the layer, the fused_swiglu launches and the
-   expert weight bytes they read (from the counts each launch was given).
-   fused_pipe at S = 1 must give fused_flat's bits; the others are held to
-   fused_flat in bf16 element by element, within a tolerance from the bf16
-   roundings into the output (``engine_rows``), and in float32 at a
-   reduced width (d 256, f 128, and also at the serve layer's S) to 1e-5
-   (``engine_f32_check``).  One ``{"engines": [...]}`` JSON line.
+   calibrated), at S = 1 and S = 4, disagg, fused_hier, fused_flat with
+   dedup and ragged: S, the rows per slice, the device time (median of 5
+   rounds behind a device sleep, with the spread) and the host-clock time
+   of the layer, the fused_swiglu launches and the expert weight bytes they
+   read (from the counts each launch was given), and the gather and
+   scatter-add launches, which must be those the engine's code implies
+   (``ENGINE_LAUNCHES``); no operation of the layer may make the host wait
+   on the card (``host_syncs``), which the device timing could not see.
+   fused_pipe at S = 1 and ragged must give
+   fused_flat's bits; the others are held to fused_flat in bf16 element by
+   element, within a tolerance from the bf16 roundings into the output
+   (``engine_rows``), and in float32 at a reduced width (d 256, f 128, and
+   also at the serve layer's S) to 1e-5 (``engine_f32_check``).  One
+   ``{"engines": [...]}`` JSON line.
 6. Serve phases, one per path: zero the kernels' launch counters, serve the
    full-width model through ``repro_torch.launch.serve`` (qwen3-moe-30b-a3b
    at 4 layers; moe-tx-stream-1b at all 16), read the counters and fail if a
@@ -74,18 +84,23 @@
    are fused_flat's two, then (``ENGINE_SERVE``) qwen3-moe through
    ``--engine fused_pipe`` and ``--engine disagg`` (whose sort and repack
    passes are plain torch: the phase fails if it launches the gather or the
-   scatter-add kernel) and moe-tx-stream-1b through ``--engine fused_pipe
-   --moe-stream 16``, the streamed schedule across all 16 layers.
-7. Train phase: zero the counters, train full-width qwen3-moe-30b-a3b (4 of
-   48 layers) for 8 AdamW steps through ``repro_torch.launch.train``, read
-   the counters and fail if a kernel of the path (the five, and the
-   scatter-add's backward) never launched or a loss is not finite; print
-   the losses, ms/step, tokens/s and peak memory, then profile one step, its
-   forward+backward and its optimizer update.
+   scatter-add kernel), through ``--engine fused_hier`` (the reference's
+   default) and ``--engine ragged``, each held to the gather and
+   scatter-add launches its code implies (``SERVE_LAUNCHES``), and
+   moe-tx-stream-1b through ``--engine fused_pipe --moe-stream 16``, the
+   streamed schedule across all 16 layers.
+7. Train phases: zero the counters, train full-width qwen3-moe-30b-a3b (4
+   of 48 layers) for 8 AdamW steps through ``repro_torch.launch.train``,
+   through fused_flat and then through fused_hier, read the counters and
+   fail if a kernel of the path (the five, and the scatter-add's backward)
+   never launched or a loss is not finite; print the losses, ms/step,
+   tokens/s and peak memory, then profile one step, its forward+backward
+   and its optimizer update.
 8. Checks the outputs: finite logits and in-vocabulary tokens of the right
    shape, each reduced model's logits on the card (kernels) against the
    same model on the CPU (plain versions) through each engine (fused_pipe
-   at 4 slices, moe-tx in one streamed block), the reduced models served
+   at 4 slices, moe-tx in one streamed block; fused_hier, fused_flat with
+   dedup and ragged too), the reduced models served
    and trained on the card in bf16 (their attention on the flash
    tensor-core form), and one reduced train step in float32 on the card
    against the CPU (loss, every grad leaf, every updated param) through
@@ -138,6 +153,10 @@ TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
           "zipf"],
          dict(t=2048, d=2048, n_experts=128, top_k=8, f=768, decode_t=8),
          dict(b=4, sq=512, sk=512, hq=32, hkv=4, hd=128))
+# the train phases: label -> flags (the same run through fused_hier)
+TRAINS = {"train": TRAIN[0],
+          "train fused_hier": [a if a != "fused_flat" else "fused_hier"
+                               for a in TRAIN[0]]}
 SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
 # the serve phases of the other engines: (flags, kernels that must launch,
@@ -163,21 +182,47 @@ ENGINE_SERVE = {
     "qwen3-moe-30b-a3b disagg": (
         engine_argv("qwen3-moe-30b-a3b", "disagg"),
         ("fused_swiglu", "flash_attention"), DISAGG_PLAIN[:2]),
+    "qwen3-moe-30b-a3b fused_hier": (
+        engine_argv("qwen3-moe-30b-a3b", "fused_hier"), SERVE_KERNELS, ()),
+    "qwen3-moe-30b-a3b ragged": (
+        engine_argv("qwen3-moe-30b-a3b", "ragged"), SERVE_KERNELS, ()),
     "moe-tx-stream fused_pipe": (
         engine_argv("moe-tx-stream", "fused_pipe", "--moe-stream",
                     str(TX_LAYERS)),
         SERVE_KERNELS, ()),
 }
+# per MoE layer (one shuffle): (gathers, scatter-adds) each engine's code
+# launches at EP = 1, S its slice count.  fused_hier and dedup: the stage-1
+# gather and the expansion, the pre-combine and the origin sum; ragged: the
+# compact send gather, the unpack and the pack-back, and one combine
+ENGINE_LAUNCHES = {"fused_flat": lambda s: (1, 1), "fused_pipe": lambda s: (s, s),
+                   "disagg": lambda s: (0, 0), "fused_hier": lambda s: (2, 2),
+                   "dedup": lambda s: (2, 2), "ragged": lambda s: (3, 1)}
+# the qwen3-moe serve runs (2 prefills x 4 layers) of the slice-7 engines
+SERVE_LAUNCHES = {
+    f"qwen3-moe-30b-a3b {e}": {"segment_gather": 8 * ENGINE_LAUNCHES[e](1)[0],
+                               "segment_scatter_add": 8 * ENGINE_LAUNCHES[e](1)[1]}
+    for e in ("fused_hier", "ragged")}
 # the engine phase: one full-width qwen3-moe MoE layer (fusco.shuffle_ffn) at
 # the serve prefill and the train shape through each engine, as (label,
-# engine, pipe slices, constants): slices 0 takes pipesim's count at the
-# spec point or at the card's calibrated constants
-ENGINES = (("fused_flat", "fused_flat", 0, "spec"),
-           ("fused_pipe auto (spec point)", "fused_pipe", 0, "spec"),
-           ("fused_pipe auto (calibrated)", "fused_pipe", 0, "calibrated"),
-           ("fused_pipe S=1", "fused_pipe", 1, "spec"),
-           ("fused_pipe S=4", "fused_pipe", 4, "spec"),
-           ("disagg", "disagg", 0, "spec"))
+# engine, pipe slices, constants, dedup): slices 0 takes pipesim's count at
+# the spec point or at the card's calibrated constants
+ENGINES = (("fused_flat", "fused_flat", 0, "spec", False),
+           ("fused_pipe auto (spec point)", "fused_pipe", 0, "spec", False),
+           ("fused_pipe auto (calibrated)", "fused_pipe", 0, "calibrated", False),
+           ("fused_pipe S=1", "fused_pipe", 1, "spec", False),
+           ("fused_pipe S=4", "fused_pipe", 4, "spec", False),
+           ("disagg", "disagg", 0, "spec", False),
+           ("fused_hier", "fused_hier", 0, "spec", False),
+           ("fused_flat dedup", "fused_flat", 0, "spec", True),
+           ("ragged", "ragged", 0, "spec", False))
+# bf16 roundings into y (n of the per-element tolerance (n + 2) u a, see
+# engine_rows) of the engines held by tolerance; fused_pipe: min(S, K)
+ROUNDINGS = {"disagg": lambda s, k: k, "fused_pipe": lambda s, k: min(s, k),
+             "fused_hier": lambda s, k: 3, "dedup": lambda s, k: 3}
+# the reduced card-vs-CPU checks, by engine name ("dedup": fused_flat with it)
+REDUCED_ENGINES = ("fused_flat", "fused_pipe", "disagg", "fused_hier", "dedup",
+                   "ragged")
 ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
 # the same layer narrowed for the float32 check (d 256, f 128)
 ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
@@ -560,36 +605,15 @@ def kernel_phase(inp, timer=time_ms, fma=True, decode=True,
     without the launch counts."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
-    from repro_torch.kernels import segment_gather as g_k
-    from repro_torch.kernels import segment_scatter_add as s_k
 
-    x, idx, gates = inp["x"], inp["idx"], inp["gates"]
+    x, idx = inp["x"], inp["idx"]
     w1, w3, w2 = inp["w1"], inp["w3"], inp["w2"]
     t, d = x.shape
     n_e = w1.shape[0]
-    es = x.element_size()
-    rows = []
 
     # segment_gather: src (T, d), idx (R,)
-    got = g_k.segment_gather(x, idx)
-    want = g_k.segment_gather_plain(x, idx)
-    err = max_err(got, want)
-    if err > TOL_GATHER:
-        raise AssertionError(f"segment_gather: max_abs_err {err} > {TOL_GATHER}")
-    r = idx.shape[0]
-    live_src = int(torch.unique(idx[idx >= 0]).numel())
-    b_ms, b_by = bound(r * 4 + live_src * d * es + r * d * es, 0, F32_PEAK)
-    safe_idx = idx.clamp_min(0).long()
-    rows.append(dict(
-        name="segment_gather", shape=f"src ({t}, {d}) idx ({r},) bf16",
-        route="cuda", source="src/repro_torch/csrc/segment_gather.cu",
-        replaces="src/repro/kernels/segment_gather.py:38",
-        max_abs_err=err, tol=TOL_GATHER,
-        ms=timer(lambda: g_k.segment_gather(x, idx)),
-        plain_ms=timer(lambda: g_k.segment_gather_plain(x, idx)),
-        bound_ms=b_ms, bound_by=b_by,
-        library="torch.index_select (no zero rows for -1)",
-        library_ms=timer(lambda: torch.index_select(x, 0, safe_idx))))
+    row, got = gather_row(x, idx, timer)
+    rows = [row]
 
     # fused_swiglu at the prefill shape (real counts) and the decode shape
     buf = got.reshape(1, n_e, inp["cap"], d)
@@ -621,6 +645,95 @@ def kernel_phase(inp, timer=time_ms, fma=True, decode=True,
     # segment_scatter_add: (R, d) -> T rows, gated, over the plan's owners
     return rows + scatter_rows(expert_out.reshape(-1, d), inp, t, timer,
                                counting)
+
+
+def gather_row(x, idx, timer=time_ms) -> tuple[dict, object]:
+    """segment_gather of ``x`` (T, d) by ``idx`` (R,) against its plain
+    version (exact): the row (times, bound, ``index_select``) and the
+    kernel's output."""
+    import torch
+    from repro_torch.kernels import segment_gather as g_k
+    t, d = x.shape
+    es = x.element_size()
+    got = g_k.segment_gather(x, idx)
+    err = max_err(got, g_k.segment_gather_plain(x, idx))
+    if err > TOL_GATHER:
+        raise AssertionError(f"segment_gather: max_abs_err {err} > {TOL_GATHER}")
+    r = idx.shape[0]
+    live_src = int(torch.unique(idx[idx >= 0]).numel())
+    b_ms, b_by = bound(r * 4 + live_src * d * es + r * d * es, 0, F32_PEAK)
+    safe_idx = idx.clamp_min(0).long()
+    return dict(
+        name="segment_gather", shape=f"src ({t}, {d}) idx ({r},) bf16",
+        route="cuda", source="src/repro_torch/csrc/segment_gather.cu",
+        replaces="src/repro/kernels/segment_gather.py:38",
+        max_abs_err=err, tol=TOL_GATHER,
+        ms=timer(lambda: g_k.segment_gather(x, idx)),
+        plain_ms=timer(lambda: g_k.segment_gather_plain(x, idx)),
+        bound_ms=b_ms, bound_by=b_by,
+        library="torch.index_select (no zero rows for -1)",
+        library_ms=timer(lambda: torch.index_select(x, 0, safe_idx))), got
+
+
+def hier_kernel_rows(inp, timer=time_ms) -> list[dict]:
+    """fused_hier's gathers and scatter-adds at ``inp``'s shape (EP = 1:
+    one node, its forwarder this lane), from the engine's own plans
+    (``dcomm.hier_dispatch``): the stage-1 gather (T -> C1 rows, one a
+    token), the expansion (C1 -> E x C2 rows, one an assignment), the
+    pre-combine of the gated expert outputs over the stage-2 slot table and
+    the origin sum over the stage-1 one, each held against its plain
+    version and timed (``gather_row``, ``scatter_rows``).  fused_flat with
+    dedup runs the same four at the same shapes."""
+    import torch
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    from repro_torch.kernels import fused_staging as fs_k
+    from repro_torch.kernels import segment_scatter_add as s_k
+    x, w = inp["x"], (inp["w1"], inp["w3"], inp["w2"])
+    t, d = x.shape
+    res = dcomm.hier_dispatch(x, inp["A"], inp["route_gates"],
+                              ExpertPlacement(w[0].shape[0], 1, 1),
+                              dcomm.DcommConfig(engine="fused_hier"))
+    plan1, plan2, _, _, c1, _, _ = res.state
+    stage1, buf1 = gather_row(x, plan1.src_of_slot, timer)
+    expand, buf2 = gather_row(buf1, plan2.src_of_slot, timer)
+    out = (fs_k.fused_swiglu(buf2.reshape(res.expert_rows.shape), *w, res.counts)
+           * res.row_gates[..., None].to(x.dtype)).reshape(-1, d)
+    ones = lambda n: torch.ones(n, dtype=torch.float32, device=x.device)
+    pre = scatter_rows(out, dict(idx=plan2.src_of_slot, gates=ones(out.shape[0]),
+                                 owners=plan2.slots.slot), c1, timer, False)[0]
+    part = s_k.segment_scatter_add(out, plan2.src_of_slot, ones(out.shape[0]), c1,
+                                   plan2.slots.slot)
+    origin = scatter_rows(part, dict(idx=plan1.src_of_slot, gates=ones(c1),
+                                     owners=plan1.slots.slot), t, timer, False)[0]
+    return [dict(r, shape=f"fused_hier {what}: {r['shape']}")
+            for r, what in ((stage1, "stage 1"), (expand, "expansion"),
+                            (pre, "pre-combine"), (origin, "origin"))]
+
+
+def ragged_kernel_rows(inp, timer=time_ms) -> list[dict]:
+    """ragged's unpack gather (the landed compact rows into the expert
+    buffer) and its pack-back gather (the expert outputs into landed
+    compact order) at ``inp``'s shape, from the engine's own state
+    (``dcomm.ragged_dispatch``), held and timed; its send gather and its
+    combine are fused_flat's shapes."""
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    from repro_torch.kernels import fused_staging as fs_k
+    from repro_torch.kernels import segment_gather as g_k
+    x, w = inp["x"], (inp["w1"], inp["w3"], inp["w2"])
+    d = x.shape[1]
+    res = dcomm.ragged_dispatch(x, inp["A"], inp["route_gates"],
+                                ExpertPlacement(w[0].shape[0], 1, 1),
+                                dcomm.DcommConfig(engine="ragged"))
+    desc, _, unpack, landed_slot, _, _ = res.state
+    landed = g_k.segment_gather(x, desc.compact_src)
+    unpack_row, unpacked = gather_row(landed, unpack, timer)
+    out = fs_k.fused_swiglu(unpacked.reshape(res.expert_rows.shape), *w,
+                            res.counts).reshape(-1, d)
+    back = gather_row(out, landed_slot, timer)[0]
+    return [dict(unpack_row, shape=f"ragged unpack: {unpack_row['shape']}"),
+            dict(back, shape=f"ragged pack-back: {back['shape']}")]
 
 
 def same_bits(a, b) -> bool:
@@ -900,11 +1013,12 @@ def reduced_bf16_runs(device="cuda") -> dict:
     try:
         for arch in PATHS:
             runs[f"serve {arch}"] = serve_phase(
-                ["--arch", arch, "--reduced", "--requests", "3",
-                 "--prompt-len", "8", "--gen", "4"], device)[1]
+                ["--arch", arch, "--reduced", "--engine", "fused_flat",
+                 "--requests", "3", "--prompt-len", "8", "--gen", "4"],
+                device)[1]
         runs["train qwen3-moe-30b-a3b"] = train_phase(
-            ["--reduced", "--steps", "3", "--seq", "32", "--batch", "2"],
-            device)[1]
+            ["--reduced", "--engine", "fused_flat", "--steps", "3", "--seq",
+             "32", "--batch", "2"], device)[1]
     finally:
         _build.bind = bind
     flash = {e for e in entries if e.startswith("flash_attention_fwd")}
@@ -916,7 +1030,10 @@ def reduced_bf16_runs(device="cuda") -> dict:
 
 def engine_kwargs(engine: str, cfg) -> dict:
     """``lm.make_context``'s engine options of a reduced check: fused_pipe at
-    4 slices, the moe_tx layers in one streamed block."""
+    4 slices, the moe_tx layers in one streamed block; "dedup" is fused_flat
+    with the condensed wire."""
+    if engine == "dedup":
+        return dict(engine="fused_flat", dedup=True)
     if engine != "fused_pipe":
         return dict(engine=engine)
     return dict(engine=engine, pipe_slices=4,
@@ -1195,10 +1312,11 @@ def engine_device_ms(fn) -> Timing:
     return time_ms(fn, reps=1, warmup=0, sleep_cycles=cycles)
 
 
-def engine_config(engine: str, slices: int, point: str, table):
+def engine_config(engine: str, slices: int, point: str, table,
+                  dedup: bool = False):
     from repro_torch.core import calibrate
     from repro_torch.core.dcomm import DcommConfig
-    cfg = DcommConfig(engine=engine, pipe_slices=slices)
+    cfg = DcommConfig(engine=engine, pipe_slices=slices, dedup=dedup)
     return calibrate.apply(table, cfg) if point == "calibrated" else cfg
 
 
@@ -1307,25 +1425,50 @@ def swiglu_counts():
         ops.fused_swiglu = entry
 
 
+@contextlib.contextmanager
+def host_syncs():
+    """Within the block, every operation that makes the host wait on the
+    card (``torch.cuda.set_sync_debug_mode``: a copy to or from pageable
+    memory, ``.item()``, ``nonzero``) appends its warning's text to the
+    yielded list."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield (seen := [])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    seen += [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+
+
 def engine_rows(inp, table, timer=engine_device_ms, wall=wall_ms) -> list[dict]:
     """One full-width MoE layer (``fusco.shuffle_ffn``, the layer a model
     runs) through each of ``ENGINES`` at the shape of ``inp``: its slice
     count and what chose it, its fused_swiglu launches and the expert weight
     bytes they read (live experts x 3 x d x f x 2 per launch, from the
     counts each launch was given), its device time and host-clock time, and
-    its output against fused_flat's.
+    its output against fused_flat's; its gather and scatter-add launches
+    must be ``ENGINE_LAUNCHES``'.
 
-    S = 1 must give fused_flat's bits.  The other engines are held in bf16
-    element by element to (n + 2) u a, where u is bf16's unit roundoff and
-    a = sum over the token's rows of |gate x expert output| (fused_flat's
+    S = 1 and ragged must give fused_flat's bits: their FFN meets the same
+    rows, and their combine sums each token's gated rows in fused_flat's
+    order over an owner table in k order.  The other engines are held in
+    bf16 element by element to (n + 2) u a, where u is bf16's unit roundoff
+    and a = sum over the token's rows of |gate x expert output| (fused_flat's
     plan, one fused_swiglu launch: the kernel is row-local, so every engine
     meets the same expert outputs, as ``pipe_slice_rows`` checks).  fused_flat
     rounds y once (u a).  fused_pipe rounds each slice's combine once (u a
     over all slices) and each addition into y (u a each), with n = min(S,
     K) slices holding a row of the token; disagg rounds its K gated
-    products (u a) and their sum, n = K.  One term more covers the float32
-    sums.  A dropped or doubled row of a token moves its element by |gate
-    x expert output|, at least a / K for the token's largest row."""
+    products (u a) and their sum, n = K; fused_hier and dedup round each
+    product gate x expert output at the expert (u a), each wire row's
+    pre-reduced partial (u a) and the token's sum (u a), n = 3
+    (``ROUNDINGS``).  One term more covers the float32 sums.  A dropped or
+    doubled row of a token moves its element by |gate x expert output|, at
+    least a / K for the token's largest row."""
     from repro_torch.core import dcomm, fusco
     from repro_torch.core.routing import ExpertPlacement
     from repro_torch.kernels import fused_staging as fs_k
@@ -1342,13 +1485,17 @@ def engine_rows(inp, table, timer=engine_device_ms, wall=wall_ms) -> list[dict]:
     a = s_k.segment_scatter_add_plain(e.float().abs().reshape(-1, d),
                                       inp["idx"], inp["gates"].abs(), t)
     rows, flat = [], None
-    for label, engine, slices, point in ENGINES:
-        cfg = engine_config(engine, slices, point, table)
+    for label, engine, slices, point, dedup in ENGINES:
+        cfg = engine_config(engine, slices, point, table, dedup)
+        kind = "dedup" if dedup else engine
         call = lambda: fusco.shuffle_ffn(x, A, gates, w1, w3, w2, placement, cfg)
         wrappers = zero_counters()
-        with swiglu_counts() as counts:
+        with swiglu_counts() as counts, host_syncs() as syncs:
             y = call()
         launches = {name: w.launches for name, w in wrappers.items()}
+        if syncs:          # the device timing below cannot hide a wait
+            raise AssertionError(f"engine {label}: the host waits on the card "
+                                 f"in a layer: {syncs[:3]}")
         if engine == "fused_pipe":
             cap, s = dcomm.pipe_geometry(t, k, d, x.element_size(), placement,
                                          cfg)
@@ -1358,17 +1505,22 @@ def engine_rows(inp, table, timer=engine_device_ms, wall=wall_ms) -> list[dict]:
             raise AssertionError(f"engine {label}: {launches['fused_swiglu']} "
                                  f"fused_swiglu launches ({len(counts)} "
                                  f"recorded), {s} slices")
+        moved = (launches["segment_gather"], launches["segment_scatter_add"])
+        if moved != ENGINE_LAUNCHES[kind](s):
+            raise AssertionError(f"engine {label}: (gathers, scatter-adds) "
+                                 f"{moved}, its code implies "
+                                 f"{ENGINE_LAUNCHES[kind](s)}")
         live = sum(int((c.sum(0) > 0).sum()) for c in counts)
         err = max_err(y, flat) if flat is not None else 0.0
         tol = share = 0.0
         if flat is None:
             flat = y
-        elif engine == "fused_pipe" and s == 1:
+        elif (engine == "fused_pipe" and s == 1) or engine == "ragged":
             if not same_bits(y, flat):
                 raise AssertionError(f"engine {label}: not fused_flat's bits "
                                      f"(max_abs_err {err})")
         else:
-            n = min(s, k) if engine == "fused_pipe" else k
+            n = ROUNDINGS[kind](s, k)
             bound_y = (n + 2) * BF16_U * a
             diff = (y.float() - flat.float()).abs()
             if not bool((diff <= bound_y).all()):
@@ -1380,7 +1532,8 @@ def engine_rows(inp, table, timer=engine_device_ms, wall=wall_ms) -> list[dict]:
             tol = bound_y.max().item()
             share = (diff / bound_y.clamp_min(1e-30)).max().item()
         rows.append(dict(
-            label=label, engine=engine, t=t, slices=s, slice_rows=cap // s,
+            label=label, engine=engine, dedup=dedup, t=t, slices=s,
+            slice_rows=cap // s,
             capacity=cap, constants=point if engine == "fused_pipe" and
             not slices else None,
             swiglu_launches=launches["fused_swiglu"], live_expert_launches=live,
@@ -1406,12 +1559,12 @@ def engine_f32_check(table, device="cuda") -> dict:
     serve_s = pipe_geometry_of(pipe_config("qwen3-moe-30b-a3b"),
                                ENGINE_SHAPES["serve"])[1]
     out = {}
-    for label, engine, slices, point in ENGINES + (
+    for label, engine, slices, point, dedup in ENGINES + (
             (f"fused_pipe S={serve_s} (the serve layer's)", "fused_pipe",
-             serve_s, "spec"),):
+             serve_s, "spec", False),):
         out[label] = fusco.shuffle_ffn(x, inp["A"], gates, *w, placement,
                                        engine_config(engine, slices, point,
-                                                     table))
+                                                     table, dedup))
     want = out.pop("fused_flat")
     tol = TOL_ENGINE_F32 * want.abs().max().item()
     errs = {label: max_err(y, want) for label, y in out.items()}
@@ -1616,6 +1769,10 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     torch.cuda.reset_peak_memory_stats()
     out, launches = serve_phase(argv, required=required, absent=absent)
     cfg = out["cfg"]
+    implied = SERVE_LAUNCHES.get(label, {})
+    if any(launches[k] != n for k, n in implied.items()):
+        raise AssertionError(f"{label}: launches {launches}, its code implies "
+                             f"{implied}")
     if cfg.family == "moe_tx" and launches["flash_attention"] != 2 * cfg.n_layers:
         raise AssertionError(f"{label}: flash launched "
                              f"{launches['flash_attention']} times, expected "
@@ -1687,30 +1844,29 @@ def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
           f"\n  top device time: {top}")
 
 
-def train_and_profile() -> dict:
-    """The training path at full width: the train phase with its launch
+def train_and_profile(label: str, argv) -> dict:
+    """A training path at full width: the train phase with its launch
     counts, then one profiled step.  Returns the launch counts."""
     import torch
     from repro_torch.launch.train import WARMUP
-    argv = TRAIN[0]
     torch.cuda.empty_cache()
     out, launches = train_phase(argv)
     cfg, n = out["cfg"], len(out["losses"])
-    print(f"train {cfg.name} full width, {cfg.n_layers} layers, "
+    print(f"{label}: {cfg.name} full width, {cfg.n_layers} layers, "
           f"{' '.join(argv[argv.index('--batch'):])}: "
           f"{out['ms_per_step']:.3f} ms/step (median of {n - WARMUP} timed), "
           f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
           f"{out['peak_mem_gib']:.2f} GiB")
-    print("train loss per step: " + " ".join(f"{x:.5f}" for x in out["losses"]))
-    print("train ms per step: " + " ".join(f"{x:.3f}" for x in out["step_ms"]))
-    print(f"launches on the train path ({n} steps): {json.dumps(launches)}; "
+    print(f"{label} loss per step: " + " ".join(f"{x:.5f}" for x in out["losses"]))
+    print(f"{label} ms per step: " + " ".join(f"{x:.3f}" for x in out["step_ms"]))
+    print(f"launches on the {label} path ({n} steps): {json.dumps(launches)}; "
           f"per step: {json.dumps({k: v / n for k, v in launches.items()})}")
     unprofiled = out["ms_per_step"]
     del out
     torch.cuda.empty_cache()
     for part, p in train_profile(argv).items():
-        print_profile(f"train {part}", p, unprofiled)
-        check_profile(f"train {part}", p, flash=part != "adamw.update")
+        print_profile(f"{label} {part}", p, unprofiled)
+        check_profile(f"{label} {part}", p, flash=part != "adamw.update")
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items()))
@@ -1762,6 +1918,11 @@ def main() -> None:
             slice_rows, line = pipe_slice_rows(inp, pipe_config(arch))
             print(f"fused_pipe slices of {arch}: {line}")
             rows += [dict(r, path=f"{arch} fused_pipe") for r in slice_rows]
+            if arch == "qwen3-moe-30b-a3b":     # the slice-7 engines' shapes
+                rows += [dict(r, path=f"{arch} fused_hier")
+                         for r in hier_kernel_rows(inp)]
+                rows += [dict(r, path=f"{arch} ragged")
+                         for r in ragged_kernel_rows(inp)]
             del inp
             torch.cuda.empty_cache()
         shifted = attention_inputs("cuda", **SHIFTED)
@@ -1782,6 +1943,8 @@ def main() -> None:
         rows += [dict(r, path="train") for r in scatter_rows(
             segment_gather_ref(train_inp["x"], train_inp["idx"]), train_inp,
             train_inp["x"].shape[0])]
+        rows += [dict(r, path="train fused_hier")
+                 for r in hier_kernel_rows(train_inp)]
         for line in odd_shape_checks():
             print(f"odd shape {line}")
     for r in rows:
@@ -1821,7 +1984,9 @@ def main() -> None:
                       f"{spread(r['wall_ms'])}; fused_swiglu launches "
                       f"{r['swiglu_launches']}, weight bytes "
                       f"{r['weight_bytes']} ({r['live_expert_launches']} live "
-                      f"expert-launches); max_abs_err vs fused_flat "
+                      f"expert-launches); gathers "
+                      f"{r['launches']['segment_gather']}, scatter-adds "
+                      f"{r['launches']['segment_scatter_add']}; max_abs_err vs fused_flat "
                       f"{r['max_abs_err']:.4g} (per-element tolerance "
                       f"(n + 2) u a, at most {r['tol']:.4g}; worst element "
                       f"at {r['tol_share']:.3f} of its own)")
@@ -1842,8 +2007,9 @@ def main() -> None:
         launches[label], serve_times[label] = serve_and_profile(
             label, argv, required, absent)
     print(f"serve times by path: {json.dumps(serve_times)}")
-    launches["train"] = train_and_profile()
-    for engine in ("fused_flat", "fused_pipe", "disagg"):
+    for label, argv in TRAINS.items():
+        launches[label] = train_and_profile(label, argv)
+    for engine in REDUCED_ENGINES:
         for arch in PATHS:
             worst = reduced_check(arch, engine=engine)
             print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
@@ -1851,7 +2017,7 @@ def main() -> None:
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")
-    for engine in ("fused_flat", "fused_pipe", "disagg"):
+    for engine in REDUCED_ENGINES:
         err = reduced_train_check(engine=engine)
         print(f"reduced qwen3-moe-30b-a3b train step {engine} f32, card "
               f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "

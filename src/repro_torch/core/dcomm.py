@@ -1,11 +1,13 @@
 """dComm, the data-fused communication engine (port of
-``repro/core/dcomm.py``: the ``fused_flat`` and ``fused_pipe`` engines and
-the ``disagg`` baseline).
+``repro/core/dcomm.py``: all five engines and the condensed wire).
 
 - ``fused_flat``: ONE descriptor-driven gather stages tokens straight into
   (destination lane x local expert x capacity) sub-slots; the tiled
   all-to-all lands every token already expert-grouped, the FFN consumes it
-  in place, and the combine scatter-adds straight home.
+  in place, and the combine scatter-adds straight home.  With ``dedup`` the
+  wire carries one row per (token, destination lane) instead, expanded on
+  the landing lane from piggybacked (expert, gate) metadata
+  (:func:`dedup_dispatch`).
 - ``fused_pipe``: the same flat plan, its staging buffer split into S slices
   along the capacity axis and streamed: slice i's grouped FFN and combine
   run while slice i+1's gather and exchange are in flight (the paper's
@@ -14,22 +16,39 @@ the ``disagg`` baseline).
   primitives are split into issue and consume halves, so a shuffle can end
   with its tail slice's combine exchange still in flight (:class:`PipeTail`),
   which ``fusco.tx_layer_stream`` carries across an attention block.
+- ``fused_hier``: node-level forwarding with dedup (one row per token per
+  destination node, to the forwarder lane the Online Load Balancer picks),
+  then the expert-level expansion on the forwarder and a second exchange
+  within the node; the combine pre-reduces each node's partials on the
+  forwarder, so the slow tier carries deduplicated rows both ways.
 - ``disagg``: the paper's disaggregated baseline (§2.3): a materialised
   sort by destination lane, the exchange, a second sort by expert, the FFN,
   and the inverse passes, each a plain torch permutation.
+- ``ragged``: no capacity padding on the wire: the compact rows go out
+  through ``all_to_all_single`` with per-peer split sizes, which needs the
+  sizes on the host, one device-to-host read per shuffle (the combine
+  reuses them, swapped); with one lane there is no exchange and no read.
+  The landing lane unpacks the compact rows into the expert-grouped buffer
+  and the combine packs them back, so the FFN computes ``fused_flat``'s
+  function (the reference hands its FFN the compact slab, which applies
+  every local expert to every row; ROADMAP queue 3).
 
 The reference's shard_map axis becomes an optional ``torch.distributed``
 process group (the EP group): this rank's lane is its rank in the group,
-and with no group (or a group of one) the exchange is the identity.
+and with no group (or a group of one) every exchange is the identity.
+``fused_hier`` with nodes smaller than the EP group, and the two-level
+(pod, model) axis, need more groups: the caller passes an :class:`EPGroups`
+where the group goes, built once on every rank by :func:`ep_groups`
+(``models/lm.make_context`` does).  On ranks ``r = p * M + m`` the model
+group of rank r is ``{p * M + m'}`` and its pod group ``{p' * M + m}``; a
+two-level exchange is two all-to-alls, one in each, and autograd composes
+their transposes in the reverse order.
 
-Both collectives, the exchange and the sequence all-gather, are
-differentiable (``torch.autograd.Function``s that transpose as the
-reference's shard_map collectives do); the counts exchange carries none.
-With autograd off, ``fused_pipe`` issues each slice's exchange with
+Every collective that moves rows is differentiable (a
+``torch.autograd.Function`` that transposes as the reference's shard_map
+collective does); the counts and metadata exchanges carry none.  With
+autograd off, ``fused_pipe`` issues each single-level slice exchange with
 ``async_op=True`` and waits for it just before the slice is consumed.
-
-Other engines (fused_hier, ragged), the dedup wire and the two-level
-multi-pod exchange are later slices of the port.
 """
 
 from __future__ import annotations
@@ -43,7 +62,7 @@ import torch.distributed as dist
 
 from repro_torch.core import pipesim
 from repro_torch.core import planner as planner_lib
-from repro_torch.core.descriptors import build_slot_table, gather_rows
+from repro_torch.core.descriptors import build_slot_table, drop_neg, gather_rows
 from repro_torch.core.routing import ExpertPlacement, balanced_replica_choice
 from repro_torch.kernels import ops as kops
 
@@ -53,9 +72,13 @@ I32 = torch.int32
 @dataclasses.dataclass(frozen=True)
 class DcommConfig:
     """Static configuration of the shuffle engine."""
-    engine: str = "fused_flat"
+    engine: str = "fused_hier"   # fused_flat | fused_pipe | fused_hier | disagg | ragged
     ep_axis: Any = "model"       # a (pod, model) pair asks for the multi-pod exchange
+    node_size: int = 4           # lanes per (virtual) node; multi-pod: the model size
     capacity_factor: float = 2.0
+    use_balancer: bool = True    # Online Load Balancer on/off (§5.4)
+    # the condensed wire: one row per distinct (token, dest lane), expanded
+    # on the landing lane; honoured by fused_flat, ignored by the others
     dedup: bool = False
     # fused_pipe slice knobs: 0 slices = auto via pipesim.plan_slices at the
     # hardware point below: spec-sheet values for the NVIDIA H100 80GB HBM3
@@ -76,16 +99,92 @@ def _cap(n_expected: float, factor: float, align: int = 8) -> int:
     return c
 
 
-def lane_index(group: dist.ProcessGroup | None) -> int:
+@dataclasses.dataclass(frozen=True, eq=False)
+class EPGroups:
+    """The process groups of one EP domain (:func:`ep_groups`): ``ep`` holds
+    every lane in lane order; ``node`` is this lane's node of ``node_size``
+    lanes, where ``fused_hier``'s stage 2 runs (``ep`` itself for one node;
+    None for nodes of one lane); ``model`` and ``pod`` are this lane's
+    groups of a (pod, model) axis (``node`` is then ``model``)."""
+    ep: dist.ProcessGroup
+    node_size: int
+    node: dist.ProcessGroup | None
+    model: dist.ProcessGroup | None = None
+    pod: dist.ProcessGroup | None = None
+
+
+def ep_groups(group: dist.ProcessGroup, node_size: int,
+              n_pods: int = 1) -> EPGroups:
+    """The groups of the EP domain ``group`` for nodes of ``node_size``
+    lanes, and with ``n_pods > 1`` for the (pod, model) axis whose pods are
+    the nodes (lane l = p * node_size + m).  Collective: every rank of the
+    job calls it once, with the same arguments, in the same order (each
+    ``dist.new_group`` is created on every rank)."""
+    ranks = dist.get_process_group_ranks(group)
+    ep, lane = len(ranks), dist.get_rank(group)
+    if ep % node_size:
+        raise ValueError(f"ep={ep} not divisible by node_size={node_size}")
+    if n_pods > 1:
+        if ep != n_pods * node_size:
+            raise ValueError(f"a (pod, model) axis of {n_pods} pods needs "
+                             f"node_size = ep / pods, got {node_size} of {ep}")
+        models = [dist.new_group([ranks[p * node_size + m]
+                                  for m in range(node_size)])
+                  for p in range(n_pods)]
+        pods = [dist.new_group([ranks[p * node_size + m]
+                                for p in range(n_pods)])
+                for m in range(node_size)]
+        model = models[lane // node_size]
+        return EPGroups(group, node_size, model, model, pods[lane % node_size])
+    if node_size == ep:
+        return EPGroups(group, node_size, group)
+    if node_size == 1:
+        return EPGroups(group, node_size, None)
+    nodes = [dist.new_group([ranks[i] for i in lanes])
+             for lanes in _node_groups(ep, node_size)]
+    return EPGroups(group, node_size, nodes[lane // node_size])
+
+
+def process_group(group) -> dist.ProcessGroup | None:
+    """The process group holding every lane of ``group`` (a group, an
+    :class:`EPGroups` or None)."""
+    return group.ep if isinstance(group, EPGroups) else group
+
+
+def lane_index(group) -> int:
     """This rank's lane on the EP axis: its rank in ``group`` (0 alone)."""
-    return 0 if group is None else dist.get_rank(group)
+    return 0 if group is None else dist.get_rank(process_group(group))
 
 
-def group_size(group: dist.ProcessGroup | None) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(process_group(group))
 
 
-def seq_stripe(x: torch.Tensor, group: dist.ProcessGroup | None) -> torch.Tensor:
+def _lane_index(cfg: DcommConfig, group) -> int:
+    """This rank's lane, from the pod and model groups on a (pod, model)
+    axis: p * M + m (the reference's ``_lane_index``)."""
+    if cfg.pod_axis is None or group_size(group) == 1:
+        return lane_index(group)
+    g = _pod_groups(group)
+    return (dist.get_rank(g.pod) * dist.get_world_size(g.model)
+            + dist.get_rank(g.model))
+
+
+def _pod_groups(group) -> EPGroups:
+    if not (isinstance(group, EPGroups) and group.pod is not None):
+        raise ValueError("a (pod, model) EP axis over more than one lane "
+                         "needs the pod and model groups: pass "
+                         "dcomm.ep_groups(group, node_size, n_pods)")
+    return group
+
+
+def _node_groups(ep: int, node_size: int) -> list[list[int]]:
+    """The lanes of each node (the reference's ``axis_index_groups``)."""
+    return [list(range(n * node_size, (n + 1) * node_size))
+            for n in range(ep // node_size)]
+
+
+def seq_stripe(x: torch.Tensor, group) -> torch.Tensor:
     """This rank's stripe of the sequence (dim 1) of a (B, S, ...) tensor:
     the reference islands' ``x_spec`` shards the sequence over the EP axes
     (``repro/layers/moe.py:70``).  Raises if the group does not divide S."""
@@ -108,14 +207,15 @@ class _GatherSeq(torch.autograd.Function):
         ep = group_size(group)
         b, s = x.shape[:2]
         buf = torch.empty((ep * b, *x.shape[1:]), dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
+        dist.all_gather_into_tensor(buf, x.contiguous(),
+                                    group=process_group(group))
         return buf.reshape(ep, b, *x.shape[1:]).movedim(0, 1).reshape(
             b, ep * s, *x.shape[2:])
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        dist.all_reduce(g, group=process_group(ctx.group))
         return seq_stripe(g, ctx.group), None
 
 
@@ -137,6 +237,8 @@ class DispatchResult(NamedTuple):
     state: Any                    # engine-private
     dropped: torch.Tensor | None = None   # this shard's capacity overflow
     counts: torch.Tensor | None = None    # (S, E_local) landed occupancy
+    row_gates: torch.Tensor | None = None  # (S, E_local, C): gated at the
+                                           # expert (hier, dedup), else None
 
 
 def _all_to_all(buf: torch.Tensor, group) -> torch.Tensor:
@@ -147,7 +249,7 @@ def _all_to_all(buf: torch.Tensor, group) -> torch.Tensor:
 
 
 class _AllToAll(torch.autograd.Function):
-    """The tiled all-to-all of a lane-major buffer; single-level, so its
+    """The tiled all-to-all of a lane-major buffer over one group; its
     transpose is the same exchange of the cotangent (the reference's
     all_to_all transposes into all_to_all)."""
 
@@ -161,15 +263,10 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.group), None
 
 
-def _exchanges(buf: torch.Tensor, cfg: DcommConfig, ep: int,
-               group: dist.ProcessGroup | None) -> bool:
+def _exchanges(buf: torch.Tensor, ep: int, group) -> bool:
     """Whether the tiled exchange of a lane-major (EP, rows, ...) buffer
-    over ``group`` moves anything: False for one lane; raises for the
-    multi-pod exchange and for a group that does not match the buffer."""
-    if cfg.pod_axis is not None:
-        raise NotImplementedError(
-            "two-level multi-pod exchange (dcomm.py:188-196): ROADMAP queue 1, "
-            "multipod _flat_exchange")
+    over ``group`` moves anything: False for one lane; raises for a group
+    that does not match the buffer."""
     if group_size(group) == 1:
         return False
     if buf.shape[0] != ep or group_size(group) != ep:
@@ -179,28 +276,61 @@ def _exchanges(buf: torch.Tensor, cfg: DcommConfig, ep: int,
 
 
 def _flat_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
-                   group: dist.ProcessGroup | None = None,
-                   reverse: bool = False) -> torch.Tensor:
+                   group=None, reverse: bool = False) -> torch.Tensor:
     """Tiled exchange of a lane-major (EP, rows, ...) buffer over the EP
-    group: block i goes to lane i, and the block from lane j lands at j.
+    axis: block i goes to lane i, and the block from lane j lands at j.
     The leading axis is the destination lane on dispatch and the origin lane
-    on combine (single-level, so ``reverse`` is the same exchange)."""
-    del reverse
-    if not _exchanges(buf, cfg, ep, group):
+    on combine.  On a (pod, model) axis it is two exchanges, over the model
+    group and then over the pod group; ``reverse`` runs them in the
+    opposite order, so the combine retraces the dispatch's route."""
+    if not _exchanges(buf, ep, group):
         return buf
-    return _AllToAll.apply(buf, group)
+    if cfg.pod_axis is None:
+        return _AllToAll.apply(buf, process_group(group))
+    g = _pod_groups(group)
+    npod = dist.get_world_size(g.pod)
+    b = buf.reshape(npod, ep // npod, *buf.shape[1:])
+    over_model = lambda v: _AllToAll.apply(v.transpose(0, 1),
+                                           g.model).transpose(0, 1)
+    if reverse:
+        b = over_model(_AllToAll.apply(b, g.pod))
+    else:
+        b = _AllToAll.apply(over_model(b), g.pod)
+    return b.reshape(buf.shape)
+
+
+def _node_exchange(buf: torch.Tensor, node: dist.ProcessGroup | None,
+                   ns: int) -> torch.Tensor:
+    """Tiled exchange of a lane-major (node_size, rows, ...) buffer within
+    this lane's node (``fused_hier``'s stage 2); the identity for a node of
+    one lane."""
+    if ns == 1:
+        return buf
+    if buf.shape[0] != ns or node is None or dist.get_world_size(node) != ns:
+        raise ValueError(f"stage-2 exchange of {buf.shape[0]} lanes in a node "
+                         f"of {ns}: pass dcomm.ep_groups(group, {ns})")
+    return _AllToAll.apply(buf, node)
+
+
+def _a2a_vec(v: torch.Tensor, ep: int, group) -> torch.Tensor:
+    """Exchange one row per peer over the EP axis: v (EP, ...) -> (EP, ...),
+    row j from lane j (the reference's one scalar per peer, (EP,) -> (EP,));
+    no gradient."""
+    if not _exchanges(v, ep, group):
+        return v
+    return _all_to_all(v.detach().reshape(ep, -1),
+                       process_group(group)).reshape(v.shape)
 
 
 def _landed_counts(plan: planner_lib.FlatPlan, placement: ExpertPlacement,
-                   cfg: DcommConfig, cap: int,
-                   group: dist.ProcessGroup | None) -> torch.Tensor:
+                   cap: int, group) -> torch.Tensor:
     """The (source lane, E_local) occupancy of this lane's landed buffer:
     the plan's per-group counts clipped at capacity, through one small
     exchange of their own so the FFN kernel can skip empty row tiles (the
     reference passes none)."""
     sent = plan.slots.counts.clamp(max=cap).to(I32)
-    return _flat_exchange(sent.reshape(placement.ep, placement.experts_per_lane),
-                          cfg, placement.ep, group)
+    return _a2a_vec(sent.reshape(placement.ep, placement.experts_per_lane),
+                    placement.ep, group)
 
 
 def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
@@ -217,7 +347,7 @@ def flat_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
     buf = _flat_exchange(buf.reshape(placement.ep, e_local * cap, d), cfg,
                          placement.ep, group)
     # landed layout: (source lane, E_local, C, d), expert-grouped already
-    counts = _landed_counts(plan, placement, cfg, cap, group)
+    counts = _landed_counts(plan, placement, cap, group)
     expert_rows = buf.reshape(placement.ep, e_local, cap, d)
     return DispatchResult(expert_rows, (plan, t, d, cap), plan.dropped, counts)
 
@@ -234,6 +364,70 @@ def flat_combine(expert_out: torch.Tensor, res: DispatchResult,
     # token summed over its slots: the slot table is src_of_slot's inverse
     return kops.segment_scatter_add(buf, plan.src_of_slot, plan.gate_of_slot, t,
                                     plan.slots.slot)
+
+
+# ======================================================================
+# fused_flat + dedup: the condensed flat wire
+# ======================================================================
+
+def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(n, dtype=torch.float32, device=like.device)
+
+
+def dedup_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                   placement: ExpertPlacement, cfg: DcommConfig,
+                   group=None) -> DispatchResult:
+    """Condensed flat dispatch: one wire row per distinct (token, dest lane),
+    the one tiled exchange of ``flat_dispatch`` over the condensed plan.
+    The landing lane expands the rows per local expert from the piggybacked
+    metadata (``build_stage2_plan`` at node size 1: a local gather, no
+    second exchange), so the FFN sees the grouped layout, gates at
+    ``row_gates``.  Both gathers take their plan's slot table as the owner
+    table of their backward; the FFN's occupancy is the expansion's counts,
+    local to the lane."""
+    t, d = x.shape
+    k = A.shape[1]
+    ep, e_local = placement.ep, placement.experts_per_lane
+    # condensed rows per dest lane: distinct lanes per token <= min(k, ep)
+    c1 = _cap(t * min(k, ep) / ep, cfg.capacity_factor)
+    # expansion rows per local expert: ~t*k assignments land from all lanes
+    c2 = _cap(t * k / e_local, cfg.capacity_factor)
+
+    plan1 = planner_lib.build_condensed_plan(A, gates, placement, c1)
+    buf = kops.segment_gather(x, plan1.src_of_slot, plan1.slots.slot)
+    buf = _flat_exchange(buf.reshape(ep, c1, d), cfg, ep, group)
+    me = _flat_exchange(plan1.meta_expert.reshape(ep, c1, k), cfg, ep, group)
+    mg = _flat_exchange(plan1.meta_gate.reshape(ep, c1, k), cfg, ep, group)
+
+    plan2 = planner_lib.build_stage2_plan(me.reshape(ep * c1, k),
+                                          mg.reshape(ep * c1, k), 1, e_local, c2)
+    buf2 = kops.segment_gather(buf.reshape(ep * c1, d), plan2.src_of_slot,
+                               plan2.slots.slot)
+    counts = plan2.slots.counts.clamp(max=c2).to(I32).reshape(1, e_local)
+    return DispatchResult(buf2.reshape(1, e_local, c2, d),
+                          (plan1, plan2, t, d, c1, c2),
+                          plan1.dropped + plan2.slots.dropped(), counts,
+                          plan2.gate_of_slot.reshape(1, e_local, c2))
+
+
+def dedup_combine(expert_out: torch.Tensor, res: DispatchResult,
+                  placement: ExpertPlacement, cfg: DcommConfig,
+                  group=None) -> torch.Tensor:
+    """Gate at the expert (in the expert's dtype, as the reference), sum
+    each wire row's expert partials on the landing lane (the owner-reduce
+    over the expansion's slot table), reverse the condensed exchange, and
+    sum each token's rows home over the condensed slot table: condensed
+    bytes on the wire both ways."""
+    plan1, plan2, t, d, c1, c2 = res.state
+    ep = placement.ep
+    out = (expert_out * res.row_gates[..., None].to(expert_out.dtype)).reshape(-1, d)
+    part = kops.segment_scatter_add(out, plan2.src_of_slot,
+                                    _ones(out.shape[0], out), ep * c1,
+                                    plan2.slots.slot)
+    part = _flat_exchange(part.reshape(ep, c1, d), cfg, ep, group,
+                          reverse=True).reshape(ep * c1, d)
+    return kops.segment_scatter_add(part, plan1.src_of_slot,
+                                    _ones(ep * c1, part), t, plan1.slots.slot)
 
 
 # ======================================================================
@@ -259,19 +453,21 @@ class InFlight(NamedTuple):
         return self.out
 
 
-def _pipe_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int,
-                   group: dist.ProcessGroup | None) -> InFlight:
+def _pipe_exchange(buf: torch.Tensor, cfg: DcommConfig, ep: int, group,
+                   reverse: bool = False) -> InFlight:
     """The tiled exchange of one slice.  Over an EP group of more than one
     rank with autograd off it is issued with ``async_op=True`` (consumed
-    after ``wait``); under autograd it is the synchronous differentiable
-    exchange; with one lane, the identity."""
-    if not _exchanges(buf, cfg, ep, group):
+    after ``wait``); under autograd, and on a (pod, model) axis, whose
+    second exchange waits on the first, it is the synchronous exchange;
+    with one lane, the identity."""
+    if not _exchanges(buf, ep, group):
         return InFlight(buf)
-    if torch.is_grad_enabled():
-        return InFlight(_AllToAll.apply(buf, group))
+    if torch.is_grad_enabled() or cfg.pod_axis is not None:
+        return InFlight(_flat_exchange(buf, cfg, ep, group, reverse))
     sent = buf.contiguous()
     out = torch.empty_like(sent)
-    work = dist.all_to_all_single(out, sent, group=group, async_op=True)
+    work = dist.all_to_all_single(out, sent, group=process_group(group),
+                                  async_op=True)
     return InFlight(out, work, sent)
 
 
@@ -343,7 +539,7 @@ def _pipe_slice_plan(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
     plan = planner_lib.build_flat_plan(A, gates, placement, cap)
     sliced = planner_lib.slice_flat_plan(plan, placement, cap, s)
     cs = cap // s
-    landed = _landed_counts(plan, placement, cfg, cap, group)
+    landed = _landed_counts(plan, placement, cap, group)
     first = torch.arange(s, dtype=I32, device=landed.device) * cs
     counts = (landed[None] - first[:, None, None]).clamp(0, cs).to(I32)
     owners = planner_lib.slice_owner_table(plan.slots.slot, cap, s)
@@ -370,7 +566,7 @@ def pipe_return_issue(out_slice: torch.Tensor, placement: ExpertPlacement,
                       group: dist.ProcessGroup | None = None) -> InFlight:
     """Wire half of one slice's combine: the reverse tiled exchange of the
     expert outputs (EP, E_local, Cs, d), back on their origin lane."""
-    return _pipe_exchange(out_slice, cfg, placement.ep, group)
+    return _pipe_exchange(out_slice, cfg, placement.ep, group, reverse=True)
 
 
 def pipe_return_consume(y: torch.Tensor | None, returned: InFlight,
@@ -508,6 +704,90 @@ def pipe_combine(expert_out: torch.Tensor, res: DispatchResult,
 
 
 # ======================================================================
+# fused_hier: node-level forwarding (Online Load Balancer) + expert-level
+# expansion within the node
+# ======================================================================
+
+def _node_of(group, placement: ExpertPlacement) -> dist.ProcessGroup | None:
+    """The group of this lane's node: the EP group when it is one node,
+    else the ``node`` of the :class:`EPGroups` passed for it."""
+    ns = placement.node_size
+    if ns == group_size(group):
+        return process_group(group)
+    if isinstance(group, EPGroups) and group.node_size == ns:
+        return group.node
+    raise ValueError(f"fused_hier with nodes of {ns} of {group_size(group)} "
+                     f"lanes needs the node groups: pass "
+                     f"dcomm.ep_groups(group, {ns})")
+
+
+def hier_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                  placement: ExpertPlacement, cfg: DcommConfig,
+                  assignment: torch.Tensor | None = None,
+                  group=None) -> DispatchResult:
+    """Stage 1: one row per (token, destination node) to the node's
+    forwarder, with the token's (node-local expert, gate) pairs, over the
+    EP axis (two levels on a (pod, model) axis).  Stage 2, on the
+    forwarder: the expansion per expert (``build_stage2_plan``) and an
+    exchange within the node that lands the rows expert-grouped, gates at
+    ``row_gates``.  ``assignment`` is the balancer's (n_nodes, node_size)
+    group table (None: the static grouping).  Both gathers take their
+    plan's slot table as the owner table of their backward; the FFN's
+    occupancy is the expansion's counts, through one small exchange in the
+    node (the reference passes none)."""
+    t, d = x.shape
+    k = A.shape[1]
+    ep, e_local = placement.ep, placement.experts_per_lane
+    ns, n_nodes = placement.node_size, placement.n_nodes
+    # stage-1 rows per destination rank: distinct nodes per token <= min(k, n)
+    c1 = _cap(t * min(k, n_nodes) / ep, cfg.capacity_factor)
+    c2 = _cap(t * k * ns / (ep * ns * e_local), cfg.capacity_factor)
+    node = _node_of(group, placement)
+
+    plan1 = planner_lib.build_hier_plan(A, gates, placement, c1,
+                                        _lane_index(cfg, group), assignment)
+    # stage 1: node-level forwarding (dedup, slow tier)
+    buf1 = kops.segment_gather(x, plan1.src_of_slot, plan1.slots.slot)
+    ex = lambda v: _flat_exchange(v.reshape(ep, c1, -1), cfg, ep,
+                                  group).reshape(ep * c1, -1)
+    buf1, me, mg = ex(buf1), ex(plan1.meta_expert), ex(plan1.meta_gate)
+
+    # stage 2: expert-level distribution within the node (fast tier)
+    plan2 = planner_lib.build_stage2_plan(me, mg, ns, e_local, c2)
+    buf2 = kops.segment_gather(buf1, plan2.src_of_slot, plan2.slots.slot)
+    buf2 = _node_exchange(buf2.reshape(ns, e_local * c2, d), node, ns)
+    g2 = _node_exchange(plan2.gate_of_slot.reshape(ns, e_local * c2), node, ns)
+    sent = plan2.slots.counts.clamp(max=c2).to(I32).reshape(ns, e_local)
+    counts = sent if ns == 1 else _all_to_all(sent, node)
+    # stage-1 drops are the sender's; stage-2 drops the forwarder's
+    return DispatchResult(buf2.reshape(ns, e_local, c2, d),
+                          (plan1, plan2, t, d, c1, c2, node),
+                          plan1.dropped + plan2.slots.dropped(), counts,
+                          g2.reshape(ns, e_local, c2))
+
+
+def hier_combine(expert_out: torch.Tensor, res: DispatchResult,
+                 placement: ExpertPlacement, cfg: DcommConfig,
+                 group=None) -> torch.Tensor:
+    """Gate at the expert, return within the node, pre-reduce each node's
+    partials per stage-1 row on the forwarder (over the expansion's slot
+    table), return over the slow tier, and sum each token's node rows home
+    over the stage-1 slot table."""
+    plan1, plan2, t, d, c1, c2, node = res.state
+    ep, e_local, ns = placement.ep, placement.experts_per_lane, placement.node_size
+    out = expert_out * res.row_gates[..., None].to(expert_out.dtype)
+    out = _node_exchange(out.reshape(ns, e_local * c2, d), node,
+                         ns).reshape(-1, d)
+    part = kops.segment_scatter_add(out, plan2.src_of_slot,
+                                    _ones(out.shape[0], out), ep * c1,
+                                    plan2.slots.slot)
+    part = _flat_exchange(part.reshape(ep, c1, d), cfg, ep, group,
+                          reverse=True).reshape(ep * c1, d)
+    return kops.segment_scatter_add(part, plan1.src_of_slot,
+                                    _ones(ep * c1, part), t, plan1.slots.slot)
+
+
+# ======================================================================
 # disagg: the paper's §2.3 baseline (materialised sort passes, plain torch)
 # ======================================================================
 
@@ -587,3 +867,154 @@ def disagg_combine(expert_out: torch.Tensor, res: DispatchResult,
                         device=srt.device).index_copy(0, order, srt)
     w = gates.reshape(-1, 1).to(unsrt.dtype)
     return (unsrt * w).reshape(t, k, d).sum(dim=1)
+
+
+# ======================================================================
+# ragged: compact rows on the wire, no capacity padding
+# ======================================================================
+
+class RaggedDescriptors(NamedTuple):
+    """Sender-side ragged descriptors from a flat plan: ``compact_src`` (R,)
+    the source token of each compact send row (the dense slot layout
+    squeezed, -1 tail padding), ``compact_gate`` its combine weight, and per
+    destination lane the (``input_offsets``, ``send_sizes``) pair over the
+    compact buffer."""
+    compact_src: torch.Tensor
+    compact_gate: torch.Tensor
+    input_offsets: torch.Tensor
+    send_sizes: torch.Tensor
+
+
+def build_ragged_descriptors(plan: planner_lib.FlatPlan,
+                             placement: ExpertPlacement,
+                             cap: int) -> RaggedDescriptors:
+    e_local = placement.experts_per_lane
+    counts = plan.slots.counts.reshape(placement.ep, e_local).clamp(max=cap)
+    send_sizes = counts.sum(1).to(I32)                          # (EP,)
+    input_offsets = (torch.cumsum(send_sizes, 0) - send_sizes).to(I32)
+    # the dense slot table squeezed into wire order (lane-major,
+    # expert-major, arrival order): a stable sort puts occupied slots first
+    occupied = plan.src_of_slot >= 0
+    order = torch.argsort((~occupied).to(torch.int8), stable=True)
+    in_prefix = torch.arange(order.shape[0], device=order.device) < occupied.sum()
+    compact_src = torch.where(in_prefix, plan.src_of_slot[order], -1).to(I32)
+    compact_gate = torch.where(in_prefix, plan.gate_of_slot[order],
+                               0).to(plan.gate_of_slot.dtype)
+    return RaggedDescriptors(compact_src, compact_gate, input_offsets,
+                             send_sizes)
+
+
+def ragged_owner_table(plan: planner_lib.FlatPlan) -> torch.Tensor:
+    """(T, K) int32: the compact row of each (token, k) assignment, -1 when
+    dropped; the exact inverse of ``compact_src``, in k order as the flat
+    plan's slot table, so the combine sums each token's rows in fused_flat's
+    order (the port's addition)."""
+    rank = torch.cumsum((plan.src_of_slot >= 0).to(I32), 0) - 1
+    slot = plan.slots.slot
+    return torch.where(slot >= 0, rank[slot.clamp_min(0).long()], -1).to(I32)
+
+
+def ragged_reverse_descriptors(input_offsets: torch.Tensor,
+                               send_sizes: torch.Tensor,
+                               recv_offsets: torch.Tensor,
+                               recv_sizes: torch.Tensor,
+                               peer_input_offsets: torch.Tensor):
+    """Invert a ragged exchange's descriptors for the combine: what this
+    lane received from lane p (``recv_offsets[p]``/``recv_sizes[p]``) goes
+    back to p's compact segment, whose start is p's forward offset for us
+    (``peer_input_offsets``).  Returns the reverse (input_offsets,
+    send_sizes, output_offsets, recv_sizes)."""
+    return recv_offsets, recv_sizes, peer_input_offsets, send_sizes
+
+
+def _ragged_all_to_all(buf: torch.Tensor, send: list[int], recv: list[int],
+                       group) -> torch.Tensor:
+    buf = buf.contiguous()
+    out = torch.empty((sum(recv), *buf.shape[1:]), dtype=buf.dtype,
+                      device=buf.device)
+    dist.all_to_all_single(out, buf, recv, send, group=group)
+    return out
+
+
+class _RaggedAllToAll(torch.autograd.Function):
+    """``all_to_all_single`` with per-peer split sizes (host lists); its
+    transpose is the same exchange with the sizes swapped."""
+
+    @staticmethod
+    def forward(ctx, buf, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _ragged_all_to_all(buf, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_ragged_all_to_all(g, ctx.recv, ctx.send, ctx.group), None,
+                None, None)
+
+
+def _unpack_index(recv_counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """(EP * E_local * cap,) int32: the landed compact row of each (source
+    lane, local expert, position) slot, -1 past the group's count.  Each
+    source lane's segment arrives expert-major in arrival order, so group
+    (s, e) starts at the exclusive prefix sum of the counts."""
+    flat = recv_counts.reshape(-1).to(I32)
+    start = torch.cumsum(flat, 0) - flat
+    c = torch.arange(cap, dtype=I32, device=flat.device)
+    return torch.where(c < flat[:, None], start[:, None] + c,
+                       -1).reshape(-1).to(I32)
+
+
+def ragged_dispatch(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
+                    placement: ExpertPlacement, cfg: DcommConfig,
+                    group=None) -> DispatchResult:
+    """The compact rows (``build_ragged_descriptors``) gathered and sent
+    with per-peer split sizes; the landing lane unpacks them into the
+    (EP, E_local, C, d) expert-grouped buffer with one gather, from the
+    exchanged per-(lane, expert) counts, which are also the FFN's
+    occupancy.  Over more than one lane the split sizes are read to the
+    host once (``all_to_all_single`` takes them as lists)."""
+    t, d = x.shape
+    k = A.shape[1]
+    ep, e_local = placement.ep, placement.experts_per_lane
+    cap = _cap(t * k / (ep * e_local), cfg.capacity_factor)
+    plan = planner_lib.build_flat_plan(A, gates, placement, cap)
+    desc = build_ragged_descriptors(plan, placement, cap)
+    owners = ragged_owner_table(plan)
+    send_buf = kops.segment_gather(x, desc.compact_src, owners)      # (R, d)
+    recv_counts = _landed_counts(plan, placement, cap, group)   # (EP, El)
+    splits = None
+    landed = send_buf
+    if group_size(group) > 1:
+        # the one device-to-host read: both directions' split sizes
+        send, recv = torch.stack([desc.send_sizes,
+                                  recv_counts.sum(1).to(I32)]).tolist()
+        splits = (send, recv)
+        landed = _RaggedAllToAll.apply(send_buf[:sum(send)], send, recv,
+                                       process_group(group))
+    unpack = _unpack_index(recv_counts, cap)
+    landed_slot = _inverse_rows(unpack, torch.arange(unpack.shape[0],
+                                                     device=x.device),
+                                landed.shape[0])
+    expert_rows = kops.segment_gather(landed, unpack, landed_slot[:, None])
+    return DispatchResult(expert_rows.reshape(ep, e_local, cap, d),
+                          (desc, owners, unpack, landed_slot, splits, t),
+                          plan.dropped, recv_counts)
+
+
+def ragged_combine(expert_out: torch.Tensor, res: DispatchResult,
+                   placement: ExpertPlacement, cfg: DcommConfig,
+                   group=None) -> torch.Tensor:
+    """The expert outputs gathered back into landed compact order, the
+    reverse exchange with the split sizes swapped
+    (``ragged_reverse_descriptors``' sizes; ``all_to_all_single`` places
+    each segment at the running sum of the sizes, so the offsets are
+    implied), and one gated scatter-add home over ``ragged_owner_table``."""
+    desc, owners, unpack, landed_slot, splits, t = res.state
+    d = expert_out.shape[-1]
+    back = kops.segment_gather(expert_out.reshape(-1, d), landed_slot,
+                               unpack[:, None])
+    if splits is not None:
+        send, recv = splits
+        back = _RaggedAllToAll.apply(back, recv, send, process_group(group))
+    n = back.shape[0]
+    return kops.segment_scatter_add(back, desc.compact_src[:n],
+                                    desc.compact_gate[:n], t, owners)

@@ -1,7 +1,7 @@
 """FUSCO public API: the MoE shuffle plus expert compute (port of
-``repro/core/fusco.py``: the ``fused_flat`` and ``fused_pipe`` engines, the
-``disagg`` baseline, and the attention-separated ``moe_tx`` stream, per-layer
-barriers or streamed at K = 1).
+``repro/core/fusco.py``: every engine, ``fused_flat`` with ``dedup``, and
+the attention-separated ``moe_tx`` stream, per-layer barriers or streamed at
+K = 1).
 
 A model layer calls :func:`moe_shuffle_ffn` on this rank's (T, d) tokens and
 its lane's expert weights, with the EP process group, and gets back the
@@ -25,23 +25,12 @@ from repro_torch.kernels import ops as kops
 from repro_torch.layers.attention import gqa_project
 from repro_torch.layers.common import apply_rope, rms_norm
 
-_LATER = {
-    "fused_hier": "ROADMAP queue 1 item 4 (fused_hier)",
-    "ragged": "ROADMAP queue 1 item 4 (ragged)",
-}
-_ENGINES = ("fused_flat", "fused_pipe", "disagg")
+_ENGINES = ("fused_flat", "fused_pipe", "fused_hier", "disagg", "ragged")
 
 
 def _check_engine(cfg: DcommConfig) -> None:
-    if cfg.engine in _LATER:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet: {_LATER[cfg.engine]}")
     if cfg.engine not in _ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if cfg.dedup and cfg.engine == "fused_flat":
-        raise NotImplementedError(
-            "fused_flat with dedup is not ported yet: ROADMAP queue 1 item 4 "
-            "(dedup)")
 
 
 def swiglu_experts(rows: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -54,44 +43,64 @@ def swiglu_experts(rows: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def dispatch(x, A, gates, placement: ExpertPlacement, cfg: DcommConfig,
-             group: dist.ProcessGroup | None = None) -> DispatchResult:
+             assignment: torch.Tensor | None = None,
+             group=None) -> DispatchResult:
+    """``assignment``: the balancer's (n_nodes, node_size) group table for
+    ``fused_hier``, ignored without ``use_balancer`` and by the other
+    engines.  ``group``: the EP process group, or the :class:`dcomm.EPGroups`
+    that ``fused_hier``'s nodes and a (pod, model) axis need (None: one
+    lane)."""
     _check_engine(cfg)
+    if cfg.engine == "fused_flat":
+        if cfg.dedup:
+            return dcomm.dedup_dispatch(x, A, gates, placement, cfg, group)
+        return dcomm.flat_dispatch(x, A, gates, placement, cfg, group)
     if cfg.engine == "fused_pipe":
         return dcomm.pipe_dispatch(x, A, gates, placement, cfg, group)
+    if cfg.engine == "fused_hier":
+        return dcomm.hier_dispatch(x, A, gates, placement, cfg,
+                                   assignment if cfg.use_balancer else None,
+                                   group)
     if cfg.engine == "disagg":
         return dcomm.disagg_dispatch(x, A, gates, placement, cfg, group)
-    return dcomm.flat_dispatch(x, A, gates, placement, cfg, group)
+    return dcomm.ragged_dispatch(x, A, gates, placement, cfg, group)
 
 
 def combine(expert_out, res: DispatchResult, placement: ExpertPlacement,
             cfg: DcommConfig, gates: torch.Tensor | None = None,
-            group: dist.ProcessGroup | None = None) -> torch.Tensor:
+            group=None) -> torch.Tensor:
     """``gates`` are the routing's (T, K) gates, which ``disagg`` combines
     with; the other engines carry theirs in the plan."""
     _check_engine(cfg)
+    if cfg.engine == "fused_flat":
+        if cfg.dedup:
+            return dcomm.dedup_combine(expert_out, res, placement, cfg, group)
+        return dcomm.flat_combine(expert_out, res, placement, cfg, group)
     if cfg.engine == "fused_pipe":
         return dcomm.pipe_combine(expert_out, res, placement, cfg, group)
+    if cfg.engine == "fused_hier":
+        return dcomm.hier_combine(expert_out, res, placement, cfg, group)
     if cfg.engine == "disagg":
         return dcomm.disagg_combine(expert_out, res, placement, cfg, gates,
                                     group)
-    return dcomm.flat_combine(expert_out, res, placement, cfg, group)
+    return dcomm.ragged_combine(expert_out, res, placement, cfg, group)
 
 
 def shuffle_ffn(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
                 w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                 placement: ExpertPlacement, cfg: DcommConfig,
-                group: dist.ProcessGroup | None = None) -> torch.Tensor:
+                assignment: torch.Tensor | None = None,
+                group=None) -> torch.Tensor:
     """Shuffle + grouped FFN + combine for pre-computed routing.  For
     ``fused_pipe`` this is the sliced pipeline, the grouped FFN run per
     capacity slice inside the communication loop; the split
     dispatch()/combine() path stays for communication alone."""
     if cfg.engine == "fused_pipe":
-        _check_engine(cfg)
         return dcomm.pipe_shuffle_ffn(
             x, A, gates, lambda rows, counts: swiglu_experts(rows, w1, w3, w2,
                                                              counts),
             placement, cfg, group)
-    res = dispatch(x, A, gates, placement, cfg, group)
+    res = dispatch(x, A, gates, placement, cfg, assignment, group)
     out = swiglu_experts(res.expert_rows, w1, w3, w2, res.counts)
     return combine(out, res, placement, cfg, gates, group)
 
@@ -99,17 +108,18 @@ def shuffle_ffn(x: torch.Tensor, A: torch.Tensor, gates: torch.Tensor,
 def moe_shuffle_ffn(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
                     w3: torch.Tensor, w2: torch.Tensor,
                     placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
-                    norm_topk: bool = True,
-                    group: dist.ProcessGroup | None = None) -> torch.Tensor:
+                    assignment: torch.Tensor | None = None,
+                    norm_topk: bool = True, group=None) -> torch.Tensor:
     """Full fused MoE block: route -> dispatch -> grouped FFN -> combine.
 
     ``x`` is this rank's (T_local, d) tokens; the weights are this lane's
     experts (E_local, d, f)/(E_local, f, d); the router is replicated;
-    ``group`` is the EP process group (None: one lane)."""
+    ``assignment`` the balancer's group table (``fused_hier``); ``group``
+    the EP process group or :class:`dcomm.EPGroups` (None: one lane)."""
     logits = router_logits(x, w_router)
     A, gates = top_k_routing(logits, top_k, normalize=norm_topk)
     return shuffle_ffn(x, A, gates.to(x.dtype), w1, w3, w2, placement, cfg,
-                       group)
+                       assignment, group)
 
 
 def dense_moe_reference(x: torch.Tensor, w_router: torch.Tensor,
@@ -243,7 +253,7 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                 group=group)
         else:
             y = shuffle_ffn(u2, A, gates.to(h.dtype), lp["w1"], lp["w3"],
-                            lp["w2"], placement, cfg, group)
+                            lp["w2"], placement, cfg, group=group)
         a = tx_attention(h, lp, pos_q, positions, n_heads=n_heads, n_kv=n_kv,
                          head_dim=head_dim, rope_theta=rope_theta,
                          group=group, return_kv=return_kv)

@@ -1,8 +1,9 @@
 """Serving driver, lock-step batch: prefill through the FUSCO shuffle, then
 greedy decode (port of the lock-step path of ``repro/launch/serve.py``).
 
-``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --engine fused_flat
---layers 4 --requests 8 --prompt-len 64 --gen 16``
+``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
+--requests 8 --prompt-len 64 --gen 16`` (the reference's default engine,
+``fused_hier``)
 
 ``python -m repro_torch.launch.serve --arch moe-tx-stream --engine fused_flat
 --requests 8 --prompt-len 512 --gen 16`` (the moe_tx family, per-layer
@@ -12,9 +13,10 @@ barriers)
 --moe-stream 16 --requests 8 --prompt-len 512 --gen 16`` (the streamed
 schedule: each layer's tail combine in flight across its attention block)
 
-``--engine`` takes ``fused_flat`` (the default), ``fused_pipe`` (the
-pipelined engine; ``--pipe-slices`` fixes its slice count, 0: pipesim's)
-and ``disagg`` (the baseline).
+``--engine`` takes ``fused_hier`` (the default, as the reference's: node
+size max(1, EP // 2), the static grouping), ``fused_flat``, ``fused_pipe``
+(the pipelined engine; ``--pipe-slices`` fixes its slice count, 0:
+pipesim's), ``ragged`` and ``disagg`` (the baseline).
 
 Runs on the card (``cuda``).  Weights and prompts are random, drawn from
 seed 0.  A warm-up prefill and two decode steps (which also build the
@@ -46,8 +48,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's tiny smoke-test dims")
-    ap.add_argument("--engine", default="fused_flat",
-                    choices=["fused_flat", "fused_pipe", "disagg"])
+    ap.add_argument("--engine", default="fused_hier",
+                    choices=["fused_flat", "fused_pipe", "fused_hier",
+                             "disagg", "ragged"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=16)
@@ -82,6 +85,9 @@ def setup(args, device="cuda") -> Setup:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     ctx = lm.make_context(cfg, device, engine=args.engine,
+                          # one lane, so one node of one lane: the
+                          # reference's drivers take max(1, EP // 2)
+                          node_size=1,
                           moe_stream=args.moe_stream,
                           pipe_slices=args.pipe_slices)
     gen = torch.Generator(device=ctx.device).manual_seed(0)

@@ -4,8 +4,9 @@ few AdamW steps of next-token loss through the FUSCO shuffle, on one card.
 ``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
 --batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
 
-``--engine`` takes ``fused_flat`` (the default), ``fused_pipe`` and
-``disagg``; ``--calibrate`` measures the pipe constants that choose
+``--engine`` takes ``fused_hier`` (the default, as the reference's),
+``fused_flat`` (``--dedup``: the condensed wire), ``fused_pipe``, ``ragged``
+and ``disagg``; ``--calibrate`` measures the pipe constants that choose
 fused_pipe's slice count and prints the table it applies.
 
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
@@ -45,8 +46,13 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     ap.add_argument("--reduced", action="store_true",
                     help="the reference's tiny smoke-test dims")
-    ap.add_argument("--engine", default="fused_flat",
-                    choices=["fused_flat", "fused_pipe", "disagg"])
+    ap.add_argument("--engine", default="fused_hier",
+                    choices=["fused_flat", "fused_pipe", "fused_hier",
+                             "disagg", "ragged"])
+    ap.add_argument("--dedup", action="store_true",
+                    help="dispatch-side dedup: one wire row per distinct "
+                         "(token, dest lane), expanded on the landing lane "
+                         "(the fused_flat engine)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers (depth only)")
     ap.add_argument("--steps", type=int, default=8)
@@ -93,6 +99,7 @@ def setup(args, device="cuda") -> Setup:
               f"overhead {calibration.overhead_s * 1e6:.1f} us", flush=True)
     ctx = lm.make_context(cfg, device, engine=args.engine,
                           capacity_factor=args.capacity_factor,
+                          node_size=1, dedup=args.dedup,   # one lane, as serve
                           pipe_slices=args.pipe_slices,
                           calibration=calibration)
     params = lm.init_params(

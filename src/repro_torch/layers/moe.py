@@ -1,10 +1,12 @@
 """MoE layer: the FUSCO-integrated expert-parallel feed-forward (port of
 ``repro/layers/moe.py``: ``moe_block``, ``stream_tx_layers`` and
-``moe_decode_block``, without traffic statistics, FSDP or pods).
+``moe_decode_block``, without traffic statistics or FSDP).
 
 The reference runs each layer in a shard_map island over the EP axis, with
 the batch's sequence sharded over it; here each rank of the EP process group
-calls these functions on its own stripe of the sequence.
+calls these functions on its own stripe of the sequence.  ``group`` is that
+group, or the ``dcomm.EPGroups`` of it that ``fused_hier``'s nodes and a
+(pod, model) axis need.
 Expert weights keep the reference's lane-major layout (EP, E_local, d, f) /
 (EP, E_local, f, d): this rank uses lane ``rank in group`` of it.
 """
@@ -15,14 +17,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import fusco
-from repro_torch.core.dcomm import DcommConfig, group_size, lane_index
+from repro_torch.core.dcomm import (DcommConfig, group_size, lane_index,
+                                    process_group)
 from repro_torch.core.routing import (ExpertPlacement, balanced_replica_choice,
                                       router_logits, top_k_routing)
 from repro_torch.kernels import ops as kops
 
 
-def _lane_weights(moe_params, placement: ExpertPlacement,
-                  group: dist.ProcessGroup | None):
+def _lane_weights(moe_params, placement: ExpertPlacement, group):
     w1, w3, w2 = moe_params["w1"], moe_params["w3"], moe_params["w2"]
     if w1.shape[0] != placement.ep:
         raise ValueError(f"expert weights hold {w1.shape[0]} lanes, placement "
@@ -33,16 +35,19 @@ def _lane_weights(moe_params, placement: ExpertPlacement,
 
 def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
               dcfg: DcommConfig, top_k: int, norm_topk: bool = True,
-              group: dist.ProcessGroup | None = None) -> torch.Tensor:
+              group=None) -> torch.Tensor:
     """One MoE layer through the FUSCO shuffle.  x: (B, S, d), this rank's
-    token shard; ``moe_params``: router (d, E) and lane-major w1/w3/w2."""
+    token shard; ``moe_params``: router (d, E) and lane-major w1/w3/w2.
+    ``fused_hier`` takes the static grouping (``assignment`` None): the
+    traffic-fed Algorithm 1 of the reference (``repro/layers/moe.py:90-98``)
+    needs the traffic statistics, not ported yet (ROADMAP queue 1 item 6)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     logits = router_logits(xt, moe_params["router"])
     A, gates = top_k_routing(logits, top_k, normalize=norm_topk)
     w1, w3, w2 = _lane_weights(moe_params, placement, group)
     y = fusco.shuffle_ffn(xt, A, gates.to(xt.dtype), w1, w3, w2, placement,
-                          dcfg, group)
+                          dcfg, assignment=None, group=group)
     return y.reshape(b, s, d)
 
 
@@ -53,8 +58,7 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      n_kv: int, head_dim: int, rope_theta: float = 1e6,
                      norm_topk: bool = True, stream: bool = True,
                      fsdp: bool = False, interleave: int = 1, traffic=None,
-                     return_kv: bool = False, kv_out=None,
-                     group: dist.ProcessGroup | None = None):
+                     return_kv: bool = False, kv_out=None, group=None):
     """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
     by ``fusco.tx_layer_stream``: one streamed schedule when ``stream`` and
     the engine is ``fused_pipe``, else per-layer barriers.  ``x``: (B, S/ep,
@@ -86,7 +90,7 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
 def moe_decode_block(x: torch.Tensor, moe_params, *,
                      placement: ExpertPlacement, dcfg: DcommConfig,
                      top_k: int, norm_topk: bool = True,
-                     group: dist.ProcessGroup | None = None) -> torch.Tensor:
+                     group=None) -> torch.Tensor:
     """Decode-side MoE, the replicated-token form: every rank routes all
     tokens, sends every token through every local expert (the fused SwiGLU
     kernel's (S=1, E_local, C=T, d) layout, all rows live), keeps the shares
@@ -110,5 +114,5 @@ def moe_decode_block(x: torch.Tensor, moe_params, *,
     w = (mask * gates[..., None]).sum(dim=1).to(out_e.dtype)      # (T, E_local)
     y = torch.einsum("ted,te->td", out_e, w)
     if group_size(group) > 1:
-        dist.all_reduce(y, group=group)
+        dist.all_reduce(y, group=process_group(group))
     return y.reshape(b, s, d)

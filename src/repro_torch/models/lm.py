@@ -22,7 +22,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import calibrate
+from repro_torch.core import calibrate, dcomm
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
                                     seq_stripe)
 from repro_torch.core.routing import ExpertPlacement
@@ -37,7 +37,7 @@ from repro_torch.layers.moe import moe_block, moe_decode_block, stream_tx_layers
 class ModelContext:
     cfg: ArchConfig
     device: torch.device
-    ep_group: dist.ProcessGroup | None
+    ep_group: Any                  # None, the EP group, or its dcomm.EPGroups
     placement: ExpertPlacement
     dcfg: DcommConfig
     compute_dtype: torch.dtype = torch.bfloat16
@@ -48,15 +48,25 @@ class ModelContext:
 def make_context(cfg: ArchConfig, device="cuda", *,
                  ep_group: dist.ProcessGroup | None = None,
                  engine: str = "fused_flat", capacity_factor: float = 2.0,
+                 use_balancer: bool = True, node_size: int | None = None,
+                 multi_pod: bool = False, dedup: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  moe_stream: int = 0, pipe_slices: int = 0,
                  calibration=None) -> ModelContext:
     """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
-    ``ep_group`` (None: one lane).  ``moe_stream`` groups the moe_tx layers
-    into stream blocks; ``pipe_slices`` fixes fused_pipe's slice count (0:
-    pipesim's); ``calibration`` (a ``core.calibrate.CalibrationTable``)
-    replaces the H100 spec-point pipe constants with measured ones.  Raises
-    if ``device`` is CUDA and no card is there."""
+    ``ep_group`` (None: one lane).  ``node_size`` lanes make a node
+    (default: a quarter of the EP group, as the reference's); with
+    ``multi_pod`` the EP axis is (pod, model), each pod one node of
+    ``node_size`` lanes (required then).  Over more than one lane it builds
+    what the engine needs on every rank, in the same order (collective):
+    the node groups of ``fused_hier``, the pod and model groups of a
+    (pod, model) axis (``dcomm.ep_groups``).  ``use_balancer`` and
+    ``dedup`` go to the config as in the reference.  ``moe_stream`` groups
+    the moe_tx layers into stream blocks; ``pipe_slices`` fixes fused_pipe's
+    slice count (0: pipesim's); ``calibration`` (a
+    ``core.calibrate.CalibrationTable``) replaces the H100 spec-point pipe
+    constants with measured ones.  Raises if ``device`` is CUDA and no card
+    is there."""
     if cfg.family not in ("moe", "moe_tx"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
@@ -66,12 +76,19 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
                            "device (pass device='cpu' to run the plain path)")
     ep = group_size(ep_group)
-    ns = max(1, ep // 2)      # as the reference's serve driver picks it
+    if multi_pod and node_size is None and ep > 1:
+        raise ValueError("multi_pod: pass node_size, the lanes of one pod")
+    ns = node_size or max(1, ep // 4)
     placement = ExpertPlacement(n_experts=cfg.moe.n_experts, ep=ep, node_size=ns)
-    dcfg = DcommConfig(engine=engine, capacity_factor=capacity_factor,
+    dcfg = DcommConfig(engine=engine,
+                       ep_axis=("pod", "model") if multi_pod else "model",
+                       node_size=ns, capacity_factor=capacity_factor,
+                       use_balancer=use_balancer, dedup=dedup,
                        pipe_slices=pipe_slices)
     if calibration is not None:
         dcfg = calibrate.apply(calibration, dcfg)
+    if ep > 1 and (multi_pod or (engine == "fused_hier" and ns < ep)):
+        ep_group = dcomm.ep_groups(ep_group, ns, ep // ns if multi_pod else 1)
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
                         moe_stream)
 

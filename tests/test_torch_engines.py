@@ -184,7 +184,7 @@ def test_pipe_dispatch_lands_the_flat_buffer_and_combines_like_it():
     p = _weights(3, 24)
     x, A, gates = _routing(p, 24)
     placement = ExpertPlacement(E, 1, 1)
-    flat = DcommConfig(capacity_factor=CF)
+    flat = DcommConfig(engine="fused_flat", capacity_factor=CF)
     pipe = DcommConfig(engine="fused_pipe", capacity_factor=CF, pipe_slices=4)
     rf = dcomm.flat_dispatch(x, A, gates, placement, flat)
     rp = dcomm.pipe_dispatch(x, A, gates, placement, pipe)
@@ -292,7 +292,8 @@ def test_reduced_train_run_through_the_engine_follows_fused_flat(engine,
              else [])
     out = train.run(train.parse_args(argv + ["--engine", engine] + extra),
                     device="cpu")
-    flat = train.run(train.parse_args(argv), device="cpu")
+    flat = train.run(train.parse_args(argv + ["--engine", "fused_flat"]),
+                     device="cpu")
     assert np.isfinite(out["losses"]).all()
     np.testing.assert_allclose(out["losses"], flat["losses"], rtol=2e-3)
     assert ("[calibrate] cpu: stage" in capsys.readouterr().out) == (

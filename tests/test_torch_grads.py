@@ -337,7 +337,8 @@ def test_moe_layer_grads_ep1_with_drops_match_jax():
         *(jnp.asarray(p[n]) for n in names))
     ts = [_t(p[n], grad=True) for n in names]
     y = fusco.moe_shuffle_ffn(*ts, ExpertPlacement(E, 1, 1),
-                              DcommConfig(capacity_factor=0.5), K)
+                              DcommConfig(engine="fused_flat",
+                                          capacity_factor=0.5), K)
     (y * _t(p["cot"])).sum().backward()
     for n, t, w in zip(names, ts, want):
         _close(t.grad, w, what=n)
@@ -405,7 +406,8 @@ def _ep_rank_main(rank, world, init_file, data, out_dir):
                                           lane(d["w1"]), lane(d["w3"]),
                                           lane(d["w2"]))]
         y = fusco.moe_shuffle_ffn(*ts, ExpertPlacement(E, world, world // 2),
-                                  DcommConfig(capacity_factor=8.0), K,
+                                  DcommConfig(engine="fused_flat",
+                                              capacity_factor=8.0), K,
                                   group=group)
         cot = d["cot"][rank * t:(rank + 1) * t]
         grads = torch.autograd.grad((y * _t(cot)).sum(), ts)

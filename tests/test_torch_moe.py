@@ -175,16 +175,20 @@ def test_moe_shuffle_ffn_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
 
 
 def test_engines_of_later_slices_raise():
+    """The engines the first slices left for later dispatch now: fused_hier,
+    ragged, fused_flat with dedup, and a (pod, model) axis, which at one
+    lane is the identity.  An unknown engine still raises.  (Their missing
+    groups over more than one lane raise on the gloo ranks of
+    ``test_torch_hier.py``.)"""
     placement = ExpertPlacement(n_experts=E, ep=1, node_size=1)
     x = torch.zeros(4, D)
     A = torch.zeros(4, K, dtype=torch.int32)
     g = torch.full((4, K), 0.5)
-    for engine in ("fused_hier", "ragged"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fusco.dispatch(x, A, g, placement, DcommConfig(engine=engine))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fusco.dispatch(x, A, g, placement, DcommConfig(dedup=True))
-    with pytest.raises(NotImplementedError, match="multi-pod"):
-        _flat_exchange(torch.zeros(2, 3, D), DcommConfig(ep_axis=("pod", "model")), 2)
+    for cfg in (DcommConfig(engine="fused_hier"), DcommConfig(engine="ragged"),
+                DcommConfig(engine="fused_flat", dedup=True)):
+        assert fusco.dispatch(x, A, g, placement, cfg).expert_rows.shape[:2] == (1, E)
+    with pytest.raises(ValueError, match="unknown engine"):
+        fusco.dispatch(x, A, g, placement, DcommConfig(engine="sparse"))
     buf = torch.randn(1, 3, D)
+    assert _flat_exchange(buf, DcommConfig(ep_axis=("pod", "model")), 1) is buf
     assert _flat_exchange(buf, DcommConfig(), 1) is buf

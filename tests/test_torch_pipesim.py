@@ -123,7 +123,7 @@ def test_calibrate_on_the_cpu_gives_clamped_constants_that_apply_threads():
                           engine="fused_pipe", moe_stream=2, pipe_slices=4,
                           calibration=table)
     assert ctx.moe_stream == 2 and ctx.dcfg == dataclasses.replace(
-        cfg, pipe_slices=4)
+        cfg, pipe_slices=4, node_size=1)       # make_context's node of one lane
     assert calibrate._clamp(float("nan"), 1.0, 2.0) == 1.0
     assert calibrate._clamp(-3.0, 1.0, 2.0) == 1.0
     assert calibrate._clamp(5.0, 1.0, 2.0) == 2.0

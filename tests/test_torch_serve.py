@@ -117,8 +117,8 @@ def test_convert_rejects_other_trees_and_serve_flags():
         convert.params_from_jax({"embed": np.zeros((4, 2), np.float32)})
     a = serve.parse_args(["--layers", "4", "--requests", "8"])
     assert (a.arch, a.engine, a.layers, a.prompt_len, a.gen) == (
-        ARCH, "fused_flat", 4, 64, 16)
+        ARCH, "fused_hier", 4, 64, 16)
     with pytest.raises(SystemExit):
-        serve.parse_args(["--engine", "fused_hier"])
+        serve.parse_args(["--engine", "sparse"])
     with pytest.raises(NotImplementedError, match="moe and moe_tx only"):
         lm.make_context(get_arch("qwen3-1.7b"), "cpu")
