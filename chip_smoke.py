@@ -41,6 +41,10 @@
      table and the origin sum over the stage-1 one) at the serve and train
      shapes, and ragged's unpack and pack-back gathers at the serve shape
      (``ragged_kernel_rows``), from the engines' own plans;
+   - at the continuous qwen3-moe path's admission shapes (one request of
+     16 and of 128 tokens, ``admission_rows``): the flash forward (B 1,
+     hd 128) and fused_hier's gathers, scatter-adds and fused_swiglu on its
+     expansion buffer;
    - odd shapes of the Hopper forms, of the flash tensor-core form (the
      bf16 shapes the Hopper form refuses) and of the scatter-add and its
      backward (``odd_shape_checks``), held only.
@@ -89,6 +93,19 @@
    scatter-add launches its code implies (``SERVE_LAUNCHES``), and
    moe-tx-stream-1b through ``--engine fused_pipe --moe-stream 16``, the
    streamed schedule across all 16 layers.
+   Then the continuous paths (``CONTINUOUS``, ``continuous_phase``):
+   ``serving.engine.ContinuousServingEngine`` with traffic tracked over
+   qwen3-moe-30b-a3b (4 layers, fused_hier, pool 8, 32 requests of 16 /
+   32 / 64 / 128 tokens) and moe-tx-stream-1b (16 layers, fused_flat, 16
+   requests of 64 / 128 / 256 / 512 tokens), max_new from seed 0 in 8-32:
+   ``warmup()``, then ``run()`` with the counters zeroed; fails if the run
+   built a callable (``compile_count`` moved), a serve kernel never
+   launched, a request lacks its tokens, or the host waited on the card
+   other than once per admission and once per decode step.  Prints the
+   callables and their build seconds, TTFT p50/p95/p99, decode tok/s,
+   occupancy, lane imbalance and top-expert share, launches and peak
+   memory, and profiles one admission prefill per prompt length and one
+   pool decode step.
 7. Train phases: zero the counters, train full-width qwen3-moe-30b-a3b (4
    of 48 layers) for 8 AdamW steps through ``repro_torch.launch.train``,
    through fused_flat and then through fused_hier, read the counters and
@@ -104,7 +121,11 @@
    and trained on the card in bf16 (their attention on the flash
    tensor-core form), and one reduced train step in float32 on the card
    against the CPU (loss, every grad leaf, every updated param) through
-   each engine.
+   each engine; and the continuous engine over the reduced models in f32
+   (``continuous_check``: qwen3-moe through fused_flat and fused_hier,
+   moe-tx through fused_flat; 6 requests, a pool of 4): the card's token
+   streams must equal the CPU's and its own batch-1 waved oracle's, and
+   its traffic state the CPU's within 1e-5.
 9. Prints the card's name and power limit, the kernels' numbers as one JSON
    line (``launches_by_phase`` counts every serve phase), and last
    ``{"ok": true, "device": {...}}``.
@@ -226,6 +247,29 @@ REDUCED_ENGINES = ("fused_flat", "fused_pipe", "disagg", "fused_hier", "dedup",
 ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
 # the same layer narrowed for the float32 check (d 256, f 128)
 ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
+# the continuous serving paths (serving.engine.ContinuousServingEngine,
+# traffic tracked): the model and its depth (0: all layers), the engine, the
+# requests queued before the run, the pool, max_len (its buckets the powers
+# of two from 16, and max_len) and the prompt lengths the requests cycle
+# through, on bucket boundaries; max_new is drawn from seed 0 in MAX_NEW
+CONTINUOUS = {
+    "qwen3-moe-30b-a3b continuous": dict(
+        arch="qwen3-moe-30b-a3b", layers=4, engine="fused_hier", requests=32,
+        max_batch=8, max_len=160, lens=(16, 32, 64, 128)),
+    "moe-tx-stream continuous": dict(
+        arch="moe-tx-stream", layers=0, engine="fused_flat", requests=16,
+        max_batch=8, max_len=544, lens=(64, 128, 256, 512)),
+}
+MAX_NEW = (8, 32)
+# the admission prefills of the qwen3-moe continuous path the kernel rows
+# hold: one request of T tokens through fused_hier, and its attention
+ADMISSION_T = (16, 128)
+ADMISSION_ATTN = dict(b=1, hq=32, hkv=4, hd=128)
+# the card-vs-CPU checks of the continuous engine: reduced models in f32
+CONTINUOUS_CHECKS = (("qwen3-moe-30b-a3b", "fused_flat"),
+                     ("qwen3-moe-30b-a3b", "fused_hier"),
+                     ("moe-tx-stream", "fused_flat"))
+TOL_TRAFFIC = 1e-5        # traffic state, card vs CPU, relative to max(1, |x|)
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
 SPLIT_KERNELS = ("fused_swiglu", "grouped_matmul", "flash_attention")
@@ -1743,6 +1787,253 @@ def reduced_train_check(device="cuda", engine="fused_flat") -> dict:
     return dict(err, params_tol=p_tol, launches=launched)
 
 
+def hier_swiglu_row(inp, timer=time_ms) -> dict:
+    """fused_swiglu on fused_hier's expansion buffer at ``inp``'s shape
+    (EP = 1), with the expansion's counts: held and timed (``swiglu_row``)."""
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    w = (inp["w1"], inp["w3"], inp["w2"])
+    res = dcomm.hier_dispatch(inp["x"], inp["A"], inp["route_gates"],
+                              ExpertPlacement(w[0].shape[0], 1, 1),
+                              dcomm.DcommConfig(engine="fused_hier"))
+    row = swiglu_row("fused_swiglu", res.expert_rows, *w, res.counts, timer)[0]
+    return dict(row, shape=f"fused_hier expansion: {row['shape']}")
+
+
+def admission_rows(timer=time_ms) -> list[dict]:
+    """The serve kernels at the continuous qwen3-moe path's admission
+    shapes: one request of T tokens (``ADMISSION_T``) through fused_hier's
+    gathers, scatter-adds and fused_swiglu, and its flash forward (B 1 x
+    S T, hd 128), each held against its plain version and timed."""
+    moe = {k: v for k, v in PATHS["qwen3-moe-30b-a3b"][1].items() if k != "t"}
+    rows = []
+    for t in ADMISSION_T:
+        rows.append(flash_row(*attention_inputs("cuda", sq=t, sk=t,
+                                                **ADMISSION_ATTN),
+                              window=None, timer=timer))
+        inp = main_path_inputs("cuda", t=t, **moe)
+        rows += hier_kernel_rows(inp, timer)
+        rows.append(hier_swiglu_row(inp, timer))
+    return rows
+
+
+def continuous_engine(spec: dict, device="cuda"):
+    """A ``ContinuousServingEngine`` of ``spec``'s full-width model (depth
+    cut to ``layers``) with traffic tracked, its random parameters (seed 0)
+    and its requests: prompt lengths cycling through ``lens``, tokens and
+    ``max_new`` (in ``MAX_NEW``) drawn from seed 0."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm, zoo
+    from repro_torch.serving.engine import ContinuousServingEngine
+    cfg = get_arch(spec["arch"])
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    ctx = lm.make_context(cfg, device, engine=spec["engine"], node_size=1)
+    bundle = zoo.build(cfg, ctx)
+    params = bundle.init(torch.Generator(device=ctx.device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    n, lens = spec["requests"], spec["lens"]
+    max_new = rng.integers(MAX_NEW[0], MAX_NEW[1] + 1, n)
+    prompts = [rng.integers(0, cfg.vocab, lens[i % len(lens)]) for i in range(n)]
+    eng = ContinuousServingEngine(bundle, max_batch=spec["max_batch"],
+                                  max_len=spec["max_len"], track_traffic=True)
+    return eng, params, list(zip(prompts, (int(m) for m in max_new)))
+
+
+def host_ms(*fns, rounds: int = 8) -> list[float]:
+    """The median host time (ms) of each of ``fns`` (each ends in a host
+    read) over ``rounds`` rounds, after a warm-up call of each; the rounds
+    take the functions in turns, forward then backward, so that a drift of
+    the shared host falls on all of them alike."""
+    for fn in fns:
+        fn()
+    walls = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            t0 = time.perf_counter()
+            fns[i]()
+            walls[i].append((time.perf_counter() - t0) * 1e3)
+    return [statistics.median(w) for w in walls]
+
+
+def profile_once(fn) -> dict | None:
+    """One call of ``fn`` (which ends in a host read) under torch.profiler:
+    ``device_summary`` of its trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_summary(prof, wall_ms)
+
+
+def continuous_phase(label: str, spec: dict) -> tuple[dict, dict]:
+    """A continuous serving path at full width: ``warmup()``, then every
+    request queued and ``run()``, with the launch counters zeroed just
+    before the run and read just after.  Fails if the run built a callable
+    (``compile_count`` moved after warmup), if a serve kernel never
+    launched, if a request did not get its ``max_new`` in-vocabulary tokens
+    (no eos), or if the host waited on the card other than once per
+    admission and once per decode step.  Then profiles one admission
+    prefill per prompt length and one pool decode step.  Returns the
+    launch counts and the times."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng, params, requests = continuous_engine(spec)
+    cfg, ctx = eng.bundle.cfg, eng.bundle.ctx
+    warm_s = eng.warmup(params)
+    built = eng.compile_count
+    for prompt, max_new in requests:
+        eng.submit(prompt, max_new=max_new)
+    wrappers = zero_counters()
+    with host_syncs() as syncs:
+        t0 = time.perf_counter()
+        done = eng.run(params)
+        run_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    never = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if eng.compile_count != built or never:
+        raise AssertionError(f"{label}: compile_count {built} -> "
+                             f"{eng.compile_count} over the run, or kernels "
+                             f"never launched {never}: {launches}")
+    if (len(done) != len(requests)
+            or any(len(r.output) != r.max_new for r in done)
+            or not all(0 <= t < cfg.vocab for r in done for t in r.output)):
+        raise AssertionError(f"{label}: a request lacks its tokens")
+    reads = len(requests) + eng.decode_steps
+    if len(syncs) != reads:
+        raise AssertionError(f"{label}: the host waited {len(syncs)} times, "
+                             f"expected one per admission and decode step "
+                             f"({reads}): {syncs[:6]}")
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{spec['engine']}, pool {spec['max_batch']}, max_len "
+          f"{spec['max_len']} (buckets {list(eng.buckets)}), {len(requests)} "
+          f"requests of {list(spec['lens'])} tokens, max_new {MAX_NEW[0]}-"
+          f"{MAX_NEW[1]} (seed 0): {eng.compile_count} prepared callables "
+          f"built in {eng.compile_s:.2f} s (warmup {warm_s:.2f} s), flat over "
+          f"the run; run {run_s:.3f} s, {eng.decode_steps} decode steps, "
+          f"{len(syncs)} host reads; ttft p50 {st['p50_ttft_s'] * 1e3:.3f} "
+          f"p95 {st['p95_ttft_s'] * 1e3:.3f} p99 "
+          f"{st['p99_ttft_s'] * 1e3:.3f} ms (queued before the run); decode "
+          f"{st['decode_tok_s']:.1f} tok/s; mean occupancy "
+          f"{st['mean_slot_occupancy']:.3f}; lane imbalance mean "
+          f"{st['mean_lane_imbalance']:.3f} max {st['max_lane_imbalance']:.3f}; "
+          f"top-expert share {st['mean_top_expert_share']:.4f}; peak memory "
+          f"{peak:.2f} GiB")
+    print(f"launches on the {label} path: {json.dumps(launches)}")
+    print(f"sample tokens: {done[0].output}")
+    times = {"ttft_p50_ms": st["p50_ttft_s"] * 1e3,
+             "ttft_p99_ms": st["p99_ttft_s"] * 1e3,
+             "decode_tok_s": st["decode_tok_s"],
+             "mean_occupancy": st["mean_slot_occupancy"]}
+
+    with torch.inference_mode():
+        for n in spec["lens"]:
+            exe = eng.get_prefill(params, 1, eng.bucket_of(n))
+            toks = torch.from_numpy(requests[spec["lens"].index(n)][0][None]
+                                    ).to(ctx.device)
+            mask = torch.ones(toks.shape, dtype=torch.bool, device=ctx.device)
+            scratch = eng._fresh_traffic()
+            tracked = lambda: exe(params, toks, scratch, mask)[0].argmax(
+                -1).cpu()
+            # what the traffic statistics cost an admission: the same
+            # prefill without them, host clock, in turns with it
+            wall, untracked = host_ms(tracked, lambda: eng.bundle.prefill(
+                params, {"tokens": toks}, eng.max_len)[0].argmax(-1).cpu())
+            p = profile_once(tracked)
+            print_profile(f"{label} admission prefill S {n}", p, wall)
+            print(f"  the same prefill without traffic statistics: "
+                  f"{untracked:.3f} ms host clock (with: {wall:.3f}; medians "
+                  f"of 8 in turns)")
+            check_profile(f"{label} prefill", p, flash=True)
+            times[f"prefill_{n}_ms"] = wall
+            times[f"prefill_{n}_untracked_ms"] = untracked
+            times[f"prefill_{n}_busy_share"] = (None if p is None
+                                                else p["busy_ms"] / wall)
+        state = lm.init_decode_state(cfg, eng.max_batch, eng.max_len,
+                                     ctx.compute_dtype, ctx, per_slot=True)
+        dec = eng.get_decode(params, state, eng.max_batch)
+        tok = torch.zeros(eng.max_batch, dtype=torch.int64, device=ctx.device)
+        step = lambda: dec(params, state, tok)[0].argmax(-1).cpu()
+        wall = host_ms(step)[0]
+        p = profile_once(step)
+        print_profile(f"{label} pool decode step", p, wall)
+        check_profile(f"{label} decode", p, flash=False)
+        times["decode_step_ms"] = wall
+        times["decode_busy_share"] = None if p is None else p["busy_ms"] / wall
+    del eng, state
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def continuous_check(arch: str, engine: str, device="cuda") -> dict:
+    """The continuous engine over the reduced model in float32: 6 requests
+    on bucket boundaries (16 / 32) through a pool of 4 with ``max_new``
+    4-6 (seed 0), traffic tracked, on the card (kernels) and on the CPU
+    (plain versions).  Fails unless the card gives the CPU's token streams
+    and the streams of its own batch-1 waved oracle, and the CPU's traffic
+    state within ``TOL_TRAFFIC``.  Returns the streams' count and the
+    traffic error."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm, zoo
+    from repro_torch.serving.engine import (ContinuousServingEngine,
+                                            ServingEngine)
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    bundles = {dev: zoo.build(cfg, lm.make_context(
+        cfg, dev, engine=engine, node_size=1, compute_dtype=f32))
+        for dev in ("cpu", device)}
+    params = bundles["cpu"].init(torch.Generator().manual_seed(0), f32)
+    move = lambda t, dev: ({k: move(v, dev) for k, v in t.items()}
+                           if isinstance(t, dict) else t.to(dev))
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab, (16, 32)[i % 2]),
+             int(rng.integers(4, 7))) for i in range(6)]
+    kw = dict(max_len=40, buckets=(16, 32))
+
+    def run(dev):
+        eng = ContinuousServingEngine(bundles[dev], max_batch=4,
+                                      track_traffic=True, **kw)
+        p = move(params, dev)
+        eng.warmup(p)
+        for prompt, n in reqs:
+            eng.submit(prompt, max_new=n)
+        eng.run(p)
+        return ([q.output for q in sorted(eng.finished, key=lambda q: q.rid)],
+                [leaf.cpu() for leaf in eng.traffic], p)
+
+    card, card_tr, p = run(device)
+    cpu, cpu_tr, _ = run("cpu")
+    oracle = []
+    for prompt, n in reqs:
+        eng = ServingEngine(bundles[device], max_batch=1, **kw)
+        eng.submit(prompt, max_new=n)
+        oracle.append(eng.run_wave(p)[0].output)
+    err = max(max_err(a, b) / max(1.0, b.float().abs().max().item())
+              for a, b in zip(card_tr, cpu_tr))
+    if card != cpu or card != oracle or not err <= TOL_TRAFFIC:
+        raise AssertionError(f"continuous {arch} {engine} on the card: "
+                             f"streams {card}, CPU {cpu}, batch-1 oracle "
+                             f"{oracle}; traffic error {err} (tol "
+                             f"{TOL_TRAFFIC})")
+    return dict(requests=len(card), tokens=sum(map(len, card)),
+                traffic_err=err)
+
+
 def print_row(r: dict) -> None:
     lse = (f", worst row {r['worst_row_share']:.3f} of its row's tolerance, "
            f"lse {r['max_abs_err_lse']:.4g} (tol {TOL_LSE})"
@@ -1925,6 +2216,8 @@ def main() -> None:
                          for r in ragged_kernel_rows(inp)]
             del inp
             torch.cuda.empty_cache()
+        rows += [dict(r, path="qwen3-moe-30b-a3b continuous")
+                 for r in admission_rows()]
         shifted = attention_inputs("cuda", **SHIFTED)
         for window in (None, WINDOW):
             rows.append(dict(flash_row(*shifted, window=window),
@@ -2006,6 +2299,8 @@ def main() -> None:
     for label, (argv, required, absent) in ENGINE_SERVE.items():
         launches[label], serve_times[label] = serve_and_profile(
             label, argv, required, absent)
+    for label, spec in CONTINUOUS.items():
+        launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
     for label, argv in TRAINS.items():
         launches[label] = train_and_profile(label, argv)
@@ -2014,6 +2309,13 @@ def main() -> None:
             worst = reduced_check(arch, engine=engine)
             print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
                   f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
+    for arch, engine in CONTINUOUS_CHECKS:
+        out = continuous_check(arch, engine)
+        print(f"continuous {arch} {engine} reduced f32: card (kernels) streams "
+              f"equal the CPU's (plain) and the card's batch-1 waved oracle "
+              f"({out['requests']} requests, {out['tokens']} tokens); traffic "
+              f"state vs the CPU's {out['traffic_err']:.3g} of max(1, |x|) "
+              f"(tol {TOL_TRAFFIC})")
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")

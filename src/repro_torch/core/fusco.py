@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import dcomm
+from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.dcomm import DcommConfig, DispatchResult
 from repro_torch.core.routing import ExpertPlacement, router_logits, top_k_routing
 from repro_torch.kernels import ops as kops
@@ -208,16 +209,18 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
     ``rank in group``); ``positions`` the full (S,) absolute positions;
     ``params`` the stacked per-layer dict ``{ln1, wq, wk, wv, wo, ln2,
     router, w1, w3, w2}`` (attention weights replicated, expert weights this
-    lane's (N, E_local, ...)).  Returns ``h``, and with ``return_kv`` also
-    the per-layer gathered RoPE'd (k, v) stacks (N, b, S, n_kv, hd): fresh
-    ones, or ``kv_out``, a pair of such stacks written in place."""
+    lane's (N, E_local, ...)).  ``traffic``: a layer-stacked (N, ...)
+    ``traffic.TrafficState``; ``observe(state, A)`` folds each layer's
+    routing into its slice, after the router in the barrier branch and at
+    the end of the layer in the streamed one, as the reference
+    (fusco.py:426-519).  Returns ``h``, then with ``traffic`` the new
+    state, then with ``return_kv`` the per-layer gathered RoPE'd (k, v)
+    stacks (N, b, S, n_kv, hd): fresh ones, or ``kv_out``, a pair of such
+    stacks written in place."""
     if interleave > 1:
         raise NotImplementedError(
             "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
             "1 item 5 (interleaved_layer_stream)")
-    if traffic is not None or observe is not None:
-        raise NotImplementedError(
-            "traffic observation is not ported yet: ROADMAP queue 1 item 6")
     b, s_l, d = x.shape
     tc = b * s_l
     chunk = dcomm.lane_index(group)
@@ -234,9 +237,10 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
         tail = dcomm.pipe_empty_tail(placement, cap // ns, d, tc, top_k,
                                      x.dtype, x.dtype, x.device)
     h = x
-    ks, vs = [], []
+    ks, vs, trs = [], [], []
     for i in range(n_layers):
         lp = {k: w[i] for k, w in params.items()}
+        tr = None if traffic is None else traffic_lib.layers(traffic, i)
         if streamed:
             # prologue: the previous layer's tail lands, then the router
             ht = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc)
@@ -244,6 +248,8 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
         u2 = rms_norm(h, lp["ln2"]).reshape(tc, d)
         A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
                                  normalize=norm_topk)
+        if tr is not None and not streamed:
+            tr = observe(tr, A)
         if streamed:
             # the MoE issued first; its tail rides across the attention
             ffn = lambda rows, counts, lp=lp: swiglu_experts(
@@ -266,12 +272,17 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                 kv_out[0][i].copy_(k)
                 kv_out[1][i].copy_(v)
         h = y.reshape(b, s_l, d) + a if streamed else h + a + y.reshape(b, s_l, d)
+        if tr is not None:
+            trs.append(observe(tr, A) if streamed else tr)
     if streamed:       # epilogue: the last layer's tail
         h = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc).reshape(b, s_l, d)
+    out = (h,)
+    if traffic is not None:
+        out += (traffic_lib.stack(trs),)
     if return_kv:
-        return h, (kv_out if kv_out is not None
-                   else (torch.stack(ks), torch.stack(vs)))
-    return h
+        out += (kv_out if kv_out is not None
+                else (torch.stack(ks), torch.stack(vs)),)
+    return out[0] if len(out) == 1 else out
 
 
 def tx_dense_reference(x: torch.Tensor, positions: torch.Tensor, params,

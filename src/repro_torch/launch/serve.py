@@ -1,5 +1,6 @@
-"""Serving driver, lock-step batch: prefill through the FUSCO shuffle, then
-greedy decode (port of the lock-step path of ``repro/launch/serve.py``).
+"""Serving driver: one lock-step batch, prefill through the FUSCO shuffle
+then greedy decode, or (``--continuous``) the per-slot continuous-batching
+engine (port of ``repro/launch/serve.py``).
 
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
 --requests 8 --prompt-len 64 --gen 16`` (the reference's default engine,
@@ -12,6 +13,12 @@ barriers)
 ``python -m repro_torch.launch.serve --arch moe-tx-stream --engine fused_pipe
 --moe-stream 16 --requests 8 --prompt-len 512 --gen 16`` (the streamed
 schedule: each layer's tail combine in flight across its attention block)
+
+``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
+--requests 8 --prompt-len 64 --gen 16 --continuous`` (the requests through
+``serving.engine.ContinuousServingEngine``, a pool of ``--requests`` slots:
+it prints the prepared callables' count and build seconds, TTFT p50/p99,
+decode tok/s and the mean slot occupancy)
 
 ``--engine`` takes ``fused_hier`` (the default, as the reference's: node
 size max(1, EP // 2), the static grouping), ``fused_flat``, ``fused_pipe``
@@ -61,6 +68,9 @@ def parse_args(argv=None):
                          "(streamed with --engine fused_pipe)")
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve via the per-slot continuous-batching engine "
+                         "instead of one lock-step batch")
     args = ap.parse_args(argv)
     if args.gen < 2:
         ap.error("--gen must be at least 2 (one prefill token, one decode step)")
@@ -99,10 +109,30 @@ def setup(args, device="cuda") -> Setup:
                  args.prompt_len + args.gen)
 
 
+def _run_continuous(cfg, ctx, params, tokens, max_len) -> dict:
+    """Every prompt through a ``ContinuousServingEngine`` of as many slots
+    as requests, each asking for ``--gen`` tokens; returns the finished
+    requests, the engine's ``stats()``, its build seconds and the engine."""
+    from repro_torch.models import zoo
+    from repro_torch.serving.engine import ContinuousServingEngine
+    b, gen = tokens.shape[0], max_len - tokens.shape[1]
+    eng = ContinuousServingEngine(zoo.build(cfg, ctx), max_batch=b,
+                                  max_len=max_len)
+    compile_s = eng.warmup(params)
+    for row in tokens.cpu().numpy():
+        eng.submit(row, max_new=gen)
+    done = eng.run(params)
+    return {"done": done, "stats": eng.stats(), "compile_s": compile_s,
+            "engine": eng, "cfg": cfg}
+
+
 def run(args, device="cuda") -> dict:
     """Serve one lock-step batch; returns the generated tokens (B, gen), the
-    last logits and the timings."""
+    last logits and the timings.  With ``--continuous`` serves the same
+    prompts through the continuous engine instead (``_run_continuous``)."""
     cfg, ctx, params, tokens, positions, max_len = setup(args, device)
+    if args.continuous:
+        return _run_continuous(cfg, ctx, params, tokens, max_len)
 
     def serve():
         logits, state = lm.prefill(params, tokens, positions, ctx, max_len)
@@ -136,6 +166,17 @@ def run(args, device="cuda") -> dict:
 def main(argv=None):
     args = parse_args(argv)
     out = run(args)
+    if args.continuous:
+        st, eng = out["stats"], out["engine"]
+        print(f"compile {out['compile_s']:.2f} s  ({eng.compile_count} "
+              "prepared callables)")
+        print(f"ttft p50 {st['p50_ttft_s'] * 1e3:.1f} ms  "
+              f"p99 {st['p99_ttft_s'] * 1e3:.1f} ms   "
+              f"decode {st['decode_tok_s']:.0f} tok/s   "
+              f"occupancy {st['mean_slot_occupancy']:.2f}  "
+              f"({len(out['done'])} requests)")
+        print("sample:", out["done"][0].output[:12])
+        return out
     print(f"warmup {out['warmup_s']:.2f} s")
     print(f"ttft {out['ttft_s'] * 1e3:.1f} ms   decode "
           f"{out['decode_s_per_tok'] * 1e3:.1f} ms/tok  "

@@ -1,7 +1,7 @@
 """Attention: GQA with qk-norm, RoPE, position-masked causal attention and
 the decode KV cache (port of ``repro/layers/attention.py``, the parts the
-lock-step serving of the moe and moe_tx families and the moe family's
-training use).
+serving of the moe and moe_tx families, lock-step or per-slot, and the moe
+family's training use).
 
 :func:`causal_attention` stands in for the reference's lax flash attention
 (attention.py:35-244), which follows the same position contract as the
@@ -34,24 +34,31 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class KVCache(NamedTuple):
     k: torch.Tensor       # (B, C, Hkv, hd); C = min(max_len, window)
     v: torch.Tensor
-    length: int           # tokens seen so far (lock-step: one for all rows)
+    length: torch.Tensor  # int32 on the cache's device: () tokens seen by
+                          # every row (lock-step), or (B,) one count a row
+                          # (a continuous-batching slot pool)
     max_len: int
 
 
 def cache_update(cache: KVCache, k_new: torch.Tensor,
                  v_new: torch.Tensor) -> KVCache:
-    """Append one step (B, 1, Hkv, hd) at slot length % C (a ring buffer
-    when windowed).  Writes the cache tensors in place, where the reference
-    returns new arrays."""
-    pos = cache.length % cache.k.shape[1]
-    cache.k[:, pos] = k_new[:, 0]
-    cache.v[:, pos] = v_new[:, 0]
+    """Append one step (B, 1, Hkv, hd): row b at slot length[b] % C (a ring
+    buffer when windowed), by one ``index_put_`` over (arange(B), slot),
+    so neither form of ``length`` is read to the host.  Writes the cache
+    tensors in place, where the reference returns new arrays."""
+    b, c = cache.k.shape[0], cache.k.shape[1]
+    rows = torch.arange(b, device=cache.k.device)
+    slot = (cache.length % c).long().expand(b)
+    cache.k.index_put_((rows, slot), k_new[:, 0])
+    cache.v.index_put_((rows, slot), v_new[:, 0])
     return KVCache(cache.k, cache.v, cache.length + 1, cache.max_len)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
-    """One-token attention against the cache.  q: (B, 1, Hq, hd).  The ring
-    holds the last min(length, C) positions; older slots are masked."""
+    """One-token attention against the cache.  q: (B, 1, Hq, hd).  Each row
+    holds its last min(length, C) positions in the ring and masks the other
+    slots; a row at length 0 (a free slot) sees a uniform softmax over its
+    masked scores: finite values, which the serving engine drops."""
     b, _, hq, hd = q.shape
     hkv = cache.k.shape[2]
     g = hq // hkv
@@ -59,10 +66,11 @@ def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
     scale = hd ** -0.5
     qr = q.reshape(b, hkv, g, hd).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qr, cache.k.float()) * scale
-    slot = torch.arange(c, device=q.device)
-    age = (cache.length % c - 1 - slot) % c                 # 0 = newest
-    valid = age < min(cache.length, c)
-    s = torch.where(valid, s, NEG_INF)
+    length = cache.length.expand(b)[:, None]
+    slot = torch.arange(c, device=q.device)[None, :]
+    age = (length % c - 1 - slot) % c                       # (B, C), 0 = newest
+    valid = age < length.clamp(max=c)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(cache.v.dtype), cache.v)
     return out.reshape(b, 1, hq, hd)

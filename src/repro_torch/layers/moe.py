@@ -1,6 +1,6 @@
 """MoE layer: the FUSCO-integrated expert-parallel feed-forward (port of
 ``repro/layers/moe.py``: ``moe_block``, ``stream_tx_layers`` and
-``moe_decode_block``, without traffic statistics or FSDP).
+``moe_decode_block``, with the online traffic statistics; no FSDP).
 
 The reference runs each layer in a shard_map island over the EP axis, with
 the batch's sequence sharded over it; here each rank of the EP process group
@@ -16,9 +16,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import balancer as balancer_lib
 from repro_torch.core import fusco
-from repro_torch.core.dcomm import (DcommConfig, group_size, lane_index,
-                                    process_group)
+from repro_torch.core import traffic as traffic_lib
+from repro_torch.core.dcomm import (DcommConfig, _lane_index, group_size,
+                                    lane_index, process_group)
 from repro_torch.core.routing import (ExpertPlacement, balanced_replica_choice,
                                       router_logits, top_k_routing)
 from repro_torch.kernels import ops as kops
@@ -35,20 +37,38 @@ def _lane_weights(moe_params, placement: ExpertPlacement, group):
 
 def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
               dcfg: DcommConfig, top_k: int, norm_topk: bool = True,
-              group=None) -> torch.Tensor:
+              group=None, traffic: traffic_lib.TrafficState | None = None,
+              traffic_decay: float = 0.99,
+              traffic_mask: torch.Tensor | None = None):
     """One MoE layer through the FUSCO shuffle.  x: (B, S, d), this rank's
     token shard; ``moe_params``: router (d, E) and lane-major w1/w3/w2.
-    ``fused_hier`` takes the static grouping (``assignment`` None): the
-    traffic-fed Algorithm 1 of the reference (``repro/layers/moe.py:90-98``)
-    needs the traffic statistics, not ported yet (ROADMAP queue 1 item 6)."""
+
+    ``traffic`` threads this layer's traffic statistics through the layer
+    (state in, new state out): the routing matrix is folded into the EMA
+    over the EP group, and with ``fused_hier`` and ``use_balancer``
+    Algorithm 1 takes the EMA lane-send loads in place of the static
+    grouping (``repro/layers/moe.py:90-98``).  ``traffic_mask``: (B, S)
+    bool, this rank's stripe like ``x``; masked positions are routed but
+    not counted.  Returns ``(y, new_traffic)`` when ``traffic`` is given,
+    ``y`` otherwise."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     logits = router_logits(xt, moe_params["router"])
     A, gates = top_k_routing(logits, top_k, normalize=norm_topk)
+    assignment = None
+    if traffic is not None:
+        traffic = traffic_lib.observe(
+            traffic, A, placement, _lane_index(dcfg, group),
+            decay=traffic_decay, group=group,
+            valid=None if traffic_mask is None else traffic_mask.reshape(b * s))
+        if dcfg.engine == "fused_hier" and dcfg.use_balancer:
+            assignment = balancer_lib.algorithm1_groups(
+                traffic_lib.balancer_loads(traffic, placement))
     w1, w3, w2 = _lane_weights(moe_params, placement, group)
     y = fusco.shuffle_ffn(xt, A, gates.to(xt.dtype), w1, w3, w2, placement,
-                          dcfg, assignment=None, group=group)
-    return y.reshape(b, s, d)
+                          dcfg, assignment=assignment, group=group)
+    y = y.reshape(b, s, d)
+    return y if traffic is None else (y, traffic)
 
 
 def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
@@ -57,7 +77,10 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      top_k: int, positions: torch.Tensor, n_heads: int,
                      n_kv: int, head_dim: int, rope_theta: float = 1e6,
                      norm_topk: bool = True, stream: bool = True,
-                     fsdp: bool = False, interleave: int = 1, traffic=None,
+                     fsdp: bool = False, interleave: int = 1,
+                     traffic: traffic_lib.TrafficState | None = None,
+                     traffic_decay: float = 0.99,
+                     traffic_mask: torch.Tensor | None = None,
                      return_kv: bool = False, kv_out=None, group=None):
     """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
     by ``fusco.tx_layer_stream``: one streamed schedule when ``stream`` and
@@ -65,18 +88,27 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     d), this rank's stripe of the sequence; ``positions``: the full (S,) positions; ``moe_params``:
     stacked router (N, d, E) and lane-major w1/w3/w2 (N, EP, E_local, ...);
     ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
-    (N, d).  Returns ``y``, and with ``return_kv`` the per-layer gathered
-    (k, v) stacks (N, B, S, n_kv, hd), written into ``kv_out`` when given."""
+    (N, d).  ``traffic``: the block's layer-stacked (N, ...)
+    ``TrafficState``, each layer's routing folded into its slice;
+    ``traffic_mask`` (B, S/ep) as in :func:`moe_block`.  Returns ``y``,
+    then the new traffic when given, then with ``return_kv`` the per-layer
+    gathered (k, v) stacks (N, B, S, n_kv, hd), written into ``kv_out``
+    when given."""
     if fsdp:
         raise NotImplementedError("FSDP expert weights are not ported yet: "
                                   "ROADMAP queue 1 item 8 (parallel/sharding)")
-    if traffic is not None:
-        raise NotImplementedError(
-            "traffic observation is not ported yet: ROADMAP queue 1 item 6")
     if moe_params["w1"].shape[1] != placement.ep:
         raise ValueError(f"expert weights hold {moe_params['w1'].shape[1]} "
                          f"lanes, placement ep={placement.ep}")
     lane = lane_index(group)
+    observe = None
+    if traffic is not None:
+        b, s = x.shape[:2]
+        valid = None if traffic_mask is None else traffic_mask.reshape(b * s)
+        my_lane = _lane_index(dcfg, group)
+        observe = lambda st, A: traffic_lib.observe(
+            st, A, placement, my_lane, decay=traffic_decay, group=group,
+            valid=valid)
     params = {"ln1": ln1, "ln2": ln2, **attn_params,
               "router": moe_params["router"],
               **{w: moe_params[w][:, lane] for w in ("w1", "w3", "w2")}}
@@ -84,7 +116,8 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
         x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,
         norm_topk=norm_topk, stream=stream, interleave=interleave,
-        return_kv=return_kv, kv_out=kv_out, group=group)
+        traffic=traffic, observe=observe, return_kv=return_kv, kv_out=kv_out,
+        group=group)
 
 
 def moe_decode_block(x: torch.Tensor, moe_params, *,

@@ -1,6 +1,8 @@
 """Decoder-only LM, ``moe`` and ``moe_tx`` families: parameters, prefill and
-single-token decode (port of ``repro/models/lm.py``, the lock-step serving
-path), and the ``moe`` family's training forward and chunked CE loss.
+single-token decode (port of ``repro/models/lm.py``, the serving path: a
+lock-step batch or a continuous-batching slot pool with per-row positions,
+the traffic statistics threaded through the prefill), and the ``moe``
+family's training forward and chunked CE loss.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
 (moe: sequential blocks) or ``layers/moe.stream_tx_layers`` (moe_tx: parallel
@@ -23,6 +25,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibrate, dcomm
+from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
                                     seq_stripe)
 from repro_torch.core.routing import ExpertPlacement
@@ -43,6 +46,9 @@ class ModelContext:
     compute_dtype: torch.dtype = torch.bfloat16
     # moe_tx family: layers per stream block (<= 1: one layer a block)
     moe_stream: int = 0
+    # EMA decay of the online traffic statistics (when a TrafficState is
+    # threaded through the prefill)
+    traffic_decay: float = 0.99
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
@@ -52,7 +58,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  multi_pod: bool = False, dedup: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  moe_stream: int = 0, pipe_slices: int = 0,
-                 calibration=None) -> ModelContext:
+                 calibration=None,
+                 traffic_decay: float = 0.99) -> ModelContext:
     """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
     ``ep_group`` (None: one lane).  ``node_size`` lanes make a node
     (default: a quarter of the EP group, as the reference's); with
@@ -65,8 +72,9 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     the moe_tx layers into stream blocks; ``pipe_slices`` fixes fused_pipe's
     slice count (0: pipesim's); ``calibration`` (a
     ``core.calibrate.CalibrationTable``) replaces the H100 spec-point pipe
-    constants with measured ones.  Raises if ``device`` is CUDA and no card
-    is there."""
+    constants with measured ones; ``traffic_decay`` is the EMA decay of
+    the traffic statistics.  Raises if ``device`` is CUDA and no card is
+    there."""
     if cfg.family not in ("moe", "moe_tx"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
@@ -90,7 +98,7 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     if ep > 1 and (multi_pod or (engine == "fused_hier" and ns < ep)):
         ep_group = dcomm.ep_groups(ep_group, ns, ep // ns if multi_pod else 1)
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
-                        moe_stream)
+                        moe_stream, traffic_decay)
 
 
 def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
@@ -142,8 +150,11 @@ def _attn_qkv(x, ap, cfg: ArchConfig, positions):
 
 
 class DecodeState(NamedTuple):
-    kv: Any          # {"k", "v"}: (L, B, C, Hkv, hd)
-    length: int      # positions seen so far, one for every row (lock-step)
+    kv: Any              # {"k", "v"}: (L, B, C, Hkv, hd)
+    length: torch.Tensor  # int32 on the device: () positions seen by every
+                          # row (a lock-step batch), or (B,) one count a row
+                          # (a continuous-batching slot pool: each row decodes
+                          # at its own position; free slots sit at 0)
 
 
 def _kv_capacity(cfg: ArchConfig, max_len: int) -> int:
@@ -151,12 +162,14 @@ def _kv_capacity(cfg: ArchConfig, max_len: int) -> int:
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                      ctx: ModelContext) -> DecodeState:
+                      ctx: ModelContext, per_slot: bool = False) -> DecodeState:
+    """Zeroed decode state; ``per_slot`` makes ``length`` per row ((batch,)
+    int32), the continuous-batching slot pool."""
     c = _kv_capacity(cfg, max_len)
     shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.hd)
-    return DecodeState({"k": torch.zeros(shape, dtype=dtype, device=ctx.device),
-                        "v": torch.zeros(shape, dtype=dtype, device=ctx.device)},
-                       0)
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=ctx.device)
+    return DecodeState({"k": zeros(shape, dtype), "v": zeros(shape, dtype)},
+                       zeros((batch,) if per_slot else (), torch.int32))
 
 
 def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
@@ -167,30 +180,42 @@ def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
     return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, cap - s))
 
 
-def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext):
+def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext,
+                     traffic=None, traffic_mask=None):
     """One MoE layer as the reference's island runs it: this rank's stripe of
-    the sequence through the shuffle, then every rank's stripes gathered."""
+    the sequence through the shuffle, then every rank's stripes gathered.
+    With ``traffic`` (this layer's state) returns ``(y, new_traffic)``;
+    ``traffic_mask`` (B, S) is striped like ``x``."""
     cfg = ctx.cfg
     y = moe_block(seq_stripe(x, ctx.ep_group), moe_params,
                   placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
-                  norm_topk=cfg.moe.norm_topk, group=ctx.ep_group)
-    return all_gather_seq(y, ctx.ep_group)
+                  norm_topk=cfg.moe.norm_topk, group=ctx.ep_group,
+                  traffic=traffic, traffic_decay=ctx.traffic_decay,
+                  traffic_mask=None if traffic_mask is None
+                  else seq_stripe(traffic_mask, ctx.ep_group))
+    if traffic is None:
+        return all_gather_seq(y, ctx.ep_group)
+    return all_gather_seq(y[0], ctx.ep_group), y[1]
 
 
 def _moe_layer(h: torch.Tensor, lp, positions: torch.Tensor,
-               ctx: ModelContext):
+               ctx: ModelContext, traffic=None, traffic_mask=None):
     """One sequential ``moe`` block, h + attn(ln1 h), then + moe(ln2 h),
     with ``lp`` this layer's parameters in the compute dtype (the
     reference's ``layer_fn``, lm.py:445-510, moe branch).  Returns the new h
-    and the layer's RoPE'd k and v (B, S, Hkv, hd)."""
+    and the layer's RoPE'd k and v (B, S, Hkv, hd), and with ``traffic``
+    (this layer's state) the new state."""
     cfg = ctx.cfg
     b, s, _ = h.shape
     x = rms_norm(h, lp["ln1"])
     q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
     o = causal_attention(q, k, v, positions, positions, window=cfg.window)
     h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-    h = h + _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx)
-    return h, k, v
+    y = _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx, traffic,
+                         traffic_mask)
+    if traffic is None:
+        return h + y, k, v
+    return h + y[0], k, v, y[1]
 
 
 def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
@@ -266,15 +291,16 @@ def lm_loss(params, batch, ctx: ModelContext):
 
 
 def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
-                ctx: ModelContext):
+                ctx: ModelContext, traffic=None, traffic_mask=None):
     """moe_tx stack over this rank's stripe of the sequence: with the
     ``fused_pipe`` engine the layers grouped into stream blocks of
     ``max(1, moe_stream)``, one streamed ``stream_tx_layers`` call each (the
     reference's ``_tx_stack``, lm.py:300-350), every block writing its k/v
     into one preallocated stack; with the other engines one call of all
-    layers with per-layer barriers (blocks change nothing there).  Returns
-    the final-normed (B, S, d) and the per-layer gathered k/v stacks
-    (L, B, S, Hkv, hd)."""
+    layers with per-layer barriers (blocks change nothing there).
+    ``traffic``: the layer-stacked state, each block threading its slice.
+    Returns the final-normed (B, S, d), the per-layer gathered k/v stacks
+    (L, B, S, Hkv, hd) and the new traffic (None without)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     L = cfg.n_layers
     blk = max(1, ctx.moe_stream)
@@ -285,63 +311,103 @@ def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
     if ctx.dcfg.engine != "fused_pipe":
         blk = L
     h = seq_stripe(h, ctx.ep_group)
+    mask = None if traffic_mask is None else seq_stripe(traffic_mask,
+                                                        ctx.ep_group)
     kv = None
     if blk < L:
         shape = (L, h.shape[0], positions.shape[0], cfg.n_kv_heads, cfg.hd)
         kv = tuple(torch.empty(shape, dtype=cd, device=h.device)
                    for _ in range(2))
+    trs = []
     for b0 in range(0, L, blk):
         bp = _layer(params["layers"], slice(b0, b0 + blk), cd)
-        h, (k, v) = stream_tx_layers(
+        out = stream_tx_layers(
             h, bp["moe"], bp["attn"], bp["ln1"], bp["ln2"],
             placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
             positions=positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-            norm_topk=cfg.moe.norm_topk, return_kv=True,
+            norm_topk=cfg.moe.norm_topk,
+            traffic=(None if traffic is None
+                     else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
+            traffic_decay=ctx.traffic_decay, traffic_mask=mask,
+            return_kv=True,
             kv_out=None if kv is None else tuple(t[b0:b0 + blk] for t in kv),
             group=ctx.ep_group)
+        h, (k, v) = out[0], out[-1]
+        if traffic is not None:
+            trs.append(out[1])
     if kv is not None:
         k, v = kv
     h = all_gather_seq(h, ctx.ep_group)
-    return rms_norm(h, params["final_norm"].to(cd)), k, v
+    return (rms_norm(h, params["final_norm"].to(cd)), k, v,
+            traffic_lib.concat(trs) if trs else None)
+
+
+def _length(n: int, device) -> torch.Tensor:
+    """A () int32 length on ``device``, filled there (a tensor made from a
+    host value would copy it over and wait for the card)."""
+    return torch.full((), n, dtype=torch.int32, device=device)
 
 
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
-            ctx: ModelContext, max_len: int):
+            ctx: ModelContext, max_len: int, traffic=None, traffic_mask=None):
     """Full-sequence forward over (B, S) tokens; returns the last position's
     logits (B, V) in float32 and the decode state with every layer's RoPE'd
-    k and v in its cache (the last ``cap`` positions, at slot p % cap).  In
-    an EP group each rank runs the MoE on its stripe of the sequence (S must
-    split evenly) and all ranks return the same result."""
+    k and v in its cache (the last ``cap`` positions, at slot p % cap) and
+    the length S as a () tensor.  In an EP group each rank runs the MoE on
+    its stripe of the sequence (S must split evenly) and all ranks return
+    the same result.  ``traffic``: the layer-stacked
+    ``traffic.TrafficState`` threaded through the MoE layers; then returns
+    ``(logits, state, new_traffic)``.  ``traffic_mask``: (B, S) bool, True
+    for real tokens: the serving engines pass it so that left-pad positions
+    do not count."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
     if cfg.family == "moe_tx":
-        h, k, v = _tx_prefill(params, h, positions, ctx)
+        h, k, v, new_traffic = _tx_prefill(params, h, positions, ctx, traffic,
+                                           traffic_mask)
         logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
-        return logits, DecodeState({"k": _cache_slots(k, s, cap),
-                                    "v": _cache_slots(v, s, cap)}, s)
-    ks, vs = [], []
+        state = DecodeState({"k": _cache_slots(k, s, cap),
+                             "v": _cache_slots(v, s, cap)},
+                            _length(s, h.device))
+        return (logits, state) if traffic is None else (logits, state,
+                                                        new_traffic)
+    ks, vs, trs = [], [], []
     for i in range(cfg.n_layers):
-        h, k, v = _moe_layer(h, _layer(params["layers"], i, cd), positions, ctx)
+        lp = _layer(params["layers"], i, cd)
+        if traffic is None:
+            h, k, v = _moe_layer(h, lp, positions, ctx)
+        else:
+            h, k, v, tr = _moe_layer(h, lp, positions, ctx,
+                                     traffic_lib.layers(traffic, i),
+                                     traffic_mask)
+            trs.append(tr)
         ks.append(_cache_slots(k, s, cap))
         vs.append(_cache_slots(v, s, cap))
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
-    return logits, DecodeState({"k": torch.stack(ks), "v": torch.stack(vs)}, s)
+    state = DecodeState({"k": torch.stack(ks), "v": torch.stack(vs)},
+                        _length(s, h.device))
+    return (logits, state) if traffic is None else (
+        logits, state, traffic_lib.stack(trs))
 
 
 def decode_step(params, state: DecodeState, inputs: torch.Tensor,
                 ctx: ModelContext, max_len: int):
     """One-token decode for the whole batch.  inputs: (B,) int tokens.
-    Returns (logits (B, V) float32, new DecodeState).  The caches in
-    ``state.kv`` are written in place."""
+    Returns (logits (B, V) float32, the state).  ``state.length`` is () (a
+    lock-step batch) or (B,) (a slot pool: each row RoPE-rotates, writes its
+    cache and masks at its own position); the positions come from it on the
+    device, with nothing read to the host.  The caches in ``state.kv`` and
+    ``state.length`` are written in place, so the returned state holds the
+    same tensors (fixed tensors a captured graph could replay)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs][:, None, :]
     b = h.shape[0]
     pos = state.length
-    positions = torch.tensor([pos], dtype=torch.int32, device=h.device)
+    positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
         x = rms_norm(h, lp["ln1"])
@@ -359,4 +425,5 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
         h = h + mix + y              # moe_tx: the parallel block, both read h
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, 0] @ params["lm_head"].to(cd)).float()
-    return logits, DecodeState(state.kv, pos + 1)
+    pos += 1
+    return logits, state

@@ -272,8 +272,7 @@ def test_tx_stream_raises_on_what_is_not_ported():
     kw = dict(**HEADS, stream=False)
     for cfg, extra in ((DcommConfig(engine="fused_pipe"),
                         dict(stream=True, interleave=2)),
-                       (DcommConfig(), dict(interleave=2)),
-                       (DcommConfig(), dict(traffic=object()))):
+                       (DcommConfig(), dict(interleave=2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fusco.tx_layer_stream(x, torch.arange(4), p, placement, cfg, K,
                                   **{**kw, **extra})
