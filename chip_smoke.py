@@ -36,6 +36,12 @@
      capacity 256): grouped_matmul 2048 -> 768 and 768 -> 2048 through a
      transposed weight view, fused_swiglu's forward, the flash forward and
      the combine;
+   - at the training shape of moe-tx-stream-1b (``TX_TRAIN``: B 4 x S 512,
+     64 experts, top-4, capacity 256, d 1024, f 1024; ``train_rows``): the
+     dispatch gather, grouped_matmul in both weight layouts, fused_swiglu's
+     forward, the flash forward (hd 64, beside SDPA is_causal) and the
+     combine, and the three MoE kernels at the slices of its streamed
+     fused_pipe phase (pipesim's S at T 2048, 16 layers a block);
    - the gathers and scatter-adds of fused_hier (``hier_kernel_rows``: the
      stage-1 gather, the expansion, the pre-combine over the stage-2 slot
      table and the origin sum over the stage-1 one) at the serve and train
@@ -53,7 +59,7 @@
    no wgmma, and with the producer loading nothing).
 3. Backward rows: each autograd Function's backward (gather, scatter-add,
    fused SwiGLU, flash) on the card against the same backward on the plain
-   versions, at the training shapes, with times; the gather's and the
+   versions, at both training shapes, with times; the gather's and the
    scatter-add's must give the same bits on two calls.
 4. Calibration (``calibrate_phase``): ``core.calibrate.calibrate()`` on the
    card, printed beside the H100 spec point the pipe constants default to,
@@ -108,11 +114,18 @@
    pool decode step.
 7. Train phases: zero the counters, train full-width qwen3-moe-30b-a3b (4
    of 48 layers) for 8 AdamW steps through ``repro_torch.launch.train``,
-   through fused_flat and then through fused_hier, read the counters and
-   fail if a kernel of the path (the five, and the scatter-add's backward)
-   never launched or a loss is not finite; print the losses, ms/step,
-   tokens/s and peak memory, then profile one step, its forward+backward
-   and its optimizer update.
+   through fused_flat and then through fused_hier, then moe-tx-stream-1b
+   (all 16 layers, B 4 x S 512) through fused_flat and through
+   ``--engine fused_pipe --moe-stream 16`` (``TX_TRAINS``), each with the
+   traffic state threaded through every step; read the counters and fail
+   if a kernel of the path (the five, and the scatter-add's backward)
+   never launched, a loss is not finite or the traffic state is all zero;
+   print the losses, ms/step, tokens/s, peak memory and the traffic state,
+   then profile one step, its forward+backward and its optimizer update
+   (device busy, device ms by kind, the bf16 zero fills and adds of the
+   stacked gradients' assembly).  Then one qwen3-moe train step with the
+   traffic state and one without, in turns (``traffic_cost_phase``): host
+   ms and device busy ms of each.
 8. Checks the outputs: finite logits and in-vocabulary tokens of the right
    shape, each reduced model's logits on the card (kernels) against the
    same model on the CPU (plain versions) through each engine (fused_pipe
@@ -120,8 +133,9 @@
    dedup and ragged too), the reduced models served
    and trained on the card in bf16 (their attention on the flash
    tensor-core form), and one reduced train step in float32 on the card
-   against the CPU (loss, every grad leaf, every updated param) through
-   each engine; and the continuous engine over the reduced models in f32
+   against the CPU (loss, every grad leaf, every updated param, the traffic
+   state) through each engine, and of the reduced moe-tx through fused_flat
+   and streamed fused_pipe; and the continuous engine over the reduced models in f32
    (``continuous_check``: qwen3-moe through fused_flat and fused_hier,
    moe-tx through fused_flat; 6 requests, a pool of 4): the card's token
    streams must equal the CPU's and its own batch-1 waved oracle's, and
@@ -178,6 +192,17 @@ TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
 TRAINS = {"train": TRAIN[0],
           "train fused_hier": [a if a != "fused_flat" else "fused_hier"
                                for a in TRAIN[0]]}
+# the moe-tx train path: moe-tx-stream-1b at full width, all 16 layers, B 4 x
+# S 512 (T 2048, 64 experts, top-4, capacity 256), and its attention shape
+TX_TRAIN = (["--arch", "moe-tx-stream", "--batch", "4", "--seq", "512",
+             "--steps", "8", "--data", "zipf", "--engine", "fused_flat"],
+            dict(t=2048, d=1024, n_experts=64, top_k=4, f=1024, decode_t=8),
+            dict(b=4, sq=512, sk=512, hq=16, hkv=4, hd=64))
+# its phases: through the per-layer barriers, and streamed across all 16
+# layers in one block
+TX_TRAINS = {"moe-tx train": TX_TRAIN[0],
+             "moe-tx train fused_pipe": TX_TRAIN[0][:-1] + [
+                 "fused_pipe", "--moe-stream", "16"]}
 SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
 # the serve phases of the other engines: (flags, kernels that must launch,
@@ -244,6 +269,9 @@ ROUNDINGS = {"disagg": lambda s, k: k, "fused_pipe": lambda s, k: min(s, k),
 # the reduced card-vs-CPU checks, by engine name ("dedup": fused_flat with it)
 REDUCED_ENGINES = ("fused_flat", "fused_pipe", "disagg", "fused_hier", "dedup",
                    "ragged")
+# the reduced moe-tx train checks: the barriers, and fused_pipe streamed
+# over one block of both layers (engine_kwargs)
+TX_REDUCED_ENGINES = ("fused_flat", "fused_pipe")
 ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
 # the same layer narrowed for the float32 check (d 256, f 128)
 ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
@@ -1041,8 +1069,8 @@ def device_summary(prof, wall_ms: float) -> dict | None:
 
 
 def reduced_bf16_runs(device="cuda") -> dict:
-    """``serve.run`` of each path's reduced model and a ``train.run`` of the
-    reduced qwen3-moe on the card in their default bf16: their head dim 16
+    """``serve.run`` and ``train.run`` of each path's reduced model on the
+    card in their default bf16: their head dim 16
     sends attention to the flash tensor-core form.  The serve and train
     phases' checks, and every flash launch through
     ``flash_attention_fwd_tc``.  Returns the launch counts per run."""
@@ -1060,9 +1088,10 @@ def reduced_bf16_runs(device="cuda") -> dict:
                 ["--arch", arch, "--reduced", "--engine", "fused_flat",
                  "--requests", "3", "--prompt-len", "8", "--gen", "4"],
                 device)[1]
-        runs["train qwen3-moe-30b-a3b"] = train_phase(
-            ["--reduced", "--engine", "fused_flat", "--steps", "3", "--seq",
-             "32", "--batch", "2"], device)[1]
+        for arch in PATHS:
+            runs[f"train {arch}"] = train_phase(
+                ["--arch", arch, "--reduced", "--engine", "fused_flat",
+                 "--steps", "3", "--seq", "32", "--batch", "2"], device)[1]
     finally:
         _build.bind = bind
     flash = {e for e in entries if e.startswith("flash_attention_fwd")}
@@ -1126,11 +1155,11 @@ def reduced_check(arch: str, device="cuda", engine="fused_flat") -> float:
 
 
 def gmm_rows(inp, timer=time_ms) -> list[dict]:
-    """grouped_matmul against its plain version at the training shapes: the
-    landed buffer (128 experts x capacity 256, the rows routing fills) times
-    w1 (2048 -> 768, the h and u products of the SwiGLU backward), and
-    768-wide rows times the transposed view of w1 (768 -> 2048, the dx
-    products), with torch.bmm over all rows as the yardstick."""
+    """grouped_matmul against its plain version at a training shape: the
+    landed buffer (every expert x the capacity, the rows routing fills)
+    times w1 (d -> f, the h and u products of the SwiGLU backward), and
+    f-wide rows times the transposed view of w1 (f -> d, the dx products),
+    with torch.bmm over all rows as the yardstick."""
     import torch
     from repro_torch.kernels import grouped_matmul as gmm_k
     from repro_torch.kernels.ref import segment_gather_ref
@@ -1173,8 +1202,8 @@ def gmm_rows(inp, timer=time_ms) -> list[dict]:
 
 
 def train_swiglu_row(inp, timer=time_ms) -> dict:
-    """fused_swiglu at the training forward's shape: the landed buffer of
-    128 experts x capacity 256 with the rows routing fills."""
+    """fused_swiglu at a training forward's shape: the landed buffer (every
+    expert x the capacity) with the rows routing fills."""
     from repro_torch.kernels.ref import segment_gather_ref
     x, w1, cap = inp["x"], inp["w1"], inp["cap"]
     n_e, d, _ = w1.shape
@@ -1325,6 +1354,71 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     return rows
 
 
+def train_rows(inp, attn, timer=time_ms) -> list[dict]:
+    """The forward kernels of a train step at its shapes: the dispatch
+    gather, grouped_matmul in both weight layouts, fused_swiglu's forward,
+    the flash forward and the combine."""
+    from repro_torch.kernels.ref import segment_gather_ref
+    x, idx = inp["x"], inp["idx"]
+    rows = [gather_row(x, idx, timer)[0]]
+    rows += gmm_rows(inp, timer)
+    rows.append(train_swiglu_row(inp, timer))
+    rows.append(flash_row(*attention_inputs(x.device, **attn), window=None,
+                          timer=timer))
+    return rows + scatter_rows(segment_gather_ref(x, idx), inp, x.shape[0],
+                               timer)
+
+
+def backward_report(inp, attn, path: str, timer=time_ms) -> list[dict]:
+    """``backward_rows`` at a train shape, printed; returns the kernel rows
+    of the backwards with a kernel of their own (the scatter-add's)."""
+    out = []
+    for r in backward_rows(inp, attn, timer):
+        parts = ", ".join(f"{k} {e:.4g} (tol {t:.4g})"
+                          for k, (e, t) in r["parts"].items())
+        print(f"backward {r['name']:<29} at the {path} shape: max_abs_err "
+              f"{parts}  {r['ms']:.4f} ms{spread(r['ms'])}  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  library {r['library_ms']:.4f} ms"
+              f"{spread(r['library_ms'])} [{r['library']}]")
+        if "source" in r:      # a backward with a kernel of its own
+            (t, d), n = inp["x"].shape, inp["idx"].shape[0]
+            out.append(dict(r, name="segment_scatter_add_bwd", path=path,
+                            shape=f"train backward: dout ({t}, {d}) -> dsrc "
+                                  f"({n}, {d}), dgates ({n},) bf16"))
+    return out
+
+
+def traffic_cost_phase(argv, rounds: int = 4) -> dict:
+    """One train step of ``argv``'s run threading a traffic state and one
+    without, in turns (``host_ms``), then each once under torch.profiler:
+    the host ms (median) and the device busy ms of each."""
+    import torch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw
+    args = train.parse_args(argv)
+    s = train.setup(args, "cuda")
+    step = steps.make_train_step(zoo.build(s.cfg, s.ctx), s.opt_cfg)
+    params, opt = s.params, adamw.init(s.params)
+    batch = to_device(s.source.batch_at(0), "cuda")
+    state = train.init_traffic(s.cfg, s.ctx, args.accum)
+
+    def run(*extra):
+        step(params, opt, batch, *extra)
+        torch.cuda.synchronize()
+
+    fns = {"with traffic": lambda: run(state), "without": run}
+    host = host_ms(*fns.values(), rounds=rounds)
+    out = {}
+    for (name, fn), ms in zip(fns.items(), host):
+        p = profile_once(fn)
+        out[name] = dict(host_ms=ms, busy_ms=None if p is None else p["busy_ms"],
+                         activities=None if p is None else p["activities"])
+    return out
+
+
 def wall_ms(fn, rounds: int = 5) -> Timing:
     """Host-clock time of one call of ``fn`` up to the device's last
     result (``torch.cuda.synchronize()``): what a caller waits for, launch
@@ -1364,13 +1458,15 @@ def engine_config(engine: str, slices: int, point: str, table,
     return calibrate.apply(table, cfg) if point == "calibrated" else cfg
 
 
-def tx_stream_geometry(t, d, n_experts, top_k, cfg) -> tuple[int, int]:
-    """(capacity, S) of the moe-tx streamed prefill at ``cfg``'s constants,
-    as ``fusco.tx_layer_stream`` plans it: pipesim's streamed knee over the
-    path's TX_LAYERS layers, the attention proxy at its attention shape."""
+def tx_stream_geometry(t, d, n_experts, top_k, cfg,
+                       attn=None) -> tuple[int, int]:
+    """(capacity, S) of a moe-tx stream of TX_LAYERS layers at ``cfg``'s
+    constants, as ``fusco.tx_layer_stream`` plans it: pipesim's streamed
+    knee, the attention proxy at the attention shape ``attn`` (default: the
+    serve prefill's)."""
     from repro_torch.core import dcomm, fusco
     from repro_torch.core.routing import ExpertPlacement
-    a = PATHS["moe-tx-stream"][2]
+    a = attn or PATHS["moe-tx-stream"][2]
     attn_s = fusco._tx_attn_cost_s(t, a["sq"], a["b"], a["sk"], a["hq"],
                                    a["hd"], 2, cfg)
     return dcomm.pipe_geometry(t, top_k, d, 2, ExpertPlacement(n_experts, 1, 1),
@@ -1389,6 +1485,17 @@ def pipe_config(arch: str):
                                   shape["top_k"], cfg)
         cfg = dataclasses.replace(cfg, pipe_slices=s)
     return cfg
+
+
+def tx_train_pipe_config():
+    """The DcommConfig of the streamed moe-tx train phase, its slice count
+    frozen as the stream freezes it, and (capacity, S)."""
+    import dataclasses
+    cfg = engine_config("fused_pipe", 0, "spec", None)
+    shape = TX_TRAIN[1]
+    cap, s = tx_stream_geometry(shape["t"], shape["d"], shape["n_experts"],
+                                shape["top_k"], cfg, attn=TX_TRAIN[2])
+    return dataclasses.replace(cfg, pipe_slices=s), (cap, s)
 
 
 def untimed(fn, **kw) -> float:
@@ -1657,7 +1764,8 @@ def calibrate_phase(device="cuda"):
 def train_phase(argv, device="cuda"):
     """The training path once, with every launch counter zeroed just before
     it and read just after: ``launch/train.run`` at full width.  Fails if a
-    loss is not finite or a kernel of the path never launched."""
+    loss is not finite, a kernel of the path never launched, or the run's
+    traffic state (threaded through every step) is missing or all zero."""
     import math
     from repro_torch.launch import train
     wrappers = zero_counters()
@@ -1668,33 +1776,41 @@ def train_phase(argv, device="cuda"):
         raise AssertionError(f"train path never launched {never}: {launches}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"train losses not finite: {out['losses']}")
+    tr = out["traffic"]
+    if tr is None or not any(bool(leaf.ne(0).any()) for leaf in tr):
+        raise AssertionError("the train run left no traffic statistics")
     return out, launches
 
 
 def train_profile(argv, device="cuda") -> dict:
     """Where a train step's device time goes: after one warm-up step, one
     whole step under torch.profiler, then its two parts apart, the forward
-    and backward (loss and ``torch.autograd.grad``) and the AdamW update."""
+    and backward (loss and ``torch.autograd.grad``) and the AdamW update;
+    the traffic state threaded as ``train.run`` threads it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps, train
+    from repro_torch.models import zoo
     from repro_torch.optim import adamw
     args = train.parse_args(argv)
     s = train.setup(args, device)
-    model = steps.bundle(s.ctx)
+    model = zoo.build(s.cfg, s.ctx)
     step = steps.make_train_step(model, s.opt_cfg, args.accum)
     params, opt = s.params, adamw.init(s.params)
     batch = to_device(s.source.batch_at(0), device)
-    params, opt, _ = step(params, opt, batch)
+    traffic = train.init_traffic(s.cfg, s.ctx, args.accum)
+
+    whole = lambda: step(params, opt, batch, traffic)
+    whole()
     torch.cuda.synchronize()
     grads = []
 
     def fwd_bwd():
-        loss, _ = model.loss(params, batch)
+        loss, _ = model.loss(params, batch, traffic=traffic)
         grads[:] = torch.autograd.grad(loss, adamw.leaves(params))
 
-    parts = (("step", lambda: step(params, opt, batch)), ("forward+backward", fwd_bwd),
+    parts = (("step", whole), ("forward+backward", fwd_bwd),
              ("adamw.update", lambda: adamw.update(
                  adamw.unflatten(params, grads), opt, params, s.opt_cfg)))
     out = {}
@@ -1717,6 +1833,17 @@ KINDS = (("hand-written", ("swiglu_", "gmm_", "flash_fwd", "gather_rows",
          ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
 
 
+# the gradient assembly of stacked leaves: bf16 zero fills and adds
+ASSEMBLY = (("bf16 zero fills", re.compile(r"FillFunctor<(c10::)?BFloat16>")),
+            ("bf16 adds", re.compile(r"CUDAFunctor(OnSelf)?_add<(c10::)?BFloat16>")))
+
+
+def assembly_ms(by_kernel) -> dict:
+    """Device ms of the bf16 zero fills and adds (``ASSEMBLY``)."""
+    return {k: sum(ms for name, ms in by_kernel if pat.search(name))
+            for k, pat in ASSEMBLY}
+
+
 def device_kinds(by_kernel) -> dict:
     """Device ms summed by kind (``KINDS``, then "other")."""
     out = {k: 0.0 for k, _ in KINDS}
@@ -1728,22 +1855,26 @@ def device_kinds(by_kernel) -> dict:
     return out
 
 
-def reduced_train_check(device="cuda", engine="fused_flat") -> dict:
-    """One ``make_train_step`` of reduced qwen3-moe-30b-a3b in float32
-    through ``engine`` from the same params and batch on the card (kernels:
-    all five and the scatter-add's backward launched; disagg's plain passes
-    launch no gather or scatter-add) and on the CPU (plain versions): max
-    errors of the loss, of every grad leaf and of every updated param.
-    Params are held to 2 * lr + 1e-5: AdamW's first step moves each element
-    by about lr * sign(g), so an element whose gradient is within float32
-    noise of zero may move the other way."""
+def reduced_train_check(device="cuda", engine="fused_flat",
+                        arch="qwen3-moe-30b-a3b") -> dict:
+    """One ``make_train_step`` of the reduced ``arch`` in float32 through
+    ``engine`` (``engine_kwargs``: the moe_tx layers in one streamed block)
+    from the same params, batch and cold traffic state on the card
+    (kernels: all five and the scatter-add's backward launched; disagg's
+    plain passes launch no gather or scatter-add) and on the CPU (plain
+    versions): max errors of the loss, of every grad leaf, of every
+    updated param and of the traffic state the step returns.  Params are
+    held to 2 * lr + 1e-5: AdamW's first step moves each element by about
+    lr * sign(g), so an element whose gradient is within float32 noise of
+    zero may move the other way."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.core import traffic
     from repro_torch.data.pipeline import ZipfNgramLM, to_device
     from repro_torch.launch import steps
-    from repro_torch.models import lm
+    from repro_torch.models import lm, zoo
     from repro_torch.optim import adamw
-    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    cfg = get_arch(arch).reduced()
     f32 = torch.float32
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
@@ -1753,36 +1884,42 @@ def reduced_train_check(device="cuda", engine="fused_flat") -> dict:
     for dev in ("cpu", device):
         ctx = lm.make_context(cfg, dev, compute_dtype=f32,
                               **engine_kwargs(engine, cfg))
-        model = steps.bundle(ctx)
+        model = zoo.build(cfg, ctx)
         params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
         batch = to_device(host, dev)
+        cold = lambda: traffic.init_traffic_state(
+            cfg.moe.n_experts, 1, n_layers=cfg.n_layers, device=dev)
         leaves = adamw.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         wrappers = zero_counters()
-        loss, _ = model.loss(params, batch)
+        loss, _ = model.loss(params, batch, traffic=cold())
         grads = torch.autograd.grad(loss, leaves)
-        params, _, _ = steps.make_train_step(model, opt_cfg)(
-            params, adamw.init(params), batch)
+        params, _, m = steps.make_train_step(model, opt_cfg)(
+            params, adamw.init(params), batch, cold())
         res[dev] = (float(loss.detach()), [x.cpu() for x in grads],
                     [x.detach().cpu() for x in adamw.leaves(params)],
-                    {k: w.launches for k, w in wrappers.items()})
-    (l0, g0, p0, _), (l1, g1, p1, launched) = res["cpu"], res[device]
+                    {k: w.launches for k, w in wrappers.items()},
+                    [x.cpu() for x in m["traffic"]])
+    (l0, g0, p0, _, t0), (l1, g1, p1, launched, t1) = res["cpu"], res[device]
+    rel = lambda a, b: max_err(a.float(), b.float()) / max(
+        1.0, a.float().abs().max().item())
     err = dict(loss=abs(l0 - l1),
-               grads=max(max_err(a, b) / max(1.0, a.abs().max().item())
-                         for a, b in zip(g0, g1)),
-               params=max(max_err(a, b) for a, b in zip(p0, p1)))
+               grads=max(rel(a, b) for a, b in zip(g0, g1)),
+               params=max(max_err(a, b) for a, b in zip(p0, p1)),
+               traffic=max(rel(a, b) for a, b in zip(t0, t1)))
     p_tol = 2 * adamw.schedule(opt_cfg, 1) + 1e-5
     if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
-            and err["params"] <= p_tol):
-        raise AssertionError(f"reduced train step {engine} card vs CPU: {err} "
-                             f"(tol {TOL_TRAIN}, params {p_tol})")
+            and err["params"] <= p_tol and err["traffic"] <= TOL_TRAFFIC):
+        raise AssertionError(f"reduced {arch} train step {engine} card vs CPU: "
+                             f"{err} (tol {TOL_TRAIN}, params {p_tol}, "
+                             f"traffic {TOL_TRAFFIC})")
     plain = DISAGG_PLAIN if engine == "disagg" else ()
     never = [k for k, n in launched.items() if n == 0 and k not in plain]
     stray = [k for k in plain if launched[k]]
     if never or stray:
-        raise AssertionError(f"reduced {engine} train step on the card never "
-                             f"launched {never}, or launched {stray}: "
+        raise AssertionError(f"reduced {arch} {engine} train step on the card "
+                             f"never launched {never}, or launched {stray}: "
                              f"{launched}")
     return dict(err, params_tol=p_tol, launches=launched)
 
@@ -2150,6 +2287,11 @@ def train_and_profile(label: str, argv) -> dict:
           f"{out['peak_mem_gib']:.2f} GiB")
     print(f"{label} loss per step: " + " ".join(f"{x:.5f}" for x in out["losses"]))
     print(f"{label} ms per step: " + " ".join(f"{x:.3f}" for x in out["step_ms"]))
+    tr = out["traffic"]
+    print(f"{label} traffic state after {n} steps: steps "
+          f"{tr.steps.tolist()}, expert EMA sum per layer "
+          f"{[round(x, 3) for x in tr.expert_ema.sum(-1).tolist()]}, top-expert "
+          f"share {(tr.expert_ema.max(-1).values / tr.expert_ema.sum(-1)).max().item():.4f}")
     print(f"launches on the {label} path ({n} steps): {json.dumps(launches)}; "
           f"per step: {json.dumps({k: v / n for k, v in launches.items()})}")
     unprofiled = out["ms_per_step"]
@@ -2160,7 +2302,9 @@ def train_and_profile(label: str, argv) -> dict:
         check_profile(f"{label} {part}", p, flash=part != "adamw.update")
         if p is not None:
             print("  device ms by kind: " + ", ".join(
-                f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items()))
+                f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items())
+                + "; of the elementwise: " + ", ".join(
+                f"{k} {ms:.4f}" for k, ms in assembly_ms(p["by_kernel"]).items()))
     torch.cuda.empty_cache()
     return launches
 
@@ -2240,22 +2384,22 @@ def main() -> None:
                  for r in hier_kernel_rows(train_inp)]
         for line in odd_shape_checks():
             print(f"odd shape {line}")
+    # the moe-tx train step's kernels at its shapes, and at the slices of
+    # its streamed fused_pipe phase
+    tx_inp = main_path_inputs("cuda", **TX_TRAIN[1])
+    tx_cfg, (tx_cap, tx_s) = tx_train_pipe_config()
+    with torch.no_grad():
+        rows += [dict(r, path="moe-tx train")
+                 for r in train_rows(tx_inp, TX_TRAIN[2])]
+        slice_rows, line = pipe_slice_rows(tx_inp, tx_cfg)
+        print(f"fused_pipe slices of the moe-tx train step (streamed, "
+              f"{TX_LAYERS} layers a block; capacity {tx_cap}): {line}")
+        rows += [dict(r, path="moe-tx train fused_pipe") for r in slice_rows]
     for r in rows:
         print_row(r)
-    for r in backward_rows(train_inp, TRAIN[2]):
-        parts = ", ".join(f"{k} {e:.4g} (tol {t:.4g})"
-                          for k, (e, t) in r["parts"].items())
-        print(f"backward {r['name']:<29} at the train shape: max_abs_err "
-              f"{parts}  {r['ms']:.4f} ms{spread(r['ms'])}  plain "
-              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  library {r['library_ms']:.4f} ms"
-              f"{spread(r['library_ms'])} [{r['library']}]")
-        if "source" in r:      # a backward with a kernel of its own
-            (t, d), n = train_inp["x"].shape, train_inp["idx"].shape[0]
-            rows.append(dict(r, name="segment_scatter_add_bwd", path="train",
-                             shape=f"train backward: dout ({t}, {d}) -> dsrc "
-                                   f"({n}, {d}), dgates ({n},) bf16"))
-    del train_inp
+    rows += backward_report(train_inp, TRAIN[2], "train")
+    rows += backward_report(tx_inp, TX_TRAIN[2], "moe-tx train")
+    del train_inp, tx_inp
     torch.cuda.empty_cache()
 
     # the pipe constants measured on this card, and the slice counts they give
@@ -2304,6 +2448,19 @@ def main() -> None:
     print(f"serve times by path: {json.dumps(serve_times)}")
     for label, argv in TRAINS.items():
         launches[label] = train_and_profile(label, argv)
+    print(f"moe-tx train fused_pipe --moe-stream {TX_LAYERS}: pipesim's "
+          f"streamed S at T {TX_TRAIN[1]['t']} is {tx_s} (capacity {tx_cap}, "
+          f"Cs {tx_cap // tx_s})")
+    for label, argv in TX_TRAINS.items():
+        launches[label] = train_and_profile(label, argv)
+    cost = traffic_cost_phase(TRAIN[0])
+    print("qwen3-moe-30b-a3b train step with and without the traffic "
+          "statistics, in turns: " + "; ".join(
+              f"{k}: host {v['host_ms']:.3f} ms, device busy "
+              + ("not measured" if v["busy_ms"] is None else
+                 f"{v['busy_ms']:.4f} ms over {v['activities']} activities")
+              for k, v in cost.items()))
+    torch.cuda.empty_cache()
     for engine in REDUCED_ENGINES:
         for arch in PATHS:
             worst = reduced_check(arch, engine=engine)
@@ -2319,13 +2476,15 @@ def main() -> None:
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")
-    for engine in REDUCED_ENGINES:
-        err = reduced_train_check(engine=engine)
-        print(f"reduced qwen3-moe-30b-a3b train step {engine} f32, card "
+    for arch, engine in ([("qwen3-moe-30b-a3b", e) for e in REDUCED_ENGINES]
+                         + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]):
+        err = reduced_train_check(engine=engine, arch=arch)
+        print(f"reduced {arch} train step {engine} f32, card "
               f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "
               f"{err['grads']:.3g} of max(1, max |grad|) (tol {TOL_TRAIN}), "
               f"updated params {err['params']:.3g} (tol "
-              f"{err['params_tol']:.3g}); launches on the card "
+              f"{err['params_tol']:.3g}), traffic {err['traffic']:.3g} of "
+              f"max(1, |x|) (tol {TOL_TRAFFIC}); launches on the card "
               f"{json.dumps(err['launches'])}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

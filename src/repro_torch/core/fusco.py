@@ -184,6 +184,16 @@ def _tx_attn_cost_s(tc: int, s_l: int, bc: int, s_glob: int, n_heads: int,
     return attn_bytes / cfg.pipe_stage_bw
 
 
+def _unstack(params) -> list[dict]:
+    """The per-layer dicts of a stacked (N, ...) parameter dict, each leaf
+    split with one ``torch.unbind``: its backward stacks the N layers'
+    gradients once, where indexing each layer would zero-fill a gradient of
+    the whole stack per layer and add the N of them."""
+    keys = list(params)
+    return [dict(zip(keys, ws))
+            for ws in zip(*(torch.unbind(params[k]) for k in keys))]
+
+
 def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                     placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
                     *, n_heads: int, n_kv: int, head_dim: int,
@@ -204,6 +214,10 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
     :func:`pipesim.plan_tx_stream` with the attention cost proxy
     :func:`_tx_attn_cost_s`.  Otherwise every layer ends in a full barrier
     (the reference's branch for the other engines, fusco.py:426-451).
+    Both differentiate: under autograd each slice's exchange is the
+    synchronous one (``dcomm._pipe_exchange``), and a deferred tail's
+    scatter-add, taken in the next layer's prologue, carries its cotangent
+    back to its own layer's expert weights and input.
 
     ``x`` is (b, s_local, d), this rank's stripe of the sequence (lane
     ``rank in group``); ``positions`` the full (S,) absolute positions;
@@ -238,8 +252,7 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                                      x.dtype, x.dtype, x.device)
     h = x
     ks, vs, trs = [], [], []
-    for i in range(n_layers):
-        lp = {k: w[i] for k, w in params.items()}
+    for i, lp in enumerate(_unstack(params)):
         tr = None if traffic is None else traffic_lib.layers(traffic, i)
         if streamed:
             # prologue: the previous layer's tail lands, then the router
@@ -295,8 +308,7 @@ def tx_dense_reference(x: torch.Tensor, positions: torch.Tensor, params,
     ``x`` is the full (b, S, d) batch."""
     b, s, d = x.shape
     h = x
-    for i in range(params["router"].shape[0]):
-        lp = {k: w[i] for k, w in params.items()}
+    for lp in _unstack(params):
         a = tx_attention(h, lp, positions, positions, n_heads=n_heads,
                          n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta)
         u2 = rms_norm(h, lp["ln2"]).reshape(b * s, d)

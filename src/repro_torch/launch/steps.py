@@ -1,63 +1,52 @@
 """The train step (port of ``make_train_step`` in
 ``repro/launch/steps.py``).
 
-:class:`ModelBundle` stands in for the reference's ``zoo.ModelBundle``: the
-model's config, its context and its loss.  ``make_train_step`` takes
-gradients of the loss with ``torch.autograd.grad`` and applies one AdamW
-step in place.  ``accum > 1`` accumulates micro-batches serially, the
-gradients summed in float32 and divided by ``accum``.
+``make_train_step`` takes the gradients of a ``models.zoo.ModelBundle``'s
+loss with ``torch.autograd.grad`` and applies one AdamW step in place.
+``accum > 1`` accumulates micro-batches serially, the gradients summed in
+float32 and divided by ``accum``.
 """
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Any, Callable, NamedTuple
-
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import zoo
 from repro_torch.optim import adamw
 
 
-class ModelBundle(NamedTuple):
-    cfg: ArchConfig
-    ctx: Any
-    loss: Callable       # loss(params, batch) -> (scalar loss, metrics)
-
-
-def bundle(ctx: lm.ModelContext) -> ModelBundle:
-    return ModelBundle(ctx.cfg, ctx, partial(lm.lm_loss, ctx=ctx))
-
-
-def make_train_step(model: ModelBundle, opt_cfg: adamw.AdamWConfig,
+def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
                     accum: int = 1):
-    """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; params and optimizer state are updated in place.  The
-    reference's traffic threading is not ported; its fusion of accumulation
-    micro-batches into an interleaved ``fused_pipe`` stream cannot arise, as
-    the port trains the ``moe`` family only (``lm.forward_hidden`` raises for
-    the stream families) and has no ``fused_pipe`` engine."""
+    """``train_step(params, opt_state, batch, traffic=None) -> (params,
+    opt_state, metrics)``; params and optimizer state are updated in place.
+    With ``traffic`` (the layer-stacked ``traffic.TrafficState``) the loss
+    threads it through the MoE layers and the new state comes back as
+    ``metrics["traffic"]``; its counts come from the integer routing
+    matrix, so no gradient flows through them.  Serial accumulation does
+    not thread a state (``NotImplementedError``, as the reference).  The
+    reference's fusion of accumulation micro-batches into an interleaved
+    ``fused_pipe`` stream needs ``interleave > 1``, which the port's stream
+    does not take yet (ROADMAP queue 1 item 5)."""
     if accum < 1:
         raise ValueError(f"accum {accum} < 1")
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, traffic=None):
         ps = adamw.leaves(params)
         for p in ps:
             if not p.requires_grad:
                 p.requires_grad_(True)
-        loss, metrics = model.loss(params, batch)
+        loss, metrics = model.loss(params, batch, traffic=traffic)
         return loss, metrics, torch.autograd.grad(loss, ps)
 
     def train_step(params, opt_state, batch, traffic=None):
-        if traffic is not None:
-            raise NotImplementedError(
-                "traffic statistics threaded through the train step are not "
-                "ported yet: ROADMAP queue 1 item 6 (core/traffic.py)")
         if accum == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(params, batch, traffic)
             metrics = dict(metrics, loss=loss.detach())
         else:
+            if traffic is not None:
+                raise NotImplementedError(
+                    "traffic stats + gradient accumulation: thread the state "
+                    "through the micro-batch loop first")
             b = next(iter(batch.values())).shape[0]
             if b % accum:
                 raise ValueError(f"batch {b} does not split into {accum} "

@@ -4,10 +4,19 @@ few AdamW steps of next-token loss through the FUSCO shuffle, on one card.
 ``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
 --batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
 
+``python -m repro_torch.launch.train --arch moe-tx-stream --engine fused_pipe
+--moe-stream 16 --batch 4 --seq 512 --steps 8``
+
 ``--engine`` takes ``fused_hier`` (the default, as the reference's),
 ``fused_flat`` (``--dedup``: the condensed wire), ``fused_pipe``, ``ragged``
 and ``disagg``; ``--calibrate`` measures the pipe constants that choose
-fused_pipe's slice count and prints the table it applies.
+fused_pipe's slice count and prints the table it applies.  ``--moe-stream
+N`` groups the moe_tx layers into stream blocks of N (fused_pipe streams
+each block's MoE tails across its attention).  The online traffic
+statistics (``core/traffic.py``) ride every step of the MoE families, as
+the reference threads them ("stats are collected either way"), and feed
+``fused_hier``'s Algorithm 1; serial accumulation (``--accum`` > 1) runs
+without them.
 
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
 path.  Weights are random; the batches come from the reference's synthetic
@@ -32,9 +41,10 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibrate
+from repro_torch.core import traffic as traffic_lib
 from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, iterate
 from repro_torch.launch import steps
-from repro_torch.models import lm
+from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
 WARMUP = 2        # untimed steps before the clock starts
@@ -64,6 +74,12 @@ def parse_args(argv=None):
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
+    ap.add_argument("--moe-stream", type=int, default=0,
+                    help="moe_tx family: layers per stream block (fused_pipe "
+                         "carries each layer's MoE tail across the attention "
+                         "block inside a block); 0 = one layer a block")
+    ap.add_argument("--traffic-decay", type=float, default=0.99,
+                    help="EMA decay of the online traffic statistics")
     ap.add_argument("--calibrate", action="store_true",
                     help="measure the pipe stage/wire/overhead constants on "
                          "the running device before building the context "
@@ -101,6 +117,8 @@ def setup(args, device="cuda") -> Setup:
                           capacity_factor=args.capacity_factor,
                           node_size=1, dedup=args.dedup,   # one lane, as serve
                           pipe_slices=args.pipe_slices,
+                          moe_stream=args.moe_stream,
+                          traffic_decay=args.traffic_decay,
                           calibration=calibration)
     params = lm.init_params(
         cfg, ctx, torch.Generator(device=ctx.device).manual_seed(SEED))
@@ -112,15 +130,34 @@ def setup(args, device="cuda") -> Setup:
     return Setup(cfg, ctx, params, source, opt_cfg)
 
 
+def init_traffic(cfg: ArchConfig, ctx: lm.ModelContext, accum: int):
+    """The cold layer-stacked traffic state a run threads through its steps
+    (the reference's train.py:296-326): for the MoE families, unless the
+    micro-batches accumulate serially, which do not thread one."""
+    if cfg.moe is None or cfg.family not in ("moe", "moe_tx"):
+        return None
+    if accum > 1:
+        print("[traffic] stats disabled under serial gradient accumulation",
+              flush=True)
+        return None
+    return traffic_lib.init_traffic_state(cfg.moe.n_experts, ctx.placement.ep,
+                                          n_layers=cfg.n_layers,
+                                          device=ctx.device)
+
+
 def run(args, device="cuda") -> dict:
-    """Train ``--steps`` steps; returns the loss of every step, the median
-    ms per timed step, tokens per second, and on the card the peak device
-    memory (GiB, params and optimizer state included)."""
+    """Train ``--steps`` steps, the traffic state threaded through every
+    one (warm-up included); returns the loss of every step, the median ms
+    per timed step, tokens per second, on the card the peak device memory
+    (GiB, params and optimizer state included), and the final traffic state
+    (None without one)."""
     on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
     cfg, ctx, params, source, opt_cfg = setup(args, device)
-    train_step = steps.make_train_step(steps.bundle(ctx), opt_cfg, args.accum)
+    train_step = steps.make_train_step(zoo.build(cfg, ctx), opt_cfg,
+                                       args.accum)
+    traffic = init_traffic(cfg, ctx, args.accum)
     opt_state = adamw.init(params)
     losses, step_s = [], []
     batches = iterate(source, ctx.device)
@@ -129,7 +166,9 @@ def run(args, device="cuda") -> dict:
         if on_card:
             torch.cuda.synchronize(ctx.device)
         t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, batch)
+        params, opt_state, metrics = train_step(params, opt_state, batch,
+                                                traffic)
+        traffic = metrics.pop("traffic", None)
         if on_card:
             torch.cuda.synchronize(ctx.device)
         step_s.append(time.perf_counter() - t0)
@@ -140,7 +179,7 @@ def run(args, device="cuda") -> dict:
             "tokens_per_s": args.batch * args.seq / timed,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
                              if on_card else None),
-            "cfg": cfg}
+            "cfg": cfg, "traffic": traffic}
 
 
 def main(argv=None):

@@ -109,9 +109,13 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
         observe = lambda st, A: traffic_lib.observe(
             st, A, placement, my_lane, decay=traffic_decay, group=group,
             valid=valid)
+    # this lane's experts; with one lane a view whose backward is the
+    # gradient itself (indexing would zero-fill a stack-sized gradient)
+    lane_of = (lambda w: w.squeeze(1)) if placement.ep == 1 else (
+        lambda w: w[:, lane])
     params = {"ln1": ln1, "ln2": ln2, **attn_params,
               "router": moe_params["router"],
-              **{w: moe_params[w][:, lane] for w in ("w1", "w3", "w2")}}
+              **{w: lane_of(moe_params[w]) for w in ("w1", "w3", "w2")}}
     return fusco.tx_layer_stream(
         x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,

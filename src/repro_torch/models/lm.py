@@ -1,8 +1,8 @@
 """Decoder-only LM, ``moe`` and ``moe_tx`` families: parameters, prefill and
 single-token decode (port of ``repro/models/lm.py``, the serving path: a
-lock-step batch or a continuous-batching slot pool with per-row positions,
-the traffic statistics threaded through the prefill), and the ``moe``
-family's training forward and chunked CE loss.
+lock-step batch or a continuous-batching slot pool with per-row positions),
+the training forward and chunked CE loss, and the online traffic statistics
+threaded through the prefill and the training forward.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
 (moe: sequential blocks) or ``layers/moe.stream_tx_layers`` (moe_tx: parallel
@@ -219,32 +219,51 @@ def _moe_layer(h: torch.Tensor, lp, positions: torch.Tensor,
 
 
 def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
-                   ctx: ModelContext) -> torch.Tensor:
-    """Training forward of the ``moe`` family (the reference's
-    ``forward_hidden``, lm.py:358-535, moe branch): (B, S) tokens to the
-    final-normed hidden states (B, S, d) in the compute dtype.  Each layer's
-    parameters are cast to the compute dtype as it runs (lm.py:445), so a
-    gradient reaches the stored leaves in their own dtype.  In an EP group
-    each rank runs the MoE on its stripe of the sequence, as ``prefill``
-    does; the stripes' all-gather sums the ranks' cotangents in its
-    backward, so a loop training over an EP group divides each rank's
-    (replicated) loss by the group size and all-reduces the replicated
-    weights' gradients (not ported yet: ROADMAP queue 1 item 3).  The reference rematerialises each layer in its backward
-    (``jax.checkpoint`` around the scanned body); at the depths the port
-    trains (4 layers of 48 at full width) the activations fit, so the
-    layers keep theirs.  The reference also shards the expert weights over
-    its DP axis when a lane's expert bytes exceed 4 GB (``fsdp_experts``,
-    lm.py:144-147, true at 4 full-width layers); with one DP rank that is a
-    no-op, and the port has no DP group yet."""
+                   ctx: ModelContext, traffic=None, traffic_mask=None):
+    """Training forward (the reference's ``forward_hidden``, lm.py:358-535,
+    moe and moe_tx branches): (B, S) tokens to the final-normed hidden
+    states (B, S, d) in the compute dtype.  Parameters are cast to the
+    compute dtype as they are used (lm.py:445), so a gradient reaches the
+    stored leaves in their own dtype.  ``moe``: sequential blocks, one MoE
+    layer each; ``moe_tx``: the parallel blocks in stream blocks
+    (:func:`_tx_stack`).  In an EP group each rank runs the MoE on its
+    stripe of the sequence, as ``prefill`` does; the stripes' all-gather
+    sums the ranks' cotangents in its backward, so a loop training over an
+    EP group divides each rank's (replicated) loss by the group size and
+    all-reduces the replicated weights' gradients (not ported yet: ROADMAP
+    queue 1 item 3).
+
+    ``traffic``: the layer-stacked ``traffic.TrafficState`` threaded
+    through the MoE layers; then returns ``(h, new_traffic)``.  The counts
+    come from the integer routing matrix, so no gradient flows through
+    them.  ``traffic_mask``: (B, S) bool, False for positions that must not
+    count.
+
+    The reference rematerialises each layer (or stream block) in its
+    backward (``jax.checkpoint``); at the depths and widths the port trains
+    on one card the activations fit beside the parameters and AdamW's state,
+    so the layers keep theirs.  The reference also shards the expert weights
+    over its DP axis when a lane's expert bytes exceed 4 GB
+    (``fsdp_experts``, lm.py:144-147); with one DP rank that is a no-op, and
+    the port has no DP group yet."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"training forward of family {cfg.family!r} is not ported yet "
-            "(moe only): ROADMAP queue 1 items 3 and 5")
     h = params["embed"].to(cd)[inputs]
+    if cfg.family == "moe_tx":
+        h, new_traffic, _ = _tx_stack(params, h, positions, ctx, traffic,
+                                      traffic_mask)
+        return h if traffic is None else (h, new_traffic)
+    trs = []
     for i in range(cfg.n_layers):
-        h, _, _ = _moe_layer(h, _layer(params["layers"], i, cd), positions, ctx)
-    return rms_norm(h, params["final_norm"].to(cd))
+        lp = _layer(params["layers"], i, cd)
+        if traffic is None:
+            h, _, _ = _moe_layer(h, lp, positions, ctx)
+        else:
+            h, _, _, tr = _moe_layer(h, lp, positions, ctx,
+                                     traffic_lib.layers(traffic, i),
+                                     traffic_mask)
+            trs.append(tr)
+    h = rms_norm(h, params["final_norm"].to(cd))
+    return h if traffic is None else (h, traffic_lib.stack(trs))
 
 
 def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):
@@ -260,19 +279,23 @@ def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):
 LOSS_CHUNK = 512   # sequence positions per CE chunk (the reference's default)
 
 
-def lm_loss(params, batch, ctx: ModelContext):
+def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     """Next-token CE over ``batch`` {"tokens", "labels"} (B, S), labels
     already shifted, -1 for none (the reference's ``lm_loss``,
     lm.py:538-580): chunked over the sequence by ``LOSS_CHUNK``, each chunk
     under ``torch.utils.checkpoint`` as the reference wraps it in
     ``jax.checkpoint``, so the (B, c, V) float32 logits of every chunk are
     recomputed in the backward, not kept; the denominator counts the valid
-    labels.  Returns (loss, metrics)."""
+    labels.  Returns (loss, metrics); with ``traffic`` (the layer-stacked
+    state) the new state rides along as ``metrics["traffic"]``."""
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = forward_hidden(params, tokens, positions, ctx)
+    h = forward_hidden(params, tokens, positions, ctx, traffic=traffic)
+    new_traffic = None
+    if traffic is not None:
+        h, new_traffic = h
     labels = batch["labels"]
     head = params["lm_head"].to(ctx.compute_dtype)
     s = h.shape[1]
@@ -287,20 +310,38 @@ def lm_loss(params, batch, ctx: ModelContext):
             use_reentrant=False)
         tot, cnt = tot + part, cnt + n
     loss = tot / cnt.clamp_min(1.0)
-    return loss, {"loss": loss.detach(), "tokens": cnt}
+    metrics = {"loss": loss.detach(), "tokens": cnt}
+    if new_traffic is not None:
+        metrics["traffic"] = new_traffic
+    return loss, metrics
 
 
-def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
-                ctx: ModelContext, traffic=None, traffic_mask=None):
-    """moe_tx stack over this rank's stripe of the sequence: with the
-    ``fused_pipe`` engine the layers grouped into stream blocks of
-    ``max(1, moe_stream)``, one streamed ``stream_tx_layers`` call each (the
-    reference's ``_tx_stack``, lm.py:300-350), every block writing its k/v
-    into one preallocated stack; with the other engines one call of all
-    layers with per-layer barriers (blocks change nothing there).
-    ``traffic``: the layer-stacked state, each block threading its slice.
-    Returns the final-normed (B, S, d), the per-layer gathered k/v stacks
-    (L, B, S, Hkv, hd) and the new traffic (None without)."""
+def _blocks(tree, blk: int, n: int, cd: torch.dtype) -> list:
+    """The stream blocks of a stacked (n, ...) parameter tree, float leaves
+    in ``cd``: each leaf split once into blocks of ``blk`` layers
+    (``torch.split``), so that the backward assembles each stacked gradient
+    with one concatenation, not one zero-filled gradient of the whole stack
+    per block."""
+    if isinstance(tree, dict):
+        subs = {k: _blocks(v, blk, n, cd) for k, v in tree.items()}
+        return [{k: v[j] for k, v in subs.items()} for j in range(n // blk)]
+    parts = torch.split(tree, blk) if blk < n else (tree,)
+    return [p.to(cd) if p.is_floating_point() else p for p in parts]
+
+
+def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
+              ctx: ModelContext, traffic=None, traffic_mask=None,
+              return_kv: bool = False):
+    """moe_tx stack over this rank's stripe of the sequence (the
+    reference's ``_tx_stack``, lm.py:301-355): with the ``fused_pipe``
+    engine the layers grouped into stream blocks of ``max(1, moe_stream)``,
+    one streamed ``stream_tx_layers`` call each; with the other engines one
+    call of all layers with per-layer barriers (blocks change nothing
+    there).  ``traffic``: the layer-stacked state, each block threading its
+    slice.  Returns the final-normed (B, S, d), the new traffic (None
+    without) and, with ``return_kv`` (prefill), the per-layer gathered k/v
+    stacks (L, B, S, Hkv, hd), each block writing its layers into one
+    preallocated pair (None without: training keeps no k/v stack)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     L = cfg.n_layers
     blk = max(1, ctx.moe_stream)
@@ -314,13 +355,13 @@ def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
     mask = None if traffic_mask is None else seq_stripe(traffic_mask,
                                                         ctx.ep_group)
     kv = None
-    if blk < L:
+    if return_kv and blk < L:
         shape = (L, h.shape[0], positions.shape[0], cfg.n_kv_heads, cfg.hd)
         kv = tuple(torch.empty(shape, dtype=cd, device=h.device)
                    for _ in range(2))
     trs = []
-    for b0 in range(0, L, blk):
-        bp = _layer(params["layers"], slice(b0, b0 + blk), cd)
+    for j, bp in enumerate(_blocks(params["layers"], blk, L, cd)):
+        b0 = j * blk
         out = stream_tx_layers(
             h, bp["moe"], bp["attn"], bp["ln1"], bp["ln2"],
             placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
@@ -330,17 +371,19 @@ def _tx_prefill(params, h: torch.Tensor, positions: torch.Tensor,
             traffic=(None if traffic is None
                      else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,
-            return_kv=True,
+            return_kv=return_kv,
             kv_out=None if kv is None else tuple(t[b0:b0 + blk] for t in kv),
             group=ctx.ep_group)
-        h, (k, v) = out[0], out[-1]
+        if not isinstance(out, tuple):
+            out = (out,)
+        h = out[0]
         if traffic is not None:
             trs.append(out[1])
-    if kv is not None:
-        k, v = kv
+        if return_kv and kv is None:
+            kv = out[-1]
     h = all_gather_seq(h, ctx.ep_group)
-    return (rms_norm(h, params["final_norm"].to(cd)), k, v,
-            traffic_lib.concat(trs) if trs else None)
+    return (rms_norm(h, params["final_norm"].to(cd)),
+            traffic_lib.concat(trs) if trs else None, kv)
 
 
 def _length(n: int, device) -> torch.Tensor:
@@ -366,8 +409,8 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
     if cfg.family == "moe_tx":
-        h, k, v, new_traffic = _tx_prefill(params, h, positions, ctx, traffic,
-                                           traffic_mask)
+        h, new_traffic, (k, v) = _tx_stack(params, h, positions, ctx, traffic,
+                                           traffic_mask, return_kv=True)
         logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
         state = DecodeState({"k": _cache_slots(k, s, cap),
                              "v": _cache_slots(v, s, cap)},

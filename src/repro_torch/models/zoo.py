@@ -2,8 +2,9 @@
 of ``repro/models/zoo.py``).
 
 A :class:`ModelBundle` holds the config, the context and the model's
-``init``, ``prefill`` and ``decode_step`` with the reference's call
-signatures, which the serving engines (``serving/engine.py``) drive.
+``init``, ``loss``, ``prefill`` and ``decode_step`` with the reference's
+call signatures: the train step (``launch/steps.py``) takes the loss, the
+serving engines (``serving/engine.py``) drive the rest.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ class ModelBundle:
     cfg: ArchConfig
     ctx: ModelContext
     init: Callable[..., Any]          # (generator, dtype=bf16) -> params
+    loss: Callable                    # (params, batch, traffic=None) ->
+                                      #  (loss, metrics)
     prefill: Callable                 # (params, {"tokens"[, "positions"]},
                                       #  max_len, traffic=, traffic_mask=)
     decode_step: Callable             # (params, state, tokens, max_len)
@@ -48,6 +51,7 @@ def build(cfg: ArchConfig, ctx: ModelContext) -> ModelBundle:
         cfg, ctx,
         init=lambda gen, dtype=torch.bfloat16: lm.init_params(cfg, ctx, gen,
                                                               dtype),
+        loss=lambda p, b, traffic=None: lm.lm_loss(p, b, ctx, traffic=traffic),
         prefill=prefill,
         decode_step=lambda p, st, tok, max_len: lm.decode_step(
             p, st, tok, ctx, max_len))

@@ -31,8 +31,13 @@ from repro.optim import adamw as jadamw
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.data import pipeline
+from repro_torch.core import fusco
+from repro_torch.core import traffic as traffic_lib
+from repro_torch.core.dcomm import DcommConfig
+from repro_torch.core.routing import ExpertPlacement
 from repro_torch.launch import steps, train
 from repro_torch.models import lm
+from repro_torch.models import zoo as tzoo
 from repro_torch.optim import adamw
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -116,7 +121,8 @@ def test_lm_loss_and_every_grad_leaf_match_jax(jax_side):
 def test_train_step_matches_jax_step(jax_side):
     """One step: loss, grad norm, updated params, mu, nu and master."""
     ctx, params, batch = _port(jax_side)
-    step = steps.make_train_step(steps.bundle(ctx), adamw.AdamWConfig(**OPT))
+    step = steps.make_train_step(tzoo.build(ctx.cfg, ctx),
+                                 adamw.AdamWConfig(**OPT))
     params, opt, metrics = step(params, adamw.init(params), batch)
     assert opt.step == 1
     np.testing.assert_allclose(float(metrics["loss"]), jax_side["step_loss"],
@@ -136,7 +142,7 @@ def test_accumulated_step_is_the_mean_of_the_micro_batch_grads(jax_side):
     """accum 2: the gradients of the two halves, summed in float32 and
     halved, are what AdamW gets."""
     ctx, params, batch = _port(jax_side)
-    model = steps.bundle(ctx)
+    model = tzoo.build(ctx.cfg, ctx)
     leaves = adamw.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -226,16 +232,31 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 
 def test_training_raises_on_what_is_not_ported():
+    """What training still refuses: the dense family (at ``make_context``),
+    interleaved micro-batch lanes in the moe_tx stream, the traffic state
+    under serial accumulation, and ``train.run`` without a card."""
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        lm.make_context(get_arch("qwen3-1.7b").reduced(), "cpu")
+    tx = get_arch("moe-tx-stream").reduced()
+    x = torch.zeros((1, 4, tx.d_model))
+    stacked = {k: torch.zeros((1,) + shape) for k, shape in (
+        ("ln1", (tx.d_model,)), ("ln2", (tx.d_model,)),
+        ("router", (tx.d_model, tx.moe.n_experts)))}
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        fusco.tx_layer_stream(
+            x, torch.arange(4), stacked,
+            ExpertPlacement(n_experts=tx.moe.n_experts, ep=1, node_size=1),
+            DcommConfig(engine="fused_pipe"), tx.moe.top_k,
+            n_heads=tx.n_heads, n_kv=tx.n_kv_heads, head_dim=tx.hd,
+            interleave=2)
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", compute_dtype=torch.float32)
-    step = steps.make_train_step(steps.bundle(ctx), adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        step({}, None, {}, traffic=object())
-    tx = lm.make_context(get_arch("moe-tx-stream").reduced(), "cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        steps.make_train_step(steps.bundle(tx), adamw.AdamWConfig())(
-            {}, None, {"tokens": tokens, "labels": tokens})
+    step = steps.make_train_step(tzoo.build(cfg, ctx), adamw.AdamWConfig(),
+                                 accum=2)
+    state = traffic_lib.init_traffic_state(cfg.moe.n_experts, 1,
+                                           n_layers=cfg.n_layers)
+    with pytest.raises(NotImplementedError, match="accumulation"):
+        step({}, None, {}, traffic=state)
     if not torch.cuda.is_available():       # train.run runs on the card
         with pytest.raises(RuntimeError, match="CUDA"):
             train.run(train.parse_args(["--reduced"]))
