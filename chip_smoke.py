@@ -1855,8 +1855,15 @@ def device_kinds(by_kernel) -> dict:
     return out
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def reduced_train_check(device="cuda", engine="fused_flat",
-                        arch="qwen3-moe-30b-a3b") -> dict:
+                        arch="qwen3-moe-30b-a3b", group=None) -> dict:
     """One ``make_train_step`` of the reduced ``arch`` in float32 through
     ``engine`` (``engine_kwargs``: the moe_tx layers in one streamed block)
     from the same params, batch and cold traffic state on the card
@@ -1866,10 +1873,13 @@ def reduced_train_check(device="cuda", engine="fused_flat",
     updated param and of the traffic state the step returns.  Params are
     held to 2 * lr + 1e-5: AdamW's first step moves each element by about
     lr * sign(g), so an element whose gradient is within float32 noise of
-    zero may move the other way."""
+    zero may move the other way.  With ``group`` (an initialised process
+    group of one rank), the card's step once more over it: the same bits
+    in the loss, every grad leaf, every updated param and the traffic
+    state as with no group, and no collective called."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.core import traffic
+    from repro_torch.core import dcomm, traffic
     from repro_torch.data.pipeline import ZipfNgramLM, to_device
     from repro_torch.launch import steps
     from repro_torch.models import lm, zoo
@@ -1881,27 +1891,28 @@ def reduced_train_check(device="cuda", engine="fused_flat",
                           torch.Generator().manual_seed(0), dtype=f32)
     host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
     res = {}
-    for dev in ("cpu", device):
-        ctx = lm.make_context(cfg, dev, compute_dtype=f32,
+    runs = [("cpu", "cpu", None), (device, device, None)]
+    if group is not None:
+        runs.append(("group", device, group))
+    for name, dev, g in runs:
+        ctx = lm.make_context(cfg, dev, ep_group=g, compute_dtype=f32,
                               **engine_kwargs(engine, cfg))
         model = zoo.build(cfg, ctx)
         params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
         batch = to_device(host, dev)
         cold = lambda: traffic.init_traffic_state(
             cfg.moe.n_experts, 1, n_layers=cfg.n_layers, device=dev)
-        leaves = adamw.leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
         wrappers = zero_counters()
-        loss, _ = model.loss(params, batch, traffic=cold())
-        grads = torch.autograd.grad(loss, leaves)
-        params, _, m = steps.make_train_step(model, opt_cfg)(
-            params, adamw.init(params), batch, cold())
-        res[dev] = (float(loss.detach()), [x.cpu() for x in grads],
-                    [x.detach().cpu() for x in adamw.leaves(params)],
-                    {k: w.launches for k, w in wrappers.items()},
-                    [x.cpu() for x in m["traffic"]])
-    (l0, g0, p0, _, t0), (l1, g1, p1, launched, t1) = res["cpu"], res[device]
+        with dcomm.collective_calls() as calls:
+            loss, _, grads = steps.value_and_grad(model)(params, batch, cold())
+            params, _, m = steps.make_train_step(model, opt_cfg)(
+                params, adamw.init(params), batch, cold())
+        res[name] = (float(loss), [x.cpu() for x in grads],
+                     [x.detach().cpu() for x in adamw.leaves(params)],
+                     {k: w.launches for k, w in wrappers.items()},
+                     [x.cpu() for x in m["traffic"]], list(calls))
+    (l0, g0, p0, _, t0, _), (l1, g1, p1, launched, t1, _) = (res["cpu"],
+                                                              res[device])
     rel = lambda a, b: max_err(a.float(), b.float()) / max(
         1.0, a.float().abs().max().item())
     err = dict(loss=abs(l0 - l1),
@@ -1921,7 +1932,158 @@ def reduced_train_check(device="cuda", engine="fused_flat",
         raise AssertionError(f"reduced {arch} {engine} train step on the card "
                              f"never launched {never}, or launched {stray}: "
                              f"{launched}")
-    return dict(err, params_tol=p_tol, launches=launched)
+    out = dict(err, params_tol=p_tol, launches=launched)
+    if group is not None:
+        lg, gg, pg, _, tg, calls = res["group"]
+        same = (lg == l1 and all(same_bits(a, b) for a, b in zip(
+            g1 + p1 + t1, gg + pg + tg, strict=True)))
+        if not same or calls:
+            raise AssertionError(
+                f"reduced {arch} {engine} train step on the card over a "
+                f"one-rank group: same bits as with none {same}, "
+                f"collectives called {calls}")
+        out["one_rank_group"] = "same bits, no collective"
+    return out
+
+
+# the EP-2 check on one card: two ranks of a gloo group sharing it (NCCL
+# refuses two ranks on one device); (arch, engine) of each case
+EP2_CASES = (("qwen3-moe-30b-a3b", "fused_hier"), ("moe-tx-stream", "fused_pipe"))
+EP2 = 2
+EP2_CAPACITY = 8.0   # capacity factor: no row dropped at EP 1 or EP 2, whose
+                     # capacities differ, so both compute one function
+
+
+def _ep2_step(arch, engine, device, group=None) -> dict:
+    """One f32 train step of the reduced ``arch`` through ``engine``
+    (``engine_kwargs``) on ``device`` over ``group`` (None: EP 1), from the
+    whole seed-0 tree cut to this rank's lane and the global batch: the
+    loss, the grads and the updated params by path (on the CPU), the grad
+    norm and the kernels' launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import traffic
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    ctx = lm.make_context(cfg, device, ep_group=group,
+                          capacity_factor=EP2_CAPACITY, compute_dtype=f32,
+                          **engine_kwargs(engine, cfg))
+    model = zoo.build(cfg, ctx)
+    params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
+    batch = to_device(host, device)
+    cold = lambda: traffic.init_traffic_state(
+        cfg.moe.n_experts, ctx.placement.ep, n_layers=cfg.n_layers,
+        device=device)
+    wrappers = zero_counters()
+    loss, _, grads = steps.value_and_grad(model)(params, batch, cold())
+    params, _, m = steps.make_train_step(model, opt_cfg)(
+        params, adamw.init(params), batch, cold())
+    paths = adamw.paths(params)
+    return {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
+            "grads": dict(zip(paths, (g.cpu() for g in grads))),
+            "params": dict(zip(paths, (p.detach().cpu()
+                                       for p in adamw.leaves(params)))),
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "lr": adamw.schedule(opt_cfg, 1)}
+
+
+def _ep2_rank(rank, port, out_dir, device):
+    """One rank of the EP-2 check: a gloo group of two on ``device``, each
+    case's step saved to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=EP2)
+    try:
+        for arch, engine in EP2_CASES:
+            torch.save(_ep2_step(arch, engine, device, dist.group.WORLD),
+                       f"{out_dir}/{arch}-{engine}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def ep2_card_check(device="cuda") -> list[str]:
+    """One f32 train step of each ``EP2_CASES`` on two ranks sharing the
+    card (a gloo group: NCCL refuses two ranks on one device) against the
+    EP 1 step on the card from the same whole parameters and global batch:
+    on each rank the loss and every grad leaf (an expert leaf's against its
+    lane of the EP 1 gradient) within ``TOL_TRAIN`` of max(1, |x|), the
+    grad norm within ``TOL_TRAIN`` relative, the updated params within 2 *
+    lr + 1e-5; the replicated leaves hold the same bits on both ranks after
+    the step; every kernel launched on each rank.  Returns a line a case."""
+    import multiprocessing
+    import shutil
+    import torch
+    from repro_torch.models import lm
+    out_dir = ROOT / "build" / "ep2"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    want = {c: _ep2_step(*c, device) for c in EP2_CASES}
+    mp = multiprocessing.get_context("spawn")
+    port = free_port()
+    ranks = [mp.Process(target=_ep2_rank, args=(r, port, str(out_dir), device))
+             for r in range(EP2)]
+    for p in ranks:
+        p.start()
+    for p in ranks:
+        p.join(timeout=600)
+    codes = [p.exitcode for p in ranks]
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if codes != [0] * EP2:
+        raise AssertionError(f"EP-2 ranks exited with {codes}")
+    lines = []
+    for (arch, engine), w in want.items():
+        got = [torch.load(out_dir / f"{arch}-{engine}-rank{r}.pt")
+               for r in range(EP2)]
+        rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+        err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for r, g in enumerate(got):
+            lane = lambda path, t: lm.lane_cut(path, t, EP2, range(r, r + 1))
+            err["loss"] = max(err["loss"], abs(g["loss"] - w["loss"]))
+            err["grad_norm"] = max(err["grad_norm"], abs(
+                g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+            for k, t in w["grads"].items():
+                err["grads"] = max(err["grads"], rel(g["grads"][k], lane(k, t)))
+            for k, t in w["params"].items():
+                err["params"] = max(err["params"],
+                                    max_err(g["params"][k], lane(k, t)))
+            never = [k for k, n in g["launches"].items() if n == 0]
+            if never:
+                raise AssertionError(f"EP-2 {arch} {engine} rank {r} never "
+                                     f"launched {never}: {g['launches']}")
+        apart = [k for k, t in got[0]["params"].items()
+                 if not lm.lane_sharded(k)
+                 and not same_bits(t, got[1]["params"][k])]
+        p_tol = 2 * w["lr"] + 1e-5
+        if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+                and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol
+                and not apart):
+            raise AssertionError(
+                f"EP-2 {arch} {engine} against EP 1 on the card: {err} (tol "
+                f"{TOL_TRAIN}, params {p_tol}); replicated leaves apart "
+                f"across ranks: {apart}")
+        lines.append(
+            f"{arch} {engine}: loss {err['loss']:.3g}, grads "
+            f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
+            f"{TOL_TRAIN}), params {err['params']:.3g} (tol {p_tol:.3g}); "
+            f"replicated leaves bit-equal across the ranks; launches per "
+            f"rank {json.dumps([g['launches'] for g in got])}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return lines
 
 
 def hier_swiglu_row(inp, timer=time_ms) -> dict:
@@ -2476,16 +2638,28 @@ def main() -> None:
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")
-    for arch, engine in ([("qwen3-moe-30b-a3b", e) for e in REDUCED_ENGINES]
-                         + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]):
-        err = reduced_train_check(engine=engine, arch=arch)
-        print(f"reduced {arch} train step {engine} f32, card "
-              f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "
-              f"{err['grads']:.3g} of max(1, max |grad|) (tol {TOL_TRAIN}), "
-              f"updated params {err['params']:.3g} (tol "
-              f"{err['params_tol']:.3g}), traffic {err['traffic']:.3g} of "
-              f"max(1, |x|) (tol {TOL_TRAFFIC}); launches on the card "
-              f"{json.dumps(err['launches'])}")
+    # the train step over an explicit one-rank NCCL group: no group's bits
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for arch, engine in ([("qwen3-moe-30b-a3b", e) for e in REDUCED_ENGINES]
+                             + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]):
+            err = reduced_train_check(engine=engine, arch=arch,
+                                      group=dist.group.WORLD)
+            print(f"reduced {arch} train step {engine} f32, card "
+                  f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "
+                  f"{err['grads']:.3g} of max(1, max |grad|) (tol {TOL_TRAIN}), "
+                  f"updated params {err['params']:.3g} (tol "
+                  f"{err['params_tol']:.3g}), traffic {err['traffic']:.3g} of "
+                  f"max(1, |x|) (tol {TOL_TRAFFIC}); over a one-rank NCCL "
+                  f"group: {err['one_rank_group']}; launches on the card "
+                  f"{json.dumps(err['launches'])}")
+    finally:
+        dist.destroy_process_group()
+    for line in ep2_card_check():
+        print(f"EP 2 on one card (two gloo ranks), f32 train step vs EP 1: "
+              f"{line}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

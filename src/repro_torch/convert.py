@@ -4,13 +4,17 @@
 builds (lm.py:210-233) for a ``moe``- or ``moe_tx``-family model (the same
 keys; moe_tx has no q/k norms), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
-keys and the same layouts, leaf for leaf, as torch tensors on ``device``.
+keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
+with ``lane``, one rank's shard of it over an EP group (the expert leaves
+cut to that lane, ``models/lm.lane_cut``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.models.lm import lane_cut, lane_sharded
 
 _MOE_KEYS = {
     "embed", "final_norm", "lm_head",
@@ -38,9 +42,12 @@ def _flatten(tree, prefix=""):
             yield path, v
 
 
-def params_from_jax(tree: dict, device="cuda") -> dict:
+def params_from_jax(tree: dict, device="cuda",
+                    lane: int | None = None) -> dict:
     """Map the reference's moe- or moe_tx-family parameter tree onto the
-    port's, on ``device`` (pass ``"cpu"`` for the plain path)."""
+    port's, on ``device`` (pass ``"cpu"`` for the plain path).  With
+    ``lane``: the tree rank ``lane`` of an EP group holds, its expert leaves
+    (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane."""
     paths = {p for p, _ in _flatten(tree)}
     missing = _MOE_KEYS - paths
     extra = paths - _MOE_KEYS - _OPTIONAL
@@ -48,8 +55,14 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
         raise ValueError(f"not a moe-family parameter tree: missing "
                          f"{sorted(missing)}, unexpected {sorted(extra)}")
 
-    def conv(t):
-        return {k: conv(v) if isinstance(v, dict) else _tensor(v, device)
-                for k, v in t.items()}
+    def leaf(path, a):
+        if lane is not None and lane_sharded(path):   # (L, EP, E_local, ...)
+            a = lane_cut(path, np.asarray(a), np.shape(a)[1],
+                         range(lane, lane + 1))
+        return _tensor(a, device)
+
+    def conv(t, prefix=""):
+        return {k: conv(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else leaf(prefix + k, v) for k, v in t.items()}
 
     return conv(tree)

@@ -53,6 +53,7 @@ autograd off, ``fused_pipe`` issues each single-level slice exchange with
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple
@@ -158,6 +159,29 @@ def lane_index(group) -> int:
 
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(process_group(group))
+
+
+# the collectives of ``torch.distributed`` (:func:`collective_calls`)
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_to_all_single",
+               "all_gather", "all_gather_object", "broadcast",
+               "reduce_scatter_tensor", "barrier")
+
+
+@contextlib.contextmanager
+def collective_calls():
+    """Counts the calls of ``torch.distributed``'s collectives while open:
+    yields the list of their names, one entry a call (each function
+    wrapped in the module, through which the port calls them)."""
+    calls = []
+    saved = {n: getattr(dist, n) for n in COLLECTIVES}
+    for n, fn in saved.items():
+        setattr(dist, n, lambda *a, _n=n, _f=fn, **k: (calls.append(_n),
+                                                       _f(*a, **k))[1])
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
 
 
 def _lane_index(cfg: DcommConfig, group) -> int:

@@ -2,33 +2,89 @@
 ``repro/launch/steps.py``).
 
 ``make_train_step`` takes the gradients of a ``models.zoo.ModelBundle``'s
-loss with ``torch.autograd.grad`` and applies one AdamW step in place.
-``accum > 1`` accumulates micro-batches serially, the gradients summed in
-float32 and divided by ``accum``.
+loss with ``torch.autograd.grad`` (:func:`value_and_grad`) and applies one
+AdamW step in place.  ``accum > 1`` accumulates micro-batches serially, the
+gradients summed in float32 and divided by ``accum``.
+
+Over an EP group (the bundle's ``ctx.ep_group``, EP ranks) every rank holds
+the whole batch and computes the whole loss, the same on every rank; each
+rank runs the MoE layers on its stripe of the sequence, and holds its lane
+of the expert leaves (``models/lm.lane_sharded``) and the replicated rest.
+The reference differentiates the one loss of the mesh; the port's ranks each
+differentiate their own copy of it, so:
+
+- the stripes' all-gather (``dcomm._GatherSeq``) sums the group's
+  cotangents in its backward, and each rank's cotangent reaching its stripe
+  is the group's sum: EP times the true one, were each rank to
+  differentiate the whole loss.  So each rank differentiates ``loss / EP``,
+  and its stripe receives the true cotangent;
+- a replicated leaf's gradient on a rank is then a share: 1/EP of the paths
+  outside the MoE layers, plus the MoE paths of this rank's stripe alone
+  (the router, for one, sees only its stripe).  The shares sum to the true
+  gradient: one ``all_reduce`` over the group per dtype
+  (:func:`reduce_replicated`, one flat bucket each);
+- a lane's expert gradient is whole on the rank that holds it: the
+  exchanges' transposes bring it the cotangent of every row its experts
+  took, from every rank's stripe.  It is not reduced.
+
+Under serial accumulation the sync runs once per step, on the micro-batch
+sum.  The traffic statistics sum their counts over the group themselves
+(``core/traffic.py``).  At one rank (no group, or a group of one) nothing
+is divided, reduced or launched beyond the single-card step.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import dcomm
 from repro_torch.models import zoo
+from repro_torch.models.lm import lane_sharded
 from repro_torch.optim import adamw
 
 
-def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
-                    accum: int = 1):
-    """``train_step(params, opt_state, batch, traffic=None) -> (params,
-    opt_state, metrics)``; params and optimizer state are updated in place.
-    With ``traffic`` (the layer-stacked ``traffic.TrafficState``) the loss
-    threads it through the MoE layers and the new state comes back as
-    ``metrics["traffic"]``; its counts come from the integer routing
-    matrix, so no gradient flows through them.  Serial accumulation does
-    not thread a state (``NotImplementedError``, as the reference).  The
-    reference's fusion of accumulation micro-batches into an interleaved
-    ``fused_pipe`` stream needs ``interleave > 1``, which the port's stream
-    does not take yet (ROADMAP queue 1 item 5)."""
+def reduce_replicated(grads: list, paths: list[str], group) -> list:
+    """Sum the replicated leaves' gradients over ``group`` (a process
+    group): one flat bucket per dtype, one ``all_reduce`` each.  The
+    lane-sharded leaves' gradients are returned as they are."""
+    buckets: dict[torch.dtype, list[int]] = {}
+    for i, (p, g) in enumerate(zip(paths, grads)):
+        if not lane_sharded(p):
+            buckets.setdefault(g.dtype, []).append(i)
+    out = list(grads)
+    for idx in buckets.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def _check_group(model: zoo.ModelBundle) -> int:
+    """The EP size of the bundle's context; refuses a world the EP group
+    does not cover (the other ranks would be data replicas)."""
+    ep = dcomm.group_size(model.ctx.ep_group)
+    if dist.is_available() and dist.is_initialized() and (
+            dist.get_world_size() > ep):
+        raise NotImplementedError(
+            f"training in a world of {dist.get_world_size()} ranks over an "
+            f"EP group of {ep}: the data-parallel group is not ported yet "
+            "(ROADMAP queue 1 item 3 part 2)")
+    return ep
+
+
+def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
+    """``fn(params, batch, traffic=None) -> (loss, metrics, grads)``: the
+    bundle's loss (undivided), its metrics (with ``traffic``, the new state
+    under ``metrics["traffic"]``) and the gradient of every leaf in
+    ``adamw.leaves`` order, synced over the EP group (module docstring).
+    ``accum > 1``: the mean over serial micro-batches, in float32, with no
+    traffic state (``NotImplementedError``, as the reference)."""
     if accum < 1:
         raise ValueError(f"accum {accum} < 1")
+    ep = _check_group(model)
+    group = dcomm.process_group(model.ctx.ep_group)
 
     def grads_of(params, batch, traffic=None):
         ps = adamw.leaves(params)
@@ -36,9 +92,10 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
             if not p.requires_grad:
                 p.requires_grad_(True)
         loss, metrics = model.loss(params, batch, traffic=traffic)
-        return loss, metrics, torch.autograd.grad(loss, ps)
+        return loss, metrics, torch.autograd.grad(
+            loss / ep if ep > 1 else loss, ps)
 
-    def train_step(params, opt_state, batch, traffic=None):
+    def fn(params, batch, traffic=None):
         if accum == 1:
             loss, metrics, grads = grads_of(params, batch, traffic)
             metrics = dict(metrics, loss=loss.detach())
@@ -63,10 +120,40 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
                         a.add_(g)
                 lsum = lsum + loss.detach()
                 del grads
-            grads = [g.div_(accum) for g in gsum]
+            grads = gsum
             metrics = {"loss": lsum / accum}
+        if ep > 1:
+            grads = reduce_replicated(grads, adamw.paths(params), group)
+        if accum > 1:
+            grads = [g.div_(accum) for g in grads]
+        return metrics["loss"], metrics, grads
+
+    return fn
+
+
+def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
+                    accum: int = 1):
+    """``train_step(params, opt_state, batch, traffic=None) -> (params,
+    opt_state, metrics)``; params and optimizer state are updated in place.
+    With ``traffic`` (the layer-stacked ``traffic.TrafficState``) the loss
+    threads it through the MoE layers and the new state comes back as
+    ``metrics["traffic"]``; its counts come from the integer routing
+    matrix, so no gradient flows through them.  Serial accumulation does
+    not thread a state (``NotImplementedError``, as the reference).  The
+    reference's fusion of accumulation micro-batches into an interleaved
+    ``fused_pipe`` stream needs ``interleave > 1``, which the port's stream
+    does not take yet (ROADMAP queue 1 item 5).  Over an EP group the
+    gradients are synced (module docstring) and the clip norm is the whole
+    tree's (``adamw.global_norm``)."""
+    grads_fn = value_and_grad(model, accum)
+    group = (dcomm.process_group(model.ctx.ep_group)
+             if dcomm.group_size(model.ctx.ep_group) > 1 else None)
+
+    def train_step(params, opt_state, batch, traffic=None):
+        _, metrics, grads = grads_fn(params, batch, traffic)
         params, opt_state, opt_metrics = adamw.update(
-            adamw.unflatten(params, grads), opt_state, params, opt_cfg)
+            adamw.unflatten(params, grads), opt_state, params, opt_cfg,
+            group=group, sharded=lane_sharded)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -1,5 +1,6 @@
 """Training entry point (port of the core loop of ``repro/launch/train.py``): a
-few AdamW steps of next-token loss through the FUSCO shuffle, on one card.
+few AdamW steps of next-token loss through the FUSCO shuffle, on one card or
+over an expert-parallel group of cards.
 
 ``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
 --batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
@@ -19,10 +20,11 @@ the reference threads them ("stats are collected either way"), and feed
 without them.
 
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
-path.  Weights are random; the batches come from the reference's synthetic
-streams (``--data zipf``: the 2-gram Zipf language;
-``uniform``: hash tokens), deterministic in (seed, step); weights and
-batches come from seed 0.  The first ``WARMUP`` steps (which also build the
+path, and ``run(args, device, ep_group=g)`` over an initialised group.
+Weights are random; the batches come from the reference's synthetic
+streams (``--data zipf``: the 2-gram Zipf language; ``uniform``: hash
+tokens), deterministic in (seed, step); weights and batches come from seed
+0.  The first ``WARMUP`` steps (which also build the
 kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
 No checkpoint, relayout or fault-tolerance loop yet (ROADMAP queue 1 item 6).
@@ -32,11 +34,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
 import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
@@ -98,9 +102,16 @@ class Setup(NamedTuple):
     opt_cfg: adamw.AdamWConfig
 
 
-def setup(args, device="cuda") -> Setup:
-    """The model, its random bf16 parameters, the data source and the
-    optimizer's config of a train run, all from seed 0."""
+def _is_rank0() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or (
+        dist.get_rank() == 0)
+
+
+def setup(args, device="cuda", ep_group=None) -> Setup:
+    """The model, its random bf16 parameters (this rank's lane of the expert
+    weights over ``ep_group``), the data source and the optimizer's config
+    of a train run, all from seed 0: every rank of a group draws the same
+    replicated leaves and reads the same batches."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -109,13 +120,16 @@ def setup(args, device="cuda") -> Setup:
     calibration = None
     if args.calibrate:
         calibration = calibrate.calibrate(device=device)
-        print(f"[calibrate] {calibration.platform}: "
-              f"stage {calibration.stage_bw / 1e9:.1f} GB/s, "
-              f"wire {calibration.wire_bw / 1e9:.1f} GB/s, "
-              f"overhead {calibration.overhead_s * 1e6:.1f} us", flush=True)
-    ctx = lm.make_context(cfg, device, engine=args.engine,
+        if _is_rank0():
+            print(f"[calibrate] {calibration.platform}: "
+                  f"stage {calibration.stage_bw / 1e9:.1f} GB/s, "
+                  f"wire {calibration.wire_bw / 1e9:.1f} GB/s, "
+                  f"overhead {calibration.overhead_s * 1e6:.1f} us",
+                  flush=True)
+    ep = 1 if ep_group is None else dist.get_world_size(ep_group)
+    ctx = lm.make_context(cfg, device, ep_group=ep_group, engine=args.engine,
                           capacity_factor=args.capacity_factor,
-                          node_size=1, dedup=args.dedup,   # one lane, as serve
+                          node_size=max(1, ep // 2), dedup=args.dedup,
                           pipe_slices=args.pipe_slices,
                           moe_stream=args.moe_stream,
                           traffic_decay=args.traffic_decay,
@@ -137,24 +151,26 @@ def init_traffic(cfg: ArchConfig, ctx: lm.ModelContext, accum: int):
     if cfg.moe is None or cfg.family not in ("moe", "moe_tx"):
         return None
     if accum > 1:
-        print("[traffic] stats disabled under serial gradient accumulation",
-              flush=True)
+        if _is_rank0():
+            print("[traffic] stats disabled under serial gradient "
+                  "accumulation", flush=True)
         return None
     return traffic_lib.init_traffic_state(cfg.moe.n_experts, ctx.placement.ep,
                                           n_layers=cfg.n_layers,
                                           device=ctx.device)
 
 
-def run(args, device="cuda") -> dict:
-    """Train ``--steps`` steps, the traffic state threaded through every
-    one (warm-up included); returns the loss of every step, the median ms
-    per timed step, tokens per second, on the card the peak device memory
-    (GiB, params and optimizer state included), and the final traffic state
-    (None without one)."""
+def run(args, device="cuda", ep_group=None) -> dict:
+    """Train ``--steps`` steps, over ``ep_group`` when given (an initialised
+    process group, every rank calling), the traffic state threaded through
+    every one (warm-up included); returns the loss of every step, the
+    median ms per timed step, tokens per second (of the whole batch), on the
+    card this rank's peak device memory (GiB, params and optimizer state
+    included), and the final traffic state (None without one)."""
     on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-    cfg, ctx, params, source, opt_cfg = setup(args, device)
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg, ctx, params, source, opt_cfg = setup(args, device, ep_group)
     train_step = steps.make_train_step(zoo.build(cfg, ctx), opt_cfg,
                                        args.accum)
     traffic = init_traffic(cfg, ctx, args.accum)
@@ -182,12 +198,37 @@ def run(args, device="cuda") -> dict:
             "cfg": cfg, "traffic": traffic}
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
+    """The command line.  Under ``torchrun`` (``WORLD_SIZE`` > 1) every
+    process is one rank of the EP group, the whole world: NCCL on
+    ``cuda:LOCAL_RANK``, or gloo when ``device`` is the CPU.  Only rank 0
+    prints; the peak memory is printed for every rank."""
     args = parse_args(argv)
-    out = run(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        out = run(args, device)
+        return _report(out, [out["peak_mem_gib"]])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    try:
+        out = run(args, device, ep_group=dist.group.WORLD)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, out["peak_mem_gib"])
+        return _report(out, peaks) if _is_rank0() else out
+    finally:
+        dist.destroy_process_group()
+
+
+def _report(out: dict, peaks: list):
     print("loss per step:", " ".join(f"{x:.4f}" for x in out["losses"]))
     print(f"{out['ms_per_step']:.1f} ms/step  {out['tokens_per_s']:.0f} "
-          f"tokens/s  peak memory {out['peak_mem_gib']:.2f} GiB")
+          f"tokens/s  peak memory per rank "
+          + " ".join("n/a" if p is None else f"{p:.2f}" for p in peaks)
+          + " GiB")
     return out
 
 

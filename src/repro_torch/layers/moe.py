@@ -7,8 +7,10 @@ the batch's sequence sharded over it; here each rank of the EP process group
 calls these functions on its own stripe of the sequence.  ``group`` is that
 group, or the ``dcomm.EPGroups`` of it that ``fused_hier``'s nodes and a
 (pod, model) axis need.
-Expert weights keep the reference's lane-major layout (EP, E_local, d, f) /
-(EP, E_local, f, d): this rank uses lane ``rank in group`` of it.
+Expert weights keep the reference's lane-major layout (lanes, E_local, d, f)
+/ (lanes, E_local, f, d): either this rank's lane alone (lanes = 1, what
+``models/lm.init_params`` holds over an EP group) or every lane of the
+placement, of which this rank uses lane ``rank in group``.
 """
 
 from __future__ import annotations
@@ -26,12 +28,20 @@ from repro_torch.core.routing import (ExpertPlacement, balanced_replica_choice,
 from repro_torch.kernels import ops as kops
 
 
+def _own_lane(lanes: int, placement: ExpertPlacement, group) -> int:
+    """Where this rank's lane sits on a lane axis of ``lanes``: 0 for its
+    own lane alone, its lane index in the whole stack."""
+    if lanes == 1:
+        return 0
+    if lanes != placement.ep:
+        raise ValueError(f"expert weights hold {lanes} lanes, placement "
+                         f"ep={placement.ep}")
+    return lane_index(group)
+
+
 def _lane_weights(moe_params, placement: ExpertPlacement, group):
     w1, w3, w2 = moe_params["w1"], moe_params["w3"], moe_params["w2"]
-    if w1.shape[0] != placement.ep:
-        raise ValueError(f"expert weights hold {w1.shape[0]} lanes, placement "
-                         f"ep={placement.ep}")
-    lane = lane_index(group)
+    lane = _own_lane(w1.shape[0], placement, group)
     return w1[lane], w3[lane], w2[lane]
 
 
@@ -90,17 +100,16 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
     (N, d).  ``traffic``: the block's layer-stacked (N, ...)
     ``TrafficState``, each layer's routing folded into its slice;
-    ``traffic_mask`` (B, S/ep) as in :func:`moe_block`.  Returns ``y``,
-    then the new traffic when given, then with ``return_kv`` the per-layer
-    gathered (k, v) stacks (N, B, S, n_kv, hd), written into ``kv_out``
-    when given."""
+    ``traffic_mask`` (B, S/ep) as in :func:`moe_block`.  The expert leaves
+    hold this rank's lane alone (N, 1, E_local, ...) or every lane.
+    Returns ``y``, then the new traffic when given, then with ``return_kv``
+    the per-layer gathered (k, v) stacks (N, B, S, n_kv, hd), written into
+    ``kv_out`` when given."""
     if fsdp:
         raise NotImplementedError("FSDP expert weights are not ported yet: "
                                   "ROADMAP queue 1 item 8 (parallel/sharding)")
-    if moe_params["w1"].shape[1] != placement.ep:
-        raise ValueError(f"expert weights hold {moe_params['w1'].shape[1]} "
-                         f"lanes, placement ep={placement.ep}")
-    lane = lane_index(group)
+    lanes = moe_params["w1"].shape[1]
+    lane = _own_lane(lanes, placement, group)
     observe = None
     if traffic is not None:
         b, s = x.shape[:2]
@@ -109,9 +118,9 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
         observe = lambda st, A: traffic_lib.observe(
             st, A, placement, my_lane, decay=traffic_decay, group=group,
             valid=valid)
-    # this lane's experts; with one lane a view whose backward is the
-    # gradient itself (indexing would zero-fill a stack-sized gradient)
-    lane_of = (lambda w: w.squeeze(1)) if placement.ep == 1 else (
+    # this lane's experts; from a leaf of one lane a view whose backward is
+    # the gradient itself (indexing would zero-fill a stack-sized gradient)
+    lane_of = (lambda w: w.squeeze(1)) if lanes == 1 else (
         lambda w: w[:, lane])
     params = {"ln1": ln1, "ln2": ln2, **attn_params,
               "router": moe_params["router"],

@@ -101,16 +101,61 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                         moe_stream, traffic_decay)
 
 
+# the leaves the reference shards over its EP axis ("model",
+# ``parallel/sharding.param_specs``): over an EP group each rank holds its
+# lane of them; every other leaf is replicated
+EXPERT_LEAVES = ("layers/moe/w1", "layers/moe/w3", "layers/moe/w2")
+
+
+def lane_sharded(path: str) -> bool:
+    """Whether the leaf at ``path`` ("a/b/c", ``adamw.paths``) is sharded over
+    the EP group, one lane a rank (the expert weights)."""
+    return path in EXPERT_LEAVES
+
+
+def _expert_leaf(gen: torch.Generator, lanes: range, el: int, shape: tuple,
+                 dtype, device) -> torch.Tensor:
+    """A lane-major (L, len(lanes), el, *shape) expert leaf holding
+    ``lanes``: expert e = lane * el + e_local draws its (L, *shape) from
+    its own generator, seeded from one draw of ``gen``, so a lane's values
+    do not depend on how many lanes there are, and the lanes not held are
+    never drawn."""
+    seed = int(torch.randint(1 << 62, (), generator=gen, device=gen.device))
+    w = torch.empty((shape[0], len(lanes), el, *shape[1:]), dtype=dtype,
+                    device=device)
+    for j, lane in enumerate(lanes):
+        for e in range(el):
+            g = torch.Generator(device=device)
+            g.manual_seed(seed + lane * el + e)
+            w[:, j, e] = dense_init(g, shape, dtype=dtype, device=device)
+    return w
+
+
+def _held_lanes(ctx: ModelContext) -> range:
+    """The lanes of the expert leaves this rank holds: its own over an EP
+    group of more than one rank, else all of the placement's."""
+    if group_size(ctx.ep_group) > 1:
+        lane = dcomm.lane_index(ctx.ep_group)
+        return range(lane, lane + 1)
+    return range(ctx.placement.ep)
+
+
 def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters from ``gen`` in the reference's tree and layouts
     (lm.py:210-233): layers stacked on a leading (L,) axis, expert weights
-    lane-major (L, EP, E_local, d, f)."""
+    lane-major (L, lanes, E_local, d, f).  Over an EP group of more than one
+    rank the expert leaves hold this rank's lane only (lanes = 1), and the
+    other lanes are never drawn; otherwise every lane of the placement.  An
+    expert's weights are the same for every EP size from the same ``gen``
+    (:func:`_expert_leaf`), and so are the replicated leaves."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     fe, el = cfg.moe.d_ff_expert, ctx.placement.experts_per_lane
-    ep = ctx.placement.ep
+    lanes = _held_lanes(ctx)
     init = lambda shape: dense_init(gen, shape, dtype=dtype, device=ctx.device)
     ones = lambda shape: torch.ones(shape, dtype=dtype, device=ctx.device)
+    experts = lambda shape: _expert_leaf(gen, lanes, el, shape, dtype,
+                                         ctx.device)
     attn = {"wq": init((L, d, cfg.n_heads * hd)),
             "wk": init((L, d, cfg.n_kv_heads * hd)),
             "wv": init((L, d, cfg.n_kv_heads * hd)),
@@ -119,9 +164,9 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
         attn["q_norm"] = ones((L, hd))
         attn["k_norm"] = ones((L, hd))
     moe = {"router": init((L, d, cfg.moe.n_experts)),
-           "w1": init((L, ep, el, d, fe)),
-           "w3": init((L, ep, el, d, fe)),
-           "w2": init((L, ep, el, fe, d))}
+           "w1": experts((L, d, fe)),
+           "w3": experts((L, d, fe)),
+           "w2": experts((L, fe, d))}
     return {
         "embed": embed_init(gen, cfg.vocab, d, dtype, ctx.device),
         "layers": {"ln1": ones((L, d)), "attn": attn, "ln2": ones((L, d)),
@@ -129,6 +174,33 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
         "final_norm": ones((d,)),
         "lm_head": init((d, cfg.vocab)),
     }
+
+
+def lane_cut(path: str, t, ep: int, lanes: range):
+    """The leaf at ``path`` (a tensor or an array) as the rank holding
+    ``lanes`` of ``ep`` holds it: an expert leaf of any lane count, all
+    experts lane-major, regrouped into ``ep`` lanes and cut to ``lanes`` (a
+    view); any other leaf as it is."""
+    if not lane_sharded(path):
+        return t
+    return t.reshape(t.shape[0], ep, -1, *t.shape[3:])[
+        :, lanes.start:lanes.stop]
+
+
+def shard_params(tree, ctx: ModelContext) -> dict:
+    """This rank's parameters cut from a whole tree (expert leaves of any
+    lane count holding all experts): the expert leaves cut to the lanes
+    :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied);
+    the other leaves as they are."""
+    lanes = _held_lanes(ctx)
+
+    def walk(node, prefix=""):
+        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else (lane_cut(prefix + k, v, ctx.placement.ep, lanes).clone()
+                      if lane_sharded(prefix + k) else v)
+                for k, v in node.items()}
+
+    return walk(tree)
 
 
 def _layer(tree, i: int | slice, cd: torch.dtype):
@@ -230,8 +302,8 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     stripe of the sequence, as ``prefill`` does; the stripes' all-gather
     sums the ranks' cotangents in its backward, so a loop training over an
     EP group divides each rank's (replicated) loss by the group size and
-    all-reduces the replicated weights' gradients (not ported yet: ROADMAP
-    queue 1 item 3).
+    all-reduces the replicated leaves' gradients, not the lane-sharded
+    expert leaves' (:func:`lane_sharded`): ``launch/steps.py`` does both.
 
     ``traffic``: the layer-stacked ``traffic.TrafficState`` threaded
     through the MoE layers; then returns ``(h, new_traffic)``.  The counts

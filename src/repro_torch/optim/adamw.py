@@ -2,6 +2,12 @@
 f32 master (port of ``repro/optim/adamw.py``; ZeRO-1 state specs wait for
 the DP group).
 
+Over an EP group each rank holds its lane of the expert leaves, and their
+state (mu, nu, master) with them; the other leaves, and their state, are the
+same on every rank.  The clip norm is the whole tree's, as the reference
+clips: the lane-sharded leaves' sum of squares is summed over the group, the
+replicated leaves' is counted once (:func:`global_norm`).
+
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
 the parameters' dtype, update the f32 master, mu and nu; the parameters are
@@ -19,6 +25,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 SLICE = 1 << 26          # elements per slice of a leaf in update/global_norm
 
@@ -48,6 +55,14 @@ def leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in leaves(v)]
     return [tree]
+
+
+def paths(tree, prefix: str = "") -> list[str]:
+    """The "a/b/c" paths of a nested dictionary's tensors, in the order of
+    :func:`leaves`."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in paths(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 def tree_map(fn, tree):
@@ -85,24 +100,49 @@ def _slices(t: torch.Tensor):
     return t.reshape(-1).split(SLICE)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, on the leaves'
-    device (no host synchronisation)."""
+def _sum_squares(ts) -> torch.Tensor | None:
     tot = None
-    for t in leaves(tree):
+    for t in ts:
         for sl in _slices(t):
             part = sl.float().square().sum()
             tot = part if tot is None else tot + part
-    return tot.sqrt()
+    return tot
+
+
+def global_norm(tree, group: dist.ProcessGroup | None = None,
+                sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32, on the leaves'
+    device (no host synchronisation).  Over a ``group`` of more than one
+    rank, ``sharded`` (a predicate on a leaf's path, :func:`paths`) names
+    the leaves each rank holds a shard of: their sum of squares is summed
+    over the group with one ``all_reduce``, and the other leaves, the same
+    on every rank, count once.  With no group, or one of one rank, no
+    collective is launched."""
+    if group is None or dist.get_world_size(group) == 1:
+        return _sum_squares(leaves(tree)).sqrt()
+    if sharded is None:
+        raise ValueError("global_norm over a group needs the predicate of "
+                         "the sharded leaves")
+    own, rep = [], []
+    for path, t in zip(paths(tree), leaves(tree)):
+        (own if sharded(path) else rep).append(t)
+    part = _sum_squares(own)
+    if part is None:
+        part = torch.zeros((), device=leaves(tree)[0].device)
+    dist.all_reduce(part, group=group)
+    rest = _sum_squares(rep)
+    return (part if rest is None else part + rest).sqrt()
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, cfg: AdamWConfig):
+def update(grads, state: AdamWState, params, cfg: AdamWConfig,
+           group: dist.ProcessGroup | None = None, sharded=None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
-    norm, update mu, nu and the f32 master, and copy the master into the
-    parameters in their own dtype.  Every leaf is written in place (params,
-    mu, nu, master).  Returns (params, new state, metrics)."""
-    gnorm = global_norm(grads)
+    norm (over ``group``, with ``sharded`` naming the leaves sharded over it:
+    :func:`global_norm`), update mu, nu and the f32 master, and copy the
+    master into the parameters in their own dtype.  Every leaf is written in
+    place (params, mu, nu, master).  Returns (params, new state, metrics)."""
+    gnorm = global_norm(grads, group, sharded)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)
