@@ -140,6 +140,22 @@
    moe-tx through fused_flat; 6 requests, a pool of 4): the card's token
    streams must equal the CPU's and its own batch-1 waved oracle's, and
    its traffic state the CPU's within 1e-5.
+   Each reduced train check runs once more over a one-rank NCCL group (the
+   bits of none, no collective).  Then the process groups, on gloo ranks
+   sharing the card (NCCL refuses two ranks on one device; gloo stages
+   every collective through the host, so nothing here is a speed):
+   ``ep2_card_check``, one reduced f32 train step of each family on two
+   ranks (EP 2) against the one-rank card step; ``grid_card_check``, the
+   same on a (2, 2) (data, model) grid of four ranks, with the replicated
+   leaves' bits equal on the four, each expert leaf's on the data ranks of
+   its lane, the traffic state's on the four, each rank's AdamW state its
+   ZeRO-1 share, and every kernel launched on every rank (rank 0's
+   launches join ``launches_by_phase``); and ``zero1_phase``, qwen3-moe at
+   full width cut to one layer (B 4 x S 512, traffic on, 3 steps) through
+   ``launch/train.run`` on the card alone and then on that grid: each
+   rank's measured AdamW state must be the ZeRO-1 reckoning from the
+   parameter counts, its losses finite and the same on the four ranks, the
+   first within 2e-3 relative of the one-card run's.
 9. Prints the card's name and power limit, the kernels' numbers as one JSON
    line (``launches_by_phase`` counts every serve phase), and last
    ``{"ok": true, "device": {...}}``.
@@ -1954,17 +1970,20 @@ EP2_CAPACITY = 8.0   # capacity factor: no row dropped at EP 1 or EP 2, whose
                      # capacities differ, so both compute one function
 
 
-def _ep2_step(arch, engine, device, group=None) -> dict:
+def _ep2_step(arch, engine, device, group=None, mesh=None) -> dict:
     """One f32 train step of the reduced ``arch`` through ``engine``
-    (``engine_kwargs``) on ``device`` over ``group`` (None: EP 1), from the
-    whole seed-0 tree cut to this rank's lane and the global batch: the
-    loss, the grads and the updated params by path (on the CPU), the grad
-    norm and the kernels' launches."""
+    (``engine_kwargs``) on ``device`` over ``group`` or on ``mesh`` (None:
+    one rank), from the whole seed-0 tree cut to this rank's lane and the
+    global batch cut to its data rank's rows: the loss, the grads and the
+    updated params by path (on the CPU), the grad norm, the new traffic
+    state, the bytes of the AdamW state and those of its ZeRO-1 share
+    (``adamw.zero_dim``), and the kernels' launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import traffic
     from repro_torch.data.pipeline import ZipfNgramLM, to_device
     from repro_torch.launch import steps
+    from repro_torch.launch.train import data_rows
     from repro_torch.models import lm, zoo
     from repro_torch.optim import adamw
     cfg = get_arch(arch).reduced()
@@ -1972,8 +1991,10 @@ def _ep2_step(arch, engine, device, group=None) -> dict:
     base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
                           torch.Generator().manual_seed(0), dtype=f32)
     host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
+    dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
+    host = {k: v[data_rows(4, dp, d)] for k, v in host.items()}
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
-    ctx = lm.make_context(cfg, device, ep_group=group,
+    ctx = lm.make_context(cfg, device, ep_group=group, mesh=mesh,
                           capacity_factor=EP2_CAPACITY, compute_dtype=f32,
                           **engine_kwargs(engine, cfg))
     model = zoo.build(cfg, ctx)
@@ -1984,15 +2005,44 @@ def _ep2_step(arch, engine, device, group=None) -> dict:
         device=device)
     wrappers = zero_counters()
     loss, _, grads = steps.value_and_grad(model)(params, batch, cold())
-    params, _, m = steps.make_train_step(model, opt_cfg)(
-        params, adamw.init(params), batch, cold())
+    opt = steps.init_state(model, params)
+    params, opt, m = steps.make_train_step(model, opt_cfg)(
+        params, opt, batch, cold())
     paths = adamw.paths(params)
+    share = sum(12 * t.numel() // (1 if adamw.zero_dim(
+        t.shape, dp, lm.lane_sharded(p)) is None else dp)
+        for p, t in zip(paths, adamw.leaves(params)))
     return {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
             "grads": dict(zip(paths, (g.cpu() for g in grads))),
             "params": dict(zip(paths, (p.detach().cpu()
                                        for p in adamw.leaves(params)))),
+            "traffic": [t.cpu() for t in m["traffic"]],
+            "state_bytes": adamw.state_bytes(opt), "share_bytes": share,
             "launches": {k: w.launches for k, w in wrappers.items()},
             "lr": adamw.schedule(opt_cfg, 1)}
+
+
+def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
+    """Run ``target(rank, *args)`` in ``n`` spawned processes; fail unless
+    every one exits 0 within ``timeout`` seconds in all (those still alive
+    then are killed)."""
+    import multiprocessing
+    mp = multiprocessing.get_context("spawn")
+    ranks = [mp.Process(target=target, args=(r, *args)) for r in range(n)]
+    for p in ranks:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in ranks:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    codes = [p.exitcode for p in ranks]
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if codes != [0] * n:
+        raise AssertionError(f"{getattr(target, '__name__', target)}: ranks "
+                             f"exited with {codes} (None: killed after "
+                             f"{timeout} s)")
 
 
 def _ep2_rank(rank, port, out_dir, device):
@@ -2022,7 +2072,6 @@ def ep2_card_check(device="cuda") -> list[str]:
     grad norm within ``TOL_TRAIN`` relative, the updated params within 2 *
     lr + 1e-5; the replicated leaves hold the same bits on both ranks after
     the step; every kernel launched on each rank.  Returns a line a case."""
-    import multiprocessing
     import shutil
     import torch
     from repro_torch.models import lm
@@ -2030,21 +2079,7 @@ def ep2_card_check(device="cuda") -> list[str]:
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     want = {c: _ep2_step(*c, device) for c in EP2_CASES}
-    mp = multiprocessing.get_context("spawn")
-    port = free_port()
-    ranks = [mp.Process(target=_ep2_rank, args=(r, port, str(out_dir), device))
-             for r in range(EP2)]
-    for p in ranks:
-        p.start()
-    for p in ranks:
-        p.join(timeout=600)
-    codes = [p.exitcode for p in ranks]
-    for p in ranks:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if codes != [0] * EP2:
-        raise AssertionError(f"EP-2 ranks exited with {codes}")
+    spawn_ranks(_ep2_rank, EP2, (free_port(), str(out_dir), device), 600)
     lines = []
     for (arch, engine), w in want.items():
         got = [torch.load(out_dir / f"{arch}-{engine}-rank{r}.pt")
@@ -2083,6 +2118,204 @@ def ep2_card_check(device="cuda") -> list[str]:
             f"replicated leaves bit-equal across the ranks; launches per "
             f"rank {json.dumps([g['launches'] for g in got])}")
     shutil.rmtree(out_dir, ignore_errors=True)
+    return lines
+
+
+# the (2, 2) grid on one card: four ranks of a gloo group sharing it, two
+# data ranks of an EP group of two; the cases are EP2_CASES
+GRID = (2, 2)
+# the full-width ZeRO-1 run on the same four ranks: qwen3-moe at full width
+# cut to one layer, B 4 x S 512 (each data rank 2 rows), traffic on; a
+# capacity factor of E / top-k = 16 gives each expert room for every token of
+# its island, so the one-card run and the grid's drop no row and compute one
+# function
+ZERO1 = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1", "--batch", "4",
+         "--seq", "512", "--steps", "3", "--capacity-factor", "16"]
+TOL_ZERO1_LOSS = 2e-3     # first step's loss, grid vs one card, relative: bf16
+
+
+def _grid_init(rank, port, device):
+    """Join the four-rank gloo group of the grid on ``device``; its mesh."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=GRID[0] * GRID[1])
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(*GRID)
+
+
+def _grid_rank(rank, port, out_dir, device):
+    """One rank of the grid check: each case's step saved to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    mesh = _grid_init(rank, port, device)
+    try:
+        for arch, engine in EP2_CASES:
+            torch.save(_ep2_step(arch, engine, device, mesh=mesh),
+                       f"{out_dir}/{arch}-{engine}-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_card_check(device="cuda") -> tuple[list[str], dict]:
+    """One f32 train step of each ``EP2_CASES`` on a (2, 2) grid of four
+    ranks sharing the card (gloo) against the one-rank step on the card
+    from the same whole parameters and global batch: on each rank the loss,
+    every grad leaf (an expert leaf's against its lane of the one-rank
+    gradient) within ``TOL_TRAIN`` of max(1, |x|), the grad norm within
+    ``TOL_TRAIN`` relative, the updated params within 2 * lr + 1e-5; the
+    replicated leaves hold the same bits on all four ranks, each expert
+    leaf on the two data ranks of its lane, and the traffic state on all
+    four; each rank's AdamW state is its ZeRO-1 share in bytes; every kernel
+    launched on every rank.  Returns a line a case and rank 0's launches by
+    case."""
+    import shutil
+    import torch
+    from repro_torch.models import lm
+    out_dir = ROOT / "build" / "grid"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    want = {c: _ep2_step(*c, device) for c in EP2_CASES}
+    n, model = GRID[0] * GRID[1], GRID[1]
+    spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device), 600)
+    lines, launches = [], {}
+    for (arch, engine), w in want.items():
+        got = [torch.load(out_dir / f"{arch}-{engine}-rank{r}.pt")
+               for r in range(n)]
+        rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+        err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for r, g in enumerate(got):
+            lane = lambda path, t: lm.lane_cut(path, t, model,
+                                               range(r % model, r % model + 1))
+            err["loss"] = max(err["loss"], abs(g["loss"] - w["loss"]))
+            err["grad_norm"] = max(err["grad_norm"], abs(
+                g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
+            for k, t in w["grads"].items():
+                err["grads"] = max(err["grads"], rel(g["grads"][k], lane(k, t)))
+            for k, t in w["params"].items():
+                err["params"] = max(err["params"],
+                                    max_err(g["params"][k], lane(k, t)))
+            never = [k for k, c in g["launches"].items() if c == 0]
+            if never or g["state_bytes"] != g["share_bytes"]:
+                raise AssertionError(
+                    f"grid {arch} {engine} rank {r}: never launched {never} "
+                    f"({g['launches']}); AdamW state {g['state_bytes']} bytes, "
+                    f"its ZeRO-1 share {g['share_bytes']}")
+        apart = []
+        for k in got[0]["params"]:
+            # an expert leaf: the two data ranks of each lane; else all four
+            pairs = ([(m, m + model) for m in range(model)]
+                     if lm.lane_sharded(k) else [(0, r) for r in range(1, n)])
+            apart += [f"{k} ranks {a}, {b}" for a, b in pairs
+                      if not same_bits(got[a]["params"][k],
+                                       got[b]["params"][k])]
+        apart += [f"traffic ranks 0, {r}" for r in range(1, n)
+                  if not all(same_bits(a, b) for a, b in zip(
+                      got[0]["traffic"], got[r]["traffic"], strict=True))]
+        p_tol = 2 * w["lr"] + 1e-5
+        if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+                and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol
+                and not apart):
+            raise AssertionError(
+                f"grid {arch} {engine} against one rank on the card: {err} "
+                f"(tol {TOL_TRAIN}, params {p_tol}); bits apart: {apart}")
+        launches[f"grid (2, 2) {arch} {engine} rank 0"] = got[0]["launches"]
+        lines.append(
+            f"{arch} {engine}: loss {err['loss']:.3g}, grads "
+            f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
+            f"{TOL_TRAIN}), params {err['params']:.3g} (tol {p_tol:.3g}); "
+            f"replicated leaves bit-equal on the four ranks, expert leaves on "
+            f"the data ranks of each lane, traffic state on the four; AdamW "
+            f"state per rank {[g['state_bytes'] for g in got]} bytes (ZeRO-1 "
+            f"shares; {w['state_bytes']} on one rank); launches per rank "
+            f"{json.dumps([g['launches'] for g in got])}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return lines, launches
+
+
+def _zero1_rank(rank, port, out_dir, argv, device):
+    """One rank of the full-width ZeRO-1 run: ``train.run`` on the grid,
+    its results saved to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    mesh = _grid_init(rank, port, device)
+    try:
+        from repro_torch.launch import train
+        wrappers = zero_counters()
+        out = train.run(train.parse_args(argv), device, mesh=mesh)
+        torch.save({k: out[k] for k in ("losses", "step_ms", "ms_per_step",
+                                        "peak_mem_gib", "opt_state_gib")}
+                   | {"launches": {k: w.launches
+                                   for k, w in wrappers.items()}},
+                   f"{out_dir}/zero1-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
+    """``train.run`` of ``argv`` (qwen3-moe at full width, one layer) on a
+    (2, 2) grid of four gloo ranks sharing the card, after the same run on
+    the card alone: each rank's AdamW state (the bytes of its tensors) must
+    equal the ZeRO-1 reckoning from the parameter counts, 12 bytes a held
+    parameter over DP; its losses must be finite and the same on all four
+    ranks, the first within ``TOL_ZERO1_LOSS`` relative of the one-card
+    run's.  Prints each rank's state, peak memory, losses and ms/step (gloo
+    stages every collective through the host: not a speed)."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    args = train.parse_args(argv)
+    cfg = get_arch(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
+    data, model = GRID
+    replicated, experts = lm.param_counts(cfg)
+    held = replicated + experts // model
+    reckoned = 12 * held // data
+    torch.cuda.empty_cache()
+    one = train.run(args, device)
+    one = {k: one[k] for k in ("losses", "peak_mem_gib", "opt_state_gib")}
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "zero1"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n = data * model
+    on_card = torch.device(device).type == "cuda"
+    spawn_ranks(_zero1_rank, n, (free_port(), str(out_dir), argv,
+                                 "cuda:0" if on_card else device), 900)
+    got = [torch.load(out_dir / f"zero1-rank{r}.pt") for r in range(n)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    gib = lambda x: "n/a" if x is None else f"{x:.2f}"
+    lines = [f"one card: losses {one['losses']}, AdamW state "
+             f"{one['opt_state_gib']:.4f} GiB, peak memory "
+             f"{gib(one['peak_mem_gib'])} GiB"]
+    for r, g in enumerate(got):
+        lines.append(
+            f"rank {r} (data {r // model}, lane {r % model}): AdamW state "
+            f"{g['opt_state_gib']:.4f} GiB measured, {reckoned / 2**30:.4f} "
+            f"reckoned ({held} parameters held, 12 bytes each over DP "
+            f"{data}); peak memory {gib(g['peak_mem_gib'])} GiB; losses "
+            f"{g['losses']}; {g['ms_per_step']:.1f} ms/step (gloo through "
+            f"the host, not a speed); launches {json.dumps(g['launches'])}")
+    first = abs(got[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    bad = [r for r, g in enumerate(got)
+           if g["opt_state_gib"] * 2**30 != reckoned
+           or g["losses"] != got[0]["losses"]
+           or not all(math.isfinite(x) for x in g["losses"])]
+    if bad or first > TOL_ZERO1_LOSS:
+        raise AssertionError("\n".join(lines) + f"\nfull-width ZeRO-1 run: "
+                             f"ranks {bad} off (state, losses); first loss "
+                             f"{first:.3g} from the one-card run's (tol "
+                             f"{TOL_ZERO1_LOSS})")
+    lines.append(f"first loss vs the one-card run: {first:.3g} relative (tol "
+                 f"{TOL_ZERO1_LOSS})")
     return lines
 
 
@@ -2660,6 +2893,13 @@ def main() -> None:
     for line in ep2_card_check():
         print(f"EP 2 on one card (two gloo ranks), f32 train step vs EP 1: "
               f"{line}")
+    grid_lines, grid_launches = grid_card_check()
+    for line in grid_lines:
+        print(f"(2, 2) grid on one card (four gloo ranks), f32 train step vs "
+              f"one rank: {line}")
+    launches.update(grid_launches)
+    for line in zero1_phase():
+        print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

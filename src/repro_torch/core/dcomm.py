@@ -114,36 +114,47 @@ class EPGroups:
     pod: dist.ProcessGroup | None = None
 
 
-def ep_groups(group: dist.ProcessGroup, node_size: int,
-              n_pods: int = 1) -> EPGroups:
+def ep_groups(group: dist.ProcessGroup, node_size: int, n_pods: int = 1,
+              domains: list[list[int]] | None = None) -> EPGroups:
     """The groups of the EP domain ``group`` for nodes of ``node_size``
     lanes, and with ``n_pods > 1`` for the (pod, model) axis whose pods are
-    the nodes (lane l = p * node_size + m).  Collective: every rank of the
-    job calls it once, with the same arguments, in the same order (each
-    ``dist.new_group`` is created on every rank)."""
+    the nodes (lane l = p * node_size + m).  ``domains``: the global ranks
+    of every EP domain of the job, ``group``'s among them, in one order on
+    every rank (a ``launch.mesh.HostMesh``'s ``ep_domains()``; None: this
+    domain alone).  Collective: every rank of the job calls it once, with
+    the same arguments, in the same order, and each ``dist.new_group`` of
+    every domain is created on every rank."""
     ranks = dist.get_process_group_ranks(group)
     ep, lane = len(ranks), dist.get_rank(group)
+    domains = [ranks] if domains is None else [list(d) for d in domains]
+    if ranks not in domains:
+        raise ValueError(f"EP group {ranks} is not one of the domains "
+                         f"{domains}")
+    mine = domains.index(ranks)
     if ep % node_size:
         raise ValueError(f"ep={ep} not divisible by node_size={node_size}")
     if n_pods > 1:
         if ep != n_pods * node_size:
             raise ValueError(f"a (pod, model) axis of {n_pods} pods needs "
                              f"node_size = ep / pods, got {node_size} of {ep}")
-        models = [dist.new_group([ranks[p * node_size + m]
-                                  for m in range(node_size)])
-                  for p in range(n_pods)]
-        pods = [dist.new_group([ranks[p * node_size + m]
-                                for p in range(n_pods)])
-                for m in range(node_size)]
-        model = models[lane // node_size]
-        return EPGroups(group, node_size, model, model, pods[lane % node_size])
+        models, pods = [], []
+        for dom in domains:
+            models.append([dist.new_group([dom[p * node_size + m]
+                                           for m in range(node_size)])
+                           for p in range(n_pods)])
+            pods.append([dist.new_group([dom[p * node_size + m]
+                                         for p in range(n_pods)])
+                         for m in range(node_size)])
+        model = models[mine][lane // node_size]
+        return EPGroups(group, node_size, model, model,
+                        pods[mine][lane % node_size])
     if node_size == ep:
         return EPGroups(group, node_size, group)
     if node_size == 1:
         return EPGroups(group, node_size, None)
-    nodes = [dist.new_group([ranks[i] for i in lanes])
-             for lanes in _node_groups(ep, node_size)]
-    return EPGroups(group, node_size, nodes[lane // node_size])
+    nodes = [[dist.new_group([dom[i] for i in lanes])
+              for lanes in _node_groups(ep, node_size)] for dom in domains]
+    return EPGroups(group, node_size, nodes[mine][lane // node_size])
 
 
 def process_group(group) -> dist.ProcessGroup | None:

@@ -13,10 +13,12 @@ layer routes its tokens:
 The state is an explicit EMA accumulator (:class:`TrafficState`) threaded
 through ``layers/moe.moe_block`` and the moe_tx stream like RNG state:
 :func:`observe` is statically shaped, reads nothing to the host and
-returns a new state.  Over an EP group it sums the step's counts over the
-group with one ``all_reduce`` (the reference psums over the island's data
-and EP axes; the port has no data group yet), so every rank carries the
-same statistics.
+returns a new state.  It sums the step's counts with one ``all_reduce``
+over the group it is given: the EP group, or on a (data, model) training
+grid the whole grid, as the reference psums over the island's data and EP
+axes.  Each rank folds its own tokens into its lane's rows, so the rows of
+a lane sum over the data ranks holding it, and every rank carries the same
+statistics.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ F32 = torch.float32
 
 
 class TrafficState(NamedTuple):
-    """EMA traffic accumulators (the same on every rank of the EP group).
+    """EMA traffic accumulators (the same on every rank whose counts they
+    sum).
 
     Leaves gain a leading ``(n_layers,)`` dim when stacked per layer
     (:func:`init_traffic_state` with ``n_layers``); each MoE layer threads
@@ -91,9 +94,9 @@ def observe(state: TrafficState, A: torch.Tensor, placement, src_lane: int,
     """Fold one routing matrix into the EMA accumulators.
 
     ``A``: (T, K) token-expert matrix of this rank's tokens; ``src_lane``:
-    this rank's lane on the EP axis; ``group``: the EP group (or its
-    ``dcomm.EPGroups``) the step's counts are summed over, None for one
-    lane; ``valid``: optional (T,) bool, rows with False (a serving
+    this rank's lane on the EP axis; ``group``: the group the step's counts
+    are summed over (the EP group or its ``dcomm.EPGroups``, or a grid's
+    whole group), None for one rank; ``valid``: optional (T,) bool, rows with False (a serving
     prefill's left-pad positions) are routed like any other but counted in
     no accumulator.  Counts are integers derived from ``A``; nothing is
     read to the host.

@@ -7,14 +7,13 @@ here).
     a training run shows a real loss curve.
 
 ``batch_at(step)`` is deterministic in (seed, step) and equal to the
-reference's (pinned by ``tests/test_torch_train.py``).  :func:`iterate`
-stands in for the reference's prefetching ``ShardedLoader``: a plain
-iterator of batches on one device.
+reference's (pinned by ``tests/test_torch_train.py``).  The reference's
+prefetching ``ShardedLoader`` has no counterpart: ``launch/train.run`` cuts
+each global batch to its data rank's rows and moves them with
+:func:`to_device`.
 """
 
 from __future__ import annotations
-
-from typing import Iterator
 
 import numpy as np
 import torch
@@ -61,11 +60,3 @@ def to_device(host: dict, device) -> dict:
     return {k: torch.from_numpy(np.asarray(v)).long().to(device)
             for k, v in host.items()}
 
-
-def iterate(source, device, start_step: int = 0) -> Iterator[dict]:
-    """Batches ``start_step``, ``start_step + 1``, ... of ``source`` on
-    ``device``."""
-    step = start_step
-    while True:
-        yield to_device(source.batch_at(step), device)
-        step += 1

@@ -27,10 +27,29 @@ differentiate their own copy of it, so:
   exchanges' transposes bring it the cotangent of every row its experts
   took, from every rank's stripe.  It is not reduced.
 
+On a (data, model) grid (the context's ``mesh``, ``launch/mesh.py``) each
+data rank holds B / DP rows of the batch, and the loss is the token-mean of
+the whole batch, as the reference's over its data-sharded batch:
+
+- each rank's loss is its local sum over the global count of valid labels
+  (one ``all_reduce`` of [sum, count] over the data group,
+  :func:`data_total`), so the reported loss is the global one on every
+  rank, and the gradient of each rank's objective is its share of the
+  global gradient;
+- the replicated leaves' shares are summed over the whole grid, one flat
+  bucket per dtype (:func:`reduce_replicated` over the grid, not two
+  collectives), and the expert leaves', whole on their lane, over the data
+  group (:func:`reduce_lanes`);
+- AdamW's state is sharded over the data group (ZeRO-1,
+  ``optim/adamw.py``): build it with :func:`init_state`.
+
 Under serial accumulation the sync runs once per step, on the micro-batch
-sum.  The traffic statistics sum their counts over the group themselves
-(``core/traffic.py``).  At one rank (no group, or a group of one) nothing
-is divided, reduced or launched beyond the single-card step.
+sum; each micro-batch's denominator is its own global count, so the loss is
+the reference's mean of per-micro means.  The traffic statistics sum their
+counts over the group themselves (``core/traffic.py``: the EP group, or the
+grid).  At one rank (no group, or a group of one) nothing is divided,
+reduced or launched beyond the single-card step, and at one data rank
+nothing beyond the EP group's.
 """
 
 from __future__ import annotations
@@ -40,17 +59,18 @@ import torch.distributed as dist
 
 from repro_torch.core import dcomm
 from repro_torch.models import zoo
+from repro_torch.models import lm
 from repro_torch.models.lm import lane_sharded
 from repro_torch.optim import adamw
 
 
-def reduce_replicated(grads: list, paths: list[str], group) -> list:
-    """Sum the replicated leaves' gradients over ``group`` (a process
-    group): one flat bucket per dtype, one ``all_reduce`` each.  The
-    lane-sharded leaves' gradients are returned as they are."""
+def _sum_leaves(grads: list, paths: list[str], group, lanes: bool) -> list:
+    """Sum over ``group`` the gradients of the lane-sharded leaves
+    (``lanes``) or of the others: one flat bucket per dtype, one
+    ``all_reduce`` each; the rest are returned as they are."""
     buckets: dict[torch.dtype, list[int]] = {}
     for i, (p, g) in enumerate(zip(paths, grads)):
-        if not lane_sharded(p):
+        if lane_sharded(p) == lanes:
             buckets.setdefault(g.dtype, []).append(i)
     out = list(grads)
     for idx in buckets.values():
@@ -61,30 +81,61 @@ def reduce_replicated(grads: list, paths: list[str], group) -> list:
     return out
 
 
-def _check_group(model: zoo.ModelBundle) -> int:
-    """The EP size of the bundle's context; refuses a world the EP group
-    does not cover (the other ranks would be data replicas)."""
+def reduce_replicated(grads: list, paths: list[str], group) -> list:
+    """Sum the replicated leaves' gradients over ``group`` (a process
+    group: the EP group, or a grid's whole group)."""
+    return _sum_leaves(grads, paths, group, lanes=False)
+
+
+def reduce_lanes(grads: list, paths: list[str], group) -> list:
+    """Sum the lane-sharded leaves' gradients over ``group`` (the data
+    group: the ranks holding the same lane)."""
+    return _sum_leaves(grads, paths, group, lanes=True)
+
+
+def data_total(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the data group ``group`` (a new tensor)."""
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _check_group(model: zoo.ModelBundle) -> tuple[int, int]:
+    """(EP, DP) of the bundle's context; refuses a world other than the
+    data x EP grid it covers."""
     ep = dcomm.group_size(model.ctx.ep_group)
+    mesh = model.ctx.mesh
+    dp = 1 if mesh is None else mesh.data
     if dist.is_available() and dist.is_initialized() and (
-            dist.get_world_size() > ep):
+            dist.get_world_size() != dp * ep):
         raise NotImplementedError(
-            f"training in a world of {dist.get_world_size()} ranks over an "
-            f"EP group of {ep}: the data-parallel group is not ported yet "
-            "(ROADMAP queue 1 item 3 part 2)")
-    return ep
+            f"training in a world of {dist.get_world_size()} ranks over a "
+            f"(data, model) grid of ({dp}, {ep}): build the context on the "
+            "world's mesh, launch.mesh.make_host_mesh() (the data group of "
+            "ROADMAP queue 1 item 3 part 2)")
+    return ep, dp
+
+
+def init_state(model: zoo.ModelBundle, params) -> adamw.AdamWState:
+    """AdamW's state of ``params`` for the train step of ``model``: over a
+    data group this rank's ZeRO-1 slices (``adamw.init``)."""
+    return adamw.init(params, lm.data_group(model.ctx), lane_sharded)
 
 
 def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     """``fn(params, batch, traffic=None) -> (loss, metrics, grads)``: the
     bundle's loss (undivided), its metrics (with ``traffic``, the new state
     under ``metrics["traffic"]``) and the gradient of every leaf in
-    ``adamw.leaves`` order, synced over the EP group (module docstring).
+    ``adamw.leaves`` order, synced over the EP group and the data group
+    (module docstring); over a data group the loss is the whole batch's.
     ``accum > 1``: the mean over serial micro-batches, in float32, with no
     traffic state (``NotImplementedError``, as the reference)."""
     if accum < 1:
         raise ValueError(f"accum {accum} < 1")
-    ep = _check_group(model)
+    ep, dp = _check_group(model)
     group = dcomm.process_group(model.ctx.ep_group)
+    data = lm.data_group(model.ctx)
+    grid = group if dp == 1 else model.ctx.mesh.grid
 
     def grads_of(params, batch, traffic=None):
         ps = adamw.leaves(params)
@@ -92,8 +143,15 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             if not p.requires_grad:
                 p.requires_grad_(True)
         loss, metrics = model.loss(params, batch, traffic=traffic)
+        objective = loss
+        if dp > 1:
+            n = metrics["tokens"]
+            tot = data_total(torch.stack([loss.detach() * n, n]), data)
+            objective = loss * (n / tot[1].clamp_min(1.0))
+            loss = tot[0] / tot[1].clamp_min(1.0)
+            metrics = dict(metrics, tokens=tot[1])
         return loss, metrics, torch.autograd.grad(
-            loss / ep if ep > 1 else loss, ps)
+            objective / ep if ep > 1 else objective, ps)
 
     def fn(params, batch, traffic=None):
         if accum == 1:
@@ -122,8 +180,10 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
                 del grads
             grads = gsum
             metrics = {"loss": lsum / accum}
-        if ep > 1:
-            grads = reduce_replicated(grads, adamw.paths(params), group)
+        if ep * dp > 1:
+            grads = reduce_replicated(grads, adamw.paths(params), grid)
+        if dp > 1:
+            grads = reduce_lanes(grads, adamw.paths(params), data)
         if accum > 1:
             grads = [g.div_(accum) for g in grads]
         return metrics["loss"], metrics, grads
@@ -144,16 +204,20 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
     ``fused_pipe`` stream needs ``interleave > 1``, which the port's stream
     does not take yet (ROADMAP queue 1 item 5).  Over an EP group the
     gradients are synced (module docstring) and the clip norm is the whole
-    tree's (``adamw.global_norm``)."""
+    tree's (``adamw.global_norm``); over a data group too, and
+    ``opt_state`` holds this rank's ZeRO-1 slices (:func:`init_state`).
+    The gradients are then whole on every data rank, so the clip norm
+    spans the EP group alone."""
     grads_fn = value_and_grad(model, accum)
     group = (dcomm.process_group(model.ctx.ep_group)
              if dcomm.group_size(model.ctx.ep_group) > 1 else None)
+    data = lm.data_group(model.ctx)
 
     def train_step(params, opt_state, batch, traffic=None):
         _, metrics, grads = grads_fn(params, batch, traffic)
         params, opt_state, opt_metrics = adamw.update(
             adamw.unflatten(params, grads), opt_state, params, opt_cfg,
-            group=group, sharded=lane_sharded)
+            group=group, sharded=lane_sharded, data_group=data)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -1,6 +1,7 @@
 """Training entry point (port of the core loop of ``repro/launch/train.py``): a
-few AdamW steps of next-token loss through the FUSCO shuffle, on one card or
-over an expert-parallel group of cards.
+few AdamW steps of next-token loss through the FUSCO shuffle, on one card,
+over an expert-parallel group of cards, or over a (data, model) grid of
+them (``launch/mesh.py``).
 
 ``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
 --batch 4 --seq 512 --steps 8 --engine fused_flat --data zipf``
@@ -20,11 +21,16 @@ the reference threads them ("stats are collected either way"), and feed
 without them.
 
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
-path, and ``run(args, device, ep_group=g)`` over an initialised group.
-Weights are random; the batches come from the reference's synthetic
-streams (``--data zipf``: the 2-gram Zipf language; ``uniform``: hash
-tokens), deterministic in (seed, step); weights and batches come from seed
-0.  The first ``WARMUP`` steps (which also build the
+path, ``run(args, device, ep_group=g)`` over an initialised EP group, and
+``run(args, device, mesh=m)`` over a grid.  Weights are random; the batches
+come from the reference's synthetic streams (``--data zipf``: the 2-gram
+Zipf language; ``uniform``: hash tokens), deterministic in (seed, step);
+weights and batches come from seed 0.  On a grid every rank draws the whole
+global batch (``--batch`` rows) and keeps its data rank's rows
+(:func:`data_rows`); ``--seq-migrate`` first rebalances whole sequences
+across the data ranks (``core/commplan.plan_sequence_migration`` on each
+sequence's count of distinct tokens, as the reference), which acts only with
+more than one data rank.  The first ``WARMUP`` steps (which also build the
 kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
 No checkpoint, relayout or fault-tolerance loop yet (ROADMAP queue 1 item 6).
@@ -39,15 +45,17 @@ import statistics
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import calibrate
+from repro_torch.core import calibrate, commplan, dcomm
 from repro_torch.core import traffic as traffic_lib
-from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, iterate
+from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, to_device
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
@@ -76,6 +84,11 @@ def parse_args(argv=None):
     ap.add_argument("--data", default="zipf", choices=["zipf", "uniform"])
     ap.add_argument("--capacity-factor", type=float, default=2.0)
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--seq-migrate", action="store_true",
+                    help="sequence migration: rebalance whole sequences "
+                         "across data ranks per batch (LPT over each "
+                         "sequence's count of distinct tokens), with the "
+                         "rows and bytes moved counted")
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
     ap.add_argument("--moe-stream", type=int, default=0,
@@ -107,11 +120,13 @@ def _is_rank0() -> bool:
         dist.get_rank() == 0)
 
 
-def setup(args, device="cuda", ep_group=None) -> Setup:
+def setup(args, device="cuda", ep_group=None,
+          mesh: HostMesh | None = None) -> Setup:
     """The model, its random bf16 parameters (this rank's lane of the expert
-    weights over ``ep_group``), the data source and the optimizer's config
-    of a train run, all from seed 0: every rank of a group draws the same
-    replicated leaves and reads the same batches."""
+    weights over ``ep_group``, or over its EP group of ``mesh``), the data
+    source of the global batch and the optimizer's config of a train run,
+    all from seed 0: every rank draws the same replicated leaves and reads
+    the same global batches."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -126,8 +141,9 @@ def setup(args, device="cuda", ep_group=None) -> Setup:
                   f"wire {calibration.wire_bw / 1e9:.1f} GB/s, "
                   f"overhead {calibration.overhead_s * 1e6:.1f} us",
                   flush=True)
-    ep = 1 if ep_group is None else dist.get_world_size(ep_group)
-    ctx = lm.make_context(cfg, device, ep_group=ep_group, engine=args.engine,
+    ep = dcomm.group_size(ep_group if mesh is None else mesh.ep_group)
+    ctx = lm.make_context(cfg, device, ep_group=ep_group, mesh=mesh,
+                          engine=args.engine,
                           capacity_factor=args.capacity_factor,
                           node_size=max(1, ep // 2), dedup=args.dedup,
                           pipe_slices=args.pipe_slices,
@@ -160,25 +176,68 @@ def init_traffic(cfg: ArchConfig, ctx: lm.ModelContext, accum: int):
                                           device=ctx.device)
 
 
-def run(args, device="cuda", ep_group=None) -> dict:
-    """Train ``--steps`` steps, over ``ep_group`` when given (an initialised
-    process group, every rank calling), the traffic state threaded through
-    every one (warm-up included); returns the loss of every step, the
-    median ms per timed step, tokens per second (of the whole batch), on the
-    card this rank's peak device memory (GiB, params and optimizer state
-    included), and the final traffic state (None without one)."""
+def data_rows(b: int, dp: int, d: int, accum: int = 1) -> np.ndarray:
+    """The rows of a global batch of ``b`` that data rank ``d`` of ``dp``
+    holds: ``[d * b / dp, (d + 1) * b / dp)``; under ``accum`` serial
+    micro-batches its share of each micro-batch in turn (micro-batch j is
+    the global rows ``[j * b / accum, (j + 1) * b / accum)``, as the
+    reference splits its global batch), so that its j-th local micro-batch
+    is its share of the reference's j-th."""
+    if b % (dp * accum):
+        raise ValueError(f"a batch of {b} does not split over {dp} data "
+                         f"ranks x {accum} micro-batches")
+    m, k = b // accum, b // (accum * dp)
+    return np.concatenate([np.arange(j * m + d * k, j * m + (d + 1) * k)
+                           for j in range(accum)])
+
+
+def shard_batch(host: dict, dp: int, d: int, accum: int = 1,
+                seq_migrate: bool = False) -> tuple[dict, dict]:
+    """Data rank ``d``'s rows (:func:`data_rows`) of the global host batch
+    (numpy arrays, one row a sequence), and the migration's stats ({"rows_moved", "bytes_moved"}): with
+    ``seq_migrate`` and more than one data rank the rows are first permuted
+    by ``commplan.plan_sequence_migration`` (the reference's train.py:381-400:
+    each sequence's load is its count of distinct tokens)."""
+    moved = {"rows_moved": 0, "bytes_moved": 0}
+    if seq_migrate and dp > 1:
+        loads = np.array([np.unique(row).size for row in host["tokens"]],
+                         np.float64)
+        row_bytes = sum(v[0].nbytes for v in host.values())
+        perm, stats = commplan.plan_sequence_migration(loads, dp,
+                                                       row_bytes=row_bytes)
+        host = {k: v[perm] for k, v in host.items()}
+        moved = {k: stats[k] for k in moved}
+    rows = data_rows(len(host["tokens"]), dp, d, accum)
+    return {k: v[rows] for k, v in host.items()}, moved
+
+
+def run(args, device="cuda", ep_group=None,
+        mesh: HostMesh | None = None) -> dict:
+    """Train ``--steps`` steps, over ``ep_group`` or ``mesh`` when given (an
+    initialised process group, or the grid of ``launch.mesh``, every rank
+    calling), the traffic state threaded through every one (warm-up
+    included); returns the loss of every step (the global batch's), the
+    median ms per timed step, tokens per second (of the global batch), on
+    the card this rank's peak device memory (GiB, params and optimizer
+    state included), this rank's AdamW state (GiB), the sequences and bytes
+    ``--seq-migrate`` moved, and the final traffic state (None without
+    one)."""
     on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats(device)
-    cfg, ctx, params, source, opt_cfg = setup(args, device, ep_group)
-    train_step = steps.make_train_step(zoo.build(cfg, ctx), opt_cfg,
-                                       args.accum)
+    cfg, ctx, params, source, opt_cfg = setup(args, device, ep_group, mesh)
+    model = zoo.build(cfg, ctx)
+    train_step = steps.make_train_step(model, opt_cfg, args.accum)
     traffic = init_traffic(cfg, ctx, args.accum)
-    opt_state = adamw.init(params)
+    opt_state = steps.init_state(model, params)
+    dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
     losses, step_s = [], []
-    batches = iterate(source, ctx.device)
-    for _ in range(args.steps):
-        batch = next(batches)
+    moved = {"rows_moved": 0, "bytes_moved": 0}
+    for i in range(args.steps):
+        host, m = shard_batch(source.batch_at(i), dp, d, args.accum,
+                              args.seq_migrate)
+        moved = {k: moved[k] + m[k] for k in moved}
+        batch = to_device(host, ctx.device)
         if on_card:
             torch.cuda.synchronize(ctx.device)
         t0 = time.perf_counter()
@@ -190,24 +249,31 @@ def run(args, device="cuda", ep_group=None) -> dict:
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
     timed = statistics.median(step_s[WARMUP:])
+    if args.seq_migrate and _is_rank0():
+        print(f"[seqmig] {moved['rows_moved']} sequences moved "
+              f"({moved['bytes_moved'] / 1e6:.2f} MB) in {args.steps} steps",
+              flush=True)
     return {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
             "ms_per_step": timed * 1e3,
             "tokens_per_s": args.batch * args.seq / timed,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
                              if on_card else None),
-            "cfg": cfg, "traffic": traffic}
+            "opt_state_gib": adamw.state_bytes(opt_state) / 2**30,
+            "seq_migrate": moved, "cfg": cfg, "traffic": traffic}
 
 
 def main(argv=None, device="cuda"):
-    """The command line.  Under ``torchrun`` (``WORLD_SIZE`` > 1) every
-    process is one rank of the EP group, the whole world: NCCL on
+    """The command line.  Under ``torchrun`` (``WORLD_SIZE`` > 1) the world
+    is the reference's host mesh (``launch.mesh.make_host_mesh``: (1, 2) of
+    two ranks, (2, 4) of eight): NCCL, one rank per card on
     ``cuda:LOCAL_RANK``, or gloo when ``device`` is the CPU.  Only rank 0
-    prints; the peak memory is printed for every rank."""
+    prints; the peak memory and the AdamW state are printed for every
+    rank."""
     args = parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         out = run(args, device)
-        return _report(out, [out["peak_mem_gib"]])
+        return _report(out, [(out["peak_mem_gib"], out["opt_state_gib"])])
     on_card = torch.device(device).type == "cuda"
     if on_card:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
@@ -215,20 +281,27 @@ def main(argv=None, device="cuda"):
     dist.init_process_group("nccl" if on_card else "gloo",
                             rank=int(os.environ["RANK"]), world_size=world)
     try:
-        out = run(args, device, ep_group=dist.group.WORLD)
-        peaks = [None] * world
-        dist.all_gather_object(peaks, out["peak_mem_gib"])
-        return _report(out, peaks) if _is_rank0() else out
+        mesh = make_host_mesh()
+        if _is_rank0():
+            print(f"mesh (data, model) = ({mesh.data}, {mesh.model})")
+        out = run(args, device, mesh=mesh)
+        mem = [None] * world
+        dist.all_gather_object(mem, (out["peak_mem_gib"],
+                                     out["opt_state_gib"]))
+        return _report(out, mem) if _is_rank0() else out
     finally:
         dist.destroy_process_group()
 
 
-def _report(out: dict, peaks: list):
+def _report(out: dict, mem: list):
+    """Print the losses, the speed, and each rank's (peak memory, AdamW
+    state) of ``mem``."""
     print("loss per step:", " ".join(f"{x:.4f}" for x in out["losses"]))
     print(f"{out['ms_per_step']:.1f} ms/step  {out['tokens_per_s']:.0f} "
           f"tokens/s  peak memory per rank "
-          + " ".join("n/a" if p is None else f"{p:.2f}" for p in peaks)
-          + " GiB")
+          + " ".join("n/a" if p is None else f"{p:.2f}" for p, _ in mem)
+          + " GiB  optimizer state per rank "
+          + " ".join(f"{s:.3f}" for _, s in mem) + " GiB")
     return out
 
 

@@ -49,17 +49,18 @@ def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
               dcfg: DcommConfig, top_k: int, norm_topk: bool = True,
               group=None, traffic: traffic_lib.TrafficState | None = None,
               traffic_decay: float = 0.99,
-              traffic_mask: torch.Tensor | None = None):
+              traffic_mask: torch.Tensor | None = None, stats_group=None):
     """One MoE layer through the FUSCO shuffle.  x: (B, S, d), this rank's
     token shard; ``moe_params``: router (d, E) and lane-major w1/w3/w2.
 
     ``traffic`` threads this layer's traffic statistics through the layer
     (state in, new state out): the routing matrix is folded into the EMA
-    over the EP group, and with ``fused_hier`` and ``use_balancer``
-    Algorithm 1 takes the EMA lane-send loads in place of the static
-    grouping (``repro/layers/moe.py:90-98``).  ``traffic_mask``: (B, S)
-    bool, this rank's stripe like ``x``; masked positions are routed but
-    not counted.  Returns ``(y, new_traffic)`` when ``traffic`` is given,
+    over ``stats_group`` (None: the EP group; a (data, model) grid's
+    whole group, as the reference psums over both axes), and with
+    ``fused_hier`` and ``use_balancer`` Algorithm 1 takes the EMA lane-send
+    loads in place of the static grouping (``repro/layers/moe.py:90-98``).
+    ``traffic_mask``: (B, S) bool, this rank's stripe like ``x``; masked
+    positions are routed but not counted.  Returns ``(y, new_traffic)`` when ``traffic`` is given,
     ``y`` otherwise."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
@@ -69,7 +70,8 @@ def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
     if traffic is not None:
         traffic = traffic_lib.observe(
             traffic, A, placement, _lane_index(dcfg, group),
-            decay=traffic_decay, group=group,
+            decay=traffic_decay,
+            group=group if stats_group is None else stats_group,
             valid=None if traffic_mask is None else traffic_mask.reshape(b * s))
         if dcfg.engine == "fused_hier" and dcfg.use_balancer:
             assignment = balancer_lib.algorithm1_groups(
@@ -91,7 +93,8 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      traffic: traffic_lib.TrafficState | None = None,
                      traffic_decay: float = 0.99,
                      traffic_mask: torch.Tensor | None = None,
-                     return_kv: bool = False, kv_out=None, group=None):
+                     return_kv: bool = False, kv_out=None, group=None,
+                     stats_group=None):
     """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
     by ``fusco.tx_layer_stream``: one streamed schedule when ``stream`` and
     the engine is ``fused_pipe``, else per-layer barriers.  ``x``: (B, S/ep,
@@ -100,8 +103,9 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
     (N, d).  ``traffic``: the block's layer-stacked (N, ...)
     ``TrafficState``, each layer's routing folded into its slice;
-    ``traffic_mask`` (B, S/ep) as in :func:`moe_block`.  The expert leaves
-    hold this rank's lane alone (N, 1, E_local, ...) or every lane.
+    ``traffic_mask`` (B, S/ep) and ``stats_group`` as in
+    :func:`moe_block`.  The expert leaves hold this rank's lane alone (N,
+    1, E_local, ...) or every lane.
     Returns ``y``, then the new traffic when given, then with ``return_kv``
     the per-layer gathered (k, v) stacks (N, B, S, n_kv, hd), written into
     ``kv_out`` when given."""
@@ -115,8 +119,9 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
         b, s = x.shape[:2]
         valid = None if traffic_mask is None else traffic_mask.reshape(b * s)
         my_lane = _lane_index(dcfg, group)
+        counted = group if stats_group is None else stats_group
         observe = lambda st, A: traffic_lib.observe(
-            st, A, placement, my_lane, decay=traffic_decay, group=group,
+            st, A, placement, my_lane, decay=traffic_decay, group=counted,
             valid=valid)
     # this lane's experts; from a leaf of one lane a view whose backward is
     # the gradient itself (indexing would zero-fill a stack-sized gradient)

@@ -49,10 +49,13 @@ class ModelContext:
     # EMA decay of the online traffic statistics (when a TrafficState is
     # threaded through the prefill)
     traffic_decay: float = 0.99
+    # the launch.mesh.HostMesh of a (data, model) training grid whose EP
+    # group is ``ep_group``'s (None: no data group)
+    mesh: Any = None
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
-                 ep_group: dist.ProcessGroup | None = None,
+                 ep_group: dist.ProcessGroup | None = None, mesh=None,
                  engine: str = "fused_flat", capacity_factor: float = 2.0,
                  use_balancer: bool = True, node_size: int | None = None,
                  multi_pod: bool = False, dedup: bool = False,
@@ -61,13 +64,17 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  calibration=None,
                  traffic_decay: float = 0.99) -> ModelContext:
     """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
-    ``ep_group`` (None: one lane).  ``node_size`` lanes make a node
+    ``ep_group`` (None: one lane), or that of this rank on ``mesh`` (a
+    ``launch.mesh.HostMesh``: the rank trains on its data group's shard of
+    the batch, and its EP domain is one of the grid's).  ``node_size``
+    lanes make a node
     (default: a quarter of the EP group, as the reference's); with
     ``multi_pod`` the EP axis is (pod, model), each pod one node of
     ``node_size`` lanes (required then).  Over more than one lane it builds
     what the engine needs on every rank, in the same order (collective):
     the node groups of ``fused_hier``, the pod and model groups of a
-    (pod, model) axis (``dcomm.ep_groups``).  ``use_balancer`` and
+    (pod, model) axis (``dcomm.ep_groups``, those of every EP domain of
+    ``mesh``).  ``use_balancer`` and
     ``dedup`` go to the config as in the reference.  ``moe_stream`` groups
     the moe_tx layers into stream blocks; ``pipe_slices`` fixes fused_pipe's
     slice count (0: pipesim's); ``calibration`` (a
@@ -79,6 +86,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
             "ROADMAP queue 1 items 3, 5 and 8")
+    if mesh is not None:
+        if ep_group is not None:
+            raise ValueError("pass ep_group or mesh, not both")
+        ep_group = mesh.ep_group
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
@@ -96,9 +107,23 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     if calibration is not None:
         dcfg = calibrate.apply(calibration, dcfg)
     if ep > 1 and (multi_pod or (engine == "fused_hier" and ns < ep)):
-        ep_group = dcomm.ep_groups(ep_group, ns, ep // ns if multi_pod else 1)
+        ep_group = dcomm.ep_groups(
+            ep_group, ns, ep // ns if multi_pod else 1,
+            domains=None if mesh is None else mesh.ep_domains())
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
-                        moe_stream, traffic_decay)
+                        moe_stream, traffic_decay, mesh)
+
+
+def data_group(ctx: ModelContext) -> dist.ProcessGroup | None:
+    """The data group of ``ctx``'s grid (None: one data rank)."""
+    return None if ctx.mesh is None else ctx.mesh.data_group
+
+
+def stats_group(ctx: ModelContext):
+    """The group the traffic counts sum over: the whole grid with more than
+    one data rank (the reference psums over ("data", "model")), else the
+    EP group."""
+    return ctx.ep_group if data_group(ctx) is None else ctx.mesh.grid
 
 
 # the leaves the reference shards over its EP axis ("model",
@@ -174,6 +199,18 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
         "final_norm": ones((d,)),
         "lm_head": init((d, cfg.vocab)),
     }
+
+
+def param_counts(cfg: ArchConfig) -> tuple[int, int]:
+    """(replicated, expert) parameter counts of ``cfg``'s whole tree
+    (:func:`init_params`' leaves; the expert leaves are :func:`lane_sharded`),
+    reckoned from the config."""
+    d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + (
+        2 * hd if cfg.qk_norm else 0)
+    layer = 2 * d + attn + d * cfg.moe.n_experts
+    return (L * layer + 2 * cfg.vocab * d + d,
+            L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert)
 
 
 def lane_cut(path: str, t, ep: int, lanes: range):
@@ -264,7 +301,8 @@ def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext,
                   norm_topk=cfg.moe.norm_topk, group=ctx.ep_group,
                   traffic=traffic, traffic_decay=ctx.traffic_decay,
                   traffic_mask=None if traffic_mask is None
-                  else seq_stripe(traffic_mask, ctx.ep_group))
+                  else seq_stripe(traffic_mask, ctx.ep_group),
+                  stats_group=stats_group(ctx))
     if traffic is None:
         return all_gather_seq(y, ctx.ep_group)
     return all_gather_seq(y[0], ctx.ep_group), y[1]
@@ -316,8 +354,10 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     on one card the activations fit beside the parameters and AdamW's state,
     so the layers keep theirs.  The reference also shards the expert weights
     over its DP axis when a lane's expert bytes exceed 4 GB
-    (``fsdp_experts``, lm.py:144-147); with one DP rank that is a no-op, and
-    the port has no DP group yet."""
+    (``fsdp_experts``, lm.py:144-147); over a data group the port keeps
+    every expert weight of its lane on each data rank and shards only their
+    AdamW state (ZeRO-1, ``optim/adamw.py``); FSDP of the experts is not
+    ported (ROADMAP queue 1 item 8)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs]
     if cfg.family == "moe_tx":
@@ -445,7 +485,7 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,
             return_kv=return_kv,
             kv_out=None if kv is None else tuple(t[b0:b0 + blk] for t in kv),
-            group=ctx.ep_group)
+            group=ctx.ep_group, stats_group=stats_group(ctx))
         if not isinstance(out, tuple):
             out = (out,)
         h = out[0]

@@ -1,12 +1,23 @@
 """AdamW with global-norm clipping and a cosine schedule with warm-up, on an
-f32 master (port of ``repro/optim/adamw.py``; ZeRO-1 state specs wait for
-the DP group).
+f32 master, and ZeRO-1 state sharding over a data group (port of
+``repro/optim/adamw.py``).
 
 Over an EP group each rank holds its lane of the expert leaves, and their
 state (mu, nu, master) with them; the other leaves, and their state, are the
 same on every rank.  The clip norm is the whole tree's, as the reference
 clips: the lane-sharded leaves' sum of squares is summed over the group, the
 replicated leaves' is counted once (:func:`global_norm`).
+
+ZeRO-1 over a data group of DP ranks (the reference's ``zero1_specs``): each
+data rank holds 1/DP of a leaf's mu, nu and master, cut on the leaf's first
+dim that is not sharded (the lane dim of a lane-sharded leaf is), divides by
+DP and is at least DP (:func:`zero_dim`); a leaf with no such dim keeps its
+whole state on every data rank.  The gradients reaching :func:`update` are
+whole and summed over the data group, so the clip norm spans the EP group
+only; each rank updates its slice and the new slices are all-gathered over
+the data group, so every data rank again holds whole parameters.  (An
+all-reduce and an all-gather, not a reduce-scatter: ZeRO-1 shards the state
+alone, and gloo runs no reduce-scatter.)
 
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
@@ -28,6 +39,8 @@ import torch
 import torch.distributed as dist
 
 SLICE = 1 << 26          # elements per slice of a leaf in update/global_norm
+LANE_DIM = 1             # the dim a ``sharded`` leaf is split on over the EP
+                         # group: the lane axis of lm's (L, lanes, ...) experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +91,51 @@ def unflatten(like, flat):
     return tree_map(lambda _: next(it), like)
 
 
-def init(params) -> AdamWState:
+def zero_dim(shape, dp: int, sharded: bool = False) -> int | None:
+    """ZeRO-1's dim of a leaf of ``shape`` over ``dp`` data ranks: its first
+    dim that is not sharded (``sharded``: dim ``LANE_DIM`` is), is divisible
+    by ``dp`` and at least ``dp``; None with one data rank or no such dim
+    (the reference's ``zero1_specs``)."""
+    if dp <= 1:
+        return None
+    return next((i for i, n in enumerate(shape)
+                 if not (sharded and i == LANE_DIM) and n % dp == 0
+                 and n >= dp), None)
+
+
+def _data_rank(data_group) -> tuple[int, int]:
+    """(DP, this rank's index) of ``data_group`` (None: one data rank)."""
+    if data_group is None:
+        return 1, 0
+    return dist.get_world_size(data_group), dist.get_rank(data_group)
+
+
+def _own(t: torch.Tensor, dim: int | None, dp: int, d: int) -> torch.Tensor:
+    """Data rank ``d``'s slice of ``t`` on ``dim`` (a view; ``t`` itself
+    when ``dim`` is None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // dp
+    return t.narrow(dim, d * n, n)
+
+
+def init(params, data_group: dist.ProcessGroup | None = None,
+         sharded=None) -> AdamWState:
+    """Zero mu and nu and the f32 master of ``params``; over a
+    ``data_group`` of more than one rank this rank's ZeRO-1 slice of each
+    (:func:`zero_dim`; ``sharded``, a predicate on a leaf's path, names the
+    lane-sharded leaves)."""
+    dp, d = _data_rank(data_group)
+
+    def own(path, p):
+        dim = zero_dim(p.shape, dp, bool(sharded and sharded(path)))
+        return _own(p.detach(), dim, dp, d)
+
+    mine = unflatten(params, [own(path, p) for path, p in
+                              zip(paths(params), leaves(params))])
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    master = tree_map(
-        lambda p: p.detach().to(torch.float32, copy=True), params)
-    return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params),
-                      master)
+    master = tree_map(lambda p: p.to(torch.float32, copy=True), mine)
+    return AdamWState(0, tree_map(zeros, mine), tree_map(zeros, mine), master)
 
 
 def schedule(cfg: AdamWConfig, step: int) -> float:
@@ -134,29 +186,54 @@ def global_norm(tree, group: dist.ProcessGroup | None = None,
     return (part if rest is None else part + rest).sqrt()
 
 
+def _gather(p: torch.Tensor, own: torch.Tensor, dim: int, group) -> None:
+    """Write every data rank's slice ``own`` of ``p`` on ``dim`` into ``p``
+    (one ``all_gather_into_tensor`` over ``group``, whose output is the
+    ranks' slices concatenated on dim 0)."""
+    if dim == 0:
+        dist.all_gather_into_tensor(p, own, group=group)
+        return
+    src = own.movedim(dim, 0).contiguous()
+    buf = src.new_empty((dist.get_world_size(group) * src.shape[0],
+                         *src.shape[1:]))
+    dist.all_gather_into_tensor(buf, src, group=group)
+    p.movedim(dim, 0).copy_(buf)
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
-           group: dist.ProcessGroup | None = None, sharded=None):
+           group: dist.ProcessGroup | None = None, sharded=None,
+           data_group: dist.ProcessGroup | None = None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
     norm (over ``group``, with ``sharded`` naming the leaves sharded over it:
     :func:`global_norm`), update mu, nu and the f32 master, and copy the
-    master into the parameters in their own dtype.  Every leaf is written in
-    place (params, mu, nu, master).  Returns (params, new state, metrics)."""
+    master into the parameters in their own dtype.  Over a ``data_group``
+    of more than one rank the gradients are whole and the same on every
+    data rank; the state is this rank's ZeRO-1 slice (:func:`init`), and
+    the updated slices are all-gathered over the data group into the
+    parameters.  Every leaf is written in place (params, mu, nu, master).
+    Returns (params, new state, metrics)."""
     gnorm = global_norm(grads, group, sharded)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
-    for g, m, v, w, p in zip(leaves(grads), leaves(state.mu),
-                             leaves(state.nu), leaves(state.master),
-                             leaves(params)):
-        if p.shape != w.shape or g.shape != w.shape:
-            raise ValueError(f"update: leaf shapes {tuple(g.shape)}, "
-                             f"{tuple(p.shape)}, {tuple(w.shape)} differ")
-        pv = p.detach().view(-1)
+    dp, d = _data_rank(data_group)
+    for path, g, m, v, w, p in zip(paths(params), leaves(grads),
+                                   leaves(state.mu), leaves(state.nu),
+                                   leaves(state.master), leaves(params)):
+        p = p.detach()
+        dim = zero_dim(p.shape, dp, bool(sharded and sharded(path)))
+        g = _own(g, dim, dp, d)
+        own = p if dim is None else p.new_empty(g.shape)
+        if g.shape != w.shape or own.shape != w.shape:
+            raise ValueError(f"update: leaf {path} shapes {tuple(g.shape)}, "
+                             f"{tuple(own.shape)}, {tuple(w.shape)} differ")
+        pv = own.view(-1)
         for i, (gs, ms, vs, ws) in enumerate(zip(
-                _slices(g), _slices(m), _slices(v), _slices(w))):
+                _slices(g.contiguous()), _slices(m), _slices(v),
+                _slices(w))):
             gs = gs.float() * scale
             ms.mul_(cfg.b1).add_(gs, alpha=1 - cfg.b1)
             vs.mul_(cfg.b2).addcmul_(gs, gs, value=1 - cfg.b2)
@@ -167,5 +244,14 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
             ws.sub_(upd, alpha=lr)
             del upd
             pv[i * SLICE:i * SLICE + ws.numel()].copy_(ws)
+        if dim is not None:
+            _gather(p, own, dim, data_group)
     return params, AdamWState(step, state.mu, state.nu, state.master), {
         "grad_norm": gnorm, "lr": lr}
+
+
+def state_bytes(state: AdamWState) -> int:
+    """The bytes of ``state``'s mu, nu and master on this rank."""
+    return sum(t.numel() * t.element_size()
+               for tree in (state.mu, state.nu, state.master)
+               for t in leaves(tree))

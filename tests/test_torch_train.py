@@ -211,8 +211,7 @@ def test_data_sources_are_copies_of_the_reference(name):
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
-    it = pipeline.iterate(mine, "cpu", start_step=7)
-    batch = next(it)
+    batch = pipeline.to_device(mine.batch_at(7), "cpu")
     assert batch["tokens"].dtype == torch.int64
     np.testing.assert_array_equal(batch["labels"].numpy(),
                                   ref.batch_at(7)["labels"])

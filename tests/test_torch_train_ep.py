@@ -208,7 +208,9 @@ def test_reckoned_state_counts_the_model_s_parameters():
     """The per-rank state reckoning (``torch_ep_train.state_gib_per_rank``,
     which ``PERF.md`` quotes for the full model) counts, for the reduced
     model, the replicated and expert parameters ``init_params`` builds, and
-    its bytes at EP 4 are those of ``shard_params``' rank plus the bucket."""
+    its bytes at EP 4 are those of ``shard_params``' rank plus the bucket;
+    at EP 4 and DP 2 its mu, nu and master are the rank's ZeRO-1 shares
+    (``adamw.zero_dim``)."""
     cfg = get_arch(ARCH).reduced()
     tree = lm.init_params(cfg, lm.make_context(cfg, "cpu"),
                           torch.Generator().manual_seed(0))
@@ -216,12 +218,22 @@ def test_reckoned_state_counts_the_model_s_parameters():
               if not lm.lane_sharded(p))
     exp = sum(t.numel() for p, t in zip(adamw.paths(tree), adamw.leaves(tree))
               if lm.lane_sharded(p))
-    mem = h.state_gib_per_rank(cfg=cfg, eps=(4,))
+    mem = h.state_gib_per_rank(cfg=cfg, eps=(4,), dps=(1, 2))
     assert (mem["replicated_params"], mem["expert_params"]) == (rep, exp)
     lane = lm.lane_cut("layers/moe/w1", tree["layers"]["moe"]["w1"], 4,
                        range(1, 2))
     held = rep + 3 * lane.numel()
     assert mem["gib_per_rank"][4] * 2**30 == 16 * held + 2 * rep
+    # ZeRO-1 over two data ranks: every leaf of the rank's tree has a ZeRO
+    # dim (adamw.zero_dim), so mu, nu and master hold half of it
+    shares = sum(
+        t.numel() // (1 if adamw.zero_dim(t.shape, 2, lm.lane_sharded(p))
+                      is None else 2)
+        for p, t in zip(adamw.paths(tree), adamw.leaves(tree))
+        for t in [lm.lane_cut(p, t, 4, range(1, 2))])
+    assert shares * 2 == held
+    assert mem["gib_per_rank_dp"][4, 2] * 2**30 == (
+        12 * shares + 4 * held + 2 * rep)
 
 
 def _torchrun_rank(rank, world, port, out_dir):

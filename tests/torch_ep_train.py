@@ -1,16 +1,23 @@
-"""Harness of the EP-group training tests (``test_torch_train_ep.py``: the
-moe family, ``test_torch_train_ep_tx.py``: moe_tx): one train step of the
-port over four gloo ranks against the reference's under ``shard_map``.
+"""Harness of the grid training tests (``test_torch_train_ep.py``: the moe
+family, ``test_torch_train_ep_tx.py``: moe_tx, both over an EP group of
+four; ``test_torch_train_dp.py``: both over a (2, 2) (data, model) grid):
+one train step of the port over four gloo ranks against the reference's
+under ``shard_map``.
 
-:func:`run` saves seeded numpy parameters (the reference's tree, expert
-leaves lane-major over EP = 4) and a batch (labels with a few -1), then at
-once runs the reference in one subprocess on four forced host devices
-(``jax.value_and_grad(lm.lm_loss)`` and the jitted ``make_train_step`` of
-each case on a (1, 4) mesh, traffic threaded) and the port's four ranks
-(``convert.params_from_jax(..., lane=r)``; ``steps.value_and_grad`` and
-``steps.make_train_step``).  Each rank also runs its gradients once more
-with the replicated leaves' reduction switched off, and a second step.
-Everything lands in npz files that the tests compare rank by rank.
+:func:`run_grid` saves, for each arch, seeded numpy parameters (the
+reference's tree, expert leaves lane-major over the grid's EP lanes) and a
+batch (labels with a few -1), then at once runs the reference in one
+subprocess on four forced host devices (``jax.value_and_grad(lm.lm_loss)``
+and the jitted ``make_train_step`` of each case on a ``(data, model)``
+mesh, traffic threaded) and the port's four ranks on
+``launch.mesh.make_host_mesh(data, model)`` (``convert.params_from_jax(...,
+lane=r % model)``, the data rank's rows of the batch;
+``steps.value_and_grad`` and ``steps.make_train_step``).  Each rank also
+runs its gradients once more with the replicated leaves' reduction switched
+off, and a second step; over more than one data rank it also runs the
+three mutations of the data sync (:data:`MUTATIONS`).  Everything lands in
+npz files that the tests compare rank by rank.  :func:`run` is the (1, 4)
+run of one arch.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.core import traffic
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import data_rows
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
@@ -84,9 +93,26 @@ def check_state(got: dict, want: dict, what=""):
             close(got[name], want[name], f"{what} {name}")
 
 
-def lane_of(want: np.ndarray, path: str, rank: int) -> np.ndarray:
-    """A whole leaf of the reference cut to what rank ``rank`` holds."""
-    return lm.lane_cut(path, want, EP, range(rank, rank + 1))
+def lane_of(want: np.ndarray, path: str, rank: int,
+            shape=(1, EP)) -> np.ndarray:
+    """A whole leaf of the reference cut to the lane rank ``rank`` of a
+    ``shape`` = (data, model) grid holds."""
+    lane = rank % shape[1]
+    return lm.lane_cut(path, want, shape[1], range(lane, lane + 1))
+
+
+def state_of_rank(want: np.ndarray, path: str, rank: int,
+                  shape=(1, EP)) -> np.ndarray:
+    """A whole mu, nu or master leaf of the reference cut to what rank
+    ``rank`` holds: its lane, then its data rank's ZeRO-1 slice on the
+    port's ZeRO dim (``adamw.zero_dim``)."""
+    t = lane_of(want, path, rank, shape)
+    data = shape[0]
+    dim = adamw.zero_dim(t.shape, data, lm.lane_sharded(path))
+    if dim is None:
+        return t
+    n, d = t.shape[dim] // data, rank // shape[1]
+    return np.take(t, np.arange(d * n, (d + 1) * n), axis=dim)
 
 
 def batch(vocab: int, seed: int = 3) -> dict:
@@ -98,14 +124,15 @@ def batch(vocab: int, seed: int = 3) -> dict:
     return {"tokens": toks[:, :-1], "labels": labels}
 
 
-def params(arch: str, seed: int = 0) -> dict:
+def params(arch: str, seed: int = 0, ep: int = EP, node: int = NODE) -> dict:
     """Seeded numpy parameters in the reference's tree, expert leaves over
-    EP lanes: norms near 1, weights scaled by their fan-in, the embedding
-    unit normal (the port's ``init_params`` gives the keys and shapes)."""
+    ``ep`` lanes: norms near 1, weights scaled by their fan-in, the
+    embedding unit normal (the port's ``init_params`` gives the keys and
+    shapes)."""
     cfg = get_arch(arch).reduced()
     ctx = lm.make_context(cfg, "cpu")
     ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
-        ctx.placement, ep=EP, node_size=NODE))
+        ctx.placement, ep=ep, node_size=node))
     shapes = flat(lm.init_params(cfg, ctx, torch.Generator().manual_seed(0),
                                  dtype=torch.float32))
     rng = np.random.default_rng(seed)
@@ -153,29 +180,37 @@ def nest(items):
     return tree
 
 
-mesh = make_mesh((1, {ep}), ("data", "model"))
-d = np.load({data!r})
-params = jax.tree.map(jnp.asarray, nest(
-    (k[2:], d[k]) for k in d.files if k.startswith("p/")))
-batch = {{k: jnp.asarray(d[k]) for k in ("tokens", "labels")}}
-cfg = get_arch({arch!r}).reduced()
+mesh = make_mesh({shape!r}, ("data", "model"))
 out = {{}}
-for engine, stream, slices in {cases!r}:
+for arch, data, engine, stream, slices in {runs!r}:
+    d = np.load(data)
+    params = jax.tree.map(jnp.asarray, nest(
+        (k[2:], d[k]) for k in d.files if k.startswith("p/")))
+    batch = {{k: jnp.asarray(d[k]) for k in ("tokens", "labels")}}
+    cfg = get_arch(arch).reduced()
     ctx = dataclasses.replace(
         lm.make_context(cfg, mesh, multi_pod=False, engine=engine,
                         node_size={node}, moe_stream=stream,
                         pipe_slices=slices),
         compute_dtype=jnp.float32, remat=False)
-    tr = traffic.init_traffic_state(cfg.moe.n_experts, {ep},
+    tr = traffic.init_traffic_state(cfg.moe.n_experts, {shape[1]},
                                     n_layers=cfg.n_layers)
     vg = jax.value_and_grad(lambda p, b, t: lm.lm_loss(p, b, ctx, traffic=t),
                             has_aux=True)
     step = make_train_step(zoo.build(cfg, ctx), adamw.AdamWConfig(**{opt!r}))
-    both = lambda p, b, t: (vg(p, b, t), step(p, adamw.init(p), b, t))
+
+    def both(p, b, t):
+        new, opt, sm = step(p, adamw.init(p), b, t)
+        # the second step's params, over a data group only
+        two = step(new, opt, b, sm["traffic"])[0] if {two!r} else {{}}
+        return vg(p, b, t), (new, opt, sm), two
+
     with mesh:
-        ((loss, m), grads), (new, opt, sm) = jax.jit(both).lower(
+        ((loss, m), grads), (new, opt, sm), new2 = jax.jit(both).lower(
             params, batch, tr).compile({fast!r})(params, batch, tr)
     c = engine + "/" + str(slices)
+    for k, v in flat(new2).items():
+        out[c + "/p2/" + k] = np.asarray(v)
     out[c + "/loss"] = np.asarray(loss)
     out[c + "/grad_norm"] = np.asarray(sm["grad_norm"])
     out[c + "/step_loss"] = np.asarray(sm["loss"])
@@ -200,27 +235,53 @@ def _no_sync(grads, paths, group):
     return list(grads)
 
 
-def _rank_main(rank, world, init_file, data, out_dir, arch, cases, extra):
+def _grid_norm(grid):
+    """``adamw.global_norm`` with its group swapped for the whole grid: the
+    clip norm summed over the data ranks too."""
+    norm = adamw.global_norm
+    return lambda tree, group=None, sharded=None: norm(tree, grid, sharded)
+
+
+# the mutations of the data sync a grid run makes on each rank: (name, module,
+# attribute, the replacement given the mesh)
+MUTATIONS = (
+    ("permean", steps, "data_total", lambda mesh: lambda t, group: t),
+    ("nolanes", steps, "reduce_lanes", lambda mesh: _no_sync),
+    ("gridnorm", adamw, "global_norm", lambda mesh: _grid_norm(mesh.grid)),
+)
+
+
+def _save_tree(out: dict, key: str, tree) -> None:
+    for k, v in flat(tree).items():
+        out[f"{key}/{k}"] = v.detach().numpy().copy()
+
+
+def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
-        d = np.load(data)
-        tree = nest((k[2:], d[k]) for k in d.files if k.startswith("p/"))
-        bt = {k: torch.from_numpy(d[k]).long() for k in ("tokens", "labels")}
-        cfg = get_arch(arch).reduced()
-        cold = lambda: traffic.init_traffic_state(
-            cfg.moe.n_experts, world, n_layers=cfg.n_layers)
+        mesh = make_host_mesh(*shape)
         opt_cfg = adamw.AdamWConfig(**OPT)
         out = {}
-        for engine, stream, slices in cases:
+        for arch, data, engine, stream, slices in runs:
+            d = np.load(data)
+            tree = nest((k[2:], d[k]) for k in d.files if k.startswith("p/"))
+            rows = data_rows(B, mesh.data, mesh.data_index)
+            bt = {k: torch.from_numpy(d[k][rows]).long()
+                  for k in ("tokens", "labels")}
+            cfg = get_arch(arch).reduced()
+            cold = lambda: traffic.init_traffic_state(
+                cfg.moe.n_experts, mesh.model, n_layers=cfg.n_layers)
             c = f"{engine}/{slices}"
-            ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
-                                  engine=engine, node_size=NODE,
-                                  moe_stream=stream, pipe_slices=slices,
+            ctx = lm.make_context(cfg, "cpu", mesh=mesh, engine=engine,
+                                  node_size=node, moe_stream=stream,
+                                  pipe_slices=slices,
                                   compute_dtype=torch.float32)
             model = zoo.build(cfg, ctx)
-            p = convert.params_from_jax(tree, "cpu", lane=rank)
+            fresh = lambda: convert.params_from_jax(tree, "cpu",
+                                                    lane=rank % mesh.model)
+            p = fresh()
             loss, m, grads = steps.value_and_grad(model)(p, bt, cold())
             out[f"{c}/loss"] = loss.numpy()
             for k, g in zip(adamw.paths(p), grads):
@@ -235,17 +296,31 @@ def _rank_main(rank, world, init_file, data, out_dir, arch, cases, extra):
             for k, g in zip(adamw.paths(p), grads):
                 out[f"{c}/nosync/{k}"] = g.numpy().copy()
             step = steps.make_train_step(model, opt_cfg)
-            p, opt, m = step(p, adamw.init(p), bt, cold())
+            p, opt, m = step(p, steps.init_state(model, p), bt, cold())
             out[f"{c}/grad_norm"] = m["grad_norm"].numpy()
             out[f"{c}/step_loss"] = m["loss"].numpy()
             for kind, t in (("p", p), ("mu", opt.mu), ("nu", opt.nu),
                             ("master", opt.master)):
-                for k, v in flat(t).items():
-                    out[f"{c}/{kind}/{k}"] = v.detach().numpy().copy()
+                _save_tree(out, f"{c}/{kind}", t)
             _save_state(out, f"{c}/st", m["traffic"])
             p, opt, m = step(p, opt, bt, m["traffic"])
-            for k, v in flat(p).items():
-                out[f"{c}/p2/{k}"] = v.detach().numpy().copy()
+            _save_tree(out, f"{c}/p2", p)
+            for name, mod, attr, swap in (MUTATIONS if mesh.data > 1
+                                          else ()):
+                saved = getattr(mod, attr)
+                setattr(mod, attr, swap(mesh))
+                try:
+                    p = fresh()
+                    loss, _, grads = steps.value_and_grad(model)(p, bt,
+                                                                 cold())
+                    p, _, m = step(p, steps.init_state(model, p), bt, cold())
+                finally:
+                    setattr(mod, attr, saved)
+                out[f"{c}/{name}/loss"] = loss.numpy()
+                out[f"{c}/{name}/grad_norm"] = m["grad_norm"].numpy()
+                for k, g in zip(adamw.paths(p), grads):
+                    out[f"{c}/{name}/g/{k}"] = g.numpy().copy()
+                _save_tree(out, f"{c}/{name}/p", p)
         if extra is not None:
             out.update(extra(rank, world))
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
@@ -253,26 +328,44 @@ def _rank_main(rank, world, init_file, data, out_dir, arch, cases, extra):
         dist.destroy_process_group()
 
 
-def run(tmp_path, arch: str, cases, extra=None):
-    """Run the reference and the four ranks (and, on each rank, ``extra``:
-    ``(rank, world) -> {name: array}``, saved beside the rest).  Returns
-    (the reference's arrays, each rank's arrays, the parameters)."""
-    cfg = get_arch(arch).reduced()
-    data = str(tmp_path / "data.npz")
-    p = params(arch)
-    np.savez(data, **batch(cfg.vocab), **{"p/" + k: v for k, v in p.items()})
-    code = JAX_CODE.format(ep=EP, node=NODE, arch=arch, cases=tuple(cases),
-                           data=data, opt=OPT, fast=FAST,
-                           out=str(tmp_path / "jax.npz"))
+def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE):
+    """Run the reference and the four ranks of a ``shape`` = (data, model)
+    grid over ``archs`` ((arch, cases) pairs, each case (engine,
+    moe_stream, pipe_slices), all named "engine/slices" apart), and on each
+    rank ``extra``: ``(rank, world) -> {name: array}``, saved beside the
+    rest.  Returns (the reference's arrays, each rank's arrays, each arch's
+    parameters)."""
+    world = shape[0] * shape[1]
+    runs, ps = [], {}
+    for arch, cases in archs:
+        cfg = get_arch(arch).reduced()
+        data = str(tmp_path / f"data-{arch}.npz")
+        ps[arch] = params(arch, ep=shape[1], node=node)
+        np.savez(data, **batch(cfg.vocab),
+                 **{"p/" + k: v for k, v in ps[arch].items()})
+        runs += [(arch, data, *case) for case in cases]
+    names = [f"{e}/{s}" for _, _, e, _, s in runs]
+    assert len(set(names)) == len(names), names
+    code = JAX_CODE.format(shape=tuple(shape), node=node, runs=tuple(runs),
+                           two=shape[0] > 1,
+                           opt=OPT, fast=FAST, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        jax_run = pool.submit(run_devices, code, EP, 600)
-        mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), data,
-                                   str(tmp_path), arch, tuple(cases), extra),
-                 nprocs=EP, join=True)
+        jax_run = pool.submit(run_devices, code, world, 600)
+        mp.spawn(_rank_main, args=(world, str(tmp_path / "rendezvous"),
+                                   str(tmp_path), tuple(runs), extra,
+                                   tuple(shape), node),
+                 nprocs=world, join=True)
         assert "JAX_OK" in jax_run.result()
     want = dict(np.load(tmp_path / "jax.npz"))
-    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(EP)]
-    return want, ranks, p
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    return want, ranks, ps
+
+
+def run(tmp_path, arch: str, cases, extra=None):
+    """:func:`run_grid` of one arch over an EP group of four, (1, 4).
+    Returns (the reference's arrays, each rank's arrays, the parameters)."""
+    want, ranks, ps = run_grid(tmp_path, ((arch, cases),), extra)
+    return want, ranks, ps[arch]
 
 
 def state_of(arrays: dict, key: str) -> dict:
@@ -281,10 +374,10 @@ def state_of(arrays: dict, key: str) -> dict:
 
 # --------------------------------------------------- the rank-by-rank checks
 
-def check_grads(want, got, case, rank):
+def check_grads(want, got, case, rank, shape=(1, EP)):
     """Loss, every gradient leaf (the replicated leaves' the reference's
-    whole gradient, the expert leaves' lane ``rank`` of it) and the
-    traffic state of one rank."""
+    whole gradient, the expert leaves' the rank's lane of it) and the
+    traffic state of one rank of a ``shape`` grid."""
     what = f"{case} rank {rank}"
     close(got[f"{case}/loss"], want[f"{case}/loss"], f"{what} loss")
     grads = {k[len(case) + 3:]: v for k, v in got.items()
@@ -293,16 +386,18 @@ def check_grads(want, got, case, rank):
            if k.startswith(f"{case}/g/")}
     assert grads.keys() == ref.keys(), what
     for k, g in grads.items():
-        w = lane_of(ref[k], k, rank)
+        w = lane_of(ref[k], k, rank, shape)
         assert g.shape == w.shape, (what, k)
         assert float(np.abs(w).max()) > 0, (what, k)
         close(g, w, f"{what} grad {k}")
     check_state(state_of(got, f"{case}/t"), state_of(want, f"{case}/t"), what)
 
 
-def check_step(want, got, case, rank):
+def check_step(want, got, case, rank, shape=(1, EP)):
     """The grad norm (clipping binding), the step's loss, the updated
-    params, mu, nu and master and the traffic state of one rank."""
+    params, the rank's ZeRO-1 slices of mu, nu and master
+    (:func:`state_of_rank`) and the traffic state of one rank of a
+    ``shape`` grid."""
     what = f"{case} rank {rank}"
     assert float(want[f"{case}/grad_norm"]) > OPT["clip_norm"], what
     close(got[f"{case}/grad_norm"], want[f"{case}/grad_norm"], f"{what} norm")
@@ -313,8 +408,10 @@ def check_step(want, got, case, rank):
         assert sorted(keys) == sorted(k for k in got if k.startswith(pre))
         for k in keys:
             path = k[len(pre):]
-            close(got[k], lane_of(want[k], path, rank),
-                  f"{what} {kind} {path}")
+            w = (lane_of(want[k], path, rank, shape) if kind == "p"
+                 else state_of_rank(want[k], path, rank, shape))
+            assert got[k].shape == w.shape, (what, kind, path)
+            close(got[k], w, f"{what} {kind} {path}")
     check_state(state_of(got, f"{case}/st"), state_of(want, f"{case}/st"),
                 what)
 
@@ -335,6 +432,29 @@ def unsynced_misses(want, got, case, rank) -> list[str]:
     return missed
 
 
+def mutation_misses(want, got, case, rank, name, shape) -> list[str]:
+    """What a run under the mutation ``name`` (:data:`MUTATIONS`) gets
+    wrong on one rank: "loss", "grad <path>", "grad_norm", "p <path>"
+    where it is not the reference's."""
+    missed = []
+
+    def miss(what, a, b):
+        try:
+            close(a, b)
+        except AssertionError:
+            missed.append(what)
+
+    pre = f"{case}/{name}/"
+    miss("loss", got[pre + "loss"], want[f"{case}/loss"])
+    miss("grad_norm", got[pre + "grad_norm"], want[f"{case}/grad_norm"])
+    for kind, ref in (("g", "g"), ("p", "p")):
+        for k in (k for k in got if k.startswith(f"{pre}{kind}/")):
+            path = k[len(pre) + 2:]
+            miss(f"{kind} {path}", got[k],
+                 lane_of(want[f"{case}/{ref}/{path}"], path, rank, shape))
+    return missed
+
+
 def replicated_bits_differ(ranks, case) -> list[str]:
     """The replicated leaves whose bits after two steps are not rank 0's on
     every rank."""
@@ -347,33 +467,42 @@ def replicated_bits_differ(ranks, case) -> list[str]:
 # ------------------------------------------------ the per-rank state, reckoned
 
 def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
-                       eps=(1, 2, 4, 8, 16, 32), cfg=None) -> dict:
+                       eps=(1, 2, 4, 8, 16, 32), cfg=None,
+                       dps=(1, 2, 4)) -> dict:
     """Per-rank training state of ``arch`` (or ``cfg``) over an EP group of
-    each size in ``eps``, reckoned from the parameter counts, not measured:
-    bf16 params and grads, f32 master, mu and nu (16 bytes a parameter) of
-    the replicated leaves on every rank and of 1/EP of the expert leaves,
-    plus the replicated gradients' all-reduce bucket (2 bytes a replicated
-    parameter) while it is alive.  Activations are not counted.
+    each size in ``eps`` and a data group of each size in ``dps``, reckoned
+    from the parameter counts (``lm.param_counts``), not measured: bf16
+    params and grads (4 bytes a parameter) of the replicated leaves on
+    every rank and of 1/EP of the expert leaves, f32 master, mu and nu (12
+    bytes) of the same divided by DP (ZeRO-1), plus the replicated
+    gradients' all-reduce bucket (2 bytes a replicated parameter) while it
+    is alive.  Activations are not counted.  ``gib_per_rank`` is DP 1 by
+    EP, ``gib_per_rank_dp`` every (EP, DP).
 
         PYTHONPATH=src python tests/torch_ep_train.py
 
     prints it for the full qwen3-moe-30b-a3b."""
     cfg = cfg or get_arch(arch)
-    d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
-    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + (
-        2 * hd if cfg.qk_norm else 0)
-    layer = 2 * d + attn + d * cfg.moe.n_experts
-    replicated = L * layer + 2 * cfg.vocab * d + d
-    experts = L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert
+    replicated, experts = lm.param_counts(cfg)
+
+    def gib(ep, dp):
+        held = replicated + experts / ep
+        return ((4 + 12 / dp) * held + 2 * replicated) / 2**30
+
     return {"replicated_params": replicated, "expert_params": experts,
-            "gib_per_rank": {ep: (16 * (replicated + experts / ep)
-                                  + 2 * replicated) / 2**30 for ep in eps}}
+            "gib_per_rank": {ep: gib(ep, 1) for ep in eps},
+            "gib_per_rank_dp": {(ep, dp): gib(ep, dp) for ep in eps
+                                for dp in dps}}
 
 
 if __name__ == "__main__":
-    import json
     mem = state_gib_per_rank()
     print(f"reckoned (not measured) per-rank training state of the full "
           f"qwen3-moe-30b-a3b (48 layers; {mem['replicated_params']} "
-          f"replicated and {mem['expert_params']} expert parameters) by EP "
-          f"size, GiB: {json.dumps(mem['gib_per_rank'])}")
+          f"replicated and {mem['expert_params']} expert parameters), GiB, "
+          f"by EP (rows) and ZeRO-1 DP (columns):")
+    table = mem["gib_per_rank_dp"]
+    dps = sorted({dp for _, dp in table})
+    print("EP \\ DP " + "".join(f"{dp:>10}" for dp in dps))
+    for ep in sorted({ep for ep, _ in table}):
+        print(f"{ep:>7} " + "".join(f"{table[ep, dp]:>10.2f}" for dp in dps))
