@@ -51,6 +51,14 @@
      16 and of 128 tokens, ``admission_rows``): the flash forward (B 1,
      hd 128) and fused_hier's gathers, scatter-adds and fused_swiglu on its
      expansion buffer;
+   - qwen3-1.7b's flash forward at group size 2 (``dense_flash_rows``: 16
+     / 8 heads of 128) at its serve prefill (8 x 512) and train (4 x 512)
+     shapes beside SDPA is_causal, and held at an odd query length, a
+     query run ending at the keys' end and a shifted stripe with and
+     without a window; moe-ffn-stream-1b's MoE kernels at its serve (T
+     4096) and train (T 2048) shapes and at the slices of its streamed
+     phases (pipesim's joint S for a block of 16 layers,
+     ``ffn_pipe_config``);
    - odd shapes of the Hopper forms, of the flash tensor-core form (the
      bf16 shapes the Hopper form refuses) and of the scatter-add and its
      backward (``odd_shape_checks``), held only.
@@ -59,7 +67,8 @@
    no wgmma, and with the producer loading nothing).
 3. Backward rows: each autograd Function's backward (gather, scatter-add,
    fused SwiGLU, flash) on the card against the same backward on the plain
-   versions, at both training shapes, with times; the gather's and the
+   versions, at the training shapes (qwen3-moe, moe-tx, moe-ffn; the
+   flash backward at qwen3-1.7b's too), with times; the gather's and the
    scatter-add's must give the same bits on two calls.
 4. Calibration (``calibrate_phase``): ``core.calibrate.calibrate()`` on the
    card, printed beside the H100 spec point the pipe constants default to,
@@ -98,7 +107,13 @@
    default) and ``--engine ragged``, each held to the gather and
    scatter-add launches its code implies (``SERVE_LAUNCHES``), and
    moe-tx-stream-1b through ``--engine fused_pipe --moe-stream 16``, the
-   streamed schedule across all 16 layers.
+   streamed schedule across all 16 layers.  Then (``NEW_SERVE``)
+   qwen3-1.7b, the dense family, all 28 layers, 8 x 512 prompt tokens (the
+   flash forward must launch 2 x 28 times and no MoE kernel at all), and
+   moe-ffn-stream-1b, the attention-free MoE chain, all 16 layers, 8 x 512,
+   through fused_flat and through ``--engine fused_pipe --moe-stream 16``
+   (the cross-layer stream at pipesim's joint S, printed; flash must not
+   launch).
    Then the continuous paths (``CONTINUOUS``, ``continuous_phase``):
    ``serving.engine.ContinuousServingEngine`` with traffic tracked over
    qwen3-moe-30b-a3b (4 layers, fused_hier, pool 8, 32 requests of 16 /
@@ -117,9 +132,14 @@
    through fused_flat and then through fused_hier, then moe-tx-stream-1b
    (all 16 layers, B 4 x S 512) through fused_flat and through
    ``--engine fused_pipe --moe-stream 16`` (``TX_TRAINS``), each with the
-   traffic state threaded through every step; read the counters and fail
-   if a kernel of the path (the five, and the scatter-add's backward)
-   never launched, a loss is not finite or the traffic state is all zero;
+   traffic state threaded through every step, then (``NEW_TRAINS``)
+   qwen3-1.7b (all 28 layers, bf16 params, f32 master) and
+   moe-ffn-stream-1b (all 16 layers) through fused_flat and streamed
+   fused_pipe, B 4 x S 512, 8 steps; read the counters and fail if a
+   kernel of the path (``family_kernels``: the five and the scatter-add's
+   backward, flash only where the family has attention, none of the MoE
+   kernels for the dense family) never launched or one off it did, a loss
+   is not finite or, for a family with MoE, the traffic state is all zero;
    print the losses, ms/step, tokens/s, peak memory and the traffic state,
    then profile one step, its forward+backward and its optimizer update
    (device busy, device ms by kind, the bf16 zero fills and adds of the
@@ -135,9 +155,12 @@
    tensor-core form), and one reduced train step in float32 on the card
    against the CPU (loss, every grad leaf, every updated param, the traffic
    state) through each engine, and of the reduced moe-tx through fused_flat
-   and streamed fused_pipe; and the continuous engine over the reduced models in f32
-   (``continuous_check``: qwen3-moe through fused_flat and fused_hier,
-   moe-tx through fused_flat; 6 requests, a pool of 4): the card's token
+   and streamed fused_pipe, of the reduced qwen3-1.7b and moe-ffn-stream
+   (``NEW_REDUCED``: serve logits and the train step, moe-ffn through
+   fused_flat and streamed fused_pipe); and the continuous engine over the
+   reduced models in f32 (``continuous_check``: qwen3-moe through
+   fused_flat and fused_hier, moe-tx, qwen3-1.7b and moe-ffn through
+   fused_flat; 6 requests, a pool of 4): the card's token
    streams must equal the CPU's and its own batch-1 waved oracle's, and
    its traffic state the CPU's within 1e-5.
    Each reduced train check runs once more over a one-rank NCCL group (the
@@ -221,6 +244,43 @@ TX_TRAINS = {"moe-tx train": TX_TRAIN[0],
                  "fused_pipe", "--moe-stream", "16"]}
 SERVE_KERNELS = ("segment_gather", "segment_scatter_add", "fused_swiglu",
                  "flash_attention")
+MOE_KERNELS = ("segment_gather", "segment_scatter_add",
+               "segment_scatter_add_bwd", "fused_swiglu", "grouped_matmul")
+# the dense family (qwen3-1.7b) and the attention-free moe_ffn stream
+# (moe-ffn-stream-1b), each at full width and all its layers: their serve
+# and train phases, the shapes they give the kernels (moe-ffn: T 8 x 512 /
+# 4 x 512, 64 experts, top-4, d 1024, f 1024; qwen3-1.7b's attention: 16 /
+# 8 heads of 128, group size 2) and the streamed moe-ffn's block
+DENSE, FFN = "qwen3-1.7b", "moe-ffn-stream"
+FFN_LAYERS = 16
+DENSE_SERVE = ["--arch", DENSE, "--requests", "8", "--prompt-len", "512",
+               "--gen", "16"]
+FFN_SERVE = ["--arch", FFN, "--engine", "fused_flat", "--requests", "8",
+             "--prompt-len", "512", "--gen", "16"]
+STREAMED = ["fused_pipe", "--moe-stream", str(FFN_LAYERS)]
+NEW_SERVE = {DENSE: DENSE_SERVE, FFN: FFN_SERVE,
+             f"{FFN} fused_pipe": FFN_SERVE[:3] + STREAMED + FFN_SERVE[4:]}
+TRAIN_FLAGS = ["--batch", "4", "--seq", "512", "--steps", "8", "--data",
+               "zipf"]
+NEW_TRAINS = {f"{DENSE} train": ["--arch", DENSE] + TRAIN_FLAGS,
+              "moe-ffn train": ["--arch", FFN] + TRAIN_FLAGS + [
+                  "--engine", "fused_flat"],
+              "moe-ffn train fused_pipe": ["--arch", FFN] + TRAIN_FLAGS + [
+                  "--engine"] + STREAMED}
+FFN_SHAPES = {FFN: dict(t=4096, d=1024, n_experts=64, top_k=4, f=1024,
+                        decode_t=8),
+              "moe-ffn train": dict(t=2048, d=1024, n_experts=64, top_k=4,
+                                    f=1024, decode_t=8)}
+DENSE_ATTN = {DENSE: dict(b=8, sq=512, sk=512, hq=16, hkv=8, hd=128),
+              f"{DENSE} train": dict(b=4, sq=512, sk=512, hq=16, hkv=8,
+                                     hd=128)}
+# the group-size-2 flash held at shapes of its own: an odd query length
+# against a longer key run, and the query stripe of EP lane 1 of 4 with and
+# without a window: (b, sq, sk, hq, hkv, hd, q0, window)
+DENSE_FLASH_ODD = ((2, 509, 509, 16, 8, 128, 0, None),
+                   (2, 77, 300, 16, 8, 128, 223, None),
+                   (4, 128, 512, 16, 8, 128, 128, None),
+                   (4, 128, 512, 16, 8, 128, 128, 192))
 # the serve phases of the other engines: (flags, kernels that must launch,
 # kernels that must not); disagg's sort and repack passes are plain torch,
 # the baseline's own cost, so its path has no gather or scatter-add kernel
@@ -288,6 +348,10 @@ REDUCED_ENGINES = ("fused_flat", "fused_pipe", "disagg", "fused_hier", "dedup",
 # the reduced moe-tx train checks: the barriers, and fused_pipe streamed
 # over one block of both layers (engine_kwargs)
 TX_REDUCED_ENGINES = ("fused_flat", "fused_pipe")
+# the reduced checks of the dense family and of moe-ffn (the barriers, and
+# fused_pipe streamed over one block of both layers)
+NEW_REDUCED = [("qwen3-1.7b", "fused_flat"), ("moe-ffn-stream", "fused_flat"),
+               ("moe-ffn-stream", "fused_pipe")]
 ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
 # the same layer narrowed for the float32 check (d 256, f 128)
 ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
@@ -312,7 +376,9 @@ ADMISSION_ATTN = dict(b=1, hq=32, hkv=4, hd=128)
 # the card-vs-CPU checks of the continuous engine: reduced models in f32
 CONTINUOUS_CHECKS = (("qwen3-moe-30b-a3b", "fused_flat"),
                      ("qwen3-moe-30b-a3b", "fused_hier"),
-                     ("moe-tx-stream", "fused_flat"))
+                     ("moe-tx-stream", "fused_flat"),
+                     ("qwen3-1.7b", "fused_flat"),
+                     ("moe-ffn-stream", "fused_flat"))
 TOL_TRAFFIC = 1e-5        # traffic state, card vs CPU, relative to max(1, |x|)
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
@@ -1008,6 +1074,18 @@ def zero_counters() -> dict:
     return wrappers
 
 
+def family_kernels(cfg, train: bool) -> tuple[tuple, tuple]:
+    """(kernels that must launch, kernels that must not) on a path of
+    ``cfg``'s family: the flash forward where it has attention, the MoE
+    kernels where it has MoE (grouped_matmul and the scatter-add's backward
+    in training only; serving launches neither)."""
+    from repro_torch.models import lm
+    attn, moe = lm.has_attention(cfg), cfg.moe is not None
+    moe_k = MOE_KERNELS if train else SERVE_KERNELS[:3]
+    return ((("flash_attention",) if attn else ()) + (moe_k if moe else ()),
+            (() if attn else ("flash_attention",)) + (() if moe else MOE_KERNELS))
+
+
 def serve_phase(argv, device="cuda", required=SERVE_KERNELS, absent=()):
     """The main path once, with every launch counter zeroed just before it
     and read just after; fails if a kernel of ``required`` never launched
@@ -1119,14 +1197,15 @@ def reduced_bf16_runs(device="cuda") -> dict:
 
 def engine_kwargs(engine: str, cfg) -> dict:
     """``lm.make_context``'s engine options of a reduced check: fused_pipe at
-    4 slices, the moe_tx layers in one streamed block; "dedup" is fused_flat
-    with the condensed wire."""
+    4 slices, the moe_tx or moe_ffn layers in one streamed block; "dedup"
+    is fused_flat with the condensed wire."""
     if engine == "dedup":
         return dict(engine="fused_flat", dedup=True)
     if engine != "fused_pipe":
         return dict(engine=engine)
     return dict(engine=engine, pipe_slices=4,
-                moe_stream=cfg.n_layers if cfg.family == "moe_tx" else 0)
+                moe_stream=(cfg.n_layers if cfg.family in ("moe_tx", "moe_ffn")
+                            else 0))
 
 
 def reduced_check(arch: str, device="cuda", engine="fused_flat") -> float:
@@ -1228,13 +1307,56 @@ def train_swiglu_row(inp, timer=time_ms) -> dict:
                       inp["counts"], timer)[0]
 
 
-def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
+def backward_rows(inp, attn, timer=time_ms, device="cuda") -> list[dict]:
     """Each autograd Function's backward on the card (``torch.autograd.grad``
     through ``kernels.ops``, the kernels inside) against the same backward
     on the plain versions (``ref.*_bwd``, the SwiGLU's on the plain grouped
     matmul; for flash, from the plain forward's output and lse), at the
-    training shapes; times of the backward alone (the graph is kept), of the
-    plain backward, and of torch's autograd through a library forward."""
+    training shapes: the MoE kernels' at ``inp`` and the flash backward at
+    ``attn`` (either None: a path without it); times of the backward alone
+    (the graph is kept), of the plain backward, and of torch's autograd
+    through a library forward."""
+    rows = [] if inp is None else _moe_backward_rows(inp, timer)
+    if attn is not None:
+        rows.append(_flash_backward_row(
+            attn, timer, device if inp is None else inp["x"].device))
+    return rows
+
+
+def _leaf(v):
+    return v.detach().clone().requires_grad_()
+
+
+def _back(out, inputs, cot):
+    """A call of the backward of ``out`` w.r.t. ``inputs`` (graph kept)."""
+    import torch
+    return lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)
+
+
+def _backward_row(name, parts, got, want, nbytes, ops_, ms, plain, library,
+                  lib_ms, kernel=None, *, timer) -> dict:
+    """One backward row: each part held to TOL_BWD of its want's largest
+    magnitude, the bound, the plain backward's time; ``kernel`` (route,
+    source, replaces) for a backward with a kernel of its own."""
+    errs = {}
+    for k, a, b in zip(parts, got, want):
+        err = max_err(a, b)
+        tol = TOL_BWD * b.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} {k}: max_abs_err {err} > {tol}")
+        errs[k] = (err, tol)
+    b_ms, b_by = bound(nbytes, ops_, BF16_PEAK)
+    out = dict(name=name, parts=errs, ms=ms,
+               plain_ms=timer(plain, reps=3, warmup=1), bound_ms=b_ms,
+               bound_by=b_by, library=library, library_ms=lib_ms)
+    if kernel is not None:
+        out.update(kernel, max_abs_err=max(e for e, _ in errs.values()))
+    return out
+
+
+def _moe_backward_rows(inp, timer) -> list[dict]:
+    """The gather's, the scatter-add's and the fused SwiGLU's backward rows
+    at ``inp``'s training shape (``backward_rows``)."""
     import torch
     from repro_torch.kernels import ops, ref
     x, idx, gates = inp["x"], inp["idx"], inp["gates"]
@@ -1246,28 +1368,8 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     dev = x.device
     g = torch.Generator(device=dev).manual_seed(2)
     randn = lambda *s: torch.randn(s, generator=g, device=dev).to(x.dtype)
-    leaf = lambda v: v.detach().clone().requires_grad_()
-
-    def back(out, inputs, cot):
-        return lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True)
-
-    def row(name, parts, got, want, nbytes, ops_, ms, plain, library, lib_ms,
-            kernel=None):
-        errs = {}
-        for k, a, b in zip(parts, got, want):
-            err = max_err(a, b)
-            tol = TOL_BWD * b.float().abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"{name} {k}: max_abs_err {err} > {tol}")
-            errs[k] = (err, tol)
-        b_ms, b_by = bound(nbytes, ops_, BF16_PEAK)
-        out = dict(name=name, parts=errs, ms=ms,
-                   plain_ms=timer(plain, reps=3, warmup=1), bound_ms=b_ms,
-                   bound_by=b_by, library=library, library_ms=lib_ms)
-        if kernel is not None:    # a backward with a kernel of its own
-            out.update(kernel, max_abs_err=max(e for e, _ in errs.values()))
-        return out
-
+    leaf, back = _leaf, _back
+    row = lambda *a, **kw: _backward_row(*a, timer=timer, **kw)
     rows = []
     live_rows = int((idx >= 0).sum())
     safe_idx = idx.clamp_min(0).long()
@@ -1340,9 +1442,19 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
         timer(back(out, leaves, dy), reps=3), plain,
         "autograd of 3 x torch.bmm + silu*mul (all rows)",
         timer(back(lib_out, lib, dy.reshape(n_e, cap, d)), reps=3)))
-    del out, lib_out, leaves, lib, xs
-    # flash: the blockwise recompute from the forward's lse
-    q, k, v, qp, kp = attention_inputs(dev, **attn)
+    return rows
+
+
+def _flash_backward_row(attn, timer, device) -> dict:
+    """The flash backward's row at the attention shape ``attn``: the
+    blockwise recompute from the forward's lse (``backward_rows``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    q, k, v, qp, kp = attention_inputs(device, **attn)
+    es = q.element_size()
+    g = torch.Generator(device=q.device).manual_seed(2)
+    randn = lambda *s: torch.randn(s, generator=g, device=q.device).to(q.dtype)
+    leaf, back = _leaf, _back
     leaves = [leaf(a) for a in (q, k, v)]
     out = ops.flash_attention(*leaves, qp, kp, True, None)
     dout = randn(*out.shape)
@@ -1358,7 +1470,7 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         lib[0], lib[1].repeat_interleave(grp, dim=1),
         lib[2].repeat_interleave(grp, dim=1), attn_mask=mask)
-    rows.append(row(
+    return _backward_row(
         "flash_attention backward", ("dq", "dk", "dv"),
         back(out, leaves, dout)(), plain(),
         (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel()) * es
@@ -1366,30 +1478,32 @@ def backward_rows(inp, attn, timer=time_ms) -> list[dict]:
         timer(back(out, leaves, dout), reps=3), plain,
         "autograd of F.scaled_dot_product_attention (bool mask, kv heads "
         "repeated)",
-        timer(back(lib_out, lib, dout.transpose(1, 2)), reps=3)))
-    return rows
+        timer(back(lib_out, lib, dout.transpose(1, 2)), reps=3), timer=timer)
 
 
 def train_rows(inp, attn, timer=time_ms) -> list[dict]:
     """The forward kernels of a train step at its shapes: the dispatch
     gather, grouped_matmul in both weight layouts, fused_swiglu's forward,
-    the flash forward and the combine."""
+    the flash forward (``attn`` None: a path without attention) and the
+    combine."""
     from repro_torch.kernels.ref import segment_gather_ref
     x, idx = inp["x"], inp["idx"]
     rows = [gather_row(x, idx, timer)[0]]
     rows += gmm_rows(inp, timer)
     rows.append(train_swiglu_row(inp, timer))
-    rows.append(flash_row(*attention_inputs(x.device, **attn), window=None,
-                          timer=timer))
+    if attn is not None:
+        rows.append(flash_row(*attention_inputs(x.device, **attn),
+                              window=None, timer=timer))
     return rows + scatter_rows(segment_gather_ref(x, idx), inp, x.shape[0],
                                timer)
 
 
-def backward_report(inp, attn, path: str, timer=time_ms) -> list[dict]:
+def backward_report(inp, attn, path: str, timer=time_ms,
+                    device="cuda") -> list[dict]:
     """``backward_rows`` at a train shape, printed; returns the kernel rows
     of the backwards with a kernel of their own (the scatter-add's)."""
     out = []
-    for r in backward_rows(inp, attn, timer):
+    for r in backward_rows(inp, attn, timer, device):
         parts = ", ".join(f"{k} {e:.4g} (tol {t:.4g})"
                           for k, (e, t) in r["parts"].items())
         print(f"backward {r['name']:<29} at the {path} shape: max_abs_err "
@@ -1512,6 +1626,46 @@ def tx_train_pipe_config():
     cap, s = tx_stream_geometry(shape["t"], shape["d"], shape["n_experts"],
                                 shape["top_k"], cfg, attn=TX_TRAIN[2])
     return dataclasses.replace(cfg, pipe_slices=s), (cap, s)
+
+
+def ffn_pipe_config(t: int):
+    """The DcommConfig of a streamed moe-ffn phase (``FFN_LAYERS`` layers a
+    block) at ``t`` tokens, its slice count frozen as
+    ``fusco.pipe_layer_stream`` freezes it (pipesim's joint knee,
+    ``plan_layer_stream``), and (capacity, S)."""
+    import dataclasses
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    cfg = engine_config("fused_pipe", 0, "spec", None)
+    sh = FFN_SHAPES[FFN]
+    cap, s = dcomm.pipe_geometry(t, sh["top_k"], sh["d"], 2,
+                                 ExpertPlacement(sh["n_experts"], 1, 1), cfg,
+                                 n_layers=FFN_LAYERS)
+    return dataclasses.replace(cfg, pipe_slices=s), (cap, s)
+
+
+def dense_flash_rows(timer=time_ms, device="cuda") -> tuple[list, list]:
+    """qwen3-1.7b's flash forward, group size 2 (each 64-row tile of
+    ``flash_fwd_wgmma`` packs 32 positions x 2 heads, and the block skipping
+    reads each row's own position), at its serve prefill and train shapes
+    (``flash_row``: timed beside SDPA), and held at ``DENSE_FLASH_ODD``: an
+    odd query length, a query run ending at the keys' end, a shifted EP
+    stripe with and without a window.  Returns the rows and one line per
+    held shape."""
+    rows = [dict(flash_row(*attention_inputs(device, **a), window=None,
+                           timer=timer), path=path)
+            for path, a in DENSE_ATTN.items()]
+    lines = []
+    for b, sq, sk, hq, hkv, hd, q0, window in DENSE_FLASH_ODD:
+        what = (f"q ({b}, {sq}, {hq}, {hd}) at {q0}.. k ({sk}, {hkv}) window "
+                f"{window}")
+        _, _, err, tol, worst, err_lse = hold_flash(
+            f"flash_attention {what}",
+            *attention_inputs(device, b, sq, sk, hq, hkv, hd, q0, seed=5),
+            window)
+        lines.append(f"{what}: max_abs_err {err:.4g}, worst row {worst:.3f} "
+                     f"of its row's tolerance, lse {err_lse:.4g}")
+    return rows, lines
 
 
 def untimed(fn, **kw) -> float:
@@ -1780,20 +1934,25 @@ def calibrate_phase(device="cuda"):
 def train_phase(argv, device="cuda"):
     """The training path once, with every launch counter zeroed just before
     it and read just after: ``launch/train.run`` at full width.  Fails if a
-    loss is not finite, a kernel of the path never launched, or the run's
-    traffic state (threaded through every step) is missing or all zero."""
+    loss is not finite, a kernel of the path never launched or one off it
+    did (``family_kernels``), or, for a family with MoE, the run's traffic
+    state (threaded through every step) is missing or all zero."""
     import math
     from repro_torch.launch import train
     wrappers = zero_counters()
     out = train.run(train.parse_args(argv), device=device)
     launches = {k: w.launches for k, w in wrappers.items()}
-    never = [k for k, n in launches.items() if n == 0]
-    if never:
-        raise AssertionError(f"train path never launched {never}: {launches}")
+    required, absent = family_kernels(out["cfg"], train=True)
+    never = [k for k in required if launches[k] == 0]
+    stray = [k for k in absent if launches[k]]
+    if never or stray:
+        raise AssertionError(f"train path never launched {never}, or "
+                             f"launched {stray} off its path: {launches}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"train losses not finite: {out['losses']}")
     tr = out["traffic"]
-    if tr is None or not any(bool(leaf.ne(0).any()) for leaf in tr):
+    if out["cfg"].moe is not None and (
+            tr is None or not any(bool(leaf.ne(0).any()) for leaf in tr)):
         raise AssertionError("the train run left no traffic statistics")
     return out, launches
 
@@ -1881,12 +2040,13 @@ def free_port() -> int:
 def reduced_train_check(device="cuda", engine="fused_flat",
                         arch="qwen3-moe-30b-a3b", group=None) -> dict:
     """One ``make_train_step`` of the reduced ``arch`` in float32 through
-    ``engine`` (``engine_kwargs``: the moe_tx layers in one streamed block)
-    from the same params, batch and cold traffic state on the card
-    (kernels: all five and the scatter-add's backward launched; disagg's
-    plain passes launch no gather or scatter-add) and on the CPU (plain
-    versions): max errors of the loss, of every grad leaf, of every
-    updated param and of the traffic state the step returns.  Params are
+    ``engine`` (``engine_kwargs``: the moe_tx or moe_ffn layers in one
+    streamed block) from the same params, batch and cold traffic state (a
+    family with MoE) on the card (kernels: those of the family's path
+    launched and no other, ``family_kernels``; disagg's plain passes launch
+    no gather or scatter-add) and on the CPU (plain versions): max errors
+    of the loss, of every grad leaf, of every updated param and of the
+    traffic state the step returns.  Params are
     held to 2 * lr + 1e-5: AdamW's first step moves each element by about
     lr * sign(g), so an element whose gradient is within float32 noise of
     zero may move the other way.  With ``group`` (an initialised process
@@ -1916,7 +2076,7 @@ def reduced_train_check(device="cuda", engine="fused_flat",
         model = zoo.build(cfg, ctx)
         params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
         batch = to_device(host, dev)
-        cold = lambda: traffic.init_traffic_state(
+        cold = lambda: None if cfg.moe is None else traffic.init_traffic_state(
             cfg.moe.n_experts, 1, n_layers=cfg.n_layers, device=dev)
         wrappers = zero_counters()
         with dcomm.collective_calls() as calls:
@@ -1926,7 +2086,7 @@ def reduced_train_check(device="cuda", engine="fused_flat",
         res[name] = (float(loss), [x.cpu() for x in grads],
                      [x.detach().cpu() for x in adamw.leaves(params)],
                      {k: w.launches for k, w in wrappers.items()},
-                     [x.cpu() for x in m["traffic"]], list(calls))
+                     [x.cpu() for x in m.get("traffic") or ()], list(calls))
     (l0, g0, p0, _, t0, _), (l1, g1, p1, launched, t1, _) = (res["cpu"],
                                                               res[device])
     rel = lambda a, b: max_err(a.float(), b.float()) / max(
@@ -1934,16 +2094,19 @@ def reduced_train_check(device="cuda", engine="fused_flat",
     err = dict(loss=abs(l0 - l1),
                grads=max(rel(a, b) for a, b in zip(g0, g1)),
                params=max(max_err(a, b) for a, b in zip(p0, p1)),
-               traffic=max(rel(a, b) for a, b in zip(t0, t1)))
+               traffic=max((rel(a, b) for a, b in zip(t0, t1)), default=0.0))
     p_tol = 2 * adamw.schedule(opt_cfg, 1) + 1e-5
     if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
             and err["params"] <= p_tol and err["traffic"] <= TOL_TRAFFIC):
         raise AssertionError(f"reduced {arch} train step {engine} card vs CPU: "
                              f"{err} (tol {TOL_TRAIN}, params {p_tol}, "
                              f"traffic {TOL_TRAFFIC})")
-    plain = DISAGG_PLAIN if engine == "disagg" else ()
-    never = [k for k, n in launched.items() if n == 0 and k not in plain]
-    stray = [k for k in plain if launched[k]]
+    required, absent = family_kernels(cfg, train=True)
+    if engine == "disagg":
+        required = tuple(k for k in required if k not in DISAGG_PLAIN)
+        absent += DISAGG_PLAIN
+    never = [k for k in required if launched[k] == 0]
+    stray = [k for k in absent if launched[k]]
     if never or stray:
         raise AssertionError(f"reduced {arch} {engine} train step on the card "
                              f"never launched {never}, or launched {stray}: "
@@ -2513,7 +2676,8 @@ def continuous_phase(label: str, spec: dict) -> tuple[dict, dict]:
 def continuous_check(arch: str, engine: str, device="cuda") -> dict:
     """The continuous engine over the reduced model in float32: 6 requests
     on bucket boundaries (16 / 32) through a pool of 4 with ``max_new``
-    4-6 (seed 0), traffic tracked, on the card (kernels) and on the CPU
+    4-6 (seed 0), traffic tracked (a family with MoE), on the card
+    (kernels) and on the CPU
     (plain versions).  Fails unless the card gives the CPU's token streams
     and the streams of its own batch-1 waved oracle, and the CPU's traffic
     state within ``TOL_TRAFFIC``.  Returns the streams' count and the
@@ -2539,14 +2703,14 @@ def continuous_check(arch: str, engine: str, device="cuda") -> dict:
 
     def run(dev):
         eng = ContinuousServingEngine(bundles[dev], max_batch=4,
-                                      track_traffic=True, **kw)
+                                      track_traffic=cfg.moe is not None, **kw)
         p = move(params, dev)
         eng.warmup(p)
         for prompt, n in reqs:
             eng.submit(prompt, max_new=n)
         eng.run(p)
         return ([q.output for q in sorted(eng.finished, key=lambda q: q.rid)],
-                [leaf.cpu() for leaf in eng.traffic], p)
+                [leaf.cpu() for leaf in eng.traffic or ()], p)
 
     card, card_tr, p = run(device)
     cpu, cpu_tr, _ = run("cpu")
@@ -2555,8 +2719,8 @@ def continuous_check(arch: str, engine: str, device="cuda") -> dict:
         eng = ServingEngine(bundles[device], max_batch=1, **kw)
         eng.submit(prompt, max_new=n)
         oracle.append(eng.run_wave(p)[0].output)
-    err = max(max_err(a, b) / max(1.0, b.float().abs().max().item())
-              for a, b in zip(card_tr, cpu_tr))
+    err = max((max_err(a, b) / max(1.0, b.float().abs().max().item())
+               for a, b in zip(card_tr, cpu_tr)), default=0.0)
     if card != cpu or card != oracle or not err <= TOL_TRAFFIC:
         raise AssertionError(f"continuous {arch} {engine} on the card: "
                              f"streams {card}, CPU {cpu}, batch-1 oracle "
@@ -2589,6 +2753,7 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     counts, then the profile phase.  Returns the launch counts and the
     times (TTFT, decode, and each profiled step's device busy share)."""
     import torch
+    from repro_torch.models import lm
     torch.cuda.reset_peak_memory_stats()
     out, launches = serve_phase(argv, required=required, absent=absent)
     cfg = out["cfg"]
@@ -2596,12 +2761,13 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     if any(launches[k] != n for k, n in implied.items()):
         raise AssertionError(f"{label}: launches {launches}, its code implies "
                              f"{implied}")
-    if cfg.family == "moe_tx" and launches["flash_attention"] != 2 * cfg.n_layers:
+    if (lm.has_attention(cfg)
+            and launches["flash_attention"] != 2 * cfg.n_layers):
         raise AssertionError(f"{label}: flash launched "
                              f"{launches['flash_attention']} times, expected "
                              f"2 prefills x {cfg.n_layers} layers")
     print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
-          f"{' '.join(argv[argv.index('--engine'):])}: ttft "
+          f"{' '.join(argv[2:])}: ttft "
           f"{out['ttft_s'] * 1e3:.3f} ms  decode "
           f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
           f"{out['warmup_s']:.2f} s  peak memory "
@@ -2617,7 +2783,8 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
 
     for step, p in profile_phase(argv).items():
         print_profile(f"{label} {step}", p, unprofiled[step])
-        check_profile(f"{label} {step}", p, flash=step == "prefill")
+        check_profile(f"{label} {step}", p,
+                      flash=step == "prefill" and lm.has_attention(cfg))
         times[f"{step}_busy_share"] = (None if p is None
                                        else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
@@ -2672,6 +2839,7 @@ def train_and_profile(label: str, argv) -> dict:
     counts, then one profiled step.  Returns the launch counts."""
     import torch
     from repro_torch.launch.train import WARMUP
+    from repro_torch.models import lm
     torch.cuda.empty_cache()
     out, launches = train_phase(argv)
     cfg, n = out["cfg"], len(out["losses"])
@@ -2679,14 +2847,17 @@ def train_and_profile(label: str, argv) -> dict:
           f"{' '.join(argv[argv.index('--batch'):])}: "
           f"{out['ms_per_step']:.3f} ms/step (median of {n - WARMUP} timed), "
           f"{out['tokens_per_s']:.1f} tokens/s, peak memory "
-          f"{out['peak_mem_gib']:.2f} GiB")
+          f"{out['peak_mem_gib']:.2f} GiB, AdamW state "
+          f"{out['opt_state_gib']:.2f} GiB")
     print(f"{label} loss per step: " + " ".join(f"{x:.5f}" for x in out["losses"]))
     print(f"{label} ms per step: " + " ".join(f"{x:.3f}" for x in out["step_ms"]))
     tr = out["traffic"]
-    print(f"{label} traffic state after {n} steps: steps "
-          f"{tr.steps.tolist()}, expert EMA sum per layer "
-          f"{[round(x, 3) for x in tr.expert_ema.sum(-1).tolist()]}, top-expert "
-          f"share {(tr.expert_ema.max(-1).values / tr.expert_ema.sum(-1)).max().item():.4f}")
+    if tr is not None:
+        print(f"{label} traffic state after {n} steps: steps "
+              f"{tr.steps.tolist()}, expert EMA sum per layer "
+              f"{[round(x, 3) for x in tr.expert_ema.sum(-1).tolist()]}, "
+              f"top-expert share "
+              f"{(tr.expert_ema.max(-1).values / tr.expert_ema.sum(-1)).max().item():.4f}")
     print(f"launches on the {label} path ({n} steps): {json.dumps(launches)}; "
           f"per step: {json.dumps({k: v / n for k, v in launches.items()})}")
     unprofiled = out["ms_per_step"]
@@ -2694,7 +2865,8 @@ def train_and_profile(label: str, argv) -> dict:
     torch.cuda.empty_cache()
     for part, p in train_profile(argv).items():
         print_profile(f"{label} {part}", p, unprofiled)
-        check_profile(f"{label} {part}", p, flash=part != "adamw.update")
+        check_profile(f"{label} {part}", p, flash=part != "adamw.update"
+                      and lm.has_attention(cfg))
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items())
@@ -2712,6 +2884,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this smoke runs only on the GPU")
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
 
     torch.cuda.set_device(0)
@@ -2790,11 +2963,41 @@ def main() -> None:
         print(f"fused_pipe slices of the moe-tx train step (streamed, "
               f"{TX_LAYERS} layers a block; capacity {tx_cap}): {line}")
         rows += [dict(r, path="moe-tx train fused_pipe") for r in slice_rows]
+        # qwen3-1.7b's flash at group size 2
+        dense_rows, lines = dense_flash_rows()
+        rows += dense_rows
+        for line in lines:
+            print(f"flash group size 2, held: {line}")
+    # moe-ffn-stream-1b's MoE kernels at its serve and train shapes and at
+    # the slices of its streamed phases (its own seed)
+    ffn_slices = {}
+    with torch.inference_mode():
+        ffn_inp = main_path_inputs("cuda", **FFN_SHAPES[FFN], seed=1)
+        rows += [dict(r, path=FFN) for r in kernel_phase(
+            ffn_inp, fma=False, counting=False)]
+        ffn_cfg, ffn_slices[FFN] = ffn_pipe_config(FFN_SHAPES[FFN]["t"])
+        slice_rows, line = pipe_slice_rows(ffn_inp, ffn_cfg)
+        print(f"fused_pipe slices of the moe-ffn serve prefill (streamed, "
+              f"{FFN_LAYERS} layers a block): {line}")
+        rows += [dict(r, path=f"{FFN} fused_pipe") for r in slice_rows]
+        del ffn_inp
+    ffn_train = main_path_inputs("cuda", **FFN_SHAPES["moe-ffn train"], seed=1)
+    with torch.no_grad():
+        rows += [dict(r, path="moe-ffn train")
+                 for r in train_rows(ffn_train, None)]
+        ffn_cfg, ffn_slices["moe-ffn train"] = ffn_pipe_config(
+            FFN_SHAPES["moe-ffn train"]["t"])
+        slice_rows, line = pipe_slice_rows(ffn_train, ffn_cfg)
+        print(f"fused_pipe slices of the moe-ffn train step (streamed, "
+              f"{FFN_LAYERS} layers a block): {line}")
+        rows += [dict(r, path="moe-ffn train fused_pipe") for r in slice_rows]
     for r in rows:
         print_row(r)
     rows += backward_report(train_inp, TRAIN[2], "train")
     rows += backward_report(tx_inp, TX_TRAIN[2], "moe-tx train")
-    del train_inp, tx_inp
+    rows += backward_report(ffn_train, None, "moe-ffn train")
+    backward_report(None, DENSE_ATTN[f"{DENSE} train"], f"{DENSE} train")
+    del train_inp, tx_inp, ffn_train
     torch.cuda.empty_cache()
 
     # the pipe constants measured on this card, and the slice counts they give
@@ -2838,6 +3041,14 @@ def main() -> None:
     for label, (argv, required, absent) in ENGINE_SERVE.items():
         launches[label], serve_times[label] = serve_and_profile(
             label, argv, required, absent)
+    for label, argv in NEW_SERVE.items():
+        if "--moe-stream" in argv:
+            cap, s = ffn_slices[FFN]
+            print(f"{label} --moe-stream {FFN_LAYERS}: pipesim's joint S at T "
+                  f"{FFN_SHAPES[FFN]['t']} is {s} (capacity {cap}, Cs "
+                  f"{cap // s})")
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, *family_kernels(get_arch(argv[1]), train=False))
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
@@ -2848,6 +3059,12 @@ def main() -> None:
           f"Cs {tx_cap // tx_s})")
     for label, argv in TX_TRAINS.items():
         launches[label] = train_and_profile(label, argv)
+    cap, s = ffn_slices["moe-ffn train"]
+    print(f"moe-ffn train fused_pipe --moe-stream {FFN_LAYERS}: pipesim's "
+          f"joint S at T {FFN_SHAPES['moe-ffn train']['t']} is {s} (capacity "
+          f"{cap}, Cs {cap // s})")
+    for label, argv in NEW_TRAINS.items():
+        launches[label] = train_and_profile(label, argv)
     cost = traffic_cost_phase(TRAIN[0])
     print("qwen3-moe-30b-a3b train step with and without the traffic "
           "statistics, in turns: " + "; ".join(
@@ -2856,11 +3073,11 @@ def main() -> None:
                  f"{v['busy_ms']:.4f} ms over {v['activities']} activities")
               for k, v in cost.items()))
     torch.cuda.empty_cache()
-    for engine in REDUCED_ENGINES:
-        for arch in PATHS:
-            worst = reduced_check(arch, engine=engine)
-            print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
-                  f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
+    for arch, engine in ([(a, e) for e in REDUCED_ENGINES for a in PATHS]
+                         + NEW_REDUCED):
+        worst = reduced_check(arch, engine=engine)
+        print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
+              f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
     for arch, engine in CONTINUOUS_CHECKS:
         out = continuous_check(arch, engine)
         print(f"continuous {arch} {engine} reduced f32: card (kernels) streams "
@@ -2877,7 +3094,8 @@ def main() -> None:
                             rank=0, world_size=1)
     try:
         for arch, engine in ([("qwen3-moe-30b-a3b", e) for e in REDUCED_ENGINES]
-                             + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]):
+                             + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]
+                             + NEW_REDUCED):
             err = reduced_train_check(engine=engine, arch=arch,
                                       group=dist.group.WORLD)
             print(f"reduced {arch} train step {engine} f32, card "

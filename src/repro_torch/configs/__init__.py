@@ -7,6 +7,7 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "moe-tx-stream": "moe_tx_stream",
+    "moe-ffn-stream": "moe_ffn_stream",
 }
 
 ARCH_IDS = tuple(_MODULES)

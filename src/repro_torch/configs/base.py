@@ -23,7 +23,7 @@ class MoESpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | moe_tx (the families ported so far)
+    family: str                      # dense | moe | moe_tx | moe_ffn (ported)
     n_layers: int
     d_model: int
     n_heads: int

@@ -1,8 +1,9 @@
 """Parameters of the JAX package -> parameters of the port.
 
 ``params_from_jax`` takes the tree that ``repro.models.lm.init_params``
-builds (lm.py:210-233) for a ``moe``- or ``moe_tx``-family model (the same
-keys; moe_tx has no q/k norms), as numpy arrays (e.g.
+builds (lm.py:210-233) for a ``dense``-, ``moe``-, ``moe_tx``- or
+``moe_ffn``-family model (its keys by family, :data:`KEYS`; the q/k norms
+where the config has them), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
 keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
 with ``lane``, one rank's shard of it over an EP group (the expert leaves
@@ -14,14 +15,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.lm import lane_cut, lane_sharded
+from repro_torch.models.lm import FAMILY_PARTS, lane_cut, lane_sharded
 
-_MOE_KEYS = {
-    "embed", "final_norm", "lm_head",
-    "layers/ln1", "layers/ln2",
-    "layers/attn/wq", "layers/attn/wk", "layers/attn/wv", "layers/attn/wo",
-    "layers/moe/router", "layers/moe/w1", "layers/moe/w3", "layers/moe/w2",
-}
+_COMMON = {"embed", "final_norm", "lm_head", "layers/ln1"}
+_PART_KEYS = {
+    "attn": {"layers/ln2", "layers/attn/wq", "layers/attn/wk",
+             "layers/attn/wv", "layers/attn/wo"},
+    "mlp": {"layers/mlp/w_gate", "layers/mlp/w_up", "layers/mlp/w_down"},
+    "moe": {"layers/moe/router", "layers/moe/w1", "layers/moe/w3",
+            "layers/moe/w2"}}
+# the leaves of each family's tree, from its sub-layers (lm.FAMILY_PARTS)
+KEYS = {f: _COMMON.union(*(_PART_KEYS[p] for p in parts))
+        for f, parts in FAMILY_PARTS.items()}
 _OPTIONAL = {"layers/attn/q_norm", "layers/attn/k_norm"}
 
 
@@ -44,16 +49,18 @@ def _flatten(tree, prefix=""):
 
 def params_from_jax(tree: dict, device="cuda",
                     lane: int | None = None) -> dict:
-    """Map the reference's moe- or moe_tx-family parameter tree onto the
-    port's, on ``device`` (pass ``"cpu"`` for the plain path).  With
+    """Map the reference's parameter tree of a family of :data:`KEYS` onto
+    the port's, on ``device`` (pass ``"cpu"`` for the plain path); the
+    family is the one whose keys the tree holds (ValueError if none).  With
     ``lane``: the tree rank ``lane`` of an EP group holds, its expert leaves
     (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane."""
-    paths = {p for p, _ in _flatten(tree)}
-    missing = _MOE_KEYS - paths
-    extra = paths - _MOE_KEYS - _OPTIONAL
-    if missing or extra:
-        raise ValueError(f"not a moe-family parameter tree: missing "
-                         f"{sorted(missing)}, unexpected {sorted(extra)}")
+    paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
+    if paths not in KEYS.values():
+        near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))
+        raise ValueError(
+            f"not the parameter tree of a ported family ({sorted(KEYS)}): "
+            f"against {near!r} missing {sorted(KEYS[near] - paths)}, "
+            f"unexpected {sorted(paths - KEYS[near])}")
 
     def leaf(path, a):
         if lane is not None and lane_sharded(path):   # (L, EP, E_local, ...)

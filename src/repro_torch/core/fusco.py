@@ -1,14 +1,16 @@
 """FUSCO public API: the MoE shuffle plus expert compute (port of
-``repro/core/fusco.py``: every engine, ``fused_flat`` with ``dedup``, and
-the attention-separated ``moe_tx`` stream, per-layer barriers or streamed at
-K = 1).
+``repro/core/fusco.py``: every engine, ``fused_flat`` with ``dedup``, the
+cross-layer stream of consecutive MoE layers and the attention-separated
+``moe_tx`` stream, each with per-layer barriers or streamed at K = 1).
 
 A model layer calls :func:`moe_shuffle_ffn` on this rank's (T, d) tokens and
 its lane's expert weights, with the EP process group, and gets back the
-combined expert outputs in token order.  :func:`tx_layer_stream` chains
-parallel attention+MoE blocks over this rank's sequence stripe.
-:func:`dense_moe_reference` and :func:`tx_dense_reference` are the oracles
-the tests hold them to.
+combined expert outputs in token order.  :func:`layer_stream` chains N
+consecutive MoE layers (:func:`pipe_layer_stream`: the combine of layer i in
+flight into layer i+1's prologue); :func:`tx_layer_stream` chains parallel
+attention+MoE blocks over this rank's sequence stripe.
+:func:`dense_moe_reference`, :func:`stream_dense_reference` and
+:func:`tx_dense_reference` are the oracles the tests hold them to.
 """
 
 from __future__ import annotations
@@ -141,6 +143,126 @@ def dense_moe_reference(x: torch.Tensor, w_router: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Cross-layer stream (moe_ffn): per-layer barriers, or streamed
+# ---------------------------------------------------------------------------
+
+def _stream_layer_io(h: torch.Tensor, lp, top_k: int, norm_topk: bool):
+    """The pre-shuffle work of one stream layer: the pre-norm (when ``lp``
+    holds ``ln``) and the routing.  Returns (u, A, gates in h's dtype)."""
+    u = rms_norm(h, lp["ln"]) if lp.get("ln") is not None else h
+    A, gates = top_k_routing(router_logits(u, lp["router"]), top_k,
+                             normalize=norm_topk)
+    return u, A, gates.to(h.dtype)
+
+
+def _stream_params(w_router, w1, w3, w2, ln) -> dict:
+    """The stacked per-layer dict of a stream, ``ln`` folded in when given."""
+    lp = {"router": w_router, "w1": w1, "w3": w3, "w2": w2}
+    if ln is not None:
+        lp["ln"] = ln
+    return lp
+
+
+def _check_interleave(interleave: int) -> None:
+    if interleave > 1:
+        raise NotImplementedError(
+            "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
+            "1 item 5 (interleaved_layer_stream)")
+
+
+def pipe_layer_stream(x: torch.Tensor, w_router: torch.Tensor,
+                      w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                      placement: ExpertPlacement, cfg: DcommConfig,
+                      top_k: int, ln: torch.Tensor | None = None,
+                      norm_topk: bool = True, traffic=None, observe=None,
+                      group: dist.ProcessGroup | None = None):
+    """Chain N consecutive MoE layers, ``h <- h + moe_l(rms_norm_l(h))``,
+    through one pipelined schedule (the reference's fusco.py:150-228, K =
+    1).  ``x`` is this rank's (T, d) tokens; ``w_router`` (N, d, E)
+    replicated; ``w1``/``w3`` (N, E_local, d, f) and ``w2`` (N, E_local, f,
+    d) this lane's experts; ``ln`` the (N, d) pre-norm scales or None.
+
+    Each layer's shuffle ends with its tail slice's combine exchange in
+    flight (:class:`dcomm.PipeTail`); the tail's scatter-add lands in the
+    next layer's prologue, before its router, and the last one in an
+    epilogue; the stream starts from an empty tail.  The residual seeds
+    each layer's accumulator (``y0``).  One slice count serves the chain,
+    pipesim's joint knee for N layers (``dcomm.pipe_geometry(...,
+    n_layers=N)``), frozen into the config.  Under autograd a deferred
+    tail's scatter-add, taken in the next layer's prologue, carries its
+    cotangent back to its own layer's expert weights and input.
+
+    ``traffic``: a layer-stacked (N, ...) ``traffic.TrafficState``;
+    ``observe(state, A)`` folds each layer's routing into its slice; then
+    returns ``(h, new_traffic)``."""
+    if cfg.engine != "fused_pipe":
+        raise ValueError(f"pipe_layer_stream requires engine='fused_pipe', "
+                         f"got {cfg.engine!r}")
+    t, d = x.shape
+    n_layers = w_router.shape[0]
+    cap, ns = dcomm.pipe_geometry(t, top_k, d, x.element_size(), placement,
+                                  cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(cfg, pipe_slices=ns)      # freeze the joint plan
+    tail = dcomm.pipe_empty_tail(placement, cap // ns, d, t, top_k, x.dtype,
+                                 x.dtype, x.device)
+    h, trs = x, []
+    for i, lp in enumerate(_unstack(_stream_params(w_router, w1, w3, w2, ln))):
+        h = dcomm.pipe_tail_consume(h, tail, t)       # land layer i-1's tail
+        u, A, gates = _stream_layer_io(h, lp, top_k, norm_topk)
+        if traffic is not None:
+            trs.append(observe(traffic_lib.layers(traffic, i), A))
+        ffn = lambda rows, counts, lp=lp: swiglu_experts(
+            rows, lp["w1"], lp["w3"], lp["w2"], counts)
+        h, tail = dcomm.pipe_shuffle_ffn_stream(u, A, gates, ffn, placement,
+                                                cfg, y0=h, group=group)
+    h = dcomm.pipe_tail_consume(h, tail, t)           # epilogue: the last tail
+    return h if traffic is None else (h, traffic_lib.stack(trs))
+
+
+def layer_stream(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
+                 w3: torch.Tensor, w2: torch.Tensor,
+                 placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
+                 ln: torch.Tensor | None = None, norm_topk: bool = True,
+                 interleave: int = 1, traffic=None, observe=None,
+                 group: dist.ProcessGroup | None = None):
+    """The stream's dispatch table (the reference's fusco.py:544-578): the
+    cross-layer schedule (:func:`pipe_layer_stream`) with the ``fused_pipe``
+    engine, else per-layer barriers, each layer a full
+    :func:`shuffle_ffn` through any engine.  Same arguments and result as
+    :func:`pipe_layer_stream`; ``interleave > 1`` (micro-batch lanes) is
+    not ported."""
+    _check_interleave(interleave)
+    if cfg.engine == "fused_pipe":
+        return pipe_layer_stream(x, w_router, w1, w3, w2, placement, cfg,
+                                 top_k, ln=ln, norm_topk=norm_topk,
+                                 traffic=traffic, observe=observe, group=group)
+    h, trs = x, []
+    for i, lp in enumerate(_unstack(_stream_params(w_router, w1, w3, w2, ln))):
+        u, A, gates = _stream_layer_io(h, lp, top_k, norm_topk)
+        if traffic is not None:
+            trs.append(observe(traffic_lib.layers(traffic, i), A))
+        h = h + shuffle_ffn(u, A, gates, lp["w1"], lp["w3"], lp["w2"],
+                            placement, cfg, group=group)
+    return h if traffic is None else (h, traffic_lib.stack(trs))
+
+
+def stream_dense_reference(x: torch.Tensor, w_router: torch.Tensor,
+                           w1_all: torch.Tensor, w3_all: torch.Tensor,
+                           w2_all: torch.Tensor, top_k: int,
+                           ln: torch.Tensor | None = None,
+                           norm_topk: bool = True) -> torch.Tensor:
+    """Oracle for the layer stream: the same residual chain through the
+    per-token dense reference; ``w*_all`` hold ALL experts, (N, E, d, f) /
+    (N, E, f, d)."""
+    h = x
+    for lp in _unstack(_stream_params(w_router, w1_all, w3_all, w2_all, ln)):
+        u = rms_norm(h, lp["ln"]) if ln is not None else h
+        h = h + dense_moe_reference(u, lp["router"], lp["w1"], lp["w3"],
+                                    lp["w2"], top_k, norm_topk=norm_topk)
+    return h
+
+
+# ---------------------------------------------------------------------------
 # Attention-separated stream (moe_tx): per-layer barriers, or streamed
 # ---------------------------------------------------------------------------
 
@@ -231,10 +353,7 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
     state, then with ``return_kv`` the per-layer gathered RoPE'd (k, v)
     stacks (N, b, S, n_kv, hd): fresh ones, or ``kv_out``, a pair of such
     stacks written in place."""
-    if interleave > 1:
-        raise NotImplementedError(
-            "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
-            "1 item 5 (interleaved_layer_stream)")
+    _check_interleave(interleave)
     b, s_l, d = x.shape
     tc = b * s_l
     chunk = dcomm.lane_index(group)

@@ -14,6 +14,15 @@ barriers)
 --moe-stream 16 --requests 8 --prompt-len 512 --gen 16`` (the streamed
 schedule: each layer's tail combine in flight across its attention block)
 
+``python -m repro_torch.launch.serve --arch moe-ffn-stream --engine fused_pipe
+--moe-stream 16 --requests 8 --prompt-len 512 --gen 16`` (the attention-free
+moe_ffn family: its 16 MoE layers in one cross-layer stream, each layer's
+combine in flight into the next layer's prologue; no KV cache)
+
+``python -m repro_torch.launch.serve --arch qwen3-1.7b --requests 8
+--prompt-len 512 --gen 16`` (the dense family: attention and the SwiGLU MLP,
+no MoE, so the engine flags are ignored)
+
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
 --requests 8 --prompt-len 64 --gen 16 --continuous`` (the requests through
 ``serving.engine.ContinuousServingEngine``, a pool of ``--requests`` slots:
@@ -64,8 +73,9 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to its first N layers (depth only)")
     ap.add_argument("--moe-stream", type=int, default=0,
-                    help="moe_tx family: layers per cross-layer stream block "
-                         "(streamed with --engine fused_pipe)")
+                    help="moe_tx and moe_ffn families: layers per "
+                         "cross-layer stream block (streamed with --engine "
+                         "fused_pipe)")
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
     ap.add_argument("--continuous", action="store_true",

@@ -9,13 +9,22 @@ them (``launch/mesh.py``).
 ``python -m repro_torch.launch.train --arch moe-tx-stream --engine fused_pipe
 --moe-stream 16 --batch 4 --seq 512 --steps 8``
 
+``python -m repro_torch.launch.train --arch moe-ffn-stream --engine fused_pipe
+--moe-stream 16 --batch 4 --seq 512 --steps 8`` (the attention-free MoE
+chain, each block of layers one cross-layer stream)
+
+``python -m repro_torch.launch.train --arch qwen3-1.7b --batch 4 --seq 512
+--steps 8`` (the dense family: no MoE, so the engine flags are ignored)
+
 ``--engine`` takes ``fused_hier`` (the default, as the reference's),
 ``fused_flat`` (``--dedup``: the condensed wire), ``fused_pipe``, ``ragged``
 and ``disagg``; ``--calibrate`` measures the pipe constants that choose
 fused_pipe's slice count and prints the table it applies.  ``--moe-stream
 N`` groups the moe_tx layers into stream blocks of N (fused_pipe streams
-each block's MoE tails across its attention).  The online traffic
-statistics (``core/traffic.py``) ride every step of the MoE families, as
+each block's MoE tails across its attention) or the moe_ffn layers (each
+block's combine in flight into the next layer's prologue).  The online
+traffic statistics (``core/traffic.py``) ride every step of the MoE
+families, as
 the reference threads them ("stats are collected either way"), and feed
 ``fused_hier``'s Algorithm 1; serial accumulation (``--accum`` > 1) runs
 without them.
@@ -92,9 +101,11 @@ def parse_args(argv=None):
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
     ap.add_argument("--moe-stream", type=int, default=0,
-                    help="moe_tx family: layers per stream block (fused_pipe "
-                         "carries each layer's MoE tail across the attention "
-                         "block inside a block); 0 = one layer a block")
+                    help="moe_tx and moe_ffn families: layers per stream "
+                         "block (fused_pipe carries each layer's MoE tail "
+                         "across the attention block, or into the next "
+                         "layer's prologue, inside a block); 0 = one layer "
+                         "a block")
     ap.add_argument("--traffic-decay", type=float, default=0.99,
                     help="EMA decay of the online traffic statistics")
     ap.add_argument("--calibrate", action="store_true",
@@ -133,7 +144,7 @@ def setup(args, device="cuda", ep_group=None,
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     calibration = None
-    if args.calibrate:
+    if args.calibrate and cfg.moe is not None:
         calibration = calibrate.calibrate(device=device)
         if _is_rank0():
             print(f"[calibrate] {calibration.platform}: "
@@ -162,9 +173,10 @@ def setup(args, device="cuda", ep_group=None,
 
 def init_traffic(cfg: ArchConfig, ctx: lm.ModelContext, accum: int):
     """The cold layer-stacked traffic state a run threads through its steps
-    (the reference's train.py:296-326): for the MoE families, unless the
-    micro-batches accumulate serially, which do not thread one."""
-    if cfg.moe is None or cfg.family not in ("moe", "moe_tx"):
+    (the reference's train.py:296-326): for the MoE families (moe, moe_tx,
+    moe_ffn), unless the micro-batches accumulate serially, which do not
+    thread one."""
+    if cfg.moe is None:
         return None
     if accum > 1:
         if _is_rank0():

@@ -1,6 +1,7 @@
 """MoE layer: the FUSCO-integrated expert-parallel feed-forward (port of
-``repro/layers/moe.py``: ``moe_block``, ``stream_tx_layers`` and
-``moe_decode_block``, with the online traffic statistics; no FSDP).
+``repro/layers/moe.py``: ``moe_block``, ``stream_moe_layers``,
+``stream_tx_layers`` and ``moe_decode_block``, with the online traffic
+statistics; no FSDP).
 
 The reference runs each layer in a shard_map island over the EP axis, with
 the batch's sequence sharded over it; here each rank of the EP process group
@@ -83,6 +84,73 @@ def moe_block(x: torch.Tensor, moe_params, *, placement: ExpertPlacement,
     return y if traffic is None else (y, traffic)
 
 
+def _fsdp_refused(fsdp: bool) -> None:
+    if fsdp:
+        raise NotImplementedError("FSDP expert weights are not ported yet: "
+                                  "ROADMAP queue 1 item 8 (parallel/sharding)")
+
+
+def _stream_lane(moe_params, placement: ExpertPlacement, group) -> dict:
+    """This lane's stacked (N, E_local, ...) experts of a block's lane-major
+    (N, lanes, E_local, ...) leaves: from a leaf of one lane a view whose
+    backward is the gradient itself (indexing would zero-fill a
+    stack-sized gradient), else the rank's lane of the whole stack."""
+    lanes = moe_params["w1"].shape[1]
+    lane = _own_lane(lanes, placement, group)
+    lane_of = (lambda w: w.squeeze(1)) if lanes == 1 else (
+        lambda w: w[:, lane])
+    return {w: lane_of(moe_params[w]) for w in ("w1", "w3", "w2")}
+
+
+def _stream_observe(x: torch.Tensor, placement: ExpertPlacement,
+                    dcfg: DcommConfig, traffic_decay: float, traffic_mask,
+                    group, stats_group):
+    """The closure that folds one layer's routing of this rank's stripe
+    ``x`` (B, S/ep, ...) into its traffic slice, summed over
+    ``stats_group`` (None: the EP group); masked positions not counted."""
+    b, s = x.shape[:2]
+    valid = None if traffic_mask is None else traffic_mask.reshape(b * s)
+    my_lane = _lane_index(dcfg, group)
+    counted = group if stats_group is None else stats_group
+    return lambda st, A: traffic_lib.observe(
+        st, A, placement, my_lane, decay=traffic_decay, group=counted,
+        valid=valid)
+
+
+def stream_moe_layers(x: torch.Tensor, moe_params, ln: torch.Tensor | None,
+                      *, placement: ExpertPlacement, dcfg: DcommConfig,
+                      top_k: int, norm_topk: bool = True, fsdp: bool = False,
+                      interleave: int = 1,
+                      traffic: traffic_lib.TrafficState | None = None,
+                      traffic_decay: float = 0.99,
+                      traffic_mask: torch.Tensor | None = None, group=None,
+                      stats_group=None):
+    """A block of N consecutive MoE layers (the ``moe_ffn`` island, the
+    reference's moe.py:115-216), ``h <- h + moe_l(rms_norm_l(h))`` each,
+    evaluated by ``fusco.layer_stream``: one streamed schedule when the
+    engine is ``fused_pipe``, else per-layer barriers.
+    ``x``: (B, S/ep, d), this rank's stripe of the sequence, flattened
+    b-major into the stream's tokens; ``moe_params``: stacked router (N, d,
+    E) and lane-major w1/w3/w2 (N, lanes, E_local, ...), this rank's lane
+    alone (lanes = 1) or every lane; ``ln``: the (N, d) pre-norm scales or
+    None.  ``traffic``: the block's layer-stacked (N, ...)
+    ``TrafficState``; ``traffic_mask`` (B, S/ep) and ``stats_group`` as in
+    :func:`moe_block`.  Returns ``y`` (B, S/ep, d), with ``traffic`` then
+    the new state."""
+    _fsdp_refused(fsdp)
+    b, s, d = x.shape
+    observe = None if traffic is None else _stream_observe(
+        x, placement, dcfg, traffic_decay, traffic_mask, group, stats_group)
+    w = _stream_lane(moe_params, placement, group)
+    y = fusco.layer_stream(
+        x.reshape(b * s, d), moe_params["router"], w["w1"], w["w3"], w["w2"],
+        placement, dcfg, top_k, ln=ln, norm_topk=norm_topk,
+        interleave=interleave, traffic=traffic, observe=observe, group=group)
+    if traffic is None:
+        return y.reshape(b, s, d)
+    return y[0].reshape(b, s, d), y[1]
+
+
 def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      ln1: torch.Tensor, ln2: torch.Tensor, *,
                      placement: ExpertPlacement, dcfg: DcommConfig,
@@ -109,27 +177,12 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     Returns ``y``, then the new traffic when given, then with ``return_kv``
     the per-layer gathered (k, v) stacks (N, B, S, n_kv, hd), written into
     ``kv_out`` when given."""
-    if fsdp:
-        raise NotImplementedError("FSDP expert weights are not ported yet: "
-                                  "ROADMAP queue 1 item 8 (parallel/sharding)")
-    lanes = moe_params["w1"].shape[1]
-    lane = _own_lane(lanes, placement, group)
-    observe = None
-    if traffic is not None:
-        b, s = x.shape[:2]
-        valid = None if traffic_mask is None else traffic_mask.reshape(b * s)
-        my_lane = _lane_index(dcfg, group)
-        counted = group if stats_group is None else stats_group
-        observe = lambda st, A: traffic_lib.observe(
-            st, A, placement, my_lane, decay=traffic_decay, group=counted,
-            valid=valid)
-    # this lane's experts; from a leaf of one lane a view whose backward is
-    # the gradient itself (indexing would zero-fill a stack-sized gradient)
-    lane_of = (lambda w: w.squeeze(1)) if lanes == 1 else (
-        lambda w: w[:, lane])
+    _fsdp_refused(fsdp)
+    observe = None if traffic is None else _stream_observe(
+        x, placement, dcfg, traffic_decay, traffic_mask, group, stats_group)
     params = {"ln1": ln1, "ln2": ln2, **attn_params,
               "router": moe_params["router"],
-              **{w: lane_of(moe_params[w]) for w in ("w1", "w3", "w2")}}
+              **_stream_lane(moe_params, placement, group)}
     return fusco.tx_layer_stream(
         x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,

@@ -1,17 +1,21 @@
-"""Decoder-only LM, ``moe`` and ``moe_tx`` families: parameters, prefill and
-single-token decode (port of ``repro/models/lm.py``, the serving path: a
-lock-step batch or a continuous-batching slot pool with per-row positions),
-the training forward and chunked CE loss, and the online traffic statistics
-threaded through the prefill and the training forward.
+"""Decoder-only LM, ``dense``, ``moe``, ``moe_tx`` and ``moe_ffn`` families:
+parameters, prefill and single-token decode (port of ``repro/models/lm.py``,
+the serving path: a lock-step batch or a continuous-batching slot pool with
+per-row positions), the training forward and chunked CE loss, and the
+online traffic statistics threaded through the prefill and the training
+forward of the MoE families.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
-(moe: sequential blocks) or ``layers/moe.stream_tx_layers`` (moe_tx: parallel
-attention+MoE blocks), each EP rank on its stripe of the sequence, as the
-reference's islands shard it.  Decode uses the replicated-token MoE
-(``layers/moe.moe_decode_block``).  The reference scans one compiled layer
-body; here a Python loop walks the layers of the stacked (L, ...) parameter
-tree, which keeps the reference's layout so ``convert.params_from_jax`` maps
-one onto the other leaf by leaf.
+(moe: sequential blocks), ``layers/moe.stream_tx_layers`` (moe_tx: parallel
+attention+MoE blocks) or ``layers/moe.stream_moe_layers`` (moe_ffn: the
+attention-free chain of MoE layers, in cross-layer stream blocks), each EP
+rank on its stripe of the sequence, as the reference's islands shard it.
+The dense family's blocks are attention then the SwiGLU MLP, whose products
+are ``torch.matmul`` (the reference's are jnp, outside any Pallas kernel).
+Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
+The reference scans one compiled layer body; here a Python loop walks the
+layers of the stacked (L, ...) parameter tree, which keeps the reference's
+layout so ``convert.params_from_jax`` maps one onto the other leaf by leaf.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
                                           gqa_project)
 from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
-from repro_torch.layers.moe import moe_block, moe_decode_block, stream_tx_layers
+from repro_torch.layers.moe import (moe_block, moe_decode_block,
+                                    stream_moe_layers, stream_tx_layers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +46,11 @@ class ModelContext:
     cfg: ArchConfig
     device: torch.device
     ep_group: Any                  # None, the EP group, or its dcomm.EPGroups
-    placement: ExpertPlacement
-    dcfg: DcommConfig
+    placement: ExpertPlacement | None   # None: a family without MoE (dense)
+    dcfg: DcommConfig | None
     compute_dtype: torch.dtype = torch.bfloat16
-    # moe_tx family: layers per stream block (<= 1: one layer a block)
+    # moe_tx / moe_ffn families: layers per stream block (<= 1: one layer a
+    # block)
     moe_stream: int = 0
     # EMA decay of the online traffic statistics (when a TrafficState is
     # threaded through the prefill)
@@ -52,6 +58,23 @@ class ModelContext:
     # the launch.mesh.HostMesh of a (data, model) training grid whose EP
     # group is ``ep_group``'s (None: no data group)
     mesh: Any = None
+
+
+# the sub-layers of each ported family's layer, besides ``ln1`` (the
+# reference's init_params by family, lm.py:214-221): ``attn`` brings ``ln2``
+FAMILY_PARTS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe"),
+                "moe_tx": ("attn", "moe"), "moe_ffn": ("moe",)}
+FAMILIES = tuple(FAMILY_PARTS)
+
+
+def has_attention(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s layers hold attention (and a KV cache)."""
+    return "attn" in FAMILY_PARTS[cfg.family]
+
+
+def has_mlp(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s layers hold a dense SwiGLU MLP."""
+    return "mlp" in FAMILY_PARTS[cfg.family]
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
@@ -63,8 +86,9 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  moe_stream: int = 0, pipe_slices: int = 0,
                  calibration=None,
                  traffic_decay: float = 0.99) -> ModelContext:
-    """Context of a ``moe``- or ``moe_tx``-family model whose EP domain is
-    ``ep_group`` (None: one lane), or that of this rank on ``mesh`` (a
+    """Context of a ``dense``-, ``moe``-, ``moe_tx``- or ``moe_ffn``-family
+    model whose EP domain is ``ep_group`` (None: one lane), or that of this
+    rank on ``mesh`` (a
     ``launch.mesh.HostMesh``: the rank trains on its data group's shard of
     the batch, and its EP domain is one of the grid's).  ``node_size``
     lanes make a node
@@ -76,16 +100,19 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     (pod, model) axis (``dcomm.ep_groups``, those of every EP domain of
     ``mesh``).  ``use_balancer`` and
     ``dedup`` go to the config as in the reference.  ``moe_stream`` groups
-    the moe_tx layers into stream blocks; ``pipe_slices`` fixes fused_pipe's
-    slice count (0: pipesim's); ``calibration`` (a
+    the moe_tx or moe_ffn layers into stream blocks; ``pipe_slices`` fixes
+    fused_pipe's slice count (0: pipesim's); ``calibration`` (a
     ``core.calibrate.CalibrationTable``) replaces the H100 spec-point pipe
     constants with measured ones; ``traffic_decay`` is the EMA decay of
-    the traffic statistics.  Raises if ``device`` is CUDA and no card is
-    there."""
-    if cfg.family not in ("moe", "moe_tx"):
+    the traffic statistics.  A family without MoE (dense) has no placement
+    and no dcomm config, as the reference's, and runs on one rank: over a
+    model axis the reference runs Megatron TP, and over a data axis plain
+    data parallelism, neither ported.  Raises if ``device`` is CUDA and no
+    card is there."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (moe and moe_tx only): "
-            "ROADMAP queue 1 items 3, 5 and 8")
+            f"family {cfg.family!r} is not ported yet (only {FAMILIES}): "
+            "ROADMAP queue 1 item 8")
     if mesh is not None:
         if ep_group is not None:
             raise ValueError("pass ep_group or mesh, not both")
@@ -95,6 +122,15 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
                            "device (pass device='cpu' to run the plain path)")
     ep = group_size(ep_group)
+    if cfg.moe is None:
+        if ep > 1 or (mesh is not None and mesh.data > 1):
+            raise NotImplementedError(
+                f"family {cfg.family!r} over a group of ranks is not ported "
+                "yet (the reference's Megatron TP over the model axis, "
+                "parallel/tp_blocks.py, and data parallelism): ROADMAP queue "
+                "1 item 8")
+        return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
+                            moe_stream, traffic_decay, mesh)
     if multi_pod and node_size is None and ep > 1:
         raise ValueError("multi_pod: pass node_size, the lanes of one pod")
     ns = node_size or max(1, ep // 4)
@@ -158,7 +194,10 @@ def _expert_leaf(gen: torch.Generator, lanes: range, el: int, shape: tuple,
 
 def _held_lanes(ctx: ModelContext) -> range:
     """The lanes of the expert leaves this rank holds: its own over an EP
-    group of more than one rank, else all of the placement's."""
+    group of more than one rank, else all of the placement's (none without
+    a placement: a family without MoE)."""
+    if ctx.placement is None:
+        return range(0)
     if group_size(ctx.ep_group) > 1:
         lane = dcomm.lane_index(ctx.ep_group)
         return range(lane, lane + 1)
@@ -168,34 +207,44 @@ def _held_lanes(ctx: ModelContext) -> range:
 def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters from ``gen`` in the reference's tree and layouts
-    (lm.py:210-233): layers stacked on a leading (L,) axis, expert weights
-    lane-major (L, lanes, E_local, d, f).  Over an EP group of more than one
-    rank the expert leaves hold this rank's lane only (lanes = 1), and the
-    other lanes are never drawn; otherwise every lane of the placement.  An
-    expert's weights are the same for every EP size from the same ``gen``
-    (:func:`_expert_leaf`), and so are the replicated leaves."""
+    (lm.py:210-233), its layers by family: ``ln1``, then ``attn`` and
+    ``ln2`` (dense, moe, moe_tx), ``mlp`` (dense: ``w_gate``/``w_up`` (L, d,
+    f), ``w_down`` (L, f, d)) and ``moe`` (the MoE families); layers stacked
+    on a leading (L,) axis, expert weights lane-major (L, lanes, E_local,
+    d, f).  Over an EP group of more than one rank the expert leaves hold
+    this rank's lane only (lanes = 1), and the other lanes are never drawn;
+    otherwise every lane of the placement.  An expert's weights are the
+    same for every EP size from the same ``gen`` (:func:`_expert_leaf`),
+    and so are the replicated leaves."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    fe, el = cfg.moe.d_ff_expert, ctx.placement.experts_per_lane
-    lanes = _held_lanes(ctx)
     init = lambda shape: dense_init(gen, shape, dtype=dtype, device=ctx.device)
     ones = lambda shape: torch.ones(shape, dtype=dtype, device=ctx.device)
-    experts = lambda shape: _expert_leaf(gen, lanes, el, shape, dtype,
-                                         ctx.device)
-    attn = {"wq": init((L, d, cfg.n_heads * hd)),
-            "wk": init((L, d, cfg.n_kv_heads * hd)),
-            "wv": init((L, d, cfg.n_kv_heads * hd)),
-            "wo": init((L, cfg.n_heads * hd, d))}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones((L, hd))
-        attn["k_norm"] = ones((L, hd))
-    moe = {"router": init((L, d, cfg.moe.n_experts)),
-           "w1": experts((L, d, fe)),
-           "w3": experts((L, d, fe)),
-           "w2": experts((L, fe, d))}
+    layers = {"ln1": ones((L, d))}
+    if has_attention(cfg):
+        attn = {"wq": init((L, d, cfg.n_heads * hd)),
+                "wk": init((L, d, cfg.n_kv_heads * hd)),
+                "wv": init((L, d, cfg.n_kv_heads * hd)),
+                "wo": init((L, cfg.n_heads * hd, d))}
+        if cfg.qk_norm:
+            attn["q_norm"] = ones((L, hd))
+            attn["k_norm"] = ones((L, hd))
+        layers.update(attn=attn, ln2=ones((L, d)))
+    if has_mlp(cfg):
+        layers["mlp"] = {"w_gate": init((L, d, cfg.d_ff)),
+                         "w_up": init((L, d, cfg.d_ff)),
+                         "w_down": init((L, cfg.d_ff, d))}
+    if cfg.moe is not None:
+        fe, el = cfg.moe.d_ff_expert, ctx.placement.experts_per_lane
+        lanes = _held_lanes(ctx)
+        experts = lambda shape: _expert_leaf(gen, lanes, el, shape, dtype,
+                                             ctx.device)
+        layers["moe"] = {"router": init((L, d, cfg.moe.n_experts)),
+                         "w1": experts((L, d, fe)),
+                         "w3": experts((L, d, fe)),
+                         "w2": experts((L, fe, d))}
     return {
         "embed": embed_init(gen, cfg.vocab, d, dtype, ctx.device),
-        "layers": {"ln1": ones((L, d)), "attn": attn, "ln2": ones((L, d)),
-                   "moe": moe},
+        "layers": layers,
         "final_norm": ones((d,)),
         "lm_head": init((d, cfg.vocab)),
     }
@@ -204,13 +253,19 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
 def param_counts(cfg: ArchConfig) -> tuple[int, int]:
     """(replicated, expert) parameter counts of ``cfg``'s whole tree
     (:func:`init_params`' leaves; the expert leaves are :func:`lane_sharded`),
-    reckoned from the config."""
+    reckoned from the config; (all, 0) for a family without MoE."""
     d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
-    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + (
-        2 * hd if cfg.qk_norm else 0)
-    layer = 2 * d + attn + d * cfg.moe.n_experts
-    return (L * layer + 2 * cfg.vocab * d + d,
-            L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert)
+    layer = d
+    if has_attention(cfg):
+        layer += d + d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + (
+            2 * hd if cfg.qk_norm else 0)
+    if has_mlp(cfg):
+        layer += 3 * d * cfg.d_ff
+    experts = 0
+    if cfg.moe is not None:
+        layer += d * cfg.moe.n_experts
+        experts = L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert
+    return L * layer + 2 * cfg.vocab * d + d, experts
 
 
 def lane_cut(path: str, t, ep: int, lanes: range):
@@ -228,13 +283,14 @@ def shard_params(tree, ctx: ModelContext) -> dict:
     """This rank's parameters cut from a whole tree (expert leaves of any
     lane count holding all experts): the expert leaves cut to the lanes
     :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied);
-    the other leaves as they are."""
+    the other leaves as they are (every leaf, without a placement)."""
     lanes = _held_lanes(ctx)
 
     def walk(node, prefix=""):
         return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
                 else (lane_cut(prefix + k, v, ctx.placement.ep, lanes).clone()
-                      if lane_sharded(prefix + k) else v)
+                      if ctx.placement is not None and lane_sharded(prefix + k)
+                      else v)
                 for k, v in node.items()}
 
     return walk(tree)
@@ -259,7 +315,8 @@ def _attn_qkv(x, ap, cfg: ArchConfig, positions):
 
 
 class DecodeState(NamedTuple):
-    kv: Any              # {"k", "v"}: (L, B, C, Hkv, hd)
+    kv: Any              # {"k", "v"}: (L, B, C, Hkv, hd); None for a family
+                         # without attention (moe_ffn: stateless)
     length: torch.Tensor  # int32 on the device: () positions seen by every
                           # row (a lock-step batch), or (B,) one count a row
                           # (a continuous-batching slot pool: each row decodes
@@ -273,12 +330,15 @@ def _kv_capacity(cfg: ArchConfig, max_len: int) -> int:
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
                       ctx: ModelContext, per_slot: bool = False) -> DecodeState:
     """Zeroed decode state; ``per_slot`` makes ``length`` per row ((batch,)
-    int32), the continuous-batching slot pool."""
-    c = _kv_capacity(cfg, max_len)
-    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.hd)
+    int32), the continuous-batching slot pool.  No cache (``kv`` None) for
+    a family without attention."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=ctx.device)
-    return DecodeState({"k": zeros(shape, dtype), "v": zeros(shape, dtype)},
-                       zeros((batch,) if per_slot else (), torch.int32))
+    kv = None
+    if has_attention(cfg):
+        c = _kv_capacity(cfg, max_len)
+        shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.hd)
+        kv = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+    return DecodeState(kv, zeros((batch,) if per_slot else (), torch.int32))
 
 
 def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
@@ -308,19 +368,28 @@ def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext,
     return all_gather_seq(y[0], ctx.ep_group), y[1]
 
 
-def _moe_layer(h: torch.Tensor, lp, positions: torch.Tensor,
+def _mlp(x: torch.Tensor, mp) -> torch.Tensor:
+    """The dense family's SwiGLU MLP, silu(x @ w_gate) * (x @ w_up) @
+    w_down (the reference's lm.py:233-238)."""
+    return (torch.nn.functional.silu(x @ mp["w_gate"]) * (x @ mp["w_up"])
+            ) @ mp["w_down"]
+
+
+def _seq_layer(h: torch.Tensor, lp, positions: torch.Tensor,
                ctx: ModelContext, traffic=None, traffic_mask=None):
-    """One sequential ``moe`` block, h + attn(ln1 h), then + moe(ln2 h),
-    with ``lp`` this layer's parameters in the compute dtype (the
-    reference's ``layer_fn``, lm.py:445-510, moe branch).  Returns the new h
-    and the layer's RoPE'd k and v (B, S, Hkv, hd), and with ``traffic``
-    (this layer's state) the new state."""
+    """One sequential block, h + attn(ln1 h), then + ffn(ln2 h): the MoE
+    (moe) or the MLP (dense), with ``lp`` this layer's parameters in the
+    compute dtype (the reference's ``layer_fn``, lm.py:445-510).  Returns
+    the new h and the layer's RoPE'd k and v (B, S, Hkv, hd), and with
+    ``traffic`` (this layer's state; the moe family) the new state."""
     cfg = ctx.cfg
     b, s, _ = h.shape
     x = rms_norm(h, lp["ln1"])
     q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
     o = causal_attention(q, k, v, positions, positions, window=cfg.window)
     h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+    if has_mlp(cfg):
+        return h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"]), k, v
     y = _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx, traffic,
                          traffic_mask)
     if traffic is None:
@@ -328,16 +397,25 @@ def _moe_layer(h: torch.Tensor, lp, positions: torch.Tensor,
     return h + y[0], k, v, y[1]
 
 
+def _traffic_needs_moe(cfg: ArchConfig, traffic) -> None:
+    if traffic is not None and cfg.moe is None:
+        raise ValueError(
+            f"traffic stats are threaded per layer through the MoE layers; "
+            f"family {cfg.family!r} has none (moe / moe_ffn / moe_tx only)")
+
+
 def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
                    ctx: ModelContext, traffic=None, traffic_mask=None):
     """Training forward (the reference's ``forward_hidden``, lm.py:358-535,
-    moe and moe_tx branches): (B, S) tokens to the final-normed hidden
-    states (B, S, d) in the compute dtype.  Parameters are cast to the
-    compute dtype as they are used (lm.py:445), so a gradient reaches the
-    stored leaves in their own dtype.  ``moe``: sequential blocks, one MoE
-    layer each; ``moe_tx``: the parallel blocks in stream blocks
-    (:func:`_tx_stack`).  In an EP group each rank runs the MoE on its
-    stripe of the sequence, as ``prefill`` does; the stripes' all-gather
+    dense, moe, moe_tx and moe_ffn branches): (B, S) tokens to the
+    final-normed hidden states (B, S, d) in the compute dtype.  Parameters
+    are cast to the compute dtype as they are used (lm.py:445), so a
+    gradient reaches the stored leaves in their own dtype.  ``dense``:
+    sequential blocks of attention and the MLP; ``moe``: sequential blocks,
+    one MoE layer each; ``moe_tx``: the parallel blocks in stream blocks
+    (:func:`_tx_stack`); ``moe_ffn``: the MoE layers in cross-layer stream
+    blocks (:func:`_ffn_stack`).  In an EP group each rank runs the MoE on
+    its stripe of the sequence, as ``prefill`` does; the stripes' all-gather
     sums the ranks' cotangents in its backward, so a loop training over an
     EP group divides each rank's (replicated) loss by the group size and
     all-reduces the replicated leaves' gradients, not the lane-sharded
@@ -346,8 +424,8 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     ``traffic``: the layer-stacked ``traffic.TrafficState`` threaded
     through the MoE layers; then returns ``(h, new_traffic)``.  The counts
     come from the integer routing matrix, so no gradient flows through
-    them.  ``traffic_mask``: (B, S) bool, False for positions that must not
-    count.
+    them; a family without MoE raises, as the reference.  ``traffic_mask``:
+    (B, S) bool, False for positions that must not count.
 
     The reference rematerialises each layer (or stream block) in its
     backward (``jax.checkpoint``); at the depths and widths the port trains
@@ -359,18 +437,22 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     AdamW state (ZeRO-1, ``optim/adamw.py``); FSDP of the experts is not
     ported (ROADMAP queue 1 item 8)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
+    _traffic_needs_moe(cfg, traffic)
     h = params["embed"].to(cd)[inputs]
     if cfg.family == "moe_tx":
         h, new_traffic, _ = _tx_stack(params, h, positions, ctx, traffic,
                                       traffic_mask)
         return h if traffic is None else (h, new_traffic)
+    if cfg.family == "moe_ffn":
+        h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
+        return h if traffic is None else (h, new_traffic)
     trs = []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
         if traffic is None:
-            h, _, _ = _moe_layer(h, lp, positions, ctx)
+            h, _, _ = _seq_layer(h, lp, positions, ctx)
         else:
-            h, _, _, tr = _moe_layer(h, lp, positions, ctx,
+            h, _, _, tr = _seq_layer(h, lp, positions, ctx,
                                      traffic_lib.layers(traffic, i),
                                      traffic_mask)
             trs.append(tr)
@@ -441,6 +523,17 @@ def _blocks(tree, blk: int, n: int, cd: torch.dtype) -> list:
     return [p.to(cd) if p.is_floating_point() else p for p in parts]
 
 
+def _stream_block(ctx: ModelContext) -> int:
+    """Layers per stream block: ``max(1, moe_stream)``, which must divide
+    the depth; all of them with an engine that does not stream."""
+    L, blk = ctx.cfg.n_layers, max(1, ctx.moe_stream)
+    if L % blk != 0:
+        raise ValueError(
+            f"moe_stream={ctx.moe_stream} must divide n_layers={L} "
+            "(every stream block needs the same static slice geometry)")
+    return blk if ctx.dcfg.engine == "fused_pipe" else L
+
+
 def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
               ctx: ModelContext, traffic=None, traffic_mask=None,
               return_kv: bool = False):
@@ -456,13 +549,7 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
     preallocated pair (None without: training keeps no k/v stack)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     L = cfg.n_layers
-    blk = max(1, ctx.moe_stream)
-    if L % blk != 0:
-        raise ValueError(
-            f"moe_stream={ctx.moe_stream} must divide n_layers={L} "
-            "(every stream block needs the same static slice geometry)")
-    if ctx.dcfg.engine != "fused_pipe":
-        blk = L
+    blk = _stream_block(ctx)
     h = seq_stripe(h, ctx.ep_group)
     mask = None if traffic_mask is None else seq_stripe(traffic_mask,
                                                         ctx.ep_group)
@@ -498,6 +585,43 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
             traffic_lib.concat(trs) if trs else None, kv)
 
 
+def _ffn_stack(params, h: torch.Tensor, ctx: ModelContext, traffic=None,
+               traffic_mask=None):
+    """moe_ffn stack over this rank's stripe of the sequence (the
+    reference's lm.py:397-438): with the ``fused_pipe`` engine the layers
+    grouped into cross-layer stream blocks of ``max(1, moe_stream)``, one
+    streamed ``stream_moe_layers`` call each (its last tail landed in the
+    block's epilogue); with the other engines one call of all layers with
+    per-layer barriers (blocks change nothing there).  ``traffic``: the
+    layer-stacked state, each block threading its slice.  Returns the
+    final-normed (B, S, d) and the new traffic (None without); the stack
+    keeps no cache."""
+    cfg, cd = ctx.cfg, ctx.compute_dtype
+    L = cfg.n_layers
+    blk = _stream_block(ctx)
+    h = seq_stripe(h, ctx.ep_group)
+    mask = None if traffic_mask is None else seq_stripe(traffic_mask,
+                                                        ctx.ep_group)
+    trs = []
+    for j, bp in enumerate(_blocks(params["layers"], blk, L, cd)):
+        b0 = j * blk
+        out = stream_moe_layers(
+            h, bp["moe"], bp["ln1"], placement=ctx.placement, dcfg=ctx.dcfg,
+            top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
+            traffic=(None if traffic is None
+                     else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
+            traffic_decay=ctx.traffic_decay, traffic_mask=mask,
+            group=ctx.ep_group, stats_group=stats_group(ctx))
+        if traffic is None:
+            h = out
+        else:
+            h, tr = out
+            trs.append(tr)
+    h = all_gather_seq(h, ctx.ep_group)
+    return (rms_norm(h, params["final_norm"].to(cd)),
+            traffic_lib.concat(trs) if trs else None)
+
+
 def _length(n: int, device) -> torch.Tensor:
     """A () int32 length on ``device``, filled there (a tensor made from a
     host value would copy it over and wait for the card)."""
@@ -508,18 +632,25 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
             ctx: ModelContext, max_len: int, traffic=None, traffic_mask=None):
     """Full-sequence forward over (B, S) tokens; returns the last position's
     logits (B, V) in float32 and the decode state with every layer's RoPE'd
-    k and v in its cache (the last ``cap`` positions, at slot p % cap) and
-    the length S as a () tensor.  In an EP group each rank runs the MoE on
-    its stripe of the sequence (S must split evenly) and all ranks return
-    the same result.  ``traffic``: the layer-stacked
-    ``traffic.TrafficState`` threaded through the MoE layers; then returns
-    ``(logits, state, new_traffic)``.  ``traffic_mask``: (B, S) bool, True
-    for real tokens: the serving engines pass it so that left-pad positions
-    do not count."""
+    k and v in its cache (the last ``cap`` positions, at slot p % cap; no
+    cache for moe_ffn, which is stateless) and the length S as a () tensor.
+    In an EP group each rank runs the MoE on its stripe of the sequence (S
+    must split evenly) and all ranks return the same result.  ``traffic``:
+    the layer-stacked ``traffic.TrafficState`` threaded through the MoE
+    layers (the MoE families); then returns ``(logits, state,
+    new_traffic)``.  ``traffic_mask``: (B, S) bool, True for real tokens:
+    the serving engines pass it so that left-pad positions do not count."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
+    _traffic_needs_moe(cfg, traffic)
     h = params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
+    if cfg.family == "moe_ffn":
+        h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
+        logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
+        state = DecodeState(None, _length(s, h.device))
+        return (logits, state) if traffic is None else (logits, state,
+                                                        new_traffic)
     if cfg.family == "moe_tx":
         h, new_traffic, (k, v) = _tx_stack(params, h, positions, ctx, traffic,
                                            traffic_mask, return_kv=True)
@@ -533,9 +664,9 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
         if traffic is None:
-            h, k, v = _moe_layer(h, lp, positions, ctx)
+            h, k, v = _seq_layer(h, lp, positions, ctx)
         else:
-            h, k, v, tr = _moe_layer(h, lp, positions, ctx,
+            h, k, v, tr = _seq_layer(h, lp, positions, ctx,
                                      traffic_lib.layers(traffic, i),
                                      traffic_mask)
             trs.append(tr)
@@ -557,26 +688,33 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     cache and masks at its own position); the positions come from it on the
     device, with nothing read to the host.  The caches in ``state.kv`` and
     ``state.length`` are written in place, so the returned state holds the
-    same tensors (fixed tensors a captured graph could replay)."""
+    same tensors (fixed tensors a captured graph could replay).  Per
+    family (the reference's lm.py:666-711): dense and moe run attention,
+    then the MLP or the MoE on h + attn; moe_tx the parallel block, both
+    reading h; moe_ffn ``h + moe(ln1 h)``, with no cache."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     h = params["embed"].to(cd)[inputs][:, None, :]
     b = h.shape[0]
     pos = state.length
     positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
+    moe = lambda x, mp: moe_decode_block(
+        x, mp, placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
+        norm_topk=cfg.moe.norm_topk, group=ctx.ep_group)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
         x = rms_norm(h, lp["ln1"])
+        if not has_attention(cfg):
+            h = h + moe(x, lp["moe"])
+            continue
         q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
         cache = cache_update(KVCache(state.kv["k"][i], state.kv["v"][i], pos,
                                      max_len), k, v)
         mix = decode_attention(q, cache).reshape(
             b, 1, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        if cfg.family == "moe":      # sequential block: the MoE reads h + attn
+        if cfg.family != "moe_tx":   # sequential block: the FFN reads h + attn
             h, mix = h + mix, 0
-        y = moe_decode_block(rms_norm(h, lp["ln2"]), lp["moe"],
-                             placement=ctx.placement, dcfg=ctx.dcfg,
-                             top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
-                             group=ctx.ep_group)
+        x = rms_norm(h, lp["ln2"])
+        y = _mlp(x, lp["mlp"]) if has_mlp(cfg) else moe(x, lp["moe"])
         h = h + mix + y              # moe_tx: the parallel block, both read h
     h = rms_norm(h, params["final_norm"].to(cd))
     logits = (h[:, 0] @ params["lm_head"].to(cd)).float()

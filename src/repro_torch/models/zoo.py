@@ -33,7 +33,7 @@ class ModelBundle:
 
 def build(cfg: ArchConfig, ctx: ModelContext) -> ModelBundle:
     """The bundle of a decoder-only LM of a family ``lm.make_context`` takes
-    (moe and moe_tx)."""
+    (``lm.FAMILIES``: dense, moe, moe_tx and moe_ffn)."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             "the encoder-decoder family is not ported yet: ROADMAP queue 1 "

@@ -62,9 +62,6 @@ from repro_torch.core import commplan, relayout
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.models import lm
 
-TRAFFIC_FAMILIES = ("moe", "moe_tx")
-
-
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without making the host wait: through
     pinned memory and an asynchronous copy on the card."""
@@ -122,10 +119,10 @@ class _ServingBase:
         self.traffic = None
         if track_traffic:
             ctx = bundle.ctx
-            if ctx.cfg.moe is None or ctx.cfg.family not in TRAFFIC_FAMILIES:
+            if ctx.cfg.moe is None:
                 raise ValueError(
-                    "track_traffic requires a moe/moe_tx-family bundle, got "
-                    f"{ctx.cfg.family!r}")
+                    "track_traffic requires a bundle with MoE layers, got "
+                    f"the {ctx.cfg.family!r} family")
             self.traffic = traffic_lib.init_traffic_state(
                 ctx.cfg.moe.n_experts, ctx.placement.ep,
                 n_layers=ctx.cfg.n_layers, device=ctx.device)
@@ -389,8 +386,8 @@ class ContinuousServingEngine(_ServingBase):
                          track_traffic=track_traffic, buckets=buckets)
         self.emit = emit
         # one prefill row per admission: the reference's chunk is interleave
-        # lanes x data shards, and the port has neither (a moe_tx stream
-        # with interleave > 1 raises, ROADMAP queue 1 item 5)
+        # lanes x data shards, and the port has neither (a moe_tx or moe_ffn
+        # stream with interleave > 1 raises, ROADMAP queue 1 item 5)
         self.admit_chunk = 1
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.occupancy: list[float] = []     # per-step occupied fraction
@@ -417,12 +414,13 @@ class ContinuousServingEngine(_ServingBase):
         chunk, one length for all) into the pool at slot ``slots[j]``, in
         place; slot ids out of
         range (pad lanes) are dropped (the reference's ``mode="drop"``).
-        ``slots`` is host data, so the copies index by Python ints."""
+        ``slots`` is host data, so the copies index by Python ints.  A
+        stateless family (moe_ffn, ``kv`` None) inserts its length alone."""
         n = pool.length.shape[0]
         for j, i in enumerate(int(x) for x in slots):
             if not 0 <= i < n:
                 continue
-            for name in pool.kv:
+            for name in pool.kv or ():
                 pool.kv[name][:, i].copy_(new.kv[name][:, j])
             pool.length[i].copy_(new.length)
         return pool

@@ -105,7 +105,8 @@ def test_port_params_have_the_reference_tree_and_layouts():
 
 
 def test_configs_are_copies_of_the_reference():
-    for name in ("qwen3-moe-30b-a3b", "qwen3-1.7b", "moe-tx-stream"):
+    for name in ("qwen3-moe-30b-a3b", "qwen3-1.7b", "moe-tx-stream",
+                 "moe-ffn-stream"):
         for mk in (lambda c: c, lambda c: c.reduced()):
             ref = dataclasses.asdict(mk(jget_arch(name)))
             port = dataclasses.asdict(mk(get_arch(name)))
@@ -113,12 +114,14 @@ def test_configs_are_copies_of_the_reference():
 
 
 def test_convert_rejects_other_trees_and_serve_flags():
-    with pytest.raises(ValueError, match="moe-family"):
+    with pytest.raises(ValueError, match="tree of a ported family"):
         convert.params_from_jax({"embed": np.zeros((4, 2), np.float32)})
     a = serve.parse_args(["--layers", "4", "--requests", "8"])
     assert (a.arch, a.engine, a.layers, a.prompt_len, a.gen) == (
         ARCH, "fused_hier", 4, 64, 16)
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "sparse"])
-    with pytest.raises(NotImplementedError, match="moe and moe_tx only"):
-        lm.make_context(get_arch("qwen3-1.7b"), "cpu")
+    # a family that is still unported (the ssm family, item 8)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        lm.make_context(dataclasses.replace(get_arch("qwen3-1.7b"),
+                                            family="ssm"), "cpu")

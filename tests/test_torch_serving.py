@@ -34,7 +34,8 @@ from repro_torch.models import lm, zoo
 from repro_torch.serving.engine import (ContinuousServingEngine,
                                         ServingEngine, default_buckets)
 
-ARCHS = {"moe": "qwen3-moe-30b-a3b", "moe_tx": "moe-tx-stream"}
+ARCHS = {"moe": "qwen3-moe-30b-a3b", "moe_tx": "moe-tx-stream",
+         "dense": "qwen3-1.7b", "moe_ffn": "moe-ffn-stream"}
 TOL = 1e-4
 TOL_EMA = 1e-5
 BUCKETS = (16, 32)
@@ -165,22 +166,29 @@ def _keys(d):
 @pytest.mark.parametrize("family,engine", [("moe", "fused_flat"),
                                            ("moe", "fused_hier"),
                                            ("moe_tx", "fused_flat"),
-                                           ("moe_tx", "fused_hier")])
+                                           ("moe_tx", "fused_hier"),
+                                           ("dense", "fused_flat"),
+                                           ("moe_ffn", "fused_flat"),
+                                           ("moe_ffn", "fused_pipe")])
 def test_engines_match_reference_engines(family, engine):
     """Five requests on buckets 16/32 through a pool of 2 (slots retire and
-    refill) with ``max_new`` 2-4, traffic tracked and a capacity that drops
-    nothing (else a wave's rows share capacity): the continuous engine
-    gives the reference continuous engine's token list per request and its
-    traffic state; the waved engine (waves of 2) the reference waved
-    engine's; both equal the port's batch-1 oracle.  ``stats()`` has the
-    reference's keys."""
+    refill) with ``max_new`` 2-4, traffic tracked (the MoE families) and a
+    capacity that drops nothing (else a wave's rows share capacity): the
+    continuous engine gives the reference continuous engine's token list
+    per request and its traffic state; the waved engine (waves of 2) the
+    reference waved engine's; both equal the port's batch-1 oracle.
+    ``stats()`` has the reference's keys.  moe_ffn through ``fused_pipe``
+    runs both layers in one streamed block (``--moe-stream 2``); the dense
+    family tracks no traffic (the reference refuses it)."""
     cfg_j = jget_arch(ARCHS[family]).reduced()
-    mesh, ctx_j = _jax_ctx(cfg_j, engine, capacity_factor=CF)
+    stream = dict(moe_stream=2) if engine == "fused_pipe" else {}
+    mesh, ctx_j = _jax_ctx(cfg_j, engine, capacity_factor=CF, **stream)
     bundle_j = jzoo.build(cfg_j, ctx_j)
     params_j = jax.tree.map(lambda x: x.astype(jnp.float32),
                             bundle_j.init(jax.random.PRNGKey(0)))
     prompts, max_new = _requests(cfg_j)
-    kw = dict(max_batch=2, max_len=MAX_LEN, buckets=BUCKETS, track_traffic=True)
+    kw = dict(max_batch=2, max_len=MAX_LEN, buckets=BUCKETS,
+              track_traffic=family != "dense")
     with mesh:
         jc = JContinuous(bundle_j, **kw)
         want_c = _drive(jc, params_j, prompts, max_new, waved=False)
@@ -189,7 +197,7 @@ def test_engines_match_reference_engines(family, engine):
 
     bundle, params = _port_bundle(family, engine,
                                   jax.tree.map(np.asarray, params_j),
-                                  capacity_factor=CF)
+                                  capacity_factor=CF, **stream)
     pc = ContinuousServingEngine(bundle, **kw)
     got_c = _drive(pc, params, prompts, max_new, waved=False)
     pw = ServingEngine(bundle, **kw)
@@ -200,6 +208,11 @@ def test_engines_match_reference_engines(family, engine):
     assert got_w == want_w
     assert [got_c[i] for i in range(len(LENS))] == oracle
     assert [got_w[i] for i in range(len(LENS))] == oracle
+    if family == "dense":
+        for port, ref in ((pc, jc), (pw, jw)):
+            assert port.traffic is None and not port.wave_loads
+            assert _keys(port.stats()) == _keys(ref.stats())
+        return
     for port, ref in ((pc, jc), (pw, jw)):
         host = traffic.TrafficState(*(x.numpy() for x in port.traffic))
         ref_tr = jax.tree.map(np.asarray, ref.traffic)

@@ -231,11 +231,13 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 
 def test_training_raises_on_what_is_not_ported():
-    """What training still refuses: the dense family (at ``make_context``),
-    interleaved micro-batch lanes in the moe_tx stream, the traffic state
-    under serial accumulation, and ``train.run`` without a card."""
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        lm.make_context(get_arch("qwen3-1.7b").reduced(), "cpu")
+    """What training still refuses: a family that is not ported (the ssm
+    family, at ``make_context``), interleaved micro-batch lanes in the
+    moe_tx and moe_ffn streams, the traffic state under serial
+    accumulation, and ``train.run`` without a card."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        lm.make_context(dataclasses.replace(
+            get_arch("qwen3-1.7b").reduced(), family="ssm"), "cpu")
     tx = get_arch("moe-tx-stream").reduced()
     x = torch.zeros((1, 4, tx.d_model))
     stacked = {k: torch.zeros((1,) + shape) for k, shape in (
@@ -248,6 +250,13 @@ def test_training_raises_on_what_is_not_ported():
             DcommConfig(engine="fused_pipe"), tx.moe.top_k,
             n_heads=tx.n_heads, n_kv=tx.n_kv_heads, head_dim=tx.hd,
             interleave=2)
+    ffn = get_arch("moe-ffn-stream").reduced()
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        fusco.layer_stream(
+            torch.zeros((4, ffn.d_model)), stacked["router"],
+            None, None, None,
+            ExpertPlacement(n_experts=ffn.moe.n_experts, ep=1, node_size=1),
+            DcommConfig(engine="fused_pipe"), ffn.moe.top_k, interleave=2)
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", compute_dtype=torch.float32)
     step = steps.make_train_step(tzoo.build(cfg, ctx), adamw.AdamWConfig(),
