@@ -59,6 +59,12 @@
      4096) and train (T 2048) shapes and at the slices of its streamed
      phases (pipesim's joint S for a block of 16 layers,
      ``ffn_pipe_config``);
+   - the interleaved paths (``LANE_SERVE``, ``LANE_TRAINS``: two micro-batch
+     lanes) at one lane's shapes (``lane_plan``, ``lane_rows``): the three
+     MoE kernels at every slice of one lane's shuffle (moe-ffn serve T 2048
+     S 32, train T 1024 S 16; moe-tx serve T 2048 S 4, train T 1024 S 4),
+     in training grouped_matmul at slice 0's shape, and moe-tx's flash at
+     one lane's batch (4 / 2 rows of 512);
    - odd shapes of the Hopper forms, of the flash tensor-core form (the
      bf16 shapes the Hopper form refuses) and of the scatter-add and its
      backward (``odd_shape_checks``), held only.
@@ -114,6 +120,11 @@
    through fused_flat and through ``--engine fused_pipe --moe-stream 16``
    (the cross-layer stream at pipesim's joint S, printed; flash must not
    launch).
+   Then (``LANE_SERVE``) both stream families through ``--engine fused_pipe
+   --moe-stream 16 --moe-interleave 2``, all 16 layers, 8 x 512: two lanes
+   of four requests round-robin through the stream; every kernel's launches
+   must equal those the code implies (``lane_launches``: S per lane from
+   ``lane_plan``), printed beside them, with the lanes and S per lane.
    Then the continuous paths (``CONTINUOUS``, ``continuous_phase``):
    ``serving.engine.ContinuousServingEngine`` with traffic tracked over
    qwen3-moe-30b-a3b (4 layers, fused_hier, pool 8, 32 requests of 16 /
@@ -135,7 +146,10 @@
    traffic state threaded through every step, then (``NEW_TRAINS``)
    qwen3-1.7b (all 28 layers, bf16 params, f32 master) and
    moe-ffn-stream-1b (all 16 layers) through fused_flat and streamed
-   fused_pipe, B 4 x S 512, 8 steps; read the counters and fail if a
+   fused_pipe, B 4 x S 512, 8 steps, and (``LANE_TRAINS``) both stream
+   families at two lanes with ``--accum 2`` fused into them (one loss call
+   a step, traffic on), their launches held to ``lane_launches``; read the
+   counters and fail if a
    kernel of the path (``family_kernels``: the five and the scatter-add's
    backward, flash only where the family has attention, none of the MoE
    kernels for the dense family) never launched or one off it did, a loss
@@ -162,13 +176,19 @@
    fused_flat and fused_hier, moe-tx, qwen3-1.7b and moe-ffn through
    fused_flat; 6 requests, a pool of 4): the card's token
    streams must equal the CPU's and its own batch-1 waved oracle's, and
-   its traffic state the CPU's within 1e-5.
+   its traffic state the CPU's within 1e-5.  At two lanes
+   (``lane_capacity``: no row dropped): both stream families' serve logits
+   card vs CPU and card vs the card at one lane, their train step with the
+   accumulation fused into the lanes card vs CPU and vs the card's one-lane
+   step, and moe-ffn's continuous engine with an admission chunk of two.
    Each reduced train check runs once more over a one-rank NCCL group (the
    bits of none, no collective).  Then the process groups, on gloo ranks
    sharing the card (NCCL refuses two ranks on one device; gloo stages
    every collective through the host, so nothing here is a speed):
    ``ep2_card_check``, one reduced f32 train step of each family on two
-   ranks (EP 2) against the one-rank card step; ``grid_card_check``, the
+   ranks (EP 2) against the one-rank card step (moe-ffn's at two lanes, its
+   accumulation fused), and moe-ffn's prefill at two lanes with autograd
+   off, every lane's tail left in flight on an asynchronous exchange; ``grid_card_check``, the
    same on a (2, 2) (data, model) grid of four ranks, with the replicated
    leaves' bits equal on the four, each expert leaf's on the data ranks of
    its lane, the traffic state's on the four, each rank's AdamW state its
@@ -281,6 +301,19 @@ DENSE_FLASH_ODD = ((2, 509, 509, 16, 8, 128, 0, None),
                    (2, 77, 300, 16, 8, 128, 223, None),
                    (4, 128, 512, 16, 8, 128, 128, None),
                    (4, 128, 512, 16, 8, 128, 128, 192))
+# the interleaved micro-batch lanes: moe-ffn-stream-1b and moe-tx-stream-1b at
+# full width, all 16 layers, through --engine fused_pipe --moe-stream 16
+# --moe-interleave 2, served 8 x 512 (16 generated; four requests a lane) and
+# trained B 4 x S 512 with --accum 2 fused into the lanes, traffic on
+LANES = 2
+TX = "moe-tx-stream"
+LANE_FLAGS = ["--engine"] + STREAMED + ["--moe-interleave", str(LANES)]
+LANE_SERVE = {f"{a} K {LANES}": ["--arch", a, "--requests", "8",
+                                 "--prompt-len", "512", "--gen", "16"]
+              + LANE_FLAGS for a in (FFN, TX)}
+LANE_TRAINS = {f"{label} train K {LANES}": ["--arch", a] + TRAIN_FLAGS
+               + LANE_FLAGS + ["--accum", str(LANES)]
+               for label, a in (("moe-ffn", FFN), ("moe-tx", TX))}
 # the serve phases of the other engines: (flags, kernels that must launch,
 # kernels that must not); disagg's sort and repack passes are plain torch,
 # the baseline's own cost, so its path has no gather or scatter-add kernel
@@ -374,11 +407,13 @@ MAX_NEW = (8, 32)
 ADMISSION_T = (16, 128)
 ADMISSION_ATTN = dict(b=1, hq=32, hkv=4, hd=128)
 # the card-vs-CPU checks of the continuous engine: reduced models in f32
-CONTINUOUS_CHECKS = (("qwen3-moe-30b-a3b", "fused_flat"),
-                     ("qwen3-moe-30b-a3b", "fused_hier"),
-                     ("moe-tx-stream", "fused_flat"),
-                     ("qwen3-1.7b", "fused_flat"),
-                     ("moe-ffn-stream", "fused_flat"))
+# (arch, engine, lanes); the last, the interleaved stream's admission chunk
+CONTINUOUS_CHECKS = (("qwen3-moe-30b-a3b", "fused_flat", 1),
+                     ("qwen3-moe-30b-a3b", "fused_hier", 1),
+                     ("moe-tx-stream", "fused_flat", 1),
+                     ("qwen3-1.7b", "fused_flat", 1),
+                     ("moe-ffn-stream", "fused_flat", 1),
+                     (FFN, "fused_pipe", LANES))
 TOL_TRAFFIC = 1e-5        # traffic state, card vs CPU, relative to max(1, |x|)
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
@@ -1195,42 +1230,63 @@ def reduced_bf16_runs(device="cuda") -> dict:
     return runs
 
 
-def engine_kwargs(engine: str, cfg) -> dict:
+# the capacity factor of the reduced checks at more than one lane: no row is
+# dropped at one lane or at K (whose per-lane capacities differ), so both
+# compute one function, and a chunk's left-pad rows take no real row's place
+LANE_CAPACITY = 8.0
+
+
+def lane_capacity(lanes: int) -> dict:
+    """``lm.make_context``'s capacity option of a reduced check at
+    ``lanes`` lanes (``LANE_CAPACITY`` above one; else the default)."""
+    return dict(capacity_factor=LANE_CAPACITY) if lanes > 1 else {}
+
+
+def engine_kwargs(engine: str, cfg, lanes: int = 1) -> dict:
     """``lm.make_context``'s engine options of a reduced check: fused_pipe at
-    4 slices, the moe_tx or moe_ffn layers in one streamed block; "dedup"
-    is fused_flat with the condensed wire."""
+    4 slices, the moe_tx or moe_ffn layers in one streamed block, ``lanes``
+    micro-batch lanes round-robin through it; "dedup" is fused_flat with
+    the condensed wire."""
     if engine == "dedup":
         return dict(engine="fused_flat", dedup=True)
     if engine != "fused_pipe":
         return dict(engine=engine)
-    return dict(engine=engine, pipe_slices=4,
+    return dict(engine=engine, pipe_slices=4, moe_interleave=lanes,
                 moe_stream=(cfg.n_layers if cfg.family in ("moe_tx", "moe_ffn")
                             else 0))
 
 
-def reduced_check(arch: str, device="cuda", engine="fused_flat") -> float:
+def reduced_check(arch: str, device="cuda", engine="fused_flat",
+                  lanes: int = 1, against=("cpu", 1)) -> float:
     """The reduced model (float32) on the card through the kernels against
-    the same model on the CPU through the plain versions, both through
-    ``engine``: prefill and three decode steps fed the same tokens.
-    Returns the max logit error."""
+    the same model on ``against``'s device at its lane count (default: the
+    CPU through the plain versions, one lane), both through ``engine``, the
+    card's stream at ``lanes`` (``engine_kwargs``; more than one lane on
+    either side: both at ``lane_capacity``): prefill (4 requests) and three
+    decode steps fed the same tokens.  Returns the max logit error."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     cfg = get_arch(arch).reduced()
     f32 = torch.float32
-    ctxs = {dev: lm.make_context(cfg, dev, compute_dtype=f32,
-                                 **engine_kwargs(engine, cfg))
-            for dev in ("cpu", device)}
-    params = lm.init_params(cfg, ctxs["cpu"], torch.Generator().manual_seed(0),
-                            dtype=f32)
+    ref_dev, ref_lanes = against
+    extra = lane_capacity(max(lanes, ref_lanes))
+    ctxs = {side: lm.make_context(cfg, dev, compute_dtype=f32,
+                                  **engine_kwargs(engine, cfg, k), **extra)
+            for side, dev, k in (("ref", ref_dev, ref_lanes),
+                                 ("card", device, lanes))}
+    params = lm.init_params(cfg, lm.make_context(cfg, "cpu"),
+                            torch.Generator().manual_seed(0), dtype=f32)
     move = lambda t, dev: ({k: move(v, dev) for k, v in t.items()}
                            if isinstance(t, dict) else t.to(dev))
     tokens = torch.randint(0, cfg.vocab, (4, 16),
                            generator=torch.Generator().manual_seed(1))
     max_len = 20
 
-    def run(dev, feed):
-        p, ctx = move(params, dev), ctxs[dev]
+    def run(side, feed):
+        ctx = ctxs[side]
+        dev = ctx.device
+        p = move(params, dev)
         logits, st = lm.prefill(p, tokens.to(dev), torch.arange(16, device=dev),
                                 ctx, max_len)
         seq = [logits.cpu()]
@@ -1240,11 +1296,12 @@ def reduced_check(arch: str, device="cuda", engine="fused_flat") -> float:
             seq.append(logits.cpu())
         return seq
 
-    on_cpu = run("cpu", None)
-    fed = [lg.argmax(-1) for lg in on_cpu[:-1]]
-    worst = max(max_err(a, b) for a, b in zip(on_cpu, run(device, fed)))
+    ref = run("ref", None)
+    fed = [lg.argmax(-1) for lg in ref[:-1]]
+    worst = max(max_err(a, b) for a, b in zip(ref, run("card", fed)))
     if not worst <= TOL_REDUCED:
-        raise AssertionError(f"reduced {arch} {engine} card vs CPU: {worst} > "
+        raise AssertionError(f"reduced {arch} {engine} card at {lanes} lanes "
+                             f"vs {ref_dev} at {ref_lanes}: {worst} > "
                              f"{TOL_REDUCED}")
     return worst
 
@@ -1644,6 +1701,103 @@ def ffn_pipe_config(t: int):
     return dataclasses.replace(cfg, pipe_slices=s), (cap, s)
 
 
+def lane_plan(argv, train: bool) -> dict:
+    """What the code plans for an interleaved serve (``train`` False) or
+    train path of ``argv``: the model's config, the lanes K, each lane's
+    batch rows and tokens, the (capacity, S) every lane's shuffles share
+    (``dcomm.pipe_geometry`` of one lane at the spec point, as
+    ``fusco.interleaved_layer_stream`` and ``tx_layer_stream`` plan it:
+    ``--pipe-slices``, or pipesim's interleaved knee, with the attention
+    proxy of one lane for moe_tx), the DcommConfig with that S frozen, the MoE shapes of one lane
+    (``main_path_inputs``) and its attention shape (None without), and
+    what the run does: streamed forwards (2 prefills, or the steps),
+    decode steps (``serve.run``: 2 warm-up and gen - 1 timed) and stream
+    blocks."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dcomm, fusco
+    from repro_torch.core.routing import ExpertPlacement
+    from repro_torch.launch import serve, train as train_lib
+    from repro_torch.models import lm
+    args = (train_lib if train else serve).parse_args(argv)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    k = args.moe_interleave
+    rows, seq = ((args.batch, args.seq) if train
+                 else (args.requests, args.prompt_len))
+    bc = rows // k
+    t = bc * seq
+    dcfg = engine_config("fused_pipe", args.pipe_slices, "spec", None)
+    moe = cfg.moe
+    attn, attn_s = None, 0.0
+    if lm.has_attention(cfg):
+        attn = dict(b=bc, sq=seq, sk=seq, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                    hd=cfg.hd)
+        attn_s = fusco._tx_attn_cost_s(t, seq, bc, seq, cfg.n_heads, cfg.hd,
+                                       2, dcfg)
+    cap, s = dcomm.pipe_geometry(t, moe.top_k, cfg.d_model, 2,
+                                 ExpertPlacement(moe.n_experts, 1, 1), dcfg,
+                                 n_layers=args.moe_stream, interleave=k,
+                                 attn_s=attn_s)
+    return dict(cfg=cfg, lanes=k, rows=bc, t=t, cap=cap, slices=s,
+                dcfg=dataclasses.replace(dcfg, pipe_slices=s),
+                shapes=dict(t=t, d=cfg.d_model, n_experts=moe.n_experts,
+                            top_k=moe.top_k, f=moe.d_ff_expert, decode_t=8),
+                attn=attn, passes=args.steps if train else 2,
+                decode=0 if train else args.gen + 1,
+                blocks=cfg.n_layers // args.moe_stream)
+
+
+def lane_launches(plan: dict, train: bool) -> dict:
+    """The launches of each kernel that the code of an interleaved path
+    implies (``lane_plan``): every lane of every layer of every streamed
+    forward runs S slices, each a gather, a fused_swiglu and a scatter-add
+    (S - 1 in its shuffle, its tail in the lane's next prologue or the
+    block's epilogue); each lane of each block first lands an empty tail
+    (one scatter-add more); moe_tx runs its attention once a lane; a
+    decode step runs one fused_swiglu a layer.  Training adds, per slice,
+    the gather's backward (a scatter-add), the scatter-add's own backward
+    and the five grouped_matmul products of the SwiGLU backward."""
+    lane_layers = plan["passes"] * plan["cfg"].n_layers * plan["lanes"]
+    sl = lane_layers * plan["slices"]
+    tails = plan["passes"] * plan["lanes"] * plan["blocks"]
+    return {"segment_gather": sl,
+            "segment_scatter_add": sl + tails + (sl if train else 0),
+            "segment_scatter_add_bwd": sl if train else 0,
+            "fused_swiglu": sl + plan["decode"] * plan["cfg"].n_layers,
+            "flash_attention": lane_layers if plan["attn"] else 0,
+            "grouped_matmul": 5 * sl if train else 0}
+
+
+def lane_rows(plan: dict, train: bool, timer=time_ms,
+              device="cuda") -> tuple[list, str]:
+    """The kernels at an interleaved path's lane shapes: the three MoE
+    kernels at every slice of one lane's shuffle (``pipe_slice_rows`` on a
+    lane's T tokens at the lane plan's frozen S, slice 0 timed), in
+    training grouped_matmul at slice 0's shape (the SwiGLU backward's
+    products), and the flash forward at one lane's attention shape.
+    Returns the rows and ``pipe_slice_rows``' line."""
+    from repro_torch.core import dcomm
+    from repro_torch.core.routing import ExpertPlacement
+    inp = main_path_inputs(device, **plan["shapes"], seed=2)
+    rows, line = pipe_slice_rows(inp, plan["dcfg"], timer)
+    if train:
+        pp = dcomm._pipe_slice_plan(
+            inp["x"], inp["A"], inp["route_gates"],
+            ExpertPlacement(plan["shapes"]["n_experts"], 1, 1), plan["dcfg"],
+            None)
+        first = dict(inp, cap=pp.cap // pp.n_slices,
+                     counts=pp.counts[0].contiguous(),
+                     idx=pp.sliced.src[0].reshape(-1).contiguous())
+        rows += [dict(r, shape=f"slice 0 of {pp.n_slices}: {r['shape']}")
+                 for r in gmm_rows(first, timer)]
+    if plan["attn"] is not None:
+        rows.append(flash_row(*attention_inputs(device, **plan["attn"]),
+                              window=None, timer=timer))
+    return rows, line
+
+
 def dense_flash_rows(timer=time_ms, device="cuda") -> tuple[list, list]:
     """qwen3-1.7b's flash forward, group size 2 (each 64-row tile of
     ``flash_fwd_wgmma`` packs 32 positions x 2 heads, and the block skipping
@@ -2038,10 +2192,15 @@ def free_port() -> int:
 
 
 def reduced_train_check(device="cuda", engine="fused_flat",
-                        arch="qwen3-moe-30b-a3b", group=None) -> dict:
+                        arch="qwen3-moe-30b-a3b", group=None,
+                        lanes: int = 1) -> dict:
     """One ``make_train_step`` of the reduced ``arch`` in float32 through
     ``engine`` (``engine_kwargs``: the moe_tx or moe_ffn layers in one
-    streamed block) from the same params, batch and cold traffic state (a
+    streamed block; with ``lanes`` > 1 that many micro-batch lanes, and as
+    many accumulation micro-batches fused into them,
+    ``steps.accum_fuses_into_stream``, which must hold, every run at
+    ``lane_capacity``) from the same
+    params, batch and cold traffic state (a
     family with MoE) on the card (kernels: those of the family's path
     launched and no other, ``family_kernels``; disagg's plain passes launch
     no gather or scatter-add) and on the CPU (plain versions): max errors
@@ -2052,7 +2211,10 @@ def reduced_train_check(device="cuda", engine="fused_flat",
     zero may move the other way.  With ``group`` (an initialised process
     group of one rank), the card's step once more over it: the same bits
     in the loss, every grad leaf, every updated param and the traffic
-    state as with no group, and no collective called."""
+    state as with no group, and no collective called.  With ``lanes`` > 1,
+    the card's step once more at one lane without accumulation (the same
+    function: the fused step's loss is the whole batch's token-mean), held
+    to it within the card-vs-CPU tolerances (``one_lane``)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import dcomm, traffic
@@ -2067,21 +2229,28 @@ def reduced_train_check(device="cuda", engine="fused_flat",
                           torch.Generator().manual_seed(0), dtype=f32)
     host = ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0)
     res = {}
-    runs = [("cpu", "cpu", None), (device, device, None)]
+    runs = [("cpu", "cpu", None, lanes), (device, device, None, lanes)]
     if group is not None:
-        runs.append(("group", device, group))
-    for name, dev, g in runs:
+        runs.append(("group", device, group, lanes))
+    if lanes > 1:
+        runs.append(("one lane", device, None, 1))
+    for name, dev, g, k in runs:
         ctx = lm.make_context(cfg, dev, ep_group=g, compute_dtype=f32,
-                              **engine_kwargs(engine, cfg))
+                              **engine_kwargs(engine, cfg, k),
+                              **lane_capacity(lanes))
         model = zoo.build(cfg, ctx)
+        if k > 1 and not steps.accum_fuses_into_stream(model, k):
+            raise AssertionError(f"reduced {arch} {engine}: {k} lanes do not "
+                                 "take the accumulation")
         params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
         batch = to_device(host, dev)
         cold = lambda: None if cfg.moe is None else traffic.init_traffic_state(
             cfg.moe.n_experts, 1, n_layers=cfg.n_layers, device=dev)
         wrappers = zero_counters()
         with dcomm.collective_calls() as calls:
-            loss, _, grads = steps.value_and_grad(model)(params, batch, cold())
-            params, _, m = steps.make_train_step(model, opt_cfg)(
+            loss, _, grads = steps.value_and_grad(model, k)(params, batch,
+                                                            cold())
+            params, _, m = steps.make_train_step(model, opt_cfg, k)(
                 params, adamw.init(params), batch, cold())
         res[name] = (float(loss), [x.cpu() for x in grads],
                      [x.detach().cpu() for x in adamw.leaves(params)],
@@ -2112,6 +2281,18 @@ def reduced_train_check(device="cuda", engine="fused_flat",
                              f"never launched {never}, or launched {stray}: "
                              f"{launched}")
     out = dict(err, params_tol=p_tol, launches=launched)
+    if lanes > 1:
+        lo, go, po, _, to, _ = res["one lane"]
+        one = dict(loss=abs(lo - l1),
+                   grads=max(rel(a, b) for a, b in zip(go, g1)),
+                   params=max(max_err(a, b) for a, b in zip(po, p1)),
+                   traffic=max((rel(a, b) for a, b in zip(to, t1)),
+                               default=0.0))
+        if not (one["loss"] <= TOL_TRAIN and one["grads"] <= TOL_TRAIN
+                and one["params"] <= p_tol and one["traffic"] <= TOL_TRAFFIC):
+            raise AssertionError(f"reduced {arch} train step {engine} on the "
+                                 f"card, {lanes} lanes vs one: {one}")
+        out["one_lane"] = one
     if group is not None:
         lg, gg, pg, _, tg, calls = res["group"]
         same = (lg == l1 and all(same_bits(a, b) for a, b in zip(
@@ -2128,15 +2309,23 @@ def reduced_train_check(device="cuda", engine="fused_flat",
 # the EP-2 check on one card: two ranks of a gloo group sharing it (NCCL
 # refuses two ranks on one device); (arch, engine) of each case
 EP2_CASES = (("qwen3-moe-30b-a3b", "fused_hier"), ("moe-tx-stream", "fused_pipe"))
+# the EP-2 cases of the interleaved lanes: (arch, engine, lanes), the train
+# step's accumulation fused into the lanes, and a prefill with autograd off,
+# each lane's tail an asynchronous exchange in flight
+EP2_LANE_CASES = (("moe-ffn-stream", "fused_pipe", 2),)
+# (arch, engine, lanes) of every EP-2 train step
+EP2_TRAIN_CASES = tuple((a, e, 1) for a, e in EP2_CASES) + EP2_LANE_CASES
 EP2 = 2
 EP2_CAPACITY = 8.0   # capacity factor: no row dropped at EP 1 or EP 2, whose
                      # capacities differ, so both compute one function
 
 
-def _ep2_step(arch, engine, device, group=None, mesh=None) -> dict:
+def _ep2_step(arch, engine, device, group=None, mesh=None,
+              lanes: int = 1) -> dict:
     """One f32 train step of the reduced ``arch`` through ``engine``
-    (``engine_kwargs``) on ``device`` over ``group`` or on ``mesh`` (None:
-    one rank), from the whole seed-0 tree cut to this rank's lane and the
+    (``engine_kwargs``; ``lanes`` > 1: the accumulation of as many
+    micro-batches fused into the lanes) on ``device`` over ``group`` or on
+    ``mesh`` (None: one rank), from the whole seed-0 tree cut to this rank's lane and the
     global batch cut to its data rank's rows: the loss, the grads and the
     updated params by path (on the CPU), the grad norm, the new traffic
     state, the bytes of the AdamW state and those of its ZeRO-1 share
@@ -2159,7 +2348,7 @@ def _ep2_step(arch, engine, device, group=None, mesh=None) -> dict:
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     ctx = lm.make_context(cfg, device, ep_group=group, mesh=mesh,
                           capacity_factor=EP2_CAPACITY, compute_dtype=f32,
-                          **engine_kwargs(engine, cfg))
+                          **engine_kwargs(engine, cfg, lanes))
     model = zoo.build(cfg, ctx)
     params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
     batch = to_device(host, device)
@@ -2167,9 +2356,9 @@ def _ep2_step(arch, engine, device, group=None, mesh=None) -> dict:
         cfg.moe.n_experts, ctx.placement.ep, n_layers=cfg.n_layers,
         device=device)
     wrappers = zero_counters()
-    loss, _, grads = steps.value_and_grad(model)(params, batch, cold())
+    loss, _, grads = steps.value_and_grad(model, lanes)(params, batch, cold())
     opt = steps.init_state(model, params)
-    params, opt, m = steps.make_train_step(model, opt_cfg)(
+    params, opt, m = steps.make_train_step(model, opt_cfg, lanes)(
         params, opt, batch, cold())
     paths = adamw.paths(params)
     share = sum(12 * t.numel() // (1 if adamw.zero_dim(
@@ -2208,9 +2397,51 @@ def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
                              f"{timeout} s)")
 
 
+def _ep2_prefill(arch, engine, device, lanes, group=None) -> dict:
+    """The reduced ``arch`` (f32, capacity factor ``EP2_CAPACITY``) through
+    ``engine`` at ``lanes`` lanes: one prefill of 4 x 16 seed-1 tokens from
+    the whole seed-0 tree cut to this rank's lane, autograd off, over
+    ``group`` (None: one rank).  Returns the logits (on the CPU), the
+    kernels' launches and, for each stream shuffle, whether its tail's
+    combine exchange was left in flight asynchronously (a handle to wait
+    on)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dcomm
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    ctx = lm.make_context(cfg, device, ep_group=group,
+                          capacity_factor=EP2_CAPACITY, compute_dtype=f32,
+                          **engine_kwargs(engine, cfg, lanes))
+    params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
+    tokens = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(1))
+    tails, stream = [], dcomm.pipe_shuffle_ffn_stream
+
+    def recording(*a, **kw):
+        y, tail = stream(*a, **kw)
+        tails.append(tail.returned.work is not None)
+        return y, tail
+
+    wrappers = zero_counters()
+    dcomm.pipe_shuffle_ffn_stream = recording
+    try:
+        with torch.inference_mode():
+            logits, _ = lm.prefill(params, tokens.to(device),
+                                   torch.arange(16, device=device), ctx, 20)
+    finally:
+        dcomm.pipe_shuffle_ffn_stream = stream
+    return {"logits": logits.cpu(), "async_tails": tails,
+            "launches": {k: w.launches for k, w in wrappers.items()}}
+
+
 def _ep2_rank(rank, port, out_dir, device):
     """One rank of the EP-2 check: a gloo group of two on ``device``, each
-    case's step saved to ``out_dir``."""
+    case's step (and each lane case's prefill) saved to ``out_dir``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -2219,34 +2450,49 @@ def _ep2_rank(rank, port, out_dir, device):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=EP2)
     try:
-        for arch, engine in EP2_CASES:
-            torch.save(_ep2_step(arch, engine, device, dist.group.WORLD),
-                       f"{out_dir}/{arch}-{engine}-rank{rank}.pt")
+        for arch, engine, lanes in EP2_TRAIN_CASES:
+            torch.save(_ep2_step(arch, engine, device, dist.group.WORLD,
+                                 lanes=lanes),
+                       f"{out_dir}/{arch}-{engine}-{lanes}-rank{rank}.pt")
+        for arch, engine, lanes in EP2_LANE_CASES:
+            torch.save(_ep2_prefill(arch, engine, device, lanes,
+                                    dist.group.WORLD),
+                       f"{out_dir}/{arch}-{engine}-{lanes}-prefill-rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 def ep2_card_check(device="cuda") -> list[str]:
-    """One f32 train step of each ``EP2_CASES`` on two ranks sharing the
-    card (a gloo group: NCCL refuses two ranks on one device) against the
-    EP 1 step on the card from the same whole parameters and global batch:
-    on each rank the loss and every grad leaf (an expert leaf's against its
-    lane of the EP 1 gradient) within ``TOL_TRAIN`` of max(1, |x|), the
-    grad norm within ``TOL_TRAIN`` relative, the updated params within 2 *
-    lr + 1e-5; the replicated leaves hold the same bits on both ranks after
-    the step; every kernel launched on each rank.  Returns a line a case."""
+    """One f32 train step of each case (``EP2_TRAIN_CASES``: ``EP2_CASES``
+    and the lanes' ``EP2_LANE_CASES``) on two ranks sharing the card (a gloo group:
+    NCCL refuses two ranks on one device) against the EP 1 step on the card
+    from the same whole parameters and global batch: on each rank the loss
+    and every grad leaf (an expert leaf's against its lane of the EP 1
+    gradient) within ``TOL_TRAIN`` of max(1, |x|), the grad norm within
+    ``TOL_TRAIN`` relative, the updated params within 2 * lr + 1e-5; the
+    replicated leaves hold the same bits on both ranks after the step;
+    every kernel of the family's path launched on each rank and none off
+    it (``family_kernels``).  Then each lane case's prefill
+    (``_ep2_prefill``): each rank's logits within ``TOL_REDUCED`` of the
+    EP 1 prefill's, every shuffle's tail left in flight on an asynchronous
+    exchange (one a lane and layer), none at EP 1.  Returns a line a
+    case."""
     import shutil
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.models import lm
     out_dir = ROOT / "build" / "ep2"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    want = {c: _ep2_step(*c, device) for c in EP2_CASES}
+    want = {c: _ep2_step(*c[:2], device, lanes=c[2]) for c in EP2_TRAIN_CASES}
+    want_prefill = {c: _ep2_prefill(*c[:2], device, c[2])
+                    for c in EP2_LANE_CASES}
     spawn_ranks(_ep2_rank, EP2, (free_port(), str(out_dir), device), 600)
     lines = []
-    for (arch, engine), w in want.items():
-        got = [torch.load(out_dir / f"{arch}-{engine}-rank{r}.pt")
+    for (arch, engine, lanes), w in want.items():
+        got = [torch.load(out_dir / f"{arch}-{engine}-{lanes}-rank{r}.pt")
                for r in range(EP2)]
+        required, absent = family_kernels(get_arch(arch), train=True)
         rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
         err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
         for r, g in enumerate(got):
@@ -2259,10 +2505,12 @@ def ep2_card_check(device="cuda") -> list[str]:
             for k, t in w["params"].items():
                 err["params"] = max(err["params"],
                                     max_err(g["params"][k], lane(k, t)))
-            never = [k for k, n in g["launches"].items() if n == 0]
-            if never:
+            never = [k for k in required if g["launches"][k] == 0]
+            stray = [k for k in absent if g["launches"][k]]
+            if never or stray:
                 raise AssertionError(f"EP-2 {arch} {engine} rank {r} never "
-                                     f"launched {never}: {g['launches']}")
+                                     f"launched {never}, or launched "
+                                     f"{stray}: {g['launches']}")
         apart = [k for k, t in got[0]["params"].items()
                  if not lm.lane_sharded(k)
                  and not same_bits(t, got[1]["params"][k])]
@@ -2274,12 +2522,35 @@ def ep2_card_check(device="cuda") -> list[str]:
                 f"EP-2 {arch} {engine} against EP 1 on the card: {err} (tol "
                 f"{TOL_TRAIN}, params {p_tol}); replicated leaves apart "
                 f"across ranks: {apart}")
+        fused = f" at {lanes} lanes, accum {lanes} fused" if lanes > 1 else ""
         lines.append(
-            f"{arch} {engine}: loss {err['loss']:.3g}, grads "
+            f"{arch} {engine}{fused}: loss {err['loss']:.3g}, grads "
             f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
             f"{TOL_TRAIN}), params {err['params']:.3g} (tol {p_tol:.3g}); "
             f"replicated leaves bit-equal across the ranks; launches per "
             f"rank {json.dumps([g['launches'] for g in got])}")
+    for (arch, engine, lanes), w in want_prefill.items():
+        cfg = get_arch(arch).reduced()
+        got = [torch.load(out_dir / f"{arch}-{engine}-{lanes}-prefill-rank{r}.pt")
+               for r in range(EP2)]
+        err = max(max_err(g["logits"], w["logits"]) for g in got)
+        tails = [g["async_tails"] for g in got]
+        required, _ = family_kernels(cfg, train=False)
+        never = [k for g in got for k in required if g["launches"][k] == 0]
+        if not (err <= TOL_REDUCED and not any(w["async_tails"])
+                and all(t == [True] * (cfg.n_layers * lanes) for t in tails)
+                and not never):
+            raise AssertionError(
+                f"EP-2 {arch} {engine} prefill at {lanes} lanes against EP 1 "
+                f"on the card: logits {err} (tol {TOL_REDUCED}); tails in "
+                f"flight per rank {tails}, at EP 1 {w['async_tails']}; never "
+                f"launched {never}")
+        lines.append(
+            f"{arch} {engine} prefill at {lanes} lanes, autograd off: logits "
+            f"{err:.3g} (tol {TOL_REDUCED}); each rank left all "
+            f"{cfg.n_layers * lanes} lane tails in flight on an asynchronous "
+            f"exchange (EP 1: none); launches per rank "
+            f"{json.dumps([g['launches'] for g in got])}")
     shutil.rmtree(out_dir, ignore_errors=True)
     return lines
 
@@ -2673,15 +2944,20 @@ def continuous_phase(label: str, spec: dict) -> tuple[dict, dict]:
     return launches, times
 
 
-def continuous_check(arch: str, engine: str, device="cuda") -> dict:
+def continuous_check(arch: str, engine: str, device="cuda",
+                     lanes: int = 1) -> dict:
     """The continuous engine over the reduced model in float32: 6 requests
     on bucket boundaries (16 / 32) through a pool of 4 with ``max_new``
     4-6 (seed 0), traffic tracked (a family with MoE), on the card
     (kernels) and on the CPU
-    (plain versions).  Fails unless the card gives the CPU's token streams
-    and the streams of its own batch-1 waved oracle, and the CPU's traffic
-    state within ``TOL_TRAFFIC``.  Returns the streams' count and the
-    traffic error."""
+    (plain versions).  With ``lanes`` > 1 (``engine_kwargs``) an admission
+    prefills a chunk of that many rows, one a lane, at ``lane_capacity``:
+    a chunk's left-pad positions share its lanes' capacity, so with a drop
+    a request's stream would depend on its chunk, and the batch-1 oracle
+    (each request alone in its lane) holds only where none is dropped.  Fails unless the card gives the CPU's
+    token streams and the streams of its own batch-1 waved oracle, and the
+    CPU's traffic state within ``TOL_TRAFFIC``.  Returns the streams'
+    count, the traffic error and the admission chunk."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -2691,7 +2967,8 @@ def continuous_check(arch: str, engine: str, device="cuda") -> dict:
     cfg = get_arch(arch).reduced()
     f32 = torch.float32
     bundles = {dev: zoo.build(cfg, lm.make_context(
-        cfg, dev, engine=engine, node_size=1, compute_dtype=f32))
+        cfg, dev, node_size=1, compute_dtype=f32,
+        **engine_kwargs(engine, cfg, lanes), **lane_capacity(lanes)))
         for dev in ("cpu", device)}
     params = bundles["cpu"].init(torch.Generator().manual_seed(0), f32)
     move = lambda t, dev: ({k: move(v, dev) for k, v in t.items()}
@@ -2704,6 +2981,9 @@ def continuous_check(arch: str, engine: str, device="cuda") -> dict:
     def run(dev):
         eng = ContinuousServingEngine(bundles[dev], max_batch=4,
                                       track_traffic=cfg.moe is not None, **kw)
+        if eng.admit_chunk != lanes:
+            raise AssertionError(f"continuous {arch} {engine}: admission "
+                                 f"chunk {eng.admit_chunk}, lanes {lanes}")
         p = move(params, dev)
         eng.warmup(p)
         for prompt, n in reqs:
@@ -2727,7 +3007,7 @@ def continuous_check(arch: str, engine: str, device="cuda") -> dict:
                              f"{oracle}; traffic error {err} (tol "
                              f"{TOL_TRAFFIC})")
     return dict(requests=len(card), tokens=sum(map(len, card)),
-                traffic_err=err)
+                traffic_err=err, admit_chunk=lanes)
 
 
 def print_row(r: dict) -> None:
@@ -2748,31 +3028,39 @@ def print_row(r: dict) -> None:
 
 
 def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
-                      absent=()) -> tuple[dict, dict]:
+                      absent=(), implied=None) -> tuple[dict, dict]:
     """One serving path at full width: the serve phase with its launch
-    counts, then the profile phase.  Returns the launch counts and the
-    times (TTFT, decode, and each profiled step's device busy share)."""
+    counts, each held to ``implied`` (default ``SERVE_LAUNCHES``' entry),
+    then the profile phase.  Returns the launch counts and the times (TTFT,
+    decode, and each profiled step's device busy share)."""
     import torch
     from repro_torch.models import lm
     torch.cuda.reset_peak_memory_stats()
     out, launches = serve_phase(argv, required=required, absent=absent)
     cfg = out["cfg"]
-    implied = SERVE_LAUNCHES.get(label, {})
+    implied = SERVE_LAUNCHES.get(label, {}) if implied is None else implied
     if any(launches[k] != n for k, n in implied.items()):
         raise AssertionError(f"{label}: launches {launches}, its code implies "
                              f"{implied}")
+    # moe_tx's streamed prefill runs its attention once a lane
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    lanes = (args.moe_interleave if cfg.family == "moe_tx"
+             and args.engine == "fused_pipe" else 1)
     if (lm.has_attention(cfg)
-            and launches["flash_attention"] != 2 * cfg.n_layers):
+            and launches["flash_attention"] != 2 * cfg.n_layers * lanes):
         raise AssertionError(f"{label}: flash launched "
                              f"{launches['flash_attention']} times, expected "
-                             f"2 prefills x {cfg.n_layers} layers")
+                             f"2 prefills x {cfg.n_layers} layers x {lanes} "
+                             "lanes")
     print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
           f"{' '.join(argv[2:])}: ttft "
           f"{out['ttft_s'] * 1e3:.3f} ms  decode "
           f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
           f"{out['warmup_s']:.2f} s  peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches on the {label} path: {json.dumps(launches)}")
+    print(f"launches on the {label} path: {json.dumps(launches)}"
+          + (f"; its code implies {json.dumps(implied)}" if implied else ""))
     print(f"sample tokens: {out['tokens'][0].tolist()}")
     unprofiled = {"prefill": out["ttft_s"] * 1e3,
                   "decode": out["decode_s_per_tok"] * 1e3}
@@ -2834,14 +3122,18 @@ def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
           f"\n  top device time: {top}")
 
 
-def train_and_profile(label: str, argv) -> dict:
+def train_and_profile(label: str, argv, implied=None) -> dict:
     """A training path at full width: the train phase with its launch
-    counts, then one profiled step.  Returns the launch counts."""
+    counts, each held to ``implied`` where given, then one profiled step.
+    Returns the launch counts."""
     import torch
     from repro_torch.launch.train import WARMUP
     from repro_torch.models import lm
     torch.cuda.empty_cache()
     out, launches = train_phase(argv)
+    if implied and any(launches[k] != n for k, n in implied.items()):
+        raise AssertionError(f"{label}: launches {launches}, its code implies "
+                             f"{implied}")
     cfg, n = out["cfg"], len(out["losses"])
     print(f"{label}: {cfg.name} full width, {cfg.n_layers} layers, "
           f"{' '.join(argv[argv.index('--batch'):])}: "
@@ -2859,7 +3151,8 @@ def train_and_profile(label: str, argv) -> dict:
               f"top-expert share "
               f"{(tr.expert_ema.max(-1).values / tr.expert_ema.sum(-1)).max().item():.4f}")
     print(f"launches on the {label} path ({n} steps): {json.dumps(launches)}; "
-          f"per step: {json.dumps({k: v / n for k, v in launches.items()})}")
+          f"per step: {json.dumps({k: v / n for k, v in launches.items()})}"
+          + (f"; its code implies {json.dumps(implied)}" if implied else ""))
     unprofiled = out["ms_per_step"]
     del out
     torch.cuda.empty_cache()
@@ -2991,6 +3284,19 @@ def main() -> None:
         print(f"fused_pipe slices of the moe-ffn train step (streamed, "
               f"{FFN_LAYERS} layers a block): {line}")
         rows += [dict(r, path="moe-ffn train fused_pipe") for r in slice_rows]
+    # the interleaved paths' kernels at one lane's shapes
+    lane_plans = {}
+    for label, argv in (LANE_SERVE | LANE_TRAINS).items():
+        train = label in LANE_TRAINS
+        plan = lane_plans[label] = lane_plan(argv, train)
+        with torch.no_grad() if train else torch.inference_mode():
+            lane_kernel_rows, line = lane_rows(plan, train)
+        print(f"{label}: {plan['lanes']} lanes of {plan['rows']} rows "
+              f"({plan['t']} tokens each); S {plan['slices']} per lane "
+              f"(capacity {plan['cap']}, Cs {plan['cap'] // plan['slices']}); "
+              f"the slices of one lane: {line}")
+        rows += [dict(r, path=label) for r in lane_kernel_rows]
+        torch.cuda.empty_cache()
     for r in rows:
         print_row(r)
     rows += backward_report(train_inp, TRAIN[2], "train")
@@ -3049,6 +3355,15 @@ def main() -> None:
                   f"{cap // s})")
         launches[label], serve_times[label] = serve_and_profile(
             label, argv, *family_kernels(get_arch(argv[1]), train=False))
+    for label, argv in LANE_SERVE.items():
+        plan = lane_plans[label]
+        implied = lane_launches(plan, train=False)
+        print(f"{label}: {plan['lanes']} lanes of {plan['rows']} requests, S "
+              f"{plan['slices']} per lane (capacity {plan['cap']}); launches "
+              f"its code implies: {json.dumps(implied)}")
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, *family_kernels(plan["cfg"], train=False),
+            implied=implied)
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
@@ -3065,6 +3380,14 @@ def main() -> None:
           f"{cap}, Cs {cap // s})")
     for label, argv in NEW_TRAINS.items():
         launches[label] = train_and_profile(label, argv)
+    for label, argv in LANE_TRAINS.items():
+        plan = lane_plans[label]
+        implied = lane_launches(plan, train=True)
+        print(f"{label}: {plan['lanes']} lanes of {plan['rows']} rows, the "
+              f"{plan['lanes']} accumulation micro-batches fused into them; S "
+              f"{plan['slices']} per lane (capacity {plan['cap']}); launches "
+              f"its code implies: {json.dumps(implied)}")
+        launches[label] = train_and_profile(label, argv, implied=implied)
     cost = traffic_cost_phase(TRAIN[0])
     print("qwen3-moe-30b-a3b train step with and without the traffic "
           "statistics, in turns: " + "; ".join(
@@ -3078,9 +3401,17 @@ def main() -> None:
         worst = reduced_check(arch, engine=engine)
         print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
               f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
-    for arch, engine in CONTINUOUS_CHECKS:
-        out = continuous_check(arch, engine)
-        print(f"continuous {arch} {engine} reduced f32: card (kernels) streams "
+    for arch in (FFN, TX):
+        worst = reduced_check(arch, engine="fused_pipe", lanes=LANES)
+        one = reduced_check(arch, engine="fused_pipe", lanes=LANES,
+                            against=("cuda", 1))
+        print(f"reduced {arch} fused_pipe at {LANES} lanes f32, card (kernels) "
+              f"vs CPU (plain) at {LANES} lanes: max logit error {worst:.3g}; "
+              f"vs the card at one lane: {one:.3g} (tol {TOL_REDUCED})")
+    for arch, engine, lanes in CONTINUOUS_CHECKS:
+        out = continuous_check(arch, engine, lanes=lanes)
+        print(f"continuous {arch} {engine} reduced f32, admission chunk "
+              f"{out['admit_chunk']}: card (kernels) streams "
               f"equal the CPU's (plain) and the card's batch-1 waved oracle "
               f"({out['requests']} requests, {out['tokens']} tokens); traffic "
               f"state vs the CPU's {out['traffic_err']:.3g} of max(1, |x|) "
@@ -3093,11 +3424,18 @@ def main() -> None:
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                             rank=0, world_size=1)
     try:
-        for arch, engine in ([("qwen3-moe-30b-a3b", e) for e in REDUCED_ENGINES]
-                             + [("moe-tx-stream", e) for e in TX_REDUCED_ENGINES]
-                             + NEW_REDUCED):
+        for arch, engine, lanes in (
+                [("qwen3-moe-30b-a3b", e, 1) for e in REDUCED_ENGINES]
+                + [("moe-tx-stream", e, 1) for e in TX_REDUCED_ENGINES]
+                + [(a, e, 1) for a, e in NEW_REDUCED]
+                + [(a, "fused_pipe", LANES) for a in (FFN, TX)]):
             err = reduced_train_check(engine=engine, arch=arch,
-                                      group=dist.group.WORLD)
+                                      group=dist.group.WORLD, lanes=lanes)
+            if lanes > 1:
+                print(f"reduced {arch} train step {engine} at {lanes} lanes, "
+                      f"accum {lanes} fused, f32 on the card vs the card at "
+                      f"one lane: {json.dumps(err['one_lane'])}")
+            engine = f"{engine} at {lanes} lanes" if lanes > 1 else engine
             print(f"reduced {arch} train step {engine} f32, card "
                   f"(kernels) vs CPU (plain): loss {err['loss']:.3g}, grads "
                   f"{err['grads']:.3g} of max(1, max |grad|) (tol {TOL_TRAIN}), "

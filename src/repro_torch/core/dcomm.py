@@ -15,7 +15,9 @@
   the config's hardware point, or the ``pipe_slices`` knob.  The slice
   primitives are split into issue and consume halves, so a shuffle can end
   with its tail slice's combine exchange still in flight (:class:`PipeTail`),
-  which ``fusco.tx_layer_stream`` carries across an attention block.
+  which ``fusco.tx_layer_stream`` carries across an attention block and
+  the interleaved streams hold one per micro-batch lane
+  (:func:`pipe_empty_tails`).
 - ``fused_hier``: node-level forwarding with dedup (one row per token per
   destination node, to the forwarder lane the Online Load Balancer picks),
   then the expert-level expansion on the forwarder and a second exchange
@@ -653,6 +655,17 @@ def pipe_empty_tail(placement: ExpertPlacement, cs: int, d: int, t: int,
         torch.full((ep, e_local, cs), -1, dtype=I32, device=device),
         torch.zeros((ep, e_local, cs), dtype=gate_dtype, device=device),
         torch.full((t, k), -1, dtype=I32, device=device))
+
+
+def pipe_empty_tails(placement: ExpertPlacement, cs: int, d: int, t: int,
+                     k: int, dtype, gate_dtype, device,
+                     lanes: int) -> list[PipeTail]:
+    """K no-op tails, one in-flight queue entry per micro-batch lane: the
+    first carry of the interleaved stream (the reference stacks them on a
+    leading lane axis of its scan carry; here lane j's tail is entry j).
+    ``t`` is one lane's tokens."""
+    return [pipe_empty_tail(placement, cs, d, t, k, dtype, gate_dtype, device)
+            for _ in range(lanes)]
 
 
 def pipe_tail_consume(y: torch.Tensor, tail: PipeTail, t: int) -> torch.Tensor:

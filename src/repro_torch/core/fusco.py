@@ -1,14 +1,17 @@
 """FUSCO public API: the MoE shuffle plus expert compute (port of
 ``repro/core/fusco.py``: every engine, ``fused_flat`` with ``dedup``, the
 cross-layer stream of consecutive MoE layers and the attention-separated
-``moe_tx`` stream, each with per-layer barriers or streamed at K = 1).
+``moe_tx`` stream, each with per-layer barriers or streamed, with K token
+micro-batch lanes interleaved through one schedule).
 
 A model layer calls :func:`moe_shuffle_ffn` on this rank's (T, d) tokens and
 its lane's expert weights, with the EP process group, and gets back the
 combined expert outputs in token order.  :func:`layer_stream` chains N
 consecutive MoE layers (:func:`pipe_layer_stream`: the combine of layer i in
-flight into layer i+1's prologue); :func:`tx_layer_stream` chains parallel
-attention+MoE blocks over this rank's sequence stripe.
+flight into layer i+1's prologue; :func:`interleaved_layer_stream`: K lanes
+round-robin, each lane's tail in flight while the next lanes compute);
+:func:`tx_layer_stream` chains parallel attention+MoE blocks over this
+rank's sequence stripe, its lanes batch chunks.
 :func:`dense_moe_reference`, :func:`stream_dense_reference` and
 :func:`tx_dense_reference` are the oracles the tests hold them to.
 """
@@ -163,11 +166,84 @@ def _stream_params(w_router, w1, w3, w2, ln) -> dict:
     return lp
 
 
-def _check_interleave(interleave: int) -> None:
-    if interleave > 1:
-        raise NotImplementedError(
-            "interleaved micro-batch lanes are not ported yet: ROADMAP queue "
-            "1 item 5 (interleaved_layer_stream)")
+def _lanes(x: torch.Tensor, k: int, why: str) -> list[torch.Tensor]:
+    """``x`` split into ``k`` contiguous micro-batch lanes along dim 0;
+    ``ValueError`` (the reference's message, ``why`` its reason) when ``k``
+    does not divide it."""
+    if x.shape[0] % k:
+        raise ValueError(f"interleave={k} must divide this rank's "
+                         f"{x.shape[0]} {why}")
+    return list(torch.chunk(x, k)) if k > 1 else [x]
+
+
+def _cat(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The lanes' parts joined in lane order (one lane: itself)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def interleaved_layer_stream(x: torch.Tensor, w_router: torch.Tensor,
+                             w1: torch.Tensor, w3: torch.Tensor,
+                             w2: torch.Tensor, placement: ExpertPlacement,
+                             cfg: DcommConfig, top_k: int,
+                             ln: torch.Tensor | None = None,
+                             norm_topk: bool = True, interleave: int = 2,
+                             traffic=None, observe=None,
+                             group: dist.ProcessGroup | None = None):
+    """K token micro-batch lanes round-robin through ONE cross-layer
+    schedule (the reference's fusco.py:231-316).  ``x`` (T, d) splits into
+    K contiguous lanes of T/K tokens; at each layer, for lane j in turn,
+    lane j's deferred tail (:class:`dcomm.PipeTail`) lands in its prologue,
+    then its router and its sliced shuffle, which ends with its own tail
+    slice's combine exchange in flight.  While lane j's tail is on the wire,
+    lanes j+1..K-1 run their router and expert FFN; it lands only in lane
+    j's prologue at the next layer, and every lane's last tail in an
+    epilogue.  The lanes are concatenated in lane order, so the token order
+    is ``x``'s.
+
+    Capacity and the slice count are planned per lane (T/K tokens) with
+    pipesim's interleaved knee (``dcomm.pipe_geometry(..., n_layers=N,
+    interleave=K)``), one geometry frozen for every lane and layer.  Lanes
+    never interact, so the result equals :func:`pipe_layer_stream`'s up to
+    the order of the sums, and the oracle is :func:`stream_dense_reference`.
+    Each lane holds its own tail, so over an EP group with autograd off
+    each lane waits on its own exchange handle; under autograd a tail's
+    scatter-add, taken in the lane's next prologue, carries its cotangent
+    back to its own layer's expert weights and input.
+
+    ``traffic``/``observe`` as in :func:`pipe_layer_stream`: each layer
+    folds ONE observation, of the K lanes' routing concatenated.  Raises
+    ``ValueError`` when K does not divide T."""
+    if cfg.engine != "fused_pipe":
+        raise ValueError(f"the interleaved stream requires "
+                         f"engine='fused_pipe', got {cfg.engine!r}")
+    kk = max(1, int(interleave))
+    t, d = x.shape
+    hs = _lanes(x, kk, "tokens (micro-batch lanes need identical static "
+                "shapes)")
+    tc = t // kk
+    n_layers = w_router.shape[0]
+    cap, ns = dcomm.pipe_geometry(tc, top_k, d, x.element_size(), placement,
+                                  cfg, n_layers=n_layers, interleave=kk)
+    cfg = dataclasses.replace(cfg, pipe_slices=ns)      # freeze the joint plan
+    tails = dcomm.pipe_empty_tails(placement, cap // ns, d, tc, top_k,
+                                   x.dtype, x.dtype, x.device, kk)
+    trs = []
+    for i, lp in enumerate(_unstack(_stream_params(w_router, w1, w3, w2, ln))):
+        ffn = lambda rows, counts, lp=lp: swiglu_experts(
+            rows, lp["w1"], lp["w3"], lp["w2"], counts)
+        As = []
+        for j in range(kk):               # round-robin over the lanes
+            h = dcomm.pipe_tail_consume(hs[j], tails[j], tc)   # its prologue
+            u, A, gates = _stream_layer_io(h, lp, top_k, norm_topk)
+            hs[j], tails[j] = dcomm.pipe_shuffle_ffn_stream(
+                u, A, gates, ffn, placement, cfg, y0=h, group=group)
+            As.append(A)
+        if traffic is not None:
+            trs.append(observe(traffic_lib.layers(traffic, i), _cat(As)))
+    # epilogue: every lane's last tail
+    h = _cat([dcomm.pipe_tail_consume(h, tail, tc)
+              for h, tail in zip(hs, tails)])
+    return h if traffic is None else (h, traffic_lib.stack(trs))
 
 
 def pipe_layer_stream(x: torch.Tensor, w_router: torch.Tensor,
@@ -177,10 +253,11 @@ def pipe_layer_stream(x: torch.Tensor, w_router: torch.Tensor,
                       norm_topk: bool = True, traffic=None, observe=None,
                       group: dist.ProcessGroup | None = None):
     """Chain N consecutive MoE layers, ``h <- h + moe_l(rms_norm_l(h))``,
-    through one pipelined schedule (the reference's fusco.py:150-228, K =
-    1).  ``x`` is this rank's (T, d) tokens; ``w_router`` (N, d, E)
-    replicated; ``w1``/``w3`` (N, E_local, d, f) and ``w2`` (N, E_local, f,
-    d) this lane's experts; ``ln`` the (N, d) pre-norm scales or None.
+    through one pipelined schedule (the reference's fusco.py:150-228): the
+    interleaved stream at K = 1.  ``x`` is this rank's (T, d) tokens;
+    ``w_router`` (N, d, E) replicated; ``w1``/``w3`` (N, E_local, d, f) and
+    ``w2`` (N, E_local, f, d) this lane's experts; ``ln`` the (N, d)
+    pre-norm scales or None.
 
     Each layer's shuffle ends with its tail slice's combine exchange in
     flight (:class:`dcomm.PipeTail`); the tail's scatter-add lands in the
@@ -195,28 +272,10 @@ def pipe_layer_stream(x: torch.Tensor, w_router: torch.Tensor,
     ``traffic``: a layer-stacked (N, ...) ``traffic.TrafficState``;
     ``observe(state, A)`` folds each layer's routing into its slice; then
     returns ``(h, new_traffic)``."""
-    if cfg.engine != "fused_pipe":
-        raise ValueError(f"pipe_layer_stream requires engine='fused_pipe', "
-                         f"got {cfg.engine!r}")
-    t, d = x.shape
-    n_layers = w_router.shape[0]
-    cap, ns = dcomm.pipe_geometry(t, top_k, d, x.element_size(), placement,
-                                  cfg, n_layers=n_layers)
-    cfg = dataclasses.replace(cfg, pipe_slices=ns)      # freeze the joint plan
-    tail = dcomm.pipe_empty_tail(placement, cap // ns, d, t, top_k, x.dtype,
-                                 x.dtype, x.device)
-    h, trs = x, []
-    for i, lp in enumerate(_unstack(_stream_params(w_router, w1, w3, w2, ln))):
-        h = dcomm.pipe_tail_consume(h, tail, t)       # land layer i-1's tail
-        u, A, gates = _stream_layer_io(h, lp, top_k, norm_topk)
-        if traffic is not None:
-            trs.append(observe(traffic_lib.layers(traffic, i), A))
-        ffn = lambda rows, counts, lp=lp: swiglu_experts(
-            rows, lp["w1"], lp["w3"], lp["w2"], counts)
-        h, tail = dcomm.pipe_shuffle_ffn_stream(u, A, gates, ffn, placement,
-                                                cfg, y0=h, group=group)
-    h = dcomm.pipe_tail_consume(h, tail, t)           # epilogue: the last tail
-    return h if traffic is None else (h, traffic_lib.stack(trs))
+    return interleaved_layer_stream(x, w_router, w1, w3, w2, placement, cfg,
+                                    top_k, ln=ln, norm_topk=norm_topk,
+                                    interleave=1, traffic=traffic,
+                                    observe=observe, group=group)
 
 
 def layer_stream(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
@@ -225,17 +284,18 @@ def layer_stream(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
                  ln: torch.Tensor | None = None, norm_topk: bool = True,
                  interleave: int = 1, traffic=None, observe=None,
                  group: dist.ProcessGroup | None = None):
-    """The stream's dispatch table (the reference's fusco.py:544-578): the
-    cross-layer schedule (:func:`pipe_layer_stream`) with the ``fused_pipe``
-    engine, else per-layer barriers, each layer a full
-    :func:`shuffle_ffn` through any engine.  Same arguments and result as
-    :func:`pipe_layer_stream`; ``interleave > 1`` (micro-batch lanes) is
-    not ported."""
-    _check_interleave(interleave)
+    """The stream's dispatch table (the reference's fusco.py:544-578): with
+    the ``fused_pipe`` engine the cross-layer schedule, its ``interleave``
+    micro-batch lanes round-robin (:func:`interleaved_layer_stream`; K = 1
+    is :func:`pipe_layer_stream`), else per-layer barriers, each layer a
+    full :func:`shuffle_ffn` through any engine, which ignore
+    ``interleave`` (the lanes are a property of the pipelined schedule).
+    Same arguments and result as :func:`pipe_layer_stream`."""
     if cfg.engine == "fused_pipe":
-        return pipe_layer_stream(x, w_router, w1, w3, w2, placement, cfg,
-                                 top_k, ln=ln, norm_topk=norm_topk,
-                                 traffic=traffic, observe=observe, group=group)
+        return interleaved_layer_stream(
+            x, w_router, w1, w3, w2, placement, cfg, top_k, ln=ln,
+            norm_topk=norm_topk, interleave=interleave, traffic=traffic,
+            observe=observe, group=group)
     h, trs = x, []
     for i, lp in enumerate(_unstack(_stream_params(w_router, w1, w3, w2, ln))):
         u, A, gates = _stream_layer_io(h, lp, top_k, norm_topk)
@@ -320,26 +380,29 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
                     placement: ExpertPlacement, cfg: DcommConfig, top_k: int,
                     *, n_heads: int, n_kv: int, head_dim: int,
                     rope_theta: float = 1e6, norm_topk: bool = True,
-                    stream: bool = True, interleave: int = 1, traffic=None,
-                    observe=None, return_kv: bool = False, kv_out=None,
+                    interleave: int = 1, traffic=None, observe=None,
+                    return_kv: bool = False, kv_out=None,
                     group: dist.ProcessGroup | None = None):
     """Chain N parallel attention+MoE blocks,
     ``h <- h + attn(rms_norm(h, ln1)) + moe(rms_norm(h, ln2))``.
 
-    With ``stream`` and the ``fused_pipe`` engine, the blocks run through
-    one schedule (the reference's fusco.py:453-519 at K = 1): each layer's
-    MoE shuffle is issued FIRST and ends with its tail slice's combine
-    exchange in flight (:class:`dcomm.PipeTail`); the attention, which reads
-    the block input and not the tail, runs while it is on the wire; the
-    tail lands in the next layer's prologue, and the last one in an
-    epilogue.  One slice count serves the whole chain, from
-    :func:`pipesim.plan_tx_stream` with the attention cost proxy
-    :func:`_tx_attn_cost_s`.  Otherwise every layer ends in a full barrier
-    (the reference's branch for the other engines, fusco.py:426-451).
-    Both differentiate: under autograd each slice's exchange is the
-    synchronous one (``dcomm._pipe_exchange``), and a deferred tail's
-    scatter-add, taken in the next layer's prologue, carries its cotangent
-    back to its own layer's expert weights and input.
+    With the ``fused_pipe`` engine, the blocks run through one schedule
+    (the reference's fusco.py:453-519): the batch splits into ``interleave``
+    micro-batch lanes of b/K rows, and at each layer, for lane j in turn,
+    lane j's tail lands in its prologue, its MoE shuffle is issued FIRST and
+    ends with its tail slice's combine exchange in flight
+    (:class:`dcomm.PipeTail`), then its attention, which reads the block
+    input and not the tail, runs while it is on the wire (and lanes
+    j+1..K-1's whole blocks after it); the tail lands in lane j's next
+    prologue, and every lane's last one in an epilogue.  One slice count
+    serves every lane and layer, from :func:`pipesim.plan_tx_stream` with
+    the attention cost proxy :func:`_tx_attn_cost_s` of one lane.  With
+    any other engine every layer ends in a full barrier (the reference's
+    fusco.py:426-451), which ignores ``interleave``.  Both differentiate:
+    under autograd each slice's exchange is the synchronous one
+    (``dcomm._pipe_exchange``), and a deferred tail's scatter-add, taken in
+    the lane's next prologue, carries its cotangent back to its own layer's
+    expert weights and input.
 
     ``x`` is (b, s_local, d), this rank's stripe of the sequence (lane
     ``rank in group``); ``positions`` the full (S,) absolute positions;
@@ -348,73 +411,100 @@ def tx_layer_stream(x: torch.Tensor, positions: torch.Tensor, params,
     lane's (N, E_local, ...)).  ``traffic``: a layer-stacked (N, ...)
     ``traffic.TrafficState``; ``observe(state, A)`` folds each layer's
     routing into its slice, after the router in the barrier branch and at
-    the end of the layer in the streamed one, as the reference
-    (fusco.py:426-519).  Returns ``h``, then with ``traffic`` the new
-    state, then with ``return_kv`` the per-layer gathered RoPE'd (k, v)
-    stacks (N, b, S, n_kv, hd): fresh ones, or ``kv_out``, a pair of such
-    stacks written in place."""
-    _check_interleave(interleave)
+    the end of the layer, over the K lanes' routing concatenated, in the
+    streamed one, as the reference.  Returns ``h``, then with ``traffic``
+    the new state, then with ``return_kv`` the per-layer gathered RoPE'd
+    (k, v) stacks (N, b, S, n_kv, hd), lane j's rows ``[j b/K, (j+1)
+    b/K)``: fresh ones, or ``kv_out``, a pair of such stacks written in
+    place.  Raises ``ValueError`` when K does not divide b on the
+    streamed path."""
     b, s_l, d = x.shape
-    tc = b * s_l
     chunk = dcomm.lane_index(group)
     pos_q = positions[chunk * s_l:(chunk + 1) * s_l]
-    n_layers = params["router"].shape[0]
-    streamed = stream and cfg.engine == "fused_pipe"
-    if streamed:
-        attn_s = _tx_attn_cost_s(tc, s_l, b, positions.shape[0], n_heads,
-                                 head_dim, x.element_size(), cfg)
-        cap, ns = dcomm.pipe_geometry(tc, top_k, d, x.element_size(),
-                                      placement, cfg, n_layers=n_layers,
-                                      attn_s=attn_s)
-        cfg = dataclasses.replace(cfg, pipe_slices=ns)   # freeze the joint plan
-        tail = dcomm.pipe_empty_tail(placement, cap // ns, d, tc, top_k,
-                                     x.dtype, x.dtype, x.device)
-    h = x
+    attn_kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                   rope_theta=rope_theta, group=group, return_kv=return_kv)
     ks, vs, trs = [], [], []
-    for i, lp in enumerate(_unstack(params)):
-        tr = None if traffic is None else traffic_lib.layers(traffic, i)
-        if streamed:
-            # prologue: the previous layer's tail lands, then the router
-            ht = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc)
-            h = ht.reshape(b, s_l, d)
-        u2 = rms_norm(h, lp["ln2"]).reshape(tc, d)
-        A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
-                                 normalize=norm_topk)
-        if tr is not None and not streamed:
-            tr = observe(tr, A)
-        if streamed:
-            # the MoE issued first; its tail rides across the attention
-            ffn = lambda rows, counts, lp=lp: swiglu_experts(
-                rows, lp["w1"], lp["w3"], lp["w2"], counts)
-            y, tail = dcomm.pipe_shuffle_ffn_stream(
-                u2, A, gates.to(h.dtype), ffn, placement, cfg, y0=ht,
-                group=group)
+
+    def keep_kv(i, row0, kv):
+        k, v = kv
+        if kv_out is None:
+            ks[i].append(k)
+            vs[i].append(v)
         else:
+            kv_out[0][i][row0:row0 + k.shape[0]].copy_(k)
+            kv_out[1][i][row0:row0 + k.shape[0]].copy_(v)
+
+    def finish(h):
+        out = (h,)
+        if traffic is not None:
+            out += (traffic_lib.stack(trs),)
+        if return_kv:
+            out += (kv_out if kv_out is not None else
+                    (torch.stack([_cat(k) for k in ks]),
+                     torch.stack([_cat(v) for v in vs])),)
+        return out[0] if len(out) == 1 else out
+
+    if cfg.engine != "fused_pipe":        # per-layer barriers, any engine
+        h = x
+        for i, lp in enumerate(_unstack(params)):
+            ks.append([])
+            vs.append([])
+            u2 = rms_norm(h, lp["ln2"]).reshape(b * s_l, d)
+            A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
+                                     normalize=norm_topk)
+            if traffic is not None:
+                trs.append(observe(traffic_lib.layers(traffic, i), A))
             y = shuffle_ffn(u2, A, gates.to(h.dtype), lp["w1"], lp["w3"],
                             lp["w2"], placement, cfg, group=group)
-        a = tx_attention(h, lp, pos_q, positions, n_heads=n_heads, n_kv=n_kv,
-                         head_dim=head_dim, rope_theta=rope_theta,
-                         group=group, return_kv=return_kv)
-        if return_kv:
-            a, (k, v) = a
-            if kv_out is None:
-                ks.append(k)
-                vs.append(v)
-            else:
-                kv_out[0][i].copy_(k)
-                kv_out[1][i].copy_(v)
-        h = y.reshape(b, s_l, d) + a if streamed else h + a + y.reshape(b, s_l, d)
-        if tr is not None:
-            trs.append(observe(tr, A) if streamed else tr)
-    if streamed:       # epilogue: the last layer's tail
-        h = dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc).reshape(b, s_l, d)
-    out = (h,)
-    if traffic is not None:
-        out += (traffic_lib.stack(trs),)
-    if return_kv:
-        out += (kv_out if kv_out is not None
-                else (torch.stack(ks), torch.stack(vs)),)
-    return out[0] if len(out) == 1 else out
+            a = tx_attention(h, lp, pos_q, positions, **attn_kw)
+            if return_kv:
+                a, kv = a
+                keep_kv(i, 0, kv)
+            h = h + a + y.reshape(b, s_l, d)
+        return finish(h)
+
+    kk = max(1, int(interleave))
+    hs = _lanes(x, kk, "batch rows (micro-batch lanes are batch chunks)")
+    bc = b // kk
+    tc = bc * s_l
+    n_layers = params["router"].shape[0]
+    attn_s = _tx_attn_cost_s(tc, s_l, bc, positions.shape[0], n_heads,
+                             head_dim, x.element_size(), cfg)
+    cap, ns = dcomm.pipe_geometry(tc, top_k, d, x.element_size(), placement,
+                                  cfg, n_layers=n_layers, interleave=kk,
+                                  attn_s=attn_s)
+    cfg = dataclasses.replace(cfg, pipe_slices=ns)       # freeze the joint plan
+    tails = dcomm.pipe_empty_tails(placement, cap // ns, d, tc, top_k,
+                                   x.dtype, x.dtype, x.device, kk)
+    for i, lp in enumerate(_unstack(params)):
+        ks.append([])
+        vs.append([])
+        ffn = lambda rows, counts, lp=lp: swiglu_experts(
+            rows, lp["w1"], lp["w3"], lp["w2"], counts)
+        As = []
+        for j in range(kk):               # round-robin over the lanes
+            # prologue: lane j's previous tail lands, then its router
+            ht = dcomm.pipe_tail_consume(hs[j].reshape(tc, d), tails[j], tc)
+            h = ht.reshape(bc, s_l, d)
+            u2 = rms_norm(h, lp["ln2"]).reshape(tc, d)
+            A, gates = top_k_routing(router_logits(u2, lp["router"]), top_k,
+                                     normalize=norm_topk)
+            # the MoE issued first; its tail rides across the attention
+            y, tails[j] = dcomm.pipe_shuffle_ffn_stream(
+                u2, A, gates.to(h.dtype), ffn, placement, cfg, y0=ht,
+                group=group)
+            a = tx_attention(h, lp, pos_q, positions, **attn_kw)
+            if return_kv:
+                a, kv = a
+                keep_kv(i, j * bc, kv)
+            hs[j] = y.reshape(bc, s_l, d) + a
+            As.append(A)
+        if traffic is not None:
+            trs.append(observe(traffic_lib.layers(traffic, i), _cat(As)))
+    # epilogue: every lane's last tail
+    hs = [dcomm.pipe_tail_consume(h.reshape(tc, d), tail, tc).reshape(
+        bc, s_l, d) for h, tail in zip(hs, tails)]
+    return finish(_cat(hs))
 
 
 def tx_dense_reference(x: torch.Tensor, positions: torch.Tensor, params,

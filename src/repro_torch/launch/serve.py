@@ -19,6 +19,13 @@ schedule: each layer's tail combine in flight across its attention block)
 moe_ffn family: its 16 MoE layers in one cross-layer stream, each layer's
 combine in flight into the next layer's prologue; no KV cache)
 
+``python -m repro_torch.launch.serve --arch moe-ffn-stream --engine fused_pipe
+--moe-stream 16 --moe-interleave 2 --requests 8 --prompt-len 512 --gen 16``
+(the requests split into two micro-batch lanes of four that round-robin
+through the stream: each lane's tail combine in flight while the other lane
+computes; ``--moe-interleave`` must divide ``--requests``, and takes the
+moe_tx family too)
+
 ``python -m repro_torch.launch.serve --arch qwen3-1.7b --requests 8
 --prompt-len 512 --gen 16`` (the dense family: attention and the SwiGLU MLP,
 no MoE, so the engine flags are ignored)
@@ -76,6 +83,10 @@ def parse_args(argv=None):
                     help="moe_tx and moe_ffn families: layers per "
                          "cross-layer stream block (streamed with --engine "
                          "fused_pipe)")
+    ap.add_argument("--moe-interleave", type=int, default=1,
+                    help="moe_tx and moe_ffn families: prefill requests "
+                         "interleaved as micro-batch lanes through each "
+                         "stream block (must divide --requests)")
     ap.add_argument("--pipe-slices", type=int, default=0,
                     help="fused_pipe slice count; 0 = auto via pipesim")
     ap.add_argument("--continuous", action="store_true",
@@ -84,6 +95,8 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.gen < 2:
         ap.error("--gen must be at least 2 (one prefill token, one decode step)")
+    if args.requests % max(1, args.moe_interleave) != 0:
+        ap.error("--moe-interleave must divide --requests")
     return args
 
 
@@ -109,6 +122,7 @@ def setup(args, device="cuda") -> Setup:
                           # reference's drivers take max(1, EP // 2)
                           node_size=1,
                           moe_stream=args.moe_stream,
+                          moe_interleave=args.moe_interleave,
                           pipe_slices=args.pipe_slices)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = lm.init_params(cfg, ctx, gen)

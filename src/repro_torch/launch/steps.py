@@ -4,7 +4,11 @@
 ``make_train_step`` takes the gradients of a ``models.zoo.ModelBundle``'s
 loss with ``torch.autograd.grad`` (:func:`value_and_grad`) and applies one
 AdamW step in place.  ``accum > 1`` accumulates micro-batches serially, the
-gradients summed in float32 and divided by ``accum``.
+gradients summed in float32 and divided by ``accum``; unless the bundle's
+stream interleaves that many lanes (:func:`accum_fuses_into_stream`): then
+the micro-batches are the stream's lanes, and the step takes ONE loss call
+over the whole batch, its loss the joint token-mean, the traffic state
+threaded and the group sync below run once, as with ``accum = 1``.
 
 Over an EP group (the bundle's ``ctx.ep_group``, EP ranks) every rank holds
 the whole batch and computes the whole loss, the same on every rank; each
@@ -116,6 +120,18 @@ def _check_group(model: zoo.ModelBundle) -> tuple[int, int]:
     return ep, dp
 
 
+def accum_fuses_into_stream(model: zoo.ModelBundle, accum: int) -> bool:
+    """Whether ``accum`` gradient-accumulation micro-batches feed the
+    interleaved stream's lanes instead of a serial loop (the reference's
+    steps.py:47-58): a moe_ffn or moe_tx stack on the ``fused_pipe`` engine
+    (the only schedule that interleaves; the barriers ignore the lanes)
+    whose ``moe_interleave`` equals ``accum`` > 1."""
+    ctx = model.ctx
+    return (accum > 1 and model.cfg.family in ("moe_ffn", "moe_tx")
+            and ctx.dcfg is not None and ctx.dcfg.engine == "fused_pipe"
+            and ctx.moe_interleave == accum)
+
+
 def init_state(model: zoo.ModelBundle, params) -> adamw.AdamWState:
     """AdamW's state of ``params`` for the train step of ``model``: over a
     data group this rank's ZeRO-1 slices (``adamw.init``)."""
@@ -129,9 +145,13 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     ``adamw.leaves`` order, synced over the EP group and the data group
     (module docstring); over a data group the loss is the whole batch's.
     ``accum > 1``: the mean over serial micro-batches, in float32, with no
-    traffic state (``NotImplementedError``, as the reference)."""
+    traffic state (``NotImplementedError``, as the reference); or, where
+    :func:`accum_fuses_into_stream`, one call over the whole batch, whose
+    lanes are the micro-batches."""
     if accum < 1:
         raise ValueError(f"accum {accum} < 1")
+    if accum_fuses_into_stream(model, accum):
+        accum = 1
     ep, dp = _check_group(model)
     group = dcomm.process_group(model.ctx.ep_group)
     data = lm.data_group(model.ctx)
@@ -199,12 +219,11 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
     threads it through the MoE layers and the new state comes back as
     ``metrics["traffic"]``; its counts come from the integer routing
     matrix, so no gradient flows through them.  Serial accumulation does
-    not thread a state (``NotImplementedError``, as the reference).  The
-    reference's fusion of accumulation micro-batches into an interleaved
-    ``fused_pipe`` stream needs ``interleave > 1``, which the port's stream
-    does not take yet (ROADMAP queue 1 item 5).  Over an EP group the
-    gradients are synced (module docstring) and the clip norm is the whole
-    tree's (``adamw.global_norm``); over a data group too, and
+    not thread a state (``NotImplementedError``, as the reference); the
+    micro-batches fused into an interleaved ``fused_pipe`` stream's lanes
+    (:func:`accum_fuses_into_stream`) do, in one loss call.  Over an EP
+    group the gradients are synced (module docstring) and the clip norm is
+    the whole tree's (``adamw.global_norm``); over a data group too, and
     ``opt_state`` holds this rank's ZeRO-1 slices (:func:`init_state`).
     The gradients are then whole on every data rank, so the clip norm
     spans the EP group alone."""

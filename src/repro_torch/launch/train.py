@@ -13,6 +13,11 @@ them (``launch/mesh.py``).
 --moe-stream 16 --batch 4 --seq 512 --steps 8`` (the attention-free MoE
 chain, each block of layers one cross-layer stream)
 
+``python -m repro_torch.launch.train --arch moe-ffn-stream --engine fused_pipe
+--moe-stream 16 --moe-interleave 2 --accum 2 --batch 4 --seq 512 --steps 8``
+(two micro-batch lanes round-robin through each stream block, the two
+accumulation micro-batches fused into them: one loss call a step)
+
 ``python -m repro_torch.launch.train --arch qwen3-1.7b --batch 4 --seq 512
 --steps 8`` (the dense family: no MoE, so the engine flags are ignored)
 
@@ -22,12 +27,16 @@ and ``disagg``; ``--calibrate`` measures the pipe constants that choose
 fused_pipe's slice count and prints the table it applies.  ``--moe-stream
 N`` groups the moe_tx layers into stream blocks of N (fused_pipe streams
 each block's MoE tails across its attention) or the moe_ffn layers (each
-block's combine in flight into the next layer's prologue).  The online
-traffic statistics (``core/traffic.py``) ride every step of the MoE
-families, as
-the reference threads them ("stats are collected either way"), and feed
-``fused_hier``'s Algorithm 1; serial accumulation (``--accum`` > 1) runs
-without them.
+block's combine in flight into the next layer's prologue);
+``--moe-interleave K`` splits each rank's batch into K micro-batch lanes
+round-robin through each fused_pipe block.  The online traffic statistics
+(``core/traffic.py``) ride every step of the MoE families, as the reference
+threads them ("stats are collected either way"), and feed ``fused_hier``'s
+Algorithm 1; serial accumulation (``--accum`` > 1) runs without them.
+``--accum`` equal to ``--moe-interleave`` on a moe_ffn or moe_tx stream
+through fused_pipe is not serial: the micro-batches are the stream's lanes
+(``steps.accum_fuses_into_stream``), the traffic rides, and each data rank
+keeps its plain rows (:func:`data_rows` at ``accum = 1``).
 
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
 path, ``run(args, device, ep_group=g)`` over an initialised EP group, and
@@ -106,6 +115,13 @@ def parse_args(argv=None):
                          "across the attention block, or into the next "
                          "layer's prologue, inside a block); 0 = one layer "
                          "a block")
+    ap.add_argument("--moe-interleave", type=int, default=1,
+                    help="moe_tx and moe_ffn families: token micro-batch "
+                         "lanes round-robin through each fused_pipe stream "
+                         "block (lane j+1's compute fills lane j's boundary "
+                         "window); must divide each rank's batch; equal to "
+                         "--accum, the accumulation micro-batches are the "
+                         "lanes; 1 = the plain stream")
     ap.add_argument("--traffic-decay", type=float, default=0.99,
                     help="EMA decay of the online traffic statistics")
     ap.add_argument("--calibrate", action="store_true",
@@ -159,6 +175,7 @@ def setup(args, device="cuda", ep_group=None,
                           node_size=max(1, ep // 2), dedup=args.dedup,
                           pipe_slices=args.pipe_slices,
                           moe_stream=args.moe_stream,
+                          moe_interleave=args.moe_interleave,
                           traffic_decay=args.traffic_decay,
                           calibration=calibration)
     params = lm.init_params(
@@ -171,14 +188,21 @@ def setup(args, device="cuda", ep_group=None,
     return Setup(cfg, ctx, params, source, opt_cfg)
 
 
+def serial_accum(model: zoo.ModelBundle, accum: int) -> int:
+    """The micro-batches a step of ``model`` accumulates serially: 1 when
+    there are none, or when they are fused into the stream's lanes
+    (``steps.accum_fuses_into_stream``), else ``accum``."""
+    return 1 if steps.accum_fuses_into_stream(model, accum) else accum
+
+
 def init_traffic(cfg: ArchConfig, ctx: lm.ModelContext, accum: int):
     """The cold layer-stacked traffic state a run threads through its steps
     (the reference's train.py:296-326): for the MoE families (moe, moe_tx,
-    moe_ffn), unless the micro-batches accumulate serially, which do not
-    thread one."""
+    moe_ffn), unless the micro-batches accumulate serially
+    (:func:`serial_accum`), which do not thread one."""
     if cfg.moe is None:
         return None
-    if accum > 1:
+    if serial_accum(zoo.build(cfg, ctx), accum) > 1:
         if _is_rank0():
             print("[traffic] stats disabled under serial gradient "
                   "accumulation", flush=True)
@@ -243,10 +267,11 @@ def run(args, device="cuda", ep_group=None,
     traffic = init_traffic(cfg, ctx, args.accum)
     opt_state = steps.init_state(model, params)
     dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
+    serial = serial_accum(model, args.accum)
     losses, step_s = [], []
     moved = {"rows_moved": 0, "bytes_moved": 0}
     for i in range(args.steps):
-        host, m = shard_batch(source.batch_at(i), dp, d, args.accum,
+        host, m = shard_batch(source.batch_at(i), dp, d, serial,
                               args.seq_migrate)
         moved = {k: moved[k] + m[k] for k in moved}
         batch = to_device(host, ctx.device)

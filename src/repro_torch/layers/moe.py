@@ -117,6 +117,15 @@ def _stream_observe(x: torch.Tensor, placement: ExpertPlacement,
         valid=valid)
 
 
+def _check_lanes(interleave: int, b: int) -> None:
+    """The micro-batch lanes are batch chunks: ``interleave`` must divide
+    this rank's batch ``b`` (the reference's moe.py:176-180)."""
+    if interleave > 1 and b % interleave:
+        raise ValueError(
+            f"moe stream interleave={interleave} must divide the rank's "
+            f"batch {b} (micro-batch lanes are batch chunks)")
+
+
 def stream_moe_layers(x: torch.Tensor, moe_params, ln: torch.Tensor | None,
                       *, placement: ExpertPlacement, dcfg: DcommConfig,
                       top_k: int, norm_topk: bool = True, fsdp: bool = False,
@@ -128,9 +137,12 @@ def stream_moe_layers(x: torch.Tensor, moe_params, ln: torch.Tensor | None,
     """A block of N consecutive MoE layers (the ``moe_ffn`` island, the
     reference's moe.py:115-216), ``h <- h + moe_l(rms_norm_l(h))`` each,
     evaluated by ``fusco.layer_stream``: one streamed schedule when the
-    engine is ``fused_pipe``, else per-layer barriers.
+    engine is ``fused_pipe`` (``interleave`` micro-batch lanes of B/K rows
+    round-robin through it), else per-layer barriers.
     ``x``: (B, S/ep, d), this rank's stripe of the sequence, flattened
-    b-major into the stream's tokens; ``moe_params``: stacked router (N, d,
+    b-major into the stream's tokens, so the stream's contiguous token
+    lanes are the batch chunks and the flattened ``traffic_mask`` lines up
+    with the lanes' concatenated routing at any K; ``moe_params``: stacked router (N, d,
     E) and lane-major w1/w3/w2 (N, lanes, E_local, ...), this rank's lane
     alone (lanes = 1) or every lane; ``ln``: the (N, d) pre-norm scales or
     None.  ``traffic``: the block's layer-stacked (N, ...)
@@ -139,6 +151,7 @@ def stream_moe_layers(x: torch.Tensor, moe_params, ln: torch.Tensor | None,
     the new state."""
     _fsdp_refused(fsdp)
     b, s, d = x.shape
+    _check_lanes(interleave, b)
     observe = None if traffic is None else _stream_observe(
         x, placement, dcfg, traffic_decay, traffic_mask, group, stats_group)
     w = _stream_lane(moe_params, placement, group)
@@ -156,16 +169,17 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
                      placement: ExpertPlacement, dcfg: DcommConfig,
                      top_k: int, positions: torch.Tensor, n_heads: int,
                      n_kv: int, head_dim: int, rope_theta: float = 1e6,
-                     norm_topk: bool = True, stream: bool = True,
-                     fsdp: bool = False, interleave: int = 1,
+                     norm_topk: bool = True, fsdp: bool = False,
+                     interleave: int = 1,
                      traffic: traffic_lib.TrafficState | None = None,
                      traffic_decay: float = 0.99,
                      traffic_mask: torch.Tensor | None = None,
                      return_kv: bool = False, kv_out=None, group=None,
                      stats_group=None):
     """A block of N attention+MoE layers (the ``moe_tx`` island), evaluated
-    by ``fusco.tx_layer_stream``: one streamed schedule when ``stream`` and
-    the engine is ``fused_pipe``, else per-layer barriers.  ``x``: (B, S/ep,
+    by ``fusco.tx_layer_stream``: one streamed schedule when the engine is
+    ``fused_pipe`` (``interleave`` micro-batch lanes of B/K rows round-robin
+    through it), else per-layer barriers.  ``x``: (B, S/ep,
     d), this rank's stripe of the sequence; ``positions``: the full (S,) positions; ``moe_params``:
     stacked router (N, d, E) and lane-major w1/w3/w2 (N, EP, E_local, ...);
     ``attn_params`` {wq, wk, wv, wo} stacked and replicated; ``ln1``/``ln2``
@@ -178,6 +192,7 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     the per-layer gathered (k, v) stacks (N, B, S, n_kv, hd), written into
     ``kv_out`` when given."""
     _fsdp_refused(fsdp)
+    _check_lanes(interleave, x.shape[0])
     observe = None if traffic is None else _stream_observe(
         x, placement, dcfg, traffic_decay, traffic_mask, group, stats_group)
     params = {"ln1": ln1, "ln2": ln2, **attn_params,
@@ -186,7 +201,7 @@ def stream_tx_layers(x: torch.Tensor, moe_params, attn_params,
     return fusco.tx_layer_stream(
         x, positions, params, placement, dcfg, top_k, n_heads=n_heads,
         n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,
-        norm_topk=norm_topk, stream=stream, interleave=interleave,
+        norm_topk=norm_topk, interleave=interleave,
         traffic=traffic, observe=observe, return_kv=return_kv, kv_out=kv_out,
         group=group)
 

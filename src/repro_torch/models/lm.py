@@ -58,6 +58,9 @@ class ModelContext:
     # the launch.mesh.HostMesh of a (data, model) training grid whose EP
     # group is ``ep_group``'s (None: no data group)
     mesh: Any = None
+    # moe_tx / moe_ffn families: token micro-batch lanes (batch chunks)
+    # round-robin through each fused_pipe stream block (1: the plain stream)
+    moe_interleave: int = 1
 
 
 # the sub-layers of each ported family's layer, besides ``ln1`` (the
@@ -83,8 +86,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  use_balancer: bool = True, node_size: int | None = None,
                  multi_pod: bool = False, dedup: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 moe_stream: int = 0, pipe_slices: int = 0,
-                 calibration=None,
+                 moe_stream: int = 0, moe_interleave: int = 1,
+                 pipe_slices: int = 0, calibration=None,
                  traffic_decay: float = 0.99) -> ModelContext:
     """Context of a ``dense``-, ``moe``-, ``moe_tx``- or ``moe_ffn``-family
     model whose EP domain is ``ep_group`` (None: one lane), or that of this
@@ -100,7 +103,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     (pod, model) axis (``dcomm.ep_groups``, those of every EP domain of
     ``mesh``).  ``use_balancer`` and
     ``dedup`` go to the config as in the reference.  ``moe_stream`` groups
-    the moe_tx or moe_ffn layers into stream blocks; ``pipe_slices`` fixes
+    the moe_tx or moe_ffn layers into stream blocks; ``moe_interleave``
+    (K, stored as ``max(1, K)`` for every family, as the reference) splits
+    each rank's batch into K micro-batch lanes round-robin through each
+    fused_pipe block; ``pipe_slices`` fixes
     fused_pipe's slice count (0: pipesim's); ``calibration`` (a
     ``core.calibrate.CalibrationTable``) replaces the H100 spec-point pipe
     constants with measured ones; ``traffic_decay`` is the EMA decay of
@@ -130,7 +136,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                 "parallel/tp_blocks.py, and data parallelism): ROADMAP queue "
                 "1 item 8")
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
-                            moe_stream, traffic_decay, mesh)
+                            moe_stream, traffic_decay, mesh,
+                            max(1, moe_interleave))
     if multi_pod and node_size is None and ep > 1:
         raise ValueError("multi_pod: pass node_size, the lanes of one pod")
     ns = node_size or max(1, ep // 4)
@@ -147,7 +154,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
             ep_group, ns, ep // ns if multi_pod else 1,
             domains=None if mesh is None else mesh.ep_domains())
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
-                        moe_stream, traffic_decay, mesh)
+                        moe_stream, traffic_decay, mesh,
+                        max(1, moe_interleave))
 
 
 def data_group(ctx: ModelContext) -> dist.ProcessGroup | None:
@@ -540,7 +548,8 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
     """moe_tx stack over this rank's stripe of the sequence (the
     reference's ``_tx_stack``, lm.py:301-355): with the ``fused_pipe``
     engine the layers grouped into stream blocks of ``max(1, moe_stream)``,
-    one streamed ``stream_tx_layers`` call each; with the other engines one
+    one streamed ``stream_tx_layers`` call each, ``ctx.moe_interleave``
+    lanes round-robin through it; with the other engines one
     call of all layers with per-layer barriers (blocks change nothing
     there).  ``traffic``: the layer-stacked state, each block threading its
     slice.  Returns the final-normed (B, S, d), the new traffic (None
@@ -566,7 +575,7 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
             placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
             positions=positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-            norm_topk=cfg.moe.norm_topk,
+            norm_topk=cfg.moe.norm_topk, interleave=ctx.moe_interleave,
             traffic=(None if traffic is None
                      else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,
@@ -590,8 +599,9 @@ def _ffn_stack(params, h: torch.Tensor, ctx: ModelContext, traffic=None,
     """moe_ffn stack over this rank's stripe of the sequence (the
     reference's lm.py:397-438): with the ``fused_pipe`` engine the layers
     grouped into cross-layer stream blocks of ``max(1, moe_stream)``, one
-    streamed ``stream_moe_layers`` call each (its last tail landed in the
-    block's epilogue); with the other engines one call of all layers with
+    streamed ``stream_moe_layers`` call each, ``ctx.moe_interleave`` lanes
+    round-robin through it (their last tails landed in the block's
+    epilogue); with the other engines one call of all layers with
     per-layer barriers (blocks change nothing there).  ``traffic``: the
     layer-stacked state, each block threading its slice.  Returns the
     final-normed (B, S, d) and the new traffic (None without); the stack
@@ -608,6 +618,7 @@ def _ffn_stack(params, h: torch.Tensor, ctx: ModelContext, traffic=None,
         out = stream_moe_layers(
             h, bp["moe"], bp["ln1"], placement=ctx.placement, dcfg=ctx.dcfg,
             top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
+            interleave=ctx.moe_interleave,
             traffic=(None if traffic is None
                      else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,

@@ -16,6 +16,13 @@ prepared callables, traffic statistics, metrics):
     a common bucketed prompt length, prefilled as one batch and decoded
     lock-step until every member finishes.
 
+For a moe_ffn or moe_tx bundle whose ``ModelContext.moe_interleave`` is K,
+prefill rows ARE the micro-batch lanes of the interleaved stream (with the
+``fused_pipe`` engine; the barriers ignore the lanes): the waved engine
+pads each wave with pad rows up to a multiple of K, masked out of the
+results and the traffic, and the continuous engine admits K rows a call
+(``admit_chunk``), drawn from the queue.
+
 The reference compiles one AOT executable per shape.  Here the counterpart
 is a prepared callable per shape: one per (rows, bucket) prefill, one for
 the pool decode and one for the slot insert (``get_prefill``,
@@ -116,6 +123,12 @@ class _ServingBase:
         self.compile_s = 0.0
         self._prefill_exec: dict = {}        # (rows, s) -> callable
         self._decode_exec: dict = {}         # (rows, per_slot) -> callable
+        # the micro-batch lanes a prefill's rows split into: a moe_ffn or
+        # moe_tx stream's K, whatever the engine (the reference's
+        # engine.py:143-151; the port has no data shards)
+        ctx = bundle.ctx
+        self.interleave = (ctx.moe_interleave
+                           if ctx.cfg.family in ("moe_ffn", "moe_tx") else 1)
         self.traffic = None
         if track_traffic:
             ctx = bundle.ctx
@@ -301,16 +314,22 @@ class ServingEngine(_ServingBase):
     """Waved (lock-step) admission, the compatibility mode.
 
     ``run_wave`` drains up to ``max_batch`` queued requests, pads them to a
-    common bucketed prompt length, prefills them as one batch and decodes
-    lock-step until every member finishes.
+    common bucketed prompt length and with pad rows up to a multiple of the
+    interleave lanes, prefills them as one batch and decodes lock-step
+    until every member finishes.
     """
+
+    def _rows(self, n: int) -> int:
+        """The prefill rows of a wave of ``n`` requests: ``n`` padded up to
+        a multiple of the interleave lanes."""
+        return -(-n // self.interleave) * self.interleave
 
     def warmup(self, params) -> float:
         """Build the full-wave prefill callable per bucket and the decode
         step; returns the seconds spent.  Smaller waves build theirs on first
         occurrence (also outside TTFT)."""
         t0 = time.perf_counter()
-        rows = self.max_batch
+        rows = self._rows(self.max_batch)
         for s in self.buckets:
             self.get_prefill(params, rows, s)
         self._get_decode(params, rows, per_slot=False)
@@ -328,17 +347,19 @@ class ServingEngine(_ServingBase):
         if not wave:
             return []
         s = self.bucket_of(max(len(r.prompt) for r in wave))
-        b = len(wave)
+        # pad rows (all pad tokens, masked out of the traffic) fill the
+        # last lane; their tokens are decoded and dropped
+        bp = self._rows(len(wave))
         # fetch (and if needed build) the callables BEFORE the timed region
-        exe = self.get_prefill(params, b, s)
+        exe = self.get_prefill(params, bp, s)
         with torch.inference_mode():
-            toks, valid = self._padded(wave, b, s)
+            toks, valid = self._padded(wave, bp, s)
             tok_np, state = self._prefill_and_read(exe, params, toks, valid)
             end = time.perf_counter()
             for r in wave:
                 r.ttft_s = end - r.submitted_at
-            dec = self.get_decode(params, state, b)
-            live = np.ones(b, bool)
+            dec = self.get_decode(params, state, bp)
+            live = np.ones(len(wave), bool)
             steps = max(r.max_new for r in wave)
             for step in range(steps):
                 for i, r in enumerate(wave):
@@ -371,9 +392,12 @@ class ContinuousServingEngine(_ServingBase):
     slots mid-way through theirs; free slots decode values that are
     dropped.  Retired slots (eos seen or ``max_new`` reached) hand their
     request to the ``emit`` hook at once and are refilled on the next step.
-    Admission prefills ``admit_chunk`` (1) row per call, left-padded to
-    the smallest bucket that fits; every (chunk x bucket) prefill callable
-    is prepared, so steady-state admission builds nothing.
+    Admission prefills ``admit_chunk`` rows per call, the interleave lanes
+    (1 without), drawn from the queue and left-padded to the smallest
+    bucket that fits the chunk; a chunk the queue or the free slots cannot
+    fill is padded with pad rows, dropped by the insert.  Every (chunk x
+    bucket) prefill callable is prepared, so steady-state admission builds
+    nothing.
     """
 
     def __init__(self, bundle, *, max_batch: int = 8, max_len: int = 256,
@@ -384,11 +408,15 @@ class ContinuousServingEngine(_ServingBase):
         super().__init__(bundle, max_batch=max_batch, max_len=max_len,
                          eos_id=eos_id, pad_id=pad_id,
                          track_traffic=track_traffic, buckets=buckets)
+        if max_batch % self.interleave:
+            raise ValueError(
+                f"max_batch={max_batch} must be a multiple of the interleave "
+                f"lanes ({self.interleave}): an admission prefills one row "
+                "a lane")
         self.emit = emit
-        # one prefill row per admission: the reference's chunk is interleave
-        # lanes x data shards, and the port has neither (a moe_tx or moe_ffn
-        # stream with interleave > 1 raises, ROADMAP queue 1 item 5)
-        self.admit_chunk = 1
+        # the reference's chunk is interleave lanes x data shards; the port
+        # serves without data shards
+        self.admit_chunk = self.interleave
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.occupancy: list[float] = []     # per-step occupied fraction
         self.decode_steps = 0

@@ -31,10 +31,7 @@ from repro.optim import adamw as jadamw
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.data import pipeline
-from repro_torch.core import fusco
 from repro_torch.core import traffic as traffic_lib
-from repro_torch.core.dcomm import DcommConfig
-from repro_torch.core.routing import ExpertPlacement
 from repro_torch.launch import steps, train
 from repro_torch.models import lm
 from repro_torch.models import zoo as tzoo
@@ -232,31 +229,11 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 def test_training_raises_on_what_is_not_ported():
     """What training still refuses: a family that is not ported (the ssm
-    family, at ``make_context``), interleaved micro-batch lanes in the
-    moe_tx and moe_ffn streams, the traffic state under serial
+    family, at ``make_context``), the traffic state under serial
     accumulation, and ``train.run`` without a card."""
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         lm.make_context(dataclasses.replace(
             get_arch("qwen3-1.7b").reduced(), family="ssm"), "cpu")
-    tx = get_arch("moe-tx-stream").reduced()
-    x = torch.zeros((1, 4, tx.d_model))
-    stacked = {k: torch.zeros((1,) + shape) for k, shape in (
-        ("ln1", (tx.d_model,)), ("ln2", (tx.d_model,)),
-        ("router", (tx.d_model, tx.moe.n_experts)))}
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        fusco.tx_layer_stream(
-            x, torch.arange(4), stacked,
-            ExpertPlacement(n_experts=tx.moe.n_experts, ep=1, node_size=1),
-            DcommConfig(engine="fused_pipe"), tx.moe.top_k,
-            n_heads=tx.n_heads, n_kv=tx.n_kv_heads, head_dim=tx.hd,
-            interleave=2)
-    ffn = get_arch("moe-ffn-stream").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        fusco.layer_stream(
-            torch.zeros((4, ffn.d_model)), stacked["router"],
-            None, None, None,
-            ExpertPlacement(n_experts=ffn.moe.n_experts, ep=1, node_size=1),
-            DcommConfig(engine="fused_pipe"), ffn.moe.top_k, interleave=2)
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", compute_dtype=torch.float32)
     step = steps.make_train_step(tzoo.build(cfg, ctx), adamw.AdamWConfig(),

@@ -126,7 +126,7 @@ def test_tx_layer_stream_ep1_matches_jax_and_dense():
     cfg = DcommConfig(engine="fused_flat", capacity_factor=CF)
     h, (k, v) = fusco.tx_layer_stream(
         torch.from_numpy(x), torch.arange(8), _t(p), placement, cfg, K,
-        **HEADS, stream=False, return_kv=True)
+        **HEADS, return_kv=True)
     np.testing.assert_allclose(h.numpy(), h_j[0], rtol=TOL, atol=TOL)
     np.testing.assert_allclose(k.numpy(), k_j[0], rtol=TOL, atol=TOL)
     np.testing.assert_allclose(v.numpy(), v_j[0], rtol=TOL, atol=TOL)
@@ -160,7 +160,7 @@ def _rank_main(rank, world, init_file, data, out_dir):
         group = dist.group.WORLD
         h, (k, v) = fusco.tx_layer_stream(
             stripe, positions, {**p, **{w: lane[w][:, rank] for w in lane}},
-            placement, cfg, K, **HEADS, stream=False, return_kv=True,
+            placement, cfg, K, **HEADS, return_kv=True,
             group=group)
         y = stream_tx_layers(
             stripe, {"router": p["router"], **lane},
@@ -266,16 +266,19 @@ def test_streamed_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
 
 
 def test_tx_stream_raises_on_what_is_not_ported():
+    """Interleaved micro-batch lanes run through both engines (the streamed
+    fused_pipe and fused_flat's barriers, which ignore them) and equal the
+    plain stream; FSDP expert weights still raise."""
     p = _t(_params(0))
-    x = torch.zeros(1, 4, D)
+    x = torch.from_numpy(_x(2, 2, 4))
     placement = ExpertPlacement(n_experts=E, ep=1, node_size=1)
-    kw = dict(**HEADS, stream=False)
-    for cfg, extra in ((DcommConfig(engine="fused_pipe"),
-                        dict(stream=True, interleave=2)),
-                       (DcommConfig(), dict(interleave=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fusco.tx_layer_stream(x, torch.arange(4), p, placement, cfg, K,
-                                  **{**kw, **extra})
+    for cfg in (DcommConfig(engine="fused_pipe", capacity_factor=CF),
+                DcommConfig(capacity_factor=CF)):
+        one, two = (fusco.tx_layer_stream(x, torch.arange(4), p, placement,
+                                          cfg, K, **HEADS, interleave=k)
+                    for k in (1, 2))
+        np.testing.assert_allclose(two.numpy(), one.numpy(), rtol=TOL,
+                                   atol=TOL, err_msg=cfg.engine)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stream_tx_layers(x, {}, {}, p["ln1"], p["ln2"], placement=placement,
                          dcfg=DcommConfig(), top_k=K, positions=torch.arange(4),
