@@ -2753,6 +2753,416 @@ def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
     return lines
 
 
+# the relayout phases: each train phase (TRAINS) re-laid out after every 4th
+# of its 8 steps (two relayouts); at EP 1 a relayout permutes the experts of
+# the one lane
+RELAYOUT_EVERY = 4
+RELAYOUTS = {f"{label} relayout": argv + ["--relayout-every",
+                                          str(RELAYOUT_EVERY)]
+             for label, argv in TRAINS.items()}
+TOL_RELAYOUT = 2e-3     # loss at fixed params and batch before and after a
+                        # migration, bf16, relative (the grid's first-loss
+                        # figure)
+TOL_MEAN = 1e-6         # the replica mean, f32 sums in another order
+
+
+def relayout_phase(label: str, argv, implied: dict, device="cuda") -> dict:
+    """A train phase with ``--relayout-every`` through ``train.run``, every
+    launch counter zeroed just before it and read just after (``train_phase``):
+    the counts must be ``implied``, the same run's without relayouts, since
+    the migration launches none of the kernels.  Each relayout is wrapped to
+    hold the loss at fixed parameters and batch (the run's first batch)
+    before and after the migration within ``TOL_RELAYOUT`` (bf16; whether the
+    bits are equal is reported), to run one MoE layer under the new table with
+    the host's waits counted (``host_syncs``: none allowed), and to check that
+    the migration itself launched no kernel; the wrapper's own launches are
+    taken off the counts.  Returns the run, its launches and each relayout's
+    record (``train.apply_relayout``'s stats, device and host ms, the bound
+    of reading and writing every rewritten byte once)."""
+    import torch
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.launch import train
+    from repro_torch.models import lm, zoo
+    args = train.parse_args(argv)
+    real, records = train.apply_relayout, []
+
+    def checked(params, opt, traffic, ctx, **kw):
+        wrappers = counters()
+        saved = {k: w.launches for k, w in wrappers.items()}
+        run_cfg = ctx.cfg
+        batch = to_device(ZipfNgramLM(run_cfg.vocab, args.seq, args.batch,
+                                      seed=train.SEED).batch_at(0), ctx.device)
+        loss = lambda c: zoo.build(run_cfg, c).loss(params, batch)[0]
+        with torch.no_grad():
+            before = loss(ctx)
+        mid = {k: w.launches for k, w in wrappers.items()}
+        out = real(params, opt, traffic, ctx, **kw)
+        moved = {k: w.launches - mid[k] for k, w in wrappers.items()}
+        new_ctx = out[2]
+        with torch.no_grad():
+            after = loss(new_ctx)
+            layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
+            x = torch.randn((args.batch, args.seq, run_cfg.d_model),
+                            generator=torch.Generator(device=ctx.device)
+                            .manual_seed(3), device=ctx.device,
+                            dtype=ctx.compute_dtype)
+            with host_syncs() as syncs:
+                lm._moe_seq_sharded(x, layer, new_ctx)
+        torch.cuda.synchronize()
+        for k, w in wrappers.items():
+            w.launches = saved[k]
+        stats = out[3]
+        records.append(dict(
+            stats, loss_before=float(before), loss_after=float(after),
+            same_bits=bool(torch.equal(before, after)), syncs=syncs,
+            migration_launches=moved,
+            bound_ms=2 * stats["rewritten_bytes"] / MEM_BW * 1e3))
+        return out
+
+    train.apply_relayout = checked
+    try:
+        torch.cuda.empty_cache()
+        out, launches = train_phase(argv, device)
+    finally:
+        train.apply_relayout = real
+    if launches != implied:
+        raise AssertionError(f"{label}: launches {launches}, the same run "
+                             f"without relayouts {implied}")
+    want = args.steps // args.relayout_every
+    for r in records:
+        rel = abs(r["loss_after"] - r["loss_before"]) / abs(r["loss_before"])
+        r["loss_rel"] = rel
+        if (rel > TOL_RELAYOUT or r["syncs"] or any(r["migration_launches"]
+                                                     .values())):
+            raise AssertionError(
+                f"{label}: a relayout moved the loss at fixed params by "
+                f"{rel:.3g} (tol {TOL_RELAYOUT}), made the host wait in a "
+                f"layer under the new table ({r['syncs'][:3]}) or launched "
+                f"{r['migration_launches']} while migrating")
+    if len(records) != want or len(out["relayouts"]) != want:
+        raise AssertionError(f"{label}: {len(records)} relayouts, want {want}")
+    return {"out": out, "launches": launches, "records": records}
+
+
+def print_relayouts(label: str, argv, res: dict) -> None:
+    """The relayout phase's lines: each relayout's record, then the run."""
+    out = res["out"]
+    ms = out["step_ms"]
+    for r, s in zip(res["records"], out["relayouts"]):
+        step = s["step"]
+        after = f"{ms[step]:.3f}" if step < len(ms) else "none (the last)"
+        lo, hi = r["max_lane_load"]
+        print(f"{label}: relayout after step {step}: {r['rows_moved']}/"
+              f"{r['slots']} expert blocks moved across lanes "
+              f"({r['bytes_moved']} B), max-lane load {lo:.1f} -> {hi:.1f}; "
+              f"rewrote {r['rewritten_bytes']} B of expert weights and AdamW "
+              f"state: device {r.get('device_ms', float('nan')):.4f} ms (CUDA "
+              f"events; bound "
+              f"{r['bound_ms']:.4f} ms, each byte read and written once at "
+              f"{MEM_BW:.3g} B/s), host {r['host_ms']:.3f} ms for the whole "
+              f"swap; loss at fixed params and batch {r['loss_before']:.6f} "
+              f"-> {r['loss_after']:.6f} ({r['loss_rel']:.3g} relative, tol "
+              f"{TOL_RELAYOUT}; bits equal {r['same_bits']}); host waits in "
+              f"one MoE layer under the new table: 0; step ms before "
+              f"{ms[step - 1]:.3f}, after {after}")
+    print(f"{label}: {' '.join(argv[argv.index('--batch'):])}: "
+          f"{out['ms_per_step']:.3f} ms/step (median of the timed steps, the "
+          f"swaps not in them), peak memory {out['peak_mem_gib']:.2f} GiB; "
+          f"loss per step " + " ".join(f"{x:.5f}" for x in out["losses"])
+          + f"; launches {json.dumps(res['launches'])}, the same run's "
+          f"without relayouts")
+
+
+# the reduced card-vs-CPU relayout checks: (arch, engine) of each family
+RELAYOUT_REDUCED = (("qwen3-moe-30b-a3b", "fused_flat"),
+                    ("moe-tx-stream", "fused_pipe"),
+                    ("moe-ffn-stream", "fused_pipe"))
+
+
+def reduced_relayout_check(arch: str, engine: str, device="cuda") -> dict:
+    """Four f32 train steps of the reduced ``arch`` through ``engine``
+    (``engine_kwargs``) with ``train.apply_relayout`` after the second (the
+    lane EMAs restarted cold and the step rebuilt, as ``train.run`` does),
+    on the card (kernels) and on the CPU (plain versions), from the same
+    params and batches: the same tables; every loss within ``TOL_TRAIN``;
+    the grads of the first step after the relayout within ``TOL_TRAIN`` of
+    max(1, max |g|); the migrated params and master within 2 * lr + 1e-5 a
+    step taken (AdamW moves an element by about lr; one whose gradient is
+    float32 noise may move the other way), mu and nu within ``TOL_TRAIN``
+    of max(1, |x|); the kernels of the family's path launched on the card."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    import numpy as np
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    source = ZipfNgramLM(cfg.vocab, 32, 4, seed=0)
+    quiet = lambda *a, **k: None
+    moe = lambda tree: {n: tree["layers"]["moe"][n].detach().cpu().clone()
+                        for n in ("w1", "w3", "w2")}
+    res = {}
+    for dev in ("cpu", device):
+        ctx = lm.make_context(cfg, dev, compute_dtype=f32,
+                              **engine_kwargs(engine, cfg))
+        model = zoo.build(cfg, ctx)
+        params = adamw.tree_map(lambda t: t.to(dev, copy=True), base)
+        opt = steps.init_state(model, params)
+        traffic = train.init_traffic(cfg, ctx, 1)
+        step = steps.make_train_step(model, opt_cfg)
+        losses = []
+        wrappers = zero_counters()
+        for i in range(4):
+            batch = to_device(source.batch_at(i), dev)
+            if i == 2:
+                _, _, grads = steps.value_and_grad(model)(params, batch,
+                                                          traffic)
+                grads = [g.cpu() for g in grads]
+            params, opt, m = step(params, opt, batch, traffic)
+            traffic = m["traffic"]
+            losses.append(float(m["loss"]))
+            if i == 1:
+                params, opt, ctx, stats = train.apply_relayout(
+                    params, opt, traffic, ctx, log=quiet)
+                traffic = train.cold_lane_stats(traffic)
+                model = zoo.build(cfg, ctx)
+                step = steps.make_train_step(model, opt_cfg)
+                migrated = {k: moe(t) for k, t in (
+                    ("params", params), ("mu", opt.mu), ("nu", opt.nu),
+                    ("master", opt.master))}
+                table = ctx.placement.lane_expert.copy()
+        res[dev] = dict(losses=losses, grads=grads, migrated=migrated,
+                        table=table, stats=stats,
+                        launches={k: w.launches for k, w in wrappers.items()})
+    cpu, card = res["cpu"], res[device]
+    rel = lambda a, b: max_err(a.float(), b.float()) / max(
+        1.0, b.float().abs().max().item())
+    lr = adamw.schedule(opt_cfg, 1)
+    err = {"loss": max(abs(a - b) for a, b in zip(cpu["losses"],
+                                                  card["losses"])),
+           "grads": max(rel(a, b) for a, b in zip(card["grads"],
+                                                   cpu["grads"]))}
+    for kind in ("params", "mu", "nu", "master"):
+        for n, t in cpu["migrated"][kind].items():
+            got = card["migrated"][kind][n]
+            e = max_err(got, t) if kind in ("params", "master") else rel(got, t)
+            err[kind] = max(err.get(kind, 0.0), e)
+    p_tol = 2 * (2 * lr) + 1e-5
+    required, _ = family_kernels(cfg, train=True)
+    never = [k for k in required if card["launches"][k] == 0]
+    if not (np.array_equal(cpu["table"], card["table"])
+            and err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+            and err["params"] <= p_tol and err["master"] <= p_tol
+            and err["mu"] <= TOL_TRAIN and err["nu"] <= TOL_TRAIN
+            and not never):
+        raise AssertionError(
+            f"reduced {arch} {engine} relayout, card vs CPU: tables "
+            f"{cpu['table'].tolist()} / {card['table'].tolist()}; {err} (tol "
+            f"{TOL_TRAIN}, params and master {p_tol}); never launched {never}")
+    return dict(err, p_tol=p_tol, table=card["table"].tolist(),
+                stats=card["stats"], launches=card["launches"])
+
+
+# the replicated tables on one card: two gloo ranks sharing it, the reduced
+# qwen3-moe in f32, its 8 experts on 2 lanes x 5 slots (the solver's table of
+# a skewed load: replicas of the hottest experts), capacity factor 8
+REPLICATED_SLOTS = 5
+REPLICATED_LOADS = (9.0, 5.0, 1.0, 1.0, 2.0, 1.0, 1.0, 1.0)
+
+
+def _replicated_table():
+    import numpy as np
+    from repro_torch.core import relayout
+    return relayout.solve_placement(np.array(REPLICATED_LOADS), ep=EP2,
+                                    node_size=1,
+                                    slots_per_lane=REPLICATED_SLOTS)
+
+
+def _replicated_rank(rank, port, out_dir, device):
+    """One rank of the replicated-table check: a train step of the reduced
+    qwen3-moe (f32, fused_flat) under the replicated table from the
+    canonical seed-0 weights laid out by it, then a relayout from it (the
+    replicas have drifted: each took its own share of the tokens); one MoE
+    layer under the table with the host's waits recorded."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_arch
+    from repro_torch.core import relayout, traffic
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=EP2)
+    try:
+        cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+        f32 = torch.float32
+        table = _replicated_table()
+        slots = relayout.slot_table(table)
+        base = lm.init_params(cfg, lm.make_context(cfg, "cpu",
+                                                   compute_dtype=f32),
+                              torch.Generator().manual_seed(0), dtype=f32)
+        for n in ("w1", "w3", "w2"):       # canonical (L, 1, 8, ...) -> table
+            w = base["layers"]["moe"][n]
+            base["layers"]["moe"][n] = w[:, 0, slots].reshape(
+                w.shape[0], EP2, REPLICATED_SLOTS, *w.shape[3:])
+        ctx = lm.make_context(cfg, device, ep_group=dist.group.WORLD,
+                              capacity_factor=EP2_CAPACITY,
+                              compute_dtype=f32, engine="fused_flat")
+        ctx = dataclasses.replace(ctx, placement=table)
+        model = zoo.build(cfg, ctx)
+        params = lm.shard_params(adamw.tree_map(lambda t: t.to(device),
+                                                base), ctx)
+        batch = to_device(ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0),
+                          device)
+        cold = traffic.init_traffic_state(cfg.moe.n_experts, EP2,
+                                          n_layers=cfg.n_layers, device=device)
+        wrappers = zero_counters()
+        loss, _, grads = steps.value_and_grad(model)(params, batch, cold)
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        params, opt, m = steps.make_train_step(model, opt_cfg)(
+            params, steps.init_state(model, params), batch, cold)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        moe = lambda tree: {n: tree["layers"]["moe"][n].detach().cpu().clone()
+                            for n in ("w1", "w3", "w2")}
+        trees = lambda: {"params": moe(params), "mu": moe(opt.mu),
+                         "nu": moe(opt.nu), "master": moe(opt.master)}
+        before = trees()
+        hot = m["traffic"]._replace(expert_ema=m["traffic"].expert_ema.flip(-1))
+        params, opt, new_ctx, stats = train.apply_relayout(
+            params, opt, hot, ctx, log=lambda *a, **k: None)
+        layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        x = torch.randn((4, 32, cfg.d_model), device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+        on_card = torch.device(device).type == "cuda"
+        with torch.no_grad():
+            lm._moe_seq_sharded(x, layer, new_ctx)     # the first use, built
+            with (host_syncs() if on_card
+                  else contextlib.nullcontext([])) as syncs:
+                lm._moe_seq_sharded(x, layer, new_ctx)
+        torch.save({"loss": float(loss),
+                    "grads": dict(zip(adamw.paths(params),
+                                      (g.cpu() for g in grads))),
+                    "launches": launches, "before": before, "after": trees(),
+                    "table": new_ctx.placement.lane_expert.copy(),
+                    "stats": stats, "syncs": syncs},
+                   f"{out_dir}/replicated-rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def replicated_card_check(device="cuda") -> list[str]:
+    """The replicated table (``_replicated_table``) on two gloo ranks sharing
+    the card (``_replicated_rank``) against the one-rank card step under the
+    canonical weights: each rank's loss and replicated leaves' gradients
+    within ``TOL_TRAIN`` of max(1, |x|), and the expert gradients of both
+    ranks' slots, scattered onto the canonical experts, within ``TOL_TRAIN``
+    of the one-rank step's; then the relayout from the drifted replicas held
+    to the CPU's unsharded ``relayout.migrate_lane_major`` of the ranks'
+    gathered leaves (the replica mean, ``TOL_MEAN`` relative): params, mu,
+    nu and master.  Every kernel of the train path launched on each rank;
+    no host wait in a layer under the table from the port's code, on the
+    calling thread (gloo copies CUDA tensors through the host on its own
+    threads, which ``host_syncs`` does not see)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import relayout
+    from repro_torch.launch import steps
+    from repro_torch.data.pipeline import ZipfNgramLM, to_device
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    f32 = torch.float32
+    ctx = lm.make_context(cfg, device, capacity_factor=EP2_CAPACITY,
+                          compute_dtype=f32, engine="fused_flat")
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    params = adamw.tree_map(lambda t: t.to(device), base)
+    batch = to_device(ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0),
+                      device)
+    loss, _, grads = steps.value_and_grad(zoo.build(cfg, ctx))(params, batch)
+    want = dict(zip(adamw.paths(params), (g.cpu() for g in grads)))
+    out_dir = ROOT / "build" / "replicated"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    spawn_ranks(_replicated_rank, EP2, (free_port(), str(out_dir), device), 600)
+    got = [torch.load(out_dir / f"replicated-rank{r}.pt", weights_only=False)
+           for r in range(EP2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    table = _replicated_table()
+    slots = relayout.slot_table(table)
+    rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+    err = {"loss": 0.0, "grads": 0.0, "expert_grads": 0.0, "mean": 0.0}
+    required, _ = family_kernels(cfg, train=True)
+    for r, g in enumerate(got):
+        err["loss"] = max(err["loss"], abs(g["loss"] - float(loss)))
+        for k, w in want.items():
+            if not lm.lane_sharded(k):
+                err["grads"] = max(err["grads"], rel(g["grads"][k], w))
+        never = [k for k in required if g["launches"][k] == 0]
+        if never:
+            raise AssertionError(f"replicated table rank {r} never launched "
+                                 f"{never}: {g['launches']}")
+        if not np.array_equal(g["table"], got[0]["table"]):
+            raise AssertionError("the ranks took different tables")
+    for k in (k for k in want if lm.lane_sharded(k)):
+        lanes = torch.cat([g["grads"][k] for g in got], 1)   # (L, 2, 5, ...)
+        flat = lanes.reshape(lanes.shape[0], -1, *lanes.shape[3:])
+        canon = torch.zeros_like(want[k][:, 0]).index_add_(1, slots, flat)
+        err["expert_grads"] = max(err["expert_grads"],
+                                  rel(canon, want[k][:, 0]))
+    new = relayout.TablePlacement(got[0]["table"], node_size=1,
+                                  n_experts=cfg.moe.n_experts)
+    drifted = False
+    for kind in ("params", "mu", "nu", "master"):
+        for n in ("w1", "w3", "w2"):
+            whole = torch.cat([g["before"][kind][n] for g in got], 1)
+            flat = whole.reshape(whole.shape[0], -1, *whole.shape[3:])
+            rep = int(np.argmax(table.n_replicas))
+            a, b = np.flatnonzero(relayout.placement_table(table).reshape(-1)
+                                  == rep)[:2]
+            drifted |= not torch.equal(flat[:, a], flat[:, b])
+            mean = relayout.migrate_lane_major(whole, table, new, lane_axis=1)
+            mine = torch.cat([g["after"][kind][n] for g in got], 1)
+            err["mean"] = max(err["mean"], max_err(mine, mean) / max(
+                1e-30, mean.abs().max().item()))
+    own = [s for g in got for s in g["syncs"] if "repro_torch" in s]
+    if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+            and err["expert_grads"] <= TOL_TRAIN and err["mean"] <= TOL_MEAN
+            and drifted and not own):
+        raise AssertionError(
+            f"replicated table on two ranks: {err} (tol {TOL_TRAIN}, mean "
+            f"{TOL_MEAN}); replicas drifted before the relayout {drifted}; "
+            f"host waits in the port's code {own[:3]}")
+    other = sorted({s for g in got for s in g["syncs"]})
+    return [f"table {relayout.placement_table(table).tolist()} (replicas "
+            f"{table.n_replicas.tolist()}): loss {err['loss']:.3g}, "
+            f"replicated grads {err['grads']:.3g}, expert grads scattered "
+            f"onto the canonical experts {err['expert_grads']:.3g} (tol "
+            f"{TOL_TRAIN}) against one rank under the canonical weights; "
+            f"launches per rank {json.dumps([g['launches'] for g in got])}",
+            f"relayout from the drifted replicas onto "
+            f"{new.lane_expert.tolist()}: params, mu, nu and master within "
+            f"{err['mean']:.3g} of the CPU's replica mean (tol {TOL_MEAN}); "
+            f"{got[0]['stats']['rows_moved']}/{got[0]['stats']['slots']} "
+            f"blocks moved across lanes",
+            f"host waits in one MoE layer under the table, on the calling "
+            f"thread: 0 from the port's code, {len(other)} elsewhere "
+            f"{other[:2]} (gloo stages CUDA tensors through the host on its "
+            f"own threads, outside this count)"]
+
+
 def hier_swiglu_row(inp, timer=time_ms) -> dict:
     """fused_swiglu on fused_hier's expansion buffer at ``inp``'s shape
     (EP = 1), with the expansion's counts: held and timed (``swiglu_row``)."""
@@ -3372,6 +3782,10 @@ def main() -> None:
     print(f"moe-tx train fused_pipe --moe-stream {TX_LAYERS}: pipesim's "
           f"streamed S at T {TX_TRAIN[1]['t']} is {tx_s} (capacity {tx_cap}, "
           f"Cs {tx_cap // tx_s})")
+    for label, argv in RELAYOUTS.items():
+        res = relayout_phase(label, argv, launches[label[:-len(" relayout")]])
+        launches[label] = res["launches"]
+        print_relayouts(label, argv, res)
     for label, argv in TX_TRAINS.items():
         launches[label] = train_and_profile(label, argv)
     cap, s = ffn_slices["moe-ffn train"]
@@ -3416,6 +3830,16 @@ def main() -> None:
               f"({out['requests']} requests, {out['tokens']} tokens); traffic "
               f"state vs the CPU's {out['traffic_err']:.3g} of max(1, |x|) "
               f"(tol {TOL_TRAFFIC})")
+    for arch, engine in RELAYOUT_REDUCED:
+        err = reduced_relayout_check(arch, engine)
+        print(f"reduced {arch} {engine} f32, relayout after step 2 of 4, card "
+              f"(kernels) vs CPU (plain): the same table {err['table']}; "
+              f"losses {err['loss']:.3g}, grads after it {err['grads']:.3g} "
+              f"(tol {TOL_TRAIN}), migrated params {err['params']:.3g} and "
+              f"master {err['master']:.3g} (tol {err['p_tol']:.3g}), mu "
+              f"{err['mu']:.3g} and nu {err['nu']:.3g} (tol {TOL_TRAIN}); "
+              f"{err['stats']['rows_moved']}/{err['stats']['slots']} blocks "
+              f"moved; launches on the card {json.dumps(err['launches'])}")
     for run, n in reduced_bf16_runs().items():
         print(f"reduced {run} bf16 on the card (flash tensor-core form): "
               f"launches {json.dumps(n)}")
@@ -3449,6 +3873,10 @@ def main() -> None:
     for line in ep2_card_check():
         print(f"EP 2 on one card (two gloo ranks), f32 train step vs EP 1: "
               f"{line}")
+    for line in replicated_card_check():
+        print(f"replicated table on one card (two gloo ranks, reduced "
+              f"qwen3-moe f32, 8 experts on 2 lanes x {REPLICATED_SLOTS} "
+              f"slots): {line}")
     grid_lines, grid_launches = grid_card_check()
     for line in grid_lines:
         print(f"(2, 2) grid on one card (four gloo ranks), f32 train step vs "

@@ -48,6 +48,16 @@ class ExpertPlacement:
         """Number of lanes holding a copy of each expert (>= 1)."""
         return max(1, self.ep // self.n_experts)
 
+    @property
+    def max_replicas(self) -> int:
+        """Largest per-expert replica count (uniform here; the table-driven
+        ``relayout.TablePlacement`` has per-expert counts)."""
+        return self.replicas
+
+    def replica_count(self, expert_ids: torch.Tensor) -> torch.Tensor:
+        """Per-assignment replica count (uniform for the arithmetic map)."""
+        return torch.full_like(expert_ids, self.replicas)
+
     def lane_of_expert(self, expert_ids: torch.Tensor,
                        replica_choice: torch.Tensor | None = None) -> torch.Tensor:
         """Lane hosting ``expert_ids``; with replication ``replica_choice``
@@ -87,20 +97,23 @@ def top_k_routing(logits: torch.Tensor, top_k: int, normalize: bool = True):
     return experts.to(torch.int32), gate.to(logits.dtype)
 
 
-def token_node_matrix(A: torch.Tensor, placement: ExpertPlacement,
+def token_node_matrix(A: torch.Tensor, placement,
                       replica_choice: torch.Tensor | None = None) -> torch.Tensor:
     """The paper's ``B`` matrix: destination node per (token, k) slot."""
     return placement.node_of_lane(placement.lane_of_expert(A, replica_choice))
 
 
-def balanced_replica_choice(A: torch.Tensor,
-                            placement: ExpertPlacement) -> torch.Tensor:
+def balanced_replica_choice(A: torch.Tensor, placement) -> torch.Tensor:
     """For replicated experts, round-robin each expert's assignments over its
-    replicas in flattened (token, k) order."""
-    if placement.replicas == 1:
+    replicas in flattened (token, k) order.  Works for any placement exposing
+    ``max_replicas`` / ``replica_count``: the arithmetic
+    :class:`ExpertPlacement` (uniform replicas) and the table-driven
+    ``relayout.TablePlacement`` (per-expert replica counts)."""
+    if placement.max_replicas == 1:
         return torch.zeros_like(A)
     flat = A.reshape(-1).long()
     one_hot = torch.nn.functional.one_hot(flat, placement.n_experts)
     occ = one_hot.cumsum(0) - one_hot          # occurrences before this slot
     occ_of_slot = occ.gather(1, flat[:, None])[:, 0]
-    return (occ_of_slot % placement.replicas).reshape(A.shape).to(torch.int32)
+    return (occ_of_slot % placement.replica_count(flat).long()).reshape(
+        A.shape).to(torch.int32)

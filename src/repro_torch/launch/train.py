@@ -38,6 +38,18 @@ through fused_pipe is not serial: the micro-batches are the stream's lanes
 (``steps.accum_fuses_into_stream``), the traffic rides, and each data rank
 keeps its plain rows (:func:`data_rows` at ``accum = 1``).
 
+``--relayout-every N`` re-lays the experts out after every N-th step
+(:func:`apply_relayout`, the reference's): a ``core/relayout.TablePlacement``
+solved from the traffic EMA's expert loads summed over the layers, the
+expert weights and their AdamW mu, nu and master migrated onto it (each
+slot the replica mean of its expert's old copies), the EMAs measured per
+lane restarted cold, and the model and the train step rebuilt for the new
+placement; the loss at fixed parameters is unchanged.  It needs the traffic
+statistics, so under serial accumulation the placement stays as it is.
+
+``python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4
+--batch 4 --seq 512 --steps 8 --engine fused_flat --relayout-every 4``
+
 Runs on the card (``cuda``); ``run(args, device="cpu")`` runs the plain
 path, ``run(args, device, ep_group=g)`` over an initialised EP group, and
 ``run(args, device, mesh=m)`` over a grid.  Weights are random; the batches
@@ -51,7 +63,8 @@ sequence's count of distinct tokens, as the reference), which acts only with
 more than one data rank.  The first ``WARMUP`` steps (which also build the
 kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
-No checkpoint, relayout or fault-tolerance loop yet (ROADMAP queue 1 item 6).
+No checkpoint or fault-tolerance loop and no ``--engine auto`` yet (ROADMAP
+queue 1 item 6 parts 2 and 3).
 """
 
 from __future__ import annotations
@@ -69,7 +82,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import calibrate, commplan, dcomm
+from repro_torch.core import calibrate, commplan, dcomm, relayout
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.data.pipeline import SyntheticLM, ZipfNgramLM, to_device
 from repro_torch.launch import steps
@@ -122,6 +135,12 @@ def parse_args(argv=None):
                          "window); must divide each rank's batch; equal to "
                          "--accum, the accumulation micro-batches are the "
                          "lanes; 1 = the plain stream")
+    ap.add_argument("--relayout-every", type=int, default=0,
+                    help="MoE families: every N steps, re-solve the expert "
+                         "placement from the online EMA traffic stats and "
+                         "migrate the expert weight blocks and their AdamW "
+                         "state (0 = static placement); stats are collected "
+                         "either way")
     ap.add_argument("--traffic-decay", type=float, default=0.99,
                     help="EMA decay of the online traffic statistics")
     ap.add_argument("--calibrate", action="store_true",
@@ -247,6 +266,210 @@ def shard_batch(host: dict, dp: int, d: int, accum: int = 1,
     return {k: v[rows] for k, v in host.items()}, moved
 
 
+# the expert leaves' names under layers/moe (lm.EXPERT_LEAVES)
+MOE_WEIGHTS = tuple(path.rsplit("/", 1)[1] for path in lm.EXPERT_LEAVES)
+
+
+class _Cut(NamedTuple):
+    """The ZeRO-1 cut of a rank's leaf (``adamw.zero_dim``): its dim (None:
+    whole) and the data rank's share of it."""
+    dim: int | None
+    dp: int
+    d: int
+
+    def span(self, dim: int, n: int) -> range:
+        """The indices this rank holds of ``dim``, of size ``n`` uncut."""
+        if self.dim != dim:
+            return range(n)
+        k = n // self.dp
+        return range(self.d * k, (self.d + 1) * k)
+
+    def apply(self, shape: tuple) -> tuple:
+        return tuple(len(self.span(i, n)) for i, n in enumerate(shape))
+
+
+_WHOLE = _Cut(None, 1, 0)
+
+
+def _migrate_leaf(t: torch.Tensor, old, new, lanes: range, cut_old: _Cut,
+                  cut_new: _Cut, whole_new: tuple, group, mult: int):
+    """The re-layout of one expert leaf on this rank, layer by layer: the
+    slots it holds (``lanes``, cut by ``cut_old`` of the rank's lane-held
+    leaf) index-added into a zeroed float32 canonical (n_experts, ...) block,
+    summed over ``group`` (the ranks holding distinct slots of that block;
+    None: this rank holds them all), divided by each expert's replica count
+    times ``mult`` (the ranks of ``group`` holding each slot), then the new
+    placement's slots cut by ``cut_new`` of the rank's new lane-held shape
+    ``whole_new`` taken from it.  Without a group and without replicas a
+    plain gather of each layer's rows.  Writes into ``t`` when its shape
+    stays, else into a new tensor; returns the one written."""
+    dev = t.device
+    n_layers, rest = whole_new[0], whole_new[3:]
+    so = cut_old.span(2, old.experts_per_lane)
+    sn = cut_new.span(2, new.experts_per_lane)
+    lo, ln = cut_old.span(0, n_layers), cut_new.span(0, n_layers)
+    shape_new = cut_new.apply(whole_new)
+    out = t if tuple(t.shape) == shape_new else torch.empty(
+        shape_new, dtype=t.dtype, device=dev)
+    counts = relayout.replica_counts(old)
+    if group is None and cut_old == cut_new == _WHOLE and counts.max() == 1:
+        idx = relayout.migration_gather_index(old, new, dev).long()
+        for i in range(n_layers):
+            rows = t[i].reshape(-1, *t.shape[3:]).index_select(0, idx)
+            out[i].copy_(rows.view(out[i].shape))
+        return out
+    pick = lambda p, s: torch.as_tensor(
+        relayout.placement_table(p)[lanes.start:lanes.stop,
+                                    s.start:s.stop].reshape(-1),
+        dtype=torch.long, device=dev)
+    ids_old, ids_new = pick(old, so), pick(new, sn)
+    div = torch.as_tensor(counts * mult, dtype=torch.float32, device=dev)
+    div = div.reshape((-1,) + (1,) * len(rest))
+
+    def part(canon, cut):          # the canonical block's rest dims under cut
+        if cut.dim is not None and cut.dim >= 3:
+            span = cut.span(cut.dim, whole_new[cut.dim])
+            return canon.narrow(cut.dim - 2, span.start, len(span))
+        return canon
+
+    for i in range(n_layers):
+        canon = torch.zeros((old.n_experts, *rest), dtype=torch.float32,
+                            device=dev)
+        if i in lo:
+            src = t[i - lo.start]
+            part(canon, cut_old).index_add_(
+                0, ids_old, src.reshape(-1, *src.shape[2:]).float())
+        if group is not None:
+            dist.all_reduce(canon, group=group)
+        canon.div_(div)
+        if i in ln:
+            dst = out[i - ln.start]
+            dst.copy_(part(canon, cut_new).index_select(0, ids_new).view(
+                dst.shape))
+    return out
+
+
+def _agreed_table(table: np.ndarray, ctx: lm.ModelContext) -> np.ndarray:
+    """Rank 0's table on every rank of the training world (the grid, or the
+    EP group): one small all-reduce; every rank solves, rank 0's decides."""
+    g = (ctx.mesh.grid if ctx.mesh is not None
+         else dcomm.process_group(ctx.ep_group))
+    if g is None or dist.get_world_size(g) == 1:
+        return table
+    t = torch.as_tensor(table if dist.get_rank(g) == 0 else 0 * table,
+                        dtype=torch.int32).to(ctx.device)
+    dist.all_reduce(t, group=g)
+    return t.cpu().numpy()
+
+
+def apply_relayout(params, opt, traffic_state, ctx: lm.ModelContext, *,
+                   slots_per_lane: int | None = None, log=print):
+    """Between-steps placement swap (the reference's ``apply_relayout``):
+    solve a ``relayout.TablePlacement`` from the EMA expert loads (summed
+    over the layers), then migrate the expert weight blocks
+    (``layers/moe/{w1,w3,w2}``, the moe, moe_tx and moe_ffn families alike)
+    AND their AdamW mu, nu and f32 master, so that the loss at fixed
+    parameters is unchanged: only which lane hosts which expert moves.
+
+    Each destination slot takes the replica mean of its expert's old copies
+    (``relayout.migrate_lane_major``'s function, accumulated in float32).
+    Over an EP group each rank holds its lane of those leaves, and on a
+    (data, model) grid its ZeRO-1 slice of their state (``adamw.zero_dim``):
+    per layer and leaf, each rank index-adds its slots into a canonical
+    float32 block, the block is summed over the EP group (over the whole
+    grid where the state is cut on the slot axis, or its cut moves), and
+    each rank takes its new slots from it (:func:`_migrate_leaf`): peak
+    memory grows by one layer's block.  Every rank solves, and rank 0's
+    table is the one all take (:func:`_agreed_table`).
+
+    The train step updates parameters and AdamW state in place, so the
+    migration writes into the same tensors (``copy_``), and ``params`` and
+    ``opt`` are the objects passed in; a new slot count (``slots_per_lane``
+    other than the old placement's) changes the leaves' shapes, and new
+    tensors then replace the old ones in the same dictionaries.  The caller
+    rebuilds the model and the train step for the returned context.
+    Returns (params, opt, new_ctx, stats): ``relayout.migration_stats``
+    plus the max-lane loads before and after, the bytes this rank rewrote,
+    the host ms of the whole swap and, on the card, the device ms of the
+    migration (CUDA events)."""
+    t0 = time.perf_counter()
+    old = ctx.placement
+    loads = traffic_state.expert_ema.detach().cpu().numpy().astype(np.float64)
+    if loads.ndim > 1:                     # per-layer stacked state
+        loads = loads.sum(axis=0)
+    solved = relayout.solve_placement(
+        loads, ep=old.ep, node_size=old.node_size,
+        slots_per_lane=slots_per_lane or old.experts_per_lane)
+    new = relayout.TablePlacement(_agreed_table(solved.lane_expert, ctx),
+                                  node_size=old.node_size,
+                                  n_experts=old.n_experts)
+    moe = params["layers"]["moe"]
+    w1 = moe["w1"]
+    d, f = w1.shape[-2], w1.shape[-1]
+    row_bytes = w1.shape[0] * (2 * d * f + f * d) * w1.element_size()
+    stats = relayout.migration_stats(old, new, row_bytes=row_bytes)
+
+    lanes = lm.held_lanes(ctx)
+    ep_group = (dcomm.process_group(ctx.ep_group)
+                if dcomm.group_size(ctx.ep_group) > 1 else None)
+    dp, di = (1, 0) if ctx.mesh is None else (ctx.mesh.data,
+                                              ctx.mesh.data_index)
+    grid = None if ctx.mesh is None else ctx.mesh.grid
+    on_card = ctx.device.type == "cuda"
+    if on_card:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+    rewritten = 0
+    with torch.no_grad():
+        for name in MOE_WEIGHTS:
+            p = moe[name]
+            whole_old = tuple(p.shape)
+            whole_new = (whole_old[0], whole_old[1], new.experts_per_lane,
+                         *whole_old[3:])
+            for tree in (params, opt.mu, opt.nu, opt.master):
+                state = tree is not params
+                cut = lambda shape: _Cut(adamw.zero_dim(shape, dp, True), dp,
+                                         di) if state else _WHOLE
+                c_old, c_new = cut(whole_old), cut(whole_new)
+                if c_old == c_new and c_old.dim != 2:
+                    # the EP group holds distinct slots of each block: the
+                    # data rank's layers and rest dims taken as the whole
+                    t = tree["layers"]["moe"][name]
+                    w = (t.shape[0], t.shape[1], new.experts_per_lane,
+                         *t.shape[3:])
+                    out = _migrate_leaf(t, old, new, lanes, _WHOLE, _WHOLE, w,
+                                        ep_group, 1)
+                else:
+                    out = _migrate_leaf(
+                        tree["layers"]["moe"][name], old, new, lanes, c_old,
+                        c_new, whole_new, grid,
+                        dp if c_old.dim is None else 1)
+                tree["layers"]["moe"][name] = out
+                rewritten += out.numel() * out.element_size()
+    if on_card:
+        events[1].record()
+        events[1].synchronize()
+        stats["device_ms"] = events[0].elapsed_time(events[1])
+    mx_old = float(relayout.lane_loads(loads, old).max())
+    mx_new = float(relayout.lane_loads(loads, new).max())
+    stats.update(max_lane_load=(mx_old, mx_new), rewritten_bytes=rewritten,
+                 host_ms=(time.perf_counter() - t0) * 1e3)
+    log(f"relayout: max-lane load {mx_old:.1f} -> {mx_new:.1f}, "
+        f"{stats['rows_moved']}/{stats['slots']} expert blocks moved "
+        f"({stats['bytes_moved'] / 1e6:.2f} MB)", flush=True)
+    return params, opt, dataclasses.replace(ctx, placement=new), stats
+
+
+def cold_lane_stats(traffic: traffic_lib.TrafficState):
+    """``traffic`` with the EMAs measured per lane (send rows, the lane ->
+    node matrix, condensed rows) restarted cold: after a relayout they
+    describe the retired table.  The expert counts carry over."""
+    return traffic._replace(
+        lane_send_ema=torch.zeros_like(traffic.lane_send_ema),
+        lane_node_ema=torch.zeros_like(traffic.lane_node_ema),
+        lane_cond_ema=torch.zeros_like(traffic.lane_cond_ema))
+
+
 def run(args, device="cuda", ep_group=None,
         mesh: HostMesh | None = None) -> dict:
     """Train ``--steps`` steps, over ``ep_group`` or ``mesh`` when given (an
@@ -256,8 +479,10 @@ def run(args, device="cuda", ep_group=None,
     median ms per timed step, tokens per second (of the global batch), on
     the card this rank's peak device memory (GiB, params and optimizer
     state included), this rank's AdamW state (GiB), the sequences and bytes
-    ``--seq-migrate`` moved, and the final traffic state (None without
-    one)."""
+    ``--seq-migrate`` moved, the final traffic state (None without
+    one), each ``--relayout-every`` swap's stats (:func:`apply_relayout`:
+    blocks and bytes moved, host ms, device ms on the card, and the step
+    after which it ran) and the final placement."""
     on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats(device)
@@ -268,8 +493,14 @@ def run(args, device="cuda", ep_group=None,
     opt_state = steps.init_state(model, params)
     dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
     serial = serial_accum(model, args.accum)
-    losses, step_s = [], []
+    losses, step_s, relayouts = [], [], []
     moved = {"rows_moved": 0, "bytes_moved": 0}
+    relayout_every = args.relayout_every if traffic is not None else 0
+    if args.relayout_every and not relayout_every and _is_rank0():
+        print(f"[relayout] --relayout-every {args.relayout_every} needs the "
+              "traffic statistics, which this run does not thread: the "
+              "placement stays static", flush=True)
+    log = print if _is_rank0() else (lambda *a, **k: None)
     for i in range(args.steps):
         host, m = shard_batch(source.batch_at(i), dp, d, serial,
                               args.seq_migrate)
@@ -285,6 +516,13 @@ def run(args, device="cuda", ep_group=None,
             torch.cuda.synchronize(ctx.device)
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
+        if relayout_every and (i + 1) % relayout_every == 0:
+            params, opt_state, ctx, stats = apply_relayout(
+                params, opt_state, traffic, ctx, log=log)
+            traffic = cold_lane_stats(traffic)
+            model = zoo.build(cfg, ctx)
+            train_step = steps.make_train_step(model, opt_cfg, args.accum)
+            relayouts.append(dict(stats, step=i + 1))
     timed = statistics.median(step_s[WARMUP:])
     if args.seq_migrate and _is_rank0():
         print(f"[seqmig] {moved['rows_moved']} sequences moved "
@@ -296,7 +534,8 @@ def run(args, device="cuda", ep_group=None,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
                              if on_card else None),
             "opt_state_gib": adamw.state_bytes(opt_state) / 2**30,
-            "seq_migrate": moved, "cfg": cfg, "traffic": traffic}
+            "seq_migrate": moved, "cfg": cfg, "traffic": traffic,
+            "relayouts": relayouts, "placement": ctx.placement}
 
 
 def main(argv=None, device="cuda"):

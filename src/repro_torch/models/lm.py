@@ -28,7 +28,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import calibrate, dcomm
+from repro_torch.core import calibrate, dcomm, relayout
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
                                     seq_stripe)
@@ -46,7 +46,9 @@ class ModelContext:
     cfg: ArchConfig
     device: torch.device
     ep_group: Any                  # None, the EP group, or its dcomm.EPGroups
-    placement: ExpertPlacement | None   # None: a family without MoE (dense)
+    # the arithmetic ExpertPlacement or a relayout.TablePlacement (swapped in
+    # with dataclasses.replace); None: a family without MoE (dense)
+    placement: ExpertPlacement | relayout.TablePlacement | None
     dcfg: DcommConfig | None
     compute_dtype: torch.dtype = torch.bfloat16
     # moe_tx / moe_ffn families: layers per stream block (<= 1: one layer a
@@ -182,25 +184,38 @@ def lane_sharded(path: str) -> bool:
     return path in EXPERT_LEAVES
 
 
-def _expert_leaf(gen: torch.Generator, lanes: range, el: int, shape: tuple,
+def _slot_ids(placement) -> list[list[int]]:
+    """The id each (lane, slot) of ``placement``'s expert leaves draws its
+    weights by (:func:`_expert_leaf`): under a ``relayout.TablePlacement``
+    the expert it hosts, so an expert's replicas start equal and each expert
+    has the same weights under every table; under the arithmetic placement
+    the flat slot, lane * E_local + slot."""
+    if isinstance(placement, relayout.TablePlacement):
+        return relayout.placement_table(placement).tolist()
+    el = placement.experts_per_lane
+    return [[lane * el + e for e in range(el)] for lane in range(placement.ep)]
+
+
+def _expert_leaf(gen: torch.Generator, lanes: range, ids: list, shape: tuple,
                  dtype, device) -> torch.Tensor:
-    """A lane-major (L, len(lanes), el, *shape) expert leaf holding
-    ``lanes``: expert e = lane * el + e_local draws its (L, *shape) from
-    its own generator, seeded from one draw of ``gen``, so a lane's values
-    do not depend on how many lanes there are, and the lanes not held are
-    never drawn."""
+    """A lane-major (L, len(lanes), E_local, *shape) expert leaf holding
+    ``lanes``: slot (lane, e) draws its (L, *shape) from its own generator,
+    seeded from one draw of ``gen`` and ``ids[lane][e]`` (:func:`_slot_ids`),
+    so a lane's values do not depend on how many lanes there are, and the
+    lanes not held are never drawn."""
     seed = int(torch.randint(1 << 62, (), generator=gen, device=gen.device))
+    el = len(ids[0])
     w = torch.empty((shape[0], len(lanes), el, *shape[1:]), dtype=dtype,
                     device=device)
     for j, lane in enumerate(lanes):
         for e in range(el):
             g = torch.Generator(device=device)
-            g.manual_seed(seed + lane * el + e)
+            g.manual_seed(seed + ids[lane][e])
             w[:, j, e] = dense_init(g, shape, dtype=dtype, device=device)
     return w
 
 
-def _held_lanes(ctx: ModelContext) -> range:
+def held_lanes(ctx: ModelContext) -> range:
     """The lanes of the expert leaves this rank holds: its own over an EP
     group of more than one rank, else all of the placement's (none without
     a placement: a family without MoE)."""
@@ -242,9 +257,9 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                          "w_up": init((L, d, cfg.d_ff)),
                          "w_down": init((L, cfg.d_ff, d))}
     if cfg.moe is not None:
-        fe, el = cfg.moe.d_ff_expert, ctx.placement.experts_per_lane
-        lanes = _held_lanes(ctx)
-        experts = lambda shape: _expert_leaf(gen, lanes, el, shape, dtype,
+        fe, ids = cfg.moe.d_ff_expert, _slot_ids(ctx.placement)
+        lanes = held_lanes(ctx)
+        experts = lambda shape: _expert_leaf(gen, lanes, ids, shape, dtype,
                                              ctx.device)
         layers["moe"] = {"router": init((L, d, cfg.moe.n_experts)),
                          "w1": experts((L, d, fe)),
@@ -278,9 +293,10 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
 
 def lane_cut(path: str, t, ep: int, lanes: range):
     """The leaf at ``path`` (a tensor or an array) as the rank holding
-    ``lanes`` of ``ep`` holds it: an expert leaf of any lane count, all
-    experts lane-major, regrouped into ``ep`` lanes and cut to ``lanes`` (a
-    view); any other leaf as it is."""
+    ``lanes`` of ``ep`` holds it: an expert leaf of any lane count, all of
+    its placement's *slots* lane-major (under a replicated table ep x
+    slots exceeds the experts), regrouped into ``ep`` lanes and cut to
+    ``lanes`` (a view); any other leaf as it is."""
     if not lane_sharded(path):
         return t
     return t.reshape(t.shape[0], ep, -1, *t.shape[3:])[
@@ -289,10 +305,12 @@ def lane_cut(path: str, t, ep: int, lanes: range):
 
 def shard_params(tree, ctx: ModelContext) -> dict:
     """This rank's parameters cut from a whole tree (expert leaves of any
-    lane count holding all experts): the expert leaves cut to the lanes
+    lane count holding every slot of ``ctx.placement``, in its layout: a
+    tree of another placement is migrated first,
+    ``relayout.migrate_lane_major``): the expert leaves cut to the lanes
     :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied);
     the other leaves as they are (every leaf, without a placement)."""
-    lanes = _held_lanes(ctx)
+    lanes = held_lanes(ctx)
 
     def walk(node, prefix=""):
         return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)

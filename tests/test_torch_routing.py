@@ -66,6 +66,33 @@ def test_placement_maps_match_jax(n_experts, ep, node_size):
         pj.n_nodes, pj.experts_per_lane, pj.replicas)
 
 
+@pytest.mark.parametrize("n_experts,ep,node_size", [(8, 4, 2), (8, 1, 1),
+                                                    (4, 8, 4), (2, 8, 2)])
+def test_replica_counts_of_the_arithmetic_placement_match_jax(n_experts, ep,
+                                                              node_size):
+    """``max_replicas`` / ``replica_count`` (uniform: ep / n_experts when
+    n_experts < ep, else 1) and the replica choice that takes its modulus by
+    ``replica_count`` are the reference's, and that choice is the former
+    ``occurrence % replicas`` (the arithmetic placement's results are
+    unchanged by the table placement's repair)."""
+    rng = np.random.default_rng(n_experts + ep)
+    A = rng.integers(0, n_experts, (33, 3)).astype(np.int32)
+    pj = jrouting.ExpertPlacement(n_experts, ep, node_size)
+    pt = routing.ExpertPlacement(n_experts, ep, node_size)
+    assert pt.max_replicas == pj.max_replicas == max(1, ep // n_experts)
+    np.testing.assert_array_equal(
+        pt.replica_count(torch.from_numpy(A)).numpy(),
+        np.asarray(pj.replica_count(jnp.asarray(A))))
+    rep = routing.balanced_replica_choice(torch.from_numpy(A), pt)
+    np.testing.assert_array_equal(
+        rep.numpy(),
+        np.asarray(jrouting.balanced_replica_choice(jnp.asarray(A), pj)))
+    flat = A.reshape(-1)
+    occ = np.array([(flat[:i] == flat[i]).sum() for i in range(flat.size)])
+    np.testing.assert_array_equal(rep.numpy().reshape(-1),
+                                  occ % pt.replicas)
+
+
 def test_placement_rejects_what_jax_rejects():
     for args in [(8, 3, 1), (6, 4, 2), (8, 4, 3)]:
         with pytest.raises(ValueError):
