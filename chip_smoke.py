@@ -157,9 +157,28 @@
    print the losses, ms/step, tokens/s, peak memory and the traffic state,
    then profile one step, its forward+backward and its optimizer update
    (device busy, device ms by kind, the bf16 zero fills and adds of the
-   stacked gradients' assembly).  Then one qwen3-moe train step with the
-   traffic state and one without, in turns (``traffic_cost_phase``): host
-   ms and device busy ms of each.
+   stacked gradients' assembly).  After the relayout phases, ``--engine
+   auto`` (``engine_auto_phase``): qwen3-moe at full width, 4 layers, B 4 x
+   S 512, 6 steps, ``--relayout-every 2``; each ``[commplan]`` decision is
+   printed, every kernel's launches must equal the sum over steps and
+   layers of its engine's per-layer count (fused_flat's and fused_hier's,
+   from their train phases), one step of the final engines is profiled
+   beside the fixed-engine runs; then a forced mix, F H F H, for 2 steps:
+   its launches held exactly, its first loss within 2e-3 relative of the
+   fused_flat run's.  After the lane phases, the fault-tolerant loop
+   (``checkpoint_phase``): moe-ffn-stream-1b at full width cut to one
+   layer, fused_flat, traffic and ``--relayout-every 2`` on, ``--ckpt-every
+   2 --inject-failure-at 3`` into a temporary directory (its free space
+   checked first, removed at the end): the run restarts once, from step 2,
+   with the placement of the history, and its losses must equal the
+   uninterrupted run's bit for bit; the state restored from ``LATEST``
+   must equal the run's last bit for bit, and a second process resuming
+   from ``LATEST`` must take the loss of this run continued by one step.
+   Prints each save's host copy ms, the writing thread's seconds and GB/s,
+   the restores' seconds and the bytes on disk, beside the card's name and
+   power limit.  Then one qwen3-moe train step with the traffic state and
+   one without, in turns (``traffic_cost_phase``): host ms and device busy
+   ms of each.
 8. Checks the outputs: finite logits and in-vocabulary tokens of the right
    shape, each reduced model's logits on the card (kernels) against the
    same model on the CPU (plain versions) through each engine (fused_pipe
@@ -2085,17 +2104,23 @@ def calibrate_phase(device="cuda"):
     return table, lines
 
 
-def train_phase(argv, device="cuda"):
+def train_phase(argv, device="cuda", keep_state=False, restarts=0):
     """The training path once, with every launch counter zeroed just before
-    it and read just after: ``launch/train.run`` at full width.  Fails if a
-    loss is not finite, a kernel of the path never launched or one off it
-    did (``family_kernels``), or, for a family with MoE, the run's traffic
-    state (threaded through every step) is missing or all zero."""
+    it and read just after: ``launch/train.run`` at full width (its final
+    params, AdamW state and train step with ``keep_state``).  Fails if the
+    loop restarted other than ``restarts`` times, a loss is not finite, a
+    kernel of the path never launched or one off it did
+    (``family_kernels``), or, for a family with MoE, the run's traffic state
+    (threaded through every step) is missing or all zero."""
     import math
     from repro_torch.launch import train
     wrappers = zero_counters()
-    out = train.run(train.parse_args(argv), device=device)
+    out = train.run(train.parse_args(argv), device=device,
+                    keep_state=keep_state)
     launches = {k: w.launches for k, w in wrappers.items()}
+    if out["run"].restarts != restarts:
+        raise AssertionError(f"train loop restarted {out['run'].restarts} "
+                             f"times, expected {restarts}")
     required, absent = family_kernels(out["cfg"], train=True)
     never = [k for k in required if launches[k] == 0]
     stray = [k for k in absent if launches[k]]
@@ -2873,6 +2898,278 @@ def print_relayouts(label: str, argv, res: dict) -> None:
           f"without relayouts")
 
 
+# --engine auto: the qwen3-moe train cell (4 layers, B 4 x S 512) with the
+# comm-path policy replanning at every relayout boundary, then a forced mix
+# of one engine a layer
+AUTO = ["--arch", "qwen3-moe-30b-a3b", "--engine", "auto", "--layers", "4",
+        "--batch", "4", "--seq", "512", "--steps", "6", "--data", "zipf",
+        "--relayout-every", "2"]
+AUTO_MIXED = ("fused_flat", "fused_hier") * 2
+AUTO_FORCED_STEPS = 2
+TOL_MIXED = 2e-3        # first loss of the forced mix against fused_flat's:
+                        # the engines compute one function, bf16 roundings
+                        # apart (the relayout's figure)
+
+
+def letters(engines, sep: str = " ") -> str:
+    """A per-layer engine tuple as the [commplan] line writes it: F for
+    fused_flat, H for fused_hier."""
+    return sep.join("F" if e == "fused_flat" else "H" for e in engines)
+
+
+def per_layer_step(launches: dict, argv) -> dict:
+    """Each kernel's launches a layer a step of the fixed-engine train run
+    of ``argv`` (``launches``: its counts); fails unless they divide."""
+    steps = int(argv[argv.index("--steps") + 1])
+    layers = int(argv[argv.index("--layers") + 1])
+    if any(n % (steps * layers) for n in launches.values()):
+        raise AssertionError(f"launches {launches} do not split over {steps} "
+                             f"steps x {layers} layers")
+    return {k: n // (steps * layers) for k, n in launches.items()}
+
+
+def engines_implied(per_engine: dict, schedule) -> dict:
+    """The launches a run implies whose steps ran the engines of
+    ``schedule`` (one per-layer tuple a step), from each engine's launches a
+    layer a step (``per_engine``)."""
+    kernels = next(iter(per_engine.values()))
+    return {k: sum(per_engine[e][k] for engines in schedule for e in engines)
+            for k in kernels}
+
+
+def engine_auto_phase(per_engine: dict, flat: dict, device="cuda") -> dict:
+    """``--engine auto`` at full width (``AUTO``) through ``train.run``, the
+    counters zeroed just before it and read just after (``train_phase``):
+    each kernel's launches must equal the sum over steps and layers of its
+    engine's per-layer count (``per_engine``: fused_flat's and fused_hier's,
+    from their train phases), the layers running fused_hier until the
+    first plan.  One step of the final engines is then profiled (device
+    busy).  Then a forced mix (``AUTO_MIXED``) for ``AUTO_FORCED_STEPS``
+    steps by hand: its launches held exactly, its first loss within
+    ``TOL_MIXED`` relative of the fused_flat run's (``flat``: the "train"
+    phase's record; the same params and batch).  Returns both runs'
+    launches, the plans, the engines of each step, the auto run's losses,
+    ms of each step, median ms/step and profiled busy ms, and the forced
+    run's losses."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import zoo
+    args = train.parse_args(AUTO)
+    torch.cuda.empty_cache()
+    out, launches = train_phase(AUTO, device, keep_state=True)
+    layers = out["cfg"].n_layers
+    plans = {p["step"]: p["engines"] for p in out["plans"]}
+    engines, schedule = (train.base_engine(args),) * layers, []
+    for i in range(args.steps):
+        schedule.append(engines)
+        engines = plans.get(i + 1, engines)
+    implied = engines_implied(per_engine, schedule)
+    if launches != implied or len(plans) != args.steps // args.relayout_every:
+        raise AssertionError(f"--engine auto: launches {launches}, its "
+                             f"per-layer engines {schedule} imply {implied}; "
+                             f"plans {plans}")
+    batch = to_device(run_batch(out["cfg"], args, 0), device)
+    params, opt = out["state"]
+    step, traffic = out["train_step"], out["traffic"]
+    step(params, opt, batch, traffic)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch, traffic)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_summary(prof, wall)
+    res = {"launches": launches, "plans": plans, "schedule": schedule,
+           "ms_per_step": out["ms_per_step"], "step_ms": out["step_ms"],
+           "losses": out["losses"],
+           "busy_ms": None if busy is None else busy["busy_ms"]}
+    del out, params, opt, step, traffic
+    torch.cuda.empty_cache()
+
+    s = train.setup(args, device)
+    ctx = dataclasses.replace(s.ctx, engines=AUTO_MIXED)
+    model = zoo.build(s.cfg, ctx)
+    step = steps.make_train_step(model, s.opt_cfg)
+    params, opt = s.params, steps.init_state(model, s.params)
+    traffic = train.init_traffic(s.cfg, ctx, 1)
+    wrappers = zero_counters()
+    losses = []
+    for i in range(AUTO_FORCED_STEPS):
+        params, opt, m = step(params, opt, to_device(s.source.batch_at(i),
+                                                     device), traffic)
+        traffic = m["traffic"]
+        losses.append(float(m["loss"]))
+    forced = {k: w.launches for k, w in wrappers.items()}
+    del s, ctx, model, step, params, opt, traffic
+    torch.cuda.empty_cache()
+    want = engines_implied(per_engine, [AUTO_MIXED] * AUTO_FORCED_STEPS)
+    rel = abs(losses[0] - flat["losses"][0]) / abs(flat["losses"][0])
+    if forced != want or rel > TOL_MIXED:
+        raise AssertionError(f"forced engines {AUTO_MIXED}: launches {forced}, "
+                             f"implied {want}; first loss {losses[0]} vs "
+                             f"fused_flat's {flat['losses'][0]} ({rel:.3g} "
+                             f"relative, tol {TOL_MIXED})")
+    res.update(forced=forced, forced_implied=want, forced_losses=losses,
+               forced_rel=rel)
+    return res
+
+
+def run_batch(cfg, args, step: int) -> dict:
+    """The host batch of ``step`` that a train run of ``args`` draws."""
+    from repro_torch.data.pipeline import ZipfNgramLM
+    from repro_torch.launch import train
+    return ZipfNgramLM(cfg.vocab, args.seq, args.batch,
+                       seed=train.SEED).batch_at(step)
+
+
+# the checkpoint phase: moe-ffn-stream-1b at full width cut to one layer,
+# relayouts every 2 steps, a step-atomic checkpoint every 2 and one failure
+# injected before step 3: the run restarts from step 2
+CKPT = ["--arch", "moe-ffn-stream", "--layers", "1", "--batch", "4",
+        "--seq", "512", "--steps", "6", "--data", "zipf", "--engine",
+        "fused_flat", "--relayout-every", "2"]
+CKPT_FLAGS = ["--ckpt-every", "2", "--inject-failure-at", "3"]
+TOL_RESUME = 1e-5       # resumed losses, relative, only where the run itself
+                        # is not repeatable bit for bit
+RESUME = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.launch import train
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = train.run(train.parse_args(json.loads(sys.argv[2])), sys.argv[3])
+print("RESUMED " + json.dumps({"first_step": out["first_step"],
+                               "losses": out["losses"],
+                               "restore_s": out["run"].restore_s,
+                               "restarts": out["run"].restarts}),
+      flush=True)
+"""
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    pairs = zip([t for _, t in checkpointer._flatten(a)],
+                [t for _, t in checkpointer._flatten(b)])
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in pairs)
+
+
+def checkpoint_phase(device="cuda") -> dict:
+    """The fault-tolerant loop at full width (``CKPT``: moe-ffn-stream-1b,
+    one layer, fused_flat, traffic and relayouts on) into a fresh temporary
+    directory, removed at the end.  The bytes the phase writes (four
+    committed steps: bf16 params and f32 mu, nu and master) are checked
+    against the free space first.  The run with ``CKPT_FLAGS`` restarts
+    once, from step 2, with the placement of the history; its losses must
+    equal the same run's without injection bit for bit (if they do not, the
+    uninterrupted run is taken again: where it too moves, the resumed
+    losses are held to ``TOL_RESUME`` and the phase says so; else the resume
+    is at fault).  The state restored from ``LATEST`` must equal the run's
+    last bit for bit.  A second process then resumes from ``LATEST`` with
+    one more step (``RESUME``), whose loss must equal that of this run
+    continued by one step.  Returns the launches of the injected run and the
+    phase's numbers."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    args = train.parse_args(CKPT)
+    cfg = get_arch(args.arch)
+    cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg,
+                              n_layers=args.layers)
+    replicated, experts = lm.param_counts(cfg)
+    step_bytes = 14 * (replicated + experts)     # bf16 + 3 x f32 a parameter
+    saves = args.steps // int(CKPT_FLAGS[1]) + 1
+    root = tempfile.mkdtemp(prefix="repro-ckpt-")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < saves * step_bytes:
+            raise AssertionError(
+                f"checkpoint phase: {saves} committed steps of {step_bytes} B "
+                f"to write, {free} B free under {root}")
+        torch.cuda.empty_cache()
+        plain = train.run(args, device)["losses"]
+        ckpt = os.path.join(root, "ckpt")
+        out, launches = train_phase(CKPT + ["--ckpt-dir", ckpt] + CKPT_FLAGS,
+                                    device, keep_state=True, restarts=1)
+        run = out["run"]
+        if out["first_step"] != 0 or len(out["relayouts"]) != args.steps // 2:
+            raise AssertionError(f"checkpoint phase: {run.restarts} restarts, "
+                                 f"first step {out['first_step']}, "
+                                 f"{len(out['relayouts'])} relayouts")
+        res = {"launches": launches, "plain": plain, "losses": out["losses"],
+               "bits": out["losses"] == plain, "repeatable": None}
+        if not res["bits"]:
+            again = train.run(args, device)["losses"]
+            res["repeatable"] = again == plain
+            worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(out["losses"], plain))
+            if res["repeatable"] or worst > TOL_RESUME:
+                raise AssertionError(
+                    f"checkpoint phase: resumed losses {out['losses']}, "
+                    f"uninterrupted {plain} (again: {again}): the resume is "
+                    f"at fault")
+            res["resume_rel"] = worst
+        t0 = time.perf_counter()
+        got, step = checkpointer.restore(ckpt, out["state"])
+        res["restore_s"] = time.perf_counter() - t0
+        if step != args.steps or not _leaves_equal(got, out["state"]):
+            raise AssertionError(f"checkpoint phase: LATEST ({step}) does "
+                                 "not restore the run's last state bit for "
+                                 "bit")
+        del got
+        batch = to_device(run_batch(cfg, args, args.steps), device)
+        params, opt = out["state"]
+        cont = float(out["train_step"](params, opt, batch,
+                                       out["traffic"])[2]["loss"])
+        res.update(saves=[(p.gather_ms, p.write_s, p.bytes)
+                          for p in run.saves],
+                   restart_restore_s=run.restore_s,
+                   placement_steps=[s for s, _ in train.load_placement_history(
+                       ckpt, cfg.moe.n_experts)],
+                   continued=cont)
+        del out, params, opt, batch
+        torch.cuda.empty_cache()
+        argv = [a if a != str(args.steps) else str(args.steps + 1)
+                for a in CKPT] + ["--ckpt-dir", ckpt, "--ckpt-every", "2"]
+        proc = subprocess.run([sys.executable, "-c", RESUME, str(SRC),
+                               json.dumps(argv), device], capture_output=True,
+                              text=True, timeout=600, cwd=ROOT)
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith("RESUMED ")]
+        if proc.returncode or not line:
+            raise AssertionError(f"checkpoint phase: the resuming process "
+                                 f"exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        second = json.loads(line[0][len("RESUMED "):])
+        res["second"] = second
+        if (second["first_step"] != args.steps or second["losses"] != [cont]
+                or second["restarts"]):
+            raise AssertionError(f"checkpoint phase: the second process "
+                                 f"resumed at {second['first_step']} with "
+                                 f"losses {second['losses']} after "
+                                 f"{second['restarts']} restarts; the run "
+                                 f"continued: {cont}")
+        res["on_disk"] = sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(ckpt) for f in fs)
+        res["step_bytes"] = step_bytes
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 # the reduced card-vs-CPU relayout checks: (arch, engine) of each family
 RELAYOUT_REDUCED = (("qwen3-moe-30b-a3b", "fused_flat"),
                     ("moe-tx-stream", "fused_pipe"),
@@ -3532,10 +3829,12 @@ def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
           f"\n  top device time: {top}")
 
 
-def train_and_profile(label: str, argv, implied=None) -> dict:
+def train_and_profile(label: str, argv, implied=None,
+                      record: dict | None = None) -> dict:
     """A training path at full width: the train phase with its launch
     counts, each held to ``implied`` where given, then one profiled step.
-    Returns the launch counts."""
+    Returns the launch counts; ``record`` gets the losses, the ms per step
+    and the profiled step's device busy ms (None where not measured)."""
     import torch
     from repro_torch.launch.train import WARMUP
     from repro_torch.models import lm
@@ -3564,9 +3863,13 @@ def train_and_profile(label: str, argv, implied=None) -> dict:
           f"per step: {json.dumps({k: v / n for k, v in launches.items()})}"
           + (f"; its code implies {json.dumps(implied)}" if implied else ""))
     unprofiled = out["ms_per_step"]
+    if record is not None:
+        record.update(losses=out["losses"], ms_per_step=unprofiled)
     del out
     torch.cuda.empty_cache()
     for part, p in train_profile(argv).items():
+        if record is not None and part == "step":
+            record["busy_ms"] = None if p is None else p["busy_ms"]
         print_profile(f"{label} {part}", p, unprofiled)
         check_profile(f"{label} {part}", p, flash=part != "adamw.update"
                       and lm.has_attention(cfg))
@@ -3577,6 +3880,66 @@ def train_and_profile(label: str, argv, implied=None) -> dict:
                 f"{k} {ms:.4f}" for k, ms in assembly_ms(p["by_kernel"]).items()))
     torch.cuda.empty_cache()
     return launches
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
+def print_auto(auto: dict, fixed: dict) -> None:
+    """The --engine auto phase's lines, beside the fixed-engine runs."""
+    share = lambda busy, ms: ("not measured" if busy is None
+                              else f"{busy:.4f} ms, share {busy / ms:.3f}")
+    steps = " ".join(letters(s, "") for s in auto["schedule"])
+    print(f"auto: {' '.join(AUTO[AUTO.index('--layers'):])}: per-layer "
+          f"engines by step {steps} (F fused_flat, H fused_hier; plans after "
+          f"steps {sorted(auto['plans'])}); {auto['ms_per_step']:.3f} ms/step, "
+          f"device busy of one step of the final engines "
+          f"{share(auto['busy_ms'], auto['ms_per_step'])}; beside fused_flat "
+          f"{fixed['train']['ms_per_step']:.3f} ms/step, busy "
+          f"{share(fixed['train']['busy_ms'], fixed['train']['ms_per_step'])}"
+          f", fused_hier {fixed['train fused_hier']['ms_per_step']:.3f} "
+          f"ms/step, busy {share(fixed['train fused_hier']['busy_ms'], fixed['train fused_hier']['ms_per_step'])}")
+    print(f"auto loss per step: " + " ".join(f"{x:.5f}" for x in auto["losses"]))
+    print(f"auto ms per step (a rebuilt train step from each plan's next "
+          f"step on): " + " ".join(f"{x:.3f}" for x in auto["step_ms"]))
+    print(f"auto launches {json.dumps(auto['launches'])}, equal to the "
+          f"per-layer engines' counts")
+    print(f"auto forced {AUTO_MIXED}, {AUTO_FORCED_STEPS} steps: launches "
+          f"{json.dumps(auto['forced'])} (implied "
+          f"{json.dumps(auto['forced_implied'])}); losses "
+          f"{auto['forced_losses']}; first loss vs fused_flat's "
+          f"{fixed['train']['losses'][0]}: {auto['forced_rel']:.3g} relative "
+          f"(tol {TOL_MIXED})")
+
+
+def print_checkpoint(ck: dict) -> None:
+    """The checkpoint phase's lines, with the card's name and power limit."""
+    card = card_line()
+    for i, (gather_ms, write_s, nbytes) in enumerate(ck["saves"]):
+        print(f"checkpoint save {i + 1} ({card}): host copy {gather_ms:.3f} "
+              f"ms, files {write_s:.3f} s on the writing thread, {nbytes} B "
+              f"({nbytes / write_s / 1e9:.3f} GB/s)")
+    same = ("bit for bit" if ck["bits"] else
+            f"within {ck['resume_rel']:.3g} relative (the run itself is not "
+            f"repeatable bit for bit)")
+    print(f"checkpoint: {' '.join(CKPT[CKPT.index('--layers'):])} "
+          f"{' '.join(CKPT_FLAGS)}: one restart, from step 2, placement "
+          f"history active from steps {ck['placement_steps']}; losses "
+          + " ".join(f"{x:.6f}" for x in ck["losses"])
+          + f" equal the uninterrupted run's {same}; restore of the restart "
+          f"{', '.join(f'{x:.3f}' for x in ck['restart_restore_s'])} s, of "
+          f"LATEST {ck['restore_s']:.3f} s (the run's last state, bit for "
+          f"bit); {ck['on_disk']} B on disk ({ck['step_bytes']} B a step "
+          f"reckoned); a second process resumed at step "
+          f"{ck['second']['first_step']} (its restore "
+          f"{ck['second']['restore_s']} s) with loss "
+          f"{ck['second']['losses'][0]!r}, the continued run's "
+          f"{ck['continued']!r}; launches {json.dumps(ck['launches'])}")
 
 
 def main() -> None:
@@ -3777,8 +4140,10 @@ def main() -> None:
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
+    fixed = {}
     for label, argv in TRAINS.items():
-        launches[label] = train_and_profile(label, argv)
+        launches[label] = train_and_profile(label, argv,
+                                            record=fixed.setdefault(label, {}))
     print(f"moe-tx train fused_pipe --moe-stream {TX_LAYERS}: pipesim's "
           f"streamed S at T {TX_TRAIN[1]['t']} is {tx_s} (capacity {tx_cap}, "
           f"Cs {tx_cap // tx_s})")
@@ -3786,6 +4151,15 @@ def main() -> None:
         res = relayout_phase(label, argv, launches[label[:-len(" relayout")]])
         launches[label] = res["launches"]
         print_relayouts(label, argv, res)
+    auto = engine_auto_phase({e: per_layer_step(launches[label], argv)
+                              for label, argv, e in (
+                                  ("train", TRAINS["train"], "fused_flat"),
+                                  ("train fused_hier",
+                                   TRAINS["train fused_hier"], "fused_hier"))},
+                             fixed["train"])
+    launches["auto"] = auto["launches"]
+    launches[f"auto forced {letters(AUTO_MIXED)}"] = auto["forced"]
+    print_auto(auto, fixed)
     for label, argv in TX_TRAINS.items():
         launches[label] = train_and_profile(label, argv)
     cap, s = ffn_slices["moe-ffn train"]
@@ -3802,6 +4176,9 @@ def main() -> None:
               f"{plan['slices']} per lane (capacity {plan['cap']}); launches "
               f"its code implies: {json.dumps(implied)}")
         launches[label] = train_and_profile(label, argv, implied=implied)
+    ckpt = checkpoint_phase()
+    launches["checkpoint"] = ckpt["launches"]
+    print_checkpoint(ckpt)
     cost = traffic_cost_phase(TRAIN[0])
     print("qwen3-moe-30b-a3b train step with and without the traffic "
           "statistics, in turns: " + "; ".join(
@@ -3885,10 +4262,7 @@ def main() -> None:
     for line in zero1_phase():
         print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "path", "launches_by_phase", "ms_min", "ms_max")

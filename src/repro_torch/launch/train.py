@@ -63,8 +63,31 @@ sequence's count of distinct tokens, as the reference), which acts only with
 more than one data rank.  The first ``WARMUP`` steps (which also build the
 kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
-No checkpoint or fault-tolerance loop and no ``--engine auto`` yet (ROADMAP
-queue 1 item 6 parts 2 and 3).
+
+``--engine auto`` (moe family) lets the comm-path policy pick fused_flat or
+fused_hier per layer: at each ``--relayout-every`` boundary, before the
+swap, ``core/commplan.plan_paths`` prices both paths from the traffic
+measured under the retiring placement and the new context carries the
+per-layer choice (``ModelContext.engines``); until the first plan every
+layer runs fused_hier.  Another family falls back to fused_hier, as the
+reference.
+
+The steps run through the fault-tolerant loop
+(``runtime/fault_tolerance.run_training``): with ``--ckpt-dir`` a
+step-atomic checkpoint every ``--ckpt-every`` steps and at the last, in the
+reference's layout (``checkpoint/checkpointer.py``), a restart from the
+last committed step on a failure (``--inject-failure-at N`` injects one),
+and a resume at start-up when the directory holds one.  Two sidecars beside
+the checkpoints make a resume after relayouts exact: the placement history
+(:func:`save_placement_history`, written at each swap: a restored step
+re-establishes the table its weights were saved in) and the traffic EMA
+(:func:`save_traffic_state`, at the checkpoint cadence).  Unlike the
+reference, no ``--ckpt-dir`` means no checkpoints (a full-width save is
+tens of GB).  Resume a run by giving the same command again:
+
+``python -m repro_torch.launch.train --arch moe-ffn-stream --layers 1
+--engine fused_flat --relayout-every 2 --steps 6 --ckpt-dir DIR
+--ckpt-every 2``
 """
 
 from __future__ import annotations
@@ -80,6 +103,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import calibrate, commplan, dcomm, relayout
@@ -89,6 +113,7 @@ from repro_torch.launch import steps
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
+from repro_torch.runtime.fault_tolerance import RunConfig, run_training
 
 WARMUP = 2        # untimed steps before the clock starts
 SEED = 0
@@ -101,7 +126,11 @@ def parse_args(argv=None):
                     help="the reference's tiny smoke-test dims")
     ap.add_argument("--engine", default="fused_hier",
                     choices=["fused_flat", "fused_pipe", "fused_hier",
-                             "disagg", "ragged"])
+                             "disagg", "ragged", "auto"],
+                    help="the dComm engine of the MoE shuffle, or 'auto': "
+                         "the comm-path policy picks fused_flat or "
+                         "fused_hier per layer at each relayout boundary "
+                         "(moe family; needs --relayout-every)")
     ap.add_argument("--dedup", action="store_true",
                     help="dispatch-side dedup: one wire row per distinct "
                          "(token, dest lane), expanded on the landing lane "
@@ -147,6 +176,11 @@ def parse_args(argv=None):
                     help="measure the pipe stage/wire/overhead constants on "
                          "the running device before building the context "
                          "(replaces the H100 spec-point defaults)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: no checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--inject-failure-at", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
     if args.steps <= WARMUP:
         ap.error(f"--steps must exceed the {WARMUP} warm-up steps")
@@ -188,8 +222,12 @@ def setup(args, device="cuda", ep_group=None,
                   f"overhead {calibration.overhead_s * 1e6:.1f} us",
                   flush=True)
     ep = dcomm.group_size(ep_group if mesh is None else mesh.ep_group)
+    if args.engine == "auto" and cfg.family != "moe" and _is_rank0():
+        print(f"[commplan] --engine auto needs per-layer MoE islands "
+              f"(family {cfg.family!r}); falling back to fused_hier",
+              flush=True)
     ctx = lm.make_context(cfg, device, ep_group=ep_group, mesh=mesh,
-                          engine=args.engine,
+                          engine=base_engine(args),
                           capacity_factor=args.capacity_factor,
                           node_size=max(1, ep // 2), dedup=args.dedup,
                           pipe_slices=args.pipe_slices,
@@ -197,6 +235,18 @@ def setup(args, device="cuda", ep_group=None,
                           moe_interleave=args.moe_interleave,
                           traffic_decay=args.traffic_decay,
                           calibration=calibration)
+    # resuming a run that relayouted: the checkpoint's weights are laid out
+    # by the placement history, not the arithmetic map (the reference's
+    # train.py:269-279)
+    history = (None if cfg.moe is None
+               else load_placement_history(args.ckpt_dir, cfg.moe.n_experts))
+    committed = checkpointer.latest_step(args.ckpt_dir)
+    if history is not None and committed is not None:
+        ctx = dataclasses.replace(
+            ctx, placement=placement_at_step(history, committed))
+        if _is_rank0():
+            print(f"[relayout] resuming with the placement active at "
+                  f"committed step {committed}", flush=True)
     params = lm.init_params(
         cfg, ctx, torch.Generator(device=ctx.device).manual_seed(SEED))
     src_cls = ZipfNgramLM if args.data == "zipf" else SyntheticLM
@@ -205,6 +255,12 @@ def setup(args, device="cuda", ep_group=None,
                                 warmup_steps=max(5, args.steps // 20),
                                 total_steps=args.steps)
     return Setup(cfg, ctx, params, source, opt_cfg)
+
+
+def base_engine(args) -> str:
+    """The engine every MoE layer runs until the comm-path policy's first
+    plan (``--engine auto``: fused_hier), else ``--engine``."""
+    return "fused_hier" if args.engine == "auto" else args.engine
 
 
 def serial_accum(model: zoo.ModelBundle, accum: int) -> int:
@@ -470,72 +526,280 @@ def cold_lane_stats(traffic: traffic_lib.TrafficState):
         lane_cond_ema=torch.zeros_like(traffic.lane_cond_ema))
 
 
-def run(args, device="cuda", ep_group=None,
-        mesh: HostMesh | None = None) -> dict:
+# --- the placement history (relayout x checkpoint/restart) -------------------
+# A checkpoint holds the expert weights in the layout active at its step;
+# restoring one must re-establish that layout, or every lane applies the
+# wrong experts' weights.  The sidecar records (active_from_step, table)
+# pairs beside the checkpoints (the reference's train.py:49-87, the same
+# .npz keys, so either side reads the other's file).
+
+def _history_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "placement_history.npz")
+
+
+def save_placement_history(ckpt_dir: str, history, node_size: int) -> None:
+    """``history``: (active_from_step, placement) pairs.  Written at every
+    relayout, so that any checkpoint committed later can be re-based."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez(_history_path(ckpt_dir),
+             steps=np.array([s for s, _ in history], np.int64),
+             tables=np.stack([relayout.placement_table(p)
+                              for _, p in history]),
+             node_size=np.int64(node_size))
+
+
+def load_placement_history(ckpt_dir: str | None, n_experts: int):
+    """(active_from_step, ``relayout.TablePlacement``) pairs, or None when
+    the run never relayouted (or there is no ``ckpt_dir``)."""
+    if ckpt_dir is None or not os.path.exists(_history_path(ckpt_dir)):
+        return None
+    with np.load(_history_path(ckpt_dir)) as z:
+        ns = int(z["node_size"])
+        return [(int(s), relayout.TablePlacement(tbl, node_size=ns,
+                                                 n_experts=n_experts))
+                for s, tbl in zip(z["steps"], z["tables"])]
+
+
+def placement_at_step(history, step: int):
+    """The placement whose layout a checkpoint committed at ``step`` holds:
+    the last history entry active from a step <= ``step``."""
+    active = [p for s, p in history if s <= step]
+    return active[-1] if active else history[0][1]
+
+
+# --- the traffic-EMA sidecar (a warm resume of the relayout signal) ----------
+# The EMA is replicated state, so a small sidecar written at the checkpoint
+# cadence resumes it warm (the reference's train.py:90-133); like any EMA it
+# tolerates the (at most one cadence of) staleness behind the committed step.
+
+def _traffic_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "traffic_ema.npz")
+
+
+def save_traffic_state(ckpt_dir: str, traffic: traffic_lib.TrafficState,
+                       step: int) -> None:
+    """Write the EMA accumulators beside the checkpoints (synchronously:
+    (L, E) and (L, EP) floats, noise beside a weight save)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez(_traffic_path(ckpt_dir), step=np.int64(step),
+             **{k: v.detach().cpu().numpy()
+                for k, v in traffic._asdict().items()})
+
+
+def load_traffic_state(ckpt_dir: str | None, like: traffic_lib.TrafficState):
+    """(TrafficState on ``like``'s device, saved step) matching ``like``'s
+    shapes, or None when there is no sidecar or it holds another model's
+    shapes.  A field ``like`` has and an older sidecar lacks is zero-filled
+    (that accumulator restarts cold); a field present with another shape
+    means another model."""
+    if ckpt_dir is None or not os.path.exists(_traffic_path(ckpt_dir)):
+        return None
+    with np.load(_traffic_path(ckpt_dir)) as z:
+        leaves = {}
+        for k, want in like._asdict().items():
+            if k not in z:
+                leaves[k] = torch.zeros_like(want)
+                continue
+            if z[k].shape != tuple(want.shape):
+                return None
+            leaves[k] = torch.as_tensor(z[k]).to(dtype=want.dtype,
+                                                 device=want.device)
+        return type(like)(**leaves), int(z["step"])
+
+
+def plan_engines(traffic: traffic_lib.TrafficState, ctx: lm.ModelContext,
+                 args) -> list:
+    """The comm-path policy's per-layer decisions (``commplan.plan_paths``)
+    from ``traffic``, measured under ``ctx.placement``: one bf16 token row
+    a wire row, the link costs of ``ctx.dcfg``."""
+    host = traffic_lib.TrafficState(*(t.detach().cpu().numpy()
+                                      for t in traffic))
+    return commplan.plan_paths(
+        host, ctx.placement, row_bytes=ctx.cfg.d_model * 2,
+        costs=commplan.LinkCosts.from_dcomm(ctx.dcfg), dedup=args.dedup,
+        default=base_engine(args))
+
+
+def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
+        keep_state: bool = False) -> dict:
     """Train ``--steps`` steps, over ``ep_group`` or ``mesh`` when given (an
     initialised process group, or the grid of ``launch.mesh``, every rank
-    calling), the traffic state threaded through every one (warm-up
-    included); returns the loss of every step (the global batch's), the
-    median ms per timed step, tokens per second (of the global batch), on
-    the card this rank's peak device memory (GiB, params and optimizer
-    state included), this rank's AdamW state (GiB), the sequences and bytes
-    ``--seq-migrate`` moved, the final traffic state (None without
-    one), each ``--relayout-every`` swap's stats (:func:`apply_relayout`:
-    blocks and bytes moved, host ms, device ms on the card, and the step
-    after which it ran) and the final placement."""
+    calling), through ``run_training`` (checkpoints with ``--ckpt-dir``,
+    restarts, the sidecars), the traffic state threaded through every step
+    (warm-up included).  Returns the loss of each step this process ran
+    (the global batch's; a replayed step's last value) from step index
+    ``first_step`` on, the ms of every executed step and their median past
+    the warm-up, tokens per second (of the global batch), on the card this
+    rank's peak device memory (GiB, params and optimizer state included),
+    this rank's AdamW state (GiB), the sequences and bytes ``--seq-migrate``
+    moved, the final traffic state (None without one), each
+    ``--relayout-every`` swap's stats (:func:`apply_relayout`: blocks and
+    bytes moved, host ms, device ms on the card, and the step after which
+    it ran), each ``--engine auto`` plan (its step and per-layer engines),
+    the final placement, the engine each layer ran last (None without an
+    MoE layer), the loop's
+    ``RunState`` (restarts, each save's gather ms, write s and bytes, each
+    restore's s) and, with ``keep_state``, the final (params, opt) as
+    ``state`` and the train step of the final context (at full width tens
+    of GB of the card)."""
     on_card = torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats(device)
     cfg, ctx, params, source, opt_cfg = setup(args, device, ep_group, mesh)
     model = zoo.build(cfg, ctx)
-    train_step = steps.make_train_step(model, opt_cfg, args.accum)
     traffic = init_traffic(cfg, ctx, args.accum)
     opt_state = steps.init_state(model, params)
     dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
     serial = serial_accum(model, args.accum)
-    losses, step_s, relayouts = [], [], []
-    moved = {"rows_moved": 0, "bytes_moved": 0}
     relayout_every = args.relayout_every if traffic is not None else 0
     if args.relayout_every and not relayout_every and _is_rank0():
         print(f"[relayout] --relayout-every {args.relayout_every} needs the "
               "traffic statistics, which this run does not thread: the "
               "placement stays static", flush=True)
     log = print if _is_rank0() else (lambda *a, **k: None)
-    for i in range(args.steps):
+    lay = checkpointer.layout(ctx.ep_group, ctx.mesh)
+    ckpt = args.ckpt_dir
+    sidecars = ckpt is not None and lay.writer
+    auto = args.engine == "auto" and cfg.family == "moe"
+    if traffic is not None and checkpointer.latest_step(ckpt) is not None:
+        # a warm EMA only beside a committed checkpoint: a stale sidecar of
+        # a dead run must not seed a fresh one
+        warm = load_traffic_state(ckpt, traffic)
+        if warm is not None:
+            traffic, tstep = warm
+            log(f"[traffic] resumed EMA state saved at step {tstep}",
+                flush=True)
+    box = {"ctx": ctx, "step": steps.make_train_step(model, opt_cfg,
+                                                     args.accum),
+           "traffic": traffic, "n": 0, "fence": False,
+           "history": [(0, ctx.placement)]}
+    losses, step_s, relayouts, plans = {}, [], [], []
+    moved = {"rows_moved": 0, "bytes_moved": 0}
+
+    def rebuild(new_ctx):
+        box["ctx"] = new_ctx
+        box["step"] = steps.make_train_step(zoo.build(cfg, new_ctx), opt_cfg,
+                                            args.accum)
+        box["fence"] = True      # its first step is no measure of lane health
+
+    def on_restart(step, restored):
+        """Re-base the adaptive-placement state after a rewind (the
+        reference's train.py:340-367): the relayout cadence counter rewinds
+        with the replayed stream, the EMA resumes from the sidecar (else
+        cold), and restored weights run under the placement active at their
+        step; the per-layer engines stay as they are, as in the
+        reference."""
+        box["n"] = step
+        if box["traffic"] is not None:
+            cold = traffic_lib.init_traffic_state(
+                cfg.moe.n_experts, box["ctx"].placement.ep,
+                n_layers=cfg.n_layers, device=box["ctx"].device)
+            warm = load_traffic_state(ckpt, cold)
+            box["traffic"] = cold if warm is None else warm[0]
+        if restored:
+            box["history"] = ([(s, p) for s, p in box["history"] if s <= step]
+                              or box["history"][:1])
+            want = placement_at_step(box["history"], step)
+            if want is not box["ctx"].placement:
+                rebuild(dataclasses.replace(box["ctx"], placement=want))
+        else:
+            # the params were kept: their layout stays live
+            box["history"] = [(0, box["ctx"].placement)]
+        if relayout_every and sidecars:
+            save_placement_history(ckpt, box["history"],
+                                   box["ctx"].placement.node_size)
+
+    def batch_at(i):
         host, m = shard_batch(source.batch_at(i), dp, d, serial,
                               args.seq_migrate)
-        moved = {k: moved[k] + m[k] for k in moved}
-        batch = to_device(host, ctx.device)
+        for k in moved:
+            moved[k] += m[k]
+        return to_device(host, box["ctx"].device)
+
+    def wrapped(params, opt_state, batch):
         if on_card:
-            torch.cuda.synchronize(ctx.device)
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        params, opt_state, metrics = train_step(params, opt_state, batch,
-                                                traffic)
-        traffic = metrics.pop("traffic", None)
+        params, opt_state, metrics = box["step"](params, opt_state, batch,
+                                                 box["traffic"])
+        box["traffic"] = metrics.pop("traffic", None)
         if on_card:
-            torch.cuda.synchronize(ctx.device)
+            torch.cuda.synchronize(device)
         step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        if relayout_every and (i + 1) % relayout_every == 0:
-            params, opt_state, ctx, stats = apply_relayout(
-                params, opt_state, traffic, ctx, log=log)
-            traffic = cold_lane_stats(traffic)
-            model = zoo.build(cfg, ctx)
-            train_step = steps.make_train_step(model, opt_cfg, args.accum)
-            relayouts.append(dict(stats, step=i + 1))
-    timed = statistics.median(step_s[WARMUP:])
+        loss = float(metrics["loss"])
+        losses[box["n"]] = loss
+        box["n"] += 1
+        n = box["n"]
+        if box["fence"]:
+            box["fence"] = False
+            metrics["straggler_fence"] = True
+        if args.log_every and (len(step_s) - 1) % args.log_every == 0:
+            log(f"step {n:5d}  loss {loss:.4f}  {step_s[-1]:.3f}s/step",
+                flush=True)
+        if relayout_every and n % relayout_every == 0:
+            decisions = None
+            if auto:
+                # before the swap: the send matrices were measured under the
+                # placement being retired
+                decisions = plan_engines(box["traffic"], box["ctx"], args)
+                summ = commplan.summarize_decisions(decisions)
+                log(f"[commplan] step {n}: {summ['n_flat']} flat / "
+                    f"{summ['n_hier']} hier layers ({summ['n_cold']} cold) — "
+                    + " ".join(f"L{i}:{'F' if e == 'fused_flat' else 'H'}"
+                               for i, e in enumerate(summ["per_layer"])),
+                    flush=True)
+                plans.append({"step": n, "engines": tuple(summ["per_layer"])})
+            params, opt_state, new_ctx, stats = apply_relayout(
+                params, opt_state, box["traffic"], box["ctx"], log=log)
+            if decisions is not None:
+                new_ctx = dataclasses.replace(
+                    new_ctx, engines=tuple(x.engine for x in decisions))
+            box["traffic"] = cold_lane_stats(box["traffic"])
+            rebuild(new_ctx)
+            relayouts.append(dict(stats, step=n))
+            # active from this step on: recorded before the loop can commit
+            # a checkpoint holding it
+            box["history"].append((n, new_ctx.placement))
+            if sidecars:
+                save_placement_history(ckpt, box["history"],
+                                       new_ctx.placement.node_size)
+        return params, opt_state, metrics
+
+    def on_commit(step):
+        # after the step's relayout block, so that where the cadences meet
+        # the sidecar holds the lane EMAs restarted for the new table
+        if box["traffic"] is not None and sidecars:
+            save_traffic_state(ckpt, box["traffic"], step)
+
+    rcfg = RunConfig(total_steps=args.steps, ckpt_dir=ckpt,
+                     ckpt_every=args.ckpt_every,
+                     inject_failure_at=args.inject_failure_at,
+                     on_restart=on_restart, on_commit=on_commit, layout=lay)
+    (params, opt_state), state = run_training(wrapped, (params, opt_state),
+                                              batch_at, rcfg, log=log)
+    timed = (statistics.median(step_s[WARMUP:] or step_s) if step_s
+             else float("nan"))    # resumed at the last step
     if args.seq_migrate and _is_rank0():
         print(f"[seqmig] {moved['rows_moved']} sequences moved "
               f"({moved['bytes_moved'] / 1e6:.2f} MB) in {args.steps} steps",
               flush=True)
-    return {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+    ctx = box["ctx"]
+    return {"losses": [losses[i] for i in sorted(losses)],
+            "first_step": min(losses, default=args.steps),
+            "step_ms": [t * 1e3 for t in step_s],
             "ms_per_step": timed * 1e3,
             "tokens_per_s": args.batch * args.seq / timed,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
                              if on_card else None),
             "opt_state_gib": adamw.state_bytes(opt_state) / 2**30,
-            "seq_migrate": moved, "cfg": cfg, "traffic": traffic,
-            "relayouts": relayouts, "placement": ctx.placement}
+            "seq_migrate": moved, "cfg": cfg, "traffic": box["traffic"],
+            "relayouts": relayouts, "plans": plans,
+            "placement": ctx.placement,
+            "engines": ctx.engines or (None if ctx.dcfg is None
+                                       else (ctx.dcfg.engine,) * cfg.n_layers),
+            "run": state,
+            **({"state": (params, opt_state), "train_step": box["step"]}
+               if keep_state else {})}
 
 
 def main(argv=None, device="cuda"):
@@ -570,14 +834,17 @@ def main(argv=None, device="cuda"):
 
 
 def _report(out: dict, mem: list):
-    """Print the losses, the speed, and each rank's (peak memory, AdamW
-    state) of ``mem``."""
+    """Print the losses, the speed, each rank's (peak memory, AdamW state)
+    of ``mem``, and the loop's steps, restarts and straggler events."""
     print("loss per step:", " ".join(f"{x:.4f}" for x in out["losses"]))
     print(f"{out['ms_per_step']:.1f} ms/step  {out['tokens_per_s']:.0f} "
           f"tokens/s  peak memory per rank "
           + " ".join("n/a" if p is None else f"{p:.2f}" for p, _ in mem)
           + " GiB  optimizer state per rank "
           + " ".join(f"{s:.3f}" for _, s in mem) + " GiB")
+    run = out["run"]
+    print(f"done: {run.steps_run} steps, {run.restarts} restarts, "
+          f"{run.straggler_events} straggler events")
     return out
 
 

@@ -63,6 +63,12 @@ class ModelContext:
     # moe_tx / moe_ffn families: token micro-batch lanes (batch chunks)
     # round-robin through each fused_pipe stream block (1: the plain stream)
     moe_interleave: int = 1
+    # moe family: each layer's engine, from the comm-path policy
+    # (``core/commplan.plan_paths``), n_layers names; None: ``dcfg.engine``
+    # everywhere.  Only the training forward reads it (the reference's
+    # lm.py:62-68); the stream families share one schedule per block and
+    # keep the single-engine dcfg
+    engines: tuple | None = None
 
 
 # the sub-layers of each ported family's layer, besides ``ln1`` (the
@@ -473,17 +479,34 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
         h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
         return h if traffic is None else (h, new_traffic)
     trs = []
-    for i in range(cfg.n_layers):
+    for i, lctx in enumerate(_layer_contexts(ctx)):
         lp = _layer(params["layers"], i, cd)
         if traffic is None:
-            h, _, _ = _seq_layer(h, lp, positions, ctx)
+            h, _, _ = _seq_layer(h, lp, positions, lctx)
         else:
-            h, _, _, tr = _seq_layer(h, lp, positions, ctx,
+            h, _, _, tr = _seq_layer(h, lp, positions, lctx,
                                      traffic_lib.layers(traffic, i),
                                      traffic_mask)
             trs.append(tr)
     h = rms_norm(h, params["final_norm"].to(cd))
     return h if traffic is None else (h, traffic_lib.stack(trs))
+
+
+def _layer_contexts(ctx: ModelContext) -> list:
+    """Each layer's context in the moe and dense loop: ``ctx`` itself, or
+    under ``ctx.engines`` (moe family) one context per engine, its dcfg on
+    that engine and ``dedup`` kept on fused_flat layers only (the
+    reference's same-engine runs, lm.py:509-530)."""
+    cfg = ctx.cfg
+    if cfg.family != "moe" or ctx.engines is None:
+        return [ctx] * cfg.n_layers
+    if len(ctx.engines) != cfg.n_layers:
+        raise ValueError(f"ctx.engines has {len(ctx.engines)} entries for "
+                         f"{cfg.n_layers} layers")
+    by_engine = {e: dataclasses.replace(ctx, dcfg=dataclasses.replace(
+        ctx.dcfg, engine=e, dedup=ctx.dcfg.dedup and e == "fused_flat"))
+                 for e in set(ctx.engines)}
+    return [by_engine[e] for e in ctx.engines]
 
 
 def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):

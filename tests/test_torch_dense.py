@@ -14,8 +14,10 @@ CPU.
 
 Tolerances: 1e-5 relative to each leaf's max(1, |x|) for the loss, the
 gradients and the step (float32 sums in another order across two layers
-and the vocabulary projection); 1e-4 on logits and caches (the same, over
-prefill and three decode steps).
+and the vocabulary projection), the updated params and master besides
+with the slack their AdamW step allows (``torch_adam``: a gradient that
+all but cancels is divided by eps); 1e-4 on logits and caches (the same,
+over prefill and three decode steps).
 """
 
 import dataclasses
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_adam import check_step
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
 from repro.launch.steps import make_train_step as jmake_train_step
@@ -175,14 +178,8 @@ def test_dense_train_step_matches_jax_step(jax_side):
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(metrics["grad_norm"]),
                                jax_side["grad_norm"], rtol=TOL)
-    for name, got, want in (("params", params, jax_side["new_params"]),
-                            ("mu", opt.mu, jax_side["mu"]),
-                            ("nu", opt.nu, jax_side["nu"]),
-                            ("master", opt.master, jax_side["master"])):
-        got, want = _flat(got), _flat(want)
-        assert got.keys() == want.keys()
-        for k in want:
-            _close(got[k], want[k], what=f"{name} {k}")
+    cfg = adamw.AdamWConfig(**OPT)
+    check_step(params, opt, jax_side, cfg, adamw.schedule(cfg, 1), _close)
 
 
 def test_dense_prefill_and_decode_lock_step_and_per_row_match_jax():

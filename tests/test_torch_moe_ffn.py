@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from torch_adam import check_step
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
 from repro.core import dcomm as jdcomm
@@ -450,13 +451,8 @@ def test_moe_ffn_train_step_matches_jax_step(jax_model):
     np.testing.assert_allclose(float(metrics["grad_norm"]),
                                jax_model["grad_norm"], rtol=TOL)
     _check_state(metrics["traffic"], jax_model["step_traffic"], "step traffic")
-    for name, got, want in (("params", params, jax_model["new_params"]),
-                            ("mu", opt.mu, jax_model["mu"]),
-                            ("nu", opt.nu, jax_model["nu"]),
-                            ("master", opt.master, jax_model["master"])):
-        got, want = _flat(got), _flat(want)
-        for k in want:
-            _close(got[k], want[k], what=f"{name} {k}")
+    cfg = adamw.AdamWConfig(**OPT)
+    check_step(params, opt, jax_model, cfg, adamw.schedule(cfg, 1), _close)
 
 
 @pytest.mark.parametrize("case", list(MODELS))

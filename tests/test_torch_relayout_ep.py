@@ -33,6 +33,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import torch_ep_train as harness
+from torch_adam import close_updated
 from conftest import run_devices
 from repro_torch import convert
 from repro_torch.configs import get_arch
@@ -80,9 +81,10 @@ from repro.configs import get_arch
 from repro.core import fusco, relayout, traffic
 from repro.core.dcomm import DcommConfig
 from repro.launch.steps import make_train_step
-from repro.launch.train import apply_relayout
+from repro.launch.train import _migrate_moe_tree, apply_relayout
 from repro.models import lm, zoo
 from repro.optim import adamw
+from torch_adam import step_slack
 
 out = {{}}
 d = np.load({data!r})
@@ -133,9 +135,9 @@ def nest(items):
     return tree
 
 
-def save(prefix, params, opt):
+def save(prefix, params, opt, room):
     for kind, tree in (("p", params), ("mu", opt.mu), ("nu", opt.nu),
-                       ("master", opt.master)):
+                       ("master", opt.master), ("room", room)):
         for k, v in flat(tree).items():
             out[prefix + "/" + kind + "/" + k] = np.asarray(v)
 
@@ -157,25 +159,41 @@ with mesh:
     st = traffic.init_traffic_state(cfg.moe.n_experts, EP,
                                     n_layers=cfg.n_layers)
     step = jax.jit(make_train_step(zoo.build(cfg, ctx), opt_cfg))
+    # each element's room for the AdamW steps taken (tests/torch_adam.py),
+    # summed over the steps and migrated with the weights
+    room = jax.tree.map(lambda p: np.zeros(p.shape), params)
+
+    def stepped(room, opt, i):
+        lr = float(adamw.schedule(opt_cfg, jnp.int32(i)))
+        return jax.tree.map(lambda r, m, v: r + step_slack(
+            np.asarray(m), np.asarray(v), i, lr, opt_cfg), room, opt.mu,
+            opt.nu)
+
     params, opt, m = step(params, opt, batch, st)
+    room = stepped(room, opt, 1)
     st = m.pop("traffic")
     losses.append(float(m["loss"]))
     out["ema1"] = np.asarray(st.expert_ema)
+    old = ctx.placement
     params, opt, ctx, stats = apply_relayout(params, opt, st, ctx,
                                              slots_per_lane={spl}, log=quiet)
+    room = _migrate_moe_tree(room, old, ctx.placement)
     out["table1"] = np.asarray(ctx.placement.lane_expert)
-    save("r1", params, opt)
+    save("r1", params, opt, room)
     step = jax.jit(make_train_step(zoo.build(cfg, ctx), opt_cfg))
-    for _ in range({drift}):
+    for i in range({drift}):
         params, opt, m = step(params, opt, batch, st)
+        room = stepped(room, opt, i + 2)
         st = m.pop("traffic")
         losses.append(float(m["loss"]))
-    save("drift", params, opt)
+    save("drift", params, opt, room)
     out["ema2"] = np.asarray(st.expert_ema)
+    old = ctx.placement
     params, opt, ctx, stats = apply_relayout(params, opt, st, ctx,
                                              slots_per_lane={spl}, log=quiet)
+    room = _migrate_moe_tree(room, old, ctx.placement)
     out["table2"] = np.asarray(ctx.placement.lane_expert)
-    save("r2", params, opt)
+    save("r2", params, opt, room)
 out["losses"] = np.asarray(losses)
 np.savez({out!r}, **out)
 print("JAX_OK")
@@ -530,9 +548,23 @@ def test_replicated_scenario_state_rank_by_rank(runs):
         for stage in ("r1", "drift", "r2"):
             for kind in KINDS:
                 for k in WEIGHTS:
-                    key = f"{stage}/{kind}/{k}"
-                    _close(got[r][key], harness.lane_of(want[key], k, r),
-                           f"rank {r} {key}")
+                    _updated_close(got[r], want, stage, kind, k, r)
+
+
+def _updated_close(got: dict, want: dict, stage: str, kind: str, path: str,
+                   r: int, mine: str | None = None) -> None:
+    """Rank ``r``'s lane of ``stage``'s ``kind`` leaf at ``path`` (in
+    ``got`` under ``mine``, default that stage's) against the reference's:
+    mu and nu at TOL, params and master with their room for the steps taken
+    (``torch_adam``)."""
+    key = f"{stage}/{kind}/{path}"
+    mine = mine or key
+    w = harness.lane_of(want[key], path, r)
+    if kind in ("mu", "nu"):
+        _close(got[mine], w, f"rank {r} {mine}")
+    else:
+        close_updated(got[mine], w, harness.lane_of(
+            want[f"{stage}/room/{path}"], path, r), f"rank {r} {mine}")
 
 
 def test_loss_at_fixed_params_is_unchanged_by_a_migration(runs):
@@ -553,16 +585,16 @@ def test_sourcing_replica_zero_misses_the_reference(runs):
     JAX's migrated params, mu, nu and master, where the mean meets them."""
     want, got, _, _ = runs
 
-    def misses(r, key, k):
+    def misses(r, kind, k):
         try:
-            _close(got[r][f"mutant/{key}"], harness.lane_of(
-                want[f"r2/{key}"], k, r), key)
+            _updated_close(got[r], want, "r2", kind, k, r,
+                           mine=f"mutant/{kind}/{k}")
         except AssertionError:
             return True
         return False
 
     missed = {kind for r in range(EP) for kind in KINDS for k in WEIGHTS
-              if misses(r, f"{kind}/{k}", k)}
+              if misses(r, kind, k)}
     assert missed == set(KINDS), missed
 
 

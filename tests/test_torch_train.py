@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_adam import check_step, close_updated, step_slack
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
 from repro.data import pipeline as jpipeline
@@ -126,13 +127,39 @@ def test_train_step_matches_jax_step(jax_side):
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(metrics["grad_norm"]),
                                jax_side["grad_norm"], rtol=TOL)
-    for name, got, want in (("params", params, jax_side["new_params"]),
-                            ("mu", opt.mu, jax_side["mu"]),
-                            ("nu", opt.nu, jax_side["nu"]),
-                            ("master", opt.master, jax_side["master"])):
-        got, want = _flat(got), _flat(want)
-        for k in want:
-            _close(got[k], want[k], what=f"{name} {k}")
+    cfg = adamw.AdamWConfig(**OPT)
+    check_step(params, opt, jax_side, cfg, adamw.schedule(cfg, 1), _close)
+
+
+def _slack(jax_side) -> dict:
+    """Each leaf's room for its one AdamW step (``torch_adam``)."""
+    cfg = adamw.AdamWConfig(**OPT)
+    mu, nu = _flat(jax_side["mu"]), _flat(jax_side["nu"])
+    return {k: step_slack(mu[k], nu[k], 1, adamw.schedule(cfg, 1), cfg)
+            for k in mu}
+
+
+def test_update_room_refuses_a_flipped_step_and_a_dropped_bias_correction(
+        jax_side):
+    """The room ``torch_adam`` gives an updated leaf still refuses the
+    reference's step taken with its sign flipped, and taken without the
+    bias corrections of m and v, on every leaf."""
+    cfg = adamw.AdamWConfig(**OPT)
+    lr, slack = adamw.schedule(cfg, 1), _slack(jax_side)
+    p0, mu = _flat(jax_side["params"]), _flat(jax_side["mu"])
+    nu, want = _flat(jax_side["nu"]), _flat(jax_side["new_params"])
+    b1c, b2c = 1 - cfg.b1, 1 - cfg.b2
+    for k in want:
+        w = p0[k].astype(np.float64)
+        direction = (mu[k] / b1c) / (np.sqrt(nu[k] / b2c) + cfg.eps)
+        flipped = w - lr * (-direction + cfg.weight_decay * w)
+        unbiased = w - lr * (mu[k] / (np.sqrt(nu[k]) + cfg.eps)
+                             + cfg.weight_decay * w)
+        close_updated(w - lr * (direction + cfg.weight_decay * w), want[k],
+                      slack[k], k)
+        for wrong in (flipped, unbiased):
+            with pytest.raises(AssertionError):
+                close_updated(wrong, want[k], slack[k], k)
 
 
 def test_accumulated_step_is_the_mean_of_the_micro_batch_grads(jax_side):
@@ -152,8 +179,12 @@ def test_accumulated_step_is_the_mean_of_the_micro_batch_grads(jax_side):
     step = steps.make_train_step(model, adamw.AdamWConfig(**OPT), accum=2)
     got_p, got_opt, metrics = step(params, adamw.init(params), batch)
     assert np.isfinite(float(metrics["loss"]))
-    for a, b in zip(adamw.leaves(got_p) + adamw.leaves(got_opt.nu),
-                    adamw.leaves(want_p) + adamw.leaves(want_opt.nu)):
+    cfg = adamw.AdamWConfig(**OPT)
+    for a, b, m, v in zip(adamw.leaves(got_p), adamw.leaves(want_p),
+                          adamw.leaves(want_opt.mu), adamw.leaves(want_opt.nu)):
+        close_updated(a.detach().numpy(), b.detach().numpy(), step_slack(
+            m.numpy(), v.numpy(), 1, adamw.schedule(cfg, 1), cfg))
+    for a, b in zip(adamw.leaves(got_opt.nu), adamw.leaves(want_opt.nu)):
         _close(a, b.detach().numpy())
 
 
@@ -171,7 +202,8 @@ def test_adamw_update_and_schedule_match_jax_over_three_steps():
     tp = {"a": torch.from_numpy(tree["a"].copy()),
           "b": {"c": torch.from_numpy(tree["b"]["c"].copy())}}
     ts = adamw.init(tp)
-    for g in grads:
+    slack = [0.0] * len(adamw.leaves(tp))
+    for i, g in enumerate(grads, 1):
         jp, js, jm = jadamw.update(jax.tree.map(jnp.asarray, g), js, jp, jcfg)
         tp, ts, tm = adamw.update(adamw.tree_map(torch.from_numpy, g), ts, tp,
                                   tcfg)
@@ -179,10 +211,17 @@ def test_adamw_update_and_schedule_match_jax_over_three_steps():
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=TOL)
         np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-6)
-        for got, want in ((tp, jp), (ts.mu, js.mu), (ts.nu, js.nu),
-                          (ts.master, js.master)):
+        slack = [s + step_slack(np.asarray(m), np.asarray(v), i, tm["lr"],
+                                tcfg)
+                 for s, m, v in zip(slack, jax.tree.leaves(js.mu),
+                                    jax.tree.leaves(js.nu))]
+        for got, want in ((ts.mu, js.mu), (ts.nu, js.nu)):
             for a, b in zip(adamw.leaves(got), jax.tree.leaves(want)):
                 _close(a, np.asarray(b))
+        for got, want in ((tp, jp), (ts.master, js.master)):
+            for a, b, s in zip(adamw.leaves(got), jax.tree.leaves(want),
+                               slack):
+                close_updated(a.numpy(), np.asarray(b), s)
     for step in range(8):
         np.testing.assert_allclose(adamw.schedule(tcfg, step),
                                    float(jadamw.schedule(jcfg, jnp.int32(step))),

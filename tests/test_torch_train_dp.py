@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 import torch_ep_train as h
+from torch_adam import close_updated
 from repro_torch.configs import get_arch
 from repro_torch.core import commplan, traffic
 from repro_torch.data.pipeline import ZipfNgramLM, to_device
@@ -210,8 +211,10 @@ def test_grid_params_after_two_steps_match_and_keep_their_bits(grid_run,
         assert keys and sorted(keys) == sorted(k for k in got
                                                if k.startswith(pre))
         for k in keys:
-            h.close(got[k], h.lane_of(want[k], k[len(pre):], r, SHAPE),
-                    f"{case} rank {r} {k}")
+            path = k[len(pre):]
+            close_updated(got[k], h.lane_of(want[k], path, r, SHAPE),
+                          h.lane_of(h.update_room(want, case, path, 2), path,
+                                    r, SHAPE), f"{case} rank {r} {k}")
     assert h.replicated_bits_differ(ranks, case) == []
     model = SHAPE[1]
     for k in ranks[0]:

@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from torch_adam import check_step
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
 from repro.core import traffic as jtraffic
@@ -230,13 +231,8 @@ def test_moe_tx_train_step_with_traffic_matches_jax_step(streamed_jax):
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(metrics["grad_norm"]), want["grad_norm"],
                                rtol=TOL)
-    for name, got, ref in (("params", params, want["new_params"]),
-                           ("mu", opt.mu, want["mu"]), ("nu", opt.nu, want["nu"]),
-                           ("master", opt.master, want["master"])):
-        got, ref = _flat(got), _flat(ref)
-        assert got.keys() == ref.keys()
-        for k in ref:
-            _close(got[k], ref[k], what=f"{name} {k}")
+    cfg = adamw.AdamWConfig(**OPT)
+    check_step(params, opt, want, cfg, adamw.schedule(cfg, 1), _close)
     _check_state(traffic.TrafficState(*(x.numpy() for x in metrics["traffic"])),
                  want["step_traffic"], "step")
 

@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from torch_adam import close_updated, step_slack
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.core import traffic
@@ -188,11 +189,13 @@ for arch, data, engine, stream, slices in {runs!r}:
         (k[2:], d[k]) for k in d.files if k.startswith("p/")))
     batch = {{k: jnp.asarray(d[k]) for k in ("tokens", "labels")}}
     cfg = get_arch(arch).reduced()
+    mixed = tuple(engine.split(",")) if "," in engine else None
     ctx = dataclasses.replace(
-        lm.make_context(cfg, mesh, multi_pod=False, engine=engine,
+        lm.make_context(cfg, mesh, multi_pod=False,
+                        engine="fused_hier" if mixed else engine,
                         node_size={node}, moe_stream=stream,
                         pipe_slices=slices),
-        compute_dtype=jnp.float32, remat=False)
+        compute_dtype=jnp.float32, remat=False, engines=mixed)
     tr = traffic.init_traffic_state(cfg.moe.n_experts, {shape[1]},
                                     n_layers=cfg.n_layers)
     vg = jax.value_and_grad(lambda p, b, t: lm.lm_loss(p, b, ctx, traffic=t),
@@ -202,15 +205,19 @@ for arch, data, engine, stream, slices in {runs!r}:
     def both(p, b, t):
         new, opt, sm = step(p, adamw.init(p), b, t)
         # the second step's params, over a data group only
-        two = step(new, opt, b, sm["traffic"])[0] if {two!r} else {{}}
+        two = step(new, opt, b, sm["traffic"])[:2] if {two!r} else ({{}}, None)
         return vg(p, b, t), (new, opt, sm), two
 
     with mesh:
-        ((loss, m), grads), (new, opt, sm), new2 = jax.jit(both).lower(
-            params, batch, tr).compile({fast!r})(params, batch, tr)
+        ((loss, m), grads), (new, opt, sm), (new2, opt2) = jax.jit(
+            both).lower(params, batch, tr).compile({fast!r})(params, batch, tr)
     c = engine + "/" + str(slices)
     for k, v in flat(new2).items():
         out[c + "/p2/" + k] = np.asarray(v)
+    if opt2 is not None:      # the second step's moments: its update's room
+        for kind, tree in (("mu2", opt2.mu), ("nu2", opt2.nu)):
+            for k, v in flat(tree).items():
+                out[c + "/" + kind + "/" + k] = np.asarray(v)
     out[c + "/loss"] = np.asarray(loss)
     out[c + "/grad_norm"] = np.asarray(sm["grad_norm"])
     out[c + "/step_loss"] = np.asarray(sm["loss"])
@@ -256,6 +263,15 @@ def _save_tree(out: dict, key: str, tree) -> None:
         out[f"{key}/{k}"] = v.detach().numpy().copy()
 
 
+def engines_of(engine: str) -> tuple:
+    """(the context's engine, its per-layer ``engines``) of a case's engine
+    name: a comma-separated list is one engine a layer, on a fused_hier
+    context (as ``--engine auto`` builds it)."""
+    if "," in engine:
+        return "fused_hier", tuple(engine.split(","))
+    return engine, None
+
+
 def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -274,10 +290,11 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
             cold = lambda: traffic.init_traffic_state(
                 cfg.moe.n_experts, mesh.model, n_layers=cfg.n_layers)
             c = f"{engine}/{slices}"
-            ctx = lm.make_context(cfg, "cpu", mesh=mesh, engine=engine,
-                                  node_size=node, moe_stream=stream,
-                                  pipe_slices=slices,
-                                  compute_dtype=torch.float32)
+            base, mixed = engines_of(engine)
+            ctx = dataclasses.replace(lm.make_context(
+                cfg, "cpu", mesh=mesh, engine=base, node_size=node,
+                moe_stream=stream, pipe_slices=slices,
+                compute_dtype=torch.float32), engines=mixed)
             model = zoo.build(cfg, ctx)
             fresh = lambda: convert.params_from_jax(tree, "cpu",
                                                     lane=rank % mesh.model)
@@ -331,7 +348,8 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
 def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE):
     """Run the reference and the four ranks of a ``shape`` = (data, model)
     grid over ``archs`` ((arch, cases) pairs, each case (engine,
-    moe_stream, pipe_slices), all named "engine/slices" apart), and on each
+    moe_stream, pipe_slices), all named "engine/slices" apart; an engine
+    "a,b,..." is one a layer, :func:`engines_of`), and on each
     rank ``extra``: ``(rank, world) -> {name: array}``, saved beside the
     rest.  Returns (the reference's arrays, each rank's arrays, each arch's
     parameters)."""
@@ -408,10 +426,26 @@ def check_step(want, got, case, rank, shape=(1, EP)):
         assert sorted(keys) == sorted(k for k in got if k.startswith(pre))
         for k in keys:
             path = k[len(pre):]
-            w = (lane_of(want[k], path, rank, shape) if kind == "p"
-                 else state_of_rank(want[k], path, rank, shape))
+            cut = lane_of if kind == "p" else state_of_rank
+            w = cut(want[k], path, rank, shape)
             assert got[k].shape == w.shape, (what, kind, path)
-            close(got[k], w, f"{what} {kind} {path}")
+            if kind in ("mu", "nu"):
+                close(got[k], w, f"{what} {kind} {path}")
+            else:
+                close_updated(got[k], w, cut(update_room(want, case, path),
+                                             path, rank, shape),
+                              f"{what} {kind} {path}")
+
+
+def update_room(want: dict, case: str, path: str, steps: int = 1):
+    """The whole leaf's room for its first ``steps`` AdamW steps
+    (``torch_adam``) from the reference's moments after each."""
+    cfg = adamw.AdamWConfig(**OPT)
+    return sum(step_slack(want[f"{case}/{mu}/{path}"],
+                          want[f"{case}/{nu}/{path}"], i,
+                          adamw.schedule(cfg, i), cfg)
+               for i, (mu, nu) in enumerate((("mu", "nu"), ("mu2", "nu2")
+                                             )[:steps], 1))
     check_state(state_of(got, f"{case}/st"), state_of(want, f"{case}/st"),
                 what)
 
