@@ -321,12 +321,15 @@ DENSE_FLASH_ODD = ((2, 509, 509, 16, 8, 128, 0, None),
                    (4, 128, 512, 16, 8, 128, 128, None),
                    (4, 128, 512, 16, 8, 128, 128, 192))
 # the interleaved micro-batch lanes: moe-ffn-stream-1b and moe-tx-stream-1b at
-# full width, all 16 layers, through --engine fused_pipe --moe-stream 16
-# --moe-interleave 2, served 8 x 512 (16 generated; four requests a lane) and
-# trained B 4 x S 512 with --accum 2 fused into the lanes, traffic on
+# full width, cut to 4 of their 16 layers (one stream block of all 4),
+# through --engine fused_pipe --moe-stream 4 --moe-interleave 2, served 8 x
+# 512 (16 generated; four requests a lane) and trained B 4 x S 512 with
+# --accum 2 fused into the lanes, traffic on
 LANES = 2
+LANE_LAYERS = 4
 TX = "moe-tx-stream"
-LANE_FLAGS = ["--engine"] + STREAMED + ["--moe-interleave", str(LANES)]
+LANE_FLAGS = ["--engine", "fused_pipe", "--moe-stream", str(LANE_LAYERS),
+              "--moe-interleave", str(LANES), "--layers", str(LANE_LAYERS)]
 LANE_SERVE = {f"{a} K {LANES}": ["--arch", a, "--requests", "8",
                                  "--prompt-len", "512", "--gen", "16"]
               + LANE_FLAGS for a in (FFN, TX)}
@@ -572,16 +575,42 @@ def time_split(name: str, fn, timer=time_ms, **kw) -> dict:
     return out
 
 
+PLAIN_CHUNK = 1 << 28     # weight elements a chunk of experts of the plain
+                          # SwiGLU converts to float32 at once
+
+
+def plain_swiglu(xs, w1, w3, w2, counts):
+    """fused_swiglu's plain version, taken over chunks of experts (each
+    expert's rows are its own: the same function), so that the float32
+    copies of deepseek-v3-bench's 256 experts' weights never exist at
+    once."""
+    import torch
+    from repro_torch.kernels import fused_staging as fs_k
+    n_e, d, f = w1.shape
+    step = max(1, PLAIN_CHUNK // (d * f))
+    if step >= n_e:
+        return fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts)
+    return torch.cat([fs_k.fused_swiglu_plain(
+        xs[:, e:e + step], w1[e:e + step], w3[e:e + step], w2[e:e + step],
+        counts[:, e:e + step]) for e in range(0, n_e, step)], dim=1)
+
+
 def swiglu_row(name, xs, w1, w3, w2, counts, timer=time_ms):
     """fused_swiglu against its plain version on one landed buffer ``xs``
     (S, E, C, d) with its counts: the row (times, bound, the 3 x bmm
-    yardstick over all rows) and the kernel's output."""
+    yardstick over all rows, the form it took, and the loads-only and
+    products-only times of that form's library) and the kernel's output.
+    Fails on the FMA form in bf16."""
     import torch
     from repro_torch.kernels import fused_staging as fs_k
     n_e, d, f = w1.shape
     es = xs.element_size()
+    how = fs_k.form(xs, (w1, w3, w2))
+    if how == "fma":
+        raise AssertionError(f"{name}: bf16 x {tuple(xs.shape)}, f {f} takes "
+                             "the FMA form, off the tensor cores")
     y = fs_k.fused_swiglu(xs, w1, w3, w2, counts)
-    want = fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts)
+    want = plain_swiglu(xs, w1, w3, w2, counts)
     err = max_err(y, want)
     tol = TOL_REL * want.float().abs().max().item()
     if not err <= tol:
@@ -604,14 +633,15 @@ def swiglu_row(name, xs, w1, w3, w2, counts, timer=time_ms):
         name=name, shape=f"x {tuple(xs.shape)} live rows {live_rows} bf16",
         route="cuda", source="src/repro_torch/csrc/fused_swiglu.cu",
         replaces="src/repro/kernels/fused_staging.py:83",
-        max_abs_err=err, tol=tol,
+        max_abs_err=err, tol=tol, form=how,
         ms=timer(lambda: fs_k.fused_swiglu(xs, w1, w3, w2, counts), reps=5),
-        plain_ms=timer(lambda: fs_k.fused_swiglu_plain(xs, w1, w3, w2, counts),
-                       reps=3, warmup=1),
+        plain_ms=timer(lambda: plain_swiglu(xs, w1, w3, w2, counts),
+                       reps=3 if how == "wgmma" else 1, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         library="torch.bmm x3 + silu*mul (all rows, bf16 hidden)",
         library_ms=timer(bmm_swiglu, reps=5),
-        **time_split("fused_swiglu",
+        # the large-f form's two launches are grouped_matmul.cu's
+        **time_split("fused_swiglu" if how == "wgmma" else "grouped_matmul",
                      lambda: fs_k.fused_swiglu(xs, w1, w3, w2, counts), timer,
                      reps=5))
     return row, y
@@ -1069,6 +1099,7 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
     g = hq // k.shape[2]
     es = q.element_size()
     mask = attention_mask(qp, kp, True, window)
+    tc = fa_k.hopper_refusal(hd, hq, k.shape[2], k.shape[1]) is not None
     visible = int(mask.sum()) * b * hq
     nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * es
               + lse.numel() * 4 + (qp.numel() + kp.numel()) * 4)
@@ -1083,8 +1114,8 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
     call = lambda: fa_k.flash_attention(q, k, v, qp, kp, True, window)
     arange = torch.arange(sq, dtype=qp.dtype, device=qp.device)
     causal = {}
-    if window is None and k.shape[1] == sq and torch.equal(qp, arange) \
-            and torch.equal(kp, arange):
+    if (window is None or window >= k.shape[1]) and k.shape[1] == sq \
+            and torch.equal(qp, arange) and torch.equal(kp, arange):
         causal["library_causal_ms"] = timer(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
@@ -1103,8 +1134,10 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library="F.scaled_dot_product_attention (bool mask from positions, "
                 "kv heads repeated)",
-        library_ms=timer(sdpa), **causal,
-        **time_split("flash_attention", call, timer))
+        library_ms=timer(sdpa), **causal, form="mma.sync" if tc else "wgmma",
+        # the time split builds the Hopper form without its loads or its
+        # products; the mma.sync form has no such variant
+        **({} if tc else time_split("flash_attention", call, timer)))
     return row
 
 
@@ -1125,7 +1158,22 @@ def zero_counters() -> dict:
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
+    forms = getattr(wrappers["fused_swiglu"], "forms", {})
+    for k in forms:
+        forms[k] = 0
     return wrappers
+
+
+def no_fma_swiglu(what: str) -> dict:
+    """fused_swiglu's launches by form since the counters were zeroed;
+    fails if a bf16 path ran the FMA form."""
+    from repro_torch.kernels import fused_staging
+    forms = dict(getattr(fused_staging.fused_swiglu, "forms", {}))
+    if forms.get("fma"):
+        raise AssertionError(f"{what}: fused_swiglu ran the FMA form "
+                             f"{forms['fma']} times, off the tensor cores "
+                             f"({forms})")
+    return forms
 
 
 def family_kernels(cfg, train: bool) -> tuple[tuple, tuple]:
@@ -1150,6 +1198,7 @@ def serve_phase(argv, device="cuda", required=SERVE_KERNELS, absent=()):
     wrappers = zero_counters()
     out = serve.run(args, device=device)
     launches = {k: w.launches for k, w in wrappers.items()}
+    out["swiglu_forms"] = no_fma_swiglu(f"serve {' '.join(argv)}")
     never = [k for k in required if launches[k] == 0]
     stray = [k for k in absent if launches[k]]
     if never or stray:
@@ -1742,6 +1791,8 @@ def lane_plan(argv, train: bool) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     k = args.moe_interleave
     rows, seq = ((args.batch, args.seq) if train
                  else (args.requests, args.prompt_len))
@@ -2118,6 +2169,7 @@ def train_phase(argv, device="cuda", keep_state=False, restarts=0):
     out = train.run(train.parse_args(argv), device=device,
                     keep_state=keep_state)
     launches = {k: w.launches for k, w in wrappers.items()}
+    out["swiglu_forms"] = no_fma_swiglu(f"train {' '.join(argv)}")
     if out["run"].restarts != restarts:
         raise AssertionError(f"train loop restarted {out['run'].restarts} "
                              f"times, expected {restarts}")
@@ -2706,7 +2758,8 @@ def _zero1_rank(rank, port, out_dir, argv, device):
         wrappers = zero_counters()
         out = train.run(train.parse_args(argv), device, mesh=mesh)
         torch.save({k: out[k] for k in ("losses", "step_ms", "ms_per_step",
-                                        "peak_mem_gib", "opt_state_gib")}
+                                        "peak_mem_gib", "opt_state_gib",
+                                        "expert_param_bytes")}
                    | {"launches": {k: w.launches
                                    for k, w in wrappers.items()}},
                    f"{out_dir}/zero1-rank{rank}.pt")
@@ -2714,7 +2767,8 @@ def _zero1_rank(rank, port, out_dir, argv, device):
         dist.destroy_process_group()
 
 
-def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
+def zero1_phase(argv=ZERO1, device="cuda",
+                against: dict | None = None) -> tuple[list[str], dict]:
     """``train.run`` of ``argv`` (qwen3-moe at full width, one layer) on a
     (2, 2) grid of four gloo ranks sharing the card, after the same run on
     the card alone: each rank's AdamW state (the bytes of its tensors) must
@@ -2722,7 +2776,13 @@ def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
     parameter over DP; its losses must be finite and the same on all four
     ranks, the first within ``TOL_ZERO1_LOSS`` relative of the one-card
     run's.  Prints each rank's state, peak memory, losses and ms/step (gloo
-    stages every collective through the host: not a speed)."""
+    stages every collective through the host: not a speed).  ``against``:
+    the result of the ZeRO-1 run, when this one (``--fsdp-experts on``)
+    splits the expert weights over the data group too: its one-card run is
+    taken from it, and each rank's bf16 expert bytes must be exactly half
+    of the ZeRO-1 rank's (the AdamW state is the same reckoning: ZeRO-1
+    already cuts the experts' state over DP).  Returns the lines and the
+    result (the one-card run and each rank's)."""
     import dataclasses
     import math
     import shutil
@@ -2739,8 +2799,12 @@ def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
     held = replicated + experts // model
     reckoned = 12 * held // data
     torch.cuda.empty_cache()
-    one = train.run(args, device)
-    one = {k: one[k] for k in ("losses", "peak_mem_gib", "opt_state_gib")}
+    if against is None:
+        one = train.run(args, device)
+        one = {k: one[k] for k in ("losses", "peak_mem_gib",
+                                   "opt_state_gib")}
+    else:
+        one = against["one"]
     torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "zero1"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2764,18 +2828,27 @@ def zero1_phase(argv=ZERO1, device="cuda") -> list[str]:
             f"{g['losses']}; {g['ms_per_step']:.1f} ms/step (gloo through "
             f"the host, not a speed); launches {json.dumps(g['launches'])}")
     first = abs(got[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    halves = ([g["expert_param_bytes"] * 2 == z["expert_param_bytes"]
+               for g, z in zip(got, against["ranks"])]
+              if against is not None else [True] * n)
     bad = [r for r, g in enumerate(got)
            if g["opt_state_gib"] * 2**30 != reckoned
-           or g["losses"] != got[0]["losses"]
+           or g["losses"] != got[0]["losses"] or not halves[r]
            or not all(math.isfinite(x) for x in g["losses"])]
+    if against is not None:
+        lines += [f"rank {r}: bf16 expert parameters {g['expert_param_bytes']}"
+                  f" B, the ZeRO-1 rank's {z['expert_param_bytes']} B; peak "
+                  f"memory {gib(g['peak_mem_gib'])} GiB beside ZeRO-1's "
+                  f"{gib(z['peak_mem_gib'])} GiB"
+                  for r, (g, z) in enumerate(zip(got, against["ranks"]))]
     if bad or first > TOL_ZERO1_LOSS:
-        raise AssertionError("\n".join(lines) + f"\nfull-width ZeRO-1 run: "
-                             f"ranks {bad} off (state, losses); first loss "
-                             f"{first:.3g} from the one-card run's (tol "
-                             f"{TOL_ZERO1_LOSS})")
+        raise AssertionError("\n".join(lines) + f"\nfull-width grid run: "
+                             f"ranks {bad} off (state, losses, expert "
+                             f"bytes); first loss {first:.3g} from the "
+                             f"one-card run's (tol {TOL_ZERO1_LOSS})")
     lines.append(f"first loss vs the one-card run: {first:.3g} relative (tol "
                  f"{TOL_ZERO1_LOSS})")
-    return lines
+    return lines, {"one": one, "ranks": got}
 
 
 # the relayout phases: each train phase (TRAINS) re-laid out after every 4th
@@ -3767,7 +3840,8 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
           f"{out['warmup_s']:.2f} s  peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches on the {label} path: {json.dumps(launches)}"
-          + (f"; its code implies {json.dumps(implied)}" if implied else ""))
+          + (f"; its code implies {json.dumps(implied)}" if implied else "")
+          + f"; fused_swiglu by form {json.dumps(out['swiglu_forms'])}")
     print(f"sample tokens: {out['tokens'][0].tolist()}")
     unprofiled = {"prefill": out["ttft_s"] * 1e3,
                   "decode": out["decode_s_per_tok"] * 1e3}
@@ -3779,7 +3853,8 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     for step, p in profile_phase(argv).items():
         print_profile(f"{label} {step}", p, unprofiled[step])
         check_profile(f"{label} {step}", p,
-                      flash=step == "prefill" and lm.has_attention(cfg))
+                      flash=step == "prefill" and lm.has_attention(cfg),
+                      form=flash_form(cfg))
         times[f"{step}_busy_share"] = (None if p is None
                                        else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
@@ -3794,25 +3869,37 @@ def short_name(name: str, width: int = 90) -> str:
     return name[:width]
 
 
-# kernels of earlier forms that no profile may show any more
 # kernels no full-width step may run: the combine's retired zero fill,
-# atomics and cast, and the flash tensor-core form (the bf16 shapes the
-# Hopper form refuses; no full-width shape is one)
-OFF_PATH = ("scatter_add_rows", "cast_from_f32", "flash_fwd_tc")
+# atomics and cast, the SwiGLU's FMA form, and the flash tensor-core form
+# (the bf16 shapes the Hopper form refuses) outside the group sizes that
+# take it at full width (TC_GROUPS)
+OFF_PATH = ("scatter_add_rows", "cast_from_f32", "swiglu_tile", "flash_fwd_tc")
+# Hq / Hkv of the full-width configs whose flash runs the mma.sync form
+# flash_fwd_tc (64 % G != 0): mixtral-8x22b's 6, deepseek-v3-bench's 7
+TC_GROUPS = (6, 7)
 
 
-def check_profile(label: str, p: dict | None, flash: bool) -> None:
-    """Fails if a profiled step ran a kernel of ``OFF_PATH``, or
-    (``flash``) ran no ``flash_fwd_wgmma``."""
+def flash_form(cfg) -> str:
+    """The flash kernel a full-width prefill of ``cfg`` runs (a family
+    without attention runs none: ``check_profile`` is not asked)."""
+    return ("flash_fwd_tc" if cfg.n_kv_heads
+            and cfg.n_heads // cfg.n_kv_heads in TC_GROUPS
+            else "flash_fwd_wgmma")
+
+
+def check_profile(label: str, p: dict | None, flash: bool,
+                  form: str = "flash_fwd_wgmma") -> None:
+    """Fails if a profiled step ran a kernel of ``OFF_PATH`` (but the flash
+    ``form`` it must run), or (``flash``) ran no ``form``."""
     if p is None:
         return
     names = [name for name, _ in p["by_kernel"]]
-    off = [n for n in names if any(x in n for x in OFF_PATH)]
+    off = [n for n in names if any(x in n for x in OFF_PATH if x != form)]
     if off:
         raise AssertionError(f"profile {label} shows kernels off the "
                              f"full-width path {off}")
-    if flash and not any("flash_fwd_wgmma" in n for n in names):
-        raise AssertionError(f"profile {label} shows no flash_fwd_wgmma")
+    if flash and not any(form in n for n in names):
+        raise AssertionError(f"profile {label} shows no {form}")
 
 
 def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
@@ -3861,7 +3948,8 @@ def train_and_profile(label: str, argv, implied=None,
               f"{(tr.expert_ema.max(-1).values / tr.expert_ema.sum(-1)).max().item():.4f}")
     print(f"launches on the {label} path ({n} steps): {json.dumps(launches)}; "
           f"per step: {json.dumps({k: v / n for k, v in launches.items()})}"
-          + (f"; its code implies {json.dumps(implied)}" if implied else ""))
+          + (f"; its code implies {json.dumps(implied)}" if implied else "")
+          + f"; fused_swiglu by form {json.dumps(out['swiglu_forms'])}")
     unprofiled = out["ms_per_step"]
     if record is not None:
         record.update(losses=out["losses"], ms_per_step=unprofiled)
@@ -3872,7 +3960,7 @@ def train_and_profile(label: str, argv, implied=None,
             record["busy_ms"] = None if p is None else p["busy_ms"]
         print_profile(f"{label} {part}", p, unprofiled)
         check_profile(f"{label} {part}", p, flash=part != "adamw.update"
-                      and lm.has_attention(cfg))
+                      and lm.has_attention(cfg), form=flash_form(cfg))
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items())
@@ -3940,6 +4028,126 @@ def print_checkpoint(ck: dict) -> None:
           f"{ck['second']['restore_s']} s) with loss "
           f"{ck['second']['losses'][0]!r}, the continued run's "
           f"{ck['continued']!r}; launches {json.dumps(ck['launches'])}")
+
+
+# the reference's large MoE configs at full width, depth cut: mixtral-8x22b
+# (d 6144, 48 / 8 heads of 128: group size 6; 8 experts, top-2, f 16384;
+# window 4096) at 2 of its 56 layers, served 8 x 512 through fused_flat and
+# fused_hier and one prompt of 5120 tokens (past the window) with decode,
+# and trained at 1 layer, B 4 x S 512; deepseek-v3-bench (d 7168, 56 / 8
+# heads: group size 7; 256 experts, top-8, f 2048) at 1 of its 61 layers,
+# served 8 x 512 (its training, ~182 GB a layer, needs more cards)
+MIXTRAL, DEEPSEEK = "mixtral-8x22b", "deepseek-v3-bench"
+LARGE_FLAGS = ["--requests", "8", "--prompt-len", "512", "--gen", "16"]
+WINDOW_PROMPT = 5120
+LARGE_SERVE = {
+    MIXTRAL: ["--arch", MIXTRAL, "--engine", "fused_flat", "--layers", "2"]
+    + LARGE_FLAGS,
+    f"{MIXTRAL} fused_hier": ["--arch", MIXTRAL, "--engine", "fused_hier",
+                              "--layers", "2"] + LARGE_FLAGS,
+    f"{MIXTRAL} window": ["--arch", MIXTRAL, "--engine", "fused_flat",
+                          "--layers", "2", "--requests", "1", "--prompt-len",
+                          str(WINDOW_PROMPT), "--gen", "16"],
+    DEEPSEEK: ["--arch", DEEPSEEK, "--engine", "fused_flat", "--layers", "1"]
+    + LARGE_FLAGS,
+}
+LARGE_TRAINS = {f"{MIXTRAL} train": ["--arch", MIXTRAL, "--engine",
+                                     "fused_flat", "--layers", "1"]
+                + TRAIN_FLAGS}
+# the kernels at each large path's shapes: (MoE shapes, None for the window
+# path, whose MoE shapes are the serve path's at T 5120; attention; window)
+LARGE_SHAPES = {
+    MIXTRAL: (dict(t=4096, d=6144, n_experts=8, top_k=2, f=16384,
+                   decode_t=8),
+              dict(b=8, sq=512, sk=512, hq=48, hkv=8, hd=128), 4096),
+    f"{MIXTRAL} window": (None, dict(b=1, sq=WINDOW_PROMPT, sk=WINDOW_PROMPT,
+                                     hq=48, hkv=8, hd=128), 4096),
+    DEEPSEEK: (dict(t=4096, d=7168, n_experts=256, top_k=8, f=2048,
+                    decode_t=8),
+               dict(b=8, sq=512, sk=512, hq=56, hkv=8, hd=128), None),
+}
+LARGE_TRAIN_SHAPES = {f"{MIXTRAL} train": (
+    dict(t=2048, d=6144, n_experts=8, top_k=2, f=16384, decode_t=8),
+    dict(b=4, sq=512, sk=512, hq=48, hkv=8, hd=128))}
+
+
+def serve_implied(argv) -> dict:
+    """The launches a fused_flat or fused_hier serve run of ``argv`` implies
+    at EP 1: two prefills and gen + 1 decode steps (2 warm-up, gen - 1
+    timed) over its layers; a prefill layer gathers and combines once
+    (fused_hier twice: stage 1 and the expansion, the pre-combine and the
+    origin sum) and runs one fused_swiglu and one flash forward, a decode
+    step one fused_swiglu a layer."""
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    per = ENGINE_LAUNCHES[args.engine](1)
+    n = 2 * args.layers
+    return {"segment_gather": n * per[0], "segment_scatter_add": n * per[1],
+            "fused_swiglu": (2 + args.gen + 1) * args.layers,
+            "flash_attention": n, "grouped_matmul": 0,
+            "segment_scatter_add_bwd": 0}
+
+
+def train_implied(argv) -> dict:
+    """The launches a fused_flat train run of ``argv`` implies at EP 1: a
+    layer a step gathers once, combines once and scatter-adds once more as
+    the gather's backward, runs the scatter-add's own backward, one
+    fused_swiglu, one flash forward and the SwiGLU backward's five
+    grouped_matmul products."""
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    n = args.layers * args.steps
+    return {"segment_gather": n, "segment_scatter_add": 2 * n,
+            "segment_scatter_add_bwd": n, "fused_swiglu": n,
+            "flash_attention": n, "grouped_matmul": 5 * n}
+
+
+def large_rows(timer=time_ms) -> list[dict]:
+    """Every kernel at the large serving paths' shapes (``LARGE_SHAPES``)
+    against its plain version: the MoE kernels at the prefill and decode
+    shapes (fused_swiglu's large-f form), and the flash forward at each
+    path's group size (mixtral's 6, deepseek's 7: the mma.sync form) and
+    window, at 512 tokens and at the 5120-token prompt."""
+    import torch
+    rows = []
+    for label, (moe, attn, window) in LARGE_SHAPES.items():
+        with torch.inference_mode():
+            if moe is not None:
+                inp = main_path_inputs("cuda", **moe)
+                rows += [dict(r, path=label) for r in kernel_phase(
+                    inp, timer, fma=False, counting=False)]
+                del inp
+                torch.cuda.empty_cache()
+            rows.append(dict(flash_row(*attention_inputs("cuda", **attn),
+                                       window=window, timer=timer),
+                             path=label))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def large_train_rows(timer=time_ms) -> list[dict]:
+    """The kernels of the large train paths (``LARGE_TRAIN_SHAPES``) at
+    their shapes: the forwards (``train_rows``) and the backwards
+    (``backward_report``, printed)."""
+    import torch
+    rows = []
+    for label, (moe, attn) in LARGE_TRAIN_SHAPES.items():
+        inp = main_path_inputs("cuda", **moe)
+        with torch.no_grad():
+            rows += [dict(r, path=label) for r in train_rows(inp, attn,
+                                                             timer)]
+        back = backward_report(inp, attn, label, timer)
+        del inp
+        torch.cuda.empty_cache()
+    return rows, back
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The seconds since the script started, after ``what``."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {what} done", flush=True)
 
 
 def main() -> None:
@@ -4070,8 +4278,16 @@ def main() -> None:
               f"the slices of one lane: {line}")
         rows += [dict(r, path=label) for r in lane_kernel_rows]
         torch.cuda.empty_cache()
+    del train_inp
+    stamp("the kernel rows of the earlier paths")
+    rows += large_rows()
+    large_train, large_back = large_train_rows()
+    rows += large_train
+    stamp("the kernel rows of the large paths")
+    train_inp = main_path_inputs("cuda", **TRAIN[1])
     for r in rows:
         print_row(r)
+    rows += large_back
     rows += backward_report(train_inp, TRAIN[2], "train")
     rows += backward_report(tx_inp, TX_TRAIN[2], "moe-tx train")
     rows += backward_report(ffn_train, None, "moe-ffn train")
@@ -4137,6 +4353,12 @@ def main() -> None:
         launches[label], serve_times[label] = serve_and_profile(
             label, argv, *family_kernels(plan["cfg"], train=False),
             implied=implied)
+    stamp("the serve phases of the earlier paths")
+    for label, argv in LARGE_SERVE.items():
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, *family_kernels(get_arch(argv[1]), train=False),
+            implied=serve_implied(argv))
+    stamp("the large serve phases")
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
@@ -4176,6 +4398,11 @@ def main() -> None:
               f"{plan['slices']} per lane (capacity {plan['cap']}); launches "
               f"its code implies: {json.dumps(implied)}")
         launches[label] = train_and_profile(label, argv, implied=implied)
+    stamp("the train phases of the earlier paths")
+    for label, argv in LARGE_TRAINS.items():
+        launches[label] = train_and_profile(label, argv,
+                                            implied=train_implied(argv))
+    stamp("the large train phases")
     ckpt = checkpoint_phase()
     launches["checkpoint"] = ckpt["launches"]
     print_checkpoint(ckpt)
@@ -4187,6 +4414,7 @@ def main() -> None:
                  f"{v['busy_ms']:.4f} ms over {v['activities']} activities")
               for k, v in cost.items()))
     torch.cuda.empty_cache()
+    stamp("checkpoints and the traffic cost")
     for arch, engine in ([(a, e) for e in REDUCED_ENGINES for a in PATHS]
                          + NEW_REDUCED):
         worst = reduced_check(arch, engine=engine)
@@ -4247,6 +4475,7 @@ def main() -> None:
                   f"{json.dumps(err['launches'])}")
     finally:
         dist.destroy_process_group()
+    stamp("the reduced checks")
     for line in ep2_card_check():
         print(f"EP 2 on one card (two gloo ranks), f32 train step vs EP 1: "
               f"{line}")
@@ -4259,8 +4488,16 @@ def main() -> None:
         print(f"(2, 2) grid on one card (four gloo ranks), f32 train step vs "
               f"one rank: {line}")
     launches.update(grid_launches)
-    for line in zero1_phase():
+    zero1_lines, zero1 = zero1_phase()
+    for line in zero1_lines:
         print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
+    stamp("ZeRO-1 grid")
+    fsdp_lines, _ = zero1_phase(ZERO1 + ["--fsdp-experts", "on"],
+                                against=zero1)
+    for line in fsdp_lines:
+        print(f"full-width FSDP run (ZeRO-3 of the experts), (2, 2) grid on "
+              f"one card: {line}")
+    stamp("FSDP grid")
 
     print(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -30,7 +30,10 @@ the layout's world writes, and :func:`wait` ends in a barrier, so that every
 rank reads the same ``LATEST`` after it.  :func:`restore` over a group reads
 each leaf with ``np.load(mmap_mode="r")`` and keeps this rank's lane and
 ZeRO-1 slice of the layout given, which may be another grid's than the
-saver's (``runtime/elastic.remesh_restore``).
+saver's (``runtime/elastic.remesh_restore``).  Under FSDP of the experts
+(``Layout.fsdp``) an expert leaf's f-slice, parameter and state alike, is
+gathered over the data group on its f dim (``parallel/sharding``) instead
+of a ZeRO-1 slice, and a restore cuts it so, with FSDP on or off.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch.distributed as dist
 from repro_torch.core import dcomm
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 
 _BF16 = "bfloat16"
 
@@ -58,7 +62,8 @@ class Layout:
     """How this rank holds the whole leaves: lane ``lane`` of ``ep`` (the
     expert leaves) over ``ep_group``, data rank ``d`` of ``dp`` (ZeRO-1 of
     the optimizer state) over ``data_group``; ``world`` holds every rank
-    (None: one)."""
+    (None: one); ``fsdp``: the expert leaves' f dim is split over the data
+    group (parameters and state; ZeRO-3 of the experts)."""
     ep: int = 1
     lane: int = 0
     dp: int = 1
@@ -66,6 +71,7 @@ class Layout:
     ep_group: dist.ProcessGroup | None = None
     data_group: dist.ProcessGroup | None = None
     world: dist.ProcessGroup | None = None
+    fsdp: bool = False
 
     @property
     def writer(self) -> bool:
@@ -75,15 +81,16 @@ class Layout:
 ONE = Layout()
 
 
-def layout(ep_group=None, mesh=None) -> Layout:
+def layout(ep_group=None, mesh=None, fsdp: bool = False) -> Layout:
     """The :class:`Layout` of a rank over ``ep_group`` (a group, a
     ``dcomm.EPGroups`` or None) or over ``mesh`` (a ``launch.mesh.HostMesh``,
-    whose EP group is taken then); that of a model context is
-    ``layout(ctx.ep_group, ctx.mesh)``."""
+    whose EP group is taken then), with the experts under FSDP over its
+    data group (``fsdp``); that of a model context is
+    ``layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts)``."""
     if mesh is not None:
         return Layout(mesh.model, dcomm.lane_index(mesh.ep_group), mesh.data,
                       mesh.data_index, mesh.ep_group, mesh.data_group,
-                      mesh.grid)
+                      mesh.grid, fsdp and mesh.data > 1)
     ep = dcomm.group_size(ep_group)
     if ep == 1:
         return ONE
@@ -148,8 +155,12 @@ class _Role:
         return lay.ep > 1 and self.model is not None and lm.lane_sharded(
             self.model)
 
+    def fsdp(self, lay: Layout) -> bool:
+        return lay.fsdp and self.model is not None and sharding.fsdp_sharded(
+            self.model)
+
     def zero(self, rank_param_shape, lay: Layout) -> int | None:
-        if not self.state or rank_param_shape is None:
+        if not self.state or rank_param_shape is None or self.fsdp(lay):
             return None
         return adamw.zero_dim(rank_param_shape, lay.dp,
                               self.model is not None
@@ -180,9 +191,12 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
-    """The whole leaf of this rank's ``t``: its ZeRO-1 slice gathered over
-    the data group, then its lane over the EP group."""
-    if lay.dp > 1:
+    """The whole leaf of this rank's ``t``: its ZeRO-1 slice (or its FSDP
+    slice) gathered over the data group, then its lane over the EP group."""
+    if role.fsdp(lay):
+        t = _all_gather(t, sharding.fsdp_dim(role.model) % t.dim(),
+                        lay.data_group, lay.dp)
+    elif lay.dp > 1:
         dim = role.zero(role.param, lay)
         if dim is not None:
             t = _all_gather(t, dim, lay.data_group, lay.dp)
@@ -305,9 +319,12 @@ def latest_step(path: str | None) -> int | None:
 
 def _cut(role: _Role, a: np.ndarray, lay: Layout) -> np.ndarray:
     """This rank's part of a whole leaf ``a``: its lane, then its ZeRO-1
-    slice (of the parameter's lane-held shape)."""
+    slice (of the parameter's lane-held shape) or its FSDP slice."""
     if role.sharded(lay):
         a = lm.lane_cut(role.model, a, lay.ep, range(lay.lane, lay.lane + 1))
+    if role.fsdp(lay):
+        return sharding.data_cut(a, sharding.fsdp_dim(role.model), lay.dp,
+                                 lay.d)
     if lay.dp > 1:
         dim = role.zero(a.shape, lay)
         if dim is not None:

@@ -7,7 +7,9 @@ where the config has them), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
 keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
 with ``lane``, one rank's shard of it over an EP group (the expert leaves
-cut to that lane, ``models/lm.lane_cut``).
+cut to that lane, ``models/lm.lane_cut``), and with ``data`` = (DP, d) the
+f-slice data rank d of DP holds under FSDP of the experts
+(``parallel/sharding``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import FAMILY_PARTS, lane_cut, lane_sharded
+from repro_torch.parallel import sharding
 
 _COMMON = {"embed", "final_norm", "lm_head", "layers/ln1"}
 _PART_KEYS = {
@@ -47,13 +50,15 @@ def _flatten(tree, prefix=""):
             yield path, v
 
 
-def params_from_jax(tree: dict, device="cuda",
-                    lane: int | None = None) -> dict:
+def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
+                    data: tuple[int, int] | None = None) -> dict:
     """Map the reference's parameter tree of a family of :data:`KEYS` onto
     the port's, on ``device`` (pass ``"cpu"`` for the plain path); the
     family is the one whose keys the tree holds (ValueError if none).  With
     ``lane``: the tree rank ``lane`` of an EP group holds, its expert leaves
-    (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane."""
+    (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane.  With
+    ``data`` = (DP, d): their f dim cut to data rank d's slice of DP (FSDP,
+    ``sharding.data_cut``)."""
     paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
     if paths not in KEYS.values():
         near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))
@@ -66,6 +71,9 @@ def params_from_jax(tree: dict, device="cuda",
         if lane is not None and lane_sharded(path):   # (L, EP, E_local, ...)
             a = lane_cut(path, np.asarray(a), np.shape(a)[1],
                          range(lane, lane + 1))
+        if data is not None and sharding.fsdp_sharded(path):
+            a = sharding.data_cut(np.asarray(a), sharding.fsdp_dim(path),
+                                  *data)
         return _tensor(a, device)
 
     def conv(t, prefix=""):

@@ -267,6 +267,54 @@ def all_gather_seq(x: torch.Tensor,
     return _GatherSeq.apply(x, group)
 
 
+def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (a process group) joined on ``dim``
+    in rank order (one ``all_gather_into_tensor``; a new contiguous
+    tensor)."""
+    src = t.movedim(dim, 0).contiguous()
+    buf = src.new_empty((dist.get_world_size(group) * src.shape[0],
+                         *src.shape[1:]))
+    dist.all_gather_into_tensor(buf, src, group=group)
+    return buf.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` summed over ``group`` and cut on ``dim`` into one equal slice a
+    rank, this rank's returned: one ``reduce_scatter_tensor`` on NCCL; an
+    ``all_reduce`` and the slice elsewhere (gloo runs no reduce-scatter)."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+    else:
+        dist.all_reduce(src, group=group)
+        k = src.shape[0] // n
+        r = dist.get_rank(group)
+        out = src[r * k:(r + 1) * k]
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    """:func:`all_gather_dim`, whose transpose is :func:`reduce_scatter_dim`
+    (sum): ZeRO-3's gather of a sharded weight, each rank's gradient of its
+    slice summed over the group."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Differentiable :func:`all_gather_dim` (:class:`_GatherDim`)."""
+    return _GatherDim.apply(t, dim, group)
+
+
 class DispatchResult(NamedTuple):
     """What the expert FFN consumes: a landed buffer already grouped by local
     expert, plus what combine() needs to route outputs home."""

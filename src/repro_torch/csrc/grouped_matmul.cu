@@ -53,6 +53,23 @@
 //
 // gmm_fma (float32): 64 x 64 tiles, FMA on the CUDA cores, any strides; no
 // TF32, so f32 stays exact enough for the 1e-3 card-vs-CPU check.
+//
+// gmm_swiglu_wgmma (bf16; the C entry grouped_swiglu): the gate/up half of
+// fused_swiglu (repro/kernels/fused_staging.py:fused_swiglu_pallas) where f
+// is too wide for fused_swiglu.cu's Hopper form to keep 64 x f activations
+// resident in shared memory (f above ~1472: deepseek-v3-bench's 2048,
+// mixtral-8x22b's 16384):
+//   a[g, c, :] = silu(x[g, c, :] @ w1[g % E]) * (x[g, c, :] @ w3[g % E])
+// for rows c < counts[g], zero past it, written in bf16; the caller then
+// runs grouped_matmul(a, w2).  The layout is gmm_wgmma's with two B
+// operands: one block per (128-column tile, 128-row tile, group), a stage
+// holding the x k-step (128 x 64) and the same 64 x 128 k-step of w1 and of
+// w3 (two 64 x 64 MN-major boxes each, row-major weights only), 48 KiB as
+// gmm_wgmma's; each consumer warpgroup keeps two 64 x 128 f32 accumulators
+// (h and u, wgmma m64n128k16) and applies silu(h) * u in registers before
+// the store, so h and u never reach device memory.  At mixtral's prefill
+// shape (8 x 2048 x 6144 against 16384) the (G, C, f) bf16 buffer is about
+// 11 % of the three weights' bytes (1 % at deepseek's).
 #include <climits>
 
 #include "common.cuh"
@@ -261,6 +278,121 @@ __global__ void __launch_bounds__(kGThreads, 1)
   }
 }
 
+constexpr int kSBN = 128;  // gmm_swiglu_wgmma: output columns per tile
+
+__global__ void __launch_bounds__(kGThreads, 1)
+    gmm_swiglu_wgmma(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap w1map,
+                     const __grid_constant__ CUtensorMap w3map,
+                     const int* __restrict__ counts, bf16* __restrict__ out,
+                     int E, int C, int K, int N, int m_tiles, int n_tiles) {
+  using namespace hopper;
+  const int n_t = blockIdx.x % n_tiles;
+  const int m_t = (blockIdx.x / n_tiles) % m_tiles;
+  const int g = blockIdx.x / n_tiles / m_tiles;
+  const int n0 = n_t * kSBN, m0 = m_t * kGBM;
+  const int tid = threadIdx.x;
+  const int rows = min(kGBM, C - m0);
+  const int cols = min(kSBN, N - n0);
+  const int live = max(0, min(rows, counts[g] - m0));
+  bf16* o = out + (static_cast<size_t>(g) * C + m0) * N + n0;
+  if (live == 0) {  // the whole tile is past the group's occupancy
+    zero_rows(o, N, rows, cols, tid, kGThreads);
+    return;
+  }
+
+  extern __shared__ __align__(1024) unsigned char smem_s[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_s);  // [kGStages]
+  uint64_t* empty = full + kGStages;                      // [kGStages]
+  const uint32_t s0 = smem_addr(smem_s);
+  unsigned char* ring = smem_s + (((s0 + 256 + 1023) & ~1023u) - s0);
+  const int nk = (K + kGBK - 1) / kGBK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kGStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = tid / 32;
+  if (warp == 8) {  // producer: one lane issues every load
+    if (tid % 32 == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&w1map);
+      prefetch_map(&w3map);
+      const int e = g % E;
+      const bool two_halves = live > 64;
+      const int stage_bytes = kGStageBytes - (two_halves ? 0 : kGABytes / 2);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* slot = ring + st * kGStageBytes;
+        if constexpr (!kLoads) {
+          mbar_arrive(&full[st]);
+        } else {
+          mbar_expect_tx(&full[st], stage_bytes);
+          tma_load_3d(slot, &xmap, &full[st], kt * kGBK, m0, g);
+          if (two_halves)
+            tma_load_3d(slot + kGABytes / 2, &xmap, &full[st], kt * kGBK, m0 + 64,
+                        g);
+          // w1 then w3: two 64 (n) x 64 (k rows) boxes each
+          for (int q = 0; q < 2; ++q) {
+            tma_load_3d(slot + kGABytes + q * kBoxBytes, &w1map, &full[st],
+                        n0 + 64 * q, kt * kGBK, e);
+            tma_load_3d(slot + kGABytes + (2 + q) * kBoxBytes, &w3map,
+                        &full[st], n0 + 64 * q, kt * kGBK, e);
+          }
+        }
+        if (++st == kGStages) { st = 0; ph ^= 1; }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64)
+    const int wg = warp / 4;
+    const int t = tid % 128;
+    float h[64], u[64];  // the first products (kt = 0, kk = 0) overwrite them
+    int st = 0, prev = -1;
+    uint32_t ph = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full[st], ph);
+      {
+        const unsigned char* slot = ring + st * kGStageBytes;
+        const unsigned char* a = slot + wg * (kGABytes / 2);
+        const unsigned char* b1 = slot + kGABytes;
+        const unsigned char* b3 = b1 + 2 * kBoxBytes;
+        fence_acc(h);
+        fence_acc(u);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kGBK / 16 && kProducts; ++kk) {
+          const uint64_t da = desc(a + 32 * kk, 16, 1024);
+          wgmma_m64n128k16<1>(h, da, desc(b1 + 2048 * kk, kBoxBytes, 1024),
+                              (kt | kk) != 0);
+          wgmma_m64n128k16<1>(u, da, desc(b3 + 2048 * kk, kBoxBytes, 1024),
+                              (kt | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_acc(h);
+        fence_acc(u);
+      }
+      if (prev >= 0 && t % 32 == 0) mbar_arrive(&empty[prev]);
+      prev = st;
+      if (++st == kGStages) { st = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_acc(h);
+    fence_acc(u);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) h[i] = h[i] / (1.f + __expf(-h[i])) * u[i];
+    store_acc(o + static_cast<size_t>(64 * wg) * N, N, rows - 64 * wg,
+              live - 64 * wg, cols, h, t);
+  }
+}
+
 int launch_wgmma(const void* x, const void* w, const void* counts, void* out,
                  int G, int E, int C, int K, int N, int sw_e, int sw_k,
                  int sw_n, cudaStream_t st) {
@@ -298,6 +430,40 @@ int launch_wgmma(const void* x, const void* w, const void* counts, void* out,
 }
 
 }  // namespace
+
+// x: (G, C, K) contiguous bf16; w1, w3: E row-major (K, N) weights each,
+// expert e at w1 + e * sw_e (sw_e and N multiples of 8, 16-byte aligned);
+// counts: (G,) int32; out: (G, C, N) contiguous bf16, silu(x @ w1) * (x @
+// w3) per group, rows at or past counts[g] zero (gmm_swiglu_wgmma).  Returns
+// hopper::kErrTensorMap if TMA refuses a map.
+extern "C" int grouped_swiglu(const void* x, const void* w1, const void* w3,
+                              const void* counts, void* out, int G, int E,
+                              int C, int K, int N, int sw_e, void* stream) {
+  if (G == 0 || C == 0 || N == 0) return static_cast<int>(cudaSuccess);
+  if (E <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || sw_e % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int m_tiles = (C + kGBM - 1) / kGBM, n_tiles = (N + kSBN - 1) / kSBN;
+  const long long blocks = static_cast<long long>(G) * m_tiles * n_tiles;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t es = sizeof(bf16);
+  const uint64_t uk = K, un = N, uc = C;
+  CUtensorMap xm, w1m, w3m;
+  bool ok = hopper::make_map_3d(&xm, x, uk, uc, G, uk * es, uc * uk * es,
+                                kGBK, kGBM / 2);
+  ok = ok && hopper::make_map_3d(&w1m, w1, un, uk, E, un * es, sw_e * es, 64,
+                                 kGBK);
+  ok = ok && hopper::make_map_3d(&w3m, w3, un, uk, E, un * es, sw_e * es, 64,
+                                 kGBK);
+  if (!ok) return hopper::kErrTensorMap;
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_swiglu_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gmm_swiglu_wgmma<<<static_cast<unsigned>(blocks), kGThreads, kGSmem, st>>>(
+      xm, w1m, w3m, static_cast<const int*>(counts), static_cast<bf16*>(out), E,
+      C, K, N, m_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x: (G, C, K) contiguous; w: E weights, element (e, k, n) at
 // w[e * sw_e + k * sw_k + n * sw_n]; group g reads weight g % E; counts:

@@ -6,13 +6,18 @@ Port of the Pallas kernel ``repro/kernels/fused_staging.py``
 one block per (source lane, local expert, tile of rows) keeps the tile's
 hidden activations in shared memory, so the (C, f) activations never reach
 device memory; a tile past the group's occupancy writes zeros and skips its
-weights.  Two forms, chosen from the inputs: bf16 with d and f multiples of 8
-and 16-byte aligned operands runs the Hopper form (64-row tiles, each split
-over a two-CTA cluster; TMA into a shared-memory ring, ``wgmma`` on two
-consumer warpgroups; :func:`hopper_plan` mirrors its shared-memory plan);
-anything else runs with FMA on the CUDA cores, walking f in chunks into an
-f32 output accumulator.  :func:`fused_swiglu_plain` is its plain PyTorch
-version.
+weights.  Three forms, chosen from the inputs (:func:`form`): bf16 with d
+and f multiples of 8 and 16-byte aligned operands runs the Hopper form
+(64-row tiles, each split over a two-CTA cluster; TMA into a shared-memory
+ring, ``wgmma`` on two consumer warpgroups; :func:`hopper_plan` mirrors its
+shared-memory plan) where the 64 x f activations fit beside its stages;
+where they do not (f above ~1472: deepseek-v3-bench, mixtral-8x22b) two
+tensor-core launches, the gate/up products with the SwiGLU applied in
+registers into an (S E, C, f) bf16 buffer (``grouped_swiglu`` in
+``csrc/grouped_matmul.cu``) and ``grouped_matmul`` of it by w2; float32
+runs with FMA on the CUDA cores (bf16 only where TMA refuses the operands),
+walking f in chunks into an f32 output accumulator.
+:func:`fused_swiglu_plain` is its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import grouped_matmul as gmm_k
 from repro_torch.kernels.ref import fused_swiglu_ref as fused_swiglu_plain
 
 # tile geometry of csrc/fused_swiglu.cu
@@ -59,15 +65,32 @@ def hopper_plan(f: int, limit: int = SMEM_OPTIN) -> tuple[int, int]:
     return (stages if smem <= limit else 0), smem
 
 
-def use_tensor_cores(x: torch.Tensor, ws, limit: int = SMEM_OPTIN) -> bool:
-    """Whether the Hopper form takes these inputs: bf16, d and f positive
-    multiples of 8 (TMA's 16-byte strides), 16-byte aligned operands, and at
-    least MIN_STAGES stages beside the resident activations."""
+def tma_layout(x: torch.Tensor, ws) -> bool:
+    """Whether TMA takes these operands: bf16, d and f positive multiples of
+    8 (16-byte strides) and 16-byte aligned pointers."""
     d, f = x.shape[-1], ws[0].shape[-1]
     return (x.dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and d > 0 and f > 0
-            and all(t.data_ptr() % 16 == 0 for t in (x, *ws))
-            and hopper_plan(f, limit)[0] >= MIN_STAGES)
+            and all(t.data_ptr() % 16 == 0 for t in (x, *ws)))
+
+
+def use_tensor_cores(x: torch.Tensor, ws, limit: int = SMEM_OPTIN) -> bool:
+    """Whether the Hopper form takes these inputs: :func:`tma_layout`, and
+    at least MIN_STAGES stages beside the resident activations."""
+    return (tma_layout(x, ws)
+            and hopper_plan(ws[0].shape[-1], limit)[0] >= MIN_STAGES)
+
+
+def form(x: torch.Tensor, ws, limit: int = SMEM_OPTIN) -> str:
+    """The form a call takes: "wgmma" (the Hopper form), "split" (bf16 at
+    an f the Hopper form cannot keep resident: two tensor-core launches) or
+    "fma" (float32, and bf16 operands TMA refuses: d or f not a multiple
+    of 8, which no config has)."""
+    if use_tensor_cores(x, ws, limit):
+        return "wgmma"
+    if tma_layout(x, ws):
+        return "split"
+    return "fma"
 
 
 def tile_rows(c: int, d: int, elem_bytes: int, limit: int = SMEM_OPTIN) -> int:
@@ -105,15 +128,18 @@ def fused_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     limit = getattr(torch.cuda.get_device_properties(x.device),
                     "shared_memory_per_block_optin", SMEM_OPTIN)
     out = torch.empty_like(x)
-    if use_tensor_cores(x, (w1, w3, w2), limit):
-        _launch_tc(x, w1, w3, w2, counts, out)
-    else:
-        _launch_fma(x, w1, w3, w2, counts, out, limit)
+    how = form(x, (w1, w3, w2), limit)
+    {"wgmma": _launch_tc, "split": _launch_split,
+     "fma": lambda *a: _launch_fma(*a, limit)}[how](x, w1, w3, w2, counts,
+                                                    out)
     fused_swiglu.launches += 1
+    fused_swiglu.forms[how] += 1
     return out
 
 
 fused_swiglu.launches = 0
+# launches by form (:func:`form`), beside the one count of the wrapper
+fused_swiglu.forms = {"wgmma": 0, "split": 0, "fma": 0}
 
 
 def _launch_tc(x, w1, w3, w2, counts, out) -> None:
@@ -122,6 +148,21 @@ def _launch_tc(x, w1, w3, w2, counts, out) -> None:
     _build.check(fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
                     counts.data_ptr(), out.data_ptr(), s, e, c, d,
                     w1.shape[-1], _build.stream_of(x)), "fused_swiglu_tc")
+
+
+def _launch_split(x, w1, w3, w2, counts, out) -> None:
+    """The large-f form: silu(x @ w1) * (x @ w3) into an (S E, C, f) bf16
+    buffer (``grouped_swiglu``, one group per (s, e), rows past counts
+    zero), then the buffer by w2 (grouped_matmul's C entry) into ``out``."""
+    s, e, c, d = x.shape
+    f = w1.shape[-1]
+    cnt = counts.reshape(-1)
+    a = torch.empty((s * e, c, f), dtype=x.dtype, device=x.device)
+    fn = _build.bind("grouped_matmul", "grouped_swiglu", 5, 6)
+    _build.check(fn(x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+                    cnt.data_ptr(), a.data_ptr(), s * e, e, c, d, f, d * f,
+                    _build.stream_of(x)), "grouped_swiglu")
+    gmm_k.launch(a, w2, cnt, out.view(s * e, c, d))
 
 
 def _launch_fma(x, w1, w3, w2, counts, out, limit: int = SMEM_OPTIN) -> None:

@@ -59,13 +59,23 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
             f"{strides}, multiples of 8); got x {tuple(x.shape)}, w "
             f"{tuple(w.shape)}")
     out = torch.empty((g, c, n), dtype=x.dtype, device=x.device)
-    fn = _build.bind("grouped_matmul", "grouped_matmul", 4, 9)
-    _build.check(fn(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                    out.data_ptr(), g, e, c, k, n, *strides,
-                    _build.DTYPE_CODE[x.dtype], _build.stream_of(x)),
-                 "grouped_matmul")
+    launch(x, w, counts, out)
     grouped_matmul.launches += 1
     return out
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
+           out: torch.Tensor) -> None:
+    """The C entry on checked operands, into ``out`` (G, C, N); counted by
+    its caller (fused_swiglu's large-f form runs it as its second
+    launch)."""
+    g, c, k = x.shape
+    e, _, n = w.shape
+    fn = _build.bind("grouped_matmul", "grouped_matmul", 4, 9)
+    _build.check(fn(x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                    out.data_ptr(), g, e, c, k, n, *w.stride(),
+                    _build.DTYPE_CODE[x.dtype], _build.stream_of(x)),
+                 "grouped_matmul")
 
 
 grouped_matmul.launches = 0

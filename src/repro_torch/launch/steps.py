@@ -47,6 +47,14 @@ the whole batch, as the reference's over its data-sharded batch:
 - AdamW's state is sharded over the data group (ZeRO-1,
   ``optim/adamw.py``): build it with :func:`init_state`.
 
+Under the context's ``fsdp_experts`` over a data group (ZeRO-3 of the
+experts, ``models/lm.fsdp_group``) each rank holds its slice of its lane's
+expert weights' f dim, and their gradients arrive reduce-scattered over the
+data group by the MoE layers' backward, already summed: they get no
+:func:`reduce_lanes`.  The clip norm then sums their squares over the whole
+grid (the data and EP groups), and AdamW's state of them is the slice's
+own (no ZeRO-1 cut, no all-gather after the update).
+
 Under serial accumulation the sync runs once per step, on the micro-batch
 sum; each micro-batch's denominator is its own global count, so the loss is
 the reference's mean of per-micro means.  The traffic statistics sum their
@@ -134,8 +142,10 @@ def accum_fuses_into_stream(model: zoo.ModelBundle, accum: int) -> bool:
 
 def init_state(model: zoo.ModelBundle, params) -> adamw.AdamWState:
     """AdamW's state of ``params`` for the train step of ``model``: over a
-    data group this rank's ZeRO-1 slices (``adamw.init``)."""
-    return adamw.init(params, lm.data_group(model.ctx), lane_sharded)
+    data group this rank's ZeRO-1 slices (``adamw.init``), and the whole
+    state of its FSDP slices (``lm.fsdp_sharded``)."""
+    return adamw.init(params, lm.data_group(model.ctx), lane_sharded,
+                      fsdp=lm.fsdp_sharded(model.ctx))
 
 
 def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
@@ -156,6 +166,7 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     group = dcomm.process_group(model.ctx.ep_group)
     data = lm.data_group(model.ctx)
     grid = group if dp == 1 else model.ctx.mesh.grid
+    fsdp = lm.fsdp_group(model.ctx) is not None
 
     def grads_of(params, batch, traffic=None):
         ps = adamw.leaves(params)
@@ -202,7 +213,7 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             metrics = {"loss": lsum / accum}
         if ep * dp > 1:
             grads = reduce_replicated(grads, adamw.paths(params), grid)
-        if dp > 1:
+        if dp > 1 and not fsdp:   # FSDP: reduce-scattered in the backward
             grads = reduce_lanes(grads, adamw.paths(params), data)
         if accum > 1:
             grads = [g.div_(accum) for g in grads]
@@ -226,17 +237,22 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
     the whole tree's (``adamw.global_norm``); over a data group too, and
     ``opt_state`` holds this rank's ZeRO-1 slices (:func:`init_state`).
     The gradients are then whole on every data rank, so the clip norm
-    spans the EP group alone."""
+    spans the EP group alone; under FSDP the expert gradients are this
+    rank's slices, and it spans the whole grid."""
     grads_fn = value_and_grad(model, accum)
-    group = (dcomm.process_group(model.ctx.ep_group)
-             if dcomm.group_size(model.ctx.ep_group) > 1 else None)
-    data = lm.data_group(model.ctx)
+    ctx = model.ctx
+    group = (dcomm.process_group(ctx.ep_group)
+             if dcomm.group_size(ctx.ep_group) > 1 else None)
+    data = lm.data_group(ctx)
+    if lm.fsdp_group(ctx) is not None:
+        group = ctx.mesh.grid
 
     def train_step(params, opt_state, batch, traffic=None):
         _, metrics, grads = grads_fn(params, batch, traffic)
         params, opt_state, opt_metrics = adamw.update(
             adamw.unflatten(params, grads), opt_state, params, opt_cfg,
-            group=group, sharded=lane_sharded, data_group=data)
+            group=group, sharded=lane_sharded, data_group=data,
+            fsdp=lm.fsdp_sharded(ctx))
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -170,6 +170,12 @@ def parse_args(argv=None):
                          "migrate the expert weight blocks and their AdamW "
                          "state (0 = static placement); stats are collected "
                          "either way")
+    ap.add_argument("--fsdp-experts", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="split the expert weights' f dim over the data "
+                         "group (ZeRO-3 of the experts); auto: the "
+                         "reference's rule, on past 4 GB of one lane's "
+                         "expert weights")
     ap.add_argument("--traffic-decay", type=float, default=0.99,
                     help="EMA decay of the online traffic statistics")
     ap.add_argument("--calibrate", action="store_true",
@@ -234,7 +240,9 @@ def setup(args, device="cuda", ep_group=None,
                           moe_stream=args.moe_stream,
                           moe_interleave=args.moe_interleave,
                           traffic_decay=args.traffic_decay,
-                          calibration=calibration)
+                          calibration=calibration,
+                          fsdp_experts={"auto": None, "on": True,
+                                        "off": False}[args.fsdp_experts])
     # resuming a run that relayouted: the checkpoint's weights are laid out
     # by the placement history, not the arithmetic map (the reference's
     # train.py:269-279)
@@ -430,7 +438,9 @@ def apply_relayout(params, opt, traffic_state, ctx: lm.ModelContext, *,
     Each destination slot takes the replica mean of its expert's old copies
     (``relayout.migrate_lane_major``'s function, accumulated in float32).
     Over an EP group each rank holds its lane of those leaves, and on a
-    (data, model) grid its ZeRO-1 slice of their state (``adamw.zero_dim``):
+    (data, model) grid its ZeRO-1 slice of their state (``adamw.zero_dim``;
+    under FSDP, ``lm.fsdp_group``, its slice of their f dim, parameters
+    and state alike, which it moves over its EP group as a whole leaf):
     per layer and leaf, each rank index-adds its slots into a canonical
     float32 block, the block is summed over the EP group (over the whole
     grid where the state is cut on the slot axis, or its cut moves), and
@@ -482,8 +492,9 @@ def apply_relayout(params, opt, traffic_state, ctx: lm.ModelContext, *,
             whole_old = tuple(p.shape)
             whole_new = (whole_old[0], whole_old[1], new.experts_per_lane,
                          *whole_old[3:])
+            fsdp = lm.fsdp_sharded(ctx)(f"layers/moe/{name}")
             for tree in (params, opt.mu, opt.nu, opt.master):
-                state = tree is not params
+                state = tree is not params and not fsdp
                 cut = lambda shape: _Cut(adamw.zero_dim(shape, dp, True), dp,
                                          di) if state else _WHOLE
                 c_old, c_new = cut(whole_old), cut(whole_new)
@@ -631,7 +642,8 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
     ``first_step`` on, the ms of every executed step and their median past
     the warm-up, tokens per second (of the global batch), on the card this
     rank's peak device memory (GiB, params and optimizer state included),
-    this rank's AdamW state (GiB), the sequences and bytes ``--seq-migrate``
+    this rank's AdamW state (GiB) and expert parameters (bytes: its lane,
+    under FSDP its f-slice of it), the sequences and bytes ``--seq-migrate``
     moved, the final traffic state (None without one), each
     ``--relayout-every`` swap's stats (:func:`apply_relayout`: blocks and
     bytes moved, host ms, device ms on the card, and the step after which
@@ -657,7 +669,7 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
               "traffic statistics, which this run does not thread: the "
               "placement stays static", flush=True)
     log = print if _is_rank0() else (lambda *a, **k: None)
-    lay = checkpointer.layout(ctx.ep_group, ctx.mesh)
+    lay = checkpointer.layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts)
     ckpt = args.ckpt_dir
     sidecars = ckpt is not None and lay.writer
     auto = args.engine == "auto" and cfg.family == "moe"
@@ -792,6 +804,10 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
             "peak_mem_gib": (torch.cuda.max_memory_allocated(ctx.device) / 2**30
                              if on_card else None),
             "opt_state_gib": adamw.state_bytes(opt_state) / 2**30,
+            "expert_param_bytes": sum(
+                t.numel() * t.element_size() for path, t in zip(
+                    adamw.paths(params), adamw.leaves(params))
+                if lm.lane_sharded(path)),
             "seq_migrate": moved, "cfg": cfg, "traffic": box["traffic"],
             "relayouts": relayouts, "plans": plans,
             "placement": ctx.placement,

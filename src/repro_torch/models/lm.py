@@ -37,6 +37,7 @@ from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
                                           gqa_project)
 from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
+from repro_torch.parallel import sharding
 from repro_torch.layers.moe import (moe_block, moe_decode_block,
                                     stream_moe_layers, stream_tx_layers)
 
@@ -69,6 +70,10 @@ class ModelContext:
     # lm.py:62-68); the stream families share one schedule per block and
     # keep the single-engine dcfg
     engines: tuple | None = None
+    # the MoE families: the expert weights' f dim split over the data group
+    # (ZeRO-3 of the experts, the reference's ``fsdp_experts``); at one data
+    # rank it changes nothing
+    fsdp_experts: bool = False
 
 
 # the sub-layers of each ported family's layer, besides ``ln1`` (the
@@ -96,7 +101,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  moe_stream: int = 0, moe_interleave: int = 1,
                  pipe_slices: int = 0, calibration=None,
-                 traffic_decay: float = 0.99) -> ModelContext:
+                 traffic_decay: float = 0.99,
+                 fsdp_experts: bool | None = None) -> ModelContext:
     """Context of a ``dense``-, ``moe``-, ``moe_tx``- or ``moe_ffn``-family
     model whose EP domain is ``ep_group`` (None: one lane), or that of this
     rank on ``mesh`` (a
@@ -118,7 +124,11 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     fused_pipe's slice count (0: pipesim's); ``calibration`` (a
     ``core.calibrate.CalibrationTable``) replaces the H100 spec-point pipe
     constants with measured ones; ``traffic_decay`` is the EMA decay of
-    the traffic statistics.  A family without MoE (dense) has no placement
+    the traffic statistics.  ``fsdp_experts`` splits the expert weights' f
+    dim over the data group (:func:`fsdp_group`); None takes the
+    reference's rule (lm.py:143-147): on when one lane's expert weights over
+    all layers exceed 4 GB in bf16 (:func:`fsdp_rule`).  A family without
+    MoE (dense) has no placement
     and no dcomm config, as the reference's, and runs on one rank: over a
     model axis the reference runs Megatron TP, and over a data axis plain
     data parallelism, neither ported.  Raises if ``device`` is CUDA and no
@@ -161,14 +171,40 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         ep_group = dcomm.ep_groups(
             ep_group, ns, ep // ns if multi_pod else 1,
             domains=None if mesh is None else mesh.ep_domains())
+    if fsdp_experts is None:
+        fsdp_experts = fsdp_rule(cfg, placement)
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
                         moe_stream, traffic_decay, mesh,
-                        max(1, moe_interleave))
+                        max(1, moe_interleave), fsdp_experts=fsdp_experts)
+
+
+def fsdp_rule(cfg: ArchConfig, placement) -> bool:
+    """The reference's ``fsdp_experts`` rule (lm.py:143-147): one lane's
+    expert weights over all layers, in bf16, exceed 4 GB."""
+    per_lane_gb = (max(1, placement.experts_per_lane) * 3 * cfg.d_model
+                   * cfg.moe.d_ff_expert * 2 * cfg.n_layers) / 1e9
+    return per_lane_gb > 4.0
 
 
 def data_group(ctx: ModelContext) -> dist.ProcessGroup | None:
     """The data group of ``ctx``'s grid (None: one data rank)."""
     return None if ctx.mesh is None else ctx.mesh.data_group
+
+
+def fsdp_group(ctx: ModelContext) -> dist.ProcessGroup | None:
+    """The data group the expert weights' f dim is split over: ``ctx``'s
+    data group under ``fsdp_experts`` with more than one data rank, else
+    None (every rank holds its lane's experts whole)."""
+    return data_group(ctx) if ctx.fsdp_experts else None
+
+
+def fsdp_sharded(ctx: ModelContext):
+    """The predicate on a leaf's path of the leaves split over the data
+    group under ``ctx`` (FSDP's expert leaves; none without
+    :func:`fsdp_group`)."""
+    if fsdp_group(ctx) is None:
+        return lambda path: False
+    return sharding.fsdp_sharded
 
 
 def stats_group(ctx: ModelContext):
@@ -181,13 +217,10 @@ def stats_group(ctx: ModelContext):
 # the leaves the reference shards over its EP axis ("model",
 # ``parallel/sharding.param_specs``): over an EP group each rank holds its
 # lane of them; every other leaf is replicated
-EXPERT_LEAVES = ("layers/moe/w1", "layers/moe/w3", "layers/moe/w2")
-
-
-def lane_sharded(path: str) -> bool:
-    """Whether the leaf at ``path`` ("a/b/c", ``adamw.paths``) is sharded over
-    the EP group, one lane a rank (the expert weights)."""
-    return path in EXPERT_LEAVES
+EXPERT_LEAVES = sharding.EXPERT_LEAVES
+# whether the leaf at a path ("a/b/c", ``adamw.paths``) is sharded over the
+# EP group, one lane a rank (the expert weights)
+lane_sharded = sharding.lane_sharded
 
 
 def _slot_ids(placement) -> list[list[int]]:
@@ -242,9 +275,10 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     on a leading (L,) axis, expert weights lane-major (L, lanes, E_local,
     d, f).  Over an EP group of more than one rank the expert leaves hold
     this rank's lane only (lanes = 1), and the other lanes are never drawn;
-    otherwise every lane of the placement.  An expert's weights are the
-    same for every EP size from the same ``gen`` (:func:`_expert_leaf`),
-    and so are the replicated leaves."""
+    otherwise every lane of the placement; under :func:`fsdp_group` their
+    f dim is cut to this data rank's slice (:func:`fsdp_cut`).  An
+    expert's weights are the same for every EP size from the same ``gen``
+    (:func:`_expert_leaf`), and so are the replicated leaves."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     init = lambda shape: dense_init(gen, shape, dtype=dtype, device=ctx.device)
     ones = lambda shape: torch.ones(shape, dtype=dtype, device=ctx.device)
@@ -265,12 +299,13 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     if cfg.moe is not None:
         fe, ids = cfg.moe.d_ff_expert, _slot_ids(ctx.placement)
         lanes = held_lanes(ctx)
-        experts = lambda shape: _expert_leaf(gen, lanes, ids, shape, dtype,
-                                             ctx.device)
+        experts = lambda name, shape: fsdp_cut(
+            f"layers/moe/{name}",
+            _expert_leaf(gen, lanes, ids, shape, dtype, ctx.device), ctx)
         layers["moe"] = {"router": init((L, d, cfg.moe.n_experts)),
-                         "w1": experts((L, d, fe)),
-                         "w3": experts((L, d, fe)),
-                         "w2": experts((L, fe, d))}
+                         "w1": experts("w1", (L, d, fe)),
+                         "w3": experts("w3", (L, d, fe)),
+                         "w2": experts("w2", (L, fe, d))}
     return {
         "embed": embed_init(gen, cfg.vocab, d, dtype, ctx.device),
         "layers": layers,
@@ -309,21 +344,37 @@ def lane_cut(path: str, t, ep: int, lanes: range):
         :, lanes.start:lanes.stop]
 
 
+def fsdp_cut(path: str, t, ctx: ModelContext):
+    """The leaf at ``path`` as this data rank holds it under ``ctx``: an
+    FSDP leaf (:func:`fsdp_sharded`) cut to its slice of the f dim (a
+    copy), any other as it is."""
+    group = fsdp_group(ctx)
+    if group is None or not sharding.fsdp_sharded(path):
+        return t
+    return sharding.data_cut(t, sharding.fsdp_dim(path), ctx.mesh.data,
+                             ctx.mesh.data_index).clone()
+
+
 def shard_params(tree, ctx: ModelContext) -> dict:
     """This rank's parameters cut from a whole tree (expert leaves of any
     lane count holding every slot of ``ctx.placement``, in its layout: a
     tree of another placement is migrated first,
     ``relayout.migrate_lane_major``): the expert leaves cut to the lanes
-    :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied);
-    the other leaves as they are (every leaf, without a placement)."""
+    :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied),
+    and under :func:`fsdp_group` to this data rank's slice of their f dim
+    (:func:`fsdp_cut`); the other leaves as they are (every leaf, without
+    a placement)."""
     lanes = held_lanes(ctx)
+
+    def cut(path, v):
+        if ctx.placement is None or not lane_sharded(path):
+            return v
+        v = lane_cut(path, v, ctx.placement.ep, lanes)
+        return fsdp_cut(path, v, ctx) if fsdp_group(ctx) else v.clone()
 
     def walk(node, prefix=""):
         return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
-                else (lane_cut(prefix + k, v, ctx.placement.ep, lanes).clone()
-                      if ctx.placement is not None and lane_sharded(prefix + k)
-                      else v)
-                for k, v in node.items()}
+                else cut(prefix + k, v) for k, v in node.items()}
 
     return walk(tree)
 
@@ -394,7 +445,7 @@ def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext,
                   traffic=traffic, traffic_decay=ctx.traffic_decay,
                   traffic_mask=None if traffic_mask is None
                   else seq_stripe(traffic_mask, ctx.ep_group),
-                  stats_group=stats_group(ctx))
+                  stats_group=stats_group(ctx), fsdp=fsdp_group(ctx))
     if traffic is None:
         return all_gather_seq(y, ctx.ep_group)
     return all_gather_seq(y[0], ctx.ep_group), y[1]
@@ -462,12 +513,11 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     The reference rematerialises each layer (or stream block) in its
     backward (``jax.checkpoint``); at the depths and widths the port trains
     on one card the activations fit beside the parameters and AdamW's state,
-    so the layers keep theirs.  The reference also shards the expert weights
-    over its DP axis when a lane's expert bytes exceed 4 GB
-    (``fsdp_experts``, lm.py:144-147); over a data group the port keeps
-    every expert weight of its lane on each data rank and shards only their
-    AdamW state (ZeRO-1, ``optim/adamw.py``); FSDP of the experts is not
-    ported (ROADMAP queue 1 item 8)."""
+    so the layers keep theirs; under ``fsdp_experts`` over a data group the
+    MoE layers gather each expert leaf again in the backward (as the
+    reference's remat does), so no layer keeps its gathered weights
+    (``layers/moe.py``).  The expert gradients of an FSDP leaf arrive
+    reduce-scattered over the data group, this rank's slice summed."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _traffic_needs_moe(cfg, traffic)
     h = params["embed"].to(cd)[inputs]
@@ -622,7 +672,8 @@ def _tx_stack(params, h: torch.Tensor, positions: torch.Tensor,
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,
             return_kv=return_kv,
             kv_out=None if kv is None else tuple(t[b0:b0 + blk] for t in kv),
-            group=ctx.ep_group, stats_group=stats_group(ctx))
+            group=ctx.ep_group, stats_group=stats_group(ctx),
+            fsdp=fsdp_group(ctx))
         if not isinstance(out, tuple):
             out = (out,)
         h = out[0]
@@ -663,7 +714,8 @@ def _ffn_stack(params, h: torch.Tensor, ctx: ModelContext, traffic=None,
             traffic=(None if traffic is None
                      else traffic_lib.layers(traffic, slice(b0, b0 + blk))),
             traffic_decay=ctx.traffic_decay, traffic_mask=mask,
-            group=ctx.ep_group, stats_group=stats_group(ctx))
+            group=ctx.ep_group, stats_group=stats_group(ctx),
+            fsdp=fsdp_group(ctx))
         if traffic is None:
             h = out
         else:
@@ -751,7 +803,8 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
     moe = lambda x, mp: moe_decode_block(
         x, mp, placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
-        norm_topk=cfg.moe.norm_topk, group=ctx.ep_group)
+        norm_topk=cfg.moe.norm_topk, group=ctx.ep_group,
+        fsdp=fsdp_group(ctx))
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i, cd)
         x = rms_norm(h, lp["ln1"])

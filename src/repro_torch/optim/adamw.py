@@ -19,6 +19,14 @@ the data group, so every data rank again holds whole parameters.  (An
 all-reduce and an all-gather, not a reduce-scatter: ZeRO-1 shards the state
 alone, and gloo runs no reduce-scatter.)
 
+A leaf that ``fsdp`` (a predicate on its path) names is the rank's own
+slice of a parameter split over the data group (ZeRO-3 of the experts,
+``models/lm.fsdp_group``): its gradient arrives already summed over the data
+group and cut to the slice, its state is the slice's own (no ZeRO-1 cut)
+and nothing is gathered after its update.  Its sum of squares is the rank's
+share of the clip norm over the group it is split across (the caller's
+``group``: the whole grid).
+
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
 the parameters' dtype, update the f32 master, mu and nu; the parameters are
@@ -38,9 +46,11 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+# LANE_DIM: the dim a ``sharded`` leaf is split on over the EP group, the
+# lane axis of lm's (L, lanes, ...) experts
+from repro_torch.parallel.sharding import LANE_DIM
+
 SLICE = 1 << 26          # elements per slice of a leaf in update/global_norm
-LANE_DIM = 1             # the dim a ``sharded`` leaf is split on over the EP
-                         # group: the lane axis of lm's (L, lanes, ...) experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,16 +129,25 @@ def _own(t: torch.Tensor, dim: int | None, dp: int, d: int) -> torch.Tensor:
     return t.narrow(dim, d * n, n)
 
 
+def _zero_dim(path: str, shape, dp: int, sharded, fsdp) -> int | None:
+    """:func:`zero_dim` of the leaf at ``path``; None for an ``fsdp``
+    leaf, whose state is its slice's own."""
+    if fsdp is not None and fsdp(path):
+        return None
+    return zero_dim(shape, dp, bool(sharded and sharded(path)))
+
+
 def init(params, data_group: dist.ProcessGroup | None = None,
-         sharded=None) -> AdamWState:
+         sharded=None, fsdp=None) -> AdamWState:
     """Zero mu and nu and the f32 master of ``params``; over a
     ``data_group`` of more than one rank this rank's ZeRO-1 slice of each
     (:func:`zero_dim`; ``sharded``, a predicate on a leaf's path, names the
-    lane-sharded leaves)."""
+    lane-sharded leaves; ``fsdp`` those held as the rank's slice, whose
+    state is whole)."""
     dp, d = _data_rank(data_group)
 
     def own(path, p):
-        dim = zero_dim(p.shape, dp, bool(sharded and sharded(path)))
+        dim = _zero_dim(path, p.shape, dp, sharded, fsdp)
         return _own(p.detach(), dim, dp, d)
 
     mine = unflatten(params, [own(path, p) for path, p in
@@ -203,7 +222,7 @@ def _gather(p: torch.Tensor, own: torch.Tensor, dim: int, group) -> None:
 @torch.no_grad()
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
            group: dist.ProcessGroup | None = None, sharded=None,
-           data_group: dist.ProcessGroup | None = None):
+           data_group: dist.ProcessGroup | None = None, fsdp=None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
     norm (over ``group``, with ``sharded`` naming the leaves sharded over it:
     :func:`global_norm`), update mu, nu and the f32 master, and copy the
@@ -211,7 +230,9 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     of more than one rank the gradients are whole and the same on every
     data rank; the state is this rank's ZeRO-1 slice (:func:`init`), and
     the updated slices are all-gathered over the data group into the
-    parameters.  Every leaf is written in place (params, mu, nu, master).
+    parameters; an ``fsdp`` leaf (a predicate on its path) is the rank's
+    slice, its state whole, and is not gathered.  Every leaf is written in
+    place (params, mu, nu, master).
     Returns (params, new state, metrics)."""
     gnorm = global_norm(grads, group, sharded)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -224,7 +245,7 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
                                    leaves(state.mu), leaves(state.nu),
                                    leaves(state.master), leaves(params)):
         p = p.detach()
-        dim = zero_dim(p.shape, dp, bool(sharded and sharded(path)))
+        dim = _zero_dim(path, p.shape, dp, sharded, fsdp)
         g = _own(g, dim, dp, d)
         own = p if dim is None else p.new_empty(g.shape)
         if g.shape != w.shape or own.shape != w.shape:

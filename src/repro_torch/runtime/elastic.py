@@ -20,11 +20,14 @@ from repro_torch.core.routing import ExpertPlacement
 
 
 def remesh_restore(ckpt_dir: str, like_tree, mesh=None,
-                   step: int | None = None):
+                   step: int | None = None, fsdp: bool = False):
     """Restore ``like_tree`` (this rank's leaves on ``mesh``, a
-    ``launch.mesh.HostMesh``; None: one rank holding everything) from
-    ``ckpt_dir``, whatever grid saved it; returns (tree, step)."""
-    lay = checkpointer.ONE if mesh is None else checkpointer.layout(mesh=mesh)
+    ``launch.mesh.HostMesh``; None: one rank holding everything; ``fsdp``:
+    the expert leaves' f dim split over its data group) from ``ckpt_dir``,
+    whatever grid saved it and whether it ran FSDP or not; returns (tree,
+    step)."""
+    lay = (checkpointer.ONE if mesh is None
+           else checkpointer.layout(mesh=mesh, fsdp=fsdp))
     return checkpointer.restore(ckpt_dir, like_tree, step, lay=lay)
 
 

@@ -192,11 +192,15 @@ class _ServingBase:
             device=self.device)
 
     def _prefill_callable(self) -> Callable:
+        # the callables hold the bundle, not the engine: an engine that
+        # held itself through its callables would live, with its model's
+        # process groups, until a garbage collection, which may come only
+        # at interpreter exit, after the groups were destroyed
+        bundle, max_len = self.bundle, self.max_len
         if self.traffic is not None:
-            return lambda p, toks, tr, m: self.bundle.prefill(
-                p, {"tokens": toks}, self.max_len, traffic=tr, traffic_mask=m)
-        return lambda p, toks: self.bundle.prefill(
-            p, {"tokens": toks}, self.max_len)
+            return lambda p, toks, tr, m: bundle.prefill(
+                p, {"tokens": toks}, max_len, traffic=tr, traffic_mask=m)
+        return lambda p, toks: bundle.prefill(p, {"tokens": toks}, max_len)
 
     def get_prefill(self, params, rows: int, s: int):
         """The prefill callable of a (rows x bucket-s) token batch; built on
@@ -227,8 +231,8 @@ class _ServingBase:
         key = (rows, per_slot)
         exe = self._decode_exec.get(key)
         if exe is None:
-            exe = lambda p, st, t: self.bundle.decode_step(p, st, t,
-                                                           self.max_len)
+            bundle, max_len = self.bundle, self.max_len
+            exe = lambda p, st, t: bundle.decode_step(p, st, t, max_len)
             ctx = self.bundle.ctx
             scratch = lm.init_decode_state(ctx.cfg, rows, self.max_len,
                                            ctx.compute_dtype, ctx,

@@ -229,7 +229,7 @@ def _rank_main(rank, world, init_file, data, out_dir):
     """One EP rank, autograd off (each lane's tail an asynchronous exchange
     in flight across the other lane's work): both families' interleaved
     stream at S 2, and through ``stream_moe_layers`` / ``stream_tx_layers``
-    with the whole lane stack."""
+    with the rank's own lane of the stack."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
@@ -253,8 +253,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
                     x[:, rank * s_l:(rank + 1) * s_l]))
                 t = _t(p)
                 moe = {"router": t["router"], **{
-                    w: t[w].reshape(N, world, E // world, *t[w].shape[2:])
-                    for w in EXPERTS}}
+                    w: t[w].reshape(N, world, E // world, *t[w].shape[2:])[
+                        :, rank:rank + 1] for w in EXPERTS}}
                 kw = dict(placement=ExpertPlacement(E, world,
                                                     max(1, world // 2)),
                           dcfg=DcommConfig(engine="fused_pipe",

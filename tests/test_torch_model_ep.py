@@ -93,8 +93,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
             ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                                   capacity_factor=cf,
                                   compute_dtype=torch.float32)
-            logits, state = lm.prefill(params, tokens, torch.arange(S), ctx,
-                                       S + 1)
+            logits, state = lm.prefill(lm.shard_params(params, ctx), tokens,
+                                       torch.arange(S), ctx, S + 1)
             out["logits" + name] = logits.numpy()
             if not name:
                 out.update(k=state.kv["k"].numpy(), v=state.kv["v"].numpy())

@@ -144,7 +144,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
         np.save(f"{out_dir}/shuffle{rank}.npy", y.numpy())
         yd = moe_decode_block(torch.from_numpy(d["x"].reshape(1, -1, D)),
                               {"router": torch.from_numpy(d["wr"]),
-                               "w1": w1, "w3": w3, "w2": w2},
+                               "w1": w1[rank:rank + 1], "w3": w3[rank:rank + 1],
+                               "w2": w2[rank:rank + 1]},
                               placement=placement, dcfg=cfg, top_k=K,
                               group=group)
         np.save(f"{out_dir}/decode{rank}.npy", yd.numpy())

@@ -207,9 +207,12 @@ def test_layer_stream_ep1_matches_jax_and_the_dense_oracle(engine, slices):
 
 
 @pytest.mark.parametrize("engine", ["fused_flat", "fused_pipe"])
-def test_stream_moe_layers_refuses_fsdp_and_runs_interleaved_lanes(engine):
-    """FSDP expert weights (ROADMAP queue 1 item 8) raise through either
-    schedule, before any work; interleaved micro-batch lanes run (the
+def test_stream_moe_layers_refuses_fsdp_and_runs_interleaved_lanes(
+        engine, monkeypatch):
+    """FSDP of the expert weights over a data group of one rank (a
+    stand-in group) is the identity through either schedule: the plain
+    stream's output with no collective (the grid is
+    ``tests/test_torch_fsdp.py``'s); interleaved micro-batch lanes run (the
     barriers ignore them) and equal the plain stream."""
     t = _t(_stream_params(3))
     params = {"router": t["router"],
@@ -217,9 +220,15 @@ def test_stream_moe_layers_refuses_fsdp_and_runs_interleaved_lanes(engine):
     kw = dict(placement=ExpertPlacement(n_experts=E, ep=1, node_size=1),
               dcfg=DcommConfig(engine=engine, capacity_factor=CF), top_k=K)
     x = torch.from_numpy(_x(4, 2, 8))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        stream_moe_layers(x, params, t["ln"], fsdp=True, **kw)
     one = stream_moe_layers(x, params, t["ln"], **kw)
+    data = object()
+    monkeypatch.setattr(dist, "get_world_size",
+                        lambda group=None: 1 if group is data else 2)
+    with dcomm.collective_calls() as calls:
+        fsdp = stream_moe_layers(x, params, t["ln"], fsdp=data, **kw)
+    assert calls == []
+    np.testing.assert_array_equal(fsdp.numpy(), one.numpy())
+    monkeypatch.undo()
     assert one.shape == x.shape
     np.testing.assert_allclose(
         stream_moe_layers(x, params, t["ln"], interleave=2, **kw).numpy(),
@@ -229,8 +238,8 @@ def test_stream_moe_layers_refuses_fsdp_and_runs_interleaved_lanes(engine):
 def _rank_main(rank, world, init_file, data, out_dir):
     """One EP rank: its stripe and its lane's experts through every stream
     case, and the streamed case at S 2 through ``stream_moe_layers`` (the
-    whole lane stack, the (B, S/ep, d) stripe, traffic summed over the
-    group)."""
+    rank's own lane of the stack, the (B, S/ep, d) stripe, traffic summed
+    over the group)."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
@@ -252,8 +261,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
             torch.from_numpy(np.ascontiguousarray(
                 x[:, rank * s_l:(rank + 1) * s_l])),
             {"router": t["router"],
-             **{w: t[w].reshape(N, world, E // world, *t[w].shape[2:])
-                for w in ("w1", "w3", "w2")}}, t["ln"],
+             **{w: t[w].reshape(N, world, E // world, *t[w].shape[2:])[
+                 :, rank:rank + 1] for w in ("w1", "w3", "w2")}}, t["ln"],
             placement=placement,
             dcfg=DcommConfig(engine="fused_pipe", capacity_factor=CF,
                              pipe_slices=2),

@@ -12,6 +12,7 @@ wall-clock ratios, are asserted.
 """
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -331,17 +332,6 @@ def _ep_run(bundle, params, prompts, max_new):
              for f in traffic.TrafficState._fields})
 
 
-def _lanes(params, ep):
-    """Lane-major expert weights of one lane regrouped into ``ep`` lanes."""
-    out = {k: v for k, v in params.items()}
-    moe = dict(params["layers"]["moe"])
-    for w in ("w1", "w3", "w2"):
-        a = moe[w]
-        moe[w] = a.reshape(a.shape[0], ep, -1, *a.shape[3:])
-    out["layers"] = dict(params["layers"], moe=moe)
-    return out
-
-
 def _rank_main(rank, world, init_file, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -353,8 +343,8 @@ def _rank_main(rank, world, init_file, out_dir):
                               engine="fused_hier", node_size=NODE,
                               capacity_factor=8.0, compute_dtype=torch.float32)
         prompts, max_new = _requests(cfg)
-        streams, tr = _ep_run(zoo.build(cfg, ctx), _lanes(params, EP),
-                              prompts, max_new)
+        streams, tr = _ep_run(zoo.build(cfg, ctx),
+                              lm.shard_params(params, ctx), prompts, max_new)
         np.savez(f"{out_dir}/rank{rank}.npz",
                  streams=np.array([streams[i] + [-1] * (4 - len(streams[i]))
                                    for i in range(len(LENS))]), **tr)
@@ -366,7 +356,11 @@ def test_ep4_continuous_matches_ep1(tmp_path):
     """The continuous engine over one spawned gloo group of four ranks,
     ``fused_hier`` with nodes of 2, traffic tracked: every rank gives EP =
     1's token streams and expert statistics, and all ranks hold the same
-    lane statistics, whose assignment total is EP = 1's."""
+    lane statistics, whose assignment total is EP = 1's.  An engine is freed
+    when its last reference goes: one that held itself in a reference cycle
+    (through its prepared callables) kept its model's process groups alive
+    into interpreter exit, after ``destroy_process_group``, where a rank
+    could abort (``terminate called without an active exception``)."""
     mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), str(tmp_path)),
              nprocs=EP, join=True)
     bundle, params = _moe_bundle(capacity_factor=8.0)
@@ -374,7 +368,15 @@ def test_ep4_continuous_matches_ep1(tmp_path):
         bundle.cfg, "cpu", engine="fused_hier", node_size=1,
         capacity_factor=8.0, compute_dtype=torch.float32))
     prompts, max_new = _requests(bundle.cfg)
-    streams, tr = _ep_run(bundle, params, prompts, max_new)
+    gc.collect()
+    gc.disable()
+    try:
+        streams, tr = _ep_run(bundle, params, prompts, max_new)
+        left = [o for o in gc.get_objects()
+                if isinstance(o, ContinuousServingEngine)]
+    finally:
+        gc.enable()
+    assert not left
     want = np.array([streams[i] + [-1] * (4 - len(streams[i]))
                      for i in range(len(LENS))])
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(EP)]

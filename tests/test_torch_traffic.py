@@ -181,6 +181,7 @@ def _rank_main(rank, world, init_file, data, out_dir):
 
         dcomm.hier_dispatch = recording
         tokens = torch.from_numpy(d["tokens"]).long()
+        params = lm.shard_params(params, ctx)      # this rank's lane
         logits, _, new = lm.prefill(params, tokens, torch.arange(S), ctx, S + 1,
                                     traffic=tr,
                                     traffic_mask=torch.from_numpy(d["mask"]))

@@ -322,6 +322,7 @@ def _rank_main(rank, world, init_file, data, out_dir):
                                                n_layers=cfg.n_layers)
             batch = {k: torch.from_numpy(d[k]).long()
                      for k in ("tokens", "labels")}
+            params = lm.shard_params(params, ctx)     # this rank's lane
             with torch.no_grad():
                 loss, m = lm.lm_loss(params, batch, ctx, traffic=state)
             out[arch + "/loss"] = loss.numpy()

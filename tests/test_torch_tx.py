@@ -31,7 +31,7 @@ from repro.core.routing import ExpertPlacement as JPlacement
 from repro.models import lm as jlm
 from repro_torch import convert
 from repro_torch.configs import get_arch
-from repro_torch.core import fusco
+from repro_torch.core import dcomm, fusco
 from repro_torch.core.dcomm import DcommConfig
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.moe import stream_tx_layers
@@ -163,7 +163,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
             placement, cfg, K, **HEADS, return_kv=True,
             group=group)
         y = stream_tx_layers(
-            stripe, {"router": p["router"], **lane},
+            stripe, {"router": p["router"],
+                     **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
             {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
             placement=placement, dcfg=cfg, top_k=K, positions=positions,
             **HEADS, group=group)
@@ -232,7 +233,9 @@ def _streamed_rank_main(rank, world, init_file, data, out_dir):
         out = {}
         for slices in (1, 4):
             h, (k, v) = stream_tx_layers(
-                x[:, rank * s_l:(rank + 1) * s_l], {"router": p["router"], **lane},
+                x[:, rank * s_l:(rank + 1) * s_l],
+                {"router": p["router"],
+                 **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
                 {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
                 placement=placement,
                 dcfg=DcommConfig(engine="fused_pipe", capacity_factor=CF,
@@ -265,10 +268,13 @@ def test_streamed_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
                                            err_msg=f"S {slices} rank {r} {name}")
 
 
-def test_tx_stream_raises_on_what_is_not_ported():
+def test_tx_stream_raises_on_what_is_not_ported(monkeypatch):
     """Interleaved micro-batch lanes run through both engines (the streamed
     fused_pipe and fused_flat's barriers, which ignore them) and equal the
-    plain stream; FSDP expert weights still raise."""
+    plain stream; FSDP of the expert weights over a data group of one rank
+    (a stand-in group) is the identity, with no collective (the grid is
+    ``tests/test_torch_fsdp.py``'s); expert weights of more than one lane
+    raise (a rank holds its own)."""
     p = _t(_params(0))
     x = torch.from_numpy(_x(2, 2, 4))
     placement = ExpertPlacement(n_experts=E, ep=1, node_size=1)
@@ -279,10 +285,25 @@ def test_tx_stream_raises_on_what_is_not_ported():
                     for k in (1, 2))
         np.testing.assert_allclose(two.numpy(), one.numpy(), rtol=TOL,
                                    atol=TOL, err_msg=cfg.engine)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stream_tx_layers(x, {}, {}, p["ln1"], p["ln2"], placement=placement,
-                         dcfg=DcommConfig(), top_k=K, positions=torch.arange(4),
-                         **HEADS, fsdp=True)
+    moe = {"router": p["router"],
+           **{w: p[w][:, None] for w in ("w1", "w3", "w2")}}
+    attn = {w: p[w] for w in ("wq", "wk", "wv", "wo")}
+    kw = dict(placement=placement, dcfg=DcommConfig(capacity_factor=CF),
+              top_k=K, positions=torch.arange(4), **HEADS)
+    plain = stream_tx_layers(x, moe, attn, p["ln1"], p["ln2"], **kw)
+    data = object()
+    monkeypatch.setattr(dist, "get_world_size",
+                        lambda group=None: 1 if group is data else 2)
+    with dcomm.collective_calls() as calls:
+        fsdp = stream_tx_layers(x, moe, attn, p["ln1"], p["ln2"], fsdp=data,
+                                **kw)
+    assert calls == []
+    np.testing.assert_array_equal(fsdp.numpy(), plain.numpy())
+    monkeypatch.undo()
+    lanes = {**moe, **{w: p[w].reshape(N, 2, E // 2, *p[w].shape[2:])
+                       for w in ("w1", "w3", "w2")}}
+    with pytest.raises(ValueError, match="own lane"):
+        stream_tx_layers(x, lanes, attn, p["ln1"], p["ln2"], **kw)
 
 
 def _jax_serve(cfg, tokens, max_len, steps, engine="fused_flat",

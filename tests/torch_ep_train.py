@@ -15,8 +15,11 @@ lane=r % model)``, the data rank's rows of the batch;
 ``steps.value_and_grad`` and ``steps.make_train_step``).  Each rank also
 runs its gradients once more with the replicated leaves' reduction switched
 off, and a second step; over more than one data rank it also runs the
-three mutations of the data sync (:data:`MUTATIONS`).  Everything lands in
-npz files that the tests compare rank by rank.  :func:`run` is the (1, 4)
+three mutations of the data sync (:data:`MUTATIONS`).  With ``fsdp`` both
+sides run the expert weights under FSDP over the data group (the
+reference's ``fsdp_experts``; each rank converts its f-slice), and the
+mutations are not run.  Everything lands in npz files that the tests
+compare rank by rank.  :func:`run` is the (1, 4)
 run of one arch.
 """
 
@@ -40,6 +43,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import data_rows
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 
 EP, NODE, B, S = 4, 2, 2, 16
 TOL = 1e-5
@@ -95,18 +99,26 @@ def check_state(got: dict, want: dict, what=""):
 
 
 def lane_of(want: np.ndarray, path: str, rank: int,
-            shape=(1, EP)) -> np.ndarray:
+            shape=(1, EP), fsdp: bool = False) -> np.ndarray:
     """A whole leaf of the reference cut to the lane rank ``rank`` of a
-    ``shape`` = (data, model) grid holds."""
+    ``shape`` = (data, model) grid holds; with ``fsdp`` an expert leaf's
+    f dim then cut to its data rank's slice."""
     lane = rank % shape[1]
-    return lm.lane_cut(path, want, shape[1], range(lane, lane + 1))
+    t = lm.lane_cut(path, want, shape[1], range(lane, lane + 1))
+    if fsdp and shape[0] > 1 and sharding.fsdp_sharded(path):
+        t = sharding.data_cut(t, sharding.fsdp_dim(path), shape[0],
+                              rank // shape[1])
+    return t
 
 
 def state_of_rank(want: np.ndarray, path: str, rank: int,
-                  shape=(1, EP)) -> np.ndarray:
+                  shape=(1, EP), fsdp: bool = False) -> np.ndarray:
     """A whole mu, nu or master leaf of the reference cut to what rank
     ``rank`` holds: its lane, then its data rank's ZeRO-1 slice on the
-    port's ZeRO dim (``adamw.zero_dim``)."""
+    port's ZeRO dim (``adamw.zero_dim``), or with ``fsdp`` an expert
+    leaf's f-slice (its state is the slice's own)."""
+    if fsdp and sharding.fsdp_sharded(path):
+        return lane_of(want, path, rank, shape, fsdp)
     t = lane_of(want, path, rank, shape)
     data = shape[0]
     dim = adamw.zero_dim(t.shape, data, lm.lane_sharded(path))
@@ -195,7 +207,8 @@ for arch, data, engine, stream, slices in {runs!r}:
                         engine="fused_hier" if mixed else engine,
                         node_size={node}, moe_stream=stream,
                         pipe_slices=slices),
-        compute_dtype=jnp.float32, remat=False, engines=mixed)
+        compute_dtype=jnp.float32, remat=False, engines=mixed,
+        fsdp_experts={fsdp!r})
     tr = traffic.init_traffic_state(cfg.moe.n_experts, {shape[1]},
                                     n_layers=cfg.n_layers)
     vg = jax.value_and_grad(lambda p, b, t: lm.lm_loss(p, b, ctx, traffic=t),
@@ -272,7 +285,8 @@ def engines_of(engine: str) -> tuple:
     return engine, None
 
 
-def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
+def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
+               fsdp=False):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
@@ -294,10 +308,12 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
             ctx = dataclasses.replace(lm.make_context(
                 cfg, "cpu", mesh=mesh, engine=base, node_size=node,
                 moe_stream=stream, pipe_slices=slices,
-                compute_dtype=torch.float32), engines=mixed)
+                compute_dtype=torch.float32, fsdp_experts=fsdp),
+                engines=mixed)
             model = zoo.build(cfg, ctx)
-            fresh = lambda: convert.params_from_jax(tree, "cpu",
-                                                    lane=rank % mesh.model)
+            fresh = lambda: convert.params_from_jax(
+                tree, "cpu", lane=rank % mesh.model,
+                data=(mesh.data, mesh.data_index) if fsdp else None)
             p = fresh()
             loss, m, grads = steps.value_and_grad(model)(p, bt, cold())
             out[f"{c}/loss"] = loss.numpy()
@@ -323,7 +339,7 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
             p, opt, m = step(p, opt, bt, m["traffic"])
             _save_tree(out, f"{c}/p2", p)
             for name, mod, attr, swap in (MUTATIONS if mesh.data > 1
-                                          else ()):
+                                          and not fsdp else ()):
                 saved = getattr(mod, attr)
                 setattr(mod, attr, swap(mesh))
                 try:
@@ -345,14 +361,15 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node):
         dist.destroy_process_group()
 
 
-def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE):
+def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
+             fsdp=False):
     """Run the reference and the four ranks of a ``shape`` = (data, model)
     grid over ``archs`` ((arch, cases) pairs, each case (engine,
     moe_stream, pipe_slices), all named "engine/slices" apart; an engine
     "a,b,..." is one a layer, :func:`engines_of`), and on each
     rank ``extra``: ``(rank, world) -> {name: array}``, saved beside the
-    rest.  Returns (the reference's arrays, each rank's arrays, each arch's
-    parameters)."""
+    rest; ``fsdp``: both sides under FSDP of the experts.  Returns (the
+    reference's arrays, each rank's arrays, each arch's parameters)."""
     world = shape[0] * shape[1]
     runs, ps = [], {}
     for arch, cases in archs:
@@ -365,13 +382,13 @@ def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE):
     names = [f"{e}/{s}" for _, _, e, _, s in runs]
     assert len(set(names)) == len(names), names
     code = JAX_CODE.format(shape=tuple(shape), node=node, runs=tuple(runs),
-                           two=shape[0] > 1,
+                           two=shape[0] > 1, fsdp=fsdp,
                            opt=OPT, fast=FAST, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, world, 600)
         mp.spawn(_rank_main, args=(world, str(tmp_path / "rendezvous"),
                                    str(tmp_path), tuple(runs), extra,
-                                   tuple(shape), node),
+                                   tuple(shape), node, fsdp),
                  nprocs=world, join=True)
         assert "JAX_OK" in jax_run.result()
     want = dict(np.load(tmp_path / "jax.npz"))
@@ -392,10 +409,11 @@ def state_of(arrays: dict, key: str) -> dict:
 
 # --------------------------------------------------- the rank-by-rank checks
 
-def check_grads(want, got, case, rank, shape=(1, EP)):
+def check_grads(want, got, case, rank, shape=(1, EP), fsdp=False):
     """Loss, every gradient leaf (the replicated leaves' the reference's
-    whole gradient, the expert leaves' the rank's lane of it) and the
-    traffic state of one rank of a ``shape`` grid."""
+    whole gradient, the expert leaves' the rank's lane of it, with
+    ``fsdp`` its f-slice) and the traffic state of one rank of a ``shape``
+    grid."""
     what = f"{case} rank {rank}"
     close(got[f"{case}/loss"], want[f"{case}/loss"], f"{what} loss")
     grads = {k[len(case) + 3:]: v for k, v in got.items()
@@ -404,18 +422,18 @@ def check_grads(want, got, case, rank, shape=(1, EP)):
            if k.startswith(f"{case}/g/")}
     assert grads.keys() == ref.keys(), what
     for k, g in grads.items():
-        w = lane_of(ref[k], k, rank, shape)
+        w = lane_of(ref[k], k, rank, shape, fsdp)
         assert g.shape == w.shape, (what, k)
         assert float(np.abs(w).max()) > 0, (what, k)
         close(g, w, f"{what} grad {k}")
     check_state(state_of(got, f"{case}/t"), state_of(want, f"{case}/t"), what)
 
 
-def check_step(want, got, case, rank, shape=(1, EP)):
+def check_step(want, got, case, rank, shape=(1, EP), fsdp=False):
     """The grad norm (clipping binding), the step's loss, the updated
     params, the rank's ZeRO-1 slices of mu, nu and master
-    (:func:`state_of_rank`) and the traffic state of one rank of a
-    ``shape`` grid."""
+    (:func:`state_of_rank`; with ``fsdp`` the expert leaves' f-slices)
+    and the traffic state of one rank of a ``shape`` grid."""
     what = f"{case} rank {rank}"
     assert float(want[f"{case}/grad_norm"]) > OPT["clip_norm"], what
     close(got[f"{case}/grad_norm"], want[f"{case}/grad_norm"], f"{what} norm")
@@ -427,13 +445,13 @@ def check_step(want, got, case, rank, shape=(1, EP)):
         for k in keys:
             path = k[len(pre):]
             cut = lane_of if kind == "p" else state_of_rank
-            w = cut(want[k], path, rank, shape)
+            w = cut(want[k], path, rank, shape, fsdp)
             assert got[k].shape == w.shape, (what, kind, path)
             if kind in ("mu", "nu"):
                 close(got[k], w, f"{what} {kind} {path}")
             else:
                 close_updated(got[k], w, cut(update_room(want, case, path),
-                                             path, rank, shape),
+                                             path, rank, shape, fsdp),
                               f"{what} {kind} {path}")
 
 
@@ -511,7 +529,9 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     bytes) of the same divided by DP (ZeRO-1), plus the replicated
     gradients' all-reduce bucket (2 bytes a replicated parameter) while it
     is alive.  Activations are not counted.  ``gib_per_rank`` is DP 1 by
-    EP, ``gib_per_rank_dp`` every (EP, DP).
+    EP, ``gib_per_rank_dp`` every (EP, DP); ``gib_per_rank_fsdp`` the same
+    under FSDP of the experts, whose bf16 params and grads are divided by
+    DP too.
 
         PYTHONPATH=src python tests/torch_ep_train.py
 
@@ -519,24 +539,32 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     cfg = cfg or get_arch(arch)
     replicated, experts = lm.param_counts(cfg)
 
-    def gib(ep, dp):
+    def gib(ep, dp, fsdp=False):
         held = replicated + experts / ep
-        return ((4 + 12 / dp) * held + 2 * replicated) / 2**30
+        bf16 = replicated + experts / ep / (dp if fsdp else 1)
+        return (4 * bf16 + 12 / dp * held + 2 * replicated) / 2**30
 
     return {"replicated_params": replicated, "expert_params": experts,
             "gib_per_rank": {ep: gib(ep, 1) for ep in eps},
             "gib_per_rank_dp": {(ep, dp): gib(ep, dp) for ep in eps
-                                for dp in dps}}
+                                for dp in dps},
+            "gib_per_rank_fsdp": {(ep, dp): gib(ep, dp, True) for ep in eps
+                                  for dp in dps}}
 
 
 if __name__ == "__main__":
-    mem = state_gib_per_rank()
-    print(f"reckoned (not measured) per-rank training state of the full "
-          f"qwen3-moe-30b-a3b (48 layers; {mem['replicated_params']} "
-          f"replicated and {mem['expert_params']} expert parameters), GiB, "
-          f"by EP (rows) and ZeRO-1 DP (columns):")
-    table = mem["gib_per_rank_dp"]
-    dps = sorted({dp for _, dp in table})
-    print("EP \\ DP " + "".join(f"{dp:>10}" for dp in dps))
-    for ep in sorted({ep for ep, _ in table}):
-        print(f"{ep:>7} " + "".join(f"{table[ep, dp]:>10.2f}" for dp in dps))
+    for arch, eps in (("qwen3-moe-30b-a3b", (1, 2, 4, 8, 16, 32, 64)),
+                      ("mixtral-8x22b", (1, 2, 4, 8)),
+                      ("deepseek-v3-bench", (1, 8, 16, 32, 64))):
+        mem = state_gib_per_rank(arch, eps=eps)
+        print(f"reckoned (not measured) per-rank training state of the full "
+              f"{arch} ({mem['replicated_params']} replicated and "
+              f"{mem['expert_params']} expert parameters), GiB, by EP "
+              f"(rows) and DP (columns), ZeRO-1 -> with FSDP of the experts:")
+        table, fsdp = mem["gib_per_rank_dp"], mem["gib_per_rank_fsdp"]
+        dps = sorted({dp for _, dp in table})
+        print("EP \\ DP " + "".join(f"{dp:>18}" for dp in dps))
+        for ep in sorted({ep for ep, _ in table}):
+            print(f"{ep:>7} " + "".join(
+                f"{table[ep, dp]:>9.2f} ->{fsdp[ep, dp]:>7.2f}"
+                for dp in dps))
