@@ -65,9 +65,11 @@
      S 32, train T 1024 S 16; moe-tx serve T 2048 S 4, train T 1024 S 4),
      in training grouped_matmul at slice 0's shape, and moe-tx's flash at
      one lane's batch (4 / 2 rows of 512);
-   - odd shapes of the Hopper forms, of the flash tensor-core form (the
-     bf16 shapes the Hopper form refuses) and of the scatter-add and its
-     backward (``odd_shape_checks``), held only.
+   - odd shapes of the Hopper forms (the flash one at group sizes 3, 5, 6
+     and 7 too, whose query tiles leave rows of the 64-row tile dead), of
+     the flash tensor-core form (the bf16 shapes the Hopper form refuses:
+     hd 16 and 32) and of the scatter-add and its backward
+     (``odd_shape_checks``), held only.
    Each Hopper-form row also gives the time of the kernel's loads alone and
    of its products alone (``time_split``: builds with the consumers issuing
    no wgmma, and with the producer loading nothing).
@@ -105,7 +107,8 @@
    decode step of the same path (torch.profiler) and print the device's busy
    time beside the step's wall time, and the kernels with the most device
    time; fails if a profile shows a kernel no full-width step may run
-   (``OFF_PATH``) or a prefill's shows no ``flash_fwd_wgmma``.  The paths
+   (``OFF_PATH``: the flash tensor-core form among them, whatever the
+   group size) or a prefill's shows no ``flash_fwd_wgmma``.  The paths
    are fused_flat's two, then (``ENGINE_SERVE``) qwen3-moe through
    ``--engine fused_pipe`` and ``--engine disagg`` (whose sort and repack
    passes are plain torch: the phase fails if it launches the gather or the
@@ -711,22 +714,35 @@ def odd_shape_checks(device="cuda") -> list[str]:
                  gmm_k.grouped_matmul_plain(x, w, cnt))
 
     # flash: the Hopper form with ragged Sq and Sk, G 1 / 4 / 8, windows, a
-    # shifted stripe, hd 64 and 128; then the tensor-core form on the bf16
-    # shapes the Hopper form refuses (hd 16 and 32, the reduced models' hd
-    # 16 at their (Sq, G), G 3 and 5): (B, Sq, Sk, Hq, Hkv, hd, first query
-    # position, window), every query at or below the last key's position
+    # shifted stripe, hd 64 and 128; at G 3, 5, 6 and 7 (query tiles of
+    # hopper_tiles(G): 21, 12, 10, 9 queries, rows of the 64-row tile left
+    # dead) an Sq off the tile, a ragged Sk, a shifted stripe and B > 1, with
+    # and without a binding window, at hd 64 and 128; then the tensor-core
+    # form on the bf16 shapes the Hopper form refuses (hd 16 and 32, the
+    # reduced models' hd 16 at their (Sq, G)): (B, Sq, Sk, Hq, Hkv, hd,
+    # first query position, window), every query at or below the last
+    # key's position
     from repro_torch.kernels import flash_attention as fa_k
     for b_, sq, sk, hq, hkv, hd, q0, window in (
             (2, 50, 77, 4, 4, 64, 27, None), (1, 100, 100, 16, 4, 64, 0, 40),
             (1, 128, 512, 16, 4, 64, 128, 192), (2, 33, 200, 16, 2, 128, 167, None),
             (1, 130, 130, 32, 4, 128, 0, None), (1, 64, 70, 8, 8, 128, 6, 16),
+            (1, 128, 512, 12, 4, 64, 128, 192), (2, 33, 200, 10, 2, 128, 167, None),
+            (2, 37, 77, 6, 2, 64, 40, 24), (2, 101, 150, 3, 1, 128, 49, None),
+            (2, 101, 130, 10, 2, 64, 29, 48), (3, 37, 200, 5, 1, 128, 163, None),
+            (2, 37, 100, 12, 2, 64, 63, 20), (2, 101, 230, 48, 8, 128, 129, None),
+            (1, 37, 333, 6, 1, 128, 296, 70),
+            (2, 101, 177, 14, 2, 64, 76, 40), (2, 37, 70, 56, 8, 128, 33, None),
+            (1, 101, 300, 7, 1, 128, 199, 90),
             (4, 16, 16, 4, 2, 16, 0, None), (2, 50, 77, 8, 4, 16, 27, 16),
-            (1, 100, 100, 8, 4, 32, 0, 40), (1, 128, 512, 12, 4, 64, 128, 192),
-            (2, 33, 200, 10, 2, 128, 167, None)):
+            (1, 100, 100, 8, 4, 32, 0, 40)):
         form = ("tensor-core" if fa_k.hopper_refusal(hd, hq, hkv, sk)
                 else "Hopper")
         what = (f"flash ({form} form) B {b_} Sq {sq} at {q0}.. Sk {sk} G "
                 f"{hq // hkv} hd {hd} window {window}")
+        if form == "Hopper" and hq // hkv not in (1, 2, 4, 8):
+            qc, live = fa_k.hopper_tiles(hq // hkv)
+            what += f" (tiles of {qc} queries, {live} of 64 rows live)"
         _, _, err, tol, worst, err_lse = hold_flash(
             what, *attention_inputs(device, b_, sq, sk, hq, hkv, hd, q0, seed=4),
             window)
@@ -3853,8 +3869,7 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     for step, p in profile_phase(argv).items():
         print_profile(f"{label} {step}", p, unprofiled[step])
         check_profile(f"{label} {step}", p,
-                      flash=step == "prefill" and lm.has_attention(cfg),
-                      form=flash_form(cfg))
+                      flash=step == "prefill" and lm.has_attention(cfg))
         times[f"{step}_busy_share"] = (None if p is None
                                        else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
@@ -3871,35 +3886,23 @@ def short_name(name: str, width: int = 90) -> str:
 
 # kernels no full-width step may run: the combine's retired zero fill,
 # atomics and cast, the SwiGLU's FMA form, and the flash tensor-core form
-# (the bf16 shapes the Hopper form refuses) outside the group sizes that
-# take it at full width (TC_GROUPS)
+# (the bf16 shapes the Hopper form refuses: hd 16 and 32, which no
+# full-width config has; every group size up to 64 takes the Hopper form)
 OFF_PATH = ("scatter_add_rows", "cast_from_f32", "swiglu_tile", "flash_fwd_tc")
-# Hq / Hkv of the full-width configs whose flash runs the mma.sync form
-# flash_fwd_tc (64 % G != 0): mixtral-8x22b's 6, deepseek-v3-bench's 7
-TC_GROUPS = (6, 7)
 
 
-def flash_form(cfg) -> str:
-    """The flash kernel a full-width prefill of ``cfg`` runs (a family
-    without attention runs none: ``check_profile`` is not asked)."""
-    return ("flash_fwd_tc" if cfg.n_kv_heads
-            and cfg.n_heads // cfg.n_kv_heads in TC_GROUPS
-            else "flash_fwd_wgmma")
-
-
-def check_profile(label: str, p: dict | None, flash: bool,
-                  form: str = "flash_fwd_wgmma") -> None:
-    """Fails if a profiled step ran a kernel of ``OFF_PATH`` (but the flash
-    ``form`` it must run), or (``flash``) ran no ``form``."""
+def check_profile(label: str, p: dict | None, flash: bool) -> None:
+    """Fails if a profiled step ran a kernel of ``OFF_PATH``, or
+    (``flash``) ran no ``flash_fwd_wgmma``."""
     if p is None:
         return
     names = [name for name, _ in p["by_kernel"]]
-    off = [n for n in names if any(x in n for x in OFF_PATH if x != form)]
+    off = [n for n in names if any(x in n for x in OFF_PATH)]
     if off:
         raise AssertionError(f"profile {label} shows kernels off the "
                              f"full-width path {off}")
-    if flash and not any(form in n for n in names):
-        raise AssertionError(f"profile {label} shows no {form}")
+    if flash and not any("flash_fwd_wgmma" in n for n in names):
+        raise AssertionError(f"profile {label} shows no flash_fwd_wgmma")
 
 
 def print_profile(label: str, p: dict | None, unprofiled_ms: float) -> None:
@@ -3960,7 +3963,7 @@ def train_and_profile(label: str, argv, implied=None,
             record["busy_ms"] = None if p is None else p["busy_ms"]
         print_profile(f"{label} {part}", p, unprofiled)
         check_profile(f"{label} {part}", p, flash=part != "adamw.update"
-                      and lm.has_attention(cfg), form=flash_form(cfg))
+                      and lm.has_attention(cfg))
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items())
@@ -4066,6 +4069,10 @@ LARGE_SHAPES = {
                     decode_t=8),
                dict(b=8, sq=512, sk=512, hq=56, hkv=8, hd=128), None),
 }
+# qwen3-14b's flash at its serve prefill shape (G 5): a kernel row with no
+# model path, held and timed beside the large paths'
+QWEN14, QWEN14_ATTN = "qwen3-14b", dict(b=8, sq=512, sk=512, hq=40, hkv=8,
+                                        hd=128)
 LARGE_TRAIN_SHAPES = {f"{MIXTRAL} train": (
     dict(t=2048, d=6144, n_experts=8, top_k=2, f=16384, decode_t=8),
     dict(b=4, sq=512, sk=512, hq=48, hkv=8, hd=128))}
@@ -4106,8 +4113,10 @@ def large_rows(timer=time_ms) -> list[dict]:
     """Every kernel at the large serving paths' shapes (``LARGE_SHAPES``)
     against its plain version: the MoE kernels at the prefill and decode
     shapes (fused_swiglu's large-f form), and the flash forward at each
-    path's group size (mixtral's 6, deepseek's 7: the mma.sync form) and
-    window, at 512 tokens and at the 5120-token prompt."""
+    path's group size (mixtral's 6, deepseek's 7: the Hopper form's tiles of
+    10 and 9 queries) and window, at 512 tokens and at the 5120-token
+    prompt; then the flash forward at qwen3-14b's prefill (G 5, tiles of 12
+    queries), a row of no model path (``main_path`` False)."""
     import torch
     rows = []
     for label, (moe, attn, window) in LARGE_SHAPES.items():
@@ -4122,6 +4131,10 @@ def large_rows(timer=time_ms) -> list[dict]:
                                        window=window, timer=timer),
                              path=label))
         torch.cuda.empty_cache()
+    with torch.inference_mode():
+        rows.append(dict(flash_row(*attention_inputs("cuda", **QWEN14_ATTN),
+                                   window=None, timer=timer),
+                         path=QWEN14, main_path=False))
     return rows
 
 
@@ -4506,13 +4519,13 @@ def main() -> None:
     for r in rows:
         r["ms_min"], r["ms_max"] = (getattr(r["ms"], "lo", None),
                                     getattr(r["ms"], "hi", None))
+    rows = [r for r in rows if r.get("main_path", True)]
     for r in rows:
         counter = max((c for c in launches[r["path"]] if r["name"].startswith(c)),
                       key=len)
         r["launches_by_phase"] = {a: n[counter] for a, n in launches.items()}
         r["launches"] = r["launches_by_phase"][r["path"]]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows
-                                  if r.get("main_path", True)]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

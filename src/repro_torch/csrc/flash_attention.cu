@@ -16,13 +16,13 @@
 // of causally visible work, ~4.4 us at 989 TFLOP/s.
 //
 // Three forms.  bf16, what serving and training run, goes to the Hopper form
-// (flash_fwd_wgmma: TMA, an mbarrier ring, wgmma) at hd 64 and 128 and the
-// group sizes that divide 64: every full-width path.  The bf16 shapes it
-// refuses (the reduced models' hd 16, other group sizes) go to the
-// tensor-core form (flash_fwd_tc, mma.sync) through a C entry of their own;
-// the wrapper chooses by shape.  float32, which the reduced models'
-// card-vs-CPU checks run, stays on FMA on the CUDA cores (flash_fwd): tf32
-// would round the scores to ~3 digits.
+// (flash_fwd_wgmma: TMA, an mbarrier ring, wgmma) at hd 64 and 128 and every
+// group size up to 64: every full-width path.  The bf16 shapes it refuses
+// (the reduced models' hd 16 and 32) go to the tensor-core form
+// (flash_fwd_tc, mma.sync) through a C entry of their own; the wrapper
+// chooses by shape.  float32, which the reduced models' card-vs-CPU checks
+// run, stays on FMA on the CUDA cores (flash_fwd): tf32 would round the
+// scores to ~3 digits.
 //
 // Skipping: the TPU kernel scalar-prefetched per-block position bounds; here
 // a block computes min/max of its own query positions and skips a kv tile
@@ -232,11 +232,11 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Tensor-core form (bf16): flash_fwd_tc, mma.sync m16n8k16 with f32
 // accumulators.  It takes the bf16 shapes the Hopper form below refuses:
-// head dims 16 and 32 (the reduced models') and group sizes that do not
-// divide 64.  Four warps, each owning 16 of the block's 64 (query,
-// head-in-group) rows; k/v tiles of 64 keys in shared memory, rows padded
-// by 16 bytes so that the fragment loads of the 8 rows of a quad hit
-// distinct banks.  S = Q K^T per 8-key column tile, the online softmax on
+// head dims 16 and 32 (the reduced models').  Four warps, each owning 16 of
+// the block's 64 (query, head-in-group) rows; k/v tiles of 64 keys in
+// shared memory, rows padded by 16 bytes so that the fragment loads of the
+// 8 rows of a quad hit distinct banks.  S = Q K^T per 8-key column tile,
+// the online softmax on
 // S's accumulator fragments (a row's 4 lanes combine by shuffles), then P
 // times V with V's fragments loaded by ldmatrix.trans.  P is rounded to
 // bf16 for the tensor cores, as in the Hopper form; the row sums and the
@@ -460,17 +460,21 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 // ---------------------------------------------------------------------------
 // Hopper form (bf16): flash_fwd_wgmma, on the core of hopper.cuh.
 //
-// One CTA per (tile of 64 (query, head-in-group) rows, kv head, batch row):
-// for a fixed (b, hk) the G query heads of one query are neighbours in
-// memory, so one 4-D TMA map (hd, Hq, Sq, B) cuts the tile as a (64 hd, G
-// heads, 64 / G queries) box from head hk * G.  160 threads: one consumer
+// One CTA per (tile of Qc = 64 / G queries (rounded down) x G heads, kv
+// head, batch row): for a fixed (b, hk) the G query heads of one query are
+// neighbours in memory, so one 4-D TMA map (hd, Hq, Sq, B) cuts the tile as
+// a (64 hd, G heads, Qc queries) box from head hk * G.  Its Qc G rows are
+// the live rows of the 64-row wgmma M tile: all 64 where G divides 64, 60
+// at G 5 and 6, 63 at G 7.  The rows past them are zeroed once and never
+// leave the CTA (the store box and lse take the live rows alone), so every
+// group size up to 64 runs the same kernel.  160 threads: one consumer
 // warpgroup and one producer warp.  Q is loaded once per CTA; K and V tiles
 // of 64 keys go by TMA (a map (hd, Hkv, Sk, B), so the ragged Sk edge reads
 // zeros) into a ring of two stages, K and V on barriers of their own so
 // that S = Q K^T starts while V is still landing.  64 keys a tile at both
-// head dims: a CTA covers only 64 / G queries (8 or 16), so a wider tile
-// would add masked work on the diagonal, and 64 keys keep S at 32 f32
-// registers a thread.  CTAs are launched heaviest first: the last query
+// head dims: a CTA covers only Qc queries (8 to 16 at G 4 to 8), so a
+// wider tile would add masked work on the diagonal, and 64 keys keep S at
+// 32 f32 registers a thread.  CTAs are launched heaviest first: the last query
 // tiles, which see the most keys, do not form the tail.
 //
 // The producer warp walks the kv tiles in order: its lanes reduce the tile's
@@ -504,6 +508,11 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 // ---------------------------------------------------------------------------
 
 constexpr int kFlashRows = 64;     // (query, head-in-group) rows per CTA
+// the queries a CTA covers at group size g <= kFlashRows; its live rows are
+// flash_tile_queries(g) * g
+__host__ __device__ constexpr int flash_tile_queries(int g) {
+  return kFlashRows / g;
+}
 constexpr int kFlashKeys = 64;     // keys per kv tile
 constexpr int kFlashThreads = 160;  // a consumer warpgroup, a producer warp
 constexpr int kFlashStages64 = 2;  // ring depth at hd 64 (four CTAs an SM)
@@ -641,9 +650,11 @@ __global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kF
   constexpr int kStages = HD == 64 ? kFlashStages64 : kFlashStages128;
   constexpr int kTile = kFlashKeys * HD * 2;  // one K or V tile
   const int g = hq / hkv;
+  const int live = flash_tile_queries(g) * g;  // rows the Q box fills
   const int hk = blockIdx.y, b = blockIdx.z;
-  // the heaviest causal tiles (the last queries) first, for a shorter tail
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * kFlashRows;
+  // the heaviest causal tiles (the last queries) first, for a shorter tail;
+  // row0 / g is the tile's first query
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * live;
   const int rows = sq * g;
   const int tid = threadIdx.x;
 
@@ -672,10 +683,10 @@ __global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kF
   }
   __syncthreads();
   if (tid < kFlashRows) {  // warps 0-3: this CTA's query positions
-    const bool live = row0 + tid < rows;
-    const int p = live ? qpos[(row0 + tid) / g] : 0;
-    const int lo = __reduce_min_sync(0xffffffffu, live ? p : INT_MAX);
-    const int hi = __reduce_max_sync(0xffffffffu, live ? p : INT_MIN);
+    const bool own = tid < live && row0 + tid < rows;
+    const int p = own ? qpos[(row0 + tid) / g] : 0;
+    const int lo = __reduce_min_sync(0xffffffffu, own ? p : INT_MAX);
+    const int hi = __reduce_max_sync(0xffffffffu, own ? p : INT_MIN);
     if (tid % 32 == 0) {
       atomicMin(&qbounds[0], lo);
       atomicMax(&qbounds[1], hi);
@@ -692,7 +703,7 @@ __global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kF
       prefetch_map(&vmap);
       prefetch_map(&omap);
       if constexpr (kLoads) {
-        mbar_expect_tx(q_full, kFlashRows * HD * 2);
+        mbar_expect_tx(q_full, live * HD * 2);  // the box's bytes, Sq edge too
         for (int c = 0; c < kChunks; ++c)
           tma_load_4d(qs + c * kBoxBytes, &qmap, q_full, 64 * c, hk * g,
                       row0 / g, b);
@@ -760,8 +771,19 @@ __global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kF
   int qp[2];  // the positions of the thread's rows, acc_row(t, 2 h)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = row0 + acc_row(t, 2 * h);
-    qp[h] = r < rows ? qpos[r / g] : 0;
+    const int r = acc_row(t, 2 * h);
+    qp[h] = r < live && row0 + r < rows ? qpos[(row0 + r) / g] : 0;
+  }
+  // the rows past the box's (64 mod G of them) are never loaded: zero
+  // them once, so that no inf or NaN arises in rows no one reads
+  if (live < kFlashRows) {
+    for (int i = live * 8 + t; i < kFlashRows * 8; i += 128)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        *reinterpret_cast<uint4*>(qs + c * kBoxBytes + i * 16) =
+            make_uint4(0, 0, 0, 0);
+    fence_proxy_async();  // generic stores, read by wgmma (the async proxy)
+    named_barrier(1, 128);
   }
   float o[HD / 2];
 #pragma unroll
@@ -829,7 +851,7 @@ __global__ void __launch_bounds__(kFlashThreads, HD == 64 ? kFlashMinCtas64 : kF
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + acc_row(t, 2 * h);
-      if (r < rows)
+      if (acc_row(t, 2 * h) < live && r < rows)
         lse[(static_cast<size_t>(b) * hq + hk * g + r % g) * sq + r / g] =
             m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f));
     }
@@ -841,14 +863,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* qpos,
                  const void* kpos, void* out, void* lse, int b, int sq, int sk,
                  int hq, int hkv, int causal, int window, cudaStream_t st) {
   const int g = hq / hkv;
-  if (64 % g != 0 || sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (g > kFlashRows || sk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int qc = flash_tile_queries(g);
   const uint64_t es = sizeof(__nv_bfloat16);
   const uint64_t qn[4] = {HD, static_cast<uint64_t>(hq),
                           static_cast<uint64_t>(sq), static_cast<uint64_t>(b)};
   const uint64_t qs[3] = {HD * es, hq * HD * es,
                           static_cast<uint64_t>(sq) * hq * HD * es};
   const uint32_t qbox[4] = {64, static_cast<uint32_t>(g),
-                            static_cast<uint32_t>(64 / g), 1};
+                            static_cast<uint32_t>(qc), 1};
   const uint64_t kn[4] = {HD, static_cast<uint64_t>(hkv),
                           static_cast<uint64_t>(sk), static_cast<uint64_t>(b)};
   const uint64_t ks[3] = {HD * es, hkv * HD * es,
@@ -868,9 +891,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* qpos,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                100);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(sq) * g;
-  const dim3 grid(static_cast<unsigned>((rows + kFlashRows - 1) / kFlashRows),
-                  hkv, b);
+  const dim3 grid(static_cast<unsigned>((sq + qc - 1) / qc), hkv, b);
   flash_fwd_wgmma<HD><<<grid, kFlashThreads, smem, st>>>(
       qm, km, vm, om, static_cast<const int*>(qpos),
       static_cast<const int*>(kpos),
@@ -913,7 +934,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* qpos,
 }  // namespace
 
 // The tensor-core form: bf16 (dtype kBF16) only, hd 16, 32, 64 or 128, any
-// group size; the wrapper sends it the bf16 shapes the Hopper form refuses.
+// group size; the wrapper sends it the bf16 shapes the Hopper form refuses
+// (hd 16 and 32, the reduced models').
 // The arguments are flash_attention_fwd's.
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
                                       const void* v, const void* qpos,
@@ -946,9 +968,9 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
 
 // window <= 0: no window.  Pointers are 16-byte aligned (the wrapper checks).
 // dtype kBF16 takes the Hopper form, which needs hd 64 or 128, a group size
-// Hq / Hkv that divides 64 and Sk >= 1 (else cudaErrorInvalidValue; a map
-// TMA refuses gives hopper::kErrTensorMap); kF32 the FMA form, hd 16, 32, 64
-// or 128.
+// Hq / Hkv of at most 64 and Sk >= 1 (else cudaErrorInvalidValue; a map TMA
+// refuses gives hopper::kErrTensorMap); kF32 the FMA form, hd 16, 32, 64 or
+// 128.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* qpos, const void* kpos,
                                    void* out, void* lse, int b, int sq, int sk,

@@ -7,11 +7,12 @@ kv head, tile of query rows), the kv sequence walked by a loop inside the
 block, online softmax in float32, and a kv tile skipped only when the
 positions' bounds prove it masked.  bf16 runs the Hopper form
 (``flash_fwd_wgmma``: TMA into a shared-memory ring, ``wgmma`` on a
-consumer warpgroup; :func:`hopper_plan` mirrors its shared-memory plan)
-at head dims 64 and 128 and group sizes Hq / Hkv that divide 64, every
-full-width path; the bf16 shapes it refuses (:func:`hopper_refusal`: the
-reduced models' hd 16, other group sizes) run the tensor-core form
-(``flash_fwd_tc``, ``mma.sync``).  float32 runs with FMA on the CUDA cores.
+consumer warpgroup; :func:`hopper_plan` mirrors its shared-memory plan,
+:func:`hopper_tiles` its query tiles) at head dims 64 and 128 and every
+group size Hq / Hkv up to 64, every full-width path; the bf16 shapes it
+refuses (:func:`hopper_refusal`: the reduced models' hd 16 and 32) run the
+tensor-core form (``flash_fwd_tc``, ``mma.sync``).  float32 runs with FMA
+on the CUDA cores.
 Block sizes are the kernel's own.  :func:`flash_attention_plain` is its
 plain PyTorch version.
 """
@@ -25,9 +26,10 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 HEAD_DIMS = (16, 32, 64, 128)     # template instances of the FMA and mma.sync forms
 # the Hopper form of csrc/flash_attention.cu (bf16): CTAs of ROWS (query,
-# head-in-group) rows over kv tiles of KEYS keys, STAGES[hd] stages of a K
-# and a V tile and the tile's int32 key positions, the Q tile resident,
-# SMEM_FIXED bytes of alignment slack, barriers and the tile table
+# head-in-group) rows, hopper_tiles(G) of them live, over kv tiles of KEYS
+# keys, STAGES[hd] stages of a K and a V tile and the tile's int32 key
+# positions, the Q tile resident, SMEM_FIXED bytes of alignment slack,
+# barriers and the tile table
 HOPPER_HEAD_DIMS = (64, 128)
 ROWS = 64
 KEYS = 64
@@ -44,12 +46,21 @@ def hopper_plan(hd: int) -> tuple[int, int]:
                                                           + KEYS * 4)
 
 
+def hopper_tiles(g: int) -> tuple[int, int]:
+    """(queries, live rows) of one Hopper-form CTA at group size ``g``: the
+    ``g`` heads of ROWS // g queries, the rows of the 64-row wgmma tile
+    its Q box fills (csrc/flash_attention.cu: flash_tile_queries).  The
+    grid covers Sq in ceil(Sq / queries) tiles."""
+    queries = ROWS // g
+    return queries, queries * g
+
+
 def hopper_refusal(hd: int, hq: int, hkv: int, sk: int) -> str | None:
     """Why the Hopper form cannot take a bf16 call of this shape, or None."""
     if hd not in HOPPER_HEAD_DIMS:
         return f"head_dim {hd} not in {HOPPER_HEAD_DIMS}"
-    if 64 % (hq // hkv):
-        return f"group size {hq // hkv} does not divide 64"
+    if hq // hkv > ROWS:
+        return f"group size {hq // hkv} > {ROWS}"
     if sk < 1:
         return "no keys"
     return None

@@ -112,9 +112,11 @@ def _fake_kernel(monkeypatch, calls):
 
 def test_flash_wrapper_passes_what_the_c_entries_take(monkeypatch):
     """bf16 and float32 reach flash_attention_fwd with their dtype codes (the
-    entry picks the Hopper or the FMA form by it), the bf16 shapes the
-    Hopper form refuses (hd 32, a group of 3) reach flash_attention_fwd_tc
-    with the same arguments; one call counts one launch."""
+    entry picks the Hopper or the FMA form by it), and so do bf16 group
+    sizes that do not divide 64 (3 at hd 64; mixtral's 6 and deepseek's 7
+    at hd 128); the bf16 shapes the Hopper form refuses (hd 32) reach
+    flash_attention_fwd_tc with the same arguments; one call counts one
+    launch."""
     calls = []
     _fake_kernel(monkeypatch, calls)
     q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
@@ -135,14 +137,52 @@ def test_flash_wrapper_passes_what_the_c_entries_take(monkeypatch):
     assert (fn, args[7:16]) == ("flash_attention_fwd",
                                 (2, 8, 12, 4, 2, 64, 0, 0, 0))
     assert flash_k.flash_attention.launches == before + 2
-    for hq, hkv, hd in ((4, 2, 32), (6, 2, 64)):
+    for hq, hkv, hd, entry in ((4, 2, 32, "flash_attention_fwd_tc"),
+                               (6, 2, 64, "flash_attention_fwd"),
+                               (12, 2, 128, "flash_attention_fwd"),
+                               (14, 2, 128, "flash_attention_fwd")):
         q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
                    for s in ((2, 8, hq, hd), (2, 12, hkv, hd), (2, 12, hkv, hd)))
         flash_k.flash_attention(q, k, v, qp, kp)
         fn, args = calls[-1]
-        assert (fn, args[7:16]) == ("flash_attention_fwd_tc",
-                                    (2, 8, 12, hq, hkv, hd, 1, 1, 0))
-    assert flash_k.flash_attention.launches == before + 4
+        assert (fn, args[7:16]) == (entry, (2, 8, 12, hq, hkv, hd, 1, 1, 0))
+    assert flash_k.flash_attention.launches == before + 6
+
+
+def test_flash_hopper_tiles_cover_every_query_head_pair_once():
+    """The Hopper form's query tiles (``hopper_tiles``, the C source's
+    ``flash_tile_queries``): at every group size G up to 64 a CTA's Q box
+    of Qc queries x G heads fills Qc G <= 64 rows of the wgmma tile, and
+    the grid of ceil(Sq / Qc) tiles, tile i's rows at i Qc G (the box's
+    first query i Qc), holds every (query, head-in-group) pair of Sq
+    queries exactly once; its rows past Sq are dropped."""
+    import re
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    rows = int(re.search(r"constexpr int kFlashRows = (\d+);", src).group(1))
+    body = re.search(r"constexpr int flash_tile_queries\(int g\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    assert rows == flash_k.ROWS
+    for g in range(1, rows + 1):
+        qc, live = flash_k.hopper_tiles(g)
+        # C's integer division of positive ints
+        assert qc == eval(body.replace("/", "//"), {},
+                          {"kFlashRows": rows, "g": g}) >= 1
+        assert live == qc * g and rows - g < live <= rows
+        for sq in (*range(1, 70), 101, 127, 128, 255, 256, 257, 300, 512):
+            seen = np.zeros((sq, g), dtype=np.int64)
+            for tile in range(-(-sq // qc)):
+                row0 = tile * live
+                assert row0 % g == 0 and row0 // g == tile * qc
+                for r in range(live):           # the box's (query, head)
+                    query, head = tile * qc + r // g, r % g
+                    assert divmod(row0 + r, g) == (query, head)
+                    if query < sq:
+                        seen[query, head] += 1
+            assert (seen == 1).all(), (g, sq)
+    assert flash_k.hopper_tiles(6) == (10, 60)      # mixtral-8x22b
+    assert flash_k.hopper_tiles(7) == (9, 63)       # deepseek-v3-bench
+    assert flash_k.hopper_tiles(5) == (12, 60)      # qwen3-14b
+    assert flash_k.hopper_tiles(8) == (8, 64)
 
 
 @pytest.mark.parametrize("what", ["hd", "gqa", "dtype", "positions", "window",

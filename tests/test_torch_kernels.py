@@ -302,9 +302,9 @@ def test_hopper_plan_mirrors_the_c_source():
 def test_flash_hopper_plan_mirrors_the_c_source():
     """flash_attention's plan of the Hopper form uses csrc/flash_attention.cu's
     tile geometry, stages and shared-memory bytes, and fits a block's
-    shared memory; it takes bf16 at hd 64 and 128 for group sizes that
-    divide 64 (both families: 4 and 8) and refuses the rest, which the
-    wrapper sends to the tensor-core form."""
+    shared memory; it takes bf16 at hd 64 and 128 for every group size up
+    to 64 (both families: 4 and 8; 3, and the large configs' 6 and 7) and
+    refuses the rest, which the wrapper sends to the tensor-core form."""
     from repro_torch.kernels import flash_attention as fa
     c = _c_constants("flash_attention")
     assert (fa.ROWS, fa.KEYS, fa.THREADS, fa.STAGES[64], fa.STAGES[128],
@@ -319,7 +319,10 @@ def test_flash_hopper_plan_mirrors_the_c_source():
     assert fa.hopper_refusal(128, 32, 4, 64) is None      # qwen3-moe, G 8
     assert fa.hopper_refusal(128, 8, 8, 1) is None        # G 1
     assert "head_dim" in fa.hopper_refusal(32, 4, 4, 8)
-    assert "group" in fa.hopper_refusal(64, 12, 4, 8)
+    assert fa.hopper_refusal(64, 12, 4, 8) is None        # G 3
+    assert fa.hopper_refusal(128, 48, 8, 512) is None     # mixtral, G 6
+    assert fa.hopper_refusal(128, 56, 8, 512) is None     # deepseek, G 7
+    assert "group" in fa.hopper_refusal(64, 65, 1, 8)     # G 65
     assert "keys" in fa.hopper_refusal(64, 4, 4, 0)
 
 

@@ -188,11 +188,13 @@ def test_reduced_mixtral_past_its_window_matches_jax():
 
 
 @pytest.mark.parametrize("hq,hkv,window", [(6, 1, None), (6, 1, 24),
-                                           (7, 1, 24), (14, 2, None)])
+                                           (7, 1, 24), (14, 2, None),
+                                           (10, 2, None)])
 def test_flash_plain_at_group_sizes_6_and_7_matches_pallas(hq, hkv, window):
-    """The plain flash (what the mma.sync form is held to on the card) at
+    """The plain flash (what the Hopper form is held to on the card) at
     mixtral's and deepseek's group sizes, with and without a window shorter
-    than the keys, against the Pallas kernel in interpret mode."""
+    than the keys, and at qwen3-14b's 5, against the Pallas kernel in
+    interpret mode."""
     b, sq, sk, hd, blk = 2, 32, 64, 16, 16
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in (
