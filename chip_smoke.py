@@ -208,19 +208,31 @@
    sharing the card (NCCL refuses two ranks on one device; gloo stages
    every collective through the host, so nothing here is a speed):
    ``ep2_card_check``, one reduced f32 train step of each family on two
-   ranks (EP 2) against the one-rank card step (moe-ffn's at two lanes, its
+   ranks (EP 2, a (1, 2) grid: the moe family under its default Megatron
+   TP; and qwen3-moe once more over the EP group alone with
+   ``explicit_tp=False``, its replicated attention) against the one-rank
+   card step (moe-ffn's at two lanes, its
    accumulation fused), and moe-ffn's prefill at two lanes with autograd
-   off, every lane's tail left in flight on an asynchronous exchange; ``grid_card_check``, the
-   same on a (2, 2) (data, model) grid of four ranks, with the replicated
-   leaves' bits equal on the four, each expert leaf's on the data ranks of
-   its lane, the traffic state's on the four, each rank's AdamW state its
-   ZeRO-1 share, and every kernel launched on every rank (rank 0's
-   launches join ``launches_by_phase``); and ``zero1_phase``, qwen3-moe at
-   full width cut to one layer (B 4 x S 512, traffic on, 3 steps) through
-   ``launch/train.run`` on the card alone and then on that grid: each
-   rank's measured AdamW state must be the ZeRO-1 reckoning from the
-   parameter counts, its losses finite and the same on the four ranks, the
-   first within 2e-3 relative of the one-card run's.
+   off, every lane's tail left in flight on an asynchronous exchange;
+   ``grid_card_check``, the same on a (2, 2) (data, model) grid of four
+   ranks, with reduced qwen3-1.7b and qwen3-moe through fused_flat under
+   TP besides, the replicated leaves' bits equal on the four, each expert
+   leaf's and TP shard's on the data ranks of its model rank, the traffic
+   state's on the four, each rank's AdamW state its ZeRO-1 share, and
+   every kernel of the family launched on every rank (rank 0's launches
+   join ``launches_by_phase``), and in the same spawn the same for
+   qwen3-1.7b on a (1, 4) grid (one head a rank); ``zero1_phase``,
+   qwen3-moe at full width cut to one layer (B 4 x S 512, traffic on, 3
+   steps) through ``launch/train.run`` on the card alone and then on that
+   grid: each rank's measured AdamW state must be the reckoning of what it
+   holds (``held_params``) over DP 2, its losses finite and the same on
+   the four ranks, the first within 2e-3 relative of the one-card run's;
+   and ``tp_full_phase``, one bf16 train step at full width of qwen3-1.7b
+   (2 layers) and qwen3-moe (1 layer) on (1, 2) and of qwen3-moe on (1, 4)
+   under Megatron TP against the card alone: the loss within 2e-3, each
+   rank's parameter and AdamW bytes the reckoning, rank 0's flash calls at
+   n_heads / m query heads (the flash rows at those shapes,
+   ``tp_flash_rows``, sit in the kernel phase).
 9. Prints the card's name and power limit, the kernels' numbers as one JSON
    line (``launches_by_phase`` counts every serve phase), and last
    ``{"ok": true, "device": {...}}``.
@@ -2408,21 +2420,29 @@ EP2_CASES = (("qwen3-moe-30b-a3b", "fused_hier"), ("moe-tx-stream", "fused_pipe"
 EP2_LANE_CASES = (("moe-ffn-stream", "fused_pipe", 2),)
 # (arch, engine, lanes) of every EP-2 train step
 EP2_TRAIN_CASES = tuple((a, e, 1) for a, e in EP2_CASES) + EP2_LANE_CASES
+# the EP-2 cases run a second time over the EP group alone with
+# ``explicit_tp=False``: the moe family's replicated attention, each rank
+# the whole sequence, the layout its serving contexts keep
+EP2_REPLICATED = (("qwen3-moe-30b-a3b", "fused_hier"),)
 EP2 = 2
 EP2_CAPACITY = 8.0   # capacity factor: no row dropped at EP 1 or EP 2, whose
                      # capacities differ, so both compute one function
 
 
 def _ep2_step(arch, engine, device, group=None, mesh=None,
-              lanes: int = 1) -> dict:
+              lanes: int = 1, tp: bool = True) -> dict:
     """One f32 train step of the reduced ``arch`` through ``engine``
     (``engine_kwargs``; ``lanes`` > 1: the accumulation of as many
     micro-batches fused into the lanes) on ``device`` over ``group`` or on
-    ``mesh`` (None: one rank), from the whole seed-0 tree cut to this rank's lane and the
+    ``mesh`` (None: one rank; ``tp``: the context's ``explicit_tp``), from
+    the whole seed-0 tree cut to this rank's lane and the
     global batch cut to its data rank's rows: the loss, the grads and the
     updated params by path (on the CPU), the grad norm, the new traffic
-    state, the bytes of the AdamW state and those of its ZeRO-1 share
-    (``adamw.zero_dim``), and the kernels' launches."""
+    state (None without experts), the bytes of the AdamW state and those
+    of its ZeRO-1 share (``adamw.zero_dim``), the kernels' launches and
+    whether the step ran Megatron TP (``lm.tensor_parallel``: the moe and
+    dense families over more than one model rank, unless ``tp`` is
+    False)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core import traffic
@@ -2441,11 +2461,11 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     ctx = lm.make_context(cfg, device, ep_group=group, mesh=mesh,
                           capacity_factor=EP2_CAPACITY, compute_dtype=f32,
-                          **engine_kwargs(engine, cfg, lanes))
+                          explicit_tp=tp, **engine_kwargs(engine, cfg, lanes))
     model = zoo.build(cfg, ctx)
     params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
     batch = to_device(host, device)
-    cold = lambda: traffic.init_traffic_state(
+    cold = lambda: None if cfg.moe is None else traffic.init_traffic_state(
         cfg.moe.n_experts, ctx.placement.ep, n_layers=cfg.n_layers,
         device=device)
     wrappers = zero_counters()
@@ -2461,10 +2481,26 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
             "grads": dict(zip(paths, (g.cpu() for g in grads))),
             "params": dict(zip(paths, (p.detach().cpu()
                                        for p in adamw.leaves(params)))),
-            "traffic": [t.cpu() for t in m["traffic"]],
+            "traffic": [t.cpu() for t in m.get("traffic") or ()],
             "state_bytes": adamw.state_bytes(opt), "share_bytes": share,
             "launches": {k: w.launches for k, w in wrappers.items()},
-            "lr": adamw.schedule(opt_cfg, 1)}
+            "lr": adamw.schedule(opt_cfg, 1), "tp": lm.tensor_parallel(ctx)}
+
+
+def rank_cut(path: str, t, model: int, r: int, tp: bool):
+    """A whole leaf as rank ``r`` of a model group of ``model`` holds it:
+    an expert leaf its lane, under ``tp`` a TP leaf its shard."""
+    from repro_torch.models import lm
+    t = lm.lane_cut(path, t, model, range(r, r + 1))
+    return lm.tp_cut(path, t, model, r) if tp else t
+
+
+def held_apart(path: str, tp: bool) -> bool:
+    """Whether the model ranks hold different parts of the leaf at
+    ``path``: an expert leaf, and under ``tp`` a TP leaf."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    return lm.lane_sharded(path) or (tp and sharding.tp_sharded(path))
 
 
 def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
@@ -2507,9 +2543,10 @@ def _ep2_prefill(arch, engine, device, lanes, group=None) -> dict:
     f32 = torch.float32
     base = lm.init_params(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32),
                           torch.Generator().manual_seed(0), dtype=f32)
+    # a serving context: whole weights on every rank
     ctx = lm.make_context(cfg, device, ep_group=group,
                           capacity_factor=EP2_CAPACITY, compute_dtype=f32,
-                          **engine_kwargs(engine, cfg, lanes))
+                          explicit_tp=False, **engine_kwargs(engine, cfg, lanes))
     params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
     tokens = torch.randint(0, cfg.vocab, (4, 16),
                            generator=torch.Generator().manual_seed(1))
@@ -2543,10 +2580,18 @@ def _ep2_rank(rank, port, out_dir, device):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=EP2)
     try:
+        # a (1, 2) grid: the moe family takes Megatron TP, as by default
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(1, EP2)
         for arch, engine, lanes in EP2_TRAIN_CASES:
-            torch.save(_ep2_step(arch, engine, device, dist.group.WORLD,
+            torch.save(_ep2_step(arch, engine, device, mesh=mesh,
                                  lanes=lanes),
                        f"{out_dir}/{arch}-{engine}-{lanes}-rank{rank}.pt")
+        # the replicated attention over the EP group alone
+        for arch, engine in EP2_REPLICATED:
+            torch.save(_ep2_step(arch, engine, device, dist.group.WORLD,
+                                 tp=False),
+                       f"{out_dir}/{arch}-{engine}-replicated-rank{rank}.pt")
         for arch, engine, lanes in EP2_LANE_CASES:
             torch.save(_ep2_prefill(arch, engine, device, lanes,
                                     dist.group.WORLD),
@@ -2558,11 +2603,15 @@ def _ep2_rank(rank, port, out_dir, device):
 def ep2_card_check(device="cuda") -> list[str]:
     """One f32 train step of each case (``EP2_TRAIN_CASES``: ``EP2_CASES``
     and the lanes' ``EP2_LANE_CASES``) on two ranks sharing the card (a gloo group:
-    NCCL refuses two ranks on one device) against the EP 1 step on the card
-    from the same whole parameters and global batch: on each rank the loss
-    and every grad leaf (an expert leaf's against its lane of the EP 1
-    gradient) within ``TOL_TRAIN`` of max(1, |x|), the grad norm within
-    ``TOL_TRAIN`` relative, the updated params within 2 * lr + 1e-5; the
+    NCCL refuses two ranks on one device; a (1, 2) grid, so the moe family
+    runs its default Megatron TP beside EP), and in the same spawn each of
+    ``EP2_REPLICATED`` over the EP group alone with ``explicit_tp=False``
+    (the replicated attention), against the EP 1 step on the
+    card from the same whole parameters and global batch: on each rank the
+    loss and every grad leaf (an expert leaf's against its lane of the EP 1
+    gradient, a TP leaf's against its shard) within ``TOL_TRAIN`` of
+    max(1, |x|), the grad norm within ``TOL_TRAIN`` relative, the updated
+    params within 2 * lr + 1e-5; the
     replicated leaves hold the same bits on both ranks after the step;
     every kernel of the family's path launched on each rank and none off
     it (``family_kernels``).  Then each lane case's prefill
@@ -2573,7 +2622,6 @@ def ep2_card_check(device="cuda") -> list[str]:
     import shutil
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import lm
     out_dir = ROOT / "build" / "ep2"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -2582,14 +2630,16 @@ def ep2_card_check(device="cuda") -> list[str]:
                     for c in EP2_LANE_CASES}
     spawn_ranks(_ep2_rank, EP2, (free_port(), str(out_dir), device), 600)
     lines = []
-    for (arch, engine, lanes), w in want.items():
-        got = [torch.load(out_dir / f"{arch}-{engine}-{lanes}-rank{r}.pt")
-               for r in range(EP2)]
+    runs = ([(c, f"{c[0]}-{c[1]}-{c[2]}") for c in EP2_TRAIN_CASES]
+            + [((a, e, 1), f"{a}-{e}-replicated") for a, e in EP2_REPLICATED])
+    for (arch, engine, lanes), name in runs:
+        w = want[arch, engine, lanes]
+        got = [torch.load(out_dir / f"{name}-rank{r}.pt") for r in range(EP2)]
         required, absent = family_kernels(get_arch(arch), train=True)
         rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
         err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
         for r, g in enumerate(got):
-            lane = lambda path, t: lm.lane_cut(path, t, EP2, range(r, r + 1))
+            lane = lambda path, t: rank_cut(path, t, EP2, r, g["tp"])
             err["loss"] = max(err["loss"], abs(g["loss"] - w["loss"]))
             err["grad_norm"] = max(err["grad_norm"], abs(
                 g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
@@ -2605,8 +2655,14 @@ def ep2_card_check(device="cuda") -> list[str]:
                                      f"launched {never}, or launched "
                                      f"{stray}: {g['launches']}")
         apart = [k for k, t in got[0]["params"].items()
-                 if not lm.lane_sharded(k)
+                 if not held_apart(k, got[0]["tp"])
                  and not same_bits(t, got[1]["params"][k])]
+        # the moe family: TP on the grid, the replicated attention alone
+        tp_want = (get_arch(arch).family == "moe"
+                   and not name.endswith("replicated"))
+        if any(g["tp"] != tp_want for g in got):
+            raise AssertionError(f"EP-2 {name}: Megatron TP per rank "
+                                 f"{[g['tp'] for g in got]}, not {tp_want}")
         p_tol = 2 * w["lr"] + 1e-5
         if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
                 and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol
@@ -2616,6 +2672,9 @@ def ep2_card_check(device="cuda") -> list[str]:
                 f"{TOL_TRAIN}, params {p_tol}); replicated leaves apart "
                 f"across ranks: {apart}")
         fused = f" at {lanes} lanes, accum {lanes} fused" if lanes > 1 else ""
+        fused += (", Megatron TP" if got[0]["tp"]
+                  else ", replicated attention" if name.endswith("replicated")
+                  else "")
         lines.append(
             f"{arch} {engine}{fused}: loss {err['loss']:.3g}, grads "
             f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
@@ -2649,8 +2708,20 @@ def ep2_card_check(device="cuda") -> list[str]:
 
 
 # the (2, 2) grid on one card: four ranks of a gloo group sharing it, two
-# data ranks of an EP group of two; the cases are EP2_CASES
+# data ranks of an EP group of two; the cases are GRID_CASES
 GRID = (2, 2)
+# the Megatron-SP cases on one card: the (2, 2) grid's (run by
+# ``grid_card_check`` in the same spawn as ``EP2_CASES``): reduced
+# qwen3-1.7b (attention and MLP TP, 2 of 4 heads a rank, group size 2) and
+# qwen3-moe (TP attention beside EP 2) through fused_flat; the (1, 4) grid's
+# (the same four ranks, the same spawn): qwen3-1.7b, one head a rank, fewer
+# than its group size, one kv head a rank
+TP_CASES = (("qwen3-1.7b", "fused_flat"), ("qwen3-moe-30b-a3b", "fused_flat"))
+GRID_CASES = EP2_CASES + TP_CASES
+TP4 = (1, 4)
+TP4_CASES = (("qwen3-1.7b", "fused_flat"),)
+# the grids of ``grid_card_check``: (shape, cases), four ranks each
+GRIDS = ((GRID, GRID_CASES), (TP4, TP4_CASES))
 # the full-width ZeRO-1 run on the same four ranks: qwen3-moe at full width
 # cut to one layer, B 4 x S 512 (each data rank 2 rows), traffic on; a
 # capacity factor of E / top-k = 16 gives each expert room for every token of
@@ -2661,62 +2732,77 @@ ZERO1 = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1", "--batch", "4",
 TOL_ZERO1_LOSS = 2e-3     # first step's loss, grid vs one card, relative: bf16
 
 
-def _grid_init(rank, port, device):
-    """Join the four-rank gloo group of the grid on ``device``; its mesh."""
+def _grid_init(rank, port, device, shape=GRID):
+    """Join the gloo group of a ``shape`` grid's ranks on ``device``; its
+    mesh."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device).index or 0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=GRID[0] * GRID[1])
+                            rank=rank, world_size=shape[0] * shape[1])
     from repro_torch.launch.mesh import make_host_mesh
-    return make_host_mesh(*GRID)
+    return make_host_mesh(*shape)
 
 
-def _grid_rank(rank, port, out_dir, device):
-    """One rank of the grid check: each case's step saved to ``out_dir``."""
+def _grid_rank(rank, port, out_dir, device, grids):
+    """One rank of the grid checks: each of ``grids``' (shape, cases), the
+    same world in all, each case's step saved to ``out_dir``."""
     import torch
     import torch.distributed as dist
-    mesh = _grid_init(rank, port, device)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = _grid_init(rank, port, device, grids[0][0])
     try:
-        for arch, engine in EP2_CASES:
-            torch.save(_ep2_step(arch, engine, device, mesh=mesh),
-                       f"{out_dir}/{arch}-{engine}-rank{rank}.pt")
+        for i, (shape, cases) in enumerate(grids):
+            mesh = mesh if i == 0 else make_host_mesh(*shape)
+            for arch, engine in cases:
+                torch.save(_ep2_step(arch, engine, device, mesh=mesh),
+                           f"{out_dir}/{shape[0]}x{shape[1]}-{arch}-{engine}"
+                           f"-rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def grid_card_check(device="cuda") -> tuple[list[str], dict]:
-    """One f32 train step of each ``EP2_CASES`` on a (2, 2) grid of four
-    ranks sharing the card (gloo) against the one-rank step on the card
+def grid_card_check(device="cuda",
+                    grids=GRIDS) -> tuple[dict, dict]:
+    """One f32 train step of each case of each (shape, cases) of ``grids``
+    on a ``shape`` grid of ranks sharing the card (gloo; one spawn of the
+    grids' common world for all) against the one-rank step on the card
     from the same whole parameters and global batch: on each rank the loss,
     every grad leaf (an expert leaf's against its lane of the one-rank
-    gradient) within ``TOL_TRAIN`` of max(1, |x|), the grad norm within
-    ``TOL_TRAIN`` relative, the updated params within 2 * lr + 1e-5; the
-    replicated leaves hold the same bits on all four ranks, each expert
-    leaf on the two data ranks of its lane, and the traffic state on all
-    four; each rank's AdamW state is its ZeRO-1 share in bytes; every kernel
-    launched on every rank.  Returns a line a case and rank 0's launches by
-    case."""
+    gradient, a TP leaf's against its shard: the moe and dense families
+    run their default Megatron TP on the grid) within ``TOL_TRAIN`` of
+    max(1, |x|), the grad norm within ``TOL_TRAIN`` relative, the updated
+    params within 2 * lr + 1e-5; the replicated leaves hold the same bits
+    on every rank, each expert leaf and TP shard on the data ranks of its
+    model rank, and the traffic state on all; each rank's AdamW state is
+    its ZeRO-1 share in bytes; every kernel of the family's path launched
+    on every rank (``family_kernels``).  Returns the lines of each shape,
+    one a case, and rank 0's launches by grid and case."""
     import shutil
     import torch
-    from repro_torch.models import lm
+    from repro_torch.configs import get_arch
     out_dir = ROOT / "build" / "grid"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    want = {c: _ep2_step(*c, device) for c in EP2_CASES}
-    n, model = GRID[0] * GRID[1], GRID[1]
-    spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device), 600)
-    lines, launches = [], {}
-    for (arch, engine), w in want.items():
-        got = [torch.load(out_dir / f"{arch}-{engine}-rank{r}.pt")
-               for r in range(n)]
+    want = {c: _ep2_step(*c, device) for _, cases in grids for c in cases}
+    n = grids[0][0][0] * grids[0][0][1]
+    assert all(a * b == n for (a, b), _ in grids), grids
+    spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids),
+                600)
+    lines, launches = {}, {}
+    for shape, (arch, engine) in ((s, c) for s, cases in grids
+                                  for c in cases):
+        w, model = want[arch, engine], shape[1]
+        got = [torch.load(out_dir / f"{shape[0]}x{model}-{arch}-{engine}"
+                          f"-rank{r}.pt") for r in range(n)]
         rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
         err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
+        required, _ = family_kernels(get_arch(arch), train=True)
         for r, g in enumerate(got):
-            lane = lambda path, t: lm.lane_cut(path, t, model,
-                                               range(r % model, r % model + 1))
+            lane = lambda path, t: rank_cut(path, t, model, r % model,
+                                            g["tp"])
             err["loss"] = max(err["loss"], abs(g["loss"] - w["loss"]))
             err["grad_norm"] = max(err["grad_norm"], abs(
                 g["grad_norm"] - w["grad_norm"]) / w["grad_norm"])
@@ -2725,17 +2811,21 @@ def grid_card_check(device="cuda") -> tuple[list[str], dict]:
             for k, t in w["params"].items():
                 err["params"] = max(err["params"],
                                     max_err(g["params"][k], lane(k, t)))
-            never = [k for k, c in g["launches"].items() if c == 0]
+            never = [k for k in required if g["launches"][k] == 0]
             if never or g["state_bytes"] != g["share_bytes"]:
                 raise AssertionError(
-                    f"grid {arch} {engine} rank {r}: never launched {never} "
+                    f"grid {shape} {arch} {engine} rank {r}: never launched "
+                    f"{never} "
                     f"({g['launches']}); AdamW state {g['state_bytes']} bytes, "
                     f"its ZeRO-1 share {g['share_bytes']}")
         apart = []
         for k in got[0]["params"]:
-            # an expert leaf: the two data ranks of each lane; else all four
-            pairs = ([(m, m + model) for m in range(model)]
-                     if lm.lane_sharded(k) else [(0, r) for r in range(1, n)])
+            # an expert leaf or TP shard: the data ranks of each model rank;
+            # else all
+            pairs = ([(m, m + d * model) for m in range(model)
+                      for d in range(1, shape[0])]
+                     if held_apart(k, got[0]["tp"])
+                     else [(0, r) for r in range(1, n)])
             apart += [f"{k} ranks {a}, {b}" for a, b in pairs
                       if not same_bits(got[a]["params"][k],
                                        got[b]["params"][k])]
@@ -2747,20 +2837,36 @@ def grid_card_check(device="cuda") -> tuple[list[str], dict]:
                 and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol
                 and not apart):
             raise AssertionError(
-                f"grid {arch} {engine} against one rank on the card: {err} "
-                f"(tol {TOL_TRAIN}, params {p_tol}); bits apart: {apart}")
-        launches[f"grid (2, 2) {arch} {engine} rank 0"] = got[0]["launches"]
-        lines.append(
-            f"{arch} {engine}: loss {err['loss']:.3g}, grads "
+                f"grid {shape} {arch} {engine} against one rank on the card: "
+                f"{err} (tol {TOL_TRAIN}, params {p_tol}); bits apart: "
+                f"{apart}")
+        launches[f"grid {shape} {arch} {engine} rank 0"] = got[0]["launches"]
+        tp = ", Megatron TP" if got[0]["tp"] else ""
+        lines.setdefault(shape, []).append(
+            f"{arch} {engine}{tp}: loss {err['loss']:.3g}, grads "
             f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
             f"{TOL_TRAIN}), params {err['params']:.3g} (tol {p_tol:.3g}); "
-            f"replicated leaves bit-equal on the four ranks, expert leaves on "
-            f"the data ranks of each lane, traffic state on the four; AdamW "
+            f"replicated leaves bit-equal on the {n} ranks, expert leaves and "
+            f"TP shards on the data ranks of each model rank, traffic state "
+            f"on the {n}; AdamW "
             f"state per rank {[g['state_bytes'] for g in got]} bytes (ZeRO-1 "
             f"shares; {w['state_bytes']} on one rank); launches per rank "
             f"{json.dumps([g['launches'] for g in got])}")
     shutil.rmtree(out_dir, ignore_errors=True)
     return lines, launches
+
+
+def held_params(cfg, model: int) -> int:
+    """The parameters a rank holds at a model group of ``model`` in the
+    default layout: 1 / model of the expert leaves and, where Megatron TP
+    applies (``lm.ModelContext.tp_eligible``'s rule: the dense and moe
+    families, the heads split evenly), of the TP leaves
+    (``lm.tp_param_count``); the rest whole."""
+    from repro_torch.models import lm
+    replicated, experts = lm.param_counts(cfg)
+    tp = (lm.tp_param_count(cfg) if model > 1 and cfg.n_heads % model == 0
+          and cfg.family in ("dense", "moe") else 0)
+    return replicated - tp + tp // model + experts // model
 
 
 def _zero1_rank(rank, port, out_dir, argv, device):
@@ -2805,14 +2911,12 @@ def zero1_phase(argv=ZERO1, device="cuda",
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
-    from repro_torch.models import lm
     args = train.parse_args(argv)
     cfg = get_arch(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
     data, model = GRID
-    replicated, experts = lm.param_counts(cfg)
-    held = replicated + experts // model
+    held = held_params(cfg, model)
     reckoned = 12 * held // data
     torch.cuda.empty_cache()
     if against is None:
@@ -2865,6 +2969,167 @@ def zero1_phase(argv=ZERO1, device="cuda",
     lines.append(f"first loss vs the one-card run: {first:.3g} relative (tol "
                  f"{TOL_ZERO1_LOSS})")
     return lines, {"one": one, "ranks": got}
+
+
+# the full-width Megatron-SP steps (``tp_full_phase``): one train step of
+# each argv (``train.setup``'s seed-0 params and first global batch) on a (1,
+# m) grid of m gloo ranks sharing the card and on the card alone, bf16, B 4 x
+# S 512; the moe steps at capacity factor 16 (no row dropped at any EP);
+# label -> (argv, m)
+TP_FLAGS = ["--batch", "4", "--seq", "512"]
+TP_MOE = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1",
+          "--capacity-factor", "16"] + TP_FLAGS
+TP_FULL = {"qwen3-1.7b TP 2": (["--arch", "qwen3-1.7b", "--layers", "2"]
+                               + TP_FLAGS, 2),
+           "qwen3-moe-30b-a3b TP 2": (TP_MOE, 2),
+           "qwen3-moe-30b-a3b TP 4": (TP_MOE, 4)}
+TOL_TP_LOSS = 2e-3        # the step's loss, grid vs one card, relative: bf16
+
+
+def tp_shapes(argv, model: int):
+    """(config, q heads a rank, kv heads rank 0 reads) of a ``TP_FULL``
+    step (``tp_blocks.kv_heads``)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.parallel import tp_blocks
+    args = train.parse_args(argv)
+    cfg = get_arch(args.arch)
+    cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg,
+                              n_layers=args.layers or cfg.n_layers)
+    kv, _ = tp_blocks.kv_heads(cfg.n_heads, cfg.n_kv_heads, model, 0)
+    return cfg, cfg.n_heads // model, len(kv)
+
+
+def tp_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
+    """The flash forward at each ``TP_FULL`` step's shard shape: B 4 x S
+    512, the rank's q heads and the kv heads they read."""
+    rows = []
+    for label, (argv, model) in TP_FULL.items():
+        cfg, hl, kv = tp_shapes(argv, model)
+        rows.append(dict(flash_row(*attention_inputs(
+            device, b=4, sq=512, sk=512, hq=hl, hkv=kv, hd=cfg.hd),
+            window=None, timer=timer), path=label))
+    return rows
+
+
+def tp_step(argv, device, mesh=None) -> dict:
+    """One train step of ``argv`` through ``train.setup`` (the seed-0
+    params and data source of ``train.run``) on ``device``, over ``mesh``
+    (None: one rank) on this data rank's rows of the first global batch:
+    the loss, this rank's parameter and AdamW bytes, the kernels'
+    launches and the (q, kv) heads of every flash call of the TP
+    blocks."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import steps, train
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import tp_blocks
+    args = train.parse_args(argv)
+    s = train.setup(args, device, mesh=mesh)
+    model = zoo.build(s.cfg, s.ctx)
+    dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
+    batch = to_device(train.shard_batch(s.source.batch_at(0), dp, d)[0],
+                      device)
+    opt = steps.init_state(model, s.params)
+    heads, attn = [], tp_blocks.causal_attention
+
+    def recording(q, k, *a, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return attn(q, k, *a, **kw)
+
+    tp_blocks.causal_attention = recording
+    wrappers = zero_counters()
+    try:
+        _, opt, m = steps.make_train_step(model, s.opt_cfg)(
+            s.params, opt, batch, train.init_traffic(s.cfg, s.ctx, 1))
+    finally:
+        tp_blocks.causal_attention = attn
+    return {"loss": float(m["loss"]),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in adamw.leaves(s.params)),
+            "opt_bytes": adamw.state_bytes(opt),
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "heads": heads}
+
+
+def _tp_full_rank(rank, port, out_dir, runs, model, device):
+    """One rank of the full-width TP steps (:func:`tp_step`) of ``runs``
+    ((label, argv) pairs) on a (1, ``model``) grid, in turn, each result
+    saved to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    mesh = _grid_init(rank, port, device, (1, model))
+    try:
+        for i, (_, argv) in enumerate(runs):
+            torch.save(tp_step(argv, device, mesh),
+                       f"{out_dir}/tp{i}-rank{rank}.pt")
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_full_phase(device="cuda") -> tuple[list[str], dict]:
+    """Each ``TP_FULL`` step on its (1, m) grid of gloo ranks sharing the
+    card (Megatron TP over the model group, the default) after the same
+    step on the card alone: every rank's loss the same and within
+    ``TOL_TP_LOSS`` relative of the one-card step's; each rank's bf16
+    parameter bytes and AdamW bytes (f32 master, mu, nu) the reckoning of
+    what it holds (``held_params``: 2 and 12 bytes a parameter); every
+    flash call of rank 0 takes q of n_heads / m heads beside the kv heads
+    they read; every kernel of the family's path launched on rank 0.
+    The steps of one m run in one spawn.  Returns the lines and rank 0's
+    launches by label."""
+    import math
+    import shutil
+    import torch
+    out_dir = ROOT / "build" / "tp"
+    on_card = torch.device(device).type == "cuda"
+    ones, lines, launches, got_of = {}, [], {}, {}
+    for argv, _ in TP_FULL.values():
+        if tuple(argv) not in ones:
+            ones[tuple(argv)] = tp_step(argv, device)
+            if on_card:
+                torch.cuda.empty_cache()
+    for model in sorted({m for _, m in TP_FULL.values()}):
+        runs = [(label, argv) for label, (argv, m) in TP_FULL.items()
+                if m == model]
+        shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir.mkdir(parents=True)
+        spawn_ranks(_tp_full_rank, model, (
+            free_port(), str(out_dir), runs, model,
+            "cuda:0" if on_card else device), 600)
+        for i, (label, _) in enumerate(runs):
+            got_of[label] = [torch.load(out_dir / f"tp{i}-rank{r}.pt")
+                             for r in range(model)]
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for label, (argv, model) in TP_FULL.items():
+        cfg, hl, kv = tp_shapes(argv, model)
+        one, got = ones[tuple(argv)], got_of[label]
+        held = held_params(cfg, model)
+        first = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
+        required, _ = family_kernels(cfg, train=True)
+        never = [k for k in required if got[0]["launches"][k] == 0]
+        bad = [r for r, g in enumerate(got)
+               if g["param_bytes"] != 2 * held or g["opt_bytes"] != 12 * held
+               or g["loss"] != got[0]["loss"] or not math.isfinite(g["loss"])]
+        heads = sorted(set(got[0]["heads"]))
+        line = (f"{label}: one card loss {one['loss']}, params "
+                f"{one['param_bytes']} B, AdamW {one['opt_bytes']} B; ranks' "
+                f"losses {[g['loss'] for g in got]} ({first:.3g} relative, "
+                f"tol {TOL_TP_LOSS}); params {[g['param_bytes'] for g in got]}"
+                f" B and AdamW {[g['opt_bytes'] for g in got]} B a rank, "
+                f"reckoned {2 * held} and {12 * held} ({held} parameters "
+                f"held); rank 0's {len(got[0]['heads'])} flash calls at "
+                f"(q, kv) heads {heads} (want [({hl}, {kv})]); rank 0's "
+                f"launches {json.dumps(got[0]['launches'])}")
+        if bad or never or first > TOL_TP_LOSS or heads != [(hl, kv)]:
+            raise AssertionError(f"full-width TP step off (ranks {bad}, never "
+                                 f"launched {never}): {line}")
+        lines.append(line)
+        launches[label] = got[0]["launches"]
+    return lines, launches
 
 
 # the relayout phases: each train phase (TRAINS) re-laid out after every 4th
@@ -3401,9 +3666,11 @@ def _replicated_rank(rank, port, out_dir, device):
             w = base["layers"]["moe"][n]
             base["layers"]["moe"][n] = w[:, 0, slots].reshape(
                 w.shape[0], EP2, REPLICATED_SLOTS, *w.shape[3:])
+        # the replicated attention: the table's relayout in that layout
         ctx = lm.make_context(cfg, device, ep_group=dist.group.WORLD,
                               capacity_factor=EP2_CAPACITY,
-                              compute_dtype=f32, engine="fused_flat")
+                              compute_dtype=f32, engine="fused_flat",
+                              explicit_tp=False)
         ctx = dataclasses.replace(ctx, placement=table)
         model = zoo.build(cfg, ctx)
         params = lm.shard_params(adamw.tree_map(lambda t: t.to(device),
@@ -4296,6 +4563,8 @@ def main() -> None:
     rows += large_rows()
     large_train, large_back = large_train_rows()
     rows += large_train
+    with torch.no_grad():
+        rows += tp_flash_rows()
     stamp("the kernel rows of the large paths")
     train_inp = main_path_inputs("cuda", **TRAIN[1])
     for r in rows:
@@ -4497,10 +4766,14 @@ def main() -> None:
               f"qwen3-moe f32, 8 experts on 2 lanes x {REPLICATED_SLOTS} "
               f"slots): {line}")
     grid_lines, grid_launches = grid_card_check()
-    for line in grid_lines:
+    for line in grid_lines[GRID]:
         print(f"(2, 2) grid on one card (four gloo ranks), f32 train step vs "
               f"one rank: {line}")
+    for line in grid_lines[TP4]:
+        print(f"(1, 4) grid on one card (four gloo ranks), Megatron TP, f32 "
+              f"train step vs one rank: {line}")
     launches.update(grid_launches)
+    stamp("the grid checks")
     zero1_lines, zero1 = zero1_phase()
     for line in zero1_lines:
         print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
@@ -4511,6 +4784,12 @@ def main() -> None:
         print(f"full-width FSDP run (ZeRO-3 of the experts), (2, 2) grid on "
               f"one card: {line}")
     stamp("FSDP grid")
+    tp_lines, tp_launches = tp_full_phase()
+    for line in tp_lines:
+        print(f"full-width Megatron TP, bf16, one train step on one card: "
+              f"{line}")
+    launches.update(tp_launches)
+    stamp("full-width TP")
 
     print(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -33,7 +33,11 @@ ZeRO-1 slice of the layout given, which may be another grid's than the
 saver's (``runtime/elastic.remesh_restore``).  Under FSDP of the experts
 (``Layout.fsdp``) an expert leaf's f-slice, parameter and state alike, is
 gathered over the data group on its f dim (``parallel/sharding``) instead
-of a ZeRO-1 slice, and a restore cuts it so, with FSDP on or off.
+of a ZeRO-1 slice, and a restore cuts it so, with FSDP on or off.  Under
+Megatron TP (``Layout.tp``) a TP leaf's shard, parameter and state alike,
+is gathered over the model group on its TP dim (``sharding.TP_DIM``) after
+its ZeRO-1 slice over the data group, so the file holds the whole leaf, the
+reference's bits; a restore cuts it onto any grid, TP or not.
 """
 
 from __future__ import annotations
@@ -63,7 +67,9 @@ class Layout:
     expert leaves) over ``ep_group``, data rank ``d`` of ``dp`` (ZeRO-1 of
     the optimizer state) over ``data_group``; ``world`` holds every rank
     (None: one); ``fsdp``: the expert leaves' f dim is split over the data
-    group (parameters and state; ZeRO-3 of the experts)."""
+    group (parameters and state; ZeRO-3 of the experts); ``tp``: the TP
+    leaves are this rank's shard of ``ep`` over ``ep_group`` (the model
+    group)."""
     ep: int = 1
     lane: int = 0
     dp: int = 1
@@ -72,6 +78,7 @@ class Layout:
     data_group: dist.ProcessGroup | None = None
     world: dist.ProcessGroup | None = None
     fsdp: bool = False
+    tp: bool = False
 
     @property
     def writer(self) -> bool:
@@ -81,21 +88,28 @@ class Layout:
 ONE = Layout()
 
 
-def layout(ep_group=None, mesh=None, fsdp: bool = False) -> Layout:
+def layout(ep_group=None, mesh=None, fsdp: bool = False,
+           tp: bool = False) -> Layout:
     """The :class:`Layout` of a rank over ``ep_group`` (a group, a
     ``dcomm.EPGroups`` or None) or over ``mesh`` (a ``launch.mesh.HostMesh``,
     whose EP group is taken then), with the experts under FSDP over its
-    data group (``fsdp``); that of a model context is
-    ``layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts)``."""
+    data group (``fsdp``) and the TP leaves sharded over its model group
+    (``tp``); that of a model context is :func:`context_layout`."""
     if mesh is not None:
         return Layout(mesh.model, dcomm.lane_index(mesh.ep_group), mesh.data,
                       mesh.data_index, mesh.ep_group, mesh.data_group,
-                      mesh.grid, fsdp and mesh.data > 1)
+                      mesh.grid, fsdp and mesh.data > 1, tp and mesh.model > 1)
     ep = dcomm.group_size(ep_group)
     if ep == 1:
         return ONE
     g = dcomm.process_group(ep_group)
-    return Layout(ep, dcomm.lane_index(ep_group), ep_group=g, world=g)
+    return Layout(ep, dcomm.lane_index(ep_group), ep_group=g, world=g, tp=tp)
+
+
+def context_layout(ctx) -> Layout:
+    """The :class:`Layout` of a ``models.lm.ModelContext``'s rank."""
+    return layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts,
+                  lm.tensor_parallel(ctx))
 
 
 # --- the tree -----------------------------------------------------------------
@@ -159,6 +173,10 @@ class _Role:
         return lay.fsdp and self.model is not None and sharding.fsdp_sharded(
             self.model)
 
+    def tp(self, lay: Layout) -> bool:
+        return lay.tp and self.model is not None and sharding.tp_sharded(
+            self.model)
+
     def zero(self, rank_param_shape, lay: Layout) -> int | None:
         if not self.state or rank_param_shape is None or self.fsdp(lay):
             return None
@@ -192,7 +210,8 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
     """The whole leaf of this rank's ``t``: its ZeRO-1 slice (or its FSDP
-    slice) gathered over the data group, then its lane over the EP group."""
+    slice) gathered over the data group, then its lane over the EP group
+    (or its TP shard over the model group)."""
     if role.fsdp(lay):
         t = _all_gather(t, sharding.fsdp_dim(role.model) % t.dim(),
                         lay.data_group, lay.dp)
@@ -202,6 +221,9 @@ def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
             t = _all_gather(t, dim, lay.data_group, lay.dp)
     if role.sharded(lay):
         t = _all_gather(t, adamw.LANE_DIM, lay.ep_group, lay.ep)
+    if role.tp(lay):
+        t = _all_gather(t, sharding.tp_dim(role.model) % t.dim(),
+                        lay.ep_group, lay.ep)
     return t
 
 
@@ -318,10 +340,13 @@ def latest_step(path: str | None) -> int | None:
 # --- restore --------------------------------------------------------------------
 
 def _cut(role: _Role, a: np.ndarray, lay: Layout) -> np.ndarray:
-    """This rank's part of a whole leaf ``a``: its lane, then its ZeRO-1
-    slice (of the parameter's lane-held shape) or its FSDP slice."""
+    """This rank's part of a whole leaf ``a``: its lane or its TP shard,
+    then its ZeRO-1 slice (of the parameter's held shape) or its FSDP
+    slice."""
     if role.sharded(lay):
         a = lm.lane_cut(role.model, a, lay.ep, range(lay.lane, lay.lane + 1))
+    if role.tp(lay):
+        a = lm.tp_cut(role.model, a, lay.ep, lay.lane)
     if role.fsdp(lay):
         return sharding.data_cut(a, sharding.fsdp_dim(role.model), lay.dp,
                                  lay.d)

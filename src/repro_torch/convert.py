@@ -7,9 +7,10 @@ where the config has them), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
 keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
 with ``lane``, one rank's shard of it over an EP group (the expert leaves
-cut to that lane, ``models/lm.lane_cut``), and with ``data`` = (DP, d) the
+cut to that lane, ``models/lm.lane_cut``), with ``data`` = (DP, d) the
 f-slice data rank d of DP holds under FSDP of the experts
-(``parallel/sharding``).
+(``parallel/sharding``), and with ``model`` = (m, r) the TP shards model
+rank r of m holds under Megatron TP (``models/lm.tp_cut``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.lm import FAMILY_PARTS, lane_cut, lane_sharded
+from repro_torch.models.lm import FAMILY_PARTS, lane_cut, lane_sharded, tp_cut
 from repro_torch.parallel import sharding
 
 _COMMON = {"embed", "final_norm", "lm_head", "layers/ln1"}
@@ -51,14 +52,17 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
-                    data: tuple[int, int] | None = None) -> dict:
+                    data: tuple[int, int] | None = None,
+                    model: tuple[int, int] | None = None) -> dict:
     """Map the reference's parameter tree of a family of :data:`KEYS` onto
     the port's, on ``device`` (pass ``"cpu"`` for the plain path); the
     family is the one whose keys the tree holds (ValueError if none).  With
     ``lane``: the tree rank ``lane`` of an EP group holds, its expert leaves
     (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane.  With
     ``data`` = (DP, d): their f dim cut to data rank d's slice of DP (FSDP,
-    ``sharding.data_cut``)."""
+    ``sharding.data_cut``).  With ``model`` = (m, r): the TP leaves
+    (``sharding.TP_DIM``) cut to model rank r's shard of m, the reference's
+    shard r of its ``model`` axis."""
     paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
     if paths not in KEYS.values():
         near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))
@@ -74,6 +78,8 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
         if data is not None and sharding.fsdp_sharded(path):
             a = sharding.data_cut(np.asarray(a), sharding.fsdp_dim(path),
                                   *data)
+        if model is not None:
+            a = tp_cut(path, np.asarray(a), *model)
         return _tensor(a, device)
 
     def conv(t, prefix=""):

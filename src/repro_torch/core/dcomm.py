@@ -235,8 +235,9 @@ def seq_stripe(x: torch.Tensor, group) -> torch.Tensor:
 class _GatherSeq(torch.autograd.Function):
     """Tiled all-gather along the sequence.  Its transpose keeps this rank's
     stripe of the cotangent summed over the group (the reference's
-    ``psum_scatter``, written as all_reduce + stripe so gloo runs it too):
-    the loss the ranks differentiate is the sum of their own losses."""
+    ``psum_scatter``, :func:`reduce_scatter_dim`: one reduce-scatter on
+    NCCL, all_reduce + stripe on gloo): the loss the ranks differentiate
+    is the sum of their own losses."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -251,9 +252,66 @@ class _GatherSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=process_group(ctx.group))
-        return seq_stripe(g, ctx.group), None
+        return reduce_scatter_dim(g, 1, process_group(ctx.group)), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Sum over the group, each rank keeping its stripe of the sequence
+    (the reference's tiled ``psum_scatter`` on dim 1); its transpose is the
+    tiled all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter_dim(x, 1, process_group(group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 1, process_group(ctx.group)), None
+
+
+def reduce_scatter_seq(x: torch.Tensor,
+                       group: dist.ProcessGroup | None) -> torch.Tensor:
+    """(B, S, ...) partial sums of every rank summed, this rank's stripe
+    (B, S / n, ...) returned, in lane order: the converse of
+    :func:`all_gather_seq`, and the row-parallel products' exit of
+    Megatron-SP (``parallel/tp_blocks.py``).  One ``reduce_scatter_tensor``
+    on NCCL; an ``all_reduce`` and the stripe on gloo, which runs no
+    reduce-scatter.  The identity for one lane, with no collective.
+    Differentiable (:class:`_ScatterSeq`)."""
+    if group_size(group) == 1:
+        return x
+    if x.shape[1] % group_size(group):
+        raise ValueError(f"sequence of {x.shape[1]} does not split over "
+                         f"{group_size(group)} ranks")
+    return _ScatterSeq.apply(x, group)
+
+
+class _SumForward(torch.autograd.Function):
+    """All-reduce (sum) in the forward, the identity in the backward:
+    each rank's cotangent of the sum seeds its own addend (Megatron's
+    reduce from the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=process_group(group))
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_forward(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (one ``all_reduce``; the identity for one
+    rank), differentiable so that each rank's gradient is of its own
+    addend (:class:`_SumForward`): summed over the ranks, the gradients are
+    those of the one sum.  A loss each rank computes over its stripe of the
+    sequence (``models/lm.lm_loss`` under TP) is summed so."""
+    if group_size(group) == 1:
+        return t
+    return _SumForward.apply(t, group)
 
 
 def all_gather_seq(x: torch.Tensor,
@@ -288,6 +346,8 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
     else:
+        if src.data_ptr() == t.data_ptr():    # all_reduce writes in place
+            src = src.clone()
         dist.all_reduce(src, group=group)
         k = src.shape[0] // n
         r = dist.get_rank(group)

@@ -7,9 +7,11 @@ axis).  The port's ranks take the same places: rank ``r`` of a world of
 ``data * model`` sits at ``(r // model, r % model)``, the order of jax's
 mesh, so the ranks sharing a data index form one EP group (lane
 ``r % model``) and the ranks sharing a model index one data group (data rank
-``r // model``).  :func:`make_host_mesh` builds these groups; nothing here
-runs at import.  The production mesh of the reference is a dry-run shape
-and has no counterpart.
+``r // model``).  The EP group is also the model group over which the dense
+and moe families run Megatron-SP tensor parallelism
+(``models/lm.tensor_parallel``).  :func:`make_host_mesh` builds these
+groups; nothing here runs at import.  The production mesh of the reference
+is a dry-run shape and has no counterpart.
 """
 
 from __future__ import annotations

@@ -123,7 +123,9 @@ def setup(args, device="cuda") -> Setup:
                           node_size=1,
                           moe_stream=args.moe_stream,
                           moe_interleave=args.moe_interleave,
-                          pipe_slices=args.pipe_slices)
+                          pipe_slices=args.pipe_slices,
+                          # serving reads whole weights
+                          explicit_tp=False)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = lm.init_params(cfg, ctx, gen)
     tokens = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),

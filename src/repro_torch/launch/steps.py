@@ -55,6 +55,22 @@ data group by the MoE layers' backward, already summed: they get no
 grid (the data and EP groups), and AdamW's state of them is the slice's
 own (no ZeRO-1 cut, no all-gather after the update).
 
+Under Megatron-SP tensor parallelism (``models/lm.tensor_parallel``: the
+dense and moe families over a model group) each rank's loss covers its stripe of the
+sequence, summed over the model group in the forward with a backward that
+seeds each rank's own addend (``lm.lm_loss``), so it is not divided by EP.
+Each rank then holds:
+
+- its TP shards' gradients (``lm.tp_sharded``), whole over the model group
+  (the blocks' all-gather and reduce-scatter carry the other ranks'
+  cotangents): summed over the data group only, with the expert leaves
+  (:func:`reduce_lanes`);
+- the other leaves' gradients (embed, the norms, ``wk``/``wv``, the router,
+  the head), shares from its stripe and its heads: summed over the whole
+  grid (:func:`reduce_replicated`);
+- the clip norm sums the TP shards' squares over the model group once
+  (over the grid under FSDP, each divided by DP: ``adamw.global_norm``).
+
 Under serial accumulation the sync runs once per step, on the micro-batch
 sum; each micro-batch's denominator is its own global count, so the loss is
 the reference's mean of per-micro means.  The traffic statistics sum their
@@ -76,13 +92,13 @@ from repro_torch.models.lm import lane_sharded
 from repro_torch.optim import adamw
 
 
-def _sum_leaves(grads: list, paths: list[str], group, lanes: bool) -> list:
-    """Sum over ``group`` the gradients of the lane-sharded leaves
-    (``lanes``) or of the others: one flat bucket per dtype, one
-    ``all_reduce`` each; the rest are returned as they are."""
+def _sum_leaves(grads: list, paths: list[str], group, pick) -> list:
+    """Sum over ``group`` the gradients of the leaves ``pick`` (a predicate
+    on a leaf's path) names: one flat bucket per dtype, one ``all_reduce``
+    each; the rest are returned as they are."""
     buckets: dict[torch.dtype, list[int]] = {}
     for i, (p, g) in enumerate(zip(paths, grads)):
-        if lane_sharded(p) == lanes:
+        if pick(p):
             buckets.setdefault(g.dtype, []).append(i)
     out = list(grads)
     for idx in buckets.values():
@@ -93,16 +109,21 @@ def _sum_leaves(grads: list, paths: list[str], group, lanes: bool) -> list:
     return out
 
 
-def reduce_replicated(grads: list, paths: list[str], group) -> list:
+def reduce_replicated(grads: list, paths: list[str], group,
+                      sharded=lane_sharded) -> list:
     """Sum the replicated leaves' gradients over ``group`` (a process
-    group: the EP group, or a grid's whole group)."""
-    return _sum_leaves(grads, paths, group, lanes=False)
+    group: the EP group, or a grid's whole group): those ``sharded`` (the
+    leaves split over the model group: ``lm.model_sharded``) does not
+    name."""
+    return _sum_leaves(grads, paths, group, lambda p: not sharded(p))
 
 
-def reduce_lanes(grads: list, paths: list[str], group) -> list:
-    """Sum the lane-sharded leaves' gradients over ``group`` (the data
-    group: the ranks holding the same lane)."""
-    return _sum_leaves(grads, paths, group, lanes=True)
+def reduce_lanes(grads: list, paths: list[str], group,
+                 sharded=lane_sharded) -> list:
+    """Sum over ``group`` (the data group: the ranks holding the same lane
+    and the same TP shard) the gradients of the leaves ``sharded`` names
+    (the expert leaves, and under TP the TP shards)."""
+    return _sum_leaves(grads, paths, group, sharded)
 
 
 def data_total(t: torch.Tensor, group) -> torch.Tensor:
@@ -167,6 +188,12 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     data = lm.data_group(model.ctx)
     grid = group if dp == 1 else model.ctx.mesh.grid
     fsdp = lm.fsdp_group(model.ctx) is not None
+    # TP: each rank's loss is its stripe's share, not a replicated copy
+    div = 1 if lm.tensor_parallel(model.ctx) else ep
+    held = lm.model_sharded(model.ctx)
+    # summed over the data group: FSDP's expert slices arrive
+    # reduce-scattered in the backward, the TP shards do not
+    lanes = lm.tp_sharded(model.ctx) if fsdp else held
 
     def grads_of(params, batch, traffic=None):
         ps = adamw.leaves(params)
@@ -182,7 +209,7 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             loss = tot[0] / tot[1].clamp_min(1.0)
             metrics = dict(metrics, tokens=tot[1])
         return loss, metrics, torch.autograd.grad(
-            objective / ep if ep > 1 else objective, ps)
+            objective / div if div > 1 else objective, ps)
 
     def fn(params, batch, traffic=None):
         if accum == 1:
@@ -212,9 +239,9 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             grads = gsum
             metrics = {"loss": lsum / accum}
         if ep * dp > 1:
-            grads = reduce_replicated(grads, adamw.paths(params), grid)
-        if dp > 1 and not fsdp:   # FSDP: reduce-scattered in the backward
-            grads = reduce_lanes(grads, adamw.paths(params), data)
+            grads = reduce_replicated(grads, adamw.paths(params), grid, held)
+        if dp > 1:
+            grads = reduce_lanes(grads, adamw.paths(params), data, lanes)
         if accum > 1:
             grads = [g.div_(accum) for g in grads]
         return metrics["loss"], metrics, grads
@@ -238,21 +265,26 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
     ``opt_state`` holds this rank's ZeRO-1 slices (:func:`init_state`).
     The gradients are then whole on every data rank, so the clip norm
     spans the EP group alone; under FSDP the expert gradients are this
-    rank's slices, and it spans the whole grid."""
+    rank's slices, and it spans the whole grid.  The TP shards count in it
+    as parts split over the model group (module docstring)."""
     grads_fn = value_and_grad(model, accum)
     ctx = model.ctx
     group = (dcomm.process_group(ctx.ep_group)
              if dcomm.group_size(ctx.ep_group) > 1 else None)
     data = lm.data_group(ctx)
+    split = lm.model_sharded(ctx)
     if lm.fsdp_group(ctx) is not None:
         group = ctx.mesh.grid
+        # over the grid a TP shard is held by each of the DP data ranks
+        tp, dp = lm.tp_sharded(ctx), ctx.mesh.data
+        split = lambda p: lane_sharded(p) or (dp if tp(p) else False)
 
     def train_step(params, opt_state, batch, traffic=None):
         _, metrics, grads = grads_fn(params, batch, traffic)
         params, opt_state, opt_metrics = adamw.update(
             adamw.unflatten(params, grads), opt_state, params, opt_cfg,
             group=group, sharded=lane_sharded, data_group=data,
-            fsdp=lm.fsdp_sharded(ctx))
+            fsdp=lm.fsdp_sharded(ctx), split=split)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

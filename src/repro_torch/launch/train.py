@@ -60,7 +60,12 @@ global batch (``--batch`` rows) and keeps its data rank's rows
 (:func:`data_rows`); ``--seq-migrate`` first rebalances whole sequences
 across the data ranks (``core/commplan.plan_sequence_migration`` on each
 sequence's count of distinct tokens, as the reference), which acts only with
-more than one data rank.  The first ``WARMUP`` steps (which also build the
+more than one data rank.  Over a model group (the EP group, or a grid's)
+the dense and moe families train with Megatron-SP tensor parallelism, as
+the reference's default (``models/lm.tensor_parallel``: attention
+head-sharded, the dense MLP column/row-split, the residual stream a stripe
+of the sequence between blocks), and with plain data parallelism over a
+grid's data group.  The first ``WARMUP`` steps (which also build the
 kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
 
@@ -642,8 +647,9 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
     ``first_step`` on, the ms of every executed step and their median past
     the warm-up, tokens per second (of the global batch), on the card this
     rank's peak device memory (GiB, params and optimizer state included),
-    this rank's AdamW state (GiB) and expert parameters (bytes: its lane,
-    under FSDP its f-slice of it), the sequences and bytes ``--seq-migrate``
+    this rank's AdamW state (GiB), expert parameters (bytes: its lane,
+    under FSDP its f-slice of it) and parameters (bytes: its TP shards
+    under Megatron TP), the sequences and bytes ``--seq-migrate``
     moved, the final traffic state (None without one), each
     ``--relayout-every`` swap's stats (:func:`apply_relayout`: blocks and
     bytes moved, host ms, device ms on the card, and the step after which
@@ -669,7 +675,7 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
               "traffic statistics, which this run does not thread: the "
               "placement stays static", flush=True)
     log = print if _is_rank0() else (lambda *a, **k: None)
-    lay = checkpointer.layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts)
+    lay = checkpointer.context_layout(ctx)
     ckpt = args.ckpt_dir
     sidecars = ckpt is not None and lay.writer
     auto = args.engine == "auto" and cfg.family == "moe"
@@ -808,6 +814,8 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
                 t.numel() * t.element_size() for path, t in zip(
                     adamw.paths(params), adamw.leaves(params))
                 if lm.lane_sharded(path)),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in adamw.leaves(params)),
             "seq_migrate": moved, "cfg": cfg, "traffic": box["traffic"],
             "relayouts": relayouts, "plans": plans,
             "placement": ctx.placement,

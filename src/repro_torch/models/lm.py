@@ -13,6 +13,12 @@ rank on its stripe of the sequence, as the reference's islands shard it.
 The dense family's blocks are attention then the SwiGLU MLP, whose products
 are ``torch.matmul`` (the reference's are jnp, outside any Pallas kernel).
 Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
+Training over a model group (an EP group, or that of a (data, model)
+grid) runs the dense and moe families' attention and the dense MLP as
+Megatron-SP tensor parallelism over it (``parallel/tp_blocks.py``, :func:`tensor_parallel`): the
+residual stream stays a (B, S / m, d) stripe of the sequence between
+blocks, and each rank holds its TP shards of ``wq``, ``wo`` and the MLP
+(``parallel/sharding.TP_DIM``).
 The reference scans one compiled layer body; here a Python loop walks the
 layers of the stacked (L, ...) parameter tree, which keeps the reference's
 layout so ``convert.params_from_jax`` maps one onto the other leaf by leaf.
@@ -37,7 +43,7 @@ from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
                                           gqa_project)
 from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
-from repro_torch.parallel import sharding
+from repro_torch.parallel import sharding, tp_blocks
 from repro_torch.layers.moe import (moe_block, moe_decode_block,
                                     stream_moe_layers, stream_tx_layers)
 
@@ -74,6 +80,22 @@ class ModelContext:
     # (ZeRO-3 of the experts, the reference's ``fsdp_experts``); at one data
     # rank it changes nothing
     fsdp_experts: bool = False
+    # the dense and moe families over a model group: Megatron-SP tensor
+    # parallelism where :meth:`tp_eligible` holds (the reference's default,
+    # lm.py:49); False keeps every rank's attention (and the dense MLP) whole
+    # over the whole sequence, as serving reads it
+    explicit_tp: bool = True
+
+    def tp_eligible(self) -> bool:
+        """The reference's rule (lm.py:70-77): explicit TP, a family of
+        sequential attention blocks (dense, moe) whose head count the model
+        group divides; in the port also a plain "model" EP axis (the TP
+        group of a (pod, model) axis is not ported)."""
+        cfg = self.cfg
+        return (self.explicit_tp and cfg.n_heads > 0
+                and cfg.n_heads % group_size(self.ep_group) == 0
+                and cfg.family in ("dense", "moe")
+                and (self.dcfg is None or self.dcfg.pod_axis is None))
 
 
 # the sub-layers of each ported family's layer, besides ``ln1`` (the
@@ -102,7 +124,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  moe_stream: int = 0, moe_interleave: int = 1,
                  pipe_slices: int = 0, calibration=None,
                  traffic_decay: float = 0.99,
-                 fsdp_experts: bool | None = None) -> ModelContext:
+                 fsdp_experts: bool | None = None,
+                 explicit_tp: bool = True) -> ModelContext:
     """Context of a ``dense``-, ``moe``-, ``moe_tx``- or ``moe_ffn``-family
     model whose EP domain is ``ep_group`` (None: one lane), or that of this
     rank on ``mesh`` (a
@@ -127,12 +150,16 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     the traffic statistics.  ``fsdp_experts`` splits the expert weights' f
     dim over the data group (:func:`fsdp_group`); None takes the
     reference's rule (lm.py:143-147): on when one lane's expert weights over
-    all layers exceed 4 GB in bf16 (:func:`fsdp_rule`).  A family without
-    MoE (dense) has no placement
-    and no dcomm config, as the reference's, and runs on one rank: over a
-    model axis the reference runs Megatron TP, and over a data axis plain
-    data parallelism, neither ported.  Raises if ``device`` is CUDA and no
-    card is there."""
+    all layers exceed 4 GB in bf16 (:func:`fsdp_rule`).  ``explicit_tp``:
+    over a model group (``ep_group``, or that of ``mesh``) the dense and
+    moe families train with Megatron-SP tensor parallelism
+    (:func:`tensor_parallel`), each rank holding its shards of the TP
+    leaves; a serving context over a group passes ``explicit_tp=False``,
+    since prefill and decode read whole weights.  A family without MoE
+    (dense) has no placement and no dcomm config, as the reference's; over
+    a model group it runs TP (its replicated layout with
+    ``explicit_tp=False``), and data parallelism over ``mesh``'s data
+    group.  Raises if ``device`` is CUDA and no card is there."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (only {FAMILIES}): "
@@ -147,15 +174,9 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                            "device (pass device='cpu' to run the plain path)")
     ep = group_size(ep_group)
     if cfg.moe is None:
-        if ep > 1 or (mesh is not None and mesh.data > 1):
-            raise NotImplementedError(
-                f"family {cfg.family!r} over a group of ranks is not ported "
-                "yet (the reference's Megatron TP over the model axis, "
-                "parallel/tp_blocks.py, and data parallelism): ROADMAP queue "
-                "1 item 8")
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
-                            max(1, moe_interleave))
+                            max(1, moe_interleave), explicit_tp=explicit_tp)
     if multi_pod and node_size is None and ep > 1:
         raise ValueError("multi_pod: pass node_size, the lanes of one pod")
     ns = node_size or max(1, ep // 4)
@@ -175,7 +196,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         fsdp_experts = fsdp_rule(cfg, placement)
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
                         moe_stream, traffic_decay, mesh,
-                        max(1, moe_interleave), fsdp_experts=fsdp_experts)
+                        max(1, moe_interleave), fsdp_experts=fsdp_experts,
+                        explicit_tp=explicit_tp)
 
 
 def fsdp_rule(cfg: ArchConfig, placement) -> bool:
@@ -205,6 +227,48 @@ def fsdp_sharded(ctx: ModelContext):
     if fsdp_group(ctx) is None:
         return lambda path: False
     return sharding.fsdp_sharded
+
+
+def tensor_parallel(ctx: ModelContext) -> bool:
+    """Whether ``ctx`` trains with Megatron-SP tensor parallelism: where
+    :meth:`ModelContext.tp_eligible` holds over a model group of more than
+    one rank.  Its TP group is the model group, ``ctx.ep_group`` (the moe
+    family's EP group too), with or without a grid's data group."""
+    return group_size(ctx.ep_group) > 1 and ctx.tp_eligible()
+
+
+def tp_sharded(ctx: ModelContext):
+    """The predicate on a leaf's path of the TP leaves this rank holds a
+    shard of under ``ctx`` (``sharding.TP_DIM``; none without
+    :func:`tensor_parallel`)."""
+    if not tensor_parallel(ctx):
+        return lambda path: False
+    return sharding.tp_sharded
+
+
+def model_sharded(ctx: ModelContext):
+    """The predicate of the leaves split over the model group under
+    ``ctx``: the expert leaves (one lane a rank) and the TP shards."""
+    tp = tp_sharded(ctx)
+    return lambda path: lane_sharded(path) or tp(path)
+
+
+def tp_cut(path: str, t, m: int, r: int):
+    """The leaf at ``path`` (a tensor or an array) as model rank ``r`` of
+    ``m`` holds it under TP: a TP leaf cut to its shard on its TP dim (a
+    view), any other as it is."""
+    if not sharding.tp_sharded(path):
+        return t
+    return sharding.data_cut(t, sharding.tp_dim(path), m, r)
+
+
+def _tp_own(path: str, t, ctx: ModelContext):
+    """``t`` cut to this rank's TP shard under ``ctx`` (a copy), or as it
+    is."""
+    if not tp_sharded(ctx)(path):
+        return t
+    return tp_cut(path, t, group_size(ctx.ep_group),
+                  dcomm.lane_index(ctx.ep_group)).clone()
 
 
 def stats_group(ctx: ModelContext):
@@ -276,26 +340,29 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     d, f).  Over an EP group of more than one rank the expert leaves hold
     this rank's lane only (lanes = 1), and the other lanes are never drawn;
     otherwise every lane of the placement; under :func:`fsdp_group` their
-    f dim is cut to this data rank's slice (:func:`fsdp_cut`).  An
-    expert's weights are the same for every EP size from the same ``gen``
-    (:func:`_expert_leaf`), and so are the replicated leaves."""
+    f dim is cut to this data rank's slice (:func:`fsdp_cut`).  Under
+    :func:`tensor_parallel` each TP leaf is drawn whole and cut to this
+    model rank's shard (:func:`tp_cut`).  An expert's weights are the same
+    for every EP size from the same ``gen`` (:func:`_expert_leaf`), and so
+    are the other leaves, whole."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     init = lambda shape: dense_init(gen, shape, dtype=dtype, device=ctx.device)
     ones = lambda shape: torch.ones(shape, dtype=dtype, device=ctx.device)
+    tp = lambda name, shape: _tp_own(f"layers/{name}", init(shape), ctx)
     layers = {"ln1": ones((L, d))}
     if has_attention(cfg):
-        attn = {"wq": init((L, d, cfg.n_heads * hd)),
+        attn = {"wq": tp("attn/wq", (L, d, cfg.n_heads * hd)),
                 "wk": init((L, d, cfg.n_kv_heads * hd)),
                 "wv": init((L, d, cfg.n_kv_heads * hd)),
-                "wo": init((L, cfg.n_heads * hd, d))}
+                "wo": tp("attn/wo", (L, cfg.n_heads * hd, d))}
         if cfg.qk_norm:
             attn["q_norm"] = ones((L, hd))
             attn["k_norm"] = ones((L, hd))
         layers.update(attn=attn, ln2=ones((L, d)))
     if has_mlp(cfg):
-        layers["mlp"] = {"w_gate": init((L, d, cfg.d_ff)),
-                         "w_up": init((L, d, cfg.d_ff)),
-                         "w_down": init((L, cfg.d_ff, d))}
+        layers["mlp"] = {"w_gate": tp("mlp/w_gate", (L, d, cfg.d_ff)),
+                         "w_up": tp("mlp/w_up", (L, d, cfg.d_ff)),
+                         "w_down": tp("mlp/w_down", (L, cfg.d_ff, d))}
     if cfg.moe is not None:
         fe, ids = cfg.moe.d_ff_expert, _slot_ids(ctx.placement)
         lanes = held_lanes(ctx)
@@ -332,6 +399,17 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
     return L * layer + 2 * cfg.vocab * d + d, experts
 
 
+def tp_param_count(cfg: ArchConfig) -> int:
+    """The parameters of ``cfg``'s TP leaves (``sharding.TP_DIM``: ``wq``,
+    ``wo`` and the dense MLP), of :func:`param_counts`' replicated ones;
+    under :func:`tensor_parallel` each model rank holds 1 / m of them."""
+    if not has_attention(cfg):
+        return 0
+    d, L = cfg.d_model, cfg.n_layers
+    return L * (2 * d * cfg.n_heads * cfg.hd
+                + (3 * d * cfg.d_ff if has_mlp(cfg) else 0))
+
+
 def lane_cut(path: str, t, ep: int, lanes: range):
     """The leaf at ``path`` (a tensor or an array) as the rank holding
     ``lanes`` of ``ep`` holds it: an expert leaf of any lane count, all of
@@ -362,13 +440,13 @@ def shard_params(tree, ctx: ModelContext) -> dict:
     ``relayout.migrate_lane_major``): the expert leaves cut to the lanes
     :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied),
     and under :func:`fsdp_group` to this data rank's slice of their f dim
-    (:func:`fsdp_cut`); the other leaves as they are (every leaf, without
-    a placement)."""
+    (:func:`fsdp_cut`); under :func:`tensor_parallel` the TP leaves cut to
+    this model rank's shard (copied); the other leaves as they are."""
     lanes = held_lanes(ctx)
 
     def cut(path, v):
         if ctx.placement is None or not lane_sharded(path):
-            return v
+            return _tp_own(path, v, ctx)
         v = lane_cut(path, v, ctx.placement.ep, lanes)
         return fsdp_cut(path, v, ctx) if fsdp_group(ctx) else v.clone()
 
@@ -432,20 +510,30 @@ def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
     return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, cap - s))
 
 
+def _moe_stripe(x: torch.Tensor, moe_params, ctx: ModelContext,
+                traffic=None, traffic_mask=None):
+    """One MoE layer over this rank's stripe ``x`` of the sequence (the
+    reference's island, lm.py:476-483), ``traffic_mask`` striped like it.
+    With ``traffic`` (this layer's state) returns ``(y, new_traffic)``."""
+    cfg = ctx.cfg
+    return moe_block(x, moe_params, placement=ctx.placement, dcfg=ctx.dcfg,
+                     top_k=cfg.moe.top_k, norm_topk=cfg.moe.norm_topk,
+                     group=ctx.ep_group, traffic=traffic,
+                     traffic_decay=ctx.traffic_decay,
+                     traffic_mask=traffic_mask, stats_group=stats_group(ctx),
+                     fsdp=fsdp_group(ctx))
+
+
 def _moe_seq_sharded(x: torch.Tensor, moe_params, ctx: ModelContext,
                      traffic=None, traffic_mask=None):
-    """One MoE layer as the reference's island runs it: this rank's stripe of
-    the sequence through the shuffle, then every rank's stripes gathered.
-    With ``traffic`` (this layer's state) returns ``(y, new_traffic)``;
+    """One MoE layer as the reference's island runs it, the whole sequence
+    in and out: this rank's stripe through the shuffle
+    (:func:`_moe_stripe`), then every rank's stripes gathered.  With
+    ``traffic`` (this layer's state) returns ``(y, new_traffic)``;
     ``traffic_mask`` (B, S) is striped like ``x``."""
-    cfg = ctx.cfg
-    y = moe_block(seq_stripe(x, ctx.ep_group), moe_params,
-                  placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
-                  norm_topk=cfg.moe.norm_topk, group=ctx.ep_group,
-                  traffic=traffic, traffic_decay=ctx.traffic_decay,
-                  traffic_mask=None if traffic_mask is None
-                  else seq_stripe(traffic_mask, ctx.ep_group),
-                  stats_group=stats_group(ctx), fsdp=fsdp_group(ctx))
+    y = _moe_stripe(seq_stripe(x, ctx.ep_group), moe_params, ctx, traffic,
+                    None if traffic_mask is None
+                    else seq_stripe(traffic_mask, ctx.ep_group))
     if traffic is None:
         return all_gather_seq(y, ctx.ep_group)
     return all_gather_seq(y[0], ctx.ep_group), y[1]
@@ -480,6 +568,29 @@ def _seq_layer(h: torch.Tensor, lp, positions: torch.Tensor,
     return h + y[0], k, v, y[1]
 
 
+def _tp_layer(h: torch.Tensor, lp, positions: torch.Tensor,
+              ctx: ModelContext, traffic=None, traffic_mask=None):
+    """One sequential block under Megatron-SP (the reference's ``layer_fn``
+    with ``use_tp``, lm.py:458-490): ``h`` this rank's (B, S / m, d) stripe,
+    ``lp`` the layer's parameters (TP shards) in the compute dtype,
+    ``positions`` the whole sequence's.  ln1 and ln2 run on the stripe;
+    attention is ``tp_blocks.megatron_attention``; the moe family's MoE
+    takes the stripe as it is (``traffic_mask`` striped already), the dense
+    family's MLP is ``tp_blocks.megatron_mlp``.  Returns the new stripe,
+    and with ``traffic`` the layer's new state."""
+    cfg = ctx.cfg
+    h = h + tp_blocks.megatron_attention(
+        rms_norm(h, lp["ln1"]), lp["attn"], group=ctx.ep_group,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, positions=positions, window=cfg.window,
+        qk_norm=cfg.qk_norm)
+    x = rms_norm(h, lp["ln2"])
+    if has_mlp(cfg):
+        return h + tp_blocks.megatron_mlp(x, lp["mlp"], group=ctx.ep_group)
+    y = _moe_stripe(x, lp["moe"], ctx, traffic, traffic_mask)
+    return h + y if traffic is None else (h + y[0], y[1])
+
+
 def _traffic_needs_moe(cfg: ArchConfig, traffic) -> None:
     if traffic is not None and cfg.moe is None:
         raise ValueError(
@@ -500,9 +611,18 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     blocks (:func:`_ffn_stack`).  In an EP group each rank runs the MoE on
     its stripe of the sequence, as ``prefill`` does; the stripes' all-gather
     sums the ranks' cotangents in its backward, so a loop training over an
-    EP group divides each rank's (replicated) loss by the group size and
-    all-reduces the replicated leaves' gradients, not the lane-sharded
-    expert leaves' (:func:`lane_sharded`): ``launch/steps.py`` does both.
+    EP group in this replicated layout divides each rank's (replicated)
+    loss by the group size and all-reduces the replicated leaves'
+    gradients, not the lane-sharded expert leaves' (:func:`lane_sharded`):
+    ``launch/steps.py`` does both.
+
+    Under :func:`tensor_parallel` (dense and moe over a model group) the
+    tokens are cut to this rank's stripe of the sequence first and every
+    block runs Megatron-SP (:func:`_tp_layer`): returns this rank's final-normed
+    (B, S / m, d) stripe.  Each rank's loss then covers its stripe
+    (:func:`lm_loss`), so nothing is divided; the gradients of the TP
+    shards are whole over the model group, those of the replicated leaves
+    shares of it (``launch/steps.py``).
 
     ``traffic``: the layer-stacked ``traffic.TrafficState`` threaded
     through the MoE layers; then returns ``(h, new_traffic)``.  The counts
@@ -520,6 +640,11 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     reduce-scattered over the data group, this rank's slice summed."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _traffic_needs_moe(cfg, traffic)
+    tp = tensor_parallel(ctx)
+    if tp:
+        inputs = seq_stripe(inputs, ctx.ep_group)
+        if traffic_mask is not None:
+            traffic_mask = seq_stripe(traffic_mask, ctx.ep_group)
     h = params["embed"].to(cd)[inputs]
     if cfg.family == "moe_tx":
         h, new_traffic, _ = _tx_stack(params, h, positions, ctx, traffic,
@@ -531,7 +656,14 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     trs = []
     for i, lctx in enumerate(_layer_contexts(ctx)):
         lp = _layer(params["layers"], i, cd)
-        if traffic is None:
+        if tp:
+            h = _tp_layer(h, lp, positions, lctx,
+                          None if traffic is None
+                          else traffic_lib.layers(traffic, i), traffic_mask)
+            if traffic is not None:
+                h, tr = h
+                trs.append(tr)
+        elif traffic is None:
             h, _, _ = _seq_layer(h, lp, positions, lctx)
         else:
             h, _, _, tr = _seq_layer(h, lp, positions, lctx,
@@ -580,7 +712,14 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     ``jax.checkpoint``, so the (B, c, V) float32 logits of every chunk are
     recomputed in the backward, not kept; the denominator counts the valid
     labels.  Returns (loss, metrics); with ``traffic`` (the layer-stacked
-    state) the new state rides along as ``metrics["traffic"]``."""
+    state) the new state rides along as ``metrics["traffic"]``.
+
+    Under :func:`tensor_parallel` each rank computes the CE of its stripe
+    of the sequence (S must split over the model group, else ValueError);
+    the sum and the count are summed over the model group by
+    ``dcomm.sum_forward``, whose backward seeds each rank's own addend, so
+    the loss and ``metrics["tokens"]`` are the rank's whole rows' and its
+    gradient is this rank's share of theirs."""
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
@@ -589,7 +728,9 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     new_traffic = None
     if traffic is not None:
         h, new_traffic = h
-    labels = batch["labels"]
+    tp = tensor_parallel(ctx)
+    labels = (seq_stripe(batch["labels"], ctx.ep_group) if tp
+              else batch["labels"])
     head = params["lm_head"].to(ctx.compute_dtype)
     s = h.shape[1]
     c = min(LOSS_CHUNK, s)
@@ -602,6 +743,8 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
             _ce_chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
             use_reentrant=False)
         tot, cnt = tot + part, cnt + n
+    if tp:
+        tot, cnt = dcomm.sum_forward(torch.stack([tot, cnt]), ctx.ep_group)
     loss = tot / cnt.clamp_min(1.0)
     metrics = {"loss": loss.detach(), "tokens": cnt}
     if new_traffic is not None:
@@ -732,6 +875,17 @@ def _length(n: int, device) -> torch.Tensor:
     return torch.full((), n, dtype=torch.int32, device=device)
 
 
+def _serves_whole(ctx: ModelContext) -> None:
+    """Prefill and decode read whole attention and MLP weights (the
+    reference's TP is off there, lm.py:826); a TP context's tree holds
+    shards of them."""
+    if tensor_parallel(ctx):
+        raise NotImplementedError(
+            "prefill / decode on a tensor-parallel training context: build "
+            "the serving context with explicit_tp=False (whole weights on "
+            "each rank); serving over a data group is ROADMAP queue 1 item 8")
+
+
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
             ctx: ModelContext, max_len: int, traffic=None, traffic_mask=None):
     """Full-sequence forward over (B, S) tokens; returns the last position's
@@ -746,6 +900,7 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     the serving engines pass it so that left-pad positions do not count."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _traffic_needs_moe(cfg, traffic)
+    _serves_whole(ctx)
     h = params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
@@ -797,6 +952,7 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     then the MLP or the MoE on h + attn; moe_tx the parallel block, both
     reading h; moe_ffn ``h + moe(ln1 h)``, with no cache."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
+    _serves_whole(ctx)
     h = params["embed"].to(cd)[inputs][:, None, :]
     b = h.shape[0]
     pos = state.length

@@ -27,6 +27,14 @@ and nothing is gathered after its update.  Its sum of squares is the rank's
 share of the clip norm over the group it is split across (the caller's
 ``group``: the whole grid).
 
+Under Megatron TP each rank also holds its shard of the TP leaves
+(``parallel/sharding.TP_DIM``); their gradients are whole over the model
+group and the same on every data rank.  The clip norm sums their squares
+over the model group once: the caller's ``split`` names them beside the
+lane-sharded leaves, and over a group where each shard is held by k ranks
+(the grid, under FSDP: k = DP) it weighs their squares by 1/k.  ZeRO-1
+cuts the local shard like any leaf (:func:`zero_dim` of its shape).
+
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
 the parameters' dtype, update the f32 master, mu and nu; the parameters are
@@ -187,19 +195,23 @@ def global_norm(tree, group: dist.ProcessGroup | None = None,
     rank, ``sharded`` (a predicate on a leaf's path, :func:`paths`) names
     the leaves each rank holds a shard of: their sum of squares is summed
     over the group with one ``all_reduce``, and the other leaves, the same
-    on every rank, count once.  With no group, or one of one rank, no
-    collective is launched."""
+    on every rank, count once.  Where ``sharded`` returns a count k > 1,
+    k ranks of the group hold that shard, and its squares are divided by k
+    before the sum.  With no group, or one of one rank, no collective is
+    launched."""
     if group is None or dist.get_world_size(group) == 1:
         return _sum_squares(leaves(tree)).sqrt()
     if sharded is None:
         raise ValueError("global_norm over a group needs the predicate of "
                          "the sharded leaves")
-    own, rep = [], []
+    own, rep = {}, []
     for path, t in zip(paths(tree), leaves(tree)):
-        (own if sharded(path) else rep).append(t)
-    part = _sum_squares(own)
-    if part is None:
-        part = torch.zeros((), device=leaves(tree)[0].device)
+        k = int(sharded(path))
+        (own.setdefault(k, []) if k else rep).append(t)
+    part = torch.zeros((), device=leaves(tree)[0].device)
+    for k, ts in own.items():
+        sq = _sum_squares(ts)
+        part = part + (sq if k == 1 else sq / k)
     dist.all_reduce(part, group=group)
     rest = _sum_squares(rep)
     return (part if rest is None else part + rest).sqrt()
@@ -222,11 +234,14 @@ def _gather(p: torch.Tensor, own: torch.Tensor, dim: int, group) -> None:
 @torch.no_grad()
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
            group: dist.ProcessGroup | None = None, sharded=None,
-           data_group: dist.ProcessGroup | None = None, fsdp=None):
+           data_group: dist.ProcessGroup | None = None, fsdp=None,
+           split=None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
-    norm (over ``group``, with ``sharded`` naming the leaves sharded over it:
-    :func:`global_norm`), update mu, nu and the f32 master, and copy the
-    master into the parameters in their own dtype.  Over a ``data_group``
+    norm (over ``group``, with ``split`` naming the leaves sharded over it,
+    by default ``sharded``: :func:`global_norm`; ``sharded`` names the
+    lane-sharded leaves, whose lane dim ZeRO-1 skips), update mu, nu and
+    the f32 master, and copy the master into the parameters in their own
+    dtype.  Over a ``data_group``
     of more than one rank the gradients are whole and the same on every
     data rank; the state is this rank's ZeRO-1 slice (:func:`init`), and
     the updated slices are all-gathered over the data group into the
@@ -234,7 +249,7 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     slice, its state whole, and is not gathered.  Every leaf is written in
     place (params, mu, nu, master).
     Returns (params, new state, metrics)."""
-    gnorm = global_norm(grads, group, sharded)
+    gnorm = global_norm(grads, group, sharded if split is None else split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -3,20 +3,28 @@ in ``repro/parallel/sharding.py``, for what the port shards).
 
 The reference gives every leaf a ``PartitionSpec`` over its (data, model)
 mesh.  The port's ranks hold their parts as plain tensors, so the rule here
-names, by leaf path, the dim split over the EP group (one lane a rank) and
-the dim split over the data group (``fsdp_experts``: ZeRO-3 of the expert
-weights, the reference's ``lay(ep, None, None, "data")`` and ``lay(ep, None,
-"data", None)``):
+names, by leaf path, the dim split over the EP group (one lane a rank), the
+dim split over the model group by Megatron tensor parallelism (the
+reference's TP entries, ``tensor_parallel``) and the dim split over the data
+group (``fsdp_experts``: ZeRO-3 of the expert weights, the reference's
+``lay(ep, None, None, "data")`` and ``lay(ep, None, "data", None)``):
 
 - ``layers/moe/w1``, ``w3``: (L, lanes, E_local, d, f), lanes over EP, f
   (dim -1) over the data group under FSDP;
 - ``layers/moe/w2``: (L, lanes, E_local, f, d), lanes over EP, f (dim -2)
   over the data group under FSDP;
-- every other leaf replicated.
-
-The reference's Megatron TP entries (attention heads, the dense MLP's
-columns) and its vocab-sharded embedding and head over the model axis are
-not ported: asking for them (``tensor_parallel``) raises.
+- under TP, column-split over the model group (dim -1):
+  ``layers/attn/wq`` (heads), ``layers/mlp/w_gate`` and ``w_up``; row-split
+  (dim -2): ``layers/attn/wo`` and ``layers/mlp/w_down``
+  (``parallel/tp_blocks.py`` reads them so);
+- every other leaf replicated.  That includes ``wk`` and ``wv``: the
+  reference's storage spec splits their columns too, but its
+  ``megatron_attention`` reads them whole on every model rank
+  (``tp_blocks.py:66-69``), and the port holds what the block reads.  It
+  includes ``embed`` and ``lm_head`` too: the reference's storage spec
+  splits their vocab over the model axis, which the port does not
+  (ROADMAP queue 1 item 8); every model rank holds them whole and
+  computes the CE of its stripe of the sequence over the whole vocab.
 """
 
 from __future__ import annotations
@@ -29,16 +37,20 @@ LANE_DIM = 1                 # the lane axis of the (L, lanes, ...) experts
 # counted from the end: the same dim of the stacked (L, lanes, E_local, ...)
 # leaf, of one layer's and of one lane's
 FSDP_DIM = {"layers/moe/w1": -1, "layers/moe/w3": -1, "layers/moe/w2": -2}
-# the leaves the reference shards over its model axis by TP or by vocab
-_TP_SUFFIXES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-_VOCAB = ("embed", "lm_head")
+# the dim of each leaf Megatron TP splits over the model group, from the
+# end: the column-parallel products' outputs and the row-parallel ones'
+# inputs (the reference's param_specs, sharding.py:42-51)
+TP_DIM = {"layers/attn/wq": -1, "layers/mlp/w_gate": -1,
+          "layers/mlp/w_up": -1, "layers/attn/wo": -2,
+          "layers/mlp/w_down": -2}
 
 
 class Spec(NamedTuple):
-    """The dim of a leaf split over the EP group and over the data group
-    (None: not split over it)."""
+    """The dim of a leaf split over the EP group, over the data group and
+    over the model group by TP (None: not split over it)."""
     ep: int | None = None
     data: int | None = None
+    model: int | None = None
 
 
 REPLICATED = Spec()
@@ -47,15 +59,12 @@ REPLICATED = Spec()
 def param_spec(path: str, *, fsdp_experts: bool = False,
                tensor_parallel: bool = False) -> Spec:
     """The :class:`Spec` of the leaf at ``path`` ("a/b/c", as
-    ``optim/adamw.paths`` names it)."""
+    ``optim/adamw.paths`` names it); ``tensor_parallel``: the TP entries
+    (:data:`TP_DIM`) are split over the model group."""
     if path in EXPERT_LEAVES:
         return Spec(LANE_DIM, FSDP_DIM[path] if fsdp_experts else None)
-    if tensor_parallel and (path.endswith(_TP_SUFFIXES)
-                            or path.split("/")[0] in _VOCAB):
-        raise NotImplementedError(
-            f"{path}: tensor parallelism over the model axis and the "
-            "vocab-sharded embedding and head are not ported (ROADMAP queue "
-            "1 item 8)")
+    if tensor_parallel and path in TP_DIM:
+        return Spec(model=TP_DIM[path])
     return REPLICATED
 
 
@@ -70,6 +79,18 @@ def param_specs(tree, *, fsdp_experts: bool = False,
             param_spec(prefix + k, fsdp_experts=fsdp_experts,
                        tensor_parallel=tensor_parallel)
             for k, v in tree.items()}
+
+
+def tp_sharded(path: str) -> bool:
+    """Whether the leaf at ``path`` is split over the model group under
+    Megatron TP."""
+    return param_spec(path, tensor_parallel=True).model is not None
+
+
+def tp_dim(path: str) -> int:
+    """The dim of a TP leaf (:func:`tp_sharded`) split over the model
+    group, from the end."""
+    return param_spec(path, tensor_parallel=True).model
 
 
 def lane_sharded(path: str) -> bool:

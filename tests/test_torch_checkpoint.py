@@ -378,8 +378,10 @@ def _grid_rank(rank, world, init_file, data, ckpt, out_dir):
                             if k.startswith("p/"))
         mesh = make_host_mesh(*GRID)
         cfg = get_arch(ARCH).reduced()
+        # the replicated attention; a TP grid's checkpoint is
+        # test_torch_tp.py's
         ctx = lm.make_context(cfg, "cpu", mesh=mesh, engine="fused_flat",
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32, explicit_tp=False)
         model = zoo.build(cfg, ctx)
         params = convert.params_from_jax(tree, "cpu",
                                          lane=rank % mesh.model)

@@ -35,6 +35,7 @@ from repro.launch.steps import make_train_step as jmake_train_step
 from repro.models import lm as jlm
 from repro.models import zoo as jzoo
 from repro.optim import adamw as jadamw
+from repro.parallel.sharding import param_specs as jparam_specs
 from repro.serving.engine import ContinuousServingEngine as JContinuous
 from repro_torch import convert
 from repro_torch.configs import get_arch
@@ -42,6 +43,7 @@ from repro_torch.data import pipeline
 from repro_torch.launch import serve, steps, train
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 from repro_torch.serving.engine import ContinuousServingEngine
 
 ARCH = "qwen3-1.7b"
@@ -63,6 +65,17 @@ def _flat(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+def _nest(flat: dict) -> dict:
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *path, leaf = k.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
 
 
 def _close(got, want, what="", tol=TOL):
@@ -287,26 +300,51 @@ class _Grid:
 
 
 def test_dense_refuses_a_group_and_traffic(monkeypatch):
-    """The dense family has no placement and no dcomm config; over an EP
-    group (a model axis, where the reference runs Megatron TP) or a data
-    group it raises, citing ROADMAP queue 1 item 8; a traffic state raises
-    as the reference's does."""
+    """The dense family has no placement and no dcomm config; over a model
+    group (an EP group, or that of a grid with a data group of one or two)
+    its context builds, with Megatron TP over the model group
+    (``lm.tensor_parallel``, off with ``explicit_tp=False``), and each TP
+    leaf's spec is the reference's "model" entry (``wk`` / ``wv`` whole,
+    the embed and head replicated); a traffic state raises as the
+    reference's does."""
     ctx = lm.make_context(CFG, "cpu")
     assert ctx.placement is None and ctx.dcfg is None
     assert train.init_traffic(CFG, ctx, 1) is None
     monkeypatch.setattr(lm, "group_size", lambda g: 4 if g == "ep" else 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.make_context(CFG, "cpu", ep_group="ep")
+    alone = lm.make_context(CFG, "cpu", ep_group="ep")
+    assert alone.mesh is None and lm.tensor_parallel(alone)
+    assert not lm.tensor_parallel(lm.make_context(CFG, "cpu", ep_group="ep",
+                                                  explicit_tp=False))
+    for data in (1, 2):
+        grid = _Grid(data, 4)
+        grid.ep_group = "ep"
+        tp = lm.make_context(CFG, "cpu", mesh=grid)
+        assert tp.mesh is grid and tp.tp_eligible() and lm.tensor_parallel(tp)
+        assert not lm.tensor_parallel(dataclasses.replace(tp,
+                                                          explicit_tp=False))
     monkeypatch.undo()
     for grid in (_Grid(2, 1), _Grid(1, 1)):
-        if grid.data > 1:
-            with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-                lm.make_context(CFG, "cpu", mesh=grid)
-        else:
-            assert lm.make_context(CFG, "cpu", mesh=grid).mesh is grid
+        built = lm.make_context(CFG, "cpu", mesh=grid)
+        assert built.mesh is grid and not lm.tensor_parallel(built)
     params = lm.init_params(CFG, ctx, torch.Generator().manual_seed(0))
     cut = _flat(lm.shard_params(params, ctx))
     assert all(cut[k] is v for k, v in _flat(params).items())
+    jtree = {k: jnp.zeros(v.shape) for k, v in _flat(params).items()}
+    want = _flat(jparam_specs(_nest(jtree), multi_pod=False, model_size=2))
+    for path, spec in want.items():
+        nd = cut[path].dim()
+        dims = tuple(spec) + (None,) * (nd - len(spec))
+        model = [i - nd for i, a in enumerate(dims)
+                 if a in ("model", ("model",))]
+        mine = sharding.param_spec(path, tensor_parallel=True)
+        if path.split("/")[0] in ("embed", "lm_head"):
+            # the reference splits the vocab; the port keeps them whole
+            assert model and mine == sharding.REPLICATED, path
+        elif path.endswith(("wk", "wv")):
+            assert model and mine == sharding.REPLICATED, path
+        else:
+            assert mine == (sharding.Spec(model=model[0]) if model
+                            else sharding.REPLICATED), path
     batch = pipeline.to_device(_batch(), "cpu")
     with pytest.raises(ValueError, match="traffic"):
         lm.lm_loss(params, batch, ctx, traffic=object())

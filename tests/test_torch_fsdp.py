@@ -58,7 +58,7 @@ def _ctx(cfg, mesh, case, fsdp):
     return lm.make_context(cfg, "cpu", mesh=mesh, engine=engine,
                            node_size=NODE, moe_stream=stream,
                            pipe_slices=slices, compute_dtype=torch.float32,
-                           fsdp_experts=fsdp)
+                           fsdp_experts=fsdp, explicit_tp=False)
 
 
 def _save(out: dict, key: str, tree) -> None:

@@ -100,10 +100,13 @@ def test_fsdp_rule_is_the_reference_make_context(arch):
 def test_sharding_rule_is_the_reference_param_specs():
     """Each leaf of the reduced qwen3-moe tree: the dim the port splits over
     the EP group is where the reference's spec puts "model" on an expert
-    leaf, and under FSDP the dim over the data group is its "data"; every
-    leaf the reference shards by TP or vocab over "model" is one the port
-    refuses to shard (``tensor_parallel``), and all others are
-    replicated."""
+    leaf, and under FSDP the dim over the data group is its "data"; under
+    ``tensor_parallel`` each TP leaf's dim over the model group is the
+    reference's "model" entry (wq, wo and the MLP; none in the moe tree
+    beyond attention), ``wk`` / ``wv`` stay whole (the reference's block
+    reads them whole), the embed and head, whose vocab the reference
+    splits, stay whole too (the port's rule: the vocab-sharded pair is not
+    ported), and all others are replicated."""
     cfg = get_arch("qwen3-moe-30b-a3b").reduced()
     ctx = lm.make_context(cfg, "cpu")
     ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
@@ -128,13 +131,17 @@ def test_sharding_rule_is_the_reference_param_specs():
                         else [mine.data % flat[path].ndim]) == data, path
             else:
                 assert mine == sharding.REPLICATED and not data, path
-                if model:
-                    with pytest.raises(NotImplementedError,
-                                       match="queue 1 item 8"):
-                        sharding.param_spec(path, tensor_parallel=True)
+                tp = sharding.param_spec(path, tensor_parallel=True)
+                if path.split("/")[0] in ("embed", "lm_head"):
+                    assert model and tp == sharding.REPLICATED, path
+                elif path.endswith(("wk", "wv")):
+                    assert model and tp == sharding.REPLICATED, path
+                elif model:
+                    assert tp == sharding.Spec(
+                        model=model[0] - flat[path].ndim), path
+                    assert sharding.tp_sharded(path), path
                 else:
-                    assert sharding.param_spec(
-                        path, tensor_parallel=True) == sharding.REPLICATED
+                    assert tp == sharding.REPLICATED, path
 
 
 def _jax_serve(cfg, tokens, max_len, steps):

@@ -90,9 +90,11 @@ def _rank_main(rank, world, init_file, data, out_dir):
         cfg = get_arch(ARCH).reduced()
         out = {}
         for name, cf in (("", CF), ("_nodrop", 8.0)):
+            # a serving context: whole weights on every rank
             ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                                   capacity_factor=cf,
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32,
+                                  explicit_tp=False)
             logits, state = lm.prefill(lm.shard_params(params, ctx), tokens,
                                        torch.arange(S), ctx, S + 1)
             out["logits" + name] = logits.numpy()

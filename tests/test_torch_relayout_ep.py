@@ -261,7 +261,8 @@ def _continuity(rank, d) -> dict:
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                           engine="fused_flat", capacity_factor=CF,
-                          node_size=NS, compute_dtype=torch.float32)
+                          node_size=NS, compute_dtype=torch.float32,
+                          explicit_tp=False)     # the replicated layout
     tree = harness.nest((k[2:], d[k]) for k in d.files if k.startswith("p/"))
     params = convert.params_from_jax(tree, "cpu", lane=rank)
     batch = {k: torch.from_numpy(d[k]).long() for k in ("tokens", "labels")}
@@ -364,7 +365,7 @@ def _grid(rank, g) -> dict:
     cfg = _grid_cfg()
     ctx = lm.make_context(cfg, "cpu", mesh=mesh, engine="fused_flat",
                           node_size=1, capacity_factor=CF,
-                          compute_dtype=torch.float32)
+                          compute_dtype=torch.float32, explicit_tp=False)
     whole = {k[2:]: g[k] for k in g.files if k.startswith("g/")}
     tree = lambda kind: harness.nest(
         (k, torch.from_numpy(_cut(kind, v if kind == "p" else _seeded(

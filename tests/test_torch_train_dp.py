@@ -112,10 +112,10 @@ def _accumulated(mesh) -> dict:
     cut = lambda rows: to_device({k: v[rows] for k, v in host.items()}, "cpu")
     calls = []
     saved = steps.reduce_replicated, steps.reduce_lanes
-    steps.reduce_replicated = lambda g, paths, group: (
-        calls.append("replicated"), saved[0](g, paths, group))[1]
-    steps.reduce_lanes = lambda g, paths, group: (
-        calls.append("lanes"), saved[1](g, paths, group))[1]
+    steps.reduce_replicated = lambda g, paths, group, *held: (
+        calls.append("replicated"), saved[0](g, paths, group, *held))[1]
+    steps.reduce_lanes = lambda g, paths, group, *held: (
+        calls.append("lanes"), saved[1](g, paths, group, *held))[1]
     try:
         _, _, acc = steps.value_and_grad(model, accum=2)(
             p, cut(data_rows(4, 2, mesh.data_index, 2)))

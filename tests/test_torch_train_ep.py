@@ -41,14 +41,15 @@ def _accumulated(cfg, gen):
     and how far its gradients are from the mean of the two micro-batches'
     (each synced), relative to max(1, |x|) of each leaf."""
     ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
-                          engine="fused_flat", compute_dtype=torch.float32)
+                          engine="fused_flat", compute_dtype=torch.float32,
+                          explicit_tp=False)     # the replicated layout
     model = zoo.build(cfg, ctx)
     p = lm.shard_params(lm.init_params(cfg, lm.make_context(cfg, "cpu"),
                                        gen(), dtype=torch.float32), ctx)
     bt = to_device(ZipfNgramLM(cfg.vocab, 16, 2, seed=0).batch_at(0), "cpu")
     calls, sync = [], steps.reduce_replicated
-    steps.reduce_replicated = lambda g, paths, group: (
-        calls.append(1), sync(g, paths, group))[1]
+    steps.reduce_replicated = lambda g, paths, group, *held: (
+        calls.append(1), sync(g, paths, group, *held))[1]
     try:
         _, _, acc = steps.value_and_grad(model, accum=2)(p, bt)
     finally:
@@ -69,7 +70,7 @@ def _extra(rank, world):
     cfg = get_arch(ARCH).reduced()
     gen = lambda: torch.Generator().manual_seed(0)
     ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
-                          engine="fused_flat")
+                          engine="fused_flat", explicit_tp=False)
     mine = h.flat(lm.init_params(cfg, ctx, gen()))
     whole = lm.init_params(cfg, lm.make_context(cfg, "cpu"), gen())
     cut = h.flat(lm.shard_params(whole, ctx))

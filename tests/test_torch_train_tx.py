@@ -317,7 +317,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
             ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                                   engine=engine, node_size=NODE,
                                   moe_stream=stream,
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32,
+                                  explicit_tp=False)     # the replicated layout
             state = traffic.init_traffic_state(cfg.moe.n_experts, world,
                                                n_layers=cfg.n_layers)
             batch = {k: torch.from_numpy(d[k]).long()

@@ -18,7 +18,13 @@ off, and a second step; over more than one data rank it also runs the
 three mutations of the data sync (:data:`MUTATIONS`).  With ``fsdp`` both
 sides run the expert weights under FSDP over the data group (the
 reference's ``fsdp_experts``; each rank converts its f-slice), and the
-mutations are not run.  Everything lands in npz files that the tests
+mutations are not run.  With ``tp`` the port's ranks run Megatron-SP
+tensor parallelism over the model group (``lm.tensor_parallel``; each rank
+converts its TP shards, ``convert.params_from_jax(..., model=)``), as the
+reference does by default (``explicit_tp``); without it they keep the
+replicated attention (``explicit_tp=False``), the same function in the
+layout the EP and grid tests were written for.  A dense arch (no experts)
+threads no traffic state.  Everything lands in npz files that the tests
 compare rank by rank.  :func:`run` is the (1, 4)
 run of one arch.
 """
@@ -37,13 +43,13 @@ from conftest import run_devices
 from torch_adam import close_updated, step_slack
 from repro_torch import convert
 from repro_torch.configs import get_arch
-from repro_torch.core import traffic
+from repro_torch.core import dcomm, traffic
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import data_rows
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
-from repro_torch.parallel import sharding
+from repro_torch.parallel import sharding, tp_blocks
 
 EP, NODE, B, S = 4, 2, 2, 16
 TOL = 1e-5
@@ -99,12 +105,15 @@ def check_state(got: dict, want: dict, what=""):
 
 
 def lane_of(want: np.ndarray, path: str, rank: int,
-            shape=(1, EP), fsdp: bool = False) -> np.ndarray:
+            shape=(1, EP), fsdp: bool = False, tp: bool = False) -> np.ndarray:
     """A whole leaf of the reference cut to the lane rank ``rank`` of a
     ``shape`` = (data, model) grid holds; with ``fsdp`` an expert leaf's
-    f dim then cut to its data rank's slice."""
+    f dim then cut to its data rank's slice; with ``tp`` a TP leaf cut to
+    the rank's shard over the model group."""
     lane = rank % shape[1]
     t = lm.lane_cut(path, want, shape[1], range(lane, lane + 1))
+    if tp:
+        t = lm.tp_cut(path, t, shape[1], lane)
     if fsdp and shape[0] > 1 and sharding.fsdp_sharded(path):
         t = sharding.data_cut(t, sharding.fsdp_dim(path), shape[0],
                               rank // shape[1])
@@ -112,14 +121,15 @@ def lane_of(want: np.ndarray, path: str, rank: int,
 
 
 def state_of_rank(want: np.ndarray, path: str, rank: int,
-                  shape=(1, EP), fsdp: bool = False) -> np.ndarray:
+                  shape=(1, EP), fsdp: bool = False,
+                  tp: bool = False) -> np.ndarray:
     """A whole mu, nu or master leaf of the reference cut to what rank
     ``rank`` holds: its lane, then its data rank's ZeRO-1 slice on the
     port's ZeRO dim (``adamw.zero_dim``), or with ``fsdp`` an expert
     leaf's f-slice (its state is the slice's own)."""
     if fsdp and sharding.fsdp_sharded(path):
         return lane_of(want, path, rank, shape, fsdp)
-    t = lane_of(want, path, rank, shape)
+    t = lane_of(want, path, rank, shape, tp=tp)
     data = shape[0]
     dim = adamw.zero_dim(t.shape, data, lm.lane_sharded(path))
     if dim is None:
@@ -144,8 +154,9 @@ def params(arch: str, seed: int = 0, ep: int = EP, node: int = NODE) -> dict:
     shapes)."""
     cfg = get_arch(arch).reduced()
     ctx = lm.make_context(cfg, "cpu")
-    ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
-        ctx.placement, ep=ep, node_size=node))
+    if ctx.placement is not None:      # the dense family has no experts
+        ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
+            ctx.placement, ep=ep, node_size=node))
     shapes = flat(lm.init_params(cfg, ctx, torch.Generator().manual_seed(0),
                                  dtype=torch.float32))
     rng = np.random.default_rng(seed)
@@ -209,8 +220,8 @@ for arch, data, engine, stream, slices in {runs!r}:
                         pipe_slices=slices),
         compute_dtype=jnp.float32, remat=False, engines=mixed,
         fsdp_experts={fsdp!r})
-    tr = traffic.init_traffic_state(cfg.moe.n_experts, {shape[1]},
-                                    n_layers=cfg.n_layers)
+    tr = None if cfg.moe is None else traffic.init_traffic_state(
+        cfg.moe.n_experts, {shape[1]}, n_layers=cfg.n_layers)
     vg = jax.value_and_grad(lambda p, b, t: lm.lm_loss(p, b, ctx, traffic=t),
                             has_aux=True)
     step = make_train_step(zoo.build(cfg, ctx), adamw.AdamWConfig(**{opt!r}))
@@ -218,7 +229,8 @@ for arch, data, engine, stream, slices in {runs!r}:
     def both(p, b, t):
         new, opt, sm = step(p, adamw.init(p), b, t)
         # the second step's params, over a data group only
-        two = step(new, opt, b, sm["traffic"])[:2] if {two!r} else ({{}}, None)
+        two = (step(new, opt, b, sm.get("traffic"))[:2] if {two!r}
+               else ({{}}, None))
         return vg(p, b, t), (new, opt, sm), two
 
     with mesh:
@@ -238,8 +250,8 @@ for arch, data, engine, stream, slices in {runs!r}:
                        ("nu", opt.nu), ("master", opt.master)):
         for k, v in flat(tree).items():
             out[c + "/" + kind + "/" + k] = np.asarray(v)
-    for kind, st in (("t", m["traffic"]), ("st", sm["traffic"])):
-        for f in traffic.TrafficState._fields:
+    for kind, st in (("t", m.get("traffic")), ("st", sm.get("traffic"))):
+        for f in traffic.TrafficState._fields if st is not None else ():
             out[c + "/" + kind + "/" + f] = np.asarray(getattr(st, f))
 np.savez({out!r}, **out)
 print("JAX_OK")
@@ -247,11 +259,11 @@ print("JAX_OK")
 
 
 def _save_state(out: dict, key: str, st) -> None:
-    for f in traffic.TrafficState._fields:
+    for f in traffic.TrafficState._fields if st is not None else ():
         out[f"{key}/{f}"] = getattr(st, f).numpy().copy()
 
 
-def _no_sync(grads, paths, group):
+def _no_sync(grads, paths, group, *_):
     return list(grads)
 
 
@@ -286,7 +298,7 @@ def engines_of(engine: str) -> tuple:
 
 
 def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
-               fsdp=False):
+               fsdp=False, tp=False):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
@@ -301,25 +313,27 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
             bt = {k: torch.from_numpy(d[k][rows]).long()
                   for k in ("tokens", "labels")}
             cfg = get_arch(arch).reduced()
-            cold = lambda: traffic.init_traffic_state(
-                cfg.moe.n_experts, mesh.model, n_layers=cfg.n_layers)
+            cold = lambda: None if cfg.moe is None else (
+                traffic.init_traffic_state(cfg.moe.n_experts, mesh.model,
+                                           n_layers=cfg.n_layers))
             c = f"{engine}/{slices}"
             base, mixed = engines_of(engine)
             ctx = dataclasses.replace(lm.make_context(
                 cfg, "cpu", mesh=mesh, engine=base, node_size=node,
                 moe_stream=stream, pipe_slices=slices,
-                compute_dtype=torch.float32, fsdp_experts=fsdp),
-                engines=mixed)
+                compute_dtype=torch.float32, fsdp_experts=fsdp,
+                explicit_tp=tp), engines=mixed)
             model = zoo.build(cfg, ctx)
             fresh = lambda: convert.params_from_jax(
                 tree, "cpu", lane=rank % mesh.model,
-                data=(mesh.data, mesh.data_index) if fsdp else None)
+                data=(mesh.data, mesh.data_index) if fsdp else None,
+                model=(mesh.model, rank % mesh.model) if tp else None)
             p = fresh()
             loss, m, grads = steps.value_and_grad(model)(p, bt, cold())
             out[f"{c}/loss"] = loss.numpy()
             for k, g in zip(adamw.paths(p), grads):
                 out[f"{c}/g/{k}"] = g.numpy().copy()
-            _save_state(out, f"{c}/t", m["traffic"])
+            _save_state(out, f"{c}/t", m.get("traffic"))
             # the replicated leaves' reduction switched off
             sync, steps.reduce_replicated = steps.reduce_replicated, _no_sync
             try:
@@ -335,11 +349,11 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
             for kind, t in (("p", p), ("mu", opt.mu), ("nu", opt.nu),
                             ("master", opt.master)):
                 _save_tree(out, f"{c}/{kind}", t)
-            _save_state(out, f"{c}/st", m["traffic"])
-            p, opt, m = step(p, opt, bt, m["traffic"])
+            _save_state(out, f"{c}/st", m.get("traffic"))
+            p, opt, m = step(p, opt, bt, m.get("traffic"))
             _save_tree(out, f"{c}/p2", p)
             for name, mod, attr, swap in (MUTATIONS if mesh.data > 1
-                                          and not fsdp else ()):
+                                          and not fsdp and not tp else ()):
                 saved = getattr(mod, attr)
                 setattr(mod, attr, swap(mesh))
                 try:
@@ -362,13 +376,14 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
 
 
 def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
-             fsdp=False):
+             fsdp=False, tp=False):
     """Run the reference and the four ranks of a ``shape`` = (data, model)
     grid over ``archs`` ((arch, cases) pairs, each case (engine,
     moe_stream, pipe_slices), all named "engine/slices" apart; an engine
     "a,b,..." is one a layer, :func:`engines_of`), and on each
     rank ``extra``: ``(rank, world) -> {name: array}``, saved beside the
-    rest; ``fsdp``: both sides under FSDP of the experts.  Returns (the
+    rest; ``fsdp``: both sides under FSDP of the experts; ``tp``: the
+    port's ranks under Megatron TP (the reference's default).  Returns (the
     reference's arrays, each rank's arrays, each arch's parameters)."""
     world = shape[0] * shape[1]
     runs, ps = [], {}
@@ -388,7 +403,7 @@ def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
         jax_run = pool.submit(run_devices, code, world, 600)
         mp.spawn(_rank_main, args=(world, str(tmp_path / "rendezvous"),
                                    str(tmp_path), tuple(runs), extra,
-                                   tuple(shape), node, fsdp),
+                                   tuple(shape), node, fsdp, tp),
                  nprocs=world, join=True)
         assert "JAX_OK" in jax_run.result()
     want = dict(np.load(tmp_path / "jax.npz"))
@@ -409,7 +424,7 @@ def state_of(arrays: dict, key: str) -> dict:
 
 # --------------------------------------------------- the rank-by-rank checks
 
-def check_grads(want, got, case, rank, shape=(1, EP), fsdp=False):
+def check_grads(want, got, case, rank, shape=(1, EP), fsdp=False, tp=False):
     """Loss, every gradient leaf (the replicated leaves' the reference's
     whole gradient, the expert leaves' the rank's lane of it, with
     ``fsdp`` its f-slice) and the traffic state of one rank of a ``shape``
@@ -422,14 +437,16 @@ def check_grads(want, got, case, rank, shape=(1, EP), fsdp=False):
            if k.startswith(f"{case}/g/")}
     assert grads.keys() == ref.keys(), what
     for k, g in grads.items():
-        w = lane_of(ref[k], k, rank, shape, fsdp)
+        w = lane_of(ref[k], k, rank, shape, fsdp, tp)
         assert g.shape == w.shape, (what, k)
         assert float(np.abs(w).max()) > 0, (what, k)
         close(g, w, f"{what} grad {k}")
-    check_state(state_of(got, f"{case}/t"), state_of(want, f"{case}/t"), what)
+    if f"{case}/t/steps" in want:            # no traffic without experts
+        check_state(state_of(got, f"{case}/t"), state_of(want, f"{case}/t"),
+                    what)
 
 
-def check_step(want, got, case, rank, shape=(1, EP), fsdp=False):
+def check_step(want, got, case, rank, shape=(1, EP), fsdp=False, tp=False):
     """The grad norm (clipping binding), the step's loss, the updated
     params, the rank's ZeRO-1 slices of mu, nu and master
     (:func:`state_of_rank`; with ``fsdp`` the expert leaves' f-slices)
@@ -445,13 +462,13 @@ def check_step(want, got, case, rank, shape=(1, EP), fsdp=False):
         for k in keys:
             path = k[len(pre):]
             cut = lane_of if kind == "p" else state_of_rank
-            w = cut(want[k], path, rank, shape, fsdp)
+            w = cut(want[k], path, rank, shape, fsdp, tp)
             assert got[k].shape == w.shape, (what, kind, path)
             if kind in ("mu", "nu"):
                 close(got[k], w, f"{what} {kind} {path}")
             else:
                 close_updated(got[k], w, cut(update_room(want, case, path),
-                                             path, rank, shape, fsdp),
+                                             path, rank, shape, fsdp, tp),
                               f"{what} {kind} {path}")
 
 
@@ -507,12 +524,13 @@ def mutation_misses(want, got, case, rank, name, shape) -> list[str]:
     return missed
 
 
-def replicated_bits_differ(ranks, case) -> list[str]:
+def replicated_bits_differ(ranks, case, tp=False) -> list[str]:
     """The replicated leaves whose bits after two steps are not rank 0's on
-    every rank."""
+    every rank (with ``tp`` the TP shards are not replicated)."""
     pre = f"{case}/p2/"
     return [k for k in ranks[0] if k.startswith(pre)
             and not lm.lane_sharded(k[len(pre):])
+            and not (tp and sharding.tp_sharded(k[len(pre):]))
             and not all(np.array_equal(r[k], ranks[0][k]) for r in ranks)]
 
 
@@ -520,7 +538,7 @@ def replicated_bits_differ(ranks, case) -> list[str]:
 
 def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
                        eps=(1, 2, 4, 8, 16, 32), cfg=None,
-                       dps=(1, 2, 4)) -> dict:
+                       dps=(1, 2, 4), tp: bool = False) -> dict:
     """Per-rank training state of ``arch`` (or ``cfg``) over an EP group of
     each size in ``eps`` and a data group of each size in ``dps``, reckoned
     from the parameter counts (``lm.param_counts``), not measured: bf16
@@ -531,20 +549,27 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     is alive.  Activations are not counted.  ``gib_per_rank`` is DP 1 by
     EP, ``gib_per_rank_dp`` every (EP, DP); ``gib_per_rank_fsdp`` the same
     under FSDP of the experts, whose bf16 params and grads are divided by
-    DP too.
+    DP too.  With ``tp`` the model group (the EP group) also splits the TP
+    leaves (``lm.tp_param_count``: wq, wo, the dense MLP), Megatron TP's
+    layout: each rank holds 1/EP of them, and they leave the all-reduce
+    bucket.
 
         PYTHONPATH=src python tests/torch_ep_train.py
 
-    prints it for the full qwen3-moe-30b-a3b."""
+    prints it for the full qwen3-moe-30b-a3b, replicated and under TP."""
     cfg = cfg or get_arch(arch)
     replicated, experts = lm.param_counts(cfg)
+    split = lm.tp_param_count(cfg) if tp else 0
 
     def gib(ep, dp, fsdp=False):
-        held = replicated + experts / ep
-        bf16 = replicated + experts / ep / (dp if fsdp else 1)
-        return (4 * bf16 + 12 / dp * held + 2 * replicated) / 2**30
+        cut = split if ep > 1 else 0       # one model rank: no TP
+        whole = replicated - cut + cut / ep
+        held = whole + experts / ep
+        bf16 = whole + experts / ep / (dp if fsdp else 1)
+        return (4 * bf16 + 12 / dp * held + 2 * (replicated - cut)) / 2**30
 
     return {"replicated_params": replicated, "expert_params": experts,
+            "tp_params": split,
             "gib_per_rank": {ep: gib(ep, 1) for ep in eps},
             "gib_per_rank_dp": {(ep, dp): gib(ep, dp) for ep in eps
                                 for dp in dps},
@@ -552,19 +577,119 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
                                   for dp in dps}}
 
 
+# --------------------------------- Megatron TP against the replicated layout
+
+def _counting(mod, name: str, log: list, record=None):
+    """Swap ``mod.name`` for a wrapper that appends ``name`` (or
+    ``record(*args)``) to ``log``; returns the undo."""
+    fn = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        log.append(name if record is None else record(*a, **k))
+        return fn(*a, **k)
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, fn)
+
+
+def tp_probe(shape, node, archs, rank, world) -> dict:
+    """On each rank of a ``shape`` grid, for each (arch, cases) of
+    ``archs``: the loss, the grad norm of one step and every gradient
+    under ``explicit_tp`` True and False from the same parameters and
+    batch (``tpoff/err``: the largest difference of a leaf relative to
+    max(1, |x|), the TP shard against its cut of the replicated layout's
+    gradient), and what one forward of the loss launches under each:
+    ``dcomm.all_gather_seq`` / ``reduce_scatter_seq`` calls from the TP
+    blocks, ``lm.all_gather_seq`` calls (the MoE output's gather), the
+    ``torch.distributed`` collectives (``dcomm.collective_calls``), the
+    shapes of h entering each TP layer, and q's and k's heads at the flash
+    call.  Used as ``run_grid``'s ``extra`` (``functools.partial``)."""
+    mesh = make_host_mesh(*shape)
+    lane = rank % mesh.model
+    out = {}
+    for arch, cases in archs:
+        cfg = get_arch(arch).reduced()
+        tree = nest(params(arch, ep=mesh.model, node=node).items())
+        rows = data_rows(B, mesh.data, mesh.data_index)
+        bt = {k: torch.from_numpy(v[rows]).long()
+              for k, v in batch(cfg.vocab).items()}
+        cold = lambda: None if cfg.moe is None else (
+            traffic.init_traffic_state(cfg.moe.n_experts, mesh.model,
+                                       n_layers=cfg.n_layers))
+        for engine, stream, slices in cases:
+            c = f"{engine}/{slices}/tp"
+            res = {}
+            for tp in (True, False):
+                ctx = lm.make_context(
+                    cfg, "cpu", mesh=mesh, engine=engine, node_size=node,
+                    moe_stream=stream, pipe_slices=slices,
+                    compute_dtype=torch.float32, explicit_tp=tp)
+                assert lm.tensor_parallel(ctx) == tp
+                model = zoo.build(cfg, ctx)
+                p = convert.params_from_jax(
+                    tree, "cpu", lane=lane,
+                    model=(mesh.model, lane) if tp else None)
+                loss, _, grads = steps.value_and_grad(model)(p, bt, cold())
+                step = steps.make_train_step(model, adamw.AdamWConfig(**OPT))
+                _, _, m = step(p, steps.init_state(model, p), bt, cold())
+                log, heads, undo = [], [], []
+                undo.append(_counting(dcomm, "all_gather_seq", log))
+                undo.append(_counting(dcomm, "reduce_scatter_seq", log))
+                undo.append(_counting(lm, "all_gather_seq", log,
+                                      lambda *a, **k: "moe_gather"))
+                undo.append(_counting(
+                    tp_blocks, "causal_attention", heads,
+                    lambda q, k, *a, **kw: (q.shape[2], k.shape[2])))
+                undo.append(_counting(
+                    lm, "_tp_layer", heads,
+                    lambda hh, *a, **kw: tuple(hh.shape)))
+                try:
+                    with dcomm.collective_calls() as calls:
+                        p = convert.params_from_jax(
+                            tree, "cpu", lane=lane,
+                            model=(mesh.model, lane) if tp else None)
+                        model.loss(p, bt, traffic=cold())
+                finally:
+                    for u in undo:
+                        u()
+                key = "on" if tp else "off"
+                out[f"{c}/{key}/loss"] = loss.numpy()
+                out[f"{c}/{key}/grad_norm"] = m["grad_norm"].numpy()
+                out[f"{c}/{key}/log"] = np.array(log, dtype=str)
+                out[f"{c}/{key}/calls"] = np.array(calls, dtype=str)
+                out[f"{c}/{key}/h"] = np.array(
+                    [x for x in heads if len(x) == 3], dtype=np.int64
+                ).reshape(-1, 3)
+                out[f"{c}/{key}/heads"] = np.array(
+                    [x for x in heads if len(x) == 2], dtype=np.int64
+                ).reshape(-1, 2)
+                res[tp] = dict(zip(adamw.paths(p), grads))
+            err = 0.0
+            for path, g in res[True].items():
+                w = lm.tp_cut(path, res[False][path], mesh.model, lane)
+                err = max(err, float((g - w).abs().max())
+                          / max(1.0, float(w.abs().max())))
+            out[f"{c}/err"] = np.array(err)
+    return out
+
+
 if __name__ == "__main__":
     for arch, eps in (("qwen3-moe-30b-a3b", (1, 2, 4, 8, 16, 32, 64)),
                       ("mixtral-8x22b", (1, 2, 4, 8)),
                       ("deepseek-v3-bench", (1, 8, 16, 32, 64))):
-        mem = state_gib_per_rank(arch, eps=eps)
-        print(f"reckoned (not measured) per-rank training state of the full "
-              f"{arch} ({mem['replicated_params']} replicated and "
-              f"{mem['expert_params']} expert parameters), GiB, by EP "
-              f"(rows) and DP (columns), ZeRO-1 -> with FSDP of the experts:")
-        table, fsdp = mem["gib_per_rank_dp"], mem["gib_per_rank_fsdp"]
-        dps = sorted({dp for _, dp in table})
-        print("EP \\ DP " + "".join(f"{dp:>18}" for dp in dps))
-        for ep in sorted({ep for ep, _ in table}):
-            print(f"{ep:>7} " + "".join(
-                f"{table[ep, dp]:>9.2f} ->{fsdp[ep, dp]:>7.2f}"
-                for dp in dps))
+        for tp in (False, True):
+            mem = state_gib_per_rank(arch, eps=eps, tp=tp)
+            print(f"reckoned (not measured) per-rank training state of the "
+                  f"full {arch} ({mem['replicated_params']} replicated, "
+                  f"{mem['tp_params']} of them split by TP, and "
+                  f"{mem['expert_params']} expert parameters), "
+                  f"{'Megatron TP over the EP group' if tp else 'replicated attention'}, "
+                  f"GiB, by EP (rows) and DP (columns), ZeRO-1 -> with FSDP "
+                  f"of the experts:")
+            table, fsdp = mem["gib_per_rank_dp"], mem["gib_per_rank_fsdp"]
+            dps = sorted({dp for _, dp in table})
+            print("EP \\ DP " + "".join(f"{dp:>18}" for dp in dps))
+            for ep in sorted({ep for ep, _ in table}):
+                print(f"{ep:>7} " + "".join(
+                    f"{table[ep, dp]:>9.2f} ->{fsdp[ep, dp]:>7.2f}"
+                    for dp in dps))
