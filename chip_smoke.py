@@ -2439,7 +2439,8 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
     global batch cut to its data rank's rows: the loss, the grads and the
     updated params by path (on the CPU), the grad norm, the new traffic
     state (None without experts), the bytes of the AdamW state and those
-    of its ZeRO-1 share (``adamw.zero_dim``), the kernels' launches and
+    of its ZeRO-1 share (``adamw.zero_dim``, past each leaf's model-split
+    dim: ``embed``'s on d), the kernels' launches and
     whether the step ran Megatron TP (``lm.tensor_parallel``: the moe and
     dense families over more than one model rank, unless ``tp`` is
     False)."""
@@ -2474,8 +2475,9 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
     params, opt, m = steps.make_train_step(model, opt_cfg, lanes)(
         params, opt, batch, cold())
     paths = adamw.paths(params)
+    split = lm.model_dim(ctx)
     share = sum(12 * t.numel() // (1 if adamw.zero_dim(
-        t.shape, dp, lm.lane_sharded(p)) is None else dp)
+        t.shape, dp, lm.lane_sharded(p), split(p)) is None else dp)
         for p, t in zip(paths, adamw.leaves(params)))
     return {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
             "grads": dict(zip(paths, (g.cpu() for g in grads))),
@@ -2488,19 +2490,23 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
 
 
 def rank_cut(path: str, t, model: int, r: int, tp: bool):
-    """A whole leaf as rank ``r`` of a model group of ``model`` holds it:
-    an expert leaf its lane, under ``tp`` a TP leaf its shard."""
+    """A whole leaf as rank ``r`` of a model group of ``model`` holds it in
+    training: an expert leaf its lane, ``embed`` and ``lm_head`` their
+    shards (``lm.vocab_parallel``), under ``tp`` a TP leaf its shard."""
     from repro_torch.models import lm
     t = lm.lane_cut(path, t, model, range(r, r + 1))
-    return lm.tp_cut(path, t, model, r) if tp else t
+    return lm.tp_cut(path, t, model, r, tp=tp)
 
 
 def held_apart(path: str, tp: bool) -> bool:
-    """Whether the model ranks hold different parts of the leaf at
-    ``path``: an expert leaf, and under ``tp`` a TP leaf."""
+    """Whether the model ranks of a training group hold different parts of
+    the leaf at ``path``: an expert leaf, ``embed`` and ``lm_head`` (the
+    reduced configs' vocab splits over every group the smoke runs), and
+    under ``tp`` a TP leaf."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding
-    return lm.lane_sharded(path) or (tp and sharding.tp_sharded(path))
+    return (lm.lane_sharded(path) or path in sharding.VOCAB_DIM
+            or (tp and sharding.tp_sharded(path)))
 
 
 def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
@@ -2546,7 +2552,8 @@ def _ep2_prefill(arch, engine, device, lanes, group=None) -> dict:
     # a serving context: whole weights on every rank
     ctx = lm.make_context(cfg, device, ep_group=group,
                           capacity_factor=EP2_CAPACITY, compute_dtype=f32,
-                          explicit_tp=False, **engine_kwargs(engine, cfg, lanes))
+                          explicit_tp=False, split_vocab=False,
+                          **engine_kwargs(engine, cfg, lanes))
     params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), base), ctx)
     tokens = torch.randint(0, cfg.vocab, (4, 16),
                            generator=torch.Generator().manual_seed(1))
@@ -2856,17 +2863,20 @@ def grid_card_check(device="cuda",
     return lines, launches
 
 
-def held_params(cfg, model: int) -> int:
+def held_params(cfg, model: int, tp: bool = True) -> int:
     """The parameters a rank holds at a model group of ``model`` in the
-    default layout: 1 / model of the expert leaves and, where Megatron TP
-    applies (``lm.ModelContext.tp_eligible``'s rule: the dense and moe
-    families, the heads split evenly), of the TP leaves
-    (``lm.tp_param_count``); the rest whole."""
+    training layout: 1 / model of the expert leaves, of ``embed`` and
+    ``lm_head`` (``lm.vocab_param_count``: split on the vocab or on d) and,
+    with ``tp`` where Megatron TP applies (``lm.ModelContext.tp_eligible``'s
+    rule: the dense and moe families, the heads split evenly), of the TP
+    leaves (``lm.tp_param_count``); the rest whole."""
     from repro_torch.models import lm
     replicated, experts = lm.param_counts(cfg)
-    tp = (lm.tp_param_count(cfg) if model > 1 and cfg.n_heads % model == 0
-          and cfg.family in ("dense", "moe") else 0)
-    return replicated - tp + tp // model + experts // model
+    split = lm.vocab_param_count(cfg, model) + (
+        lm.tp_param_count(cfg) if tp and model > 1
+        and cfg.n_heads % model == 0 and cfg.family in ("dense", "moe")
+        else 0)
+    return replicated - split + split // model + experts // model
 
 
 def _zero1_rank(rank, port, out_dir, argv, device):
@@ -2971,18 +2981,21 @@ def zero1_phase(argv=ZERO1, device="cuda",
     return lines, {"one": one, "ranks": got}
 
 
-# the full-width Megatron-SP steps (``tp_full_phase``): one train step of
-# each argv (``train.setup``'s seed-0 params and first global batch) on a (1,
-# m) grid of m gloo ranks sharing the card and on the card alone, bf16, B 4 x
-# S 512; the moe steps at capacity factor 16 (no row dropped at any EP);
-# label -> (argv, m)
+# the full-width steps over a model group (``tp_full_phase``): one train
+# step of each argv (``train.setup``'s seed-0 params and first global batch)
+# on a (1, m) grid of m gloo ranks sharing the card and on the card alone,
+# bf16, B 4 x S 512; the moe steps at capacity factor 16 (no row dropped at
+# any EP); every step splits embed and lm_head over the group; label ->
+# (argv, m, Megatron TP: False is the moe family's replicated attention,
+# ``explicit_tp=False``, its step run again with the vocab pair whole)
 TP_FLAGS = ["--batch", "4", "--seq", "512"]
 TP_MOE = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1",
           "--capacity-factor", "16"] + TP_FLAGS
 TP_FULL = {"qwen3-1.7b TP 2": (["--arch", "qwen3-1.7b", "--layers", "2"]
-                               + TP_FLAGS, 2),
-           "qwen3-moe-30b-a3b TP 2": (TP_MOE, 2),
-           "qwen3-moe-30b-a3b TP 4": (TP_MOE, 4)}
+                               + TP_FLAGS, 2, True),
+           "qwen3-moe-30b-a3b TP 2": (TP_MOE, 2, True),
+           "qwen3-moe-30b-a3b EP 2, no TP": (TP_MOE, 2, False),
+           "qwen3-moe-30b-a3b TP 4": (TP_MOE, 4, True)}
 TOL_TP_LOSS = 2e-3        # the step's loss, grid vs one card, relative: bf16
 
 
@@ -3005,7 +3018,9 @@ def tp_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
     """The flash forward at each ``TP_FULL`` step's shard shape: B 4 x S
     512, the rank's q heads and the kv heads they read."""
     rows = []
-    for label, (argv, model) in TP_FULL.items():
+    for label, (argv, model, tp) in TP_FULL.items():
+        if not tp:
+            continue
         cfg, hl, kv = tp_shapes(argv, model)
         rows.append(dict(flash_row(*attention_inputs(
             device, b=4, sq=512, sk=512, hq=hl, hkv=kv, hd=cfg.hd),
@@ -3013,20 +3028,32 @@ def tp_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
     return rows
 
 
-def tp_step(argv, device, mesh=None) -> dict:
+def tp_step(argv, device, mesh=None, explicit_tp: bool = True,
+            split_vocab: bool = True) -> dict:
     """One train step of ``argv`` through ``train.setup`` (the seed-0
-    params and data source of ``train.run``) on ``device``, over ``mesh``
-    (None: one rank) on this data rank's rows of the first global batch:
-    the loss, this rank's parameter and AdamW bytes, the kernels'
-    launches and the (q, kv) heads of every flash call of the TP
-    blocks."""
+    params and data source of ``train.run``; its context's
+    ``explicit_tp`` and ``split_vocab`` replaced when either is False, the
+    params drawn again for it from the same seed) on ``device``, over
+    ``mesh`` (None: one rank) on this data rank's rows of the first global
+    batch: the loss, this rank's parameter and AdamW bytes, the bytes of
+    the gradients ``steps.reduce_replicated`` sums (the replicated bucket;
+    0 on one rank), the kernels' launches and the (q, kv) heads of every
+    flash call of the TP blocks."""
+    import dataclasses
+    import torch
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps, train
-    from repro_torch.models import zoo
+    from repro_torch.models import lm, zoo
     from repro_torch.optim import adamw
     from repro_torch.parallel import tp_blocks
     args = train.parse_args(argv)
     s = train.setup(args, device, mesh=mesh)
+    if not (explicit_tp and split_vocab):
+        ctx = dataclasses.replace(s.ctx, explicit_tp=explicit_tp,
+                                  split_vocab=split_vocab)
+        s = s._replace(ctx=ctx, params=None)
+        s = s._replace(params=lm.init_params(s.cfg, ctx, torch.Generator(
+            device=ctx.device).manual_seed(train.SEED)))
     model = zoo.build(s.cfg, s.ctx)
     dp, d = (1, 0) if mesh is None else (mesh.data, mesh.data_index)
     batch = to_device(train.shard_batch(s.source.batch_at(0), dp, d)[0],
@@ -3038,76 +3065,97 @@ def tp_step(argv, device, mesh=None) -> dict:
         heads.append((q.shape[2], k.shape[2]))
         return attn(q, k, *a, **kw)
 
+    bucket, sync = [], steps.reduce_replicated
+
+    def measured(grads, paths, group, sharded=lm.lane_sharded):
+        bucket.extend(g.numel() * g.element_size()
+                      for p, g in zip(paths, grads) if not sharded(p))
+        return sync(grads, paths, group, sharded)
+
     tp_blocks.causal_attention = recording
+    steps.reduce_replicated = measured
     wrappers = zero_counters()
     try:
         _, opt, m = steps.make_train_step(model, s.opt_cfg)(
             s.params, opt, batch, train.init_traffic(s.cfg, s.ctx, 1))
     finally:
         tp_blocks.causal_attention = attn
+        steps.reduce_replicated = sync
     return {"loss": float(m["loss"]),
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in adamw.leaves(s.params)),
-            "opt_bytes": adamw.state_bytes(opt),
+            "opt_bytes": adamw.state_bytes(opt), "bucket_bytes": sum(bucket),
             "launches": {k: w.launches for k, w in wrappers.items()},
             "heads": heads}
 
 
 def _tp_full_rank(rank, port, out_dir, runs, model, device):
-    """One rank of the full-width TP steps (:func:`tp_step`) of ``runs``
-    ((label, argv) pairs) on a (1, ``model``) grid, in turn, each result
-    saved to ``out_dir``."""
+    """One rank of the full-width steps (:func:`tp_step`) of ``runs``
+    ((label, argv, tp) triples) on a (1, ``model``) grid, in turn, each
+    result saved to ``out_dir``; a step without TP runs again with the
+    vocab pair whole (``split_vocab=False``, saved as ``-whole``)."""
     import torch
     import torch.distributed as dist
     mesh = _grid_init(rank, port, device, (1, model))
     try:
-        for i, (_, argv) in enumerate(runs):
-            torch.save(tp_step(argv, device, mesh),
-                       f"{out_dir}/tp{i}-rank{rank}.pt")
-            if torch.device(device).type == "cuda":
-                torch.cuda.empty_cache()
+        for i, (_, argv, tp) in enumerate(runs):
+            for tag, split in (("", True),) + ((("-whole", False),)
+                                               if not tp else ()):
+                torch.save(tp_step(argv, device, mesh, explicit_tp=tp,
+                                   split_vocab=split),
+                           f"{out_dir}/tp{i}{tag}-rank{rank}.pt")
+                if torch.device(device).type == "cuda":
+                    torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
 
 def tp_full_phase(device="cuda") -> tuple[list[str], dict]:
     """Each ``TP_FULL`` step on its (1, m) grid of gloo ranks sharing the
-    card (Megatron TP over the model group, the default) after the same
-    step on the card alone: every rank's loss the same and within
-    ``TOL_TP_LOSS`` relative of the one-card step's; each rank's bf16
-    parameter bytes and AdamW bytes (f32 master, mu, nu) the reckoning of
-    what it holds (``held_params``: 2 and 12 bytes a parameter); every
-    flash call of rank 0 takes q of n_heads / m heads beside the kv heads
-    they read; every kernel of the family's path launched on rank 0.
-    The steps of one m run in one spawn.  Returns the lines and rank 0's
-    launches by label."""
+    card (Megatron TP over the model group, the default, or the moe
+    family's replicated attention; ``embed`` and ``lm_head`` split over
+    the group either way) after the same step on the card alone: every
+    rank's loss the same and within ``TOL_TP_LOSS`` relative of the
+    one-card step's; each rank's bf16 parameter bytes and AdamW bytes (f32
+    master, mu, nu) the reckoning of what it holds (``held_params``: 2 and
+    12 bytes a parameter); under TP every flash call of rank 0 takes q of
+    n_heads / m heads beside the kv heads they read (without TP no call of
+    the TP blocks); every kernel of the family's path launched on rank 0.
+    A step without TP runs again with the pair whole: its loss within
+    ``TOL_TP_LOSS`` too, its replicated bucket on rank 0 2 bytes a
+    parameter of the whole replicated tree, and the split step's exactly
+    the pair's 4 V d bytes less.  The steps of one m run in one spawn.
+    Returns the lines and rank 0's launches by label."""
     import math
     import shutil
     import torch
     out_dir = ROOT / "build" / "tp"
     on_card = torch.device(device).type == "cuda"
-    ones, lines, launches, got_of = {}, [], {}, {}
-    for argv, _ in TP_FULL.values():
+    ones, lines, launches, got_of, whole_of = {}, [], {}, {}, {}
+    for argv, _, _ in TP_FULL.values():
         if tuple(argv) not in ones:
             ones[tuple(argv)] = tp_step(argv, device)
             if on_card:
                 torch.cuda.empty_cache()
-    for model in sorted({m for _, m in TP_FULL.values()}):
-        runs = [(label, argv) for label, (argv, m) in TP_FULL.items()
+    for model in sorted({m for _, m, _ in TP_FULL.values()}):
+        runs = [(label, argv, tp) for label, (argv, m, tp) in TP_FULL.items()
                 if m == model]
         shutil.rmtree(out_dir, ignore_errors=True)
         out_dir.mkdir(parents=True)
         spawn_ranks(_tp_full_rank, model, (
             free_port(), str(out_dir), runs, model,
             "cuda:0" if on_card else device), 600)
-        for i, (label, _) in enumerate(runs):
+        for i, (label, _, tp) in enumerate(runs):
             got_of[label] = [torch.load(out_dir / f"tp{i}-rank{r}.pt")
                              for r in range(model)]
+            if not tp:
+                whole_of[label] = [torch.load(out_dir / f"tp{i}-whole-rank"
+                                              f"{r}.pt") for r in range(model)]
         shutil.rmtree(out_dir, ignore_errors=True)
-    for label, (argv, model) in TP_FULL.items():
+    for label, (argv, model, tp) in TP_FULL.items():
         cfg, hl, kv = tp_shapes(argv, model)
         one, got = ones[tuple(argv)], got_of[label]
-        held = held_params(cfg, model)
+        held = held_params(cfg, model, tp)
         first = abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])
         required, _ = family_kernels(cfg, train=True)
         never = [k for k in required if got[0]["launches"][k] == 0]
@@ -3115,18 +3163,37 @@ def tp_full_phase(device="cuda") -> tuple[list[str], dict]:
                if g["param_bytes"] != 2 * held or g["opt_bytes"] != 12 * held
                or g["loss"] != got[0]["loss"] or not math.isfinite(g["loss"])]
         heads = sorted(set(got[0]["heads"]))
+        want_heads = [(hl, kv)] if tp else []
         line = (f"{label}: one card loss {one['loss']}, params "
                 f"{one['param_bytes']} B, AdamW {one['opt_bytes']} B; ranks' "
                 f"losses {[g['loss'] for g in got]} ({first:.3g} relative, "
                 f"tol {TOL_TP_LOSS}); params {[g['param_bytes'] for g in got]}"
                 f" B and AdamW {[g['opt_bytes'] for g in got]} B a rank, "
                 f"reckoned {2 * held} and {12 * held} ({held} parameters "
-                f"held); rank 0's {len(got[0]['heads'])} flash calls at "
-                f"(q, kv) heads {heads} (want [({hl}, {kv})]); rank 0's "
+                f"held; embed and lm_head "
+                f"{2 * cfg.vocab * cfg.d_model // model} a rank); rank 0's {len(got[0]['heads'])} TP flash calls at "
+                f"(q, kv) heads {heads} (want {want_heads}); rank 0's "
                 f"launches {json.dumps(got[0]['launches'])}")
-        if bad or never or first > TOL_TP_LOSS or heads != [(hl, kv)]:
-            raise AssertionError(f"full-width TP step off (ranks {bad}, never "
-                                 f"launched {never}): {line}")
+        off = bad or never or first > TOL_TP_LOSS or heads != want_heads
+        if not tp:
+            from repro_torch.models import lm
+            whole = whole_of[label]
+            pair = 4 * cfg.vocab * cfg.d_model
+            rep_bytes = 2 * lm.param_counts(cfg)[0]
+            w_first = abs(whole[0]["loss"] - one["loss"]) / abs(one["loss"])
+            less = whole[0]["bucket_bytes"] - got[0]["bucket_bytes"]
+            line += (f"; replicated bucket on rank 0 {got[0]['bucket_bytes']}"
+                     f" B with the pair split, {whole[0]['bucket_bytes']} B "
+                     f"with it whole (loss {whole[0]['loss']}, {w_first:.3g} "
+                     f"relative), {less} B less (want {pair}: 4 V d; whole "
+                     f"reckoned {rep_bytes})")
+            off = off or w_first > TOL_TP_LOSS or (
+                whole[0]["bucket_bytes"] != rep_bytes) or (
+                got[0]["bucket_bytes"] != rep_bytes - pair)
+        if off:
+            raise AssertionError(f"full-width step over the model group off "
+                                 f"(ranks {bad}, never launched {never}): "
+                                 f"{line}")
         lines.append(line)
         launches[label] = got[0]["launches"]
     return lines, launches
@@ -3761,8 +3828,9 @@ def replicated_card_check(device="cuda") -> list[str]:
     for r, g in enumerate(got):
         err["loss"] = max(err["loss"], abs(g["loss"] - float(loss)))
         for k, w in want.items():
-            if not lm.lane_sharded(k):
-                err["grads"] = max(err["grads"], rel(g["grads"][k], w))
+            if not lm.lane_sharded(k):     # embed and lm_head: the rank's
+                err["grads"] = max(err["grads"], rel(
+                    g["grads"][k], rank_cut(k, w, EP2, r, False)))
         never = [k for k in required if g["launches"][k] == 0]
         if never:
             raise AssertionError(f"replicated table rank {r} never launched "
@@ -4786,8 +4854,8 @@ def main() -> None:
     stamp("FSDP grid")
     tp_lines, tp_launches = tp_full_phase()
     for line in tp_lines:
-        print(f"full-width Megatron TP, bf16, one train step on one card: "
-              f"{line}")
+        print(f"full-width step over a model group (gloo ranks sharing the "
+              f"card; embed and lm_head split), bf16, one train step: {line}")
     launches.update(tp_launches)
     stamp("full-width TP")
 

@@ -37,7 +37,10 @@ of a ZeRO-1 slice, and a restore cuts it so, with FSDP on or off.  Under
 Megatron TP (``Layout.tp``) a TP leaf's shard, parameter and state alike,
 is gathered over the model group on its TP dim (``sharding.TP_DIM``) after
 its ZeRO-1 slice over the data group, so the file holds the whole leaf, the
-reference's bits; a restore cuts it onto any grid, TP or not.
+reference's bits; a restore cuts it onto any grid, TP or not.  A training
+layout over a model group (``Layout.vocab``) holds the vocab pair split
+over it the same way, on the dim ``sharding.vocab_dim`` gives its whole
+shape (the vocab, or d where the group does not divide the vocab).
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ class Layout:
     (None: one); ``fsdp``: the expert leaves' f dim is split over the data
     group (parameters and state; ZeRO-3 of the experts); ``tp``: the TP
     leaves are this rank's shard of ``ep`` over ``ep_group`` (the model
-    group)."""
+    group); ``vocab``: (V, d) of a model whose vocab pair is this rank's
+    shard of ``ep`` (``models/lm.vocab_parallel``; None: whole)."""
     ep: int = 1
     lane: int = 0
     dp: int = 1
@@ -79,6 +83,7 @@ class Layout:
     world: dist.ProcessGroup | None = None
     fsdp: bool = False
     tp: bool = False
+    vocab: tuple[int, int] | None = None
 
     @property
     def writer(self) -> bool:
@@ -89,27 +94,32 @@ ONE = Layout()
 
 
 def layout(ep_group=None, mesh=None, fsdp: bool = False,
-           tp: bool = False) -> Layout:
+           tp: bool = False, vocab: tuple[int, int] | None = None) -> Layout:
     """The :class:`Layout` of a rank over ``ep_group`` (a group, a
     ``dcomm.EPGroups`` or None) or over ``mesh`` (a ``launch.mesh.HostMesh``,
     whose EP group is taken then), with the experts under FSDP over its
-    data group (``fsdp``) and the TP leaves sharded over its model group
-    (``tp``); that of a model context is :func:`context_layout`."""
+    data group (``fsdp``), the TP leaves sharded over its model group
+    (``tp``) and, with ``vocab`` = (V, d), the vocab pair split over it (a
+    training layout); that of a model context is :func:`context_layout`."""
     if mesh is not None:
         return Layout(mesh.model, dcomm.lane_index(mesh.ep_group), mesh.data,
                       mesh.data_index, mesh.ep_group, mesh.data_group,
-                      mesh.grid, fsdp and mesh.data > 1, tp and mesh.model > 1)
+                      mesh.grid, fsdp and mesh.data > 1, tp and mesh.model > 1,
+                      vocab if mesh.model > 1 else None)
     ep = dcomm.group_size(ep_group)
     if ep == 1:
         return ONE
     g = dcomm.process_group(ep_group)
-    return Layout(ep, dcomm.lane_index(ep_group), ep_group=g, world=g, tp=tp)
+    return Layout(ep, dcomm.lane_index(ep_group), ep_group=g, world=g, tp=tp,
+                  vocab=vocab)
 
 
 def context_layout(ctx) -> Layout:
     """The :class:`Layout` of a ``models.lm.ModelContext``'s rank."""
     return layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts,
-                  lm.tensor_parallel(ctx))
+                  lm.tensor_parallel(ctx),
+                  (ctx.cfg.vocab, ctx.cfg.d_model) if lm.vocab_parallel(ctx)
+                  else None)
 
 
 # --- the tree -----------------------------------------------------------------
@@ -173,16 +183,27 @@ class _Role:
         return lay.fsdp and self.model is not None and sharding.fsdp_sharded(
             self.model)
 
-    def tp(self, lay: Layout) -> bool:
-        return lay.tp and self.model is not None and sharding.tp_sharded(
-            self.model)
+    def split(self, lay: Layout) -> int | None:
+        """The dim, from the end, this rank's part is cut on over the model
+        group: a TP shard's under ``lay.tp``, the vocab pair's under
+        ``lay.vocab`` (``sharding.vocab_dim`` of its whole shape)."""
+        if self.model is None:
+            return None
+        if lay.tp and sharding.tp_sharded(self.model):
+            return sharding.tp_dim(self.model)
+        if lay.vocab is None or self.model not in sharding.VOCAB_DIM:
+            return None
+        v, d = lay.vocab
+        shape = (v, d) if self.model == "embed" else (d, v)
+        return sharding.vocab_dim(self.model, shape, lay.ep)
 
     def zero(self, rank_param_shape, lay: Layout) -> int | None:
         if not self.state or rank_param_shape is None or self.fsdp(lay):
             return None
         return adamw.zero_dim(rank_param_shape, lay.dp,
                               self.model is not None
-                              and lm.lane_sharded(self.model))
+                              and lm.lane_sharded(self.model),
+                              self.split(lay))
 
 
 def _params_shapes(tree) -> dict:
@@ -211,7 +232,7 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
     """The whole leaf of this rank's ``t``: its ZeRO-1 slice (or its FSDP
     slice) gathered over the data group, then its lane over the EP group
-    (or its TP shard over the model group)."""
+    (or its TP or vocab shard over the model group)."""
     if role.fsdp(lay):
         t = _all_gather(t, sharding.fsdp_dim(role.model) % t.dim(),
                         lay.data_group, lay.dp)
@@ -221,9 +242,9 @@ def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
             t = _all_gather(t, dim, lay.data_group, lay.dp)
     if role.sharded(lay):
         t = _all_gather(t, adamw.LANE_DIM, lay.ep_group, lay.ep)
-    if role.tp(lay):
-        t = _all_gather(t, sharding.tp_dim(role.model) % t.dim(),
-                        lay.ep_group, lay.ep)
+    split = role.split(lay)
+    if split is not None:
+        t = _all_gather(t, split % t.dim(), lay.ep_group, lay.ep)
     return t
 
 
@@ -340,13 +361,14 @@ def latest_step(path: str | None) -> int | None:
 # --- restore --------------------------------------------------------------------
 
 def _cut(role: _Role, a: np.ndarray, lay: Layout) -> np.ndarray:
-    """This rank's part of a whole leaf ``a``: its lane or its TP shard,
-    then its ZeRO-1 slice (of the parameter's held shape) or its FSDP
-    slice."""
+    """This rank's part of a whole leaf ``a``: its lane or its TP or vocab
+    shard, then its ZeRO-1 slice (of the parameter's held shape) or its
+    FSDP slice."""
     if role.sharded(lay):
         a = lm.lane_cut(role.model, a, lay.ep, range(lay.lane, lay.lane + 1))
-    if role.tp(lay):
-        a = lm.tp_cut(role.model, a, lay.ep, lay.lane)
+    split = role.split(lay)
+    if split is not None:
+        a = sharding.data_cut(a, split, lay.ep, lay.lane)
     if role.fsdp(lay):
         return sharding.data_cut(a, sharding.fsdp_dim(role.model), lay.dp,
                                  lay.d)

@@ -9,8 +9,10 @@ keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
 with ``lane``, one rank's shard of it over an EP group (the expert leaves
 cut to that lane, ``models/lm.lane_cut``), with ``data`` = (DP, d) the
 f-slice data rank d of DP holds under FSDP of the experts
-(``parallel/sharding``), and with ``model`` = (m, r) the TP shards model
-rank r of m holds under Megatron TP (``models/lm.tp_cut``).
+(``parallel/sharding``), and with ``model`` = (m, r) the shards model rank
+r of m holds in training (``models/lm.tp_cut``): the vocab pair's (on the
+dim ``sharding.vocab_dim`` gives its shape) and, with ``tp``, the TP
+leaves' under Megatron TP.
 """
 
 from __future__ import annotations
@@ -53,16 +55,20 @@ def _flatten(tree, prefix=""):
 
 def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
                     data: tuple[int, int] | None = None,
-                    model: tuple[int, int] | None = None) -> dict:
+                    model: tuple[int, int] | None = None,
+                    tp: bool = True) -> dict:
     """Map the reference's parameter tree of a family of :data:`KEYS` onto
     the port's, on ``device`` (pass ``"cpu"`` for the plain path); the
     family is the one whose keys the tree holds (ValueError if none).  With
     ``lane``: the tree rank ``lane`` of an EP group holds, its expert leaves
     (L, EP, E_local, ...) cut to (L, 1, E_local, ...) of that lane.  With
     ``data`` = (DP, d): their f dim cut to data rank d's slice of DP (FSDP,
-    ``sharding.data_cut``).  With ``model`` = (m, r): the TP leaves
-    (``sharding.TP_DIM``) cut to model rank r's shard of m, the reference's
-    shard r of its ``model`` axis."""
+    ``sharding.data_cut``).  With ``model`` = (m, r): the vocab pair
+    (``sharding.vocab_dim``: the vocab where m divides it, else d) and,
+    with ``tp``, the TP leaves (``sharding.TP_DIM``) cut to model rank r's
+    shard of m, the reference's shard r of its ``model`` axis: the tree a
+    training context over a model group of m holds (``models/lm.model_dim``;
+    ``tp``: ``lm.tensor_parallel``)."""
     paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
     if paths not in KEYS.values():
         near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))
@@ -79,7 +85,7 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
             a = sharding.data_cut(np.asarray(a), sharding.fsdp_dim(path),
                                   *data)
         if model is not None:
-            a = tp_cut(path, np.asarray(a), *model)
+            a = tp_cut(path, np.asarray(a), *model, tp=tp)
         return _tensor(a, device)
 
     def conv(t, prefix=""):

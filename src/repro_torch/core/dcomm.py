@@ -48,7 +48,10 @@ their transposes in the reverse order.
 
 Every collective that moves rows is differentiable (a
 ``torch.autograd.Function`` that transposes as the reference's shard_map
-collective does); the counts and metadata exchanges carry none.  With
+collective does); the counts and metadata exchanges carry none.  Beside
+the sequence gathers and scatters of Megatron-SP sit the vocab-parallel
+ops of a vocab split over the model group (:func:`vocab_embed`,
+:func:`copy_to_group`, :func:`vocab_parallel_ce`).  With
 autograd off, ``fused_pipe`` issues each single-level slice exchange with
 ``async_op=True`` and waits for it just before the slice is consumed.
 """
@@ -373,6 +376,131 @@ class _GatherDim(torch.autograd.Function):
 def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Differentiable :func:`all_gather_dim` (:class:`_GatherDim`)."""
     return _GatherDim.apply(t, dim, group)
+
+
+class _VocabEmbed(torch.autograd.Function):
+    """The vocab-parallel lookup (Megatron's ``VocabParallelEmbedding``):
+    ``table`` is this rank's rows [r * n, (r + 1) * n) of the vocab; each
+    token outside them takes a zero row, and the partial rows are summed
+    over the group (exact: one rank holds each row), to the whole sequence
+    on every rank (``all_reduce``) or, with ``stripe``, reduce-scattered to
+    this rank's (B, S / m, d) stripe.  The backward sums the cotangent over
+    the group (the ranks' shares of the replicated layout) or all-gathers
+    the stripes' cotangents, and adds each position's into this rank's row
+    of its token."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, group, stripe):
+        n = table.shape[0]
+        idx = tokens - lane_index(group) * n
+        mine = (idx >= 0) & (idx < n)
+        idx = torch.where(mine, idx, 0)
+        rows = table[idx].masked_fill_(~mine[..., None], 0)
+        ctx.save_for_backward(idx, mine)
+        ctx.group, ctx.stripe, ctx.shape = group, stripe, table.shape
+        pg = process_group(group)
+        if stripe:
+            return reduce_scatter_dim(rows, 1, pg)
+        dist.all_reduce(rows, group=pg)
+        return rows
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mine = ctx.saved_tensors
+        pg = process_group(ctx.group)
+        if ctx.stripe:
+            g = all_gather_dim(g, 1, pg)
+        else:
+            g = g.clone()
+            dist.all_reduce(g, group=pg)
+        g = g.masked_fill_(~mine[..., None], 0)
+        grad = g.new_zeros(ctx.shape)
+        grad.index_put_((idx.reshape(-1),), g.reshape(-1, ctx.shape[1]),
+                        accumulate=True)
+        return grad, None, None, None
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, group,
+                stripe: bool = False) -> torch.Tensor:
+    """(B, S) ``tokens`` looked up in this rank's vocab rows ``table``
+    (V / m, d) of a group of m (:class:`_VocabEmbed`): the whole
+    sequence's rows (B, S, d) on every rank, or with ``stripe`` this
+    rank's stripe of them (B, S / m, d), Megatron-SP's entry."""
+    return _VocabEmbed.apply(table, tokens, group, stripe)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """The identity forward; in the backward the ranks' cotangents summed
+    over the group and divided by its size (Megatron's copy to the
+    model-parallel region, on a layout whose ranks each differentiate a
+    share of the replicated loss: each rank's head takes the cotangent of
+    its vocab shard of the one loss, and their sum over m is the whole
+    loss's; the 1 / m makes each rank's the share the replicated layout
+    passes on, ``launch/steps.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=process_group(ctx.group))
+        return g.div_(group_size(ctx.group)), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is (:class:`_CopyToGroup`): the head's entry without
+    Megatron-SP, h whole on every rank."""
+    return _CopyToGroup.apply(x, group)
+
+
+class _VocabCE(torch.autograd.Function):
+    """Next-token CE over logits split on the vocab (Megatron's
+    ``vocab_parallel_cross_entropy``): (B, c, V / m) float32 logits of this
+    rank's vocab columns [r * n, (r + 1) * n), (B, c) labels (-1: none).
+    The max is all-reduced, then Σ exp and the gold logit (taken on the
+    rank that owns the label, zero on the others) in one all-reduce; every
+    rank returns the same (B, c) losses, log Σ exp - gold (0 where no
+    label).  The backward seeds only this rank's shard, softmax - one-hot
+    of its columns: every rank's loss is the same, so no collective runs
+    there (an all-reduce would count the loss m times)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        pg = process_group(group)
+        n = logits.shape[-1]
+        mx = logits.amax(dim=-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=pg)
+        z = logits - mx[..., None]
+        e = z.exp()
+        idx = labels.long() - lane_index(group) * n
+        mine = (idx >= 0) & (idx < n)
+        idx = torch.where(mine, idx, 0)
+        gold = torch.where(mine, z.gather(-1, idx[..., None])[..., 0], 0.0)
+        both = torch.stack([e.sum(dim=-1), gold])
+        dist.all_reduce(both, group=pg)
+        se, gold = both
+        valid = labels >= 0
+        ctx.save_for_backward(e.div_(se[..., None]), idx, mine, valid)
+        return torch.where(valid, se.log() - gold, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine, valid = ctx.saved_tensors
+        grad = p.clone()
+        grad.scatter_add_(-1, idx[..., None],
+                          -mine[..., None].to(grad.dtype))
+        return grad.mul_(torch.where(valid, g, 0.0)[..., None]), None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                      group) -> torch.Tensor:
+    """The (B, c) next-token losses of (B, c, V / m) float32 logits split
+    on the vocab over ``group`` (:class:`_VocabCE`), 0 where a label is
+    -1; the same on every rank."""
+    return _VocabCE.apply(logits, labels, group)
 
 
 class DispatchResult(NamedTuple):

@@ -125,7 +125,7 @@ def setup(args, device="cuda") -> Setup:
                           moe_interleave=args.moe_interleave,
                           pipe_slices=args.pipe_slices,
                           # serving reads whole weights
-                          explicit_tp=False)
+                          explicit_tp=False, split_vocab=False)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     params = lm.init_params(cfg, ctx, gen)
     tokens = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),

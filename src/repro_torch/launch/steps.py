@@ -20,8 +20,9 @@ differentiate their own copy of it, so:
 - the stripes' all-gather (``dcomm._GatherSeq``) sums the group's
   cotangents in its backward, and each rank's cotangent reaching its stripe
   is the group's sum: EP times the true one, were each rank to
-  differentiate the whole loss.  So each rank differentiates ``loss / EP``,
-  and its stripe receives the true cotangent;
+  differentiate the whole loss.  So each rank differentiates ``loss / EP``
+  (with the vocab pair split, below, the head's entry divides the
+  cotangent by EP instead), and its stripe receives the true cotangent;
 - a replicated leaf's gradient on a rank is then a share: 1/EP of the paths
   outside the MoE layers, plus the MoE paths of this rank's stripe alone
   (the router, for one, sees only its stripe).  The shares sum to the true
@@ -55,21 +56,29 @@ data group by the MoE layers' backward, already summed: they get no
 grid (the data and EP groups), and AdamW's state of them is the slice's
 own (no ZeRO-1 cut, no all-gather after the update).
 
-Under Megatron-SP tensor parallelism (``models/lm.tensor_parallel``: the
-dense and moe families over a model group) each rank's loss covers its stripe of the
-sequence, summed over the model group in the forward with a backward that
-seeds each rank's own addend (``lm.lm_loss``), so it is not divided by EP.
-Each rank then holds:
+In training over a model group every family holds the vocab pair split
+over it (``models/lm.vocab_parallel``): each rank's ``embed`` and
+``lm_head`` are its shards, and every rank's loss is the whole one (the
+vocab-parallel CE), so the loss is not divided by EP: the head's entry
+(``dcomm.copy_to_group``) hands the layers below the 1/EP share of the
+cotangent that the division gave, and the head's shard gets the whole
+gradient of its columns.  Under Megatron-SP tensor parallelism
+(``models/lm.tensor_parallel``: the dense and moe families over a model
+group) the residual stream is a stripe of the sequence, gathered whole at
+the head.  Each rank then holds:
 
-- its TP shards' gradients (``lm.tp_sharded``), whole over the model group
-  (the blocks' all-gather and reduce-scatter carry the other ranks'
-  cotangents): summed over the data group only, with the expert leaves
-  (:func:`reduce_lanes`);
-- the other leaves' gradients (embed, the norms, ``wk``/``wv``, the router,
-  the head), shares from its stripe and its heads: summed over the whole
-  grid (:func:`reduce_replicated`);
-- the clip norm sums the TP shards' squares over the model group once
-  (over the grid under FSDP, each divided by DP: ``adamw.global_norm``).
+- its shards' gradients (``lm.tp_sharded``: the TP leaves and the vocab
+  pair), whole over the model group (the blocks' all-gather and
+  reduce-scatter, and the vocab-parallel embed and CE, carry the other
+  ranks' cotangents): summed over the data group only, with the expert
+  leaves (:func:`reduce_lanes`), out of the replicated bucket;
+- the other leaves' gradients (the norms, ``wk``/``wv``, the router), shares
+  from its stripe and its heads: summed over the whole grid
+  (:func:`reduce_replicated`);
+- the clip norm sums the shards' squares over the model group once (over
+  the grid under FSDP, each divided by DP: ``adamw.global_norm``);
+- ZeRO-1 cuts each shard's state on a dim other than its model-split one
+  (``adamw.zero_dim``: the vocab-split ``embed``'s on d).
 
 Under serial accumulation the sync runs once per step, on the micro-batch
 sum; each micro-batch's denominator is its own global count, so the loss is
@@ -166,7 +175,8 @@ def init_state(model: zoo.ModelBundle, params) -> adamw.AdamWState:
     data group this rank's ZeRO-1 slices (``adamw.init``), and the whole
     state of its FSDP slices (``lm.fsdp_sharded``)."""
     return adamw.init(params, lm.data_group(model.ctx), lane_sharded,
-                      fsdp=lm.fsdp_sharded(model.ctx))
+                      fsdp=lm.fsdp_sharded(model.ctx),
+                      model_dim=lm.model_dim(model.ctx))
 
 
 def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
@@ -188,8 +198,9 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     data = lm.data_group(model.ctx)
     grid = group if dp == 1 else model.ctx.mesh.grid
     fsdp = lm.fsdp_group(model.ctx) is not None
-    # TP: each rank's loss is its stripe's share, not a replicated copy
-    div = 1 if lm.tensor_parallel(model.ctx) else ep
+    # TP or the vocab split: the loss is not a replicated copy to divide
+    div = (1 if lm.tensor_parallel(model.ctx) or lm.vocab_parallel(model.ctx)
+           else ep)
     held = lm.model_sharded(model.ctx)
     # summed over the data group: FSDP's expert slices arrive
     # reduce-scattered in the backward, the TP shards do not
@@ -265,8 +276,9 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
     ``opt_state`` holds this rank's ZeRO-1 slices (:func:`init_state`).
     The gradients are then whole on every data rank, so the clip norm
     spans the EP group alone; under FSDP the expert gradients are this
-    rank's slices, and it spans the whole grid.  The TP shards count in it
-    as parts split over the model group (module docstring)."""
+    rank's slices, and it spans the whole grid.  The TP shards and the
+    vocab pair's count in it as parts split over the model group (module
+    docstring)."""
     grads_fn = value_and_grad(model, accum)
     ctx = model.ctx
     group = (dcomm.process_group(ctx.ep_group)
@@ -284,7 +296,8 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
         params, opt_state, opt_metrics = adamw.update(
             adamw.unflatten(params, grads), opt_state, params, opt_cfg,
             group=group, sharded=lane_sharded, data_group=data,
-            fsdp=lm.fsdp_sharded(ctx), split=split)
+            fsdp=lm.fsdp_sharded(ctx), split=split,
+            model_dim=lm.model_dim(ctx))
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

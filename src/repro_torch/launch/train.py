@@ -65,8 +65,11 @@ the dense and moe families train with Megatron-SP tensor parallelism, as
 the reference's default (``models/lm.tensor_parallel``: attention
 head-sharded, the dense MLP column/row-split, the residual stream a stripe
 of the sequence between blocks), and with plain data parallelism over a
-grid's data group.  The first ``WARMUP`` steps (which also build the
-kernels) are not timed; each timed step ends in
+grid's data group.  Every family training over a model group holds
+``embed`` and ``lm_head`` split over it (``models/lm.vocab_parallel``: the
+vocab, or d where the group does not divide the vocab; the reference's
+specs), with the vocab-parallel CE.  The first ``WARMUP`` steps (which
+also build the kernels) are not timed; each timed step ends in
 ``torch.cuda.synchronize()``.  ``--layers N`` cuts depth only.
 
 ``--engine auto`` (moe family) lets the comm-path policy pick fused_flat or
@@ -648,8 +651,10 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
     the warm-up, tokens per second (of the global batch), on the card this
     rank's peak device memory (GiB, params and optimizer state included),
     this rank's AdamW state (GiB), expert parameters (bytes: its lane,
-    under FSDP its f-slice of it) and parameters (bytes: its TP shards
-    under Megatron TP), the sequences and bytes ``--seq-migrate``
+    under FSDP its f-slice of it), ``embed`` and ``lm_head`` (bytes: its
+    shards over a model group, ``lm.vocab_parallel``) and parameters
+    (bytes: its TP shards under Megatron TP), the sequences and bytes
+    ``--seq-migrate``
     moved, the final traffic state (None without one), each
     ``--relayout-every`` swap's stats (:func:`apply_relayout`: blocks and
     bytes moved, host ms, device ms on the card, and the step after which
@@ -814,6 +819,9 @@ def run(args, device="cuda", ep_group=None, mesh: HostMesh | None = None,
                 t.numel() * t.element_size() for path, t in zip(
                     adamw.paths(params), adamw.leaves(params))
                 if lm.lane_sharded(path)),
+            "vocab_param_bytes": sum(
+                params[k].numel() * params[k].element_size()
+                for k in ("embed", "lm_head")),
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in adamw.leaves(params)),
             "seq_migrate": moved, "cfg": cfg, "traffic": box["traffic"],
@@ -837,7 +845,7 @@ def main(argv=None, device="cuda"):
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         out = run(args, device)
-        return _report(out, [(out["peak_mem_gib"], out["opt_state_gib"])])
+        return _report(out, [_held(out)])
     on_card = torch.device(device).type == "cuda"
     if on_card:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
@@ -850,22 +858,32 @@ def main(argv=None, device="cuda"):
             print(f"mesh (data, model) = ({mesh.data}, {mesh.model})")
         out = run(args, device, mesh=mesh)
         mem = [None] * world
-        dist.all_gather_object(mem, (out["peak_mem_gib"],
-                                     out["opt_state_gib"]))
+        dist.all_gather_object(mem, _held(out))
         return _report(out, mem) if _is_rank0() else out
     finally:
         dist.destroy_process_group()
 
 
+def _held(out: dict) -> tuple:
+    """(peak memory GiB, AdamW state GiB, expert parameter bytes, embed and
+    lm_head bytes) of one rank's ``run``."""
+    return (out["peak_mem_gib"], out["opt_state_gib"],
+            out["expert_param_bytes"], out["vocab_param_bytes"])
+
+
 def _report(out: dict, mem: list):
-    """Print the losses, the speed, each rank's (peak memory, AdamW state)
-    of ``mem``, and the loop's steps, restarts and straggler events."""
+    """Print the losses, the speed, each rank's peak memory, AdamW state,
+    expert parameter bytes and embed + lm_head bytes (``mem``, of
+    :func:`_held`), and the loop's steps, restarts and straggler events."""
     print("loss per step:", " ".join(f"{x:.4f}" for x in out["losses"]))
     print(f"{out['ms_per_step']:.1f} ms/step  {out['tokens_per_s']:.0f} "
           f"tokens/s  peak memory per rank "
-          + " ".join("n/a" if p is None else f"{p:.2f}" for p, _ in mem)
+          + " ".join("n/a" if m[0] is None else f"{m[0]:.2f}" for m in mem)
           + " GiB  optimizer state per rank "
-          + " ".join(f"{s:.3f}" for _, s in mem) + " GiB")
+          + " ".join(f"{m[1]:.3f}" for m in mem) + " GiB")
+    print("parameter bytes per rank: experts "
+          + " ".join(str(m[2]) for m in mem) + "  embed + lm_head "
+          + " ".join(str(m[3]) for m in mem))
     run = out["run"]
     print(f"done: {run.steps_run} steps, {run.restarts} restarts, "
           f"{run.straggler_events} straggler events")

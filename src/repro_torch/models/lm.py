@@ -18,7 +18,11 @@ grid) runs the dense and moe families' attention and the dense MLP as
 Megatron-SP tensor parallelism over it (``parallel/tp_blocks.py``, :func:`tensor_parallel`): the
 residual stream stays a (B, S / m, d) stripe of the sequence between
 blocks, and each rank holds its TP shards of ``wq``, ``wo`` and the MLP
-(``parallel/sharding.TP_DIM``).
+(``parallel/sharding.TP_DIM``).  Every family training over a model group
+holds ``embed`` and ``lm_head`` split over it (:func:`vocab_parallel`: the
+vocab, or d where the group does not divide it), looked up and taken
+through the CE vocab-parallel (``core/dcomm.vocab_embed``,
+``vocab_parallel_ce``); serving contexts read them whole.
 The reference scans one compiled layer body; here a Python loop walks the
 layers of the stacked (L, ...) parameter tree, which keeps the reference's
 layout so ``convert.params_from_jax`` maps one onto the other leaf by leaf.
@@ -85,6 +89,11 @@ class ModelContext:
     # lm.py:49); False keeps every rank's attention (and the dense MLP) whole
     # over the whole sequence, as serving reads it
     explicit_tp: bool = True
+    # a training context: over a model group the vocab pair (embed, lm_head)
+    # is split over it (:func:`vocab_parallel`, the reference's train-time
+    # specs); a serving context passes False and reads both whole, as the
+    # reference's serve applies no specs
+    split_vocab: bool = True
 
     def tp_eligible(self) -> bool:
         """The reference's rule (lm.py:70-77): explicit TP, a family of
@@ -125,7 +134,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
                  pipe_slices: int = 0, calibration=None,
                  traffic_decay: float = 0.99,
                  fsdp_experts: bool | None = None,
-                 explicit_tp: bool = True) -> ModelContext:
+                 explicit_tp: bool = True,
+                 split_vocab: bool = True) -> ModelContext:
     """Context of a ``dense``-, ``moe``-, ``moe_tx``- or ``moe_ffn``-family
     model whose EP domain is ``ep_group`` (None: one lane), or that of this
     rank on ``mesh`` (a
@@ -154,8 +164,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     over a model group (``ep_group``, or that of ``mesh``) the dense and
     moe families train with Megatron-SP tensor parallelism
     (:func:`tensor_parallel`), each rank holding its shards of the TP
-    leaves; a serving context over a group passes ``explicit_tp=False``,
-    since prefill and decode read whole weights.  A family without MoE
+    leaves; a serving context over a group passes ``explicit_tp=False``
+    and ``split_vocab=False``, since prefill and decode read whole weights.
+    ``split_vocab``: a training context over a model group splits the vocab
+    pair over it (:func:`vocab_parallel`), every family.  A family without MoE
     (dense) has no placement and no dcomm config, as the reference's; over
     a model group it runs TP (its replicated layout with
     ``explicit_tp=False``), and data parallelism over ``mesh``'s data
@@ -176,7 +188,8 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     if cfg.moe is None:
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
-                            max(1, moe_interleave), explicit_tp=explicit_tp)
+                            max(1, moe_interleave), explicit_tp=explicit_tp,
+                            split_vocab=split_vocab)
     if multi_pod and node_size is None and ep > 1:
         raise ValueError("multi_pod: pass node_size, the lanes of one pod")
     ns = node_size or max(1, ep // 4)
@@ -197,7 +210,7 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     return ModelContext(cfg, device, ep_group, placement, dcfg, compute_dtype,
                         moe_stream, traffic_decay, mesh,
                         max(1, moe_interleave), fsdp_experts=fsdp_experts,
-                        explicit_tp=explicit_tp)
+                        explicit_tp=explicit_tp, split_vocab=split_vocab)
 
 
 def fsdp_rule(cfg: ArchConfig, placement) -> bool:
@@ -237,38 +250,92 @@ def tensor_parallel(ctx: ModelContext) -> bool:
     return group_size(ctx.ep_group) > 1 and ctx.tp_eligible()
 
 
+def vocab_dim(ctx: ModelContext, path: str) -> int | None:
+    """The dim, from the end, that ``ctx`` splits the vocab pair's leaf at
+    ``path`` on over its model group (``sharding.vocab_dim`` of the whole
+    (V, d) ``embed`` or (d, V) ``lm_head``: the vocab where the group
+    divides it, else d, else None); None for any other leaf, one rank, or a
+    serving context (``split_vocab`` off)."""
+    cfg = ctx.cfg
+    shape = {"embed": (cfg.vocab, cfg.d_model),
+             "lm_head": (cfg.d_model, cfg.vocab)}.get(path)
+    if shape is None or not ctx.split_vocab:
+        return None
+    return sharding.vocab_dim(path, shape, group_size(ctx.ep_group))
+
+
+def vocab_parallel(ctx: ModelContext) -> bool:
+    """Whether ``ctx`` holds the vocab pair split over its model group: a
+    training context (``split_vocab``) over a model group of more than one
+    rank that divides V or d (:func:`vocab_dim`), every family, with or
+    without :func:`tensor_parallel` (the reference's train applies its
+    specs whenever it trains over a model axis, train.py:284-289).  The
+    loss then runs the vocab-parallel embed, head and CE
+    (``core/dcomm.py``).  Raises on a (pod, model) EP axis: its model
+    group is not ported."""
+    if vocab_dim(ctx, "embed") is None:
+        return False
+    if ctx.dcfg is not None and ctx.dcfg.pod_axis is not None:
+        raise NotImplementedError(
+            "the vocab split over a (pod, model) EP axis is not ported: build "
+            "the context with split_vocab=False")
+    return True
+
+
+def model_dim(ctx: ModelContext):
+    """``fn(path) -> dim``: the dim, from the end, of each leaf this rank
+    holds a shard of over the model group under ``ctx`` (the reference's
+    TP entries, its header's "TP over model: attention heads, FFN columns,
+    vocab"): the TP leaves' (``sharding.TP_DIM``) under
+    :func:`tensor_parallel`, the vocab pair's under :func:`vocab_parallel`;
+    None for every other leaf (the expert leaves are cut by lane,
+    :func:`lane_sharded`)."""
+    tp, vocab = tensor_parallel(ctx), vocab_parallel(ctx)
+
+    def dim(path: str) -> int | None:
+        if tp and sharding.tp_sharded(path):
+            return sharding.tp_dim(path)
+        return vocab_dim(ctx, path) if vocab else None
+
+    return dim
+
+
 def tp_sharded(ctx: ModelContext):
-    """The predicate on a leaf's path of the TP leaves this rank holds a
-    shard of under ``ctx`` (``sharding.TP_DIM``; none without
-    :func:`tensor_parallel`)."""
-    if not tensor_parallel(ctx):
-        return lambda path: False
-    return sharding.tp_sharded
+    """The predicate on a leaf's path of the leaves this rank holds a shard
+    of on a dim over the model group under ``ctx`` (:func:`model_dim`: the
+    TP leaves and the vocab pair; none at one rank)."""
+    dim = model_dim(ctx)
+    return lambda path: dim(path) is not None
 
 
 def model_sharded(ctx: ModelContext):
     """The predicate of the leaves split over the model group under
-    ``ctx``: the expert leaves (one lane a rank) and the TP shards."""
+    ``ctx``: the expert leaves (one lane a rank) and the shards of
+    :func:`tp_sharded`."""
     tp = tp_sharded(ctx)
     return lambda path: lane_sharded(path) or tp(path)
 
 
-def tp_cut(path: str, t, m: int, r: int):
-    """The leaf at ``path`` (a tensor or an array) as model rank ``r`` of
-    ``m`` holds it under TP: a TP leaf cut to its shard on its TP dim (a
-    view), any other as it is."""
-    if not sharding.tp_sharded(path):
-        return t
-    return sharding.data_cut(t, sharding.tp_dim(path), m, r)
+def tp_cut(path: str, t, m: int, r: int, *, tp: bool = True):
+    """The whole leaf at ``path`` (a tensor or an array) as model rank
+    ``r`` of ``m`` holds it in training: the vocab pair cut on the dim
+    ``sharding.vocab_dim`` gives its shape, with ``tp`` a TP leaf on its
+    TP dim (a view); any other as it is."""
+    if tp and sharding.tp_sharded(path):
+        dim = sharding.tp_dim(path)
+    else:
+        dim = sharding.vocab_dim(path, t.shape, m)
+    return t if dim is None else sharding.data_cut(t, dim, m, r)
 
 
 def _tp_own(path: str, t, ctx: ModelContext):
-    """``t`` cut to this rank's TP shard under ``ctx`` (a copy), or as it
-    is."""
-    if not tp_sharded(ctx)(path):
+    """``t`` cut to this rank's shard on its :func:`model_dim` under
+    ``ctx`` (a copy), or as it is."""
+    dim = model_dim(ctx)(path)
+    if dim is None:
         return t
-    return tp_cut(path, t, group_size(ctx.ep_group),
-                  dcomm.lane_index(ctx.ep_group)).clone()
+    return sharding.data_cut(t, dim, group_size(ctx.ep_group),
+                             dcomm.lane_index(ctx.ep_group)).clone()
 
 
 def stats_group(ctx: ModelContext):
@@ -341,8 +408,9 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     this rank's lane only (lanes = 1), and the other lanes are never drawn;
     otherwise every lane of the placement; under :func:`fsdp_group` their
     f dim is cut to this data rank's slice (:func:`fsdp_cut`).  Under
-    :func:`tensor_parallel` each TP leaf is drawn whole and cut to this
-    model rank's shard (:func:`tp_cut`).  An expert's weights are the same
+    :func:`tensor_parallel` each TP leaf, and under :func:`vocab_parallel`
+    the vocab pair, is drawn whole and cut to this model rank's shard
+    (:func:`model_dim`).  An expert's weights are the same
     for every EP size from the same ``gen`` (:func:`_expert_leaf`), and so
     are the other leaves, whole."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
@@ -374,10 +442,11 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                          "w3": experts("w3", (L, d, fe)),
                          "w2": experts("w2", (L, fe, d))}
     return {
-        "embed": embed_init(gen, cfg.vocab, d, dtype, ctx.device),
+        "embed": _tp_own("embed", embed_init(gen, cfg.vocab, d, dtype,
+                                             ctx.device), ctx),
         "layers": layers,
         "final_norm": ones((d,)),
-        "lm_head": init((d, cfg.vocab)),
+        "lm_head": _tp_own("lm_head", init((d, cfg.vocab)), ctx),
     }
 
 
@@ -397,6 +466,16 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
         layer += d * cfg.moe.n_experts
         experts = L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert
     return L * layer + 2 * cfg.vocab * d + d, experts
+
+
+def vocab_param_count(cfg: ArchConfig, m: int) -> int:
+    """The parameters of the vocab pair (``embed``, ``lm_head``), of
+    :func:`param_counts`' replicated ones, that a training context over a
+    model group of ``m`` splits (:func:`vocab_parallel`): 2 V d, or 0 where
+    ``m`` is 1 or divides neither V nor d; each rank then holds 1 / m of
+    them."""
+    split = sharding.vocab_dim("embed", (cfg.vocab, cfg.d_model), m)
+    return 0 if split is None else 2 * cfg.vocab * cfg.d_model
 
 
 def tp_param_count(cfg: ArchConfig) -> int:
@@ -440,8 +519,9 @@ def shard_params(tree, ctx: ModelContext) -> dict:
     ``relayout.migrate_lane_major``): the expert leaves cut to the lanes
     :func:`init_params` holds under ``ctx`` (:func:`lane_cut`, copied),
     and under :func:`fsdp_group` to this data rank's slice of their f dim
-    (:func:`fsdp_cut`); under :func:`tensor_parallel` the TP leaves cut to
-    this model rank's shard (copied); the other leaves as they are."""
+    (:func:`fsdp_cut`); under :func:`tensor_parallel` the TP leaves, and
+    under :func:`vocab_parallel` the vocab pair, cut to this model rank's
+    shard (copied); the other leaves as they are."""
     lanes = held_lanes(ctx)
 
     def cut(path, v):
@@ -612,17 +692,19 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     its stripe of the sequence, as ``prefill`` does; the stripes' all-gather
     sums the ranks' cotangents in its backward, so a loop training over an
     EP group in this replicated layout divides each rank's (replicated)
-    loss by the group size and all-reduces the replicated leaves'
-    gradients, not the lane-sharded expert leaves' (:func:`lane_sharded`):
-    ``launch/steps.py`` does both.
+    cotangent by the group size (``launch/steps.py`` divides the loss; with
+    the vocab pair split, :func:`lm_loss`'s head entry divides the
+    cotangent instead) and all-reduces the replicated leaves' gradients,
+    not those of the leaves split over the group (:func:`model_sharded`).
 
     Under :func:`tensor_parallel` (dense and moe over a model group) the
-    tokens are cut to this rank's stripe of the sequence first and every
-    block runs Megatron-SP (:func:`_tp_layer`): returns this rank's final-normed
-    (B, S / m, d) stripe.  Each rank's loss then covers its stripe
-    (:func:`lm_loss`), so nothing is divided; the gradients of the TP
-    shards are whole over the model group, those of the replicated leaves
-    shares of it (``launch/steps.py``).
+    embedding is cut to this rank's stripe of the sequence first and every
+    block runs Megatron-SP (:func:`_tp_layer`): returns this rank's
+    final-normed (B, S / m, d) stripe.  The gradients of the TP shards are
+    then whole over the model group, those of the replicated leaves shares
+    of it (``launch/steps.py``).  Under :func:`vocab_parallel` the lookup
+    reads this rank's shard of ``embed`` (:func:`_embed`), and the
+    gradient of that shard is whole.
 
     ``traffic``: the layer-stacked ``traffic.TrafficState`` threaded
     through the MoE layers; then returns ``(h, new_traffic)``.  The counts
@@ -641,11 +723,9 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _traffic_needs_moe(cfg, traffic)
     tp = tensor_parallel(ctx)
-    if tp:
-        inputs = seq_stripe(inputs, ctx.ep_group)
-        if traffic_mask is not None:
-            traffic_mask = seq_stripe(traffic_mask, ctx.ep_group)
-    h = params["embed"].to(cd)[inputs]
+    if tp and traffic_mask is not None:
+        traffic_mask = seq_stripe(traffic_mask, ctx.ep_group)
+    h = _embed(params["embed"].to(cd), inputs, ctx, stripe=tp)
     if cfg.family == "moe_tx":
         h, new_traffic, _ = _tx_stack(params, h, positions, ctx, traffic,
                                       traffic_mask)
@@ -691,14 +771,72 @@ def _layer_contexts(ctx: ModelContext) -> list:
     return [by_engine[e] for e in ctx.engines]
 
 
-def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):
-    """Summed next-token CE and the count of valid labels of one chunk:
-    (B, c, d) hidden, (d, V) head, (B, c) labels (-1 = no label)."""
-    logits = (hx @ head).float()                             # (B, c, V)
+def _own_vocab(t: torch.Tensor, path: str, ctx: ModelContext) -> None:
+    """Refuse a leaf of the vocab pair that is not what this rank holds
+    under ``ctx`` (its shard under :func:`vocab_parallel`, else whole): a
+    split context never reads a whole leaf, nor the other way."""
+    cfg = ctx.cfg
+    want = [cfg.vocab, cfg.d_model] if path == "embed" else [cfg.d_model,
+                                                             cfg.vocab]
+    dim = vocab_dim(ctx, path) if vocab_parallel(ctx) else None
+    if dim is not None:
+        want[dim] //= group_size(ctx.ep_group)
+    if list(t.shape) != want:
+        raise ValueError(
+            f"{path} of shape {tuple(t.shape)}: this rank holds "
+            f"{tuple(want)} under its context (vocab split over the model "
+            f"group: {dim is not None}); cut a whole tree with "
+            "lm.shard_params")
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, ctx: ModelContext,
+           stripe: bool = False) -> torch.Tensor:
+    """(B, S) ``tokens`` embedded by ``table`` (``embed`` in the compute
+    dtype, as this rank holds it under ``ctx``): (B, S, d), or with
+    ``stripe`` this rank's (B, S / m, d) stripe of the sequence.  Under
+    :func:`vocab_parallel` split on the vocab: ``dcomm.vocab_embed``'s
+    masked lookup summed over the model group; split on d: this rank's
+    columns of every token's row, all-gathered on d (``dcomm.gather_dim``,
+    whose backward reduce-scatters the rows' cotangents)."""
+    _own_vocab(table, "embed", ctx)
+    dim = vocab_dim(ctx, "embed") if vocab_parallel(ctx) else None
+    if dim == -2:
+        return dcomm.vocab_embed(table, tokens, ctx.ep_group, stripe)
+    if dim is None:
+        return table[seq_stripe(tokens, ctx.ep_group) if stripe else tokens]
+    h = dcomm.gather_dim(table[tokens], -1, dcomm.process_group(ctx.ep_group))
+    return seq_stripe(h, ctx.ep_group) if stripe else h
+
+
+def _ce_of_logits(logits: torch.Tensor, lx: torch.Tensor):
+    """Summed next-token CE and the count of valid labels of (B, c, V)
+    float32 logits and (B, c) labels (-1 = no label)."""
     logz = torch.logsumexp(logits, dim=-1)
     valid = lx >= 0
     gold = logits.gather(-1, lx.clamp_min(0)[..., None].long())[..., 0]
     return torch.where(valid, logz - gold, 0.0).sum(), valid.sum().float()
+
+
+def _ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor):
+    """Summed next-token CE and the count of valid labels of one chunk:
+    (B, c, d) hidden, (d, V) head, (B, c) labels (-1 = no label)."""
+    return _ce_of_logits((hx @ head).float(), lx)                # (B, c, V)
+
+
+def _vocab_ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor,
+                    group, dim: int):
+    """:func:`_ce_chunk` with ``head`` this rank's shard of a model group:
+    on the vocab (``dim`` -1, (d, V / m)), the (B, c, V / m) logits through
+    ``dcomm.vocab_parallel_ce``; on d (``dim`` -2, (d / m, V)), this rank's
+    d columns of ``hx`` times its rows, the partial logits summed over the
+    group (``dcomm.sum_forward``), then the whole CE.  Every rank returns
+    the same sum and count."""
+    if dim == -1:
+        losses = dcomm.vocab_parallel_ce((hx @ head).float(), lx, group)
+        return losses.sum(), (lx >= 0).sum().float()
+    k, r = head.shape[0], dcomm.lane_index(group)
+    part = (hx[..., r * k:(r + 1) * k] @ head).float()
+    return _ce_of_logits(dcomm.sum_forward(part, group), lx)
 
 
 LOSS_CHUNK = 512   # sequence positions per CE chunk (the reference's default)
@@ -714,12 +852,24 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     labels.  Returns (loss, metrics); with ``traffic`` (the layer-stacked
     state) the new state rides along as ``metrics["traffic"]``.
 
-    Under :func:`tensor_parallel` each rank computes the CE of its stripe
-    of the sequence (S must split over the model group, else ValueError);
-    the sum and the count are summed over the model group by
-    ``dcomm.sum_forward``, whose backward seeds each rank's own addend, so
-    the loss and ``metrics["tokens"]`` are the rank's whole rows' and its
-    gradient is this rank's share of theirs."""
+    Under :func:`vocab_parallel` every rank computes the whole sequence's
+    CE over its shard of ``lm_head`` (:func:`_vocab_ce_chunk`: per chunk
+    (B, c, V / m) logits, the reference's ``P(data, None, "model")``), so
+    the loss and ``metrics["tokens"]`` are the same on every rank, and the
+    gradient of the head's shard is whole.  The final hidden states enter
+    the head whole: under :func:`tensor_parallel` the stripes all-gathered
+    (the backward reduce-scatters each rank's partial cotangent back to
+    its stripe), else through ``dcomm.copy_to_group`` (the backward sums
+    the partials and takes the 1 / m share ``launch/steps.py`` passes on
+    over an EP group, so the loss is not divided there).  The chunks'
+    collectives rerun in the checkpoints' recomputes, in the same order on
+    every rank.
+
+    Under :func:`tensor_parallel` without the vocab split (a group that
+    divides neither V nor d) each rank computes the CE of its stripe of the
+    sequence (S must split over the model group, else ValueError); the sum
+    and the count are summed over the model group by
+    ``dcomm.sum_forward``, whose backward seeds each rank's own addend."""
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
@@ -728,9 +878,17 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     new_traffic = None
     if traffic is not None:
         h, new_traffic = h
-    tp = tensor_parallel(ctx)
-    labels = (seq_stripe(batch["labels"], ctx.ep_group) if tp
-              else batch["labels"])
+    tp, vocab = tensor_parallel(ctx), vocab_parallel(ctx)
+    labels = batch["labels"]
+    chunk = _ce_chunk
+    if vocab:
+        h = (dcomm.all_gather_seq(h, ctx.ep_group) if tp
+             else dcomm.copy_to_group(h, ctx.ep_group))
+        chunk = lambda hx, head, lx: _vocab_ce_chunk(
+            hx, head, lx, ctx.ep_group, vocab_dim(ctx, "lm_head"))
+    elif tp:
+        labels = seq_stripe(labels, ctx.ep_group)
+    _own_vocab(params["lm_head"], "lm_head", ctx)
     head = params["lm_head"].to(ctx.compute_dtype)
     s = h.shape[1]
     c = min(LOSS_CHUNK, s)
@@ -740,10 +898,10 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     cnt = torch.zeros((), device=h.device)
     for c0 in range(0, s, c):
         part, n = torch.utils.checkpoint.checkpoint(
-            _ce_chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
+            chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
             use_reentrant=False)
         tot, cnt = tot + part, cnt + n
-    if tp:
+    if tp and not vocab:
         tot, cnt = dcomm.sum_forward(torch.stack([tot, cnt]), ctx.ep_group)
     loss = tot / cnt.clamp_min(1.0)
     metrics = {"loss": loss.detach(), "tokens": cnt}
@@ -876,14 +1034,16 @@ def _length(n: int, device) -> torch.Tensor:
 
 
 def _serves_whole(ctx: ModelContext) -> None:
-    """Prefill and decode read whole attention and MLP weights (the
-    reference's TP is off there, lm.py:826); a TP context's tree holds
-    shards of them."""
-    if tensor_parallel(ctx):
+    """Prefill and decode read whole attention and MLP weights and a whole
+    vocab pair (the reference's TP is off there, lm.py:826, and its serve
+    applies no specs); a TP context's tree holds shards of them, a
+    training context's over a model group shards of the vocab pair."""
+    if tensor_parallel(ctx) or vocab_parallel(ctx):
         raise NotImplementedError(
-            "prefill / decode on a tensor-parallel training context: build "
-            "the serving context with explicit_tp=False (whole weights on "
-            "each rank); serving over a data group is ROADMAP queue 1 item 8")
+            "prefill / decode on a training context split over its model "
+            "group: build the serving context with explicit_tp=False and "
+            "split_vocab=False (whole weights on each rank); serving over a "
+            "data group is ROADMAP queue 1 item 8")
 
 
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,

@@ -28,12 +28,15 @@ share of the clip norm over the group it is split across (the caller's
 ``group``: the whole grid).
 
 Under Megatron TP each rank also holds its shard of the TP leaves
-(``parallel/sharding.TP_DIM``); their gradients are whole over the model
-group and the same on every data rank.  The clip norm sums their squares
-over the model group once: the caller's ``split`` names them beside the
-lane-sharded leaves, and over a group where each shard is held by k ranks
-(the grid, under FSDP: k = DP) it weighs their squares by 1/k.  ZeRO-1
-cuts the local shard like any leaf (:func:`zero_dim` of its shape).
+(``parallel/sharding.TP_DIM``), and in training over a model group its
+shard of the vocab pair (``embed``, ``lm_head``); their gradients are whole
+over the model group and the same on every data rank.  The clip norm sums
+their squares over the model group once: the caller's ``split`` names them
+beside the lane-sharded leaves, and over a group where each shard is held
+by k ranks (the grid, under FSDP: k = DP) it weighs their squares by 1/k.
+ZeRO-1 cuts the local shard on its first dim that is not the model-split
+one (:func:`zero_dim`: a vocab-split ``embed`` (V / m, d) on d, as the
+reference's ``zero1_specs``).
 
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
@@ -109,16 +112,21 @@ def unflatten(like, flat):
     return tree_map(lambda _: next(it), like)
 
 
-def zero_dim(shape, dp: int, sharded: bool = False) -> int | None:
+def zero_dim(shape, dp: int, sharded: bool = False,
+             split: int | None = None) -> int | None:
     """ZeRO-1's dim of a leaf of ``shape`` over ``dp`` data ranks: its first
-    dim that is not sharded (``sharded``: dim ``LANE_DIM`` is), is divisible
-    by ``dp`` and at least ``dp``; None with one data rank or no such dim
-    (the reference's ``zero1_specs``)."""
+    dim that is not sharded (``sharded``: dim ``LANE_DIM`` is; ``split``,
+    from the end: the dim split over the model group, a TP leaf's or the
+    vocab pair's), is divisible by ``dp`` and at least ``dp``; None with
+    one data rank or no such dim (the reference's ``zero1_specs``, which
+    skips every dim its spec shards)."""
     if dp <= 1:
         return None
+    skip = {LANE_DIM} if sharded else set()
+    if split is not None:
+        skip.add(split % len(shape))
     return next((i for i, n in enumerate(shape)
-                 if not (sharded and i == LANE_DIM) and n % dp == 0
-                 and n >= dp), None)
+                 if i not in skip and n % dp == 0 and n >= dp), None)
 
 
 def _data_rank(data_group) -> tuple[int, int]:
@@ -137,25 +145,29 @@ def _own(t: torch.Tensor, dim: int | None, dp: int, d: int) -> torch.Tensor:
     return t.narrow(dim, d * n, n)
 
 
-def _zero_dim(path: str, shape, dp: int, sharded, fsdp) -> int | None:
-    """:func:`zero_dim` of the leaf at ``path``; None for an ``fsdp``
-    leaf, whose state is its slice's own."""
+def _zero_dim(path: str, shape, dp: int, sharded, fsdp,
+              model_dim=None) -> int | None:
+    """:func:`zero_dim` of the leaf at ``path`` (``model_dim``: ``fn(path)
+    -> dim`` split over the model group, ``models/lm.model_dim``); None
+    for an ``fsdp`` leaf, whose state is its slice's own."""
     if fsdp is not None and fsdp(path):
         return None
-    return zero_dim(shape, dp, bool(sharded and sharded(path)))
+    return zero_dim(shape, dp, bool(sharded and sharded(path)),
+                    None if model_dim is None else model_dim(path))
 
 
 def init(params, data_group: dist.ProcessGroup | None = None,
-         sharded=None, fsdp=None) -> AdamWState:
+         sharded=None, fsdp=None, model_dim=None) -> AdamWState:
     """Zero mu and nu and the f32 master of ``params``; over a
     ``data_group`` of more than one rank this rank's ZeRO-1 slice of each
     (:func:`zero_dim`; ``sharded``, a predicate on a leaf's path, names the
     lane-sharded leaves; ``fsdp`` those held as the rank's slice, whose
-    state is whole)."""
+    state is whole; ``model_dim`` the dim of each leaf split over the
+    model group, which ZeRO-1 skips)."""
     dp, d = _data_rank(data_group)
 
     def own(path, p):
-        dim = _zero_dim(path, p.shape, dp, sharded, fsdp)
+        dim = _zero_dim(path, p.shape, dp, sharded, fsdp, model_dim)
         return _own(p.detach(), dim, dp, d)
 
     mine = unflatten(params, [own(path, p) for path, p in
@@ -235,7 +247,7 @@ def _gather(p: torch.Tensor, own: torch.Tensor, dim: int, group) -> None:
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
            group: dist.ProcessGroup | None = None, sharded=None,
            data_group: dist.ProcessGroup | None = None, fsdp=None,
-           split=None):
+           split=None, model_dim=None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
     norm (over ``group``, with ``split`` naming the leaves sharded over it,
     by default ``sharded``: :func:`global_norm`; ``sharded`` names the
@@ -246,7 +258,8 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     data rank; the state is this rank's ZeRO-1 slice (:func:`init`), and
     the updated slices are all-gathered over the data group into the
     parameters; an ``fsdp`` leaf (a predicate on its path) is the rank's
-    slice, its state whole, and is not gathered.  Every leaf is written in
+    slice, its state whole, and is not gathered; ``model_dim`` (as in
+    :func:`init`) names the dim ZeRO-1 skips.  Every leaf is written in
     place (params, mu, nu, master).
     Returns (params, new state, metrics)."""
     gnorm = global_norm(grads, group, sharded if split is None else split)
@@ -260,7 +273,7 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
                                    leaves(state.mu), leaves(state.nu),
                                    leaves(state.master), leaves(params)):
         p = p.detach()
-        dim = _zero_dim(path, p.shape, dp, sharded, fsdp)
+        dim = _zero_dim(path, p.shape, dp, sharded, fsdp, model_dim)
         g = _own(g, dim, dp, d)
         own = p if dim is None else p.new_empty(g.shape)
         if g.shape != w.shape or own.shape != w.shape:

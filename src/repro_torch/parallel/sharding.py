@@ -3,10 +3,12 @@ in ``repro/parallel/sharding.py``, for what the port shards).
 
 The reference gives every leaf a ``PartitionSpec`` over its (data, model)
 mesh.  The port's ranks hold their parts as plain tensors, so the rule here
-names, by leaf path, the dim split over the EP group (one lane a rank), the
+names, by leaf path (and, for the vocab pair, the leaf's whole shape and the
+model group's size), the dim split over the EP group (one lane a rank), the
 dim split over the model group by Megatron tensor parallelism (the
-reference's TP entries, ``tensor_parallel``) and the dim split over the data
-group (``fsdp_experts``: ZeRO-3 of the expert weights, the reference's
+reference's TP entries, ``tensor_parallel``) or by the vocab split of
+training (``vocab_parallel``), and the dim split over the data group
+(``fsdp_experts``: ZeRO-3 of the expert weights, the reference's
 ``lay(ep, None, None, "data")`` and ``lay(ep, None, "data", None)``):
 
 - ``layers/moe/w1``, ``w3``: (L, lanes, E_local, d, f), lanes over EP, f
@@ -17,14 +19,19 @@ group (``fsdp_experts``: ZeRO-3 of the expert weights, the reference's
   ``layers/attn/wq`` (heads), ``layers/mlp/w_gate`` and ``w_up``; row-split
   (dim -2): ``layers/attn/wo`` and ``layers/mlp/w_down``
   (``parallel/tp_blocks.py`` reads them so);
+- in training over a model group of m > 1 ranks (every family, TP or not:
+  the reference's train applies its specs whenever it trains over a model
+  axis, ``launch/train.py:284-289``; its serve applies none), ``embed``
+  (V, d) split on its vocab rows (dim 0) and ``lm_head`` (d, V) on its
+  vocab columns (dim -1) where m divides V; where it does not, the
+  reference's divisibility fallback (``lay``, ``sharding.py:27-42``):
+  ``embed`` on d (dim -1) and ``lm_head`` on its d rows (dim 0); where m
+  divides neither, both whole (:func:`vocab_dim`).  ``models/lm.py`` reads
+  the vocab pair so (``core/dcomm``'s vocab-parallel embed, head and CE);
 - every other leaf replicated.  That includes ``wk`` and ``wv``: the
   reference's storage spec splits their columns too, but its
   ``megatron_attention`` reads them whole on every model rank
-  (``tp_blocks.py:66-69``), and the port holds what the block reads.  It
-  includes ``embed`` and ``lm_head`` too: the reference's storage spec
-  splits their vocab over the model axis, which the port does not
-  (ROADMAP queue 1 item 8); every model rank holds them whole and
-  computes the CE of its stripe of the sequence over the whole vocab.
+  (``tp_blocks.py:66-69``), and the port holds what the block reads.
 """
 
 from __future__ import annotations
@@ -43,11 +50,16 @@ FSDP_DIM = {"layers/moe/w1": -1, "layers/moe/w3": -1, "layers/moe/w2": -2}
 TP_DIM = {"layers/attn/wq": -1, "layers/mlp/w_gate": -1,
           "layers/mlp/w_up": -1, "layers/attn/wo": -2,
           "layers/mlp/w_down": -2}
+# the vocab pair's dims over the model group in training, from the end:
+# (its vocab dim, its d dim), the second where the group does not divide the
+# vocab (the reference's param_specs, sharding.py:34-42)
+VOCAB_DIM = {"embed": (-2, -1), "lm_head": (-1, -2)}
 
 
 class Spec(NamedTuple):
     """The dim of a leaf split over the EP group, over the data group and
-    over the model group by TP (None: not split over it)."""
+    over the model group by TP or the vocab split (None: not split over
+    it)."""
     ep: int | None = None
     data: int | None = None
     model: int | None = None
@@ -56,28 +68,46 @@ class Spec(NamedTuple):
 REPLICATED = Spec()
 
 
-def param_spec(path: str, *, fsdp_experts: bool = False,
-               tensor_parallel: bool = False) -> Spec:
+def vocab_dim(path: str, shape, m: int) -> int | None:
+    """The dim, from the end, of the vocab pair's leaf at ``path`` of whole
+    ``shape`` split over a model group of ``m`` in training: its vocab dim
+    where ``m`` divides it, else its d dim where ``m`` divides that, else
+    None (whole); None for any other leaf and for ``m`` of 1."""
+    if path not in VOCAB_DIM or m <= 1:
+        return None
+    return next((dim for dim in VOCAB_DIM[path] if shape[dim] % m == 0),
+                None)
+
+
+def param_spec(path: str, shape=None, *, fsdp_experts: bool = False,
+               tensor_parallel: bool = False, model_size: int = 1) -> Spec:
     """The :class:`Spec` of the leaf at ``path`` ("a/b/c", as
-    ``optim/adamw.paths`` names it); ``tensor_parallel``: the TP entries
-    (:data:`TP_DIM`) are split over the model group."""
+    ``optim/adamw.paths`` names it) of whole ``shape``;
+    ``tensor_parallel``: the TP entries (:data:`TP_DIM`) are split over the
+    model group; ``model_size`` > 1 (a training context's model group):
+    the vocab pair is split over it by :func:`vocab_dim`, which needs
+    ``shape``."""
     if path in EXPERT_LEAVES:
         return Spec(LANE_DIM, FSDP_DIM[path] if fsdp_experts else None)
     if tensor_parallel and path in TP_DIM:
         return Spec(model=TP_DIM[path])
+    if path in VOCAB_DIM and model_size > 1:
+        return Spec(model=vocab_dim(path, shape, model_size))
     return REPLICATED
 
 
 def param_specs(tree, *, fsdp_experts: bool = False,
-                tensor_parallel: bool = False, prefix: str = "") -> dict:
-    """A tree shaped like ``tree`` (nested dicts of tensors) of each leaf's
-    :func:`param_spec`."""
+                tensor_parallel: bool = False, model_size: int = 1,
+                prefix: str = "") -> dict:
+    """A tree shaped like ``tree`` (nested dicts of whole tensors) of each
+    leaf's :func:`param_spec`."""
     return {k: param_specs(v, fsdp_experts=fsdp_experts,
                            tensor_parallel=tensor_parallel,
-                           prefix=f"{prefix}{k}/")
+                           model_size=model_size, prefix=f"{prefix}{k}/")
             if isinstance(v, dict) else
-            param_spec(prefix + k, fsdp_experts=fsdp_experts,
-                       tensor_parallel=tensor_parallel)
+            param_spec(prefix + k, tuple(v.shape), fsdp_experts=fsdp_experts,
+                       tensor_parallel=tensor_parallel,
+                       model_size=model_size)
             for k, v in tree.items()}
 
 

@@ -18,7 +18,8 @@ against the JAX package, on the CPU.
 - ``elastic.relayout_expert_weights`` and ``accumulation_factor`` against
   the reference's.
 - Four gloo ranks (``file://`` rendezvous) on a (2, 2) grid with ZeRO-1
-  save one train state; the whole leaves are each rank's lane and slice,
+  save one train state; the whole leaves are each rank's lane, its shard
+  of ``embed`` and ``lm_head`` (split over the model group) and slice,
   and ``elastic.remesh_restore`` onto a (1, 2) grid and onto one rank cuts
   them as the new layout holds them, bit for bit.
 """
@@ -383,26 +384,30 @@ def _grid_rank(rank, world, init_file, data, ckpt, out_dir):
         ctx = lm.make_context(cfg, "cpu", mesh=mesh, engine="fused_flat",
                               compute_dtype=torch.float32, explicit_tp=False)
         model = zoo.build(cfg, ctx)
-        params = convert.params_from_jax(tree, "cpu",
-                                         lane=rank % mesh.model)
+        # the lane and, split over the model group, embed and lm_head
+        params = convert.params_from_jax(tree, "cpu", lane=rank % mesh.model,
+                                         model=(mesh.model, rank % mesh.model),
+                                         tp=False)
         opt = steps.init_state(model, params)
         rows = train.data_rows(harness.B, mesh.data, mesh.data_index)
         batch = {k: torch.from_numpy(d[k][rows]).long()
                  for k in ("tokens", "labels")}
         step = steps.make_train_step(model, adamw.AdamWConfig(**harness.OPT))
         params, opt, _ = step(params, opt, batch)
-        lay = checkpointer.layout(ctx.ep_group, ctx.mesh)
+        lay = checkpointer.context_layout(ctx)
         assert lay.dp == 2 and lay.ep == 2
+        assert lay.vocab == (cfg.vocab, cfg.d_model) and not lay.tp
         checkpointer.wait(checkpointer.save(ckpt, (params, opt), 1, lay=lay))
         assert checkpointer.latest_step(ckpt) == 1     # after the barrier
         out = {}
         _save_tree(out, "held", (params, opt))
         pair = dist.new_group([0, 1])       # a (1, 2) grid of two survivors
         if rank < 2:
-            mine = convert.params_from_jax(tree, "cpu", lane=rank)
+            mine = convert.params_from_jax(tree, "cpu", lane=rank,
+                                           model=(2, rank), tp=False)
             got, _ = elastic.remesh_restore(
                 ckpt, (mine, adamw.init(mine)),
-                HostMesh(1, 2, None, pair, pair))
+                HostMesh(1, 2, None, pair, pair), vocab=lay.vocab)
             _save_tree(out, "one_two", got)
         if rank == 0:
             whole = convert.params_from_jax(tree, "cpu")

@@ -304,17 +304,19 @@ def test_dense_refuses_a_group_and_traffic(monkeypatch):
     group (an EP group, or that of a grid with a data group of one or two)
     its context builds, with Megatron TP over the model group
     (``lm.tensor_parallel``, off with ``explicit_tp=False``), and each TP
-    leaf's spec is the reference's "model" entry (``wk`` / ``wv`` whole,
-    the embed and head replicated); a traffic state raises as the
-    reference's does."""
+    leaf's spec is the reference's "model" entry (``wk`` / ``wv`` whole;
+    the embed and head split on the reference's dim in training over the
+    group, ``lm.vocab_parallel``, with or without TP); a traffic state
+    raises as the reference's does."""
     ctx = lm.make_context(CFG, "cpu")
     assert ctx.placement is None and ctx.dcfg is None
     assert train.init_traffic(CFG, ctx, 1) is None
     monkeypatch.setattr(lm, "group_size", lambda g: 4 if g == "ep" else 1)
     alone = lm.make_context(CFG, "cpu", ep_group="ep")
     assert alone.mesh is None and lm.tensor_parallel(alone)
-    assert not lm.tensor_parallel(lm.make_context(CFG, "cpu", ep_group="ep",
-                                                  explicit_tp=False))
+    rep = lm.make_context(CFG, "cpu", ep_group="ep", explicit_tp=False)
+    assert not lm.tensor_parallel(rep) and lm.vocab_parallel(rep)
+    assert not lm.vocab_parallel(dataclasses.replace(rep, split_vocab=False))
     for data in (1, 2):
         grid = _Grid(data, 4)
         grid.ep_group = "ep"
@@ -336,10 +338,12 @@ def test_dense_refuses_a_group_and_traffic(monkeypatch):
         dims = tuple(spec) + (None,) * (nd - len(spec))
         model = [i - nd for i, a in enumerate(dims)
                  if a in ("model", ("model",))]
-        mine = sharding.param_spec(path, tensor_parallel=True)
+        mine = sharding.param_spec(path, tuple(cut[path].shape),
+                                   tensor_parallel=True, model_size=2)
         if path.split("/")[0] in ("embed", "lm_head"):
-            # the reference splits the vocab; the port keeps them whole
-            assert model and mine == sharding.REPLICATED, path
+            # split over the model group in training, as the reference's
+            # (the tree here is the one-rank context's, whole)
+            assert mine == sharding.Spec(model=model[0]), path
         elif path.endswith(("wk", "wv")):
             assert model and mine == sharding.REPLICATED, path
         else:

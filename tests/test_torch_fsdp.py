@@ -96,7 +96,8 @@ def _extra(tmp, rank, world):
                 model = zoo.build(cfg, ctx)
                 p = convert.params_from_jax(
                     tree, "cpu", lane=rank % mesh.model,
-                    data=(mesh.data, mesh.data_index) if fsdp else None)
+                    data=(mesh.data, mesh.data_index) if fsdp else None,
+                    model=(mesh.model, rank % mesh.model), tp=False)
                 if not fsdp:
                     loss, _, grads = steps.value_and_grad(model)(p, bt, cold())
                     out[f"off/{c}/loss"] = loss.numpy()
@@ -117,7 +118,9 @@ def _extra(tmp, rank, world):
 def _ckpt_and_relayout(tmp, rank, mesh, runs, quiet) -> dict:
     (ctx_off, p_off, opt_off, tr), (ctx_on, p_on, opt_on, _) = (
         runs[False], runs[True])
-    lay = {f: checkpointer.layout(mesh=mesh, fsdp=f) for f in (False, True)}
+    # the pair split over the model group in both (lm.vocab_parallel)
+    lay = {f: checkpointer.context_layout(c)
+           for f, c in ((False, ctx_off), (True, ctx_on))}
     save = lambda path, state, f: checkpointer.wait(
         checkpointer.save(path, state, 1, lay=lay[f]))
 

@@ -104,9 +104,9 @@ def test_sharding_rule_is_the_reference_param_specs():
     ``tensor_parallel`` each TP leaf's dim over the model group is the
     reference's "model" entry (wq, wo and the MLP; none in the moe tree
     beyond attention), ``wk`` / ``wv`` stay whole (the reference's block
-    reads them whole), the embed and head, whose vocab the reference
-    splits, stay whole too (the port's rule: the vocab-sharded pair is not
-    ported), and all others are replicated."""
+    reads them whole), the embed and head are split on the reference's
+    "model" dim in training over a model group of 2 (``model_size``: the
+    vocab), and all others are replicated."""
     cfg = get_arch("qwen3-moe-30b-a3b").reduced()
     ctx = lm.make_context(cfg, "cpu")
     ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
@@ -131,9 +131,12 @@ def test_sharding_rule_is_the_reference_param_specs():
                         else [mine.data % flat[path].ndim]) == data, path
             else:
                 assert mine == sharding.REPLICATED and not data, path
-                tp = sharding.param_spec(path, tensor_parallel=True)
+                tp = sharding.param_spec(path, flat[path].shape,
+                                         tensor_parallel=True, model_size=2)
                 if path.split("/")[0] in ("embed", "lm_head"):
-                    assert model and tp == sharding.REPLICATED, path
+                    assert tp == sharding.Spec(
+                        model=model[0] - flat[path].ndim), path
+                    assert not sharding.tp_sharded(path), path
                 elif path.endswith(("wk", "wv")):
                     assert model and tp == sharding.REPLICATED, path
                 elif model:
@@ -299,15 +302,16 @@ def test_large_f_form_arithmetic_is_the_plain_swiglu():
 def test_reckoned_state_with_fsdp_is_pinned():
     """The per-rank training state, GiB, reckoned from the parameter counts
     (``torch_ep_train.state_gib_per_rank``): ZeRO-1 and with FSDP of the
-    experts, at the grids PERF.md prints."""
-    table = {("qwen3-moe-30b-a3b", 8, 2): (50.97, 44.22),
-             ("qwen3-moe-30b-a3b", 8, 4): (36.54, 26.42),
-             ("qwen3-moe-30b-a3b", 64, 4): (15.87, 14.60),
-             ("mixtral-8x22b", 8, 2): (217.16, 185.66),
-             ("mixtral-8x22b", 8, 4): (155.00, 107.75),
-             ("deepseek-v3-bench", 8, 2): (902.66, 742.54),
-             ("deepseek-v3-bench", 8, 4): (636.96, 396.78),
-             ("deepseek-v3-bench", 64, 4): (146.58, 116.56)}
+    experts, ``embed`` and ``lm_head`` split over the EP group, at the
+    grids PERF.md prints."""
+    table = {("qwen3-moe-30b-a3b", 8, 2): (44.74, 37.99),
+             ("qwen3-moe-30b-a3b", 8, 4): (31.83, 21.71),
+             ("qwen3-moe-30b-a3b", 64, 4): (10.72, 9.45),
+             ("mixtral-8x22b", 8, 2): (213.13, 181.63),
+             ("mixtral-8x22b", 8, 4): (151.95, 104.70),
+             ("deepseek-v3-bench", 8, 2): (884.11, 723.98),
+             ("deepseek-v3-bench", 8, 4): (622.94, 382.75),
+             ("deepseek-v3-bench", 64, 4): (131.24, 101.21)}
     for (arch, ep, dp), want in table.items():
         mem = h.state_gib_per_rank(arch, eps=(ep,), dps=(dp,))
         got = (mem["gib_per_rank_dp"][ep, dp], mem["gib_per_rank_fsdp"][ep, dp])

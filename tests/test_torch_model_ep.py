@@ -94,7 +94,7 @@ def _rank_main(rank, world, init_file, data, out_dir):
             ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                                   capacity_factor=cf,
                                   compute_dtype=torch.float32,
-                                  explicit_tp=False)
+                                  explicit_tp=False, split_vocab=False)
             logits, state = lm.prefill(lm.shard_params(params, ctx), tokens,
                                        torch.arange(S), ctx, S + 1)
             out["logits" + name] = logits.numpy()

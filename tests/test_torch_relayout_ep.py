@@ -264,7 +264,8 @@ def _continuity(rank, d) -> dict:
                           node_size=NS, compute_dtype=torch.float32,
                           explicit_tp=False)     # the replicated layout
     tree = harness.nest((k[2:], d[k]) for k in d.files if k.startswith("p/"))
-    params = convert.params_from_jax(tree, "cpu", lane=rank)
+    params = convert.params_from_jax(tree, "cpu", lane=rank,
+                                     model=(EP, rank), tp=False)
     batch = {k: torch.from_numpy(d[k]).long() for k in ("tokens", "labels")}
     opt_cfg = adamw.AdamWConfig(**OPT)
     model = zoo.build(cfg, ctx)

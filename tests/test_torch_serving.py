@@ -342,7 +342,8 @@ def _rank_main(rank, world, init_file, out_dir):
         ctx = lm.make_context(cfg, "cpu", ep_group=dist.group.WORLD,
                               engine="fused_hier", node_size=NODE,
                               capacity_factor=8.0, compute_dtype=torch.float32,
-                              explicit_tp=False)     # serving: whole weights
+                              explicit_tp=False,     # serving: whole weights
+                              split_vocab=False)
         prompts, max_new = _requests(cfg)
         streams, tr = _ep_run(zoo.build(cfg, ctx),
                               lm.shard_params(params, ctx), prompts, max_new)

@@ -101,6 +101,7 @@ def _ckpt(ckpt: str, rank: int) -> dict:
     p, opt, _ = step(p, steps.init_state(model, p), bt, _cold(cfg, 2))
     lay = checkpointer.context_layout(ctx)
     assert lay.tp and lay.dp == 2 and lay.ep == 2
+    assert lay.vocab == (cfg.vocab, cfg.d_model)
     checkpointer.wait(checkpointer.save(ckpt, (p, opt), 1, lay=lay))
     out = {}
     for path, t in checkpointer._flatten((p, opt)):
@@ -112,7 +113,8 @@ def _ckpt(ckpt: str, rank: int) -> dict:
     gen = torch.Generator().manual_seed(1)
     like = lm.init_params(cfg, ctx, gen, dtype=torch.float32)
     got, _ = elastic.remesh_restore(
-        ckpt, (like, steps.init_state(model, like)), mesh, tp=True)
+        ckpt, (like, steps.init_state(model, like)), mesh, tp=True,
+        vocab=lay.vocab)
     out["ck/same22"] = np.array(all(
         torch.equal(a, b) for (_, a), (_, b) in zip(
             checkpointer._flatten(got[0]), checkpointer._flatten(p))) and all(
@@ -131,7 +133,8 @@ def _ckpt(ckpt: str, rank: int) -> dict:
     model12 = zoo.build(cfg, ctx12)
     like = lm.init_params(cfg, ctx12, gen, dtype=torch.float32)
     got, _ = elastic.remesh_restore(
-        ckpt, (like, steps.init_state(model12, like)), m12, tp=True)
+        ckpt, (like, steps.init_state(model12, like)), m12, tp=True,
+        vocab=(cfg.vocab, cfg.d_model))
     out["ck/loss12"] = model12.loss(got[0], whole,
                                     traffic=_cold(cfg, 2))[0].detach().numpy()
     return out
@@ -248,12 +251,14 @@ def test_tp_off_is_the_same_function_in_another_layout(grid_run, case):
 def test_tp_collectives_and_shapes_per_layer(grid_run, case):
     """One forward of the loss under TP: per layer one sequence all-gather
     and one reduce-scatter per TP sub-block (two in a dense layer, one in a
-    moe layer, whose MoE output is not gathered); at the dist level the
-    dense family launches nothing else but the loss's sum (gloo runs the
-    reduce-scatter as an all-reduce); h enters each layer as this rank's
-    (B / 2, S / 2, d) and q reaches the flash call with 2 of 4 heads
-    beside 1 kv head.  Off: no TP block, the MoE output gathered once a
-    layer."""
+    moe layer, whose MoE output is not gathered), and one all-gather of
+    the final stripes into the head; at the dist level the dense family
+    launches nothing else but the vocab-parallel embed's reduce-scatter
+    and the CE's two all-reduces (its max, then Σ exp with the gold logit;
+    gloo runs a reduce-scatter as an all-reduce); h enters each layer as
+    this rank's (B / 2, S / 2, d) and q reaches the flash call with 2 of 4
+    heads beside 1 kv head.  Off: no TP block, the MoE output gathered
+    once a layer; the dense family's embed all-reduce and the CE's two."""
     _, ranks, _, _ = grid_run
     c = f"{case}/tp"
     dense = case.startswith("dense")
@@ -261,16 +266,18 @@ def test_tp_collectives_and_shapes_per_layer(grid_run, case):
     d = get_arch(MOE).reduced().d_model
     for r, got in enumerate(ranks):
         log = list(got[f"{c}/on/log"])
-        assert log.count("all_gather_seq") == blocks * LAYERS, (r, log)
+        assert log.count("all_gather_seq") == blocks * LAYERS + 1, (r, log)
         assert log.count("reduce_scatter_seq") == blocks * LAYERS, (r, log)
         assert "moe_gather" not in log, (r, log)
         assert list(got[f"{c}/off/log"]) == ([] if dense else
                                              ["moe_gather"] * LAYERS)
         if dense:
             calls = list(got[f"{c}/on/calls"])
-            assert calls == ["all_gather_into_tensor", "all_reduce"] * (
-                blocks * LAYERS) + ["all_reduce"], (r, calls)
-            assert list(got[f"{c}/off/calls"]) == []
+            assert calls == ["all_reduce"] + [
+                "all_gather_into_tensor", "all_reduce"] * (
+                blocks * LAYERS) + ["all_gather_into_tensor", "all_reduce",
+                                    "all_reduce"], (r, calls)
+            assert list(got[f"{c}/off/calls"]) == ["all_reduce"] * 3
         assert got[f"{c}/on/h"].tolist() == [[h.B // 2, h.S // 2, d]] * LAYERS
         assert got[f"{c}/on/heads"].tolist() == [[2, 1]] * LAYERS
         assert got[f"{c}/off/h"].size == 0
@@ -394,8 +401,9 @@ def _two_lanes(cfg):
 def test_convert_cuts_the_reference_tp_shard(m):
     """``convert.params_from_jax(..., model=(m, r))`` holds, of each leaf
     the reference's ``param_specs`` puts on "model" and the port splits by
-    TP, the r-th of m equal blocks on that dim: the reference's shard r;
-    every other leaf whole.  A TP context refuses to prefill."""
+    TP or by the vocab split of training (``embed``, ``lm_head``), the
+    r-th of m equal blocks on that dim: the reference's shard r; every
+    other leaf whole.  A TP context refuses to prefill."""
     for arch in (DENSE, MOE):
         flat = h.params(arch, ep=1, node=1)
         tree = h.nest(flat.items())
@@ -406,13 +414,15 @@ def test_convert_cuts_the_reference_tp_shard(m):
             got = h.flat(convert.params_from_jax(tree, "cpu",
                                                  model=(m, r)))
             for path, a in flat.items():
-                if not sharding.tp_sharded(path):
+                split = (sharding.tp_dim(path) if sharding.tp_sharded(path)
+                         else sharding.vocab_dim(path, a.shape, m))
+                if split is None:
                     np.testing.assert_array_equal(got[path].numpy(), a)
                     continue
                 dims = tuple(specs[path]) + (None,) * a.ndim
                 dim = [i for i, x in enumerate(dims[:a.ndim])
                        if x in ("model", ("model",))]
-                assert dim == [sharding.tp_dim(path) % a.ndim], path
+                assert dim == [split % a.ndim], path
                 shard = np.split(a, m, axis=dim[0])[r]
                 np.testing.assert_array_equal(got[path].numpy(), shard)
 

@@ -9,13 +9,15 @@ default ``explicit_tp=True`` on a (1, 4) mesh
 (``torch_ep_train.run_grid(tp=True)``).
 
 Rank by rank, at ``torch_ep_train``'s tolerances: the loss, every gradient
-leaf (a TP leaf's this rank's quarter, an expert leaf's its lane), the
+leaf (a TP leaf's and ``embed``'s and ``lm_head``'s this rank's quarter,
+an expert leaf's its lane), the
 traffic state, the clip norm with clipping binding, after one step the
 params, mu, nu and master.  On the same ranks
 (``torch_ep_train.tp_probe``): ``explicit_tp=False`` gives the same loss,
 clip norm and gradients within 1e-6 of max(1, |x|); one forward launches
-per TP sub-block one sequence all-gather and one reduce-scatter and no
-gather of the MoE output; h enters each layer as (B, S / 4, d) and q
+per TP sub-block one sequence all-gather and one reduce-scatter, one
+all-gather into the head (``embed`` and ``lm_head`` split over the group)
+and no gather of the MoE output; h enters each layer as (B, S / 4, d) and q
 reaches the flash call with 1 head beside 1 kv head.  ``train.run`` of
 the dense family over the grid (bf16) follows the one-rank run's losses
 within bf16's rounding.  Over the EP group alone, with no grid, a context
@@ -128,13 +130,17 @@ def test_tp4_collectives_and_shapes_per_layer(grid_run, case):
     d = get_arch(DENSE).reduced().d_model
     for r, got in enumerate(ranks):
         log = list(got[f"{c}/on/log"])
-        assert log.count("all_gather_seq") == blocks * LAYERS, (r, log)
+        # the blocks' pairs, and the final stripes gathered into the head
+        assert log.count("all_gather_seq") == blocks * LAYERS + 1, (r, log)
         assert log.count("reduce_scatter_seq") == blocks * LAYERS, (r, log)
         assert "moe_gather" not in log, (r, log)
         if blocks == 2:
-            assert list(got[f"{c}/on/calls"]) == [
+            # the vocab-parallel embed's reduce-scatter (an all-reduce on
+            # gloo), the blocks', the head's gather, the CE's two
+            assert list(got[f"{c}/on/calls"]) == ["all_reduce"] + [
                 "all_gather_into_tensor", "all_reduce"] * (
-                    blocks * LAYERS) + ["all_reduce"], r
+                    blocks * LAYERS) + ["all_gather_into_tensor",
+                                        "all_reduce", "all_reduce"], r
         assert got[f"{c}/on/h"].tolist() == [[h.B, h.S // 4, d]] * LAYERS
         assert got[f"{c}/on/heads"].tolist() == [[1, 1]] * LAYERS
 

@@ -172,7 +172,8 @@ def _rank_main(rank, world, init_file, data, out_dir):
         ctx = lm.make_context(get_arch(ARCH).reduced(), "cpu",
                               ep_group=dist.group.WORLD, engine="fused_hier",
                               node_size=NODE, compute_dtype=torch.float32,
-                              explicit_tp=False)     # serving: whole weights
+                              explicit_tp=False,     # serving: whole weights
+                              split_vocab=False)
         seen, entry = [], dcomm.hier_dispatch
 
         def recording(x, A, gates, placement, cfg, assignment=None,

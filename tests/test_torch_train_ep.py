@@ -114,11 +114,14 @@ def test_ep4_train_step_matches_shard_map_rank_by_rank(ep_run, case):
 def test_ep4_grads_without_the_sync_miss_the_reference(ep_run, case):
     """The replicated leaves' gradients with ``steps.reduce_replicated``
     switched off: every rank misses the reference on the router (its
-    stripe's share) and on the embedding."""
+    stripe's share) and on the final norm (1/EP of it); ``embed`` and
+    ``lm_head``, split over the group, are out of the replicated bucket and
+    get their whole gradients without it (``h.unsynced_misses``)."""
     want, ranks, _ = ep_run
     for r, got in enumerate(ranks):
         missed = h.unsynced_misses(want, got, case, r)
-        assert {"layers/moe/router", "embed"} <= set(missed), (r, missed)
+        assert {"layers/moe/router", "final_norm"} <= set(missed), (r, missed)
+        assert not {"embed", "lm_head"} & set(missed), (r, missed)
 
 
 @pytest.mark.parametrize("case", NAMES)
@@ -209,9 +212,10 @@ def test_reckoned_state_counts_the_model_s_parameters():
     """The per-rank state reckoning (``torch_ep_train.state_gib_per_rank``,
     which ``PERF.md`` quotes for the full model) counts, for the reduced
     model, the replicated and expert parameters ``init_params`` builds, and
-    its bytes at EP 4 are those of ``shard_params``' rank plus the bucket;
-    at EP 4 and DP 2 its mu, nu and master are the rank's ZeRO-1 shares
-    (``adamw.zero_dim``)."""
+    its bytes at EP 4 are those of ``shard_params``' rank (its lane of the
+    experts, its quarter of ``embed`` and ``lm_head``) plus the bucket of
+    the rest; at EP 4 and DP 2 its mu, nu and master are the rank's ZeRO-1
+    shares (``adamw.zero_dim``, ``embed``'s on d)."""
     cfg = get_arch(ARCH).reduced()
     tree = lm.init_params(cfg, lm.make_context(cfg, "cpu"),
                           torch.Generator().manual_seed(0))
@@ -221,20 +225,22 @@ def test_reckoned_state_counts_the_model_s_parameters():
               if lm.lane_sharded(p))
     mem = h.state_gib_per_rank(cfg=cfg, eps=(4,), dps=(1, 2))
     assert (mem["replicated_params"], mem["expert_params"]) == (rep, exp)
-    lane = lm.lane_cut("layers/moe/w1", tree["layers"]["moe"]["w1"], 4,
-                       range(1, 2))
-    held = rep + 3 * lane.numel()
-    assert mem["gib_per_rank"][4] * 2**30 == 16 * held + 2 * rep
+    rank = [lm.tp_cut(p, lm.lane_cut(p, t, 4, range(1, 2)), 4, 1, tp=False)
+            for p, t in zip(adamw.paths(tree), adamw.leaves(tree))]
+    held = sum(t.numel() for t in rank)
+    bucket = rep - lm.vocab_param_count(cfg, 4)
+    assert held == bucket + lm.vocab_param_count(cfg, 4) // 4 + exp // 4
+    assert mem["gib_per_rank"][4] * 2**30 == 16 * held + 2 * bucket
     # ZeRO-1 over two data ranks: every leaf of the rank's tree has a ZeRO
     # dim (adamw.zero_dim), so mu, nu and master hold half of it
     shares = sum(
-        t.numel() // (1 if adamw.zero_dim(t.shape, 2, lm.lane_sharded(p))
-                      is None else 2)
-        for p, t in zip(adamw.paths(tree), adamw.leaves(tree))
-        for t in [lm.lane_cut(p, t, 4, range(1, 2))])
+        t.numel() // (1 if adamw.zero_dim(
+            t.shape, 2, lm.lane_sharded(p),
+            h.split_dim(p, w.shape, 4)) is None else 2)
+        for p, t, w in zip(adamw.paths(tree), rank, adamw.leaves(tree)))
     assert shares * 2 == held
     assert mem["gib_per_rank_dp"][4, 2] * 2**30 == (
-        12 * shares + 4 * held + 2 * rep)
+        12 * shares + 4 * held + 2 * bucket)
 
 
 def _torchrun_rank(rank, world, port, out_dir):

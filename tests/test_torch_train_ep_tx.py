@@ -79,11 +79,14 @@ def test_ep4_train_step_matches_shard_map_rank_by_rank(ep_run, case):
 def test_ep4_grads_without_the_sync_miss_the_reference(ep_run, case):
     """The replicated leaves' gradients with ``steps.reduce_replicated``
     switched off: every rank misses the reference on the router (its
-    stripe's share) and on the embedding."""
+    stripe's share) and on the final norm (1/EP of it); ``embed`` and
+    ``lm_head``, split over the group, are out of the replicated bucket and
+    get their whole gradients without it (``h.unsynced_misses``)."""
     want, ranks, _ = ep_run
     for r, got in enumerate(ranks):
         missed = h.unsynced_misses(want, got, case, r)
-        assert {"layers/moe/router", "embed"} <= set(missed), (r, missed)
+        assert {"layers/moe/router", "final_norm"} <= set(missed), (r, missed)
+        assert not {"embed", "lm_head"} & set(missed), (r, missed)
 
 
 @pytest.mark.parametrize("case", NAMES)

@@ -23,7 +23,11 @@ tensor parallelism over the model group (``lm.tensor_parallel``; each rank
 converts its TP shards, ``convert.params_from_jax(..., model=)``), as the
 reference does by default (``explicit_tp``); without it they keep the
 replicated attention (``explicit_tp=False``), the same function in the
-layout the EP and grid tests were written for.  A dense arch (no experts)
+layout the EP and grid tests were written for.  Either way a model group
+of more than one rank splits ``embed`` and ``lm_head`` over it
+(``lm.vocab_parallel``, the reference's training specs): each rank converts
+its shards of them, and the checks hold them against the reference's whole
+leaf cut to the rank (:func:`lane_of`).  A dense arch (no experts)
 threads no traffic state.  Everything lands in npz files that the tests
 compare rank by rank.  :func:`run` is the (1, 4)
 run of one arch.
@@ -108,12 +112,12 @@ def lane_of(want: np.ndarray, path: str, rank: int,
             shape=(1, EP), fsdp: bool = False, tp: bool = False) -> np.ndarray:
     """A whole leaf of the reference cut to the lane rank ``rank`` of a
     ``shape`` = (data, model) grid holds; with ``fsdp`` an expert leaf's
-    f dim then cut to its data rank's slice; with ``tp`` a TP leaf cut to
-    the rank's shard over the model group."""
+    f dim then cut to its data rank's slice; the vocab pair cut to the
+    rank's shard over the model group (every training context splits it),
+    and with ``tp`` a TP leaf too."""
     lane = rank % shape[1]
     t = lm.lane_cut(path, want, shape[1], range(lane, lane + 1))
-    if tp:
-        t = lm.tp_cut(path, t, shape[1], lane)
+    t = lm.tp_cut(path, t, shape[1], lane, tp=tp)
     if fsdp and shape[0] > 1 and sharding.fsdp_sharded(path):
         t = sharding.data_cut(t, sharding.fsdp_dim(path), shape[0],
                               rank // shape[1])
@@ -131,11 +135,21 @@ def state_of_rank(want: np.ndarray, path: str, rank: int,
         return lane_of(want, path, rank, shape, fsdp)
     t = lane_of(want, path, rank, shape, tp=tp)
     data = shape[0]
-    dim = adamw.zero_dim(t.shape, data, lm.lane_sharded(path))
+    dim = adamw.zero_dim(t.shape, data, lm.lane_sharded(path),
+                         split_dim(path, want.shape, shape[1], tp))
     if dim is None:
         return t
     n, d = t.shape[dim] // data, rank // shape[1]
     return np.take(t, np.arange(d * n, (d + 1) * n), axis=dim)
+
+
+def split_dim(path: str, shape, model: int, tp: bool = False) -> int | None:
+    """The dim, from the end, of the leaf at ``path`` (whole ``shape``)
+    split over a model group of ``model`` in training: the vocab pair's
+    (``sharding.vocab_dim``), with ``tp`` a TP leaf's."""
+    if tp and model > 1 and sharding.tp_sharded(path):
+        return sharding.tp_dim(path)
+    return sharding.vocab_dim(path, shape, model)
 
 
 def batch(vocab: int, seed: int = 3) -> dict:
@@ -147,12 +161,19 @@ def batch(vocab: int, seed: int = 3) -> dict:
     return {"tokens": toks[:, :-1], "labels": labels}
 
 
+def reduced(arch: str):
+    """The reduced config of ``arch``, "name" or "name@V" (its vocab V)."""
+    name, _, vocab = arch.partition("@")
+    cfg = get_arch(name).reduced()
+    return dataclasses.replace(cfg, vocab=int(vocab)) if vocab else cfg
+
+
 def params(arch: str, seed: int = 0, ep: int = EP, node: int = NODE) -> dict:
     """Seeded numpy parameters in the reference's tree, expert leaves over
     ``ep`` lanes: norms near 1, weights scaled by their fan-in, the
     embedding unit normal (the port's ``init_params`` gives the keys and
-    shapes)."""
-    cfg = get_arch(arch).reduced()
+    shapes); ``arch`` as :func:`reduced` takes it."""
+    cfg = reduced(arch)
     ctx = lm.make_context(cfg, "cpu")
     if ctx.placement is not None:      # the dense family has no experts
         ctx = dataclasses.replace(ctx, placement=dataclasses.replace(
@@ -211,7 +232,10 @@ for arch, data, engine, stream, slices in {runs!r}:
     params = jax.tree.map(jnp.asarray, nest(
         (k[2:], d[k]) for k in d.files if k.startswith("p/")))
     batch = {{k: jnp.asarray(d[k]) for k in ("tokens", "labels")}}
-    cfg = get_arch(arch).reduced()
+    name, _, vocab = arch.partition("@")
+    cfg = get_arch(name).reduced()
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab=int(vocab))
     mixed = tuple(engine.split(",")) if "," in engine else None
     ctx = dataclasses.replace(
         lm.make_context(cfg, mesh, multi_pod=False,
@@ -297,8 +321,14 @@ def engines_of(engine: str) -> tuple:
     return engine, None
 
 
+def case_tp(tp, case: str) -> bool:
+    """Whether ``case`` runs Megatron TP: ``tp`` a bool for every case, or
+    the names of the cases that do."""
+    return tp if isinstance(tp, bool) else case in tp
+
+
 def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
-               fsdp=False, tp=False):
+               fsdp=False, tps=False):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
@@ -312,11 +342,12 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
             rows = data_rows(B, mesh.data, mesh.data_index)
             bt = {k: torch.from_numpy(d[k][rows]).long()
                   for k in ("tokens", "labels")}
-            cfg = get_arch(arch).reduced()
+            cfg = reduced(arch)
             cold = lambda: None if cfg.moe is None else (
                 traffic.init_traffic_state(cfg.moe.n_experts, mesh.model,
                                            n_layers=cfg.n_layers))
             c = f"{engine}/{slices}"
+            tp = case_tp(tps, c)
             base, mixed = engines_of(engine)
             ctx = dataclasses.replace(lm.make_context(
                 cfg, "cpu", mesh=mesh, engine=base, node_size=node,
@@ -327,7 +358,7 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
             fresh = lambda: convert.params_from_jax(
                 tree, "cpu", lane=rank % mesh.model,
                 data=(mesh.data, mesh.data_index) if fsdp else None,
-                model=(mesh.model, rank % mesh.model) if tp else None)
+                model=(mesh.model, rank % mesh.model), tp=tp)
             p = fresh()
             loss, m, grads = steps.value_and_grad(model)(p, bt, cold())
             out[f"{c}/loss"] = loss.numpy()
@@ -353,7 +384,7 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
             p, opt, m = step(p, opt, bt, m.get("traffic"))
             _save_tree(out, f"{c}/p2", p)
             for name, mod, attr, swap in (MUTATIONS if mesh.data > 1
-                                          and not fsdp and not tp else ()):
+                                          and not fsdp and not tps else ()):
                 saved = getattr(mod, attr)
                 setattr(mod, attr, swap(mesh))
                 try:
@@ -376,19 +407,23 @@ def _rank_main(rank, world, init_file, out_dir, runs, extra, shape, node,
 
 
 def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
-             fsdp=False, tp=False):
+             fsdp=False, tp=False, two=None):
     """Run the reference and the four ranks of a ``shape`` = (data, model)
-    grid over ``archs`` ((arch, cases) pairs, each case (engine,
-    moe_stream, pipe_slices), all named "engine/slices" apart; an engine
-    "a,b,..." is one a layer, :func:`engines_of`), and on each
+    grid over ``archs`` ((arch, cases) pairs, an arch as :func:`reduced`
+    takes it, each case (engine, moe_stream, pipe_slices), all named
+    "engine/slices" apart; an engine "a,b,..." is one a layer,
+    :func:`engines_of`), and on each
     rank ``extra``: ``(rank, world) -> {name: array}``, saved beside the
     rest; ``fsdp``: both sides under FSDP of the experts; ``tp``: the
-    port's ranks under Megatron TP (the reference's default).  Returns (the
-    reference's arrays, each rank's arrays, each arch's parameters)."""
+    port's ranks under Megatron TP (the reference's default), for every
+    case or for the cases it names (:func:`case_tp`); ``two``: the
+    reference's second step too (by default over a data group only).
+    Returns (the reference's arrays, each rank's arrays, each arch's
+    parameters)."""
     world = shape[0] * shape[1]
     runs, ps = [], {}
     for arch, cases in archs:
-        cfg = get_arch(arch).reduced()
+        cfg = reduced(arch)
         data = str(tmp_path / f"data-{arch}.npz")
         ps[arch] = params(arch, ep=shape[1], node=node)
         np.savez(data, **batch(cfg.vocab),
@@ -397,7 +432,8 @@ def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
     names = [f"{e}/{s}" for _, _, e, _, s in runs]
     assert len(set(names)) == len(names), names
     code = JAX_CODE.format(shape=tuple(shape), node=node, runs=tuple(runs),
-                           two=shape[0] > 1, fsdp=fsdp,
+                           two=shape[0] > 1 if two is None else two,
+                           fsdp=fsdp,
                            opt=OPT, fast=FAST, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, world, 600)
@@ -487,12 +523,16 @@ def update_room(want: dict, case: str, path: str, steps: int = 1):
 
 def unsynced_misses(want, got, case, rank) -> list[str]:
     """The replicated leaves whose gradient without the reduction is not
-    the reference's (each rank holds a share of it)."""
+    the reference's (each rank holds a share of it).  The vocab pair is
+    not one: each rank's shard of it gets its whole gradient unsynced."""
     pre = f"{case}/nosync/"
     missed = []
     for k in (k for k in got if k.startswith(pre)):
         path = k[len(pre):]
         if lm.lane_sharded(path):
+            continue
+        if path in sharding.VOCAB_DIM:
+            close(got[k], lane_of(want[f"{case}/g/{path}"], path, rank))
             continue
         try:
             close(got[k], want[f"{case}/g/{path}"])
@@ -526,10 +566,12 @@ def mutation_misses(want, got, case, rank, name, shape) -> list[str]:
 
 def replicated_bits_differ(ranks, case, tp=False) -> list[str]:
     """The replicated leaves whose bits after two steps are not rank 0's on
-    every rank (with ``tp`` the TP shards are not replicated)."""
+    every rank (the vocab pair's shards are not replicated, nor with
+    ``tp`` the TP shards)."""
     pre = f"{case}/p2/"
     return [k for k in ranks[0] if k.startswith(pre)
             and not lm.lane_sharded(k[len(pre):])
+            and k[len(pre):] not in sharding.VOCAB_DIM
             and not (tp and sharding.tp_sharded(k[len(pre):]))
             and not all(np.array_equal(r[k], ranks[0][k]) for r in ranks)]
 
@@ -549,10 +591,14 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     is alive.  Activations are not counted.  ``gib_per_rank`` is DP 1 by
     EP, ``gib_per_rank_dp`` every (EP, DP); ``gib_per_rank_fsdp`` the same
     under FSDP of the experts, whose bf16 params and grads are divided by
-    DP too.  With ``tp`` the model group (the EP group) also splits the TP
-    leaves (``lm.tp_param_count``: wq, wo, the dense MLP), Megatron TP's
-    layout: each rank holds 1/EP of them, and they leave the all-reduce
-    bucket.
+    DP too.  The model group (the EP group) splits ``embed`` and
+    ``lm_head`` by the training rule (``lm.vocab_param_count``: on the
+    vocab, or on d where EP does not divide the vocab, or not at all):
+    each rank holds 1/EP of them, and they leave the all-reduce bucket.
+    With ``tp`` it also splits the TP leaves (``lm.tp_param_count``: wq,
+    wo, the dense MLP), Megatron TP's layout, the same way, where EP
+    divides the heads (``lm.ModelContext.tp_eligible``'s rule; else the
+    replicated attention).
 
         PYTHONPATH=src python tests/torch_ep_train.py
 
@@ -562,14 +608,16 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     split = lm.tp_param_count(cfg) if tp else 0
 
     def gib(ep, dp, fsdp=False):
-        cut = split if ep > 1 else 0       # one model rank: no TP
+        # one model rank: no TP, no vocab split
+        tp_on = ep > 1 and cfg.n_heads % ep == 0
+        cut = (split if tp_on else 0) + lm.vocab_param_count(cfg, ep)
         whole = replicated - cut + cut / ep
         held = whole + experts / ep
         bf16 = whole + experts / ep / (dp if fsdp else 1)
         return (4 * bf16 + 12 / dp * held + 2 * (replicated - cut)) / 2**30
 
     return {"replicated_params": replicated, "expert_params": experts,
-            "tp_params": split,
+            "tp_params": split, "vocab_params": 2 * cfg.vocab * cfg.d_model,
             "gib_per_rank": {ep: gib(ep, 1) for ep in eps},
             "gib_per_rank_dp": {(ep, dp): gib(ep, dp) for ep in eps
                                 for dp in dps},
@@ -608,7 +656,7 @@ def tp_probe(shape, node, archs, rank, world) -> dict:
     lane = rank % mesh.model
     out = {}
     for arch, cases in archs:
-        cfg = get_arch(arch).reduced()
+        cfg = reduced(arch)
         tree = nest(params(arch, ep=mesh.model, node=node).items())
         rows = data_rows(B, mesh.data, mesh.data_index)
         bt = {k: torch.from_numpy(v[rows]).long()
@@ -627,8 +675,7 @@ def tp_probe(shape, node, archs, rank, world) -> dict:
                 assert lm.tensor_parallel(ctx) == tp
                 model = zoo.build(cfg, ctx)
                 p = convert.params_from_jax(
-                    tree, "cpu", lane=lane,
-                    model=(mesh.model, lane) if tp else None)
+                    tree, "cpu", lane=lane, model=(mesh.model, lane), tp=tp)
                 loss, _, grads = steps.value_and_grad(model)(p, bt, cold())
                 step = steps.make_train_step(model, adamw.AdamWConfig(**OPT))
                 _, _, m = step(p, steps.init_state(model, p), bt, cold())
@@ -646,8 +693,8 @@ def tp_probe(shape, node, archs, rank, world) -> dict:
                 try:
                     with dcomm.collective_calls() as calls:
                         p = convert.params_from_jax(
-                            tree, "cpu", lane=lane,
-                            model=(mesh.model, lane) if tp else None)
+                            tree, "cpu", lane=lane, model=(mesh.model, lane),
+                            tp=tp)
                         model.loss(p, bt, traffic=cold())
                 finally:
                     for u in undo:
@@ -666,7 +713,11 @@ def tp_probe(shape, node, archs, rank, world) -> dict:
                 res[tp] = dict(zip(adamw.paths(p), grads))
             err = 0.0
             for path, g in res[True].items():
-                w = lm.tp_cut(path, res[False][path], mesh.model, lane)
+                # both layouts hold the vocab pair's shards already
+                w = res[False][path]
+                if sharding.tp_sharded(path):
+                    w = sharding.data_cut(w, sharding.tp_dim(path),
+                                          mesh.model, lane)
                 err = max(err, float((g - w).abs().max())
                           / max(1.0, float(w.abs().max())))
             out[f"{c}/err"] = np.array(err)
@@ -681,7 +732,9 @@ if __name__ == "__main__":
             mem = state_gib_per_rank(arch, eps=eps, tp=tp)
             print(f"reckoned (not measured) per-rank training state of the "
                   f"full {arch} ({mem['replicated_params']} replicated, "
-                  f"{mem['tp_params']} of them split by TP, and "
+                  f"{mem['tp_params']} of them split by TP and "
+                  f"{mem['vocab_params']} in embed and lm_head, split over "
+                  f"the EP group, and "
                   f"{mem['expert_params']} expert parameters), "
                   f"{'Megatron TP over the EP group' if tp else 'replicated attention'}, "
                   f"GiB, by EP (rows) and DP (columns), ZeRO-1 -> with FSDP "
