@@ -147,7 +147,7 @@
    (all 16 layers, B 4 x S 512) through fused_flat and through
    ``--engine fused_pipe --moe-stream 16`` (``TX_TRAINS``), each with the
    traffic state threaded through every step, then (``NEW_TRAINS``)
-   qwen3-1.7b (all 28 layers, bf16 params, f32 master) and
+   qwen3-1.7b (14 of its 28 layers, bf16 params, f32 master) and
    moe-ffn-stream-1b (all 16 layers) through fused_flat and streamed
    fused_pipe, B 4 x S 512, 8 steps, and (``LANE_TRAINS``) both stream
    families at two lanes with ``--accum 2`` fused into them (one loss call
@@ -221,12 +221,28 @@
    state's on the four, each rank's AdamW state its ZeRO-1 share, and
    every kernel of the family launched on every rank (rank 0's launches
    join ``launches_by_phase``), and in the same spawn the same for
-   qwen3-1.7b on a (1, 4) grid (one head a rank); ``zero1_phase``,
+   qwen3-1.7b on a (1, 4) grid (one head a rank), then serving on the
+   (2, 2) grid (``grid_serve_check``: each data rank its block of the batch
+   rows): reduced qwen3-moe in f32 through fused_flat and fused_hier
+   (FSDP of the experts forced on) in the continuous and the waved engine,
+   every rank's streams the card alone's and its traffic counts equal; and
+   qwen3-moe at full width cut to 8 layers in bf16 through fused_hier with
+   FSDP of the experts by the reference's rule, the continuous engine over
+   8 requests of 64 tokens: each rank's expert bytes exactly its half of
+   its lane's (2,415,919,104 B), its peak memory, the same streams on the
+   four, each row's first-token logits the card alone's within half their
+   distance to the nearest other request's (``TOL_GRID_APART``: fused_hier
+   rounds each node's part of the combine, which flips near-tied top-8
+   choices), the kernels held and timed on rank 0's layer-0 inputs, and
+   rank 0's launches the count the code implies per admission and decode
+   step; ``zero1_phase``,
    qwen3-moe at full width cut to one layer (B 4 x S 512, traffic on, 3
    steps) through ``launch/train.run`` on the card alone and then on that
-   grid: each rank's measured AdamW state must be the reckoning of what it
-   holds (``held_params``) over DP 2, its losses finite and the same on
-   the four ranks, the first within 2e-3 relative of the one-card run's;
+   grid, with ZeRO-1 and then FSDP of the experts in one spawn: each
+   rank's measured AdamW state must be the reckoning of what it holds
+   (``held_params``) over DP 2, its losses finite and the same on the four
+   ranks, the first within 2e-3 relative of the one-card run's, and under
+   FSDP its expert bytes half the ZeRO-1 rank's;
    and ``tp_full_phase``, one bf16 train step at full width of qwen3-1.7b
    (2 layers) and qwen3-moe (1 layer) on (1, 2) and of qwen3-moe on (1, 4)
    under Megatron TP against the card alone: the loss within 2e-3, each
@@ -316,7 +332,11 @@ NEW_SERVE = {DENSE: DENSE_SERVE, FFN: FFN_SERVE,
              f"{FFN} fused_pipe": FFN_SERVE[:3] + STREAMED + FFN_SERVE[4:]}
 TRAIN_FLAGS = ["--batch", "4", "--seq", "512", "--steps", "8", "--data",
                "zipf"]
-NEW_TRAINS = {f"{DENSE} train": ["--arch", DENSE] + TRAIN_FLAGS,
+# qwen3-1.7b's train phase runs half its 28 layers (the grid serving checks
+# take the time)
+DENSE_TRAIN_LAYERS = 14
+NEW_TRAINS = {f"{DENSE} train": ["--arch", DENSE, "--layers",
+                                 str(DENSE_TRAIN_LAYERS)] + TRAIN_FLAGS,
               "moe-ffn train": ["--arch", FFN] + TRAIN_FLAGS + [
                   "--engine", "fused_flat"],
               "moe-ffn train fused_pipe": ["--arch", FFN] + TRAIN_FLAGS + [
@@ -2003,7 +2023,10 @@ def host_syncs():
     """Within the block, every operation that makes the host wait on the
     card (``torch.cuda.set_sync_debug_mode``: a copy to or from pageable
     memory, ``.item()``, ``nonzero``) appends its warning's text to the
-    yielded list."""
+    yielded list.  A serving engine over a data group all-gathers a few
+    ints (the argmax) beside each of its host reads; on gloo ranks that
+    collective stages them through the host and waits on the card in
+    gloo's own thread, which this does not see (NCCL waits on none)."""
     import warnings
     import torch
     with warnings.catch_warnings(record=True) as caught:
@@ -2578,10 +2601,13 @@ def _ep2_prefill(arch, engine, device, lanes, group=None) -> dict:
 
 def _ep2_rank(rank, port, out_dir, device):
     """One rank of the EP-2 check: a gloo group of two on ``device``, each
-    case's step (and each lane case's prefill) saved to ``out_dir``."""
+    case's step (and each lane case's prefill) saved to ``out_dir``, then
+    the replicated-table check's run; one host thread a rank for torch's
+    CPU ops, as ``_grid_init`` gives."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device).index or 0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -2603,6 +2629,8 @@ def _ep2_rank(rank, port, out_dir, device):
             torch.save(_ep2_prefill(arch, engine, device, lanes,
                                     dist.group.WORLD),
                        f"{out_dir}/{arch}-{engine}-{lanes}-prefill-rank{rank}.pt")
+        # the replicated table on the same two ranks
+        _replicated_run(rank, out_dir, device)
     finally:
         dist.destroy_process_group()
 
@@ -2624,8 +2652,9 @@ def ep2_card_check(device="cuda") -> list[str]:
     it (``family_kernels``).  Then each lane case's prefill
     (``_ep2_prefill``): each rank's logits within ``TOL_REDUCED`` of the
     EP 1 prefill's, every shuffle's tail left in flight on an asynchronous
-    exchange (one a lane and layer), none at EP 1.  Returns a line a
-    case."""
+    exchange (one a lane and layer), none at EP 1.  The same spawn runs
+    the replicated-table check (``replicated_card_check``).  Returns a
+    line a case, and the replicated-table check's lines."""
     import shutil
     import torch
     from repro_torch.configs import get_arch
@@ -2710,8 +2739,9 @@ def ep2_card_check(device="cuda") -> list[str]:
             f"{cfg.n_layers * lanes} lane tails in flight on an asynchronous "
             f"exchange (EP 1: none); launches per rank "
             f"{json.dumps([g['launches'] for g in got])}")
+    replicated = replicated_card_check(out_dir, device)
     shutil.rmtree(out_dir, ignore_errors=True)
-    return lines
+    return lines, replicated
 
 
 # the (2, 2) grid on one card: four ranks of a gloo group sharing it, two
@@ -2739,12 +2769,295 @@ ZERO1 = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1", "--batch", "4",
 TOL_ZERO1_LOSS = 2e-3     # first step's loss, grid vs one card, relative: bf16
 
 
+# serving over the (2, 2) grid, in ``grid_card_check``'s spawn of four: each
+# case's reduced model in f32 (arch, engine, FSDP of the experts forced on)
+# through the continuous and the waved engine at ``EP2_CAPACITY`` (nothing
+# dropped at EP 1 or EP 2, so the grid computes the card's function)
+GRID_SERVE_CASES = (("qwen3-moe-30b-a3b", "fused_flat", False),
+                    ("qwen3-moe-30b-a3b", "fused_hier", True))
+# the full-width serve on the same grid: qwen3-moe cut to 8 layers through
+# fused_hier at node size 1 (the reference serve's max(1, model // 2)), the
+# continuous engine (pool 8, admission chunks of one row a data rank) over 8
+# requests of a 64-token prompt, 8 tokens each, at capacity factor 16 (E /
+# top-k: nothing dropped at EP 1 or EP 2).  At EP 2 one lane's experts over
+# 8 layers are 64 x 3 x 2048 x 768 x 2 B x 8 = 4.83 GB > 4 GB, so the
+# reference's rule (``lm.fsdp_rule``) turns FSDP of the experts on by itself
+GRID_SERVE = dict(arch="qwen3-moe-30b-a3b", layers=8, engine="fused_hier",
+                  max_batch=8, requests=8, prompt=64, gen=8, capacity=16.0,
+                  reduced=False)
+GRID_EXPERT_BYTES = 2_415_919_104   # a rank's half of its lane's experts
+# the first-token logits of each row, grid against the card alone (EP 1,
+# whole weights, the row alone as on its data rank), relative to max(1,
+# |logit|) of the row.  fused_flat gives the card's bits on the grid.
+# fused_hier at EP 2 sums each token's gated expert outputs per node and
+# rounds each node's part to bf16 before the parts are added, so at every
+# layer its MoE output may round one unit apart from the card's; in a bf16
+# residual stream of random weights that flips near-tied top-8 choices in
+# the later layers, each flip an O(1) change of one token's MoE output (on
+# an H100 80GB HBM3 at 700 W, ``tools/grid_serve_engines.py``: the card
+# alone's own fused_flat against its fused_hier up to 0.07, the grid's
+# fused_hier 0.28).  So each row is held as the same function up to such
+# flips: within this share of the distance from its card logits to the
+# nearest other request's (1.14 or more there), which a row served from
+# another request's prompt, slot or state misses
+TOL_GRID_APART = 0.5
+
+
+class _Calls:
+    """A kernel module seen through ``kernels.ops``: its wrapper ``name``
+    replaced by ``rec``, everything else the module's own (so its launch
+    counter stays the wrapper's)."""
+
+    def __init__(self, mod, name, rec):
+        self._mod, self._name, self._rec = mod, name, rec
+
+    def __getattr__(self, key):
+        return self._rec if key == self._name else getattr(self._mod, key)
+
+
+# the module names ``kernels.ops`` calls the serve kernels' wrappers through
+OPS_MODULES = {"segment_gather": "gather_k", "segment_scatter_add": "scatter_k",
+               "fused_swiglu": "fused_staging", "flash_attention": "flash_k"}
+
+
+@contextlib.contextmanager
+def recorded_calls(picks: dict):
+    """Within the block, the arguments of the picked calls of each serve
+    kernel's wrapper (``picks``: name -> the indices of its calls, counted
+    from 0 as the block makes them) are copied into the yielded dict, by
+    (name, index); the calls run as they would."""
+    import torch
+    from repro_torch.kernels import ops
+    seen, saved = {}, {}
+    for name, attr in OPS_MODULES.items():
+        mod = saved[attr] = getattr(ops, attr)
+        count = [0]
+
+        def rec(*a, _name=name, _fn=getattr(mod, name), _count=count, **k):
+            if _count[0] in picks.get(_name, ()):
+                seen[_name, _count[0]] = [
+                    t.clone() if isinstance(t, torch.Tensor) else t for t in a]
+            _count[0] += 1
+            return _fn(*a, **k)
+
+        setattr(ops, attr, _Calls(mod, name, rec))
+    try:
+        yield seen
+    finally:
+        for attr, mod in saved.items():
+            setattr(ops, attr, mod)
+
+
+def grid_serve_rows(rec: dict, path: str, engine: str,
+                    timer=time_ms) -> list[dict]:
+    """The serve kernels on the inputs rank 0 of the full-width grid serve
+    gave them (``grid_serve_full``'s recorded calls): the first two gathers
+    and combines (fused_hier: layer 0's stage-1 and expansion gathers, its
+    pre-combine and origin sum; fused_flat: layers 0 and 1), the prefill's
+    and a decode step's layer-0 fused_swiglu (the FSDP-gathered expert
+    weights) and the prefill's first flash forward, each held against its
+    plain version and timed."""
+    gathers = [gather_row(*rec["segment_gather", i], timer)[0] for i in (0, 1)]
+    scatters = []
+    for i in (0, 1):
+        src, dst, gates, out_rows, owners = rec["segment_scatter_add", i]
+        scatters += scatter_rows(src, dict(idx=dst, gates=gates,
+                                           owners=owners), out_rows, timer,
+                                 False)
+    prefill = rec["fused_swiglu", "prefill"]
+    decode = rec["fused_swiglu", "decode"]
+    q, k, v, qp, kp, causal, window = rec["flash_attention", 0]
+    assert causal
+    names = (("stage 1", "expansion", "pre-combine", "origin")
+             if engine == "fused_hier" else ("layer 0", "layer 1") * 2)
+    rows = [dict(r, shape=f"{engine} {what}: {r['shape']}")
+            for r, what in zip(gathers + scatters, names)]
+    for what, (x, counts) in (("prefill", (prefill[0], prefill[4])),
+                              ("decode", (decode[0], decode[4]))):
+        r, _ = swiglu_row("fused_swiglu", x, *prefill[1:4], counts, timer)
+        rows.append(dict(r, shape=f"{what}: {r['shape']}"))
+    rows.append(flash_row(q, k, v, qp, kp, window, timer))
+    return [dict(r, path=path) for r in rows]
+
+
+def grid_serve_run(arch: str, engine: str, fsdp: bool, device="cuda",
+                   mesh=None, chunk: int | None = None) -> dict:
+    """The reduced ``arch`` in f32 through ``engine`` (node size 1, capacity
+    factor ``EP2_CAPACITY``, ``fsdp`` forcing FSDP of the experts) on
+    ``device``, on ``mesh`` (None: one rank): the seed-0 whole tree cut to
+    this rank, 6 requests of 16 / 32 tokens (seed 0, ``max_new`` 4-6)
+    through the continuous engine (pool 4) and the waved one (waves of 4),
+    traffic tracked.  ``chunk``: the continuous engine's admission chunk
+    (None: its own, the grid's data ranks; one rank given the grid's makes
+    the grid's admissions, each chunk's rows padded to one bucket as
+    there).  Returns each engine's streams by request and traffic state
+    (on the CPU), its admission chunk, and the launches of both runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import traffic
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import (ContinuousServingEngine,
+                                            ServingEngine)
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    kw = dict(engine=engine, node_size=1, capacity_factor=EP2_CAPACITY,
+              compute_dtype=f32, explicit_tp=False, split_vocab=False)
+    whole = lm.init_params(cfg, lm.make_context(cfg, "cpu", **kw),
+                           torch.Generator().manual_seed(0), f32)
+    ctx = lm.make_context(cfg, device, mesh=mesh, fsdp_experts=fsdp, **kw)
+    params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), whole),
+                             ctx)
+    bundle = zoo.build(cfg, ctx)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab, (16, 32)[i % 2]),
+             int(rng.integers(4, 7))) for i in range(6)]
+    out = {}
+    wrappers = zero_counters()
+    for kind, cls in (("continuous", ContinuousServingEngine),
+                      ("waved", ServingEngine)):
+        eng = cls(bundle, max_batch=4, max_len=40, buckets=(16, 32),
+                  track_traffic=True)
+        for prompt, n in reqs:
+            eng.submit(prompt, max_new=n)
+        if kind == "continuous":
+            eng.admit_chunk = chunk or eng.admit_chunk
+            out["chunk"] = eng.admit_chunk
+            eng.warmup(params)
+            eng.run(params)
+        else:
+            while eng.queue:
+                eng.run_wave(params)
+        out[kind] = {
+            "streams": [q.output for q in sorted(eng.finished,
+                                                 key=lambda q: q.rid)],
+            "traffic": {f: getattr(eng.traffic, f).cpu()
+                        for f in traffic.TrafficState._fields}}
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    return out
+
+
+def grid_serve_full(device="cuda", mesh=None, spec=GRID_SERVE) -> dict:
+    """``spec``'s full-width serve (``GRID_SERVE``; ``reduced`` cuts the
+    width, for a rehearsal on the CPU) in bf16: the seed-0 parameters this
+    rank holds (its lane and, under the reference's FSDP rule, its slice of
+    the experts' f dim) and the seed-0 prompts.  On ``mesh``: the continuous
+    engine over every request (``warmup()``, then ``run()`` with the launch
+    counters zeroed just before and read just after, each prefill's logits
+    recorded), returning the streams, this rank's first-token logits in
+    admission order, the admissions and decode steps, the launches, the
+    expert bytes held, the peak memory, the callables built (after warmup,
+    after the run) and the run's seconds.  Without a mesh: the card alone,
+    each request's first-token logits from a prefill of its row alone."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm, zoo
+    from repro_torch.serving.engine import ContinuousServingEngine
+    cfg = get_arch(spec["arch"])
+    cfg = dataclasses.replace(cfg.reduced() if spec["reduced"] else cfg,
+                              n_layers=spec["layers"])
+    ctx = lm.make_context(cfg, device, mesh=mesh, engine=spec["engine"],
+                          node_size=1, capacity_factor=spec["capacity"],
+                          explicit_tp=False, split_vocab=False)
+    on_card = ctx.device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, ctx,
+                            torch.Generator(device=ctx.device).manual_seed(0))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (spec["requests"], spec["prompt"]))
+    max_len = spec["prompt"] + spec["gen"]
+    if mesh is None:
+        positions = torch.arange(spec["prompt"], device=ctx.device)
+        flat = dataclasses.replace(ctx, dcfg=dataclasses.replace(
+            ctx.dcfg, engine="fused_flat"))
+        with torch.inference_mode():
+            first = {c.dcfg.engine: torch.stack([lm.prefill(
+                params, torch.from_numpy(p[None]).to(ctx.device), positions,
+                c, max_len)[0][0].cpu() for p in prompts])
+                for c in (ctx, flat)}
+        return {"first_logits": first[spec["engine"]],
+                "flat_logits": first["fused_flat"], "fsdp": ctx.fsdp_experts}
+    bundle, seen = zoo.build(cfg, ctx), []
+
+    def prefill(*a, **k):
+        out = bundle.prefill(*a, **k)
+        seen.append(out[0].clone())
+        return out
+
+    eng = ContinuousServingEngine(
+        dataclasses.replace(bundle, prefill=prefill),
+        max_batch=spec["max_batch"], max_len=max_len,
+        buckets=(spec["prompt"],), track_traffic=True)
+    eng.warmup(params)
+    built = eng.compile_count
+    seen.clear()
+    for p in prompts:
+        eng.submit(p, max_new=spec["gen"])
+    # every request is admitted in the first step, before any decode: the
+    # first decode step's layer-0 fused_swiglu is call admissions x layers
+    first_decode = spec["requests"] // eng.admit_chunk * cfg.n_layers
+    picks = {"segment_gather": (0, 1), "segment_scatter_add": (0, 1),
+             "fused_swiglu": (0, first_decode), "flash_attention": (0,)}
+    if spec["requests"] > eng.max_batch:
+        raise AssertionError("grid serve: more requests than slots, so "
+                             "admissions and decode steps interleave")
+    wrappers = zero_counters()
+    with recorded_calls(picks) as rec:
+        t0 = time.perf_counter()
+        done = eng.run(params)
+        run_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rec["fused_swiglu", "prefill"] = rec.pop(("fused_swiglu", 0))
+    rec["fused_swiglu", "decode"] = rec.pop(("fused_swiglu", first_decode))
+    if on_card:
+        no_fma_swiglu("grid serve")
+    moe = params["layers"]["moe"]
+    return {"streams": [q.output for q in sorted(done, key=lambda q: q.rid)],
+            "first_logits": torch.cat(seen).cpu(), "chunk": eng.admit_chunk,
+            "admissions": len(eng.wave_loads),
+            "decode_steps": eng.decode_steps, "launches": launches,
+            "fsdp": ctx.fsdp_experts,
+            "expert_bytes": sum(moe[w].nbytes for w in ("w1", "w3", "w2")),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else None),
+            "built": (built, eng.compile_count), "run_s": run_s,
+            "calls": rec}
+
+
+def grid_serve_path(spec: dict, shape) -> str:
+    """The path name of the full-width grid serve (its launches' phase and
+    its kernel rows')."""
+    return f"{spec['arch']} grid {tuple(shape)} serve, {spec['layers']} layers"
+
+
+def grid_serve_implied(spec: dict, admissions: int, steps: int) -> dict:
+    """The launches a rank's continuous run of ``spec`` implies: each
+    admission prefills its rows through every layer (fused_hier: two
+    gathers, the stage-1 one and the expansion, two scatter-adds, the
+    pre-combine and the origin sum; one fused_swiglu and one flash forward),
+    each decode step one fused_swiglu a layer."""
+    g, c = ENGINE_LAUNCHES[spec["engine"]](1)
+    n = admissions * spec["layers"]
+    return {"segment_gather": g * n, "segment_scatter_add": c * n,
+            "fused_swiglu": n + steps * spec["layers"],
+            "flash_attention": n, "grouped_matmul": 0,
+            "segment_scatter_add_bwd": 0}
+
+
 def _grid_init(rank, port, device, shape=GRID):
     """Join the gloo group of a ``shape`` grid's ranks on ``device``; its
-    mesh."""
+    mesh.  One host thread a rank for torch's own CPU ops: the ranks share
+    the host's cores, and a pool of threads in each spins against the
+    others' (gloo keeps its own threads)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device).index or 0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -2753,13 +3066,16 @@ def _grid_init(rank, port, device, shape=GRID):
     return make_host_mesh(*shape)
 
 
-def _grid_rank(rank, port, out_dir, device, grids):
+def _grid_rank(rank, port, out_dir, device, grids, serve):
     """One rank of the grid checks: each of ``grids``' (shape, cases), the
-    same world in all, each case's step saved to ``out_dir``."""
+    same world in all, each case's step saved to ``out_dir``; then the
+    serving checks on the first grid: each of ``GRID_SERVE_CASES`` reduced
+    (``grid_serve_run``) and ``serve``'s full-width run
+    (``grid_serve_full``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
-    mesh = _grid_init(rank, port, device, grids[0][0])
+    mesh = first = _grid_init(rank, port, device, grids[0][0])
     try:
         for i, (shape, cases) in enumerate(grids):
             mesh = mesh if i == 0 else make_host_mesh(*shape)
@@ -2767,12 +3083,25 @@ def _grid_rank(rank, port, out_dir, device, grids):
                 torch.save(_ep2_step(arch, engine, device, mesh=mesh),
                            f"{out_dir}/{shape[0]}x{shape[1]}-{arch}-{engine}"
                            f"-rank{rank}.pt")
+        for arch, engine, fsdp in GRID_SERVE_CASES:
+            t0 = time.perf_counter()
+            out = grid_serve_run(arch, engine, fsdp, device, first)
+            out["seconds"] = time.perf_counter() - t0
+            torch.save(out, f"{out_dir}/serve-{arch}-{engine}-rank{rank}.pt")
+        t0 = time.perf_counter()
+        full = grid_serve_full(device, first, serve)
+        full["seconds"] = time.perf_counter() - t0
+        calls = full.pop("calls")
+        if rank == 0:       # the kernels' inputs, for the kernel rows
+            torch.save(calls, f"{out_dir}/serve-calls.pt")
+        del calls
+        torch.save(full, f"{out_dir}/serve-full-rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def grid_card_check(device="cuda",
-                    grids=GRIDS) -> tuple[dict, dict]:
+def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
+                    timer=time_ms) -> tuple[dict, dict, list]:
     """One f32 train step of each case of each (shape, cases) of ``grids``
     on a ``shape`` grid of ranks sharing the card (gloo; one spawn of the
     grids' common world for all) against the one-rank step on the card
@@ -2785,8 +3114,12 @@ def grid_card_check(device="cuda",
     on every rank, each expert leaf and TP shard on the data ranks of its
     model rank, and the traffic state on all; each rank's AdamW state is
     its ZeRO-1 share in bytes; every kernel of the family's path launched
-    on every rank (``family_kernels``).  Returns the lines of each shape,
-    one a case, and rank 0's launches by grid and case."""
+    on every rank (``family_kernels``).  The same spawn then serves
+    ``serve`` on the first grid (``grid_serve_check``), and
+    the serve kernels are held and timed (``timer``) on the inputs rank 0's
+    full-width serve gave them (``grid_serve_rows``).  Returns the lines of
+    each shape, one a case (the serving check's under "serve"), rank 0's
+    launches by grid and case, and the kernel rows."""
     import shutil
     import torch
     from repro_torch.configs import get_arch
@@ -2794,11 +3127,30 @@ def grid_card_check(device="cuda",
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     want = {c: _ep2_step(*c, device) for _, cases in grids for c in cases}
+    want_serve = {c: grid_serve_run(*c, device, chunk=grids[0][0][0])
+                  for c in GRID_SERVE_CASES}
+    t0 = time.perf_counter()
+    want_full = grid_serve_full(device, spec=serve)
+    full_one_s = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     n = grids[0][0][0] * grids[0][0][1]
     assert all(a * b == n for (a, b), _ in grids), grids
-    spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids),
-                600)
-    lines, launches = {}, {}
+    t0 = time.perf_counter()
+    spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids,
+                                serve), 900)
+    spawn_s = time.perf_counter() - t0
+    lines = {}
+    lines["serve"], launches = grid_serve_check(
+        out_dir, grids[0][0], serve, want_serve, want_full)
+    with torch.inference_mode():
+        rows = grid_serve_rows(
+            torch.load(out_dir / "serve-calls.pt", map_location=device),
+            grid_serve_path(serve, grids[0][0]), serve["engine"], timer)
+    lines["serve"].append(
+        f"seconds: the one-card full-width prefills {full_one_s:.1f}; the "
+        f"spawn of {n} (the train grids and the serving checks) "
+        f"{spawn_s:.1f}")
     for shape, (arch, engine) in ((s, c) for s, cases in grids
                                   for c in cases):
         w, model = want[arch, engine], shape[1]
@@ -2860,6 +3212,143 @@ def grid_card_check(device="cuda",
             f"shares; {w['state_bytes']} on one rank); launches per rank "
             f"{json.dumps([g['launches'] for g in got])}")
     shutil.rmtree(out_dir, ignore_errors=True)
+    return lines, launches, rows
+
+
+def grid_serve_check(out_dir, shape, spec, want_runs, want_full
+                     ) -> tuple[list[str], dict]:
+    """The serving checks of ``grid_card_check``'s spawn on the ``shape``
+    grid against the card alone.  Reduced (``GRID_SERVE_CASES``, f32): on
+    every rank each engine's streams equal the card's, ``last_expert_count``
+    and ``steps`` too, the expert EMA within ``TOL_TRAFFIC`` of max(1, |x|)
+    of the card's, and every rank holds the same bits of the whole traffic
+    state (its lane statistics over the grid's EP lanes, which one rank has
+    not).  Full width (``spec``, bf16): each rank holds exactly its half of
+    its lane's expert bytes under the reference's FSDP rule, the four ranks
+    give the same streams (every request its tokens, in the vocabulary),
+    each rank's first-token logits of its rows are the card's within
+    ``TOL_GRID_APART`` of the distance from the row's card logits to the
+    nearest other request's, nothing was built
+    after ``warmup()``, and rank 0's launches are the count the code
+    implies per admission and per decode step (``grid_serve_implied``).
+    Returns the lines and rank 0's launches by serving phase."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    data, model = shape
+    n = data * model
+    lines, launches = [], {}
+    for arch, engine, fsdp in GRID_SERVE_CASES:
+        w = want_runs[arch, engine, fsdp]
+        got = [torch.load(f"{out_dir}/serve-{arch}-{engine}-rank{r}.pt")
+               for r in range(n)]
+        err, bad = 0.0, []
+        for kind in ("continuous", "waved"):
+            wt = w[kind]["traffic"]
+            for r, g in enumerate(got):
+                gt = g[kind]["traffic"]
+                if g["chunk"] != w["chunk"]:
+                    bad.append(f"rank {r} admission chunk {g['chunk']}")
+                if g[kind]["streams"] != w[kind]["streams"]:
+                    bad.append(f"{kind} rank {r} streams {g[kind]['streams']}"
+                               f" against {w[kind]['streams']}")
+                for f in ("last_expert_count", "steps"):
+                    if not torch.equal(gt[f], wt[f]):
+                        bad.append(f"{kind} rank {r} {f}")
+                err = max(err, max_err(gt["expert_ema"], wt["expert_ema"])
+                          / max(1.0, wt["expert_ema"].abs().max().item()))
+                if not all(same_bits(gt[f], got[0][kind]["traffic"][f])
+                           for f in gt):
+                    bad.append(f"{kind} traffic bits ranks 0, {r}")
+        if bad or not err <= TOL_TRAFFIC:
+            raise AssertionError(f"grid serve {arch} {engine} f32: {bad}; "
+                                 f"expert EMA {err:.3g} (tol {TOL_TRAFFIC})")
+        label = f"grid {shape} serve {arch} {engine}" + (
+            " FSDP" if fsdp else "")
+        launches[f"{label} rank 0"] = got[0]["launches"]
+        lines.append(
+            f"reduced {arch} {engine}{', FSDP of the experts' if fsdp else ''}"
+            f" f32, continuous (pool 4) and waved engines: streams on every "
+            f"rank equal the card alone's ({len(w['continuous']['streams'])} "
+            f"requests, {sum(map(len, w['continuous']['streams']))} tokens), "
+            f"last_expert_count and steps equal, expert EMA {err:.3g} of "
+            f"max(1, |x|) (tol {TOL_TRAFFIC}), traffic bits equal on the {n} "
+            f"ranks; rank 0 launches {json.dumps(got[0]['launches'])}; "
+            f"{got[0]['seconds']:.1f} s on rank 0")
+
+    got = [torch.load(f"{out_dir}/serve-full-rank{r}.pt") for r in range(n)]
+    cfg = get_arch(spec["arch"])
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    held = 2 * lm.param_counts(cfg)[1] // model // (data if got[0]["fsdp"]
+                                                     else 1)
+    if not spec["reduced"] and (held != GRID_EXPERT_BYTES
+                                or not got[0]["fsdp"]):
+        raise AssertionError(f"grid serve: FSDP {got[0]['fsdp']}, {held} "
+                             f"expert bytes a rank reckoned, not "
+                             f"{GRID_EXPERT_BYTES}")
+    chunk = got[0]["chunk"]
+    k = chunk // data                  # rows a data rank prefills a chunk
+    want = want_full["first_logits"].float()
+    rel = lambda a, b: ((a.float() - b).abs().max()
+                        / max(1.0, b.abs().max().item())).item()
+    # each request's distance to the nearest other request's card logits
+    apart = [min(rel(want[j], want[i]) for j in range(len(want)) if j != i)
+             for i in range(len(want))]
+    flat = max(rel(a, b) for a, b in zip(want_full["flat_logits"], want))
+    errs, shares, bad = [], [], []
+    for r, g in enumerate(got):
+        d = r // model
+        rows = [a * chunk + d * k + j for a in range(g["admissions"])
+                for j in range(k)]
+        e = [rel(g["first_logits"][i], want[q]) for i, q in enumerate(rows)]
+        errs.append(max(e))
+        shares.append(max(x / (TOL_GRID_APART * apart[q])
+                          for x, q in zip(e, rows)))
+        if g["streams"] != got[0]["streams"]:
+            bad.append(f"rank {r} streams")
+        if g["expert_bytes"] != held or g["built"][0] != g["built"][1]:
+            bad.append(f"rank {r}: expert bytes {g['expert_bytes']} (reckoned"
+                       f" {held}), callables {g['built']}")
+    streams = got[0]["streams"]
+    if (len(streams) != spec["requests"]
+            or any(len(t) != spec["gen"] for t in streams)
+            or not all(0 <= t < cfg.vocab for q in streams for t in q)):
+        bad.append(f"streams {streams}")
+    implied = grid_serve_implied(spec, got[0]["admissions"],
+                                 got[0]["decode_steps"])
+    if got[0]["launches"] != implied:
+        bad.append(f"rank 0 launches {got[0]['launches']}, implied "
+                   f"{implied}")
+    if bad or not max(shares) <= 1.0:
+        raise AssertionError(f"grid serve full width: {bad}; first-token "
+                             f"logits against the card alone {errs}, "
+                             f"{shares} of the tolerance ({TOL_GRID_APART} x "
+                             f"each request's distance to the nearest other, "
+                             f"{apart})")
+    gib = lambda x: "n/a" if x is None else f"{x:.2f}"
+    launches[grid_serve_path(spec, shape)] = got[0]["launches"]
+    lines.append(
+        f"{cfg.name} {spec['layers']} layers bf16, {spec['engine']} node size "
+        f"1, FSDP of the experts by the reference's rule "
+        f"({got[0]['fsdp']}), continuous engine pool {spec['max_batch']}, "
+        f"{spec['requests']} requests of {spec['prompt']} tokens, "
+        f"{spec['gen']} each, capacity factor {spec['capacity']:g}: expert "
+        f"bytes per rank {[g['expert_bytes'] for g in got]} (reckoned "
+        f"{held}); peak memory per rank "
+        f"{[gib(g['peak_gib']) for g in got]} GiB; streams equal on the {n} "
+        f"ranks; first-token logits against the card alone, worst row per "
+        f"rank {[f'{e:.3g}' for e in errs]} of max(1, |logit|), "
+        f"{max(shares):.3f} of the tolerance ({TOL_GRID_APART:g} x the "
+        f"distance to the nearest other request's, {min(apart):.3g} or more;"
+        f" the card alone's fused_flat against its {spec['engine']}: "
+        f"{flat:.3g}); {got[0]['admissions']} admissions of "
+        f"{chunk} rows, {got[0]['decode_steps']} decode steps; rank 0 "
+        f"launches {json.dumps(got[0]['launches'])} = implied; run "
+        f"{[round(g['run_s'], 3) for g in got]} s a rank (gloo through the "
+        f"host: not a speed), {got[0]['seconds']:.1f} s in all on rank 0; "
+        f"sample {streams[0]}")
     return lines, launches
 
 
@@ -2879,49 +3368,58 @@ def held_params(cfg, model: int, tp: bool = True) -> int:
     return replicated - split + split // model + experts // model
 
 
-def _zero1_rank(rank, port, out_dir, argv, device):
-    """One rank of the full-width ZeRO-1 run: ``train.run`` on the grid,
-    its results saved to ``out_dir``."""
+def _zero1_rank(rank, port, out_dir, argvs, device):
+    """One rank of the full-width grid runs: ``train.run`` of each of
+    ``argvs`` in turn on the grid, each run's results saved to
+    ``out_dir``."""
     import torch
     import torch.distributed as dist
     mesh = _grid_init(rank, port, device)
     try:
         from repro_torch.launch import train
-        wrappers = zero_counters()
-        out = train.run(train.parse_args(argv), device, mesh=mesh)
-        torch.save({k: out[k] for k in ("losses", "step_ms", "ms_per_step",
-                                        "peak_mem_gib", "opt_state_gib",
-                                        "expert_param_bytes")}
-                   | {"launches": {k: w.launches
-                                   for k, w in wrappers.items()}},
-                   f"{out_dir}/zero1-rank{rank}.pt")
+        for i, argv in enumerate(argvs):
+            wrappers = zero_counters()
+            out = train.run(train.parse_args(argv), device, mesh=mesh)
+            torch.save({k: out[k] for k in ("losses", "step_ms", "ms_per_step",
+                                            "peak_mem_gib", "opt_state_gib",
+                                            "expert_param_bytes")}
+                       | {"launches": {k: w.launches
+                                       for k, w in wrappers.items()}},
+                       f"{out_dir}/zero1-{i}-rank{rank}.pt")
+            del out
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
 
-def zero1_phase(argv=ZERO1, device="cuda",
-                against: dict | None = None) -> tuple[list[str], dict]:
-    """``train.run`` of ``argv`` (qwen3-moe at full width, one layer) on a
-    (2, 2) grid of four gloo ranks sharing the card, after the same run on
-    the card alone: each rank's AdamW state (the bytes of its tensors) must
-    equal the ZeRO-1 reckoning from the parameter counts, 12 bytes a held
-    parameter over DP; its losses must be finite and the same on all four
-    ranks, the first within ``TOL_ZERO1_LOSS`` relative of the one-card
-    run's.  Prints each rank's state, peak memory, losses and ms/step (gloo
-    stages every collective through the host: not a speed).  ``against``:
-    the result of the ZeRO-1 run, when this one (``--fsdp-experts on``)
-    splits the expert weights over the data group too: its one-card run is
-    taken from it, and each rank's bf16 expert bytes must be exactly half
-    of the ZeRO-1 rank's (the AdamW state is the same reckoning: ZeRO-1
-    already cuts the experts' state over DP).  Returns the lines and the
-    result (the one-card run and each rank's)."""
+# the full-width grid runs of ``zero1_phase``, in one spawn: ZeRO-1, then
+# the same with the expert weights split over the data group too (FSDP)
+ZERO1_RUNS = (ZERO1, ZERO1 + ["--fsdp-experts", "on"])
+
+
+def zero1_phase(argvs=ZERO1_RUNS, device="cuda") -> list[list[str]]:
+    """``train.run`` of each of ``argvs`` (qwen3-moe at full width, one
+    layer) on a (2, 2) grid of four gloo ranks sharing the card, all in one
+    spawn, after the first on the card alone: each rank's AdamW state (the
+    bytes of its tensors) must equal the ZeRO-1 reckoning from the
+    parameter counts, 12 bytes a held parameter over DP; its losses must be
+    finite and the same on all four ranks, the first within
+    ``TOL_ZERO1_LOSS`` relative of the one-card run's.  Prints each rank's
+    state, peak memory, losses and ms/step (gloo stages every collective
+    through the host: not a speed).  Each run after the first
+    (``--fsdp-experts on``) splits the expert weights over the data group
+    too: its one-card run is the first's, and each rank's bf16 expert bytes
+    must be exactly half of the first run's rank's (the AdamW state is the
+    same reckoning: ZeRO-1 already cuts the experts' state over DP).
+    Returns the lines of each run."""
     import dataclasses
     import math
     import shutil
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
-    args = train.parse_args(argv)
+    args = train.parse_args(argvs[0])
     cfg = get_arch(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
     cfg = dataclasses.replace(cfg, n_layers=args.layers or cfg.n_layers)
@@ -2929,56 +3427,61 @@ def zero1_phase(argv=ZERO1, device="cuda",
     held = held_params(cfg, model)
     reckoned = 12 * held // data
     torch.cuda.empty_cache()
-    if against is None:
-        one = train.run(args, device)
-        one = {k: one[k] for k in ("losses", "peak_mem_gib",
-                                   "opt_state_gib")}
-    else:
-        one = against["one"]
+    one = train.run(args, device)
+    one = {k: one[k] for k in ("losses", "peak_mem_gib", "opt_state_gib")}
     torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "zero1"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     n = data * model
     on_card = torch.device(device).type == "cuda"
-    spawn_ranks(_zero1_rank, n, (free_port(), str(out_dir), argv,
+    spawn_ranks(_zero1_rank, n, (free_port(), str(out_dir), argvs,
                                  "cuda:0" if on_card else device), 900)
-    got = [torch.load(out_dir / f"zero1-rank{r}.pt") for r in range(n)]
+    runs = [[torch.load(out_dir / f"zero1-{i}-rank{r}.pt") for r in range(n)]
+            for i in range(len(argvs))]
     shutil.rmtree(out_dir, ignore_errors=True)
     gib = lambda x: "n/a" if x is None else f"{x:.2f}"
-    lines = [f"one card: losses {one['losses']}, AdamW state "
-             f"{one['opt_state_gib']:.4f} GiB, peak memory "
-             f"{gib(one['peak_mem_gib'])} GiB"]
-    for r, g in enumerate(got):
-        lines.append(
-            f"rank {r} (data {r // model}, lane {r % model}): AdamW state "
-            f"{g['opt_state_gib']:.4f} GiB measured, {reckoned / 2**30:.4f} "
-            f"reckoned ({held} parameters held, 12 bytes each over DP "
-            f"{data}); peak memory {gib(g['peak_mem_gib'])} GiB; losses "
-            f"{g['losses']}; {g['ms_per_step']:.1f} ms/step (gloo through "
-            f"the host, not a speed); launches {json.dumps(g['launches'])}")
-    first = abs(got[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
-    halves = ([g["expert_param_bytes"] * 2 == z["expert_param_bytes"]
-               for g, z in zip(got, against["ranks"])]
-              if against is not None else [True] * n)
-    bad = [r for r, g in enumerate(got)
-           if g["opt_state_gib"] * 2**30 != reckoned
-           or g["losses"] != got[0]["losses"] or not halves[r]
-           or not all(math.isfinite(x) for x in g["losses"])]
-    if against is not None:
-        lines += [f"rank {r}: bf16 expert parameters {g['expert_param_bytes']}"
-                  f" B, the ZeRO-1 rank's {z['expert_param_bytes']} B; peak "
-                  f"memory {gib(g['peak_mem_gib'])} GiB beside ZeRO-1's "
-                  f"{gib(z['peak_mem_gib'])} GiB"
-                  for r, (g, z) in enumerate(zip(got, against["ranks"]))]
-    if bad or first > TOL_ZERO1_LOSS:
-        raise AssertionError("\n".join(lines) + f"\nfull-width grid run: "
-                             f"ranks {bad} off (state, losses, expert "
-                             f"bytes); first loss {first:.3g} from the "
-                             f"one-card run's (tol {TOL_ZERO1_LOSS})")
-    lines.append(f"first loss vs the one-card run: {first:.3g} relative (tol "
-                 f"{TOL_ZERO1_LOSS})")
-    return lines, {"one": one, "ranks": got}
+    out = []
+    for i, got in enumerate(runs):
+        against = runs[0] if i else None
+        lines = [f"one card: losses {one['losses']}, AdamW state "
+                 f"{one['opt_state_gib']:.4f} GiB, peak memory "
+                 f"{gib(one['peak_mem_gib'])} GiB"]
+        for r, g in enumerate(got):
+            lines.append(
+                f"rank {r} (data {r // model}, lane {r % model}): AdamW state "
+                f"{g['opt_state_gib']:.4f} GiB measured, "
+                f"{reckoned / 2**30:.4f} reckoned ({held} parameters held, 12 "
+                f"bytes each over DP {data}); peak memory "
+                f"{gib(g['peak_mem_gib'])} GiB; losses {g['losses']}; "
+                f"{g['ms_per_step']:.1f} ms/step (gloo through the host, not "
+                f"a speed); launches {json.dumps(g['launches'])}")
+        first = (abs(got[0]["losses"][0] - one["losses"][0])
+                 / abs(one["losses"][0]))
+        halves = ([g["expert_param_bytes"] * 2 == z["expert_param_bytes"]
+                   for g, z in zip(got, against)]
+                  if against is not None else [True] * n)
+        bad = [r for r, g in enumerate(got)
+               if g["opt_state_gib"] * 2**30 != reckoned
+               or g["losses"] != got[0]["losses"] or not halves[r]
+               or not all(math.isfinite(x) for x in g["losses"])]
+        if against is not None:
+            lines += [f"rank {r}: bf16 expert parameters "
+                      f"{g['expert_param_bytes']} B, the ZeRO-1 rank's "
+                      f"{z['expert_param_bytes']} B; peak memory "
+                      f"{gib(g['peak_mem_gib'])} GiB beside ZeRO-1's "
+                      f"{gib(z['peak_mem_gib'])} GiB"
+                      for r, (g, z) in enumerate(zip(got, against))]
+        if bad or first > TOL_ZERO1_LOSS:
+            raise AssertionError("\n".join(lines) + f"\nfull-width grid run "
+                                 f"{' '.join(argvs[i])}: ranks {bad} off "
+                                 f"(state, losses, expert bytes); first loss "
+                                 f"{first:.3g} from the one-card run's (tol "
+                                 f"{TOL_ZERO1_LOSS})")
+        lines.append(f"first loss vs the one-card run: {first:.3g} relative "
+                     f"(tol {TOL_ZERO1_LOSS})")
+        out.append(lines)
+    return out
 
 
 # the full-width steps over a model group (``tp_full_phase``): one train
@@ -3701,88 +4204,82 @@ def _replicated_table():
                                     slots_per_lane=REPLICATED_SLOTS)
 
 
-def _replicated_rank(rank, port, out_dir, device):
-    """One rank of the replicated-table check: a train step of the reduced
-    qwen3-moe (f32, fused_flat) under the replicated table from the
-    canonical seed-0 weights laid out by it, then a relayout from it (the
-    replicas have drifted: each took its own share of the tokens); one MoE
-    layer under the table with the host's waits recorded."""
+def _replicated_run(rank, out_dir, device) -> None:
+    """One rank of the replicated-table check, in the EP-2 spawn
+    (``_ep2_rank``): a train step of the reduced qwen3-moe (f32,
+    fused_flat) under the replicated table from the canonical seed-0
+    weights laid out by it, then a relayout from it (the replicas have
+    drifted: each took its own share of the tokens); one MoE layer under
+    the table with the host's waits recorded."""
     import dataclasses
     import torch
     import torch.distributed as dist
-    sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_arch
     from repro_torch.core import relayout, traffic
     from repro_torch.data.pipeline import ZipfNgramLM, to_device
     from repro_torch.launch import steps, train
     from repro_torch.models import lm, zoo
     from repro_torch.optim import adamw
-    if torch.device(device).type == "cuda":
-        torch.cuda.set_device(torch.device(device).index or 0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=EP2)
-    try:
-        cfg = get_arch("qwen3-moe-30b-a3b").reduced()
-        f32 = torch.float32
-        table = _replicated_table()
-        slots = relayout.slot_table(table)
-        base = lm.init_params(cfg, lm.make_context(cfg, "cpu",
-                                                   compute_dtype=f32),
-                              torch.Generator().manual_seed(0), dtype=f32)
-        for n in ("w1", "w3", "w2"):       # canonical (L, 1, 8, ...) -> table
-            w = base["layers"]["moe"][n]
-            base["layers"]["moe"][n] = w[:, 0, slots].reshape(
-                w.shape[0], EP2, REPLICATED_SLOTS, *w.shape[3:])
-        # the replicated attention: the table's relayout in that layout
-        ctx = lm.make_context(cfg, device, ep_group=dist.group.WORLD,
-                              capacity_factor=EP2_CAPACITY,
-                              compute_dtype=f32, engine="fused_flat",
-                              explicit_tp=False)
-        ctx = dataclasses.replace(ctx, placement=table)
-        model = zoo.build(cfg, ctx)
-        params = lm.shard_params(adamw.tree_map(lambda t: t.to(device),
-                                                base), ctx)
-        batch = to_device(ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0),
-                          device)
-        cold = traffic.init_traffic_state(cfg.moe.n_experts, EP2,
-                                          n_layers=cfg.n_layers, device=device)
-        wrappers = zero_counters()
-        loss, _, grads = steps.value_and_grad(model)(params, batch, cold)
-        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
-        params, opt, m = steps.make_train_step(model, opt_cfg)(
-            params, steps.init_state(model, params), batch, cold)
-        launches = {k: w.launches for k, w in wrappers.items()}
-        moe = lambda tree: {n: tree["layers"]["moe"][n].detach().cpu().clone()
-                            for n in ("w1", "w3", "w2")}
-        trees = lambda: {"params": moe(params), "mu": moe(opt.mu),
-                         "nu": moe(opt.nu), "master": moe(opt.master)}
-        before = trees()
-        hot = m["traffic"]._replace(expert_ema=m["traffic"].expert_ema.flip(-1))
-        params, opt, new_ctx, stats = train.apply_relayout(
-            params, opt, hot, ctx, log=lambda *a, **k: None)
-        layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
-        x = torch.randn((4, 32, cfg.d_model), device=device,
-                        generator=torch.Generator(device=device).manual_seed(3))
-        on_card = torch.device(device).type == "cuda"
-        with torch.no_grad():
-            lm._moe_seq_sharded(x, layer, new_ctx)     # the first use, built
-            with (host_syncs() if on_card
-                  else contextlib.nullcontext([])) as syncs:
-                lm._moe_seq_sharded(x, layer, new_ctx)
-        torch.save({"loss": float(loss),
-                    "grads": dict(zip(adamw.paths(params),
-                                      (g.cpu() for g in grads))),
-                    "launches": launches, "before": before, "after": trees(),
-                    "table": new_ctx.placement.lane_expert.copy(),
-                    "stats": stats, "syncs": syncs},
-                   f"{out_dir}/replicated-rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+    cfg = get_arch("qwen3-moe-30b-a3b").reduced()
+    f32 = torch.float32
+    table = _replicated_table()
+    slots = relayout.slot_table(table)
+    base = lm.init_params(cfg, lm.make_context(cfg, "cpu",
+                                               compute_dtype=f32),
+                          torch.Generator().manual_seed(0), dtype=f32)
+    for n in ("w1", "w3", "w2"):       # canonical (L, 1, 8, ...) -> table
+        w = base["layers"]["moe"][n]
+        base["layers"]["moe"][n] = w[:, 0, slots].reshape(
+            w.shape[0], EP2, REPLICATED_SLOTS, *w.shape[3:])
+    # the replicated attention: the table's relayout in that layout
+    ctx = lm.make_context(cfg, device, ep_group=dist.group.WORLD,
+                          capacity_factor=EP2_CAPACITY,
+                          compute_dtype=f32, engine="fused_flat",
+                          explicit_tp=False)
+    ctx = dataclasses.replace(ctx, placement=table)
+    model = zoo.build(cfg, ctx)
+    params = lm.shard_params(adamw.tree_map(lambda t: t.to(device),
+                                            base), ctx)
+    batch = to_device(ZipfNgramLM(cfg.vocab, 32, 4, seed=0).batch_at(0),
+                      device)
+    cold = traffic.init_traffic_state(cfg.moe.n_experts, EP2,
+                                      n_layers=cfg.n_layers, device=device)
+    wrappers = zero_counters()
+    loss, _, grads = steps.value_and_grad(model)(params, batch, cold)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    params, opt, m = steps.make_train_step(model, opt_cfg)(
+        params, steps.init_state(model, params), batch, cold)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    moe = lambda tree: {n: tree["layers"]["moe"][n].detach().cpu().clone()
+                        for n in ("w1", "w3", "w2")}
+    trees = lambda: {"params": moe(params), "mu": moe(opt.mu),
+                     "nu": moe(opt.nu), "master": moe(opt.master)}
+    before = trees()
+    hot = m["traffic"]._replace(expert_ema=m["traffic"].expert_ema.flip(-1))
+    params, opt, new_ctx, stats = train.apply_relayout(
+        params, opt, hot, ctx, log=lambda *a, **k: None)
+    layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = torch.randn((4, 32, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    on_card = torch.device(device).type == "cuda"
+    with torch.no_grad():
+        lm._moe_seq_sharded(x, layer, new_ctx)     # the first use, built
+        with (host_syncs() if on_card
+              else contextlib.nullcontext([])) as syncs:
+            lm._moe_seq_sharded(x, layer, new_ctx)
+    torch.save({"loss": float(loss),
+                "grads": dict(zip(adamw.paths(params),
+                                  (g.cpu() for g in grads))),
+                "launches": launches, "before": before, "after": trees(),
+                "table": new_ctx.placement.lane_expert.copy(),
+                "stats": stats, "syncs": syncs},
+               f"{out_dir}/replicated-rank{rank}.pt")
 
 
-def replicated_card_check(device="cuda") -> list[str]:
+def replicated_card_check(out_dir, device="cuda") -> list[str]:
     """The replicated table (``_replicated_table``) on two gloo ranks sharing
-    the card (``_replicated_rank``) against the one-rank card step under the
+    the card (``_replicated_run``, in the EP-2 spawn, which saved its
+    results to ``out_dir``) against the one-rank card step under the
     canonical weights: each rank's loss and replicated leaves' gradients
     within ``TOL_TRAIN`` of max(1, |x|), and the expert gradients of both
     ranks' slots, scattered onto the canonical experts, within ``TOL_TRAIN``
@@ -3793,7 +4290,6 @@ def replicated_card_check(device="cuda") -> list[str]:
     no host wait in a layer under the table from the port's code, on the
     calling thread (gloo copies CUDA tensors through the host on its own
     threads, which ``host_syncs`` does not see)."""
-    import shutil
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3813,13 +4309,8 @@ def replicated_card_check(device="cuda") -> list[str]:
                       device)
     loss, _, grads = steps.value_and_grad(zoo.build(cfg, ctx))(params, batch)
     want = dict(zip(adamw.paths(params), (g.cpu() for g in grads)))
-    out_dir = ROOT / "build" / "replicated"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    spawn_ranks(_replicated_rank, EP2, (free_port(), str(out_dir), device), 600)
-    got = [torch.load(out_dir / f"replicated-rank{r}.pt", weights_only=False)
-           for r in range(EP2)]
-    shutil.rmtree(out_dir, ignore_errors=True)
+    got = [torch.load(Path(out_dir) / f"replicated-rank{r}.pt",
+                      weights_only=False) for r in range(EP2)]
     table = _replicated_table()
     slots = relayout.slot_table(table)
     rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
@@ -4826,32 +5317,36 @@ def main() -> None:
     finally:
         dist.destroy_process_group()
     stamp("the reduced checks")
-    for line in ep2_card_check():
+    ep2_lines, replicated_lines = ep2_card_check()
+    for line in ep2_lines:
         print(f"EP 2 on one card (two gloo ranks), f32 train step vs EP 1: "
               f"{line}")
-    for line in replicated_card_check():
+    for line in replicated_lines:
         print(f"replicated table on one card (two gloo ranks, reduced "
               f"qwen3-moe f32, 8 experts on 2 lanes x {REPLICATED_SLOTS} "
               f"slots): {line}")
-    grid_lines, grid_launches = grid_card_check()
+    grid_lines, grid_launches, grid_rows = grid_card_check()
     for line in grid_lines[GRID]:
         print(f"(2, 2) grid on one card (four gloo ranks), f32 train step vs "
               f"one rank: {line}")
     for line in grid_lines[TP4]:
         print(f"(1, 4) grid on one card (four gloo ranks), Megatron TP, f32 "
               f"train step vs one rank: {line}")
+    for line in grid_lines["serve"]:
+        print(f"serving on the (2, 2) grid on one card (four gloo ranks, "
+              f"batch rows over the data group) vs the card alone: {line}")
+    for r in grid_rows:
+        print_row(r)
+    rows += grid_rows
     launches.update(grid_launches)
     stamp("the grid checks")
-    zero1_lines, zero1 = zero1_phase()
+    zero1_lines, fsdp_lines = zero1_phase()
     for line in zero1_lines:
         print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
-    stamp("ZeRO-1 grid")
-    fsdp_lines, _ = zero1_phase(ZERO1 + ["--fsdp-experts", "on"],
-                                against=zero1)
     for line in fsdp_lines:
         print(f"full-width FSDP run (ZeRO-3 of the experts), (2, 2) grid on "
               f"one card: {line}")
-    stamp("FSDP grid")
+    stamp("ZeRO-1 and FSDP grids (one spawn)")
     tp_lines, tp_launches = tp_full_phase()
     for line in tp_lines:
         print(f"full-width step over a model group (gloo ranks sharing the "

@@ -41,6 +41,16 @@ size max(1, EP // 2), the static grouping), ``fused_flat``, ``fused_pipe``
 (the pipelined engine; ``--pipe-slices`` fixes its slice count, 0:
 pipesim's), ``ragged`` and ``disagg`` (the baseline).
 
+``torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch
+qwen3-moe-30b-a3b --layers 8 --requests 8 --continuous`` serves over the
+reference's host mesh of the world (``launch.mesh.make_host_mesh``: (1, 4)
+of four ranks, (2, 4) of eight): each data rank serves its block of the
+batch rows, its EP group (the model group) exchanges the tokens, and where
+one lane's expert weights exceed 4 GB in bf16 (the reference's rule,
+``lm.fsdp_rule``) their f dim is split over the data group and gathered a
+layer at a time.  ``--requests`` must then be a multiple of
+``--moe-interleave`` x the data ranks.
+
 Runs on the card (``cuda``).  Weights and prompts are random, drawn from
 seed 0.  A warm-up prefill and two decode steps (which also build the
 kernels) run before the clock starts; every timed region ends in
@@ -51,13 +61,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models import lm
 
 
@@ -109,18 +122,29 @@ class Setup(NamedTuple):
     max_len: int
 
 
-def setup(args, device="cuda") -> Setup:
+def setup(args, device="cuda", mesh: HostMesh | None = None) -> Setup:
     """The model, its random parameters and the prompts of a serve run, all
-    drawn from seed 0."""
+    drawn from seed 0, on one rank or on this rank of ``mesh`` (a
+    ``launch.mesh.HostMesh``): the parameters are this rank's, its lane of
+    the expert weights and, under FSDP of the experts (the reference's
+    rule, ``lm.fsdp_rule``), its slice of their f dim; the prompts are the
+    global batch.  Raises ValueError unless ``--requests`` is a multiple
+    of ``--moe-interleave`` x the data ranks."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    ctx = lm.make_context(cfg, device, engine=args.engine,
-                          # one lane, so one node of one lane: the
-                          # reference's drivers take max(1, EP // 2)
-                          node_size=1,
+    data, model = (1, 1) if mesh is None else (mesh.data, mesh.model)
+    mult = max(1, args.moe_interleave) * data
+    if args.requests % mult:
+        raise ValueError(
+            f"--requests {args.requests} must be a multiple of "
+            f"--moe-interleave x data ranks = {mult}: each data rank serves "
+            "an equal block of the rows, split into the interleave lanes")
+    ctx = lm.make_context(cfg, device, mesh=mesh, engine=args.engine,
+                          # the reference's serve: max(1, model // 2)
+                          node_size=max(1, model // 2),
                           moe_stream=args.moe_stream,
                           moe_interleave=args.moe_interleave,
                           pipe_slices=args.pipe_slices,
@@ -137,8 +161,10 @@ def setup(args, device="cuda") -> Setup:
 
 def _run_continuous(cfg, ctx, params, tokens, max_len) -> dict:
     """Every prompt through a ``ContinuousServingEngine`` of as many slots
-    as requests, each asking for ``--gen`` tokens; returns the finished
-    requests, the engine's ``stats()``, its build seconds and the engine."""
+    as requests, each asking for ``--gen`` tokens (on a grid each rank runs
+    the same engine loop over the same queue and decodes its block of the
+    slots); returns the finished requests, the engine's ``stats()``, its
+    build seconds and the engine."""
     from repro_torch.models import zoo
     from repro_torch.serving.engine import ContinuousServingEngine
     b, gen = tokens.shape[0], max_len - tokens.shape[1]
@@ -152,11 +178,15 @@ def _run_continuous(cfg, ctx, params, tokens, max_len) -> dict:
             "engine": eng, "cfg": cfg}
 
 
-def run(args, device="cuda") -> dict:
-    """Serve one lock-step batch; returns the generated tokens (B, gen), the
-    last logits and the timings.  With ``--continuous`` serves the same
-    prompts through the continuous engine instead (``_run_continuous``)."""
-    cfg, ctx, params, tokens, positions, max_len = setup(args, device)
+def run(args, device="cuda", mesh: HostMesh | None = None) -> dict:
+    """Serve one lock-step batch, on one rank or on this rank of ``mesh``
+    (every rank of its world calls it: each prefills and decodes its data
+    rank's block of the rows); returns the generated tokens (B, gen) and
+    the last logits (B, V) of the whole batch (gathered over the data group
+    after the timed regions), and this rank's timings.  With
+    ``--continuous`` serves the same prompts through the continuous engine
+    instead (``_run_continuous``)."""
+    cfg, ctx, params, tokens, positions, max_len = setup(args, device, mesh)
     if args.continuous:
         return _run_continuous(cfg, ctx, params, tokens, max_len)
 
@@ -184,14 +214,59 @@ def run(args, device="cuda") -> dict:
             seqs.append(tok)
         _sync(ctx.device)
         t_dec = time.perf_counter() - t0
-    return {"tokens": torch.stack(seqs, 1), "logits": logits,
+        toks = lm.gather_rows(torch.stack(seqs, 1), ctx)
+        logits = lm.gather_rows(logits, ctx)
+    return {"tokens": toks, "logits": logits,
             "warmup_s": warmup_s, "ttft_s": ttft,
             "decode_s_per_tok": t_dec / (args.gen - 1), "cfg": cfg}
 
 
-def main(argv=None):
+def _is_rank0() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or (
+        dist.get_rank() == 0)
+
+
+def _peak_gib(device) -> float | None:
+    """This process's peak device memory (GiB); None on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def main(argv=None, device="cuda"):
+    """The command line.  Under ``torchrun`` (``WORLD_SIZE`` > 1) the world
+    is the reference's host mesh (``launch.mesh.make_host_mesh``: (1, 4) of
+    four ranks, (2, 4) of eight): NCCL, one rank per card on
+    ``cuda:LOCAL_RANK``, or gloo when ``device`` is the CPU.  Only rank 0
+    prints; the peak device memory of every rank is printed."""
     args = parse_args(argv)
-    out = run(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _report(args, run(args, device), [_peak_gib(device)])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    try:
+        mesh = make_host_mesh()
+        if _is_rank0():
+            print(f"mesh (data, model) = ({mesh.data}, {mesh.model})")
+        out = run(args, device, mesh=mesh)
+        peaks = [None] * world
+        dist.all_gather_object(peaks, _peak_gib(device))
+        return _report(args, out, peaks) if _is_rank0() else out
+    finally:
+        dist.destroy_process_group()
+
+
+def _report(args, out: dict, peaks: list):
+    """Print a run's times, its sample tokens and each rank's peak device
+    memory (``peaks``, GiB; None on the CPU)."""
+    print("peak memory per rank "
+          + " ".join("n/a" if m is None else f"{m:.2f}" for m in peaks)
+          + " GiB")
     if args.continuous:
         st, eng = out["stats"], out["engine"]
         print(f"compile {out['compile_s']:.2f} s  ({eng.compile_count} "

@@ -22,7 +22,11 @@ blocks, and each rank holds its TP shards of ``wq``, ``wo`` and the MLP
 holds ``embed`` and ``lm_head`` split over it (:func:`vocab_parallel`: the
 vocab, or d where the group does not divide it), looked up and taken
 through the CE vocab-parallel (``core/dcomm.vocab_embed``,
-``vocab_parallel_ce``); serving contexts read them whole.
+``vocab_parallel_ce``); serving contexts read them whole.  Serving over a
+(data, model) grid splits the batch rows over the data group in blocks
+(:func:`data_rows`): each rank prefills and decodes its rows, its EP group
+routes them, and under ``fsdp_experts`` each MoE layer gathers the expert
+weights over the data group.
 The reference scans one compiled layer body; here a Python loop walks the
 layers of the stacked (L, ...) parameter tree, which keeps the reference's
 layout so ``convert.params_from_jax`` maps one onto the other leaf by leaf.
@@ -338,6 +342,33 @@ def _tp_own(path: str, t, ctx: ModelContext):
                              dcomm.lane_index(ctx.ep_group)).clone()
 
 
+def data_size(ctx: ModelContext) -> int:
+    """The data ranks of ``ctx``'s grid (1 without a data group)."""
+    return 1 if ctx.mesh is None else ctx.mesh.data
+
+
+def data_rows(ctx: ModelContext, b: int) -> slice:
+    """The rows of a global batch of ``b`` that this rank serves under
+    ``ctx``: data rank d of D takes ``[d b / D, (d + 1) b / D)``, the block
+    order of the reference's ``P("data")``; every row where D does not
+    divide ``b`` (the reference's replicated decode rows, its
+    ``moe_decode_block`` with ``dp = ()``), and every row at one data
+    rank."""
+    n = data_size(ctx)
+    if n == 1 or b % n:
+        return slice(0, b)
+    k, d = b // n, ctx.mesh.data_index
+    return slice(d * k, (d + 1) * k)
+
+
+def gather_rows(t: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
+    """Every data rank's rows (dim 0) of ``t`` joined in data order, the
+    global batch's (one ``all_gather_into_tensor`` over the data group;
+    ``t`` itself at one data rank)."""
+    group = data_group(ctx)
+    return t if group is None else dcomm.all_gather_dim(t, 0, group)
+
+
 def stats_group(ctx: ModelContext):
     """The group the traffic counts sum over: the whole grid with more than
     one data rank (the reference psums over ("data", "model")), else the
@@ -570,10 +601,13 @@ def _kv_capacity(cfg: ArchConfig, max_len: int) -> int:
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
                       ctx: ModelContext, per_slot: bool = False) -> DecodeState:
-    """Zeroed decode state; ``per_slot`` makes ``length`` per row ((batch,)
-    int32), the continuous-batching slot pool.  No cache (``kv`` None) for
-    a family without attention."""
+    """Zeroed decode state of this rank's rows of a global ``batch``
+    (:func:`data_rows`: all of them without a data group); ``per_slot``
+    makes ``length`` per row (one int32 a row), the continuous-batching
+    slot pool.  No cache (``kv`` None) for a family without attention."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=ctx.device)
+    rows = data_rows(ctx, batch)
+    batch = rows.stop - rows.start
     kv = None
     if has_attention(cfg):
         c = _kv_capacity(cfg, max_len)
@@ -1037,13 +1071,16 @@ def _serves_whole(ctx: ModelContext) -> None:
     """Prefill and decode read whole attention and MLP weights and a whole
     vocab pair (the reference's TP is off there, lm.py:826, and its serve
     applies no specs); a TP context's tree holds shards of them, a
-    training context's over a model group shards of the vocab pair."""
+    training context's over a model group shards of the vocab pair.
+    Serving over a grid splits the batch rows over the data group
+    (:func:`data_rows`) and runs the EP exchange over the model group; TP
+    and the vocab split stay training's."""
     if tensor_parallel(ctx) or vocab_parallel(ctx):
         raise NotImplementedError(
             "prefill / decode on a training context split over its model "
             "group: build the serving context with explicit_tp=False and "
-            "split_vocab=False (whole weights on each rank); serving over a "
-            "data group is ROADMAP queue 1 item 8")
+            "split_vocab=False (whole attention, MLP and vocab pair on each "
+            "rank; the batch rows split over the data group)")
 
 
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
@@ -1053,14 +1090,28 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     k and v in its cache (the last ``cap`` positions, at slot p % cap; no
     cache for moe_ffn, which is stateless) and the length S as a () tensor.
     In an EP group each rank runs the MoE on its stripe of the sequence (S
-    must split evenly) and all ranks return the same result.  ``traffic``:
+    must split evenly) and all ranks return the same result.  On a grid
+    with D data ranks ``inputs`` is the global batch, and each rank runs
+    and returns only its rows of it (:func:`data_rows`; D must divide B,
+    else ValueError, as the reference's islands need), so its EP group
+    routes those rows alone and the traffic counts sum over the grid once
+    a row.  ``traffic``:
     the layer-stacked ``traffic.TrafficState`` threaded through the MoE
     layers (the MoE families); then returns ``(logits, state,
-    new_traffic)``.  ``traffic_mask``: (B, S) bool, True for real tokens:
-    the serving engines pass it so that left-pad positions do not count."""
+    new_traffic)``.  ``traffic_mask``: (B, S) bool, True for real tokens
+    (the global batch's, cut like ``inputs``): the serving engines pass it
+    so that left-pad positions do not count."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _traffic_needs_moe(cfg, traffic)
     _serves_whole(ctx)
+    b, n = inputs.shape[0], data_size(ctx)
+    if b % n:
+        raise ValueError(f"a prefill batch of {b} rows does not split over "
+                         f"{n} data ranks")
+    rows = data_rows(ctx, b)
+    inputs = inputs[rows]
+    if traffic_mask is not None:
+        traffic_mask = traffic_mask[rows]
     h = params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
@@ -1101,7 +1152,10 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
 
 def decode_step(params, state: DecodeState, inputs: torch.Tensor,
                 ctx: ModelContext, max_len: int):
-    """One-token decode for the whole batch.  inputs: (B,) int tokens.
+    """One-token decode for the rows of ``state``: this rank's rows on a
+    grid (:func:`init_decode_state`, :func:`prefill`; every row where the
+    data ranks do not divide the batch, each data rank then computing the
+    same rows).  inputs: (B,) int tokens of those rows.
     Returns (logits (B, V) float32, the state).  ``state.length`` is () (a
     lock-step batch) or (B,) (a slot pool: each row RoPE-rotates, writes its
     cache and masks at its own position); the positions come from it on the

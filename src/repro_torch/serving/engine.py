@@ -18,10 +18,15 @@ prepared callables, traffic statistics, metrics):
 
 For a moe_ffn or moe_tx bundle whose ``ModelContext.moe_interleave`` is K,
 prefill rows ARE the micro-batch lanes of the interleaved stream (with the
-``fused_pipe`` engine; the barriers ignore the lanes): the waved engine
-pads each wave with pad rows up to a multiple of K, masked out of the
-results and the traffic, and the continuous engine admits K rows a call
-(``admit_chunk``), drawn from the queue.
+``fused_pipe`` engine; the barriers ignore the lanes).  Over a (data,
+model) grid of D data ranks (the bundle's context built on a
+``launch.mesh.HostMesh``) the batch rows split over the data group in
+blocks (``models/lm.data_rows``), so a prefill's rows come in multiples of
+``_wave_mult`` = K x D, as the reference's (engine.py:143-151): the waved
+engine pads each wave with pad rows up to that multiple, masked out of the
+results and the traffic, and the continuous engine admits K x D rows a
+call (``admit_chunk``), drawn from the queue, each data rank prefilling
+its K.
 
 The reference compiles one AOT executable per shape.  Here the counterpart
 is a prepared callable per shape: one per (rows, bucket) prefill, one for
@@ -41,6 +46,19 @@ step (the argmax) and once per admission (the prefill's argmax, with
 ``track_traffic`` the admission's expert counts in the same read), as the
 reference's ``np.asarray``, and nowhere inside a prefill, decode or
 insert; the tokens go to the card from pinned memory without waiting.
+Over a data group each of those reads is of the argmax all-gathered over
+it first (one ``all_gather_into_tensor`` of a few ints beside each read),
+so every rank holds every row's token and makes the same retire and refill
+decisions; with gloo, which stages a card's tensors through the host, that
+collective waits on the card too.
+
+The continuous engine's slot pool splits over the data group in blocks:
+slot i lives on data rank i // (max_batch / D), which decodes it.  The
+admission keeps the reference's slot choice (chunk row j to the j-th free
+slot), so row j, prefilled on data rank j // K, may land on another rank's
+slot: the insert all-gathers the chunk's KV caches over the data group
+(one ``all_gather_into_tensor``), and each rank copies the rows of the
+slots it holds.
 
 Metrics: TTFT per request (p50/p95/p99 in ``stats()``), decode tok/s, slot
 occupancy and, for MoE models with ``track_traffic=True``, per-admission
@@ -50,14 +68,15 @@ counts are reported as max/mean lane load and hot-expert share.  Every
 prefill passes a (rows, S) pad mask (False on left-pad positions), so
 pad positions are routed but not counted.
 
-Over an EP group every rank runs the same engine loop with the same queue,
-so every rank makes the same decisions and meets every collective of the
-prefill and decode at the same point.
+Over an EP group or a grid every rank runs the same engine loop with the
+same queue, so every rank makes the same decisions and meets every
+collective of the prefill and decode at the same point.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Callable, Optional
@@ -65,7 +84,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import commplan, relayout
+from repro_torch.core import commplan, dcomm, relayout
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.models import lm
 
@@ -123,12 +142,14 @@ class _ServingBase:
         self.compile_s = 0.0
         self._prefill_exec: dict = {}        # (rows, s) -> callable
         self._decode_exec: dict = {}         # (rows, per_slot) -> callable
-        # the micro-batch lanes a prefill's rows split into: a moe_ffn or
-        # moe_tx stream's K, whatever the engine (the reference's
-        # engine.py:143-151; the port has no data shards)
+        # the micro-batch lanes a data rank's prefill rows split into: a
+        # moe_ffn or moe_tx stream's K, whatever the engine; the rows of a
+        # prefill come in multiples of K x the data ranks (the reference's
+        # engine.py:143-151)
         ctx = bundle.ctx
         self.interleave = (ctx.moe_interleave
                            if ctx.cfg.family in ("moe_ffn", "moe_tx") else 1)
+        self._wave_mult = self.interleave * lm.data_size(ctx)
         self.traffic = None
         if track_traffic:
             ctx = bundle.ctx
@@ -222,9 +243,10 @@ class _ServingBase:
         return exe
 
     def get_decode(self, params, state: lm.DecodeState, rows: int):
-        """The one-token decode callable of a ``rows``-row state (per-row
-        lengths or one for all, as ``state``'s); built on a scratch state of
-        that layout, so ``state`` is not touched."""
+        """The one-token decode callable of a state of ``rows`` global rows
+        (this rank's of them on a grid; per-row lengths or one for all, as
+        ``state``'s); built on a scratch state of that layout, so ``state``
+        is not touched."""
         return self._get_decode(params, rows, state.length.dim() == 1)
 
     def _get_decode(self, params, rows: int, per_slot: bool):
@@ -237,8 +259,9 @@ class _ServingBase:
             scratch = lm.init_decode_state(ctx.cfg, rows, self.max_len,
                                            ctx.compute_dtype, ctx,
                                            per_slot=per_slot)
-            toks = torch.full((rows,), self.pad_id, dtype=torch.int64,
-                              device=self.device)
+            mine = lm.data_rows(ctx, rows)
+            toks = torch.full((mine.stop - mine.start,), self.pad_id,
+                              dtype=torch.int64, device=self.device)
             self._build(exe, params, scratch, toks)
             self._decode_exec[key] = exe
         return exe
@@ -246,17 +269,18 @@ class _ServingBase:
     # ---------------------------------------------------- traffic + stats ---
 
     def _prefill_and_read(self, exe, params, toks, valid):
-        """Run a prefill and read its argmax to the host, with traffic the
-        admission's counts summed over the layers in the same read.  Returns
-        (first tokens, new state)."""
-        rows = toks.shape[0]
+        """Run a prefill of the global (rows, s) batch and read its argmax
+        to the host (every data rank's rows, gathered first), with traffic
+        the admission's counts summed over the layers in the same read.
+        Returns (the first token of every row, this rank's new state)."""
+        rows, ctx = toks.shape[0], self.bundle.ctx
         if self.traffic is not None:
             logits, state, self.traffic = exe(params, toks, self.traffic, valid)
-            read = torch.cat([logits.argmax(-1),
+            read = torch.cat([lm.gather_rows(logits.argmax(-1), ctx),
                               self.traffic.last_expert_count.sum(0).long()])
         else:
             logits, state = exe(params, toks)
-            read = logits.argmax(-1)
+            read = lm.gather_rows(logits.argmax(-1), ctx)
         host = read.cpu().numpy()            # the admission's one host read
         if self.traffic is not None:
             self._record_load(host[rows:])
@@ -319,14 +343,15 @@ class ServingEngine(_ServingBase):
 
     ``run_wave`` drains up to ``max_batch`` queued requests, pads them to a
     common bucketed prompt length and with pad rows up to a multiple of the
-    interleave lanes, prefills them as one batch and decodes lock-step
-    until every member finishes.
+    interleave lanes x data ranks, prefills them as one batch (each data
+    rank its block of rows) and decodes lock-step until every member
+    finishes, each step's tokens gathered over the data group.
     """
 
     def _rows(self, n: int) -> int:
         """The prefill rows of a wave of ``n`` requests: ``n`` padded up to
-        a multiple of the interleave lanes."""
-        return -(-n // self.interleave) * self.interleave
+        a multiple of the interleave lanes x data ranks."""
+        return -(-n // self._wave_mult) * self._wave_mult
 
     def warmup(self, params) -> float:
         """Build the full-wave prefill callable per bucket and the decode
@@ -363,6 +388,7 @@ class ServingEngine(_ServingBase):
             for r in wave:
                 r.ttft_s = end - r.submitted_at
             dec = self.get_decode(params, state, bp)
+            mine = lm.data_rows(self.bundle.ctx, bp)
             live = np.ones(len(wave), bool)
             steps = max(r.max_new for r in wave)
             for step in range(steps):
@@ -378,8 +404,9 @@ class ServingEngine(_ServingBase):
                 if not live.any() or step == steps - 1:
                     break
                 logits, state = dec(params, state,
-                                    _to_device(tok_np, self.device))
-                tok_np = logits.argmax(-1).cpu().numpy()
+                                    _to_device(tok_np[mine], self.device))
+                tok_np = lm.gather_rows(logits.argmax(-1),
+                                        self.bundle.ctx).cpu().numpy()
         for r in wave:
             r.done = True
         self.finished.extend(wave)
@@ -397,11 +424,13 @@ class ContinuousServingEngine(_ServingBase):
     dropped.  Retired slots (eos seen or ``max_new`` reached) hand their
     request to the ``emit`` hook at once and are refilled on the next step.
     Admission prefills ``admit_chunk`` rows per call, the interleave lanes
-    (1 without), drawn from the queue and left-padded to the smallest
-    bucket that fits the chunk; a chunk the queue or the free slots cannot
-    fill is padded with pad rows, dropped by the insert.  Every (chunk x
-    bucket) prefill callable is prepared, so steady-state admission builds
-    nothing.
+    x data ranks (1 without either), drawn from the queue and left-padded
+    to the smallest bucket that fits the chunk; a chunk the queue or the
+    free slots cannot fill is padded with pad rows, dropped by the insert.
+    Every (chunk x bucket) prefill callable is prepared, so steady-state
+    admission builds nothing.  Over a data group each rank holds and
+    decodes its block of the slots (``models/lm.data_rows`` of
+    ``max_batch``).
     """
 
     def __init__(self, bundle, *, max_batch: int = 8, max_len: int = 256,
@@ -412,15 +441,15 @@ class ContinuousServingEngine(_ServingBase):
         super().__init__(bundle, max_batch=max_batch, max_len=max_len,
                          eos_id=eos_id, pad_id=pad_id,
                          track_traffic=track_traffic, buckets=buckets)
-        if max_batch % self.interleave:
+        if max_batch % self._wave_mult:
             raise ValueError(
-                f"max_batch={max_batch} must be a multiple of the interleave "
-                f"lanes ({self.interleave}): an admission prefills one row "
-                "a lane")
+                f"max_batch={max_batch} must be a multiple of the "
+                f"interleave lanes x data shards ({self._wave_mult}) — the "
+                "pool decode shards rows over the data axes")
         self.emit = emit
-        # the reference's chunk is interleave lanes x data shards; the port
-        # serves without data shards
-        self.admit_chunk = self.interleave
+        self.admit_chunk = self._wave_mult
+        # this rank's block of the slots (all of them without a data group)
+        self._mine = lm.data_rows(bundle.ctx, max_batch)
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.occupancy: list[float] = []     # per-step occupied fraction
         self.decode_steps = 0
@@ -440,16 +469,25 @@ class ContinuousServingEngine(_ServingBase):
                 ctx, per_slot=True)
 
     @staticmethod
-    def _insert_fn(pool: lm.DecodeState, new: lm.DecodeState,
-                   slots) -> lm.DecodeState:
+    def _insert_fn(pool: lm.DecodeState, new: lm.DecodeState, slots,
+                   group=None, first: int = 0) -> lm.DecodeState:
         """Copy row j of a freshly prefilled ``new`` state (rows = admit
         chunk, one length for all) into the pool at slot ``slots[j]``, in
-        place; slot ids out of
-        range (pad lanes) are dropped (the reference's ``mode="drop"``).
-        ``slots`` is host data, so the copies index by Python ints.  A
-        stateless family (moe_ffn, ``kv`` None) inserts its length alone."""
+        place, the pool holding the slots from ``first`` on (a data rank's
+        block); slot ids out of its range (pad lanes, another rank's
+        slots) are dropped (the reference's ``mode="drop"``).  Over a data
+        ``group`` (None: one data rank) ``new`` holds this rank's rows of
+        the chunk, and its KV caches (k and v stacked) are first
+        all-gathered over it into the whole chunk's, in data order; the
+        length is every row's.  ``slots`` is host data, so the copies index
+        by Python ints.  A stateless family (moe_ffn, ``kv`` None) inserts
+        its length alone."""
+        if group is not None and new.kv is not None:
+            kv = dcomm.all_gather_dim(torch.stack([new.kv["k"], new.kv["v"]]),
+                                      2, group)
+            new = lm.DecodeState({"k": kv[0], "v": kv[1]}, new.length)
         n = pool.length.shape[0]
-        for j, i in enumerate(int(x) for x in slots):
+        for j, i in enumerate(int(x) - first for x in slots):
             if not 0 <= i < n:
                 continue
             for name in pool.kv or ():
@@ -461,15 +499,19 @@ class ContinuousServingEngine(_ServingBase):
         """The slot insert; its shapes depend only on the pool and the admit
         chunk (the KV capacity is fixed by max_len, not by the bucket), so
         one callable covers every admission.  Built on a scratch pool and a
-        scratch prefill state."""
+        scratch prefill state (this rank's rows of each)."""
         if self._insert_exec is None:
             ctx = self.bundle.ctx
             mk = lambda rows, per_slot: lm.init_decode_state(
                 ctx.cfg, rows, self.max_len, ctx.compute_dtype, ctx,
                 per_slot=per_slot)
-            self._build(self._insert_fn, mk(self.max_batch, True),
+            # holds the data group and the block, not the engine
+            insert = functools.partial(self._insert_fn,
+                                       group=lm.data_group(ctx),
+                                       first=self._mine.start)
+            self._build(insert, mk(self.max_batch, True),
                         mk(self.admit_chunk, False), [0])
-            self._insert_exec = self._insert_fn
+            self._insert_exec = insert
         return self._insert_exec
 
     def warmup(self, params) -> float:
@@ -557,9 +599,11 @@ class ContinuousServingEngine(_ServingBase):
         dec = self.get_decode(params, self._state, self.max_batch)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits, self._state = dec(params, self._state,
-                                      _to_device(self._tok, self.device))
-            tok = logits.argmax(-1).cpu().numpy()   # the step's one host read
+            logits, self._state = dec(params, self._state, _to_device(
+                self._tok[self._mine], self.device))
+            # every rank's rows, then the step's one host read
+            tok = lm.gather_rows(logits.argmax(-1),
+                                 self.bundle.ctx).cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         self.decode_steps += 1
         self.decode_tokens += len(occupied)

@@ -441,5 +441,5 @@ def test_prefill_refuses_a_tp_context(monkeypatch):
     ctx = lm.make_context(cfg, "cpu", mesh=_Grid(2))
     assert lm.tensor_parallel(ctx)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="explicit_tp=False"):
         lm.prefill({}, tokens, torch.arange(4), ctx, 8)
