@@ -65,8 +65,14 @@
      S 32, train T 1024 S 16; moe-tx serve T 2048 S 4, train T 1024 S 4),
      in training grouped_matmul at slice 0's shape, and moe-tx's flash at
      one lane's batch (4 / 2 rows of 512);
+   - hymba-1.5b's flash forward at hd 64, group size 5 (``hymba_flash_rows``:
+     tiles of 12 queries): its serve prefill (8 x 512, window 1024 and
+     global), its 2048-token prompt (the window binds) and its train
+     forward (4 x 512), beside SDPA; its torch backward at the train shape
+     among the backward rows;
    - odd shapes of the Hopper forms (the flash one at group sizes 3, 5, 6
-     and 7 too, whose query tiles leave rows of the 64-row tile dead), of
+     and 7 too, whose query tiles leave rows of the 64-row tile dead; G 5
+     at hd 64 over 2048 queries with the window binding), of
      the flash tensor-core form (the bf16 shapes the Hopper form refuses:
      hd 16 and 32) and of the scatter-add and its backward
      (``odd_shape_checks``), held only.
@@ -140,7 +146,16 @@
    callables and their build seconds, TTFT p50/p95/p99, decode tok/s,
    occupancy, lane imbalance and top-expert share, launches and peak
    memory, and profiles one admission prefill per prompt length and one
-   pool decode step.
+   pool decode step.  Then the ssm and hybrid families at full width and
+   full depth (``SSM_SERVE``): mamba2-2.7b (64 layers) and hymba-1.5b (32)
+   served 8 x 512 and hymba one 2048-token prompt past its window, each
+   held to ``ssm_serve_implied`` (the flash forward once a hybrid layer a
+   prefill, none in decode, no other kernel) and profiled; both through
+   ``serve.run --continuous`` (``SSM_CONTINUOUS``: buckets 256 and 512, the
+   SSD chunk's multiples; launches held to the code's count); and the bf16
+   prefill of mamba2 at 1 and 4 layers against the same weights in f32
+   (``ssd_bf16_gap``: the SSD's decays and cumsums in bf16, as the
+   reference's).
 7. Train phases: zero the counters, train full-width qwen3-moe-30b-a3b (4
    of 48 layers) for 8 AdamW steps through ``repro_torch.launch.train``,
    through fused_flat and then through fused_hier, then moe-tx-stream-1b
@@ -151,8 +166,10 @@
    moe-ffn-stream-1b (all 16 layers) through fused_flat and streamed
    fused_pipe, B 4 x S 512, 8 steps, and (``LANE_TRAINS``) both stream
    families at two lanes with ``--accum 2`` fused into them (one loss call
-   a step, traffic on), their launches held to ``lane_launches``; read the
-   counters and fail if a
+   a step, traffic on), their launches held to ``lane_launches``, and
+   (``SSM_TRAINS``) hymba-1.5b at its 32 layers and mamba2-2.7b at 16 of
+   its 64 (its AdamW state at 64 would be 45.3 GB), held to
+   ``ssm_train_implied``; read the counters and fail if a
    kernel of the path (``family_kernels``: the five and the scatter-add's
    backward, flash only where the family has attention, none of the MoE
    kernels for the dense family) never launched or one off it did, a loss
@@ -193,10 +210,11 @@
    state) through each engine, and of the reduced moe-tx through fused_flat
    and streamed fused_pipe, of the reduced qwen3-1.7b and moe-ffn-stream
    (``NEW_REDUCED``: serve logits and the train step, moe-ffn through
-   fused_flat and streamed fused_pipe); and the continuous engine over the
+   fused_flat and streamed fused_pipe), of the reduced mamba2-2.7b and
+   hymba-1.5b; and the continuous engine over the
    reduced models in f32 (``continuous_check``: qwen3-moe through
-   fused_flat and fused_hier, moe-tx, qwen3-1.7b and moe-ffn through
-   fused_flat; 6 requests, a pool of 4): the card's token
+   fused_flat and fused_hier, moe-tx, qwen3-1.7b, moe-ffn, mamba2 and
+   hymba through fused_flat; 6 requests, a pool of 4): the card's token
    streams must equal the CPU's and its own batch-1 waved oracle's, and
    its traffic state the CPU's within 1e-5.  At two lanes
    (``lane_capacity``: no row dropped): both stream families' serve logits
@@ -441,7 +459,9 @@ TX_REDUCED_ENGINES = ("fused_flat", "fused_pipe")
 # the reduced checks of the dense family and of moe-ffn (the barriers, and
 # fused_pipe streamed over one block of both layers)
 NEW_REDUCED = [("qwen3-1.7b", "fused_flat"), ("moe-ffn-stream", "fused_flat"),
-               ("moe-ffn-stream", "fused_pipe")]
+               ("moe-ffn-stream", "fused_pipe"),
+               # the ssm and hybrid families (no MoE: the engine is ignored)
+               ("mamba2-2.7b", "fused_flat"), ("hymba-1.5b", "fused_flat")]
 ENGINE_SHAPES = {"serve": PATHS["qwen3-moe-30b-a3b"][1], "train": TRAIN[1]}
 # the same layer narrowed for the float32 check (d 256, f 128)
 ENGINE_F32 = dict(ENGINE_SHAPES["serve"], d=256, f=128)
@@ -470,7 +490,9 @@ CONTINUOUS_CHECKS = (("qwen3-moe-30b-a3b", "fused_flat", 1),
                      ("moe-tx-stream", "fused_flat", 1),
                      ("qwen3-1.7b", "fused_flat", 1),
                      ("moe-ffn-stream", "fused_flat", 1),
-                     (FFN, "fused_pipe", LANES))
+                     (FFN, "fused_pipe", LANES),
+                     ("mamba2-2.7b", "fused_flat", 1),
+                     ("hymba-1.5b", "fused_flat", 1))
 TOL_TRAFFIC = 1e-5        # traffic state, card vs CPU, relative to max(1, |x|)
 # the time split of the Hopper forms (csrc/hopper.cuh): each is built again
 # with the consumers issuing no wgmma, and with the producer loading nothing
@@ -766,6 +788,10 @@ def odd_shape_checks(device="cuda") -> list[str]:
             (1, 37, 333, 6, 1, 128, 296, 70),
             (2, 101, 177, 14, 2, 64, 76, 40), (2, 37, 70, 56, 8, 128, 33, None),
             (1, 101, 300, 7, 1, 128, 199, 90),
+            # hymba's G 5 at hd 64: the window binding over 2048 queries,
+            # an Sq off the 12-query tile against a longer, shifted Sk
+            (1, 2048, 2048, 25, 5, 64, 0, 1024),
+            (2, 101, 230, 25, 5, 64, 129, 64),
             (4, 16, 16, 4, 2, 16, 0, None), (2, 50, 77, 8, 4, 16, 27, 16),
             (1, 100, 100, 8, 4, 32, 0, 40)):
         form = ("tensor-core" if fa_k.hopper_refusal(hd, hq, hkv, sk)
@@ -4694,6 +4720,10 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
 
     for step, p in profile_phase(argv).items():
         print_profile(f"{label} {step}", p, unprofiled[step])
+        if p is not None:
+            print("  device ms by kind: " + ", ".join(
+                f"{k} {ms:.4f}"
+                for k, ms in device_kinds(p["by_kernel"]).items()))
         check_profile(f"{label} {step}", p,
                       flash=step == "prefill" and lm.has_attention(cfg))
         times[f"{step}_busy_share"] = (None if p is None
@@ -4981,6 +5011,197 @@ def large_train_rows(timer=time_ms) -> list[dict]:
     return rows, back
 
 
+# the ssm and hybrid families at full width: mamba2-2.7b (attention-free;
+# d 2560, 80 SSM heads of 64, d_state 128, chunk 256) and hymba-1.5b (25 / 5
+# heads of 64: group size 5, the Hopper flash form's tiles of 12 queries;
+# window 1024 on every layer but 0, 15 and 31; its SSM branch 50 heads of
+# 64, d_state 16), served at full depth 8 x 512 (+16) lock-step and through
+# the continuous engine (buckets 256 and 512), hymba also one 2048-token
+# prompt (the window binds on 29 layers), and trained B 4 x S 512, 8 AdamW
+# steps: hymba at its 32 layers (~26.3 GB of parameters and AdamW state),
+# mamba2 at 16 of its 64 (14.4 GB; at 64 the state alone would be 45.3 GB
+# and each layer keeps (B, chunks, 80, 256, 256) SSD scores and decays for
+# the backward).  Every prompt length a multiple of the SSD chunk
+MAMBA, HYMBA = "mamba2-2.7b", "hymba-1.5b"
+SSM_ARCHS = (MAMBA, HYMBA)
+HYMBA_PROMPT = 2048
+SSM_SERVE = {MAMBA: ["--arch", MAMBA] + LARGE_FLAGS,
+             HYMBA: ["--arch", HYMBA] + LARGE_FLAGS,
+             f"{HYMBA} window": ["--arch", HYMBA, "--requests", "1",
+                                 "--prompt-len", str(HYMBA_PROMPT), "--gen",
+                                 "16"]}
+SSM_CONTINUOUS = {f"{a} continuous": ["--arch", a, "--continuous"]
+                  + LARGE_FLAGS for a in SSM_ARCHS}
+MAMBA_TRAIN_LAYERS = 16
+SSM_TRAINS = {f"{MAMBA} train": ["--arch", MAMBA, "--layers",
+                                 str(MAMBA_TRAIN_LAYERS)] + TRAIN_FLAGS,
+              f"{HYMBA} train": ["--arch", HYMBA] + TRAIN_FLAGS}
+# hymba's flash forward at its paths' shapes: (attention shape, windows)
+HYMBA_ATTN = {
+    HYMBA: (dict(b=8, sq=512, sk=512, hq=25, hkv=5, hd=64), (1024, None)),
+    f"{HYMBA} window": (dict(b=1, sq=HYMBA_PROMPT, sk=HYMBA_PROMPT, hq=25,
+                             hkv=5, hd=64), (1024,)),
+    f"{HYMBA} train": (dict(b=4, sq=512, sk=512, hq=25, hkv=5, hd=64),
+                       (1024,))}
+# the bf16 prefill of mamba2 at full width, cut to these depths, against the
+# same weights in f32: the SSD's decays and cumulative sums in bf16, as the
+# reference computes them; then the SSD alone at one layer's shapes (B 2 x S
+# 512, 80 heads of 64, d_state 128) at these chunks, whose log-decay
+# cumsums reach about -0.8 x chunk
+SSD_GAP_LAYERS = (1, 4)
+SSD_GAP_CHUNKS = (256, 64, 16)
+
+
+def ssm_serve_implied(argv) -> dict:
+    """The launches a lock-step serve run of an ssm or hybrid ``argv``
+    implies: two prefills of one flash forward a hybrid layer (none in
+    decode, plain torch as the reference's jnp), no other kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(argv)
+    cfg = get_arch(args.arch).reduced() if args.reduced else get_arch(args.arch)
+    layers = args.layers or cfg.n_layers
+    out = dict.fromkeys(counters(), 0)
+    if lm.has_attention(cfg):
+        out["flash_attention"] = 2 * layers
+    return out
+
+
+def ssm_train_implied(argv) -> dict:
+    """The launches a train run of an ssm or hybrid ``argv`` implies: one
+    flash forward a hybrid layer a step, no other kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    args = train.parse_args(argv)
+    cfg = get_arch(args.arch).reduced() if args.reduced else get_arch(args.arch)
+    out = dict.fromkeys(counters(), 0)
+    if lm.has_attention(cfg):
+        out["flash_attention"] = (args.layers or cfg.n_layers) * args.steps
+    return out
+
+
+def hymba_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
+    """The flash forward at hymba's shapes (``HYMBA_ATTN``: hd 64, group
+    size 5): its serve prefill with the window of 1024 (not binding at 512)
+    and global, the 2048-token prompt (the window binds) and the train
+    forward, each held against its plain version and timed beside SDPA."""
+    import torch
+    rows = []
+    for path, (attn, windows) in HYMBA_ATTN.items():
+        with torch.inference_mode():
+            inp = attention_inputs(device, **attn)
+            rows += [dict(flash_row(*inp, window=w, timer=timer), path=path)
+                     for w in windows]
+            del inp
+    return rows
+
+
+def ssm_continuous_phase(label: str, argv, device="cuda") -> dict:
+    """``serve.run --continuous`` of an ssm or hybrid model at full width
+    (a pool of as many slots as requests, buckets the SSD chunk's
+    multiples), with the launch counters zeroed just before it and read
+    just after: every request gets its tokens in the vocabulary, every
+    bucket is a multiple of the chunk, and the flash forward launched once
+    a hybrid layer a prefill (one per bucket at warm-up, one per admission
+    of one request), nothing else.  Returns the launch counts."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    args = serve.parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = zero_counters()
+    out = serve.run(args, device=device)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    eng, cfg = out["engine"], out["cfg"]
+    implied = dict.fromkeys(launches, 0)
+    if lm.has_attention(cfg):
+        implied["flash_attention"] = cfg.n_layers * (len(eng.buckets)
+                                                     + args.requests)
+    if launches != implied or any(b % lm.seq_multiple(cfg)
+                                  for b in eng.buckets):
+        raise AssertionError(f"{label}: launches {launches}, its code implies "
+                             f"{implied}; buckets {eng.buckets}")
+    done = out["done"]
+    if (len(done) != args.requests
+            or any(len(r.output) != args.gen for r in done)
+            or not all(0 <= t < cfg.vocab for r in done for t in r.output)):
+        raise AssertionError(f"{label}: a request lacks its tokens")
+    st = out["stats"]
+    print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{args.requests} requests of {args.prompt_len} tokens, "
+          f"{args.gen} each, pool {args.requests}, buckets "
+          f"{list(eng.buckets)}: {eng.compile_count} prepared callables "
+          f"built in {out['compile_s']:.2f} s; ttft p50 "
+          f"{st['p50_ttft_s'] * 1e3:.3f} p99 {st['p99_ttft_s'] * 1e3:.3f} ms "
+          f"(queued before the run); decode {st['decode_tok_s']:.1f} tok/s; "
+          f"occupancy {st['mean_slot_occupancy']:.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{json.dumps(launches)}, as its code implies")
+    print(f"sample tokens: {done[0].output}")
+    del out, eng, done
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssd_bf16_gap(device="cuda", depths=SSD_GAP_LAYERS) -> list[str]:
+    """mamba2-2.7b at full width cut to each of ``depths``: the bf16
+    prefill (2 x 512 tokens) of seed-0 weights against the same weights in
+    f32 on the card; the SSD's decays and cumulative sums take the compute
+    dtype, as the reference's do, so over a 256-step chunk the log-decay's
+    cumsum (about -180) keeps a bf16 spacing of 1.  Returns one line per
+    depth: the worst logit gap and the f32 logits' largest magnitude; then
+    one per chunk of ``SSD_GAP_CHUNKS``: ``ssd_chunked`` alone in bf16
+    against f32 on the same inputs (x and B, C normal, the log-decay
+    -softplus of a normal, as dt x A with A = -1), its worst output gap
+    relative to the f32 output's largest magnitude."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    lines = []
+    for layers in depths:
+        cfg = dataclasses.replace(get_arch(MAMBA), n_layers=layers)
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = lm.init_params(cfg, lm.make_context(cfg, device), gen)
+        tokens = torch.randint(0, cfg.vocab, (2, 512), generator=gen,
+                               device=device)
+        pos = torch.arange(512, device=device)
+        logits = {}
+        with torch.inference_mode():
+            for dt in (torch.bfloat16, torch.float32):
+                p = adamw.tree_map(lambda t: t.to(dt), params)
+                logits[dt] = lm.prefill(p, tokens, pos, lm.make_context(
+                    cfg, device, compute_dtype=dt), 512)[0]
+        gap = max_err(logits[torch.bfloat16], logits[torch.float32])
+        scale = logits[torch.float32].abs().max().item()
+        if not all(bool(torch.isfinite(v).all()) for v in logits.values()):
+            raise AssertionError(f"mamba2 {layers} layers: non-finite logits")
+        lines.append(f"{layers} layers: worst logit gap {gap:.4g}, f32 "
+                     f"|logit| max {scale:.4g} (relative {gap / scale:.4g})")
+        del params, logits
+        torch.cuda.empty_cache()
+    from repro_torch.layers import ssm
+    g = torch.Generator(device=device).manual_seed(1)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    x, b, c = randn(2, 512, 80, 64), randn(2, 512, 1, 128), randn(2, 512, 1, 128)
+    a_log = -torch.nn.functional.softplus(randn(2, 512, 80))
+    for chunk in SSD_GAP_CHUNKS:
+        with torch.inference_mode():
+            y = {dt: ssm.ssd_chunked(*(t.to(dt) for t in (x, a_log, b, c)),
+                                     chunk)[0]
+                 for dt in (torch.bfloat16, torch.float32)}
+        scale = y[torch.float32].abs().max().item()
+        gap = max_err(y[torch.bfloat16], y[torch.float32])
+        lines.append(f"the SSD alone, chunk {chunk}: worst output gap "
+                     f"{gap:.4g} of f32 |y| max {scale:.4g} (relative "
+                     f"{gap / scale:.4g})")
+    return lines
+
+
 T0 = time.perf_counter()
 
 
@@ -5124,6 +5345,7 @@ def main() -> None:
     rows += large_train
     with torch.no_grad():
         rows += tp_flash_rows()
+    rows += hymba_flash_rows()
     stamp("the kernel rows of the large paths")
     train_inp = main_path_inputs("cuda", **TRAIN[1])
     for r in rows:
@@ -5133,6 +5355,7 @@ def main() -> None:
     rows += backward_report(tx_inp, TX_TRAIN[2], "moe-tx train")
     rows += backward_report(ffn_train, None, "moe-ffn train")
     backward_report(None, DENSE_ATTN[f"{DENSE} train"], f"{DENSE} train")
+    backward_report(None, HYMBA_ATTN[f"{HYMBA} train"][0], f"{HYMBA} train")
     del train_inp, tx_inp, ffn_train
     torch.cuda.empty_cache()
 
@@ -5200,6 +5423,16 @@ def main() -> None:
             label, argv, *family_kernels(get_arch(argv[1]), train=False),
             implied=serve_implied(argv))
     stamp("the large serve phases")
+    for label, argv in SSM_SERVE.items():
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, *family_kernels(get_arch(argv[1]), train=False),
+            implied=ssm_serve_implied(argv))
+    for label, argv in SSM_CONTINUOUS.items():
+        launches[label] = ssm_continuous_phase(label, argv)
+    for line in ssd_bf16_gap():
+        print(f"mamba2-2.7b bf16 prefill (2 x 512) vs the same weights in f32 "
+              f"on the card ({card_line()}): {line}")
+    stamp("the ssm and hybrid serve phases")
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
@@ -5244,6 +5477,10 @@ def main() -> None:
         launches[label] = train_and_profile(label, argv,
                                             implied=train_implied(argv))
     stamp("the large train phases")
+    for label, argv in SSM_TRAINS.items():
+        launches[label] = train_and_profile(label, argv,
+                                            implied=ssm_train_implied(argv))
+    stamp("the ssm and hybrid train phases")
     ckpt = checkpoint_phase()
     launches["checkpoint"] = ckpt["launches"]
     print_checkpoint(ckpt)

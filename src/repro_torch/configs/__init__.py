@@ -8,8 +8,10 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "qwen3-14b": "qwen3_14b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "mamba2-2.7b": "mamba2_2_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "hymba-1.5b": "hymba_1_5b",
     # the paper's benchmark point (Table 2) in DeepSeek-V3 proportions
     "deepseek-v3-bench": "deepseek_v3_bench",
     "moe-tx-stream": "moe_tx_stream",

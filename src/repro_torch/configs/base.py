@@ -21,9 +21,20 @@ class MoESpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SsmSpec:
+    d_state: int
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_kernel: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | moe_tx | moe_ffn (ported)
+    family: str                      # dense | moe | moe_tx | moe_ffn | ssm |
+                                     # hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,8 +45,9 @@ class ArchConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     moe: Optional[MoESpec] = None
+    ssm: Optional[SsmSpec] = None
     window: Optional[int] = None     # sliding-window attention
-    global_layers: Tuple[int, ...] = ()
+    global_layers: Tuple[int, ...] = ()   # hybrid: layers with global attn
     source: str = ""
 
     @property
@@ -43,6 +55,10 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid") or self.window is not None
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family & wiring, tiny dims."""
@@ -61,4 +77,6 @@ class ArchConfig:
             moe=dataclasses.replace(self.moe, n_experts=8,
                                     top_k=min(self.moe.top_k, 2),
                                     d_ff_expert=32) if self.moe else None,
+            ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=8, chunk=8)
+            if self.ssm else None,
         )

@@ -1,8 +1,9 @@
 """Parameters of the JAX package -> parameters of the port.
 
 ``params_from_jax`` takes the tree that ``repro.models.lm.init_params``
-builds (lm.py:210-233) for a ``dense``-, ``moe``-, ``moe_tx``- or
-``moe_ffn``-family model (its keys by family, :data:`KEYS`; the q/k norms
+builds (lm.py:210-233) for a ``dense``-, ``moe``-, ``moe_tx``-,
+``moe_ffn``-, ``ssm``- or ``hybrid``-family model (its keys by family,
+:data:`KEYS`; the q/k norms
 where the config has them), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
 keys and the same layouts, leaf for leaf, as torch tensors on ``device``;
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.lm import FAMILY_PARTS, lane_cut, lane_sharded, tp_cut
+from repro_torch.models.lm import (FAMILY_PARTS, HYBRID_NORMS, lane_cut,
+                                   lane_sharded, tp_cut)
 from repro_torch.parallel import sharding
 
 _COMMON = {"embed", "final_norm", "lm_head", "layers/ln1"}
@@ -29,10 +31,15 @@ _PART_KEYS = {
              "layers/attn/wv", "layers/attn/wo"},
     "mlp": {"layers/mlp/w_gate", "layers/mlp/w_up", "layers/mlp/w_down"},
     "moe": {"layers/moe/router", "layers/moe/w1", "layers/moe/w3",
-            "layers/moe/w2"}}
-# the leaves of each family's tree, from its sub-layers (lm.FAMILY_PARTS)
+            "layers/moe/w2"},
+    "ssm": {f"layers/ssm/{k}" for k in (
+        "in_proj_zx", "in_proj_dt", "conv_w", "dt_bias", "a_log", "d_skip",
+        "norm", "out_proj")}}
+# the leaves of each family's tree, from its sub-layers (lm.FAMILY_PARTS),
+# and the hybrid family's two branch norms
 KEYS = {f: _COMMON.union(*(_PART_KEYS[p] for p in parts))
         for f, parts in FAMILY_PARTS.items()}
+KEYS["hybrid"] = KEYS["hybrid"] | {f"layers/{n}" for n in HYBRID_NORMS}
 _OPTIONAL = {"layers/attn/q_norm", "layers/attn/k_norm"}
 
 

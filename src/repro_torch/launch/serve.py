@@ -30,6 +30,13 @@ moe_tx family too)
 --prompt-len 512 --gen 16`` (the dense family: attention and the SwiGLU MLP,
 no MoE, so the engine flags are ignored)
 
+``python -m repro_torch.launch.serve --arch mamba2-2.7b --requests 8
+--prompt-len 512 --gen 16`` and ``--arch hymba-1.5b`` (the ssm and hybrid
+families: Mamba2's SSD mixer, Hymba's parallel attention and SSM heads;
+``--prompt-len`` a multiple of the SSD chunk, 256 at full width and 8
+reduced, and with ``--continuous`` the engine's buckets are its multiples
+too)
+
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
 --requests 8 --prompt-len 64 --gen 16 --continuous`` (the requests through
 ``serving.engine.ContinuousServingEngine``, a pool of ``--requests`` slots:

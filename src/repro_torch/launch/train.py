@@ -21,6 +21,11 @@ accumulation micro-batches fused into them: one loss call a step)
 ``python -m repro_torch.launch.train --arch qwen3-1.7b --batch 4 --seq 512
 --steps 8`` (the dense family: no MoE, so the engine flags are ignored)
 
+``python -m repro_torch.launch.train --arch hymba-1.5b --batch 4 --seq 512
+--steps 8`` and ``--arch mamba2-2.7b --layers 16`` (the hybrid and ssm
+families: no MoE either; ``--seq`` a multiple of the SSD chunk, 256 at full
+width, 8 reduced; one card or a data group, no model group)
+
 ``--engine`` takes ``fused_hier`` (the default, as the reference's),
 ``fused_flat`` (``--dedup``: the condensed wire), ``fused_pipe``, ``ragged``
 and ``disagg``; ``--calibrate`` measures the pipe constants that choose

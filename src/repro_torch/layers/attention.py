@@ -1,7 +1,8 @@
 """Attention: GQA with qk-norm, RoPE, position-masked causal attention and
 the decode KV cache (port of ``repro/layers/attention.py``, the parts the
-serving of the moe and moe_tx families, lock-step or per-slot, and the moe
-family's training use).
+serving of the attention families, lock-step or per-slot, and their
+training use; the hybrid family's decode masks its window with
+``window_len``).
 
 :func:`causal_attention` stands in for the reference's lax flash attention
 (attention.py:35-244), which follows the same position contract as the
@@ -54,11 +55,15 @@ def cache_update(cache: KVCache, k_new: torch.Tensor,
     return KVCache(cache.k, cache.v, cache.length + 1, cache.max_len)
 
 
-def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, cache: KVCache,
+                     window_len: int | None = None) -> torch.Tensor:
     """One-token attention against the cache.  q: (B, 1, Hq, hd).  Each row
     holds its last min(length, C) positions in the ring and masks the other
     slots; a row at length 0 (a free slot) sees a uniform softmax over its
-    masked scores: finite values, which the serving engine drops."""
+    masked scores: finite values, which the serving engine drops.
+    ``window_len`` also masks the slots older than it (the hybrid family's
+    sliding-window layers, whose cache holds every position for the global
+    layers' sake)."""
     b, _, hq, hd = q.shape
     hkv = cache.k.shape[2]
     g = hq // hkv
@@ -70,6 +75,8 @@ def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
     slot = torch.arange(c, device=q.device)[None, :]
     age = (length % c - 1 - slot) % c                       # (B, C), 0 = newest
     valid = age < length.clamp(max=c)
+    if window_len is not None:
+        valid &= age < window_len
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(cache.v.dtype), cache.v)

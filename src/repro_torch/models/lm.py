@@ -1,9 +1,9 @@
-"""Decoder-only LM, ``dense``, ``moe``, ``moe_tx`` and ``moe_ffn`` families:
-parameters, prefill and single-token decode (port of ``repro/models/lm.py``,
-the serving path: a lock-step batch or a continuous-batching slot pool with
-per-row positions), the training forward and chunked CE loss, and the
-online traffic statistics threaded through the prefill and the training
-forward of the MoE families.
+"""Decoder-only LM, ``dense``, ``moe``, ``moe_tx``, ``moe_ffn``, ``ssm`` and
+``hybrid`` families: parameters, prefill and single-token decode (port of
+``repro/models/lm.py``, the serving path: a lock-step batch or a
+continuous-batching slot pool with per-row positions), the training forward
+and chunked CE loss, and the online traffic statistics threaded through the
+prefill and the training forward of the MoE families.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
 (moe: sequential blocks), ``layers/moe.stream_tx_layers`` (moe_tx: parallel
@@ -12,6 +12,12 @@ attention-free chain of MoE layers, in cross-layer stream blocks), each EP
 rank on its stripe of the sequence, as the reference's islands shard it.
 The dense family's blocks are attention then the SwiGLU MLP, whose products
 are ``torch.matmul`` (the reference's are jnp, outside any Pallas kernel).
+The ssm family's layers are ``h + mamba2(ln1 h)`` (``layers/ssm.py``), the
+hybrid family's Hymba's parallel attention and SSM heads
+(``layers/hybrid.py``) then the SwiGLU MLP, its attention windowed on
+every layer but ``cfg.global_layers``; both run on one rank or over a data
+group only (:func:`make_context`), and their decode state carries each
+layer's SSD state and conv inputs (``DecodeState.ssm``).
 Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
 Training over a model group (an EP group, or that of a (data, model)
 grid) runs the dense and moe families' attention and the dense MLP as
@@ -51,6 +57,8 @@ from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
                                           gqa_project)
 from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
+from repro_torch.layers.hybrid import hymba_mixer
+from repro_torch.layers.ssm import SsmState, mamba2_mixer
 from repro_torch.parallel import sharding, tp_blocks
 from repro_torch.layers.moe import (moe_block, moe_decode_block,
                                     stream_moe_layers, stream_tx_layers)
@@ -112,10 +120,17 @@ class ModelContext:
 
 
 # the sub-layers of each ported family's layer, besides ``ln1`` (the
-# reference's init_params by family, lm.py:214-221): ``attn`` brings ``ln2``
+# reference's init_params by family, lm.py:214-225): ``attn`` brings ``ln2``;
+# the hybrid family's layers also hold ``attn_out_norm`` and
+# ``ssm_out_norm`` (:data:`HYBRID_NORMS`)
 FAMILY_PARTS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe"),
-                "moe_tx": ("attn", "moe"), "moe_ffn": ("moe",)}
+                "moe_tx": ("attn", "moe"), "moe_ffn": ("moe",),
+                "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm")}
 FAMILIES = tuple(FAMILY_PARTS)
+HYBRID_NORMS = ("attn_out_norm", "ssm_out_norm")
+# the families that run on one rank or over a data group only: the split of
+# their layers over a model group is not ported (:func:`make_context`)
+WHOLE_LAYER_FAMILIES = ("ssm", "hybrid")
 
 
 def has_attention(cfg: ArchConfig) -> bool:
@@ -126,6 +141,33 @@ def has_attention(cfg: ArchConfig) -> bool:
 def has_mlp(cfg: ArchConfig) -> bool:
     """Whether ``cfg``'s layers hold a dense SwiGLU MLP."""
     return "mlp" in FAMILY_PARTS[cfg.family]
+
+
+def has_ssm(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s layers hold a Mamba2 mixer (and an SSM state)."""
+    return "ssm" in FAMILY_PARTS[cfg.family]
+
+
+def seq_multiple(cfg: ArchConfig) -> int:
+    """The multiple every prefill or training sequence of ``cfg`` must be:
+    the SSD's chunk for a family with a Mamba2 mixer, else 1."""
+    return cfg.ssm.chunk if has_ssm(cfg) else 1
+
+
+def ssm_args(cfg: ArchConfig) -> dict:
+    """``mamba2_mixer``'s dims of ``cfg`` (the reference's ``_ssm_args``,
+    lm.py:236-240)."""
+    s = cfg.ssm
+    din, h, _ = _ssm_dims(cfg)
+    return dict(d_inner=din, n_heads=h, head_dim=s.head_dim,
+                d_state=s.d_state, n_groups=s.n_groups, chunk=s.chunk)
+
+
+def _ssm_dims(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(d_inner, SSM heads, conv_dim) of ``cfg``."""
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+    return din, din // s.head_dim, din + 2 * s.n_groups * s.d_state
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
@@ -175,7 +217,11 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     (dense) has no placement and no dcomm config, as the reference's; over
     a model group it runs TP (its replicated layout with
     ``explicit_tp=False``), and data parallelism over ``mesh``'s data
-    group.  Raises if ``device`` is CUDA and no card is there."""
+    group.  The ssm and hybrid families run on one rank or over a data
+    group; over a model group of more than one rank they raise
+    NotImplementedError (the reference's column split of ``in_proj_zx``,
+    ``conv_w`` and ``out_proj`` over it is not ported).  Raises if
+    ``device`` is CUDA and no card is there."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (only {FAMILIES}): "
@@ -189,6 +235,12 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
                            "device (pass device='cpu' to run the plain path)")
     ep = group_size(ep_group)
+    if cfg.family in WHOLE_LAYER_FAMILIES and ep > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family over a model group of {ep} ranks is not "
+            "ported: ROADMAP queue 1 item 8, the ssm and hybrid families over "
+            "a model group (the column split of in_proj_zx / conv_w / "
+            "out_proj)")
     if cfg.moe is None:
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
@@ -431,9 +483,11 @@ def held_lanes(ctx: ModelContext) -> range:
 def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                 dtype=torch.bfloat16) -> dict:
     """Random parameters from ``gen`` in the reference's tree and layouts
-    (lm.py:210-233), its layers by family: ``ln1``, then ``attn`` and
-    ``ln2`` (dense, moe, moe_tx), ``mlp`` (dense: ``w_gate``/``w_up`` (L, d,
-    f), ``w_down`` (L, f, d)) and ``moe`` (the MoE families); layers stacked
+    (lm.py:191-233), its layers by family: ``ln1``, then ``attn`` and
+    ``ln2`` (dense, moe, moe_tx, hybrid), ``mlp`` (dense, hybrid:
+    ``w_gate``/``w_up`` (L, d, f), ``w_down`` (L, f, d)), ``moe`` (the MoE
+    families), ``ssm`` (ssm, hybrid: :func:`_ssm_params`) and the hybrid
+    family's ``attn_out_norm`` and ``ssm_out_norm``; layers stacked
     on a leading (L,) axis, expert weights lane-major (L, lanes, E_local,
     d, f).  Over an EP group of more than one rank the expert leaves hold
     this rank's lane only (lanes = 1), and the other lanes are never drawn;
@@ -472,6 +526,10 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                          "w1": experts("w1", (L, d, fe)),
                          "w3": experts("w3", (L, d, fe)),
                          "w2": experts("w2", (L, fe, d))}
+    if has_ssm(cfg):
+        layers["ssm"] = _ssm_params(cfg, gen, dtype, ctx.device)
+    if cfg.family == "hybrid":
+        layers.update({name: ones((L, d)) for name in HYBRID_NORMS})
     return {
         "embed": _tp_own("embed", embed_init(gen, cfg.vocab, d, dtype,
                                              ctx.device), ctx),
@@ -479,6 +537,26 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
         "final_norm": ones((d,)),
         "lm_head": _tp_own("lm_head", init((d, cfg.vocab)), ctx),
     }
+
+
+def _ssm_params(cfg: ArchConfig, gen: torch.Generator, dtype,
+                device) -> dict:
+    """The Mamba2 leaves (the reference's ``_ssm_params``, lm.py:191-207):
+    ``a_log`` 0 (A = -1), ``dt_bias`` 0, ``d_skip`` 1, ``norm`` 1, the
+    conv taps at scale 0.5."""
+    L, d = cfg.n_layers, cfg.d_model
+    din, h, conv_dim = _ssm_dims(cfg)
+    init = lambda shape, scale=None: dense_init(gen, shape, scale, dtype,
+                                                device)
+    full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=device)
+    return {"in_proj_zx": init((L, d, din + conv_dim)),
+            "in_proj_dt": init((L, d, h)),
+            "conv_w": init((L, cfg.ssm.conv_kernel, conv_dim), 0.5),
+            "dt_bias": full((L, h), 0.0),
+            "a_log": full((L, h), 0.0),          # A = -exp(0) = -1
+            "d_skip": full((L, h), 1.0),
+            "norm": full((L, din), 1.0),
+            "out_proj": init((L, din, d))}
 
 
 def param_counts(cfg: ArchConfig) -> tuple[int, int]:
@@ -492,6 +570,12 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
             2 * hd if cfg.qk_norm else 0)
     if has_mlp(cfg):
         layer += 3 * d * cfg.d_ff
+    if has_ssm(cfg):
+        din, h, conv_dim = _ssm_dims(cfg)
+        layer += (d * (din + conv_dim) + d * h + cfg.ssm.conv_kernel * conv_dim
+                  + 3 * h + din + din * d)
+    if cfg.family == "hybrid":
+        layer += len(HYBRID_NORMS) * d
     experts = 0
     if cfg.moe is not None:
         layer += d * cfg.moe.n_experts
@@ -593,10 +677,24 @@ class DecodeState(NamedTuple):
                           # row (a lock-step batch), or (B,) one count a row
                           # (a continuous-batching slot pool: each row decodes
                           # at its own position; free slots sit at 0)
+    ssm: Any = None      # {"state": (L, B, H, P, N), "conv": (L, B, K-1,
+                         # conv_dim)}: each layer's SSD state and last conv
+                         # inputs (ssm, hybrid); None for the other families
 
 
 def _kv_capacity(cfg: ArchConfig, max_len: int) -> int:
+    """Cache slots a layer: the window where there is one, except that a
+    hybrid model with global layers keeps every position in every layer
+    (one stacked cache; the reference's lm.py:593-598)."""
+    if cfg.family == "hybrid" and cfg.global_layers:
+        return max_len
     return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def layer_window(cfg: ArchConfig, i: int) -> int | None:
+    """The attention window of layer ``i``: None on the hybrid family's
+    global layers, else ``cfg.window``."""
+    return None if i in cfg.global_layers else cfg.window
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -604,16 +702,25 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     """Zeroed decode state of this rank's rows of a global ``batch``
     (:func:`data_rows`: all of them without a data group); ``per_slot``
     makes ``length`` per row (one int32 a row), the continuous-batching
-    slot pool.  No cache (``kv`` None) for a family without attention."""
+    slot pool.  No cache (``kv`` None) for a family without attention; the
+    SSD states and conv inputs (``ssm``) for a family with a Mamba2
+    mixer."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=ctx.device)
     rows = data_rows(ctx, batch)
     batch = rows.stop - rows.start
-    kv = None
+    L = cfg.n_layers
+    kv = ssm = None
     if has_attention(cfg):
         c = _kv_capacity(cfg, max_len)
-        shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.hd)
+        shape = (L, batch, c, cfg.n_kv_heads, cfg.hd)
         kv = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
-    return DecodeState(kv, zeros((batch,) if per_slot else (), torch.int32))
+    if has_ssm(cfg):
+        s = cfg.ssm
+        _, h, conv_dim = _ssm_dims(cfg)
+        ssm = {"state": zeros((L, batch, h, s.head_dim, s.d_state), dtype),
+               "conv": zeros((L, batch, s.conv_kernel - 1, conv_dim), dtype)}
+    return DecodeState(kv, zeros((batch,) if per_slot else (), torch.int32),
+                       ssm)
 
 
 def _cache_slots(kv: torch.Tensor, s: int, cap: int) -> torch.Tensor:
@@ -705,6 +812,61 @@ def _tp_layer(h: torch.Tensor, lp, positions: torch.Tensor,
     return h + y if traffic is None else (h + y[0], y[1])
 
 
+def _unstack(tree, cd: torch.dtype) -> list:
+    """Each layer's parameters of a stacked (L, ...) tree, float leaves in
+    ``cd``: each leaf cast once and unbound once (``torch.unbind``: views),
+    so the backward assembles each stacked gradient with one stack, not one
+    zero-filled gradient of the whole stack a layer."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, cd) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(torch.unbind(tree.to(cd) if tree.is_floating_point()
+                             else tree))
+
+
+def _hymba(x, lp, positions, cfg: ArchConfig, i: int, **kw):
+    """Layer ``i``'s ``hymba_mixer`` of ``cfg``."""
+    return hymba_mixer(x, lp, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                       head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                       positions=positions, window=layer_window(cfg, i),
+                       ssm_args=ssm_args(cfg), **kw)
+
+
+def _whole_stack(params, h: torch.Tensor, positions: torch.Tensor,
+                 ctx: ModelContext, cap: int | None = None):
+    """The ssm or hybrid stack over (B, S, d) ``h`` (the reference's
+    lm.py:447-457 and :499-503): ssm ``h + mamba2(ln1 h)``; hybrid ``h +
+    hymba(ln1 h)`` then ``h + mlp(ln2 h)``, each layer's attention windowed
+    by :func:`layer_window`.  Returns the final-normed h; with ``cap``
+    (prefill) also the decode caches of the attention layers (the last
+    ``cap`` positions, at slot p % cap; None for ssm) and each layer's SSD
+    state and conv inputs, stacked."""
+    cfg, cd = ctx.cfg, ctx.compute_dtype
+    s = h.shape[1]
+    ks, vs, states, convs = [], [], [], []
+    for i, lp in enumerate(_unstack(params["layers"], cd)):
+        x = rms_norm(h, lp["ln1"])
+        if cfg.family == "ssm":
+            y, st = mamba2_mixer(x, lp["ssm"], **ssm_args(cfg))
+            h = h + y
+        else:
+            mix, (k, v), st = _hymba(x, lp, positions, cfg, i)
+            h = h + mix
+            h = h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"])
+            if cap is not None:
+                ks.append(_cache_slots(k, s, cap))
+                vs.append(_cache_slots(v, s, cap))
+        if cap is not None:
+            states.append(st.ssd)
+            convs.append(st.conv)
+    h = rms_norm(h, params["final_norm"].to(cd))
+    if cap is None:
+        return h
+    kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+    return h, kv, {"state": torch.stack(states), "conv": torch.stack(convs)}
+
+
 def _traffic_needs_moe(cfg: ArchConfig, traffic) -> None:
     if traffic is not None and cfg.moe is None:
         raise ValueError(
@@ -715,15 +877,17 @@ def _traffic_needs_moe(cfg: ArchConfig, traffic) -> None:
 def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
                    ctx: ModelContext, traffic=None, traffic_mask=None):
     """Training forward (the reference's ``forward_hidden``, lm.py:358-535,
-    dense, moe, moe_tx and moe_ffn branches): (B, S) tokens to the
-    final-normed hidden states (B, S, d) in the compute dtype.  Parameters
+    dense, moe, moe_tx, moe_ffn, ssm and hybrid branches): (B, S) tokens to
+    the final-normed hidden states (B, S, d) in the compute dtype.  Parameters
     are cast to the compute dtype as they are used (lm.py:445), so a
     gradient reaches the stored leaves in their own dtype.  ``dense``:
     sequential blocks of attention and the MLP; ``moe``: sequential blocks,
     one MoE layer each; ``moe_tx``: the parallel blocks in stream blocks
     (:func:`_tx_stack`); ``moe_ffn``: the MoE layers in cross-layer stream
-    blocks (:func:`_ffn_stack`).  In an EP group each rank runs the MoE on
-    its stripe of the sequence, as ``prefill`` does; the stripes' all-gather
+    blocks (:func:`_ffn_stack`); ``ssm`` and ``hybrid``:
+    :func:`_whole_stack` (S a multiple of the SSD's chunk, else ValueError).
+    In an EP group each rank runs the MoE on its stripe of the sequence, as
+    ``prefill`` does; the stripes' all-gather
     sums the ranks' cotangents in its backward, so a loop training over an
     EP group in this replicated layout divides each rank's (replicated)
     cotangent by the group size (``launch/steps.py`` divides the loss; with
@@ -767,6 +931,8 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     if cfg.family == "moe_ffn":
         h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
         return h if traffic is None else (h, new_traffic)
+    if cfg.family in WHOLE_LAYER_FAMILIES:
+        return _whole_stack(params, h, positions, ctx)
     trs = []
     for i, lctx in enumerate(_layer_contexts(ctx)):
         lp = _layer(params["layers"], i, cd)
@@ -1088,7 +1254,9 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     """Full-sequence forward over (B, S) tokens; returns the last position's
     logits (B, V) in float32 and the decode state with every layer's RoPE'd
     k and v in its cache (the last ``cap`` positions, at slot p % cap; no
-    cache for moe_ffn, which is stateless) and the length S as a () tensor.
+    cache for moe_ffn, which is stateless, nor for ssm), every layer's SSD
+    state and last conv inputs (ssm, hybrid; S a multiple of the SSD's
+    chunk, else ValueError) and the length S as a () tensor.
     In an EP group each rank runs the MoE on its stripe of the sequence (S
     must split evenly) and all ranks return the same result.  On a grid
     with D data ranks ``inputs`` is the global batch, and each rank runs
@@ -1115,6 +1283,10 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     h = params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
+    if cfg.family in WHOLE_LAYER_FAMILIES:
+        h, kv, ssm = _whole_stack(params, h, positions, ctx, cap)
+        logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
+        return logits, DecodeState(kv, _length(s, h.device), ssm)
     if cfg.family == "moe_ffn":
         h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
         logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
@@ -1161,16 +1333,41 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     cache and masks at its own position); the positions come from it on the
     device, with nothing read to the host.  The caches in ``state.kv`` and
     ``state.length`` are written in place, so the returned state holds the
-    same tensors (fixed tensors a captured graph could replay).  Per
-    family (the reference's lm.py:666-711): dense and moe run attention,
-    then the MLP or the MoE on h + attn; moe_tx the parallel block, both
-    reading h; moe_ffn ``h + moe(ln1 h)``, with no cache."""
+    same tensors (fixed tensors a captured graph could replay), and so are
+    the SSD states and conv inputs in ``state.ssm``.  Per family (the
+    reference's lm.py:666-733): dense and moe run attention, then the MLP
+    or the MoE on h + attn; moe_tx the parallel block, both reading h;
+    moe_ffn ``h + moe(ln1 h)``, with no cache; ssm ``h + mamba2(ln1 h)``
+    by its recurrent step; hybrid the Hymba mixer's step (each SWA layer's
+    slots older than the window masked) then the MLP."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _serves_whole(ctx)
     h = params["embed"].to(cd)[inputs][:, None, :]
     b = h.shape[0]
     pos = state.length
     positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
+    if cfg.family in WHOLE_LAYER_FAMILIES:
+        for i, lp in enumerate(_unstack(params["layers"], cd)):
+            x = rms_norm(h, lp["ln1"])
+            st = SsmState(state.ssm["state"][i], state.ssm["conv"][i])
+            if cfg.family == "ssm":
+                y, new = mamba2_mixer(x, lp["ssm"], state=st,
+                                      single_step=True, **ssm_args(cfg))
+                h = h + y
+            else:
+                cache = KVCache(state.kv["k"][i], state.kv["v"][i], pos,
+                                max_len)
+                mix, _, new = _hymba(x, lp, positions, cfg, i,
+                                     attn_cache=cache, ssm_state=st,
+                                     single_step=True)
+                h = h + mix
+                h = h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"])
+            st.ssd.copy_(new.ssd)
+            st.conv.copy_(new.conv)
+        h = rms_norm(h, params["final_norm"].to(cd))
+        logits = (h[:, 0] @ params["lm_head"].to(cd)).float()
+        pos += 1
+        return logits, state
     moe = lambda x, mp: moe_decode_block(
         x, mp, placement=ctx.placement, dcfg=ctx.dcfg, top_k=cfg.moe.top_k,
         norm_topk=cfg.moe.norm_topk, group=ctx.ep_group,

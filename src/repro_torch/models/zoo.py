@@ -33,10 +33,11 @@ class ModelBundle:
 
 def build(cfg: ArchConfig, ctx: ModelContext) -> ModelBundle:
     """The bundle of a decoder-only LM of a family ``lm.make_context`` takes
-    (``lm.FAMILIES``: dense, moe, moe_tx and moe_ffn), on one rank, over an
-    EP group or on a grid (the dense family's too: its loss then runs
-    Megatron-SP over the model group, ``lm.tensor_parallel``, and its
-    prefill and decode refuse the TP shards)."""
+    (``lm.FAMILIES``: dense, moe, moe_tx, moe_ffn, ssm and hybrid), on one
+    rank, over an EP group or on a grid (the dense family's too: its loss
+    then runs Megatron-SP over the model group, ``lm.tensor_parallel``, and
+    its prefill and decode refuse the TP shards; ssm and hybrid on one rank
+    or a data group only)."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             "the encoder-decoder family is not ported yet: ROADMAP queue 1 "

@@ -108,13 +108,18 @@ class Request:
     done: bool = False
 
 
-def default_buckets(max_len: int, lo: int = 16) -> tuple[int, ...]:
-    """Powers of two from ``lo`` up to (and always including) ``max_len``."""
+def default_buckets(max_len: int, lo: int = 16,
+                    multiple: int = 1) -> tuple[int, ...]:
+    """Powers of two from ``lo`` up to (and always including) ``max_len``;
+    with ``multiple`` (a power of two: the SSD chunk of the ssm and hybrid
+    families, whose prefill lengths must be its multiples) the powers from
+    ``max(lo, multiple)``, and ``max_len`` cut down to a multiple."""
+    lo, top = max(lo, multiple), max_len - max_len % multiple
     out, b = [], lo
-    while b < max_len:
+    while b < top:
         out.append(b)
         b *= 2
-    out.append(max_len)
+    out.append(top)
     return tuple(out)
 
 
@@ -130,8 +135,12 @@ class _ServingBase:
         self.max_len = max_len
         self.eos_id = eos_id
         self.pad_id = pad_id
+        mult = lm.seq_multiple(bundle.cfg)
         self.buckets = tuple(sorted(buckets)) if buckets else \
-            default_buckets(max_len)
+            default_buckets(max_len, multiple=mult)
+        if any(b % mult for b in self.buckets):
+            raise ValueError(f"buckets {self.buckets}: a {bundle.cfg.family} "
+                             f"model prefills multiples of {mult} tokens")
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
         self.wave_loads: list[dict] = []     # one entry per wave / admission
@@ -477,21 +486,30 @@ class ContinuousServingEngine(_ServingBase):
         block); slot ids out of its range (pad lanes, another rank's
         slots) are dropped (the reference's ``mode="drop"``).  Over a data
         ``group`` (None: one data rank) ``new`` holds this rank's rows of
-        the chunk, and its KV caches (k and v stacked) are first
-        all-gathered over it into the whole chunk's, in data order; the
-        length is every row's.  ``slots`` is host data, so the copies index
-        by Python ints.  A stateless family (moe_ffn, ``kv`` None) inserts
-        its length alone."""
-        if group is not None and new.kv is not None:
-            kv = dcomm.all_gather_dim(torch.stack([new.kv["k"], new.kv["v"]]),
-                                      2, group)
-            new = lm.DecodeState({"k": kv[0], "v": kv[1]}, new.length)
+        the chunk, and its KV caches (k and v stacked) and SSM states are
+        first all-gathered over it into the whole chunk's, in data order;
+        the length is every row's.  ``slots`` is host data, so the copies
+        index by Python ints.  A stateless family (moe_ffn, ``kv`` and
+        ``ssm`` None) inserts its length alone; the ssm and hybrid families
+        insert each row's SSD state and conv inputs (``ssm``) beside its
+        cache, as the reference's insert scatters them."""
+        if group is not None:
+            kv, ssm = new.kv, new.ssm
+            if kv is not None:
+                both = dcomm.all_gather_dim(torch.stack([kv["k"], kv["v"]]),
+                                            2, group)
+                kv = {"k": both[0], "v": both[1]}
+            if ssm is not None:
+                ssm = {k: dcomm.all_gather_dim(v, 1, group)
+                       for k, v in ssm.items()}
+            new = lm.DecodeState(kv, new.length, ssm)
         n = pool.length.shape[0]
         for j, i in enumerate(int(x) - first for x in slots):
             if not 0 <= i < n:
                 continue
-            for name in pool.kv or ():
-                pool.kv[name][:, i].copy_(new.kv[name][:, j])
+            for part, whole in ((pool.kv, new.kv), (pool.ssm, new.ssm)):
+                for name in part or ():
+                    part[name][:, i].copy_(whole[name][:, j])
             pool.length[i].copy_(new.length)
         return pool
 

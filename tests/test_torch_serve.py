@@ -121,7 +121,7 @@ def test_convert_rejects_other_trees_and_serve_flags():
         ARCH, "fused_hier", 4, 64, 16)
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "sparse"])
-    # a family that is still unported (the ssm family, item 8)
+    # a family that is still unported (the vlm family, item 8)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         lm.make_context(dataclasses.replace(get_arch("qwen3-1.7b"),
-                                            family="ssm"), "cpu")
+                                            family="vlm"), "cpu")

@@ -267,12 +267,12 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 
 def test_training_raises_on_what_is_not_ported():
-    """What training still refuses: a family that is not ported (the ssm
+    """What training still refuses: a family that is not ported (the vlm
     family, at ``make_context``), the traffic state under serial
     accumulation, and ``train.run`` without a card."""
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         lm.make_context(dataclasses.replace(
-            get_arch("qwen3-1.7b").reduced(), family="ssm"), "cpu")
+            get_arch("qwen3-1.7b").reduced(), family="vlm"), "cpu")
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", compute_dtype=torch.float32)
     step = steps.make_train_step(tzoo.build(cfg, ctx), adamw.AdamWConfig(),
