@@ -1137,13 +1137,15 @@ def attention_inputs(device, b, sq, sk, hq, hkv, hd, q0=0, seed=0):
             torch.arange(sk, dtype=torch.int32, device=device))
 
 
-def hold_flash(what, q, k, v, qp, kp, window):
-    """The flash kernel against its plain version on one attention call;
-    returns (output, lse, max_abs_err, its tolerance, worst row's share of
-    its tolerance, lse error)."""
+def hold_flash(what, q, k, v, qp, kp, window, causal=True):
+    """The flash kernel against its plain version on one attention call
+    (causal, or with ``causal`` False every key seen); returns (output,
+    lse, max_abs_err, its tolerance, worst row's share of its tolerance,
+    lse error)."""
     from repro_torch.kernels import flash_attention as fa_k
-    out, lse = fa_k.flash_attention(q, k, v, qp, kp, True, window)
-    want, want_lse = fa_k.flash_attention_plain(q, k, v, qp, kp, True, window)
+    out, lse = fa_k.flash_attention(q, k, v, qp, kp, causal, window)
+    want, want_lse = fa_k.flash_attention_plain(q, k, v, qp, kp, causal,
+                                                window)
     err = max_err(out, want)
     # each row held to 1% of its own largest |out|: the first query rows see
     # one key (|out| up to ~4), most rows average hundreds (~10x smaller)
@@ -1158,21 +1160,23 @@ def hold_flash(what, q, k, v, qp, kp, window):
     return out, lse, err, row_tol.max().item(), worst_row, err_lse
 
 
-def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
+def flash_row(q, k, v, qp, kp, window, timer=time_ms, causal=True) -> dict:
     """The flash kernel against its plain version on one attention call:
     output and lse, times, the bound, its time split and the SDPA
-    yardsticks: with the boolean mask from the positions, and, where the
-    positions are plain aranges over one length and there is no window,
-    with ``is_causal=True`` and no mask (SDPA's flash backend)."""
+    yardsticks: causal, with the boolean mask from the positions, and,
+    where the positions are plain aranges over one length and there is no
+    window, with ``is_causal=True`` and no mask (SDPA's flash backend);
+    with ``causal`` False (an encoder's self-attention, a cross-attention
+    over encoder keys) and no window, SDPA with no mask."""
     import torch
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels.ref import attention_mask
     out, lse, err, tol, worst_row, err_lse = hold_flash(
-        "flash_attention", q, k, v, qp, kp, window)
+        "flash_attention", q, k, v, qp, kp, window, causal)
     b, sq, hq, hd = q.shape
     g = hq // k.shape[2]
     es = q.element_size()
-    mask = attention_mask(qp, kp, True, window)
+    mask = attention_mask(qp, kp, causal, window)
     tc = fa_k.hopper_refusal(hd, hq, k.shape[2], k.shape[1]) is not None
     visible = int(mask.sum()) * b * hq
     nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * es
@@ -1183,32 +1187,38 @@ def flash_row(q, k, v, qp, kp, window, timer=time_ms) -> dict:
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    no_mask = not causal and window is None
+    library = ("F.scaled_dot_product_attention (no mask, kv heads repeated)"
+               if no_mask else "F.scaled_dot_product_attention (bool mask "
+               "from positions, kv heads repeated)")
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask)
-    call = lambda: fa_k.flash_attention(q, k, v, qp, kp, True, window)
+        qt, kt, vt, attn_mask=None if no_mask else mask)
+    call = lambda: fa_k.flash_attention(q, k, v, qp, kp, causal, window)
     arange = torch.arange(sq, dtype=qp.dtype, device=qp.device)
-    causal = {}
-    if (window is None or window >= k.shape[1]) and k.shape[1] == sq \
-            and torch.equal(qp, arange) and torch.equal(kp, arange):
-        causal["library_causal_ms"] = timer(
+    extra = {}
+    if causal and (window is None or window >= k.shape[1]) \
+            and k.shape[1] == sq and torch.equal(qp, arange) \
+            and torch.equal(kp, arange):
+        extra["library_causal_ms"] = timer(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
+    plateau = (qp[1:] == qp[:-1]).any().item()
     row = dict(
         name="flash_attention",
-        shape=(f"q ({b}, {sq}, {hq}, {hd}) at {int(qp[0])}.. k ({k.shape[1]}, "
-               f"{k.shape[2]}) window {window} bf16"),
+        shape=(f"q ({b}, {sq}, {hq}, {hd}) at {int(qp[0])}.."
+               f"{' (plateaus)' if plateau else ''} k ({k.shape[1]}, "
+               f"{k.shape[2]}) window {window} "
+               f"{'causal' if causal else 'bidirectional'} bf16"),
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:97",
         max_abs_err=err, tol=tol, max_abs_err_lse=err_lse,
         worst_row_share=worst_row,
         ms=timer(call),
         plain_ms=timer(lambda: fa_k.flash_attention_plain(q, k, v, qp, kp,
-                                                          True, window),
+                                                          causal, window),
                        reps=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by,
-        library="F.scaled_dot_product_attention (bool mask from positions, "
-                "kv heads repeated)",
-        library_ms=timer(sdpa), **causal, form="mma.sync" if tc else "wgmma",
+        bound_ms=b_ms, bound_by=b_by, library=library,
+        library_ms=timer(sdpa), **extra, form="mma.sync" if tc else "wgmma",
         # the time split builds the Hopper form without its loads or its
         # products; the mma.sync form has no such variant
         **({} if tc else time_split("flash_attention", call, timer)))
@@ -1291,33 +1301,25 @@ def serve_phase(argv, device="cuda", required=SERVE_KERNELS, absent=()):
 
 def profile_phase(argv, device="cuda") -> dict:
     """Where a serve step's device time goes: after a warm-up, one prefill
-    and one decode step of the serve path, each under torch.profiler.
+    and one decode step of the serve path, each under torch.profiler
+    (:func:`profile_once`).
     Returns per step the host's wall time under the profiler, the device's
     busy time (the union of its activities' intervals) and the device time
     by kernel, most first; None for a step whose trace shows no device
     activity."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
-    from repro_torch.models import lm
     s = serve.setup(serve.parse_args(argv), device)
-    prefill = lambda: lm.prefill(s.params, s.tokens, s.positions, s.ctx,
-                                 s.max_len)
+    prefill = lambda: s.bundle.prefill(s.params, s.batch, s.max_len)
     out = {}
     with torch.inference_mode():
         logits, state = prefill()
         tok = logits.argmax(-1)
-        decode = lambda: lm.decode_step(s.params, state, tok, s.ctx, s.max_len)
+        decode = lambda: s.bundle.decode_step(s.params, state, tok, s.max_len)
         decode()
         torch.cuda.synchronize()
-        for step, fn in (("prefill", prefill), ("decode", decode)):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            out[step] = device_summary(prof, wall_ms)
+        out["prefill"] = profile_once(prefill)
+        out["decode"] = profile_once(decode)
     return out
 
 
@@ -2268,10 +2270,9 @@ def train_phase(argv, device="cuda", keep_state=False, restarts=0):
 def train_profile(argv, device="cuda") -> dict:
     """Where a train step's device time goes: after one warm-up step, one
     whole step under torch.profiler, then its two parts apart, the forward
-    and backward (loss and ``torch.autograd.grad``) and the AdamW update;
-    the traffic state threaded as ``train.run`` threads it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    and backward (loss and gradients) and the AdamW update
+    (:func:`step_profile`); the traffic state threaded as ``train.run``
+    threads it."""
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps, train
     from repro_torch.models import zoo
@@ -2280,32 +2281,35 @@ def train_profile(argv, device="cuda") -> dict:
     s = train.setup(args, device)
     model = zoo.build(s.cfg, s.ctx)
     step = steps.make_train_step(model, s.opt_cfg, args.accum)
-    params, opt = s.params, adamw.init(s.params)
     batch = to_device(s.source.batch_at(0), device)
     traffic = train.init_traffic(s.cfg, s.ctx, args.accum)
+    return step_profile(model, step, s.params, adamw.init(s.params), batch,
+                        s.opt_cfg, traffic)
 
+
+def step_profile(model, step, params, opt, batch, opt_cfg,
+                 traffic=None) -> dict:
+    """:func:`train_profile`'s three profiles of ``step`` (a
+    ``steps.make_train_step`` of ``model``) on ``batch``: after one warm-up
+    step, one whole step, its forward and backward
+    (``steps.value_and_grad``: a leaf the loss does not reach gets zeros),
+    and the AdamW update (:func:`profile_once`)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
     whole = lambda: step(params, opt, batch, traffic)
     whole()
     torch.cuda.synchronize()
     grads = []
+    value_and_grad = steps.value_and_grad(model)
 
     def fwd_bwd():
-        loss, _ = model.loss(params, batch, traffic=traffic)
-        grads[:] = torch.autograd.grad(loss, adamw.leaves(params))
+        grads[:] = value_and_grad(params, batch, traffic)[2]
 
-    parts = (("step", whole), ("forward+backward", fwd_bwd),
-             ("adamw.update", lambda: adamw.update(
-                 adamw.unflatten(params, grads), opt, params, s.opt_cfg)))
-    out = {}
-    for name, fn in parts:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        out[name] = device_summary(prof, wall_ms)
-    return out
+    return {"step": profile_once(whole),
+            "forward+backward": profile_once(fwd_bwd),
+            "adamw.update": profile_once(lambda: adamw.update(
+                adamw.unflatten(params, grads), opt, params, opt_cfg))}
 
 
 # device time by kind: the port's hand-written kernels by their names in
@@ -3903,7 +3907,6 @@ def engine_auto_phase(per_engine: dict, flat: dict, device="cuda") -> dict:
     run's losses."""
     import dataclasses
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import steps, train
     from repro_torch.models import zoo
@@ -3926,13 +3929,7 @@ def engine_auto_phase(per_engine: dict, flat: dict, device="cuda") -> dict:
     step, traffic = out["train_step"], out["traffic"]
     step(params, opt, batch, traffic)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, opt, batch, traffic)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = device_summary(prof, wall)
+    busy = profile_once(lambda: step(params, opt, batch, traffic))
     res = {"launches": launches, "plans": plans, "schedule": schedule,
            "ms_per_step": out["ms_per_step"], "step_ms": out["step_ms"],
            "losses": out["losses"],
@@ -4474,13 +4471,27 @@ def host_ms(*fns, rounds: int = 8) -> list[float]:
     return [statistics.median(w) for w in walls]
 
 
+# the host's pause between a trace's start and the call it traces: the
+# profiler drops a device record whose start it reads before the trace's
+# own, and the card's clock reads up to 5.4 ms early against the host's
+# (tools/profile_loss.py on an H100, below)
+TRACE_PAUSE_S = 0.05
+
+
 def profile_once(fn) -> dict | None:
-    """One call of ``fn`` (which ends in a host read) under torch.profiler:
-    ``device_summary`` of its trace."""
+    """One call of ``fn`` under torch.profiler, the device synchronized
+    before the trace stops: ``device_summary`` of its trace.  ``fn`` starts
+    ``TRACE_PAUSE_S`` after the trace: traced at once, mixtral-8x22b's
+    train forward and backward lost its first device records (up to 55 of
+    504, the flash forward the 56th) in 22 of 1,528 traces over a
+    450 s process, and none of 1,528 with the pause (``python3
+    tools/profile_loss.py --reps 20 --seconds 450``, NVIDIA H100 80GB HBM3,
+    700 W)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAUSE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4695,13 +4706,16 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
     args = serve.parse_args(argv)
     lanes = (args.moe_interleave if cfg.family == "moe_tx"
              and args.engine == "fused_pipe" else 1)
+    per_prefill = prefill_flash(cfg)
     if (lm.has_attention(cfg)
-            and launches["flash_attention"] != 2 * cfg.n_layers * lanes):
+            and launches["flash_attention"] != 2 * per_prefill * lanes):
         raise AssertionError(f"{label}: flash launched "
                              f"{launches['flash_attention']} times, expected "
-                             f"2 prefills x {cfg.n_layers} layers x {lanes} "
-                             "lanes")
-    print(f"serve {label}: {cfg.name} full width, {cfg.n_layers} layers, "
+                             f"2 prefills x {per_prefill} attention layers x "
+                             f"{lanes} lanes")
+    enc = (f" + {cfg.encoder_layers} encoder" if cfg.family == "encdec"
+           else "")
+    print(f"serve {label}: {cfg.name} full width, {cfg.n_layers}{enc} layers, "
           f"{' '.join(argv[2:])}: ttft "
           f"{out['ttft_s'] * 1e3:.3f} ms  decode "
           f"{out['decode_s_per_tok'] * 1e3:.3f} ms/token  warmup "
@@ -4730,6 +4744,13 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
                                        else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
     return launches, times
+
+
+def prefill_flash(cfg) -> int:
+    """Flash forwards a prefill of ``cfg`` runs: one a layer, and for the
+    encoder-decoder one an encoder layer (its prefill decodes the first
+    token by the plain decode attention)."""
+    return cfg.encoder_layers if cfg.family == "encdec" else cfg.n_layers
 
 
 def short_name(name: str, width: int = 90) -> str:
@@ -5205,6 +5226,272 @@ def ssd_bf16_gap(device="cuda", depths=SSD_GAP_LAYERS) -> list[str]:
 T0 = time.perf_counter()
 
 
+# the vlm and encdec families: qwen2-vl-7b (M-RoPE, its 28 / 4 heads of 128:
+# group size 7) and seamless-m4t-large-v2 (24 encoder + 24 decoder layers,
+# 16 / 16 heads of 64: group size 1), served at full width and depth and
+# trained through steps.make_train_step on zoo.make_smoke_batch batches
+VLM, SEAMLESS = "qwen2-vl-7b", "seamless-m4t-large-v2"
+EMBED_ARCHS = (VLM, SEAMLESS)
+EMBED_SERVE = {a: ["--arch", a] + LARGE_FLAGS for a in EMBED_ARCHS}
+# qwen2-vl cut to 4 of its 28 layers (2.02 B parameters, ~32 GB with the
+# bf16 grads and AdamW's f32 master, mu and nu); seamless whole (2.03 B)
+VLM_TRAIN_LAYERS = 4
+EMBED_TRAINS = {f"{VLM} train": (VLM, VLM_TRAIN_LAYERS),
+                f"{SEAMLESS} train": (SEAMLESS, 0)}
+EMBED_TRAIN = dict(batch=4, seq=512, n_steps=6)
+EMBED_LR = 1e-3           # AdamW on one fixed batch: its loss must fall
+# a Qwen2-VL prompt of 512 positions (``zoo.vl_positions``): 100 text tokens,
+# one frame of 16 x 16 patches at one temporal id, 156 tokens after
+VL_LAYOUT = (100, (16, 16), 156)
+VL_REDUCED_LAYOUT = (3, (3, 3), 4)      # the same, in 16 positions
+# the flash forward at these families' shapes: (path, attention shape,
+# causal, positions "image" (VL_LAYOUT's temporal row) or None (arange),
+# on a phase's path); the seamless decoder's causal and cross calls at B 8
+# run in no phase (its decode attention is plain torch, as the reference's
+# jnp), so their rows are printed, not listed
+SEAM_ATTN = dict(sq=512, sk=512, hq=16, hkv=16, hd=64)
+VL_ATTN = dict(sq=512, sk=512, hq=28, hkv=4, hd=128)
+EMBED_ATTN = (
+    (SEAMLESS, dict(b=8, **SEAM_ATTN), False, None, True),
+    (f"{SEAMLESS} decoder", dict(b=8, **SEAM_ATTN), True, None, False),
+    (f"{SEAMLESS} cross", dict(b=8, **SEAM_ATTN), False, None, False),
+    (VLM, dict(b=8, **VL_ATTN), True, "image", True),
+    (f"{SEAMLESS} train", dict(b=4, **SEAM_ATTN), False, None, True),
+    (f"{SEAMLESS} train", dict(b=4, **SEAM_ATTN), True, None, True),
+    (f"{SEAMLESS} train", dict(b=4, **SEAM_ATTN), False, None, True),
+    (f"{VLM} train", dict(b=4, **VL_ATTN), True, None, True))
+# held only (b, sq, sk, hq, hkv, hd, causal): cross-attention with Sq != Sk
+# both ways, qwen2-vl's serve shape at 3 x arange
+EMBED_FLASH_HELD = ((8, 100, 512, 16, 16, 64, False),
+                    (8, 512, 100, 16, 16, 64, False),
+                    (8, 512, 512, 28, 4, 128, True))
+
+
+def vl_attention_inputs(device, layout, b, sq, sk, hq, hkv, hd, seed=0):
+    """:func:`attention_inputs`, its positions the temporal row of a
+    Qwen2-VL ``layout`` (``zoo.vl_positions``: flat across the image) for
+    both the queries and the keys."""
+    import torch
+    from repro_torch.models import zoo
+    q, k, v, _, _ = attention_inputs(device, b, sq, sk, hq, hkv, hd,
+                                     seed=seed)
+    pos = zoo.vl_positions(*layout, device=device)[0].to(torch.int32)
+    if pos.numel() != sq or sq != sk:
+        raise ValueError(f"layout {layout} has {pos.numel()} positions for "
+                         f"Sq {sq}, Sk {sk}")
+    return q, k, v, pos, pos
+
+
+def embed_flash_rows(timer=time_ms, device="cuda") -> tuple[list, list]:
+    """The flash forward at the vlm's and encdec's shapes (``EMBED_ATTN``):
+    seamless's bidirectional encoder, its decoder's causal self-attention
+    and its cross-attention over 512 encoder keys (group size 1), and
+    qwen2-vl's causal attention at group size 7 masked by the image layout's
+    plateau of equal positions, at the serve and the train shapes, each
+    held against its plain version and timed beside SDPA; then the held
+    shapes of ``EMBED_FLASH_HELD``.  Returns the rows and one line per held
+    shape."""
+    import torch
+    rows, lines = [], []
+    for path, attn, causal, layout, main_path in EMBED_ATTN:
+        with torch.inference_mode():
+            inp = (vl_attention_inputs(device, VL_LAYOUT, **attn) if layout
+                   else attention_inputs(device, **attn))
+            rows.append(dict(flash_row(*inp, window=None, timer=timer,
+                                       causal=causal), path=path,
+                             main_path=main_path))
+            del inp
+    for b, sq, sk, hq, hkv, hd, causal in EMBED_FLASH_HELD:
+        what = (f"q ({b}, {sq}, {hq}, {hd}) k ({sk}, {hkv}) "
+                f"{'causal' if causal else 'bidirectional'}")
+        with torch.inference_mode():
+            _, _, err, tol, worst, err_lse = hold_flash(
+                f"flash_attention {what}",
+                *attention_inputs(device, b, sq, sk, hq, hkv, hd, seed=5),
+                None, causal)
+        lines.append(f"{what}: max_abs_err {err:.4g}, worst row {worst:.3f} "
+                     f"of its row's tolerance, lse {err_lse:.4g}")
+    return rows, lines
+
+
+def embed_serve_implied(argv) -> dict:
+    """The launches a lock-step serve run of a vlm or encdec ``argv``
+    implies: two prefills of :func:`prefill_flash` flash forwards (a
+    decoder layer each for the vlm, an encoder layer each for encdec; the
+    decode attention is plain torch), no other kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    args = serve.parse_args(argv)
+    cfg = get_arch(args.arch).reduced() if args.reduced else get_arch(args.arch)
+    out = dict.fromkeys(counters(), 0)
+    out["flash_attention"] = 2 * prefill_flash(cfg)
+    return out
+
+
+def train_flash(cfg) -> int:
+    """Flash forwards a train step of ``cfg`` runs: one a layer, and for
+    the encoder-decoder one an encoder layer and two a decoder layer (its
+    self- and cross-attention); the backward is plain torch."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def embed_train_phase(arch: str, layers: int = 0, device="cuda",
+                      reduced: bool = False, batch: int = 4, seq: int = 512,
+                      n_steps: int = 6) -> dict:
+    """A vlm or encdec model trained on the card: ``layers`` (0: all) of
+    ``arch`` at full width (or ``reduced``), bf16 weights from seed 0,
+    ``n_steps`` AdamW steps of ``steps.make_train_step`` on one
+    ``zoo.make_smoke_batch`` batch (``batch`` x ``seq``), with every launch
+    counter zeroed just before the steps and read just after.  Fails if a
+    loss is not finite, the last loss is not below the first, or the flash
+    forward did not launch :func:`train_flash` times a step or another
+    kernel ran.  Returns the config, the losses, each step's ms, the
+    launches, the peak memory (GiB; None on the CPU) and what
+    :func:`step_profile` takes."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = zoo.build(cfg, lm.make_context(cfg, device))
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen)
+    data = zoo.make_smoke_batch(cfg, gen, batch, seq)
+    opt_cfg = adamw.AdamWConfig(lr=EMBED_LR, warmup_steps=2,
+                                total_steps=n_steps)
+    opt = steps.init_state(model, params)
+    step = steps.make_train_step(model, opt_cfg)
+    wrappers = zero_counters()
+    losses, ms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, data)
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    implied = dict.fromkeys(launches, 0)
+    implied["flash_attention"] = train_flash(cfg) * n_steps
+    required, _ = family_kernels(cfg, train=True)
+    if launches != implied or any(launches[k] == 0 for k in required):
+        raise AssertionError(f"{arch} train: launches {launches}, its code "
+                             f"implies {implied}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch} train: losses {losses} not finite or "
+                             "not falling")
+    return dict(cfg=cfg, losses=losses, step_ms=ms, launches=launches,
+                implied=implied, tokens=batch * seq,
+                peak_mem_gib=(torch.cuda.max_memory_allocated() / 2**30
+                              if on_card else None),
+                params_n=sum(p.numel() for p in adamw.leaves(params)),
+                profile=(model, step, params, opt, data, opt_cfg))
+
+
+def embed_train_and_profile(label: str, arch: str, layers: int,
+                            device="cuda", shape=EMBED_TRAIN) -> dict:
+    """:func:`embed_train_phase` at ``shape`` (``EMBED_TRAIN``), printed,
+    then :func:`step_profile` of the same model, state and batch.  Returns
+    the launch counts."""
+    import torch
+    out = embed_train_phase(arch, layers, device, **shape)
+    cfg, n = out["cfg"], len(out["losses"])
+    timed = statistics.median(out["step_ms"][2:])
+    enc = (f" + {cfg.encoder_layers} encoder" if cfg.family == "encdec"
+           else "")
+    peak = ("n/a" if out["peak_mem_gib"] is None
+            else f"{out['peak_mem_gib']:.2f}")
+    print(f"{label}: {cfg.name} full width, {cfg.n_layers}{enc} layers, "
+          f"{out['params_n']} parameters, B {shape['batch']} x S "
+          f"{shape['seq']}, {n} AdamW steps on one batch: "
+          f"{timed:.3f} ms/step (median of {n - 2} timed), "
+          f"{out['tokens'] / timed * 1e3:.1f} tokens/s, peak memory {peak} GiB")
+    print(f"{label} loss per step: " + " ".join(f"{x:.5f}"
+                                                for x in out["losses"]))
+    print(f"{label} ms per step: " + " ".join(f"{x:.3f}"
+                                              for x in out["step_ms"]))
+    print(f"launches on the {label} path ({n} steps): "
+          f"{json.dumps(out['launches'])}; its code implies "
+          f"{json.dumps(out['implied'])}")
+    for part, p in step_profile(*out.pop("profile")).items():
+        print_profile(f"{label} {part}", p, timed)
+        check_profile(f"{label} {part}", p, flash=part != "adamw.update")
+        if p is not None:
+            print("  device ms by kind: " + ", ".join(
+                f"{k} {ms:.4f}"
+                for k, ms in device_kinds(p["by_kernel"]).items()))
+    launches = out["launches"]
+    del out
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def embed_reduced_check(arch: str, device="cuda") -> dict:
+    """The reduced vlm or encdec model in float32 on the card (kernels)
+    against the CPU (plain versions): the loss and every gradient
+    (``steps.value_and_grad``) of a ``zoo.make_smoke_batch`` batch of 4 x
+    16 (the vlm's at the image layout ``VL_REDUCED_LAYOUT``), then the
+    bundle's prefill of its prompts and three greedy decode steps fed the
+    CPU's tokens.  Fails past ``TOL_TRAIN`` (loss, gradients, relative to
+    max(1, |x|)) or ``TOL_REDUCED`` (logits), or if the card launched no
+    flash forward.  Returns the errors and the card's launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    cfg = get_arch(arch).reduced()
+    f32 = torch.float32
+    models = {dev: zoo.build(cfg, lm.make_context(cfg, dev, compute_dtype=f32))
+              for dev in ("cpu", device)}
+    params = models["cpu"].init(torch.Generator().manual_seed(0), f32)
+    batch = zoo.make_smoke_batch(cfg, torch.Generator().manual_seed(1), 4, 16)
+    if cfg.family == "vlm":
+        batch["positions"] = zoo.vl_positions(*VL_REDUCED_LAYOUT)
+        prompt = {k: batch[k] for k in ("embeds", "positions")}
+    else:
+        prompt = {"frames": batch["frames"], "tokens": batch["tokens"][:, 0]}
+    copy = lambda t, dev: ({k: copy(v, dev) for k, v in t.items()}
+                           if isinstance(t, dict) else t.clone().to(dev))
+
+    def run(dev, feed):
+        model, p = models[dev], copy(params, dev)
+        loss, _, grads = steps.value_and_grad(model)(p, copy(batch, dev))
+        with torch.no_grad():
+            logits, st = model.prefill(p, copy(prompt, dev), 20)
+            seq = [logits.cpu()]
+            for tok in feed or [None] * 3:
+                tok = logits.argmax(-1).cpu() if tok is None else tok
+                logits, st = model.decode_step(p, st, tok.to(dev), 20)
+                seq.append(logits.cpu())
+        return loss.detach().cpu(), [g.cpu() for g in grads], seq
+
+    loss_r, grads_r, ref = run("cpu", None)
+    wrappers = zero_counters()
+    loss_c, grads_c, card = run(device, [lg.argmax(-1) for lg in ref[:-1]])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+    out = dict(loss=rel(loss_c, loss_r),
+               grads=max(rel(a, b) for a, b in zip(grads_c, grads_r)),
+               logits=max(max_err(a, b) for a, b in zip(card, ref)),
+               launches=launches)
+    if not (out["loss"] <= TOL_TRAIN and out["grads"] <= TOL_TRAIN
+            and out["logits"] <= TOL_REDUCED and launches["flash_attention"]):
+        raise AssertionError(f"reduced {arch} f32 card vs CPU: {out}")
+    return out
+
+
 def stamp(what: str) -> None:
     """The seconds since the script started, after ``what``."""
     print(f"[{time.perf_counter() - T0:.1f} s] {what} done", flush=True)
@@ -5346,6 +5633,10 @@ def main() -> None:
     with torch.no_grad():
         rows += tp_flash_rows()
     rows += hymba_flash_rows()
+    embed_rows, lines = embed_flash_rows()
+    rows += embed_rows
+    for line in lines:
+        print(f"flash held (vlm / encdec shapes): {line}")
     stamp("the kernel rows of the large paths")
     train_inp = main_path_inputs("cuda", **TRAIN[1])
     for r in rows:
@@ -5433,6 +5724,11 @@ def main() -> None:
         print(f"mamba2-2.7b bf16 prefill (2 x 512) vs the same weights in f32 "
               f"on the card ({card_line()}): {line}")
     stamp("the ssm and hybrid serve phases")
+    for label, argv in EMBED_SERVE.items():
+        launches[label], serve_times[label] = serve_and_profile(
+            label, argv, *family_kernels(get_arch(argv[1]), train=False),
+            implied=embed_serve_implied(argv))
+    stamp("the vlm and encdec serve phases")
     for label, spec in CONTINUOUS.items():
         launches[label], serve_times[label] = continuous_phase(label, spec)
     print(f"serve times by path: {json.dumps(serve_times)}")
@@ -5481,6 +5777,9 @@ def main() -> None:
         launches[label] = train_and_profile(label, argv,
                                             implied=ssm_train_implied(argv))
     stamp("the ssm and hybrid train phases")
+    for label, (arch, layers) in EMBED_TRAINS.items():
+        launches[label] = embed_train_and_profile(label, arch, layers)
+    stamp("the vlm and encdec train phases")
     ckpt = checkpoint_phase()
     launches["checkpoint"] = ckpt["launches"]
     print_checkpoint(ckpt)
@@ -5498,6 +5797,13 @@ def main() -> None:
         worst = reduced_check(arch, engine=engine)
         print(f"reduced {arch} {engine} f32, card (kernels) vs CPU "
               f"(plain): max logit error {worst:.3g} (tol {TOL_REDUCED})")
+    for arch in EMBED_ARCHS:
+        err = embed_reduced_check(arch)
+        print(f"reduced {arch} f32, card (kernels) vs CPU (plain): loss "
+              f"{err['loss']:.3g}, grads {err['grads']:.3g} of max(1, |x|) "
+              f"(tol {TOL_TRAIN}), prefill and 3 decode steps' logits "
+              f"{err['logits']:.3g} (tol {TOL_REDUCED}); launches on the card "
+              f"{json.dumps(err['launches'])}")
     for arch in (FFN, TX):
         worst = reduced_check(arch, engine="fused_pipe", lanes=LANES)
         one = reduced_check(arch, engine="fused_pipe", lanes=LANES,

@@ -12,6 +12,8 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mixtral-8x22b": "mixtral_8x22b",
     "hymba-1.5b": "hymba_1_5b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     # the paper's benchmark point (Table 2) in DeepSeek-V3 proportions
     "deepseek-v3-bench": "deepseek_v3_bench",
     "moe-tx-stream": "moe_tx_stream",

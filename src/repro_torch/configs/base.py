@@ -34,7 +34,7 @@ class SsmSpec:
 class ArchConfig:
     name: str
     family: str                      # dense | moe | moe_tx | moe_ffn | ssm |
-                                     # hybrid (ported)
+                                     # hybrid | vlm | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +48,10 @@ class ArchConfig:
     ssm: Optional[SsmSpec] = None
     window: Optional[int] = None     # sliding-window attention
     global_layers: Tuple[int, ...] = ()   # hybrid: layers with global attn
+    # vlm: M-RoPE's split of the hd / 2 frequency slots among the temporal,
+    # height and width position rows
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    encoder_layers: int = 0          # encdec only
     source: str = ""
 
     @property
@@ -65,6 +69,7 @@ class ArchConfig:
         return dataclasses.replace(
             self,
             n_layers=2,
+            encoder_layers=min(self.encoder_layers, 2),
             d_model=64,
             n_heads=4,
             n_kv_heads=2,
@@ -79,4 +84,5 @@ class ArchConfig:
                                     d_ff_expert=32) if self.moe else None,
             ssm=dataclasses.replace(self.ssm, d_state=16, head_dim=8, chunk=8)
             if self.ssm else None,
+            mrope_sections=(2, 3, 3) if self.mrope_sections else None,
         )

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the tree that ``repro.models.lm.init_params``
 builds (lm.py:210-233) for a ``dense``-, ``moe``-, ``moe_tx``-,
-``moe_ffn``-, ``ssm``- or ``hybrid``-family model (its keys by family,
+``moe_ffn``-, ``ssm``-, ``hybrid``- or ``vlm``-family model, or that of
+``repro.models.encdec_model.init_params`` (encdec) (its keys by family,
 :data:`KEYS`; the q/k norms
 where the config has them), as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), and returns the port's tree: the same
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.encdec_model import ATTN, MLP
 from repro_torch.models.lm import (FAMILY_PARTS, HYBRID_NORMS, lane_cut,
                                    lane_sharded, tp_cut)
 from repro_torch.parallel import sharding
@@ -40,6 +42,13 @@ _PART_KEYS = {
 KEYS = {f: _COMMON.union(*(_PART_KEYS[p] for p in parts))
         for f, parts in FAMILY_PARTS.items()}
 KEYS["hybrid"] = KEYS["hybrid"] | {f"layers/{n}" for n in HYBRID_NORMS}
+# the encoder-decoder's (models/encdec_model.init_params)
+KEYS["encdec"] = {"embed", "enc_norm", "final_norm", "lm_head"}.union(
+    {f"encoder/{n}" for n in ("ln1", "ln2")},
+    {f"encoder/attn/{w}" for w in ATTN}, {f"encoder/mlp/{w}" for w in MLP},
+    {f"decoder/{n}" for n in ("ln1", "ln_x", "ln2")},
+    {f"decoder/{a}/{w}" for a in ("self_attn", "cross_attn") for w in ATTN},
+    {f"decoder/mlp/{w}" for w in MLP})
 _OPTIONAL = {"layers/attn/q_norm", "layers/attn/k_norm"}
 
 

@@ -37,6 +37,18 @@ families: Mamba2's SSD mixer, Hymba's parallel attention and SSM heads;
 reduced, and with ``--continuous`` the engine's buckets are its multiples
 too)
 
+``python -m repro_torch.launch.serve --arch qwen2-vl-7b --requests 8
+--prompt-len 512 --gen 16`` (the vlm family: each request's prompt is
+(prompt_len, d) patch embeddings at M-RoPE positions 3 x arange, the
+stubbed vision frontend's, drawn from the seed; decode feeds tokens)
+
+``python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --requests
+8 --prompt-len 512 --gen 16`` (the encdec family: each request is
+(prompt_len, d) frame embeddings, the stubbed audio frontend's, encoded
+once, and a first decoder token; the prefill is the encoder and that
+token's decode step).  Both run lock-step on one rank only: ``--continuous``
+refuses them, as the reference's engine cannot serve them
+
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
 --requests 8 --prompt-len 64 --gen 16 --continuous`` (the requests through
 ``serving.engine.ContinuousServingEngine``, a pool of ``--requests`` slots:
@@ -78,7 +90,9 @@ import torch.distributed as dist
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
-from repro_torch.models import lm
+from repro_torch.models import lm, zoo
+from repro_torch.models.zoo import EMBED_INPUTS
+from repro_torch.serving.engine import ContinuousServingEngine
 
 
 def _sync(device: torch.device) -> None:
@@ -115,6 +129,12 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.gen < 2:
         ap.error("--gen must be at least 2 (one prefill token, one decode step)")
+    if args.continuous:
+        family = get_arch(args.arch).family
+        if family in EMBED_INPUTS:
+            ap.error(f"--continuous serves token prompts (the reference "
+                     f"refuses encdec too); the {family} family's prefill "
+                     f"takes {EMBED_INPUTS[family]}")
     if args.requests % max(1, args.moe_interleave) != 0:
         ap.error("--moe-interleave must divide --requests")
     return args
@@ -124,14 +144,21 @@ class Setup(NamedTuple):
     cfg: ArchConfig
     ctx: lm.ModelContext
     params: dict
-    tokens: torch.Tensor       # (requests, prompt_len) prompts
-    positions: torch.Tensor    # (prompt_len,)
+    tokens: torch.Tensor | None  # (requests, prompt_len) prompts; encdec:
+                               # decoder tokens, the first of each row its
+                               # BOS; None for the vlm (embeddings)
+    positions: torch.Tensor | None  # (prompt_len,); the vlm's (3,
+                               # prompt_len); None for encdec
     max_len: int
+    batch: dict                # the bundle's prefill batch (global rows)
+    bundle: zoo.ModelBundle
 
 
 def setup(args, device="cuda", mesh: HostMesh | None = None) -> Setup:
     """The model, its random parameters and the prompts of a serve run, all
-    drawn from seed 0, on one rank or on this rank of ``mesh`` (a
+    drawn from seed 0 (the vlm's embeddings and positions and encdec's
+    frames and first token from ``zoo.make_smoke_batch``, as the
+    reference's serve), on one rank or on this rank of ``mesh`` (a
     ``launch.mesh.HostMesh``): the parameters are this rank's, its lane of
     the expert weights and, under FSDP of the experts (the reference's
     rule, ``lm.fsdp_rule``), its slice of their f dim; the prompts are the
@@ -157,13 +184,25 @@ def setup(args, device="cuda", mesh: HostMesh | None = None) -> Setup:
                           pipe_slices=args.pipe_slices,
                           # serving reads whole weights
                           explicit_tp=False, split_vocab=False)
+    bundle = zoo.build(cfg, ctx)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
-    params = lm.init_params(cfg, ctx, gen)
-    tokens = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
-                           generator=gen, device=ctx.device)
-    positions = torch.arange(args.prompt_len, device=ctx.device)
+    params = bundle.init(gen)
+    if cfg.family in EMBED_INPUTS:
+        batch = zoo.make_smoke_batch(cfg, gen, args.requests, args.prompt_len)
+        tokens = batch.get("tokens")
+        if cfg.family == "encdec":
+            batch = {"frames": batch["frames"], "tokens": tokens[:, 0]}
+        else:
+            batch = {"embeds": batch["embeds"],
+                     "positions": batch["positions"]}
+        positions = batch.get("positions")
+    else:
+        tokens = torch.randint(0, cfg.vocab, (args.requests, args.prompt_len),
+                               generator=gen, device=ctx.device)
+        positions = torch.arange(args.prompt_len, device=ctx.device)
+        batch = {"tokens": tokens, "positions": positions}
     return Setup(cfg, ctx, params, tokens, positions,
-                 args.prompt_len + args.gen)
+                 args.prompt_len + args.gen, batch, bundle)
 
 
 def _run_continuous(cfg, ctx, params, tokens, max_len) -> dict:
@@ -172,8 +211,6 @@ def _run_continuous(cfg, ctx, params, tokens, max_len) -> dict:
     the same engine loop over the same queue and decodes its block of the
     slots); returns the finished requests, the engine's ``stats()``, its
     build seconds and the engine."""
-    from repro_torch.models import zoo
-    from repro_torch.serving.engine import ContinuousServingEngine
     b, gen = tokens.shape[0], max_len - tokens.shape[1]
     eng = ContinuousServingEngine(zoo.build(cfg, ctx), max_batch=b,
                                   max_len=max_len)
@@ -193,19 +230,21 @@ def run(args, device="cuda", mesh: HostMesh | None = None) -> dict:
     after the timed regions), and this rank's timings.  With
     ``--continuous`` serves the same prompts through the continuous engine
     instead (``_run_continuous``)."""
-    cfg, ctx, params, tokens, positions, max_len = setup(args, device, mesh)
+    s = setup(args, device, mesh)
+    cfg, ctx, params, max_len = s.cfg, s.ctx, s.params, s.max_len
     if args.continuous:
-        return _run_continuous(cfg, ctx, params, tokens, max_len)
+        return _run_continuous(cfg, ctx, params, s.tokens, max_len)
+    decode_step = s.bundle.decode_step
 
     def serve():
-        logits, state = lm.prefill(params, tokens, positions, ctx, max_len)
+        logits, state = s.bundle.prefill(params, s.batch, max_len)
         return logits, state, logits.argmax(-1)
 
     with torch.inference_mode():
         t0 = time.perf_counter()
         _, state, tok = serve()
         for _ in range(2):
-            _, state = lm.decode_step(params, state, tok, ctx, max_len)
+            _, state = decode_step(params, state, tok, max_len)
         _sync(ctx.device)
         warmup_s = time.perf_counter() - t0
 
@@ -216,7 +255,7 @@ def run(args, device="cuda", mesh: HostMesh | None = None) -> dict:
         seqs = [tok]
         t0 = time.perf_counter()
         for _ in range(args.gen - 1):
-            logits, state = lm.decode_step(params, state, tok, ctx, max_len)
+            logits, state = decode_step(params, state, tok, max_len)
             tok = logits.argmax(-1)
             seqs.append(tok)
         _sync(ctx.device)

@@ -219,8 +219,12 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             objective = loss * (n / tot[1].clamp_min(1.0))
             loss = tot[0] / tot[1].clamp_min(1.0)
             metrics = dict(metrics, tokens=tot[1])
-        return loss, metrics, torch.autograd.grad(
-            objective / div if div > 1 else objective, ps)
+        grads = torch.autograd.grad(objective / div if div > 1 else objective,
+                                    ps, allow_unused=True)
+        # a leaf the loss does not reach (the vlm's embed under embeddings)
+        # gets zeros, as jax.grad gives, so AdamW still decays it
+        return loss, metrics, [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(ps, grads)]
 
     def fn(params, batch, traffic=None):
         if accum == 1:

@@ -26,6 +26,13 @@ accumulation micro-batches fused into them: one loss call a step)
 families: no MoE either; ``--seq`` a multiple of the SSD chunk, 256 at full
 width, 8 reduced; one card or a data group, no model group)
 
+The vlm and encdec families (``qwen2-vl-7b``, ``seamless-m4t-large-v2``)
+take embedding batches that the token data sources here cannot make, so
+``main`` and ``run`` refuse them (:func:`refuse_untrainable`), where the
+reference's ``train.main`` fails on both; they train through
+``launch.steps.make_train_step`` on ``models.zoo.make_smoke_batch``
+batches.
+
 ``--engine`` takes ``fused_hier`` (the default, as the reference's),
 ``fused_flat`` (``--dedup``: the condensed wire), ``fused_pipe``, ``ragged``
 and ``disagg``; ``--calibrate`` measures the pipe constants that choose
@@ -219,13 +226,33 @@ def _is_rank0() -> bool:
         dist.get_rank() == 0)
 
 
+def refuse_untrainable(arch: str) -> None:
+    """ValueError for a family whose batches the token data sources cannot
+    make (``zoo.EMBED_INPUTS``; the reference's ``train.main`` fails on
+    both, train.py:369-370: encdec's loss asks for frames, and the vlm's
+    1-D positions leave M-RoPE's temporal row a scalar): train those
+    through ``steps.make_train_step`` on ``zoo.make_smoke_batch``
+    batches."""
+    family = get_arch(arch).family
+    if family in zoo.EMBED_INPUTS:
+        raise ValueError(
+            f"train.main / train.run cannot train {arch}: the {family} "
+            f"family's batches hold {zoo.EMBED_INPUTS[family]}, and the data "
+            "sources yield tokens only (the reference's train.main fails on "
+            "it too); drive "
+            "launch.steps.make_train_step on models.zoo.make_smoke_batch "
+            "batches instead")
+
+
 def setup(args, device="cuda", ep_group=None,
           mesh: HostMesh | None = None) -> Setup:
     """The model, its random bf16 parameters (this rank's lane of the expert
     weights over ``ep_group``, or over its EP group of ``mesh``), the data
     source of the global batch and the optimizer's config of a train run,
     all from seed 0: every rank draws the same replicated leaves and reads
-    the same global batches."""
+    the same global batches.  Raises ValueError for the vlm and encdec
+    families (:func:`refuse_untrainable`)."""
+    refuse_untrainable(args.arch)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -847,6 +874,7 @@ def main(argv=None, device="cuda"):
     prints; the peak memory and the AdamW state are printed for every
     rank."""
     args = parse_args(argv)
+    refuse_untrainable(args.arch)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         out = run(args, device)

@@ -1,14 +1,15 @@
-"""Attention: GQA with qk-norm, RoPE, position-masked causal attention and
-the decode KV cache (port of ``repro/layers/attention.py``, the parts the
+"""Attention: GQA with qk-norm, RoPE or M-RoPE, position-masked attention,
+the attention sub-block with cross-attention over encoder memory, and the
+decode KV cache (port of ``repro/layers/attention.py``, the parts the
 serving of the attention families, lock-step or per-slot, and their
 training use; the hybrid family's decode masks its window with
 ``window_len``).
 
-:func:`causal_attention` stands in for the reference's lax flash attention
+:func:`attention` stands in for the reference's lax flash attention
 (attention.py:35-244), which follows the same position contract as the
 Pallas flash kernel: it is ``kernels.ops.flash_attention``, the hand-written
-kernel on the card and its plain version on the CPU, differentiable through
-its blockwise backward.
+kernel on the card and its plain version on the CPU, causal or not,
+differentiable through its blockwise backward.
 """
 
 from __future__ import annotations
@@ -19,17 +20,25 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.layers.common import rms_norm
+from repro_torch.layers.common import apply_mrope, apply_rope, rms_norm
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_positions: torch.Tensor, k_positions: torch.Tensor,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """GQA attention masked from the actual positions (causal: key position
+    <= query position; ``window``: their distance below it).  q: (B, Sq,
+    Hq, hd); k/v: (B, Sk, Hkv, hd); positions (Sq,)/(Sk,).  Returns (B, Sq,
+    Hq, hd)."""
+    return kops.flash_attention(q, k, v, q_positions, k_positions,
+                                causal=causal, window=window)
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_positions: torch.Tensor, k_positions: torch.Tensor,
                      window: int | None = None) -> torch.Tensor:
-    """Causal GQA attention masked from the actual positions.  q: (B, Sq,
-    Hq, hd); k/v: (B, Sk, Hkv, hd); positions (Sq,)/(Sk,).  Returns (B, Sq,
-    Hq, hd)."""
-    return kops.flash_attention(q, k, v, q_positions, k_positions,
-                                causal=True, window=window)
+    """:func:`attention` with the causal mask."""
+    return attention(q, k, v, q_positions, k_positions, True, window)
 
 
 class KVCache(NamedTuple):
@@ -94,3 +103,50 @@ def gqa_project(x, wq, wk, wv, n_heads, n_kv, head_dim,
         q = rms_norm(q, q_norm_scale)
         k = rms_norm(k, k_norm_scale)
     return q, k, v
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, theta: float,
+           mrope_sections=None) -> torch.Tensor:
+    """RoPE of (..., S, H, hd) ``x`` at ``positions`` (..., S), or M-RoPE at
+    (3, ..., S) positions where ``mrope_sections`` is given."""
+    if mrope_sections is not None:
+        return apply_mrope(x, positions, mrope_sections, theta)
+    return apply_rope(x, positions, theta)
+
+
+def mask_positions(positions: torch.Tensor, mrope_sections=None):
+    """The positions attention masks by: the temporal row ``positions[0]``
+    under M-RoPE (the reference's attention.py:431), else ``positions``."""
+    return positions[0] if mrope_sections is not None else positions
+
+
+def attention_block(x, params, *, n_heads, n_kv, head_dim, rope_theta,
+                    positions, causal=True, window=None, qk_norm=False,
+                    mrope_sections=None, kv_override=None):
+    """The attention sub-block on one rank (the reference's attention.py:
+    420-471; pre-norm is the caller's): the GQA projection and optional
+    qk-norm, RoPE (M-RoPE with ``mrope_sections``, masking by the temporal
+    row) at ``positions``, :func:`attention`, then ``wo``.  x: (B, S, d).
+
+    ``kv_override`` = (k, v), (B, Sk, Hkv, hd): cross-attention over encoder
+    memory.  Only q is projected (the reference projects k and v too and
+    drops them); neither side is rotated, the keys sit at arange(Sk), and
+    the block is never causal."""
+    b, s, _ = x.shape
+    if kv_override is None:
+        q, k, v = gqa_project(
+            x, params["wq"], params["wk"], params["wv"], n_heads, n_kv,
+            head_dim, params.get("q_norm") if qk_norm else None,
+            params.get("k_norm") if qk_norm else None)
+        q = rotate(q, positions, rope_theta, mrope_sections)
+        k = rotate(k, positions, rope_theta, mrope_sections)
+        k_positions = mask_positions(positions, mrope_sections)
+    else:
+        q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
+        if qk_norm:
+            q = rms_norm(q, params["q_norm"])
+        k, v = kv_override
+        k_positions = torch.arange(k.shape[1], device=x.device)
+    out = attention(q, k, v, mask_positions(positions, mrope_sections),
+                    k_positions, causal and kv_override is None, window)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]

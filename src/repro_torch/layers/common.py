@@ -31,6 +31,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (..., S, H, hd); positions: (3, ...,
+    S), the temporal, height and width ids; ``sections`` splits the hd / 2
+    frequency slots among the three rows (slot j rotates by the row of the
+    section it falls in)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                      # (hd/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))                 # (hd/2,)
+    pos3 = torch.movedim(positions, 0, -1).float()               # (..., S, 3)
+    angles = (pos3[..., sec_id] * freqs)[..., None, :]     # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down

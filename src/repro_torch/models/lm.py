@@ -1,9 +1,9 @@
-"""Decoder-only LM, ``dense``, ``moe``, ``moe_tx``, ``moe_ffn``, ``ssm`` and
-``hybrid`` families: parameters, prefill and single-token decode (port of
-``repro/models/lm.py``, the serving path: a lock-step batch or a
-continuous-batching slot pool with per-row positions), the training forward
-and chunked CE loss, and the online traffic statistics threaded through the
-prefill and the training forward of the MoE families.
+"""Decoder-only LM, ``dense``, ``moe``, ``moe_tx``, ``moe_ffn``, ``ssm``,
+``hybrid`` and ``vlm`` families: parameters, prefill and single-token
+decode (port of ``repro/models/lm.py``, the serving path: a lock-step batch
+or a continuous-batching slot pool with per-row positions), the training
+forward and chunked CE loss, and the online traffic statistics threaded
+through the prefill and the training forward of the MoE families.
 
 Prefill runs every MoE layer through the FUSCO shuffle: ``layers/moe.moe_block``
 (moe: sequential blocks), ``layers/moe.stream_tx_layers`` (moe_tx: parallel
@@ -17,7 +17,12 @@ hybrid family's Hymba's parallel attention and SSM heads
 (``layers/hybrid.py``) then the SwiGLU MLP, its attention windowed on
 every layer but ``cfg.global_layers``; both run on one rank or over a data
 group only (:func:`make_context`), and their decode state carries each
-layer's SSD state and conv inputs (``DecodeState.ssm``).
+layer's SSD state and conv inputs (``DecodeState.ssm``).  The vlm family
+is the dense family's layers under M-RoPE: its inputs are (B, S, d)
+embeddings (a stubbed vision frontend's patches) with (3, S) position ids,
+whose temporal row masks attention; it runs on one rank only, as does the
+encoder-decoder family of ``models/encdec_model.py``, whose context this
+module builds too.
 Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
 Training over a model group (an EP group, or that of a (data, model)
 grid) runs the dense and moe families' attention and the dense MLP as
@@ -55,8 +60,8 @@ from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.attention import (KVCache, cache_update,
                                           causal_attention, decode_attention,
-                                          gqa_project)
-from repro_torch.layers.common import apply_rope, dense_init, embed_init, rms_norm
+                                          gqa_project, mask_positions, rotate)
+from repro_torch.layers.common import dense_init, embed_init, rms_norm
 from repro_torch.layers.hybrid import hymba_mixer
 from repro_torch.layers.ssm import SsmState, mamba2_mixer
 from repro_torch.parallel import sharding, tp_blocks
@@ -125,17 +130,23 @@ class ModelContext:
 # ``ssm_out_norm`` (:data:`HYBRID_NORMS`)
 FAMILY_PARTS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe"),
                 "moe_tx": ("attn", "moe"), "moe_ffn": ("moe",),
-                "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm")}
+                "ssm": ("ssm",), "hybrid": ("attn", "mlp", "ssm"),
+                "vlm": ("attn", "mlp")}
 FAMILIES = tuple(FAMILY_PARTS)
 HYBRID_NORMS = ("attn_out_norm", "ssm_out_norm")
 # the families that run on one rank or over a data group only: the split of
 # their layers over a model group is not ported (:func:`make_context`)
 WHOLE_LAYER_FAMILIES = ("ssm", "hybrid")
+# the families that run on one rank only: their split over a model or a
+# data group is not ported (:func:`make_context`); encdec's model is
+# ``models/encdec_model.py``
+ONE_RANK_FAMILIES = ("vlm", "encdec")
 
 
 def has_attention(cfg: ArchConfig) -> bool:
-    """Whether ``cfg``'s layers hold attention (and a KV cache)."""
-    return "attn" in FAMILY_PARTS[cfg.family]
+    """Whether ``cfg``'s layers hold attention (and a KV cache): the
+    encoder-decoder's do too."""
+    return cfg.family == "encdec" or "attn" in FAMILY_PARTS[cfg.family]
 
 
 def has_mlp(cfg: ArchConfig) -> bool:
@@ -213,7 +224,9 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     leaves; a serving context over a group passes ``explicit_tp=False``
     and ``split_vocab=False``, since prefill and decode read whole weights.
     ``split_vocab``: a training context over a model group splits the vocab
-    pair over it (:func:`vocab_parallel`), every family.  A family without MoE
+    pair over it (:func:`vocab_parallel`), every family.  The vlm and encdec
+    families run on one rank; over a model or a data group of more than one
+    rank they raise NotImplementedError.  A family without MoE
     (dense) has no placement and no dcomm config, as the reference's; over
     a model group it runs TP (its replicated layout with
     ``explicit_tp=False``), and data parallelism over ``mesh``'s data
@@ -222,10 +235,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     NotImplementedError (the reference's column split of ``in_proj_zx``,
     ``conv_w`` and ``out_proj`` over it is not ported).  Raises if
     ``device`` is CUDA and no card is there."""
-    if cfg.family not in FAMILIES:
+    if cfg.family not in FAMILIES + ONE_RANK_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only {FAMILIES}): "
-            "ROADMAP queue 1 item 8")
+            f"family {cfg.family!r} is not ported (only "
+            f"{FAMILIES + ONE_RANK_FAMILIES})")
     if mesh is not None:
         if ep_group is not None:
             raise ValueError("pass ep_group or mesh, not both")
@@ -241,6 +254,12 @@ def make_context(cfg: ArchConfig, device="cuda", *,
             "ported: ROADMAP queue 1 item 8, the ssm and hybrid families over "
             "a model group (the column split of in_proj_zx / conv_w / "
             "out_proj)")
+    dp = 1 if mesh is None else mesh.data
+    if cfg.family in ONE_RANK_FAMILIES and ep * dp > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family over a group of {ep * dp} ranks (model "
+            f"{ep}, data {dp}) is not ported: ROADMAP queue 1 item 8, the vlm "
+            "and encdec families over a group")
     if cfg.moe is None:
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
@@ -662,12 +681,14 @@ def _layer(tree, i: int | slice, cd: torch.dtype):
 
 
 def _attn_qkv(x, ap, cfg: ArchConfig, positions):
+    """q, k, v of one attention layer, q and k rotated at ``positions``
+    (M-RoPE at (3, ..., S) positions where ``cfg.mrope_sections`` is set)."""
     q, k, v = gqa_project(x, ap["wq"], ap["wk"], ap["wv"], cfg.n_heads,
                           cfg.n_kv_heads, cfg.hd,
                           ap.get("q_norm") if cfg.qk_norm else None,
                           ap.get("k_norm") if cfg.qk_norm else None)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    rot = lambda t: rotate(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return rot(q), rot(k), v
 
 
 class DecodeState(NamedTuple):
@@ -778,7 +799,8 @@ def _seq_layer(h: torch.Tensor, lp, positions: torch.Tensor,
     b, s, _ = h.shape
     x = rms_norm(h, lp["ln1"])
     q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
-    o = causal_attention(q, k, v, positions, positions, window=cfg.window)
+    mask = mask_positions(positions, cfg.mrope_sections)
+    o = causal_attention(q, k, v, mask, mask, window=cfg.window)
     h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
     if has_mlp(cfg):
         return h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"]), k, v
@@ -877,8 +899,9 @@ def _traffic_needs_moe(cfg: ArchConfig, traffic) -> None:
 def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
                    ctx: ModelContext, traffic=None, traffic_mask=None):
     """Training forward (the reference's ``forward_hidden``, lm.py:358-535,
-    dense, moe, moe_tx, moe_ffn, ssm and hybrid branches): (B, S) tokens to
-    the final-normed hidden states (B, S, d) in the compute dtype.  Parameters
+    dense, moe, moe_tx, moe_ffn, ssm, hybrid and vlm branches): (B, S)
+    tokens, or (B, S, d) embeddings (the vlm's), to the final-normed hidden
+    states (B, S, d) in the compute dtype.  Parameters
     are cast to the compute dtype as they are used (lm.py:445), so a
     gradient reaches the stored leaves in their own dtype.  ``dense``:
     sequential blocks of attention and the MLP; ``moe``: sequential blocks,
@@ -923,7 +946,8 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     tp = tensor_parallel(ctx)
     if tp and traffic_mask is not None:
         traffic_mask = seq_stripe(traffic_mask, ctx.ep_group)
-    h = _embed(params["embed"].to(cd), inputs, ctx, stripe=tp)
+    h = (inputs.to(cd) if inputs.dim() == 3
+         else _embed(params["embed"].to(cd), inputs, ctx, stripe=tp))
     if cfg.family == "moe_tx":
         h, new_traffic, _ = _tx_stack(params, h, positions, ctx, traffic,
                                       traffic_mask)
@@ -1042,14 +1066,36 @@ def _vocab_ce_chunk(hx: torch.Tensor, head: torch.Tensor, lx: torch.Tensor,
 LOSS_CHUNK = 512   # sequence positions per CE chunk (the reference's default)
 
 
+def chunked_ce(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               chunk=_ce_chunk):
+    """The summed CE and the count of valid labels of (B, S, d) ``h``
+    through ``head``, over chunks of :data:`LOSS_CHUNK` positions, each
+    ``chunk(hx, head, lx)`` under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its scanned chunk): the (B, c, V)
+    float32 logits of a chunk are recomputed in the backward, not kept."""
+    s = h.shape[1]
+    c = min(LOSS_CHUNK, s)
+    if s % c:
+        raise ValueError(f"sequence {s} does not split into chunks of {c}")
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for c0 in range(0, s, c):
+        part, n = torch.utils.checkpoint.checkpoint(
+            chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
+            use_reentrant=False)
+        tot, cnt = tot + part, cnt + n
+    return tot, cnt
+
+
 def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     """Next-token CE over ``batch`` {"tokens", "labels"} (B, S), labels
-    already shifted, -1 for none (the reference's ``lm_loss``,
+    already shifted, -1 for none, or the vlm's {"embeds" (B, S, d),
+    "positions" (3, S), "labels"} (the reference's ``lm_loss``,
     lm.py:538-580): chunked over the sequence by ``LOSS_CHUNK``, each chunk
     under ``torch.utils.checkpoint`` as the reference wraps it in
-    ``jax.checkpoint``, so the (B, c, V) float32 logits of every chunk are
-    recomputed in the backward, not kept; the denominator counts the valid
-    labels.  Returns (loss, metrics); with ``traffic`` (the layer-stacked
+    ``jax.checkpoint`` (:func:`chunked_ce`), so the (B, c, V) float32
+    logits of every chunk are recomputed in the backward, not kept; the
+    denominator counts the valid labels.  Returns (loss, metrics); with ``traffic`` (the layer-stacked
     state) the new state rides along as ``metrics["traffic"]``.
 
     Under :func:`vocab_parallel` every rank computes the whole sequence's
@@ -1070,11 +1116,11 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     sequence (S must split over the model group, else ValueError); the sum
     and the count are summed over the model group by
     ``dcomm.sum_forward``, whose backward seeds each rank's own addend."""
-    tokens = batch["tokens"]
+    inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = forward_hidden(params, tokens, positions, ctx, traffic=traffic)
+        positions = torch.arange(inputs.shape[1], device=inputs.device)
+    h = forward_hidden(params, inputs, positions, ctx, traffic=traffic)
     new_traffic = None
     if traffic is not None:
         h, new_traffic = h
@@ -1089,18 +1135,8 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     elif tp:
         labels = seq_stripe(labels, ctx.ep_group)
     _own_vocab(params["lm_head"], "lm_head", ctx)
-    head = params["lm_head"].to(ctx.compute_dtype)
-    s = h.shape[1]
-    c = min(LOSS_CHUNK, s)
-    if s % c:
-        raise ValueError(f"sequence {s} does not split into chunks of {c}")
-    tot = torch.zeros((), device=h.device)
-    cnt = torch.zeros((), device=h.device)
-    for c0 in range(0, s, c):
-        part, n = torch.utils.checkpoint.checkpoint(
-            chunk, h[:, c0:c0 + c], head, labels[:, c0:c0 + c],
-            use_reentrant=False)
-        tot, cnt = tot + part, cnt + n
+    tot, cnt = chunked_ce(h, params["lm_head"].to(ctx.compute_dtype), labels,
+                          chunk)
     if tp and not vocab:
         tot, cnt = dcomm.sum_forward(torch.stack([tot, cnt]), ctx.ep_group)
     loss = tot / cnt.clamp_min(1.0)
@@ -1251,7 +1287,8 @@ def _serves_whole(ctx: ModelContext) -> None:
 
 def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
             ctx: ModelContext, max_len: int, traffic=None, traffic_mask=None):
-    """Full-sequence forward over (B, S) tokens; returns the last position's
+    """Full-sequence forward over (B, S) tokens, or (B, S, d) embeddings
+    at (3, S) positions (the vlm's); returns the last position's
     logits (B, V) in float32 and the decode state with every layer's RoPE'd
     k and v in its cache (the last ``cap`` positions, at slot p % cap; no
     cache for moe_ffn, which is stateless, nor for ssm), every layer's SSD
@@ -1280,7 +1317,7 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     inputs = inputs[rows]
     if traffic_mask is not None:
         traffic_mask = traffic_mask[rows]
-    h = params["embed"].to(cd)[inputs]
+    h = inputs.to(cd) if inputs.dim() == 3 else params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
     if cfg.family in WHOLE_LAYER_FAMILIES:
@@ -1327,7 +1364,8 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     """One-token decode for the rows of ``state``: this rank's rows on a
     grid (:func:`init_decode_state`, :func:`prefill`; every row where the
     data ranks do not divide the batch, each data rank then computing the
-    same rows).  inputs: (B,) int tokens of those rows.
+    same rows).  inputs: (B,) int tokens of those rows, or their (B, 1, d)
+    embeddings.
     Returns (logits (B, V) float32, the state).  ``state.length`` is () (a
     lock-step batch) or (B,) (a slot pool: each row RoPE-rotates, writes its
     cache and masks at its own position); the positions come from it on the
@@ -1335,17 +1373,20 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     ``state.length`` are written in place, so the returned state holds the
     same tensors (fixed tensors a captured graph could replay), and so are
     the SSD states and conv inputs in ``state.ssm``.  Per family (the
-    reference's lm.py:666-733): dense and moe run attention, then the MLP
+    reference's lm.py:666-733): dense, vlm and moe run attention, then the MLP
     or the MoE on h + attn; moe_tx the parallel block, both reading h;
     moe_ffn ``h + moe(ln1 h)``, with no cache; ssm ``h + mamba2(ln1 h)``
     by its recurrent step; hybrid the Hymba mixer's step (each SWA layer's
     slots older than the window masked) then the MLP."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     _serves_whole(ctx)
-    h = params["embed"].to(cd)[inputs][:, None, :]
+    h = (inputs.to(cd) if inputs.dim() == 3
+         else params["embed"].to(cd)[inputs][:, None, :])
     b = h.shape[0]
     pos = state.length
     positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
+    if cfg.mrope_sections:       # every M-RoPE row at the decode position
+        positions = positions.expand(3, *positions.shape)
     if cfg.family in WHOLE_LAYER_FAMILIES:
         for i, lp in enumerate(_unstack(params["layers"], cd)):
             x = rms_norm(h, lp["ln1"])

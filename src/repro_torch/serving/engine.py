@@ -87,6 +87,7 @@ import torch
 from repro_torch.core import commplan, dcomm, relayout
 from repro_torch.core import traffic as traffic_lib
 from repro_torch.models import lm
+from repro_torch.models.zoo import EMBED_INPUTS
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without making the host wait: through
@@ -130,6 +131,14 @@ class _ServingBase:
                  eos_id: int | None = None, pad_id: int = 0,
                  track_traffic: bool = False,
                  buckets: tuple[int, ...] | None = None):
+        # the reference's continuous engine refuses encdec here
+        # (engine.py:414-416); its engines fail at the first prefill of
+        # either family; ``launch/serve.py`` serves both lock-step
+        family = bundle.cfg.family
+        if family in EMBED_INPUTS:
+            raise ValueError(f"the serving engines take token prompts; the "
+                             f"{family} family's prefill takes "
+                             f"{EMBED_INPUTS[family]}")
         self.bundle = bundle
         self.max_batch = max_batch
         self.max_len = max_len

@@ -7,6 +7,12 @@ shifted layouts of ``tests/test_flash_attention.py``; the moe family's
 wrapper against its C signature (the kernel itself is held against the plain
 version on the card by ``chip_smoke.py``).  float32, tolerance 2e-5 (sums in
 another order; the Pallas kernel walks 16-key blocks with an online softmax).
+
+The plain-against-Pallas checks run both sides on one thread (torch's
+intra-op pool set to 1 for the test, the Pallas program compiled with
+XLA's Eigen threading and parallel codegen off), so their arithmetic does
+not hang on the size of either pool, which differs between a worker of a
+parallel test run and a lone process.
 """
 
 import jax.numpy as jnp
@@ -35,28 +41,69 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+# XLA's CPU options that keep one compiled program on one thread
+ONE_THREAD = {"xla_cpu_multi_thread_eigen": False,
+              "xla_cpu_parallel_codegen_split_count": 1}
+
+
+@pytest.fixture
+def one_thread():
+    """torch's intra-op pool at one thread for the test, then restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pallas(q, k, v, qp, kp, causal, window, blk):
+    """The Pallas forward in interpret mode, compiled for one thread:
+    (out (B, Sq, Hq, hd), lse (B, Hq, Sq)) as numpy."""
+    args = [jnp.asarray(a) for a in (q, k, v, qp, kp)]
+    out, lse = _flash_fwd_pallas.lower(
+        *args, causal, window, blk, blk, True).compile(ONE_THREAD)(*args)
+    b, sq, hq, _ = q.shape
+    # (B, nq, Hkv, G, qb) -> (B, Hq, Sq)
+    return np.asarray(out), np.moveaxis(np.asarray(lse), 1, 3).reshape(
+        b, hq, sq)
+
+
 @pytest.mark.parametrize("offset,window,hq,hkv", [
     (0, None, 4, 2), (32, None, 4, 2), (32, 24, 8, 2), (7, None, 2, 1),
 ])
-def test_flash_ref_matches_pallas_out_and_lse(offset, window, hq, hkv):
+def test_flash_ref_matches_pallas_out_and_lse(offset, window, hq, hkv,
+                                              one_thread):
     b, sq, sk, hd, blk = 2, 32, 64, 16, 16
     q, k, v = _qkv(7, b, sq, sk, hq, hkv, hd)
     qp = np.arange(sq, dtype=np.int32) + offset
     kp = np.arange(sk, dtype=np.int32)
-    out_j, lse_j = _flash_fwd_pallas(*map(jnp.asarray, (q, k, v, qp, kp)),
-                                     True, window, blk, blk, True)
-    # (B, nq, Hkv, G, qb) -> (B, Hq, Sq)
-    lse_j = np.moveaxis(np.asarray(lse_j), 1, 3).reshape(b, hq, sq)
+    out_j, lse_j = _pallas(q, k, v, qp, kp, True, window, blk)
     out, lse = ref.flash_attention_ref(*_t(q, k, v, qp, kp), True, window)
     assert out.dtype == torch.float32 and lse.shape == (b, hq, sq)
-    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=TOL,
-                               atol=TOL)
+    np.testing.assert_allclose(out.numpy(), out_j, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(lse.numpy(), lse_j, rtol=TOL, atol=TOL)
     # the query-block size of the plain version does not change the result
     out8, lse8 = ref.flash_attention_ref(*_t(q, k, v, qp, kp), True, window,
                                          q_block=8)
     np.testing.assert_allclose(out8.numpy(), out.numpy(), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(lse8.numpy(), lse.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("sq,sk,offset", [(32, 32, 0), (32, 64, 16),
+                                          (64, 32, 0)])
+def test_flash_ref_matches_pallas_bidirectional(sq, sk, offset, one_thread):
+    """``causal=False`` (an encoder's self-attention, Sq = Sk, and a
+    decoder's cross-attention over encoder keys, Sq < Sk and Sq > Sk; the
+    queries' positions shifted by ``offset``), G 1 and G 2: output and
+    log-sum-exp, every key seen by every query."""
+    b, hd, blk = 2, 16, 16
+    for hq, hkv in ((2, 2), (4, 2)):
+        q, k, v = _qkv(11, b, sq, sk, hq, hkv, hd)
+        qp = np.arange(sq, dtype=np.int32) + offset
+        kp = np.arange(sk, dtype=np.int32)
+        out_j, lse_j = _pallas(q, k, v, qp, kp, False, None, blk)
+        out, lse = ref.flash_attention_ref(*_t(q, k, v, qp, kp), False, None)
+        np.testing.assert_allclose(out.numpy(), out_j, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(lse.numpy(), lse_j, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 5),

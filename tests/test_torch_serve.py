@@ -121,7 +121,7 @@ def test_convert_rejects_other_trees_and_serve_flags():
         ARCH, "fused_hier", 4, 64, 16)
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "sparse"])
-    # a family that is still unported (the vlm family, item 8)
+    # what is still unported of the vlm family (item 8): over a group
+    grid = type("Grid", (), dict(data=2, model=1, ep_group=None))()
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.make_context(dataclasses.replace(get_arch("qwen3-1.7b"),
-                                            family="vlm"), "cpu")
+        lm.make_context(get_arch("qwen2-vl-7b"), "cpu", mesh=grid)

@@ -267,12 +267,17 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 
 def test_training_raises_on_what_is_not_ported():
-    """What training still refuses: a family that is not ported (the vlm
-    family, at ``make_context``), the traffic state under serial
-    accumulation, and ``train.run`` without a card."""
+    """What training still refuses: the encdec family over a data group
+    (at ``make_context``) and in ``train.main``, whose data sources yield
+    tokens only, the traffic state under serial accumulation, and
+    ``train.run`` without a card."""
+    grid = type("Grid", (), dict(data=2, model=1, ep_group=None))()
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.make_context(dataclasses.replace(
-            get_arch("qwen3-1.7b").reduced(), family="vlm"), "cpu")
+        lm.make_context(get_arch("seamless-m4t-large-v2").reduced(), "cpu",
+                        mesh=grid)
+    with pytest.raises(ValueError, match="tokens only"):
+        train.main(["--arch", "seamless-m4t-large-v2", "--reduced"],
+                   device="cpu")
     cfg = get_arch(ARCH).reduced()
     ctx = lm.make_context(cfg, "cpu", compute_dtype=torch.float32)
     step = steps.make_train_step(tzoo.build(cfg, ctx), adamw.AdamWConfig(),
