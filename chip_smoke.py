@@ -253,7 +253,21 @@
    rounds each node's part of the combine, which flips near-tied top-8
    choices), the kernels held and timed on rank 0's layer-0 inputs, and
    rank 0's launches the count the code implies per admission and decode
-   step; ``zero1_phase``,
+   step; then, in the same spawn on the world of four, the pipeline
+   (``pipeline_rank``, ``PIPE``): qwen3-1.7b at full width and all 28
+   layers in 4 stages of 7 through ``parallel/pipeline.pipeline_apply``,
+   bf16, 8 microbatches of 1 x 512, forward and backward of sum(out * c),
+   against the same layers run sequentially on rank 0 one microbatch at a
+   time (``pipeline_check``: the output bit-equal, else where it parts;
+   every stage's dw and every rank's dx within n_micro x 2^-8 x the sum of
+   the per-microbatch |gradients|; exactly 7 x (8 + 3) = 77 flash forwards
+   a rank in the pipelined call and 224 in the sequential one; the longest
+   hop and the broadcast by host clock); after the spawn, in this process,
+   ``compress_phase``: 4 rounds of ``parallel/compress``'s error feedback
+   over a seeded bf16 gradient tree of qwen3-1.7b's leaf shapes, every
+   block's error within max|block| / 254, the last round's q, scales and
+   error on ``embed`` and layer 0's leaves bit-equal to the CPU's, one
+   ``compress_grads`` timed against its bytes bound; ``zero1_phase``,
    qwen3-moe at full width cut to one layer (B 4 x S 512, traffic on, 3
    steps) through ``launch/train.run`` on the card alone and then on that
    grid, with ZeRO-1 and then FSDP of the experts in one spawn: each
@@ -2808,12 +2822,14 @@ GRID_SERVE_CASES = (("qwen3-moe-30b-a3b", "fused_flat", False),
 # the full-width serve on the same grid: qwen3-moe cut to 8 layers through
 # fused_hier at node size 1 (the reference serve's max(1, model // 2)), the
 # continuous engine (pool 8, admission chunks of one row a data rank) over 8
-# requests of a 64-token prompt, 8 tokens each, at capacity factor 16 (E /
-# top-k: nothing dropped at EP 1 or EP 2).  At EP 2 one lane's experts over
-# 8 layers are 64 x 3 x 2048 x 768 x 2 B x 8 = 4.83 GB > 4 GB, so the
-# reference's rule (``lm.fsdp_rule``) turns FSDP of the experts on by itself
+# requests of a 64-token prompt, 4 tokens each (4 admissions, 3 decode steps:
+# each forward gathers the experts' other halves over gloo, ~6.8 s), at
+# capacity factor 16 (E / top-k: nothing dropped at EP 1 or EP 2).  At EP 2
+# one lane's experts over 8 layers are 64 x 3 x 2048 x 768 x 2 B x 8 = 4.83
+# GB > 4 GB, so the reference's rule (``lm.fsdp_rule``) turns FSDP of the
+# experts on by itself
 GRID_SERVE = dict(arch="qwen3-moe-30b-a3b", layers=8, engine="fused_hier",
-                  max_batch=8, requests=8, prompt=64, gen=8, capacity=16.0,
+                  max_batch=8, requests=8, prompt=64, gen=4, capacity=16.0,
                   reduced=False)
 GRID_EXPERT_BYTES = 2_415_919_104   # a rank's half of its lane's experts
 # the first-token logits of each row, grid against the card alone (EP 1,
@@ -3079,11 +3095,35 @@ def grid_serve_implied(spec: dict, admissions: int, steps: int) -> dict:
             "segment_scatter_add_bwd": 0}
 
 
+# the pipeline phase, in ``grid_card_check``'s spawn of four on the world:
+# qwen3-1.7b at full width and depth (``layers`` None), its 28 layers in 4
+# stages of 7 (``lm._seq_layer`` on a one-rank dense context, bf16), 8
+# microbatches of (1, 512, d) seeded hidden states at positions arange(512),
+# forward and backward of sum(out * c)
+PIPE = dict(arch="qwen3-1.7b", reduced=False, layers=None, n_micro=8,
+            seq=512, seed=0)
+# each stage's dw, and each rank's dx, against the sequential reference's
+# per-microbatch gradients g_m (bf16 terms, bit for bit the pipeline's at the
+# same shapes): the pipelined sum adds the same bf16 terms and exact zeros (the
+# fill and drain ticks) in another order, rounding each partial sum to bf16,
+# so element by element it is within n_micro * 2^-8 * sum_m |g_m| of the
+# exact sum_m g_m (recursive summation at bf16's unit roundoff 2^-8; the
+# reference's sums in f32)
+PIPE_UNIT = 2.0 ** -8
+# the flash forward at the stages' shape: one microbatch, 16 / 8 heads of 128
+PIPE_ATTN = dict(b=1, sq=512, sk=512, hq=16, hkv=8, hd=128)
+# gloo's timeout, set when a spawn's group is made: a rank left waiting in a
+# collective (a backward the ranks reach in different orders) fails after
+# this many seconds, inside ``spawn_ranks``' deadline
+GLOO_TIMEOUT_S = 120
+
+
 def _grid_init(rank, port, device, shape=GRID):
     """Join the gloo group of a ``shape`` grid's ranks on ``device``; its
     mesh.  One host thread a rank for torch's own CPU ops: the ranks share
     the host's cores, and a pool of threads in each spins against the
     others' (gloo keeps its own threads)."""
+    import datetime
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -3091,17 +3131,19 @@ def _grid_init(rank, port, device, shape=GRID):
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device).index or 0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=shape[0] * shape[1])
+                            rank=rank, world_size=shape[0] * shape[1],
+                            timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
     from repro_torch.launch.mesh import make_host_mesh
     return make_host_mesh(*shape)
 
 
-def _grid_rank(rank, port, out_dir, device, grids, serve):
+def _grid_rank(rank, port, out_dir, device, grids, serve, pipe):
     """One rank of the grid checks: each of ``grids``' (shape, cases), the
     same world in all, each case's step saved to ``out_dir``; then the
     serving checks on the first grid: each of ``GRID_SERVE_CASES`` reduced
     (``grid_serve_run``) and ``serve``'s full-width run
-    (``grid_serve_full``)."""
+    (``grid_serve_full``); then ``pipe``'s pipeline phase on the world
+    (:func:`pipeline_rank`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -3126,12 +3168,16 @@ def _grid_rank(rank, port, out_dir, device, grids, serve):
             torch.save(calls, f"{out_dir}/serve-calls.pt")
         del calls
         torch.save(full, f"{out_dir}/serve-full-rank{rank}.pt")
+        del full
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        pipeline_rank(rank, out_dir, device, pipe)
     finally:
         dist.destroy_process_group()
 
 
 def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
-                    timer=time_ms) -> tuple[dict, dict, list]:
+                    timer=time_ms, pipe=PIPE) -> tuple[dict, dict, list]:
     """One f32 train step of each case of each (shape, cases) of ``grids``
     on a ``shape`` grid of ranks sharing the card (gloo; one spawn of the
     grids' common world for all) against the one-rank step on the card
@@ -3168,9 +3214,10 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
     assert all(a * b == n for (a, b), _ in grids), grids
     t0 = time.perf_counter()
     spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids,
-                                serve), 900)
+                                serve, pipe), 900)
     spawn_s = time.perf_counter() - t0
     lines = {}
+    lines["pipeline"], launches_pipe = pipeline_check(out_dir, pipe)
     lines["serve"], launches = grid_serve_check(
         out_dir, grids[0][0], serve, want_serve, want_full)
     with torch.inference_mode():
@@ -3179,8 +3226,9 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
             grid_serve_path(serve, grids[0][0]), serve["engine"], timer)
     lines["serve"].append(
         f"seconds: the one-card full-width prefills {full_one_s:.1f}; the "
-        f"spawn of {n} (the train grids and the serving checks) "
-        f"{spawn_s:.1f}")
+        f"spawn of {n} (the train grids, the serving checks and the "
+        f"pipeline) {spawn_s:.1f}")
+    launches[f"{pipe['arch']} pipeline"] = launches_pipe
     for shape, (arch, engine) in ((s, c) for s, cases in grids
                                   for c in cases):
         w, model = want[arch, engine], shape[1]
@@ -3380,6 +3428,339 @@ def grid_serve_check(out_dir, shape, spec, want_runs, want_full
         f"host: not a speed), {got[0]['seconds']:.1f} s in all on rank 0; "
         f"sample {streams[0]}")
     return lines, launches
+
+
+def phase_config(spec: dict):
+    """``spec``'s architecture (reduced, and cut to ``layers``, as it
+    says)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(spec["arch"])
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    return (cfg if spec["layers"] is None
+            else dataclasses.replace(cfg, n_layers=spec["layers"]))
+
+
+def _pipe_inputs(cfg, spec: dict, device):
+    """The seeded layer tree (bf16, stacked on L), the (n_micro, 1, S, d)
+    microbatches, the loss weights c (f32) and the positions."""
+    import torch
+    from repro_torch.models import lm
+    ctx = lm.make_context(cfg, device)
+    gen = torch.Generator(device=ctx.device).manual_seed(spec["seed"])
+    layers = lm.init_params(cfg, ctx, gen)["layers"]
+    shape = (spec["n_micro"], 1, spec["seq"], cfg.d_model)
+    gen.manual_seed(spec["seed"] + 1)
+    xs = torch.randn(shape, generator=gen, device=ctx.device).to(torch.bfloat16)
+    c = torch.randn(shape, generator=gen, device=ctx.device)
+    return ctx, layers, xs, c, torch.arange(spec["seq"], device=ctx.device)
+
+
+def _stack_fn(ctx, positions):
+    """The stage body: each layer of a stacked tree through
+    ``lm._seq_layer``."""
+    from repro_torch.models import lm
+
+    def run(params, h):
+        for lp in lm._unstack(params, ctx.compute_dtype):
+            h = lm._seq_layer(h, lp, positions, ctx)[0]
+        return h
+    return run
+
+
+def _host_timed(fn, record: list):
+    """``fn`` with each call's host-clock ms (device synchronised before and
+    after) appended to ``record``."""
+    import torch
+
+    def timed(*a, **kw):
+        sync = torch.cuda.synchronize if a[0].is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        record.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def pipeline_rank(rank, out_dir, device, spec=PIPE) -> None:
+    """One rank of the pipeline phase on ``dist.group.WORLD`` (every rank of
+    an initialised group calls it): this rank's stage of ``spec``'s stacked
+    layers (``pipeline.stage_slice``), one ``pipeline_apply`` forward and
+    backward of sum(out * c), each hop and the broadcast timed by host clock
+    (``pipeline._shift``, forward and backward, and
+    ``pipeline.from_last_stage``), its launches; its dw, dx, launches and
+    times saved to ``out_dir``.  Then rank 0 runs the same layers
+    sequentially, one microbatch at a time (its launches counted apart),
+    and holds the pipelined output, every stage's dw and every rank's dx
+    against them (:data:`PIPE_UNIT`), saving what it found."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import pipeline
+    start = time.perf_counter()
+    cfg = phase_config(spec)
+    n = dist.get_world_size()
+    ctx, whole, xs, c, positions = _pipe_inputs(cfg, spec, device)
+    per = cfg.n_layers // n
+    stacked = adamw.tree_map(
+        lambda p: p.reshape(n, per, *p.shape[1:]), whole)
+    mine = adamw.tree_map(lambda p: p.clone().requires_grad_(),
+                          pipeline.stage_slice(stacked, rank))
+    del stacked
+    if rank:
+        del whole
+    x = xs.clone().requires_grad_()
+    hops, bcast = [], []
+    shift, last = pipeline._shift, pipeline.from_last_stage
+    pipeline._shift = _host_timed(shift, hops)
+    pipeline.from_last_stage = _host_timed(last, bcast)
+    wrappers = zero_counters()
+    t0 = time.perf_counter()
+    try:
+        out = pipeline.pipeline_apply(_stack_fn(ctx, positions), mine, x,
+                                      group=dist.group.WORLD)
+        (out.float() * c).sum().backward()
+    finally:
+        pipeline._shift, pipeline.from_last_stage = shift, last
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = {"launches": {k: w.launches for k, w in wrappers.items()},
+           "hop_ms": hops, "bcast_ms": bcast, "seconds": seconds,
+           "dx": x.grad.cpu(),
+           "dw": {k: t.grad.cpu() for k, t in zip(adamw.paths(mine),
+                                                  adamw.leaves(mine))}}
+    torch.save(got, f"{out_dir}/pipe-rank{rank}.pt")
+    dist.barrier()
+    if rank == 0:
+        held = _pipe_held(ctx, whole, xs, c, positions, out.detach(), spec, n,
+                          out_dir)
+        held["phase_s"] = time.perf_counter() - start
+        torch.save(held, f"{out_dir}/pipe-held.pt")
+
+
+def _pipe_held(ctx, whole, xs, c, positions, out, spec, n, out_dir) -> dict:
+    """Rank 0's sequential reference and the comparisons of
+    :func:`pipeline_rank`: per microbatch, the 28 layers forward and
+    backward alone, the exact sum S and the sum A of |g_m| of its bf16
+    gradients in f32; the pipelined output's bits against the sequential
+    ones (where they part, the first microbatch and the count), each
+    stage's dw and each rank's dx as a share of n_micro * 2^-8 * A (dx:
+    one term), and whether each is bit-equal to the bf16 rounding of S."""
+    import torch
+    from repro_torch.optim import adamw
+    n_micro = spec["n_micro"]
+    leaves = [p.requires_grad_() for p in adamw.leaves(whole)]
+    paths = adamw.paths(whole)
+    run = _stack_fn(ctx, positions)
+    S = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+         for p in leaves]
+    A = [torch.zeros_like(s) for s in S]
+    dx_ref, parts = [], []
+    wrappers = zero_counters()
+    t0 = time.perf_counter()
+    for m in range(n_micro):
+        xm = xs[m].clone().requires_grad_()
+        ym = run(whole, xm)
+        *gs, gx = torch.autograd.grad((ym.float() * c[m]).sum(),
+                                      leaves + [xm])
+        for s, a, g in zip(S, A, gs, strict=True):
+            s.add_(g.float())
+            a.add_(g.float().abs())
+        dx_ref.append(gx)
+        if not same_bits(ym.detach(), out[m]):
+            diff = ym.detach() != out[m]
+            parts.append(f"microbatch {m}: {int(diff.sum())} elements, max "
+                         f"|diff| {max_err(ym.detach(), out[m]):.3g}")
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    dx_ref = torch.stack(dx_ref)
+    per = whole[next(iter(whole))].shape[0] // n
+    share = lambda got, s, a, terms: (
+        (got.float() - s).abs() / (terms * PIPE_UNIT * a)).nan_to_num(
+        nan=0.0, posinf=float("inf")).max().item()
+    shares, dw_bits = [], []
+    for r in range(n):
+        got = torch.load(f"{out_dir}/pipe-rank{r}.pt")
+        cut = slice(r * per, (r + 1) * per)
+        worst, exact = 0.0, 0
+        for k, s, a in zip(paths, S, A, strict=True):
+            g = got["dw"][k].to(s.device)
+            worst = max(worst, share(g, s[cut], a[cut], n_micro))
+            exact += same_bits(g, s[cut].to(g.dtype))
+        dx = got["dx"].to(xs.device)
+        shares.append((worst, share(dx, dx_ref.float(), dx_ref.float().abs(),
+                                    1), same_bits(dx, dx_ref)))
+        dw_bits.append(f"{exact}/{len(paths)}")
+    return {"out_bits": not parts, "parts": parts, "shares": shares,
+            "dw_bits": dw_bits, "seq_launches": launches, "seq_s": seq_s,
+            "loss": (out.float() * c).sum().item()}
+
+
+def pipeline_check(out_dir, spec=PIPE) -> tuple[list[str], dict]:
+    """The pipeline phase's results against ``PIPE``'s tolerances: the
+    output bit-equal to the sequential stack's (else where it parts), every
+    stage's dw and every rank's dx within n_micro * 2^-8 * sum_m |g_m| (dx:
+    2^-8 |g|), the flash forward launched exactly layers / stage x (n_micro
+    + stages - 1) times on every rank in the pipelined call and layers x
+    n_micro times in rank 0's sequential reference.  Returns the lines and
+    rank 0's pipelined launches."""
+    import math
+    import torch
+    cfg = phase_config(spec)
+    held = torch.load(f"{out_dir}/pipe-held.pt")
+    n = len(held["shares"])
+    got = [torch.load(f"{out_dir}/pipe-rank{r}.pt") for r in range(n)]
+    per, n_micro = cfg.n_layers // n, spec["n_micro"]
+    want_pipe = per * (n_micro + n - 1)
+    want_seq = cfg.n_layers * n_micro
+    flash = [g["launches"]["flash_attention"] for g in got]
+    others = [{k: v for k, v in g["launches"].items()
+               if k != "flash_attention" and v} for g in got]
+    worst = max(max(w, x) for w, x, _ in held["shares"])
+    bad = []
+    if flash != [want_pipe] * n or any(others):
+        bad.append(f"pipelined launches {[g['launches'] for g in got]}, want "
+                   f"flash {want_pipe} a rank and nothing else")
+    if held["seq_launches"]["flash_attention"] != want_seq:
+        bad.append(f"sequential launches {held['seq_launches']}, want flash "
+                   f"{want_seq}")
+    if not held["out_bits"]:
+        print(f"pipeline: the pipelined output parts from the sequential "
+              f"stack's: {held['parts']}")
+    if bad or not worst <= 1.0 or not math.isfinite(held["loss"]):
+        raise AssertionError(f"pipeline {cfg.name}: {bad}; worst dw / dx "
+                             f"share {held['shares']} (tol 1); loss "
+                             f"{held['loss']}")
+    hops = max(max(g["hop_ms"]) for g in got)
+    bcast = max(max(g["bcast_ms"]) for g in got)
+    line = (f"{cfg.name} {cfg.n_layers} layers (d {cfg.d_model}, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, f "
+            f"{cfg.d_ff}) in {n} stages of {per}, bf16, {n_micro} "
+            f"microbatches of (1, {spec['seq']}, {cfg.d_model}): output "
+            + ("bit-equal to the sequential stack's" if held["out_bits"] else
+               f"parts from the sequential stack's ({held['parts']}; the same "
+               f"kernels at the same shapes should give its bits)")
+            + f"; worst share of the tolerance (n_micro x 2^-8 x sum |g_m|; "
+            f"dx one term) per rank (dw, dx, dx bit-equal) "
+            f"{[(round(w, 4), round(x, 4), b) for w, x, b in held['shares']]}; "
+            f"dw leaves bit-equal to the rounded exact sum per stage "
+            f"{held['dw_bits']}; flash forwards per rank {flash} (want "
+            f"{want_pipe} = {per} x ({n_micro} + {n} - 1)), rank 0's "
+            f"sequential reference {held['seq_launches']['flash_attention']}"
+            f" (want {want_seq}); host clock: longest hop {hops:.3f} ms "
+            f"(of {len(got[0]['hop_ms'])} a rank, forward and backward), "
+            f"the broadcast {bcast:.3f} ms (gloo through the host: the path "
+            f"works, no speed); the pipelined forward+backward "
+            f"{[round(g['seconds'], 3) for g in got]} s a rank, the "
+            f"sequential reference {held['seq_s']:.3f} s, the phase on rank "
+            f"0 {held['phase_s']:.1f} s; loss {held['loss']:.6g}")
+    return [line], got[0]["launches"]
+
+
+# the compress phase: a gradient tree of qwen3-1.7b's leaf shapes in bf16,
+# seeded, through ``compress_grads`` and ``decompress_grads`` for 4 rounds of
+# error feedback; the card's q and scales against the CPU's on a subtree
+COMPRESS = dict(arch="qwen3-1.7b", reduced=False, layers=None, rounds=4,
+                block=256, seed=0)
+# every block's error within max|block| / 254, with room for the f32
+# roundings of the division, the product and the difference (~3e-5 of it)
+COMPRESS_SLACK = 1 + 2.0 ** -14
+
+
+def compress_phase(device="cuda", spec=COMPRESS, timer=time_ms) -> str:
+    """``spec``'s rounds of ``compress_grads`` and ``decompress_grads`` on
+    ``device``: each round's q and scales meet the per-block bound (every
+    element of the new error within max|block| / 254 x
+    ``COMPRESS_SLACK`` of its block of g + e); ``decompress_grads`` keeps
+    each leaf's shape and dtype; in the last round the same call on
+    ``embed`` and one layer's leaves gives the CPU's q, scales and error
+    bits; one ``compress_grads`` over the whole tree is timed (``timer``)
+    against its bytes bound (g and e read, q, the scales and the new e
+    written).  Returns the line."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compress
+    cfg = phase_config(spec)
+    block = spec["block"]
+    ctx = lm.make_context(cfg, device)
+    gen = torch.Generator(device=ctx.device).manual_seed(spec["seed"])
+    like = lm.init_params(cfg, ctx, gen)
+    shapes = adamw.tree_map(lambda p: p.shape, like)
+    del like
+    draw = lambda: adamw.tree_map(lambda s: torch.randn(
+        s, generator=gen, device=ctx.device).to(torch.bfloat16), shapes)
+    ef = compress.init_error(draw())
+    worst, blocks, cpu_bits = 0.0, 0, None
+    for rnd in range(spec["rounds"]):
+        grads = draw()
+        if rnd == spec["rounds"] - 1:
+            # embed and layer 0 of each stacked layer leaf, held on the CPU
+            sub_g, sub_e = ({"embed": t["embed"], "layers": adamw.tree_map(
+                lambda p: p[0].contiguous(), t["layers"])}
+                for t in (grads, ef.error))
+            on_card = compress.compress_grads(sub_g, compress.EFState(sub_e),
+                                              block)
+            on_cpu = compress.compress_grads(
+                adamw.tree_map(lambda t: t.cpu(), sub_g),
+                compress.EFState(adamw.tree_map(lambda t: t.cpu(), sub_e)),
+                block)
+            cpu_bits = [
+                p for p, (q, s), (qc, sc), e, ec in zip(
+                    adamw.paths(on_card[1]), on_card[0], on_cpu[0],
+                    adamw.leaves(on_card[2].error),
+                    adamw.leaves(on_cpu[2].error), strict=True)
+                if not (same_bits(q.cpu(), qc) and same_bits(s.cpu(), sc)
+                        and same_bits(e.cpu(), ec))]
+            del on_card, on_cpu, sub_g, sub_e
+        old = ef.error
+        qs, treedef, ef = compress.compress_grads(grads, ef, block)
+        for g, e, (q, s), new in zip(adamw.leaves(grads), adamw.leaves(old),
+                                     qs, adamw.leaves(ef.error), strict=True):
+            val = g.float() + e
+            pad = (-val.numel()) % block
+            vb = torch.nn.functional.pad(val.reshape(-1), (0, pad))
+            nb = torch.nn.functional.pad(new.reshape(-1), (0, pad))
+            m = vb.reshape(-1, block).abs().amax(1)
+            emax = nb.reshape(-1, block).abs().amax(1)
+            ratio = torch.where(m > 0, emax / (m / 254.0),
+                                torch.where(emax > 0, float("inf"), 0.0))
+            worst = max(worst, ratio.max().item())
+            blocks += m.numel()
+            del val, vb, nb
+        out = compress.decompress_grads(qs, treedef, adamw.leaves(grads),
+                                        block)
+        kept = all(o.shape == g.shape and o.dtype == g.dtype for o, g in zip(
+            adamw.leaves(out), adamw.leaves(grads), strict=True))
+        del old, qs, out
+        if not kept or not worst <= COMPRESS_SLACK:
+            raise AssertionError(f"compress round {rnd}: shapes and dtypes "
+                                 f"kept {kept}; worst block error {worst} of "
+                                 f"max|block| / 254 (tol {COMPRESS_SLACK})")
+    if cpu_bits:
+        raise AssertionError(f"compress: the card's q, scales or error "
+                             f"differ from the CPU's at {cpu_bits}")
+    n = sum(g.numel() for g in adamw.leaves(grads))
+    n_blocks = sum(-(-g.numel() // block) for g in adamw.leaves(grads))
+    nbytes = n * (2 + 4 + 1 + 4) + n_blocks * 4
+    b_ms, b_by = bound(nbytes, 0, BF16_PEAK)
+    ms = timer(lambda: compress.compress_grads(grads, ef, block), reps=1,
+               warmup=1)
+    return (f"{cfg.name} gradient tree, {len(adamw.leaves(grads))} leaves, "
+            f"{n} bf16 elements, block {block}, {spec['rounds']} rounds of "
+            f"error feedback: worst block error {worst:.6f} of max|block| / "
+            f"254 over {blocks} blocks (tol {COMPRESS_SLACK:.6f}); "
+            f"decompress_grads keeps every leaf's shape and dtype; the last "
+            f"round's q, scales and error on embed and layer 0's leaves "
+            f"bit-equal to the CPU's; one compress_grads {ms:.4f} ms"
+            f"{spread(ms)} (CUDA events, median of 5) against its bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes} B, g and e read, q, the scales "
+            f"and the new e written), {ms / b_ms:.2f}x; {card_line()}")
 
 
 def held_params(cfg, model: int, tp: bool = True) -> int:
@@ -5587,6 +5968,10 @@ def main() -> None:
         # qwen3-1.7b's flash at group size 2
         dense_rows, lines = dense_flash_rows()
         rows += dense_rows
+        # and at one microbatch of its pipeline's stages
+        rows.append(dict(flash_row(*attention_inputs("cuda", **PIPE_ATTN),
+                                   window=None),
+                         path=f"{PIPE['arch']} pipeline"))
         for line in lines:
             print(f"flash group size 2, held: {line}")
     # moe-ffn-stream-1b's MoE kernels at its serve and train shapes and at
@@ -5878,11 +6263,18 @@ def main() -> None:
     for line in grid_lines["serve"]:
         print(f"serving on the (2, 2) grid on one card (four gloo ranks, "
               f"batch rows over the data group) vs the card alone: {line}")
+    for line in grid_lines["pipeline"]:
+        print(f"pipeline over the four gloo ranks sharing the card (GPipe, "
+              f"forward and backward) vs the sequential stack: {line}")
     for r in grid_rows:
         print_row(r)
     rows += grid_rows
     launches.update(grid_launches)
-    stamp("the grid checks")
+    stamp("the grid checks and the pipeline")
+    print(f"gradient compression (int8, error feedback) on the card: "
+          f"{compress_phase()}")
+    torch.cuda.empty_cache()
+    stamp("gradient compression")
     zero1_lines, fsdp_lines = zero1_phase()
     for line in zero1_lines:
         print(f"full-width ZeRO-1 run, (2, 2) grid on one card: {line}")
