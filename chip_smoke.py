@@ -157,14 +157,14 @@
    (``ssd_bf16_gap``: the SSD's decays and cumsums in bf16, as the
    reference's).
 7. Train phases: zero the counters, train full-width qwen3-moe-30b-a3b (4
-   of 48 layers) for 8 AdamW steps through ``repro_torch.launch.train``,
+   of 48 layers) for 5 AdamW steps through ``repro_torch.launch.train``,
    through fused_flat and then through fused_hier, then moe-tx-stream-1b
    (all 16 layers, B 4 x S 512) through fused_flat and through
    ``--engine fused_pipe --moe-stream 16`` (``TX_TRAINS``), each with the
    traffic state threaded through every step, then (``NEW_TRAINS``)
    qwen3-1.7b (14 of its 28 layers, bf16 params, f32 master) and
    moe-ffn-stream-1b (all 16 layers) through fused_flat and streamed
-   fused_pipe, B 4 x S 512, 8 steps, and (``LANE_TRAINS``) both stream
+   fused_pipe, B 4 x S 512, 5 steps, and (``LANE_TRAINS``) both stream
    families at two lanes with ``--accum 2`` fused into them (one loss call
    a step, traffic on), their launches held to ``lane_launches``, and
    (``SSM_TRAINS``) hymba-1.5b at its 32 layers and mamba2-2.7b at 16 of
@@ -175,7 +175,8 @@
    kernels for the dense family) never launched or one off it did, a loss
    is not finite or, for a family with MoE, the traffic state is all zero;
    print the losses, ms/step, tokens/s, peak memory and the traffic state,
-   then profile one step, its forward+backward and its optimizer update
+   then profile one step and its optimizer update (the forward+backward
+   printed as the step less the update)
    (device busy, device ms by kind, the bf16 zero fills and adds of the
    stacked gradients' assembly).  After the relayout phases, ``--engine
    auto`` (``engine_auto_phase``): qwen3-moe at full width, 4 layers, B 4 x
@@ -246,7 +247,7 @@
    every rank's streams the card alone's and its traffic counts equal; and
    qwen3-moe at full width cut to 8 layers in bf16 through fused_hier with
    FSDP of the experts by the reference's rule, the continuous engine over
-   8 requests of 64 tokens: each rank's expert bytes exactly its half of
+   4 requests of 64 tokens: each rank's expert bytes exactly its half of
    its lane's (2,415,919,104 B), its peak memory, the same streams on the
    four, each row's first-token logits the card alone's within half their
    distance to the nearest other request's (``TOL_GRID_APART``: fused_hier
@@ -262,7 +263,18 @@
    every stage's dw and every rank's dx within n_micro x 2^-8 x the sum of
    the per-microbatch |gradients|; exactly 7 x (8 + 3) = 77 flash forwards
    a rank in the pipelined call and 224 in the sequential one; the longest
-   hop and the broadcast by host clock); after the spawn, in this process,
+   hop and the broadcast by host clock); then the vlm and encdec families
+   on the (2, 2) grid (``embed_grid_rank``: their attention the
+   head-parallel island over the model group, each data rank its rows),
+   each against the card alone (``embed_grid_check``): the reduced f32
+   train step (loss, every gradient, the updated params, ZeRO-1 shares)
+   and lock-step serve (the same tokens), a full-width bf16 train step at
+   2 layers (seamless 2 + 2; the first loss within 2e-3, each rank's bytes
+   the reckoning of what it holds) and a full-width 8 x 512 prefill (each
+   row's first-token logits as the grid serve's rule holds them), rank 0's
+   flash launches the code's count (the flash rows at the island's shard
+   shapes, ``embed_grid_flash_rows``, sit in the kernel phase); after the
+   spawn, in this process,
    ``compress_phase``: 4 rounds of ``parallel/compress``'s error feedback
    over a seeded bf16 gradient tree of qwen3-1.7b's leaf shapes, every
    block's error within max|block| / 254, the last round's q, scales and
@@ -322,11 +334,14 @@ PATHS = {
         dict(t=4096, d=1024, n_experts=64, top_k=4, f=1024, decode_t=8),
         dict(b=8, sq=512, sk=512, hq=16, hkv=4, hd=64)),
 }
+# the steps of every full-width train phase run by ``launch/train.py``: two
+# warm-up steps, the median of the other three timed
+TRAIN_STEPS = "5"
 # the training path: launch/train.py's flags, the MoE shapes it gives the kernels
 # (T = 4 x 512 tokens, capacity 256) and its attention shape
 TRAIN = (["--arch", "qwen3-moe-30b-a3b", "--engine", "fused_flat", "--layers",
-          "4", "--batch", "4", "--seq", "512", "--steps", "8", "--data",
-          "zipf"],
+          "4", "--batch", "4", "--seq", "512", "--steps", TRAIN_STEPS,
+          "--data", "zipf"],
          dict(t=2048, d=2048, n_experts=128, top_k=8, f=768, decode_t=8),
          dict(b=4, sq=512, sk=512, hq=32, hkv=4, hd=128))
 # the train phases: label -> flags (the same run through fused_hier)
@@ -336,7 +351,8 @@ TRAINS = {"train": TRAIN[0],
 # the moe-tx train path: moe-tx-stream-1b at full width, all 16 layers, B 4 x
 # S 512 (T 2048, 64 experts, top-4, capacity 256), and its attention shape
 TX_TRAIN = (["--arch", "moe-tx-stream", "--batch", "4", "--seq", "512",
-             "--steps", "8", "--data", "zipf", "--engine", "fused_flat"],
+             "--steps", TRAIN_STEPS, "--data", "zipf", "--engine",
+             "fused_flat"],
             dict(t=2048, d=1024, n_experts=64, top_k=4, f=1024, decode_t=8),
             dict(b=4, sq=512, sk=512, hq=16, hkv=4, hd=64))
 # its phases: through the per-layer barriers, and streamed across all 16
@@ -362,8 +378,8 @@ FFN_SERVE = ["--arch", FFN, "--engine", "fused_flat", "--requests", "8",
 STREAMED = ["fused_pipe", "--moe-stream", str(FFN_LAYERS)]
 NEW_SERVE = {DENSE: DENSE_SERVE, FFN: FFN_SERVE,
              f"{FFN} fused_pipe": FFN_SERVE[:3] + STREAMED + FFN_SERVE[4:]}
-TRAIN_FLAGS = ["--batch", "4", "--seq", "512", "--steps", "8", "--data",
-               "zipf"]
+TRAIN_FLAGS = ["--batch", "4", "--seq", "512", "--steps", TRAIN_STEPS,
+               "--data", "zipf"]
 # qwen3-1.7b's train phase runs half its 28 layers (the grid serving checks
 # take the time)
 DENSE_TRAIN_LAYERS = 14
@@ -2303,27 +2319,42 @@ def train_profile(argv, device="cuda") -> dict:
 
 def step_profile(model, step, params, opt, batch, opt_cfg,
                  traffic=None) -> dict:
-    """:func:`train_profile`'s three profiles of ``step`` (a
+    """:func:`train_profile`'s two profiles of ``step`` (a
     ``steps.make_train_step`` of ``model``) on ``batch``: after one warm-up
-    step, one whole step, its forward and backward
-    (``steps.value_and_grad``: a leaf the loss does not reach gets zeros),
-    and the AdamW update (:func:`profile_once`)."""
+    step, one whole step, and the AdamW update of the gradients of one
+    untraced ``steps.value_and_grad`` (a leaf the loss does not reach gets
+    zeros) (:func:`profile_once`).  The forward and backward are the step
+    less the update (:func:`print_forward_backward`): a profile of their
+    own would process as many device records again."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.optim import adamw
     whole = lambda: step(params, opt, batch, traffic)
     whole()
     torch.cuda.synchronize()
-    grads = []
-    value_and_grad = steps.value_and_grad(model)
-
-    def fwd_bwd():
-        grads[:] = value_and_grad(params, batch, traffic)[2]
-
+    grads = steps.value_and_grad(model)(params, batch, traffic)[2]
     return {"step": profile_once(whole),
-            "forward+backward": profile_once(fwd_bwd),
             "adamw.update": profile_once(lambda: adamw.update(
                 adamw.unflatten(params, grads), opt, params, opt_cfg))}
+
+
+def print_forward_backward(label: str, parts: dict) -> None:
+    """The forward and backward of a train step (with its gradient sync and
+    clip norm): :func:`step_profile`'s step less its update, device busy
+    and device ms by kind."""
+    step, update = parts.get("step"), parts.get("adamw.update")
+    if step is None or update is None:
+        print(f"profile {label} forward+backward: not measured")
+        return
+    less = lambda f: {k: ms - f(update["by_kernel"]).get(k, 0.0)
+                      for k, ms in f(step["by_kernel"]).items()}
+    print(f"profile {label} forward+backward (the step less adamw.update): "
+          f"device busy {step['busy_ms'] - update['busy_ms']:.4f} ms over "
+          f"{step['activities'] - update['activities']} device activities")
+    print("  device ms by kind: " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in less(device_kinds).items())
+        + "; of the elementwise: " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in less(assembly_ms).items()))
 
 
 # device time by kind: the port's hand-written kernels by their names in
@@ -2821,15 +2852,15 @@ GRID_SERVE_CASES = (("qwen3-moe-30b-a3b", "fused_flat", False),
                     ("qwen3-moe-30b-a3b", "fused_hier", True))
 # the full-width serve on the same grid: qwen3-moe cut to 8 layers through
 # fused_hier at node size 1 (the reference serve's max(1, model // 2)), the
-# continuous engine (pool 8, admission chunks of one row a data rank) over 8
-# requests of a 64-token prompt, 4 tokens each (4 admissions, 3 decode steps:
+# continuous engine (pool 4, admission chunks of one row a data rank) over 4
+# requests of a 64-token prompt, 4 tokens each (2 admissions, 3 decode steps:
 # each forward gathers the experts' other halves over gloo, ~6.8 s), at
 # capacity factor 16 (E / top-k: nothing dropped at EP 1 or EP 2).  At EP 2
 # one lane's experts over 8 layers are 64 x 3 x 2048 x 768 x 2 B x 8 = 4.83
 # GB > 4 GB, so the reference's rule (``lm.fsdp_rule``) turns FSDP of the
 # experts on by itself
 GRID_SERVE = dict(arch="qwen3-moe-30b-a3b", layers=8, engine="fused_hier",
-                  max_batch=8, requests=8, prompt=64, gen=4, capacity=16.0,
+                  max_batch=4, requests=4, prompt=64, gen=4, capacity=16.0,
                   reduced=False)
 GRID_EXPERT_BYTES = 2_415_919_104   # a rank's half of its lane's experts
 # the first-token logits of each row, grid against the card alone (EP 1,
@@ -3137,13 +3168,14 @@ def _grid_init(rank, port, device, shape=GRID):
     return make_host_mesh(*shape)
 
 
-def _grid_rank(rank, port, out_dir, device, grids, serve, pipe):
+def _grid_rank(rank, port, out_dir, device, grids, serve, pipe, embed):
     """One rank of the grid checks: each of ``grids``' (shape, cases), the
     same world in all, each case's step saved to ``out_dir``; then the
     serving checks on the first grid: each of ``GRID_SERVE_CASES`` reduced
     (``grid_serve_run``) and ``serve``'s full-width run
     (``grid_serve_full``); then ``pipe``'s pipeline phase on the world
-    (:func:`pipeline_rank`)."""
+    (:func:`pipeline_rank`); then the vlm and encdec families on the first
+    grid (:func:`embed_grid_rank`, ``embed``'s full-width spec)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -3172,12 +3204,16 @@ def _grid_rank(rank, port, out_dir, device, grids, serve, pipe):
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
         pipeline_rank(rank, out_dir, device, pipe)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        embed_grid_rank(rank, out_dir, device, first, embed)
     finally:
         dist.destroy_process_group()
 
 
 def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
-                    timer=time_ms, pipe=PIPE) -> tuple[dict, dict, list]:
+                    timer=time_ms, pipe=PIPE,
+                    embed: dict | None = None) -> tuple[dict, dict, list]:
     """One f32 train step of each case of each (shape, cases) of ``grids``
     on a ``shape`` grid of ranks sharing the card (gloo; one spawn of the
     grids' common world for all) against the one-rank step on the card
@@ -3193,9 +3229,12 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
     on every rank (``family_kernels``).  The same spawn then serves
     ``serve`` on the first grid (``grid_serve_check``), and
     the serve kernels are held and timed (``timer``) on the inputs rank 0's
-    full-width serve gave them (``grid_serve_rows``).  Returns the lines of
-    each shape, one a case (the serving check's under "serve"), rank 0's
-    launches by grid and case, and the kernel rows."""
+    full-width serve gave them (``grid_serve_rows``), and the vlm and
+    encdec families run on the first grid (``embed_grid_check``; ``embed``
+    their full-width spec, None: ``EMBED_GRID``).  Returns the lines of
+    each shape, one a case (the serving check's under "serve", the
+    families' under "embed"), rank 0's launches by grid and case, and the
+    kernel rows."""
     import shutil
     import torch
     from repro_torch.configs import get_arch
@@ -3208,16 +3247,23 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
     t0 = time.perf_counter()
     want_full = grid_serve_full(device, spec=serve)
     full_one_s = time.perf_counter() - t0
+    embed = EMBED_GRID if embed is None else embed
+    t0 = time.perf_counter()
+    want_embed = embed_grid_want(embed, device)
+    embed_one_s = time.perf_counter() - t0
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     n = grids[0][0][0] * grids[0][0][1]
     assert all(a * b == n for (a, b), _ in grids), grids
     t0 = time.perf_counter()
     spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids,
-                                serve, pipe), 900)
+                                serve, pipe, embed), 900)
     spawn_s = time.perf_counter() - t0
     lines = {}
     lines["pipeline"], launches_pipe = pipeline_check(out_dir, pipe)
+    lines["embed"], launches_embed = embed_grid_check(
+        out_dir, grids[0][0], embed, want_embed)
+    lines["embed"].append(f"seconds: the card alone's side {embed_one_s:.1f}")
     lines["serve"], launches = grid_serve_check(
         out_dir, grids[0][0], serve, want_serve, want_full)
     with torch.inference_mode():
@@ -3229,6 +3275,7 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
         f"spawn of {n} (the train grids, the serving checks and the "
         f"pipeline) {spawn_s:.1f}")
     launches[f"{pipe['arch']} pipeline"] = launches_pipe
+    launches.update(launches_embed)
     for shape, (arch, engine) in ((s, c) for s, cases in grids
                                   for c in cases):
         w, model = want[arch, engine], shape[1]
@@ -3770,8 +3817,9 @@ def held_params(cfg, model: int, tp: bool = True) -> int:
     with ``tp`` where Megatron TP applies (``lm.ModelContext.tp_eligible``'s
     rule: the dense and moe families, the heads split evenly), of the TP
     leaves (``lm.tp_param_count``); the rest whole."""
-    from repro_torch.models import lm
-    replicated, experts = lm.param_counts(cfg)
+    from repro_torch.models import encdec_model, lm
+    replicated, experts = ((encdec_model.param_count(cfg), 0)
+                           if cfg.family == "encdec" else lm.param_counts(cfg))
     split = lm.vocab_param_count(cfg, model) + (
         lm.tp_param_count(cfg) if tp and model > 1
         and cfg.n_heads % model == 0 and cfg.family in ("dense", "moe")
@@ -4113,10 +4161,10 @@ def tp_full_phase(device="cuda") -> tuple[list[str], dict]:
     return lines, launches
 
 
-# the relayout phases: each train phase (TRAINS) re-laid out after every 4th
-# of its 8 steps (two relayouts); at EP 1 a relayout permutes the experts of
+# the relayout phases: each train phase (TRAINS) re-laid out after every 2nd
+# of its 5 steps (two relayouts); at EP 1 a relayout permutes the experts of
 # the one lane
-RELAYOUT_EVERY = 4
+RELAYOUT_EVERY = 2
 RELAYOUTS = {f"{label} relayout": argv + ["--relayout-every",
                                           str(RELAYOUT_EVERY)]
              for label, argv in TRAINS.items()}
@@ -5124,6 +5172,7 @@ def serve_and_profile(label: str, argv, required=SERVE_KERNELS,
         times[f"{step}_busy_share"] = (None if p is None
                                        else p["busy_ms"] / unprofiled[step])
     torch.cuda.empty_cache()
+    stamp(label)
     return launches, times
 
 
@@ -5216,7 +5265,8 @@ def train_and_profile(label: str, argv, implied=None,
         record.update(losses=out["losses"], ms_per_step=unprofiled)
     del out
     torch.cuda.empty_cache()
-    for part, p in train_profile(argv).items():
+    parts = train_profile(argv)
+    for part, p in parts.items():
         if record is not None and part == "step":
             record["busy_ms"] = None if p is None else p["busy_ms"]
         print_profile(f"{label} {part}", p, unprofiled)
@@ -5227,7 +5277,10 @@ def train_and_profile(label: str, argv, implied=None,
                 f"{k} {ms:.4f}" for k, ms in device_kinds(p["by_kernel"]).items())
                 + "; of the elementwise: " + ", ".join(
                 f"{k} {ms:.4f}" for k, ms in assembly_ms(p["by_kernel"]).items()))
+    print_forward_backward(label, parts)
+    del parts
     torch.cuda.empty_cache()
+    stamp(label)
     return launches
 
 
@@ -5805,17 +5858,21 @@ def embed_train_and_profile(label: str, arch: str, layers: int,
     print(f"launches on the {label} path ({n} steps): "
           f"{json.dumps(out['launches'])}; its code implies "
           f"{json.dumps(out['implied'])}")
-    for part, p in step_profile(*out.pop("profile")).items():
+    parts = step_profile(*out.pop("profile"))
+    for part, p in parts.items():
         print_profile(f"{label} {part}", p, timed)
         check_profile(f"{label} {part}", p, flash=part != "adamw.update")
         if p is not None:
             print("  device ms by kind: " + ", ".join(
                 f"{k} {ms:.4f}"
                 for k, ms in device_kinds(p["by_kernel"]).items()))
+    print_forward_backward(label, parts)
+    del parts
     launches = out["launches"]
     del out
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+    stamp(label)
     return launches
 
 
@@ -5871,6 +5928,375 @@ def embed_reduced_check(arch: str, device="cuda") -> dict:
             and out["logits"] <= TOL_REDUCED and launches["flash_attention"]):
         raise AssertionError(f"reduced {arch} f32 card vs CPU: {out}")
     return out
+
+
+# the vlm and encdec families over the (2, 2) grid, in ``grid_card_check``'s
+# spawn: each family's reduced train step and lock-step serve in f32, then
+# a full-width bf16 train step at ``layers`` decoder (and ``encoder``
+# encoder) layers, B ``batch`` x S ``seq`` (each data rank half the rows;
+# ZeRO-1 over the data group), and a full-width lock-step prefill of
+# ``requests`` x ``prompt`` at ``layers`` decoder layers (seamless keeps its
+# 24 encoder layers there: ``serve``'s ``--layers`` cuts the decoder), each
+# against the card alone.  qwen2-vl-7b at 2 layers holds 1.01 G parameters a
+# rank with the halves of its vocab pair: 2.0 GB bf16 weights, 2.0 GB
+# gradients, 6.1 GB of AdamW state under ZeRO-1
+EMBED_GRID = dict(reduced=False, layers=2, encoder=2, batch=4, seq=512,
+                  requests=8, prompt=512)
+EMBED_GRID_REDUCED = dict(batch=4, seq=16, requests=4, prompt=16, gen=4)
+# the flash forward at the island's shard shapes over a model group of 2
+# (group size 1: each q head with its kv head): (path, shape, causal,
+# positions "image" or None), B the rows of one data rank of 2
+EMBED_GRID_ATTN = (
+    (f"{VLM} grid train", dict(b=2, sq=512, sk=512, hq=14, hkv=14, hd=128),
+     True, "image"),
+    (f"{VLM} grid prefill", dict(b=4, sq=512, sk=512, hq=14, hkv=14, hd=128),
+     True, None),
+    (f"{SEAMLESS} grid train", dict(b=2, sq=512, sk=512, hq=8, hkv=8, hd=64),
+     False, None),
+    (f"{SEAMLESS} grid train", dict(b=2, sq=512, sk=512, hq=8, hkv=8, hd=64),
+     True, None),
+    (f"{SEAMLESS} grid prefill", dict(b=4, sq=512, sk=512, hq=8, hkv=8,
+                                      hd=64), False, None))
+
+
+def embed_grid_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
+    """The flash forward at the island's shard shapes (``EMBED_GRID_ATTN``:
+    qwen2-vl's 14 heads a rank, causal, at the image layout in training;
+    seamless's 8 heads a rank, its encoder bidirectional, its decoder
+    causal, its cross-attention over 512 encoder keys bidirectional too),
+    each held against its plain version and timed beside SDPA."""
+    import torch
+    rows = []
+    for path, attn, causal, layout in EMBED_GRID_ATTN:
+        with torch.inference_mode():
+            inp = (vl_attention_inputs(device, VL_LAYOUT, **attn) if layout
+                   else attention_inputs(device, **attn))
+            rows.append(dict(flash_row(*inp, window=None, timer=timer,
+                                       causal=causal), path=path))
+            del inp
+    return rows
+
+
+def embed_grid_step(arch: str, device="cuda", mesh=None) -> dict:
+    """One f32 train step of the reduced vlm or encdec ``arch`` on
+    ``device``, on ``mesh`` (None: one rank), from the seed-0 whole tree
+    (the vocab pair cut to this rank's shard) on this data rank's rows of a
+    ``zoo.make_smoke_batch`` batch of 4 x 16 (the vlm's at
+    ``VL_REDUCED_LAYOUT``): the loss, the grads and the updated params by
+    path (on the CPU), the grad norm, the AdamW bytes and their ZeRO-1
+    share, and the kernels' launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    cfg = get_arch(arch).reduced()
+    f32, spec = torch.float32, EMBED_GRID_REDUCED
+    whole = zoo.build(cfg, lm.make_context(cfg, "cpu", compute_dtype=f32)
+                      ).init(torch.Generator().manual_seed(0), f32)
+    batch = zoo.make_smoke_batch(cfg, torch.Generator().manual_seed(1),
+                                 spec["batch"], spec["seq"])
+    if cfg.family == "vlm":
+        batch["positions"] = zoo.vl_positions(*VL_REDUCED_LAYOUT)
+    ctx = lm.make_context(cfg, device, mesh=mesh, compute_dtype=f32)
+    model = zoo.build(cfg, ctx)
+    params = lm.shard_params(adamw.tree_map(lambda t: t.to(device), whole),
+                             ctx)
+    local = zoo.data_batch({k: v.to(device) for k, v in batch.items()}, ctx)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    wrappers = zero_counters()
+    _, _, grads = steps.value_and_grad(model)(params, local)
+    opt = steps.init_state(model, params)
+    params, opt, m = steps.make_train_step(model, opt_cfg)(params, opt, local)
+    paths, dp = adamw.paths(params), lm.data_size(ctx)
+    split = lm.model_dim(ctx)
+    share = sum(12 * t.numel() // (1 if adamw.zero_dim(
+        t.shape, dp, False, split(p)) is None else dp)
+        for p, t in zip(paths, adamw.leaves(params)))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": dict(zip(paths, (g.cpu() for g in grads))),
+            "params": dict(zip(paths, (p.detach().cpu()
+                                       for p in adamw.leaves(params)))),
+            "state_bytes": adamw.state_bytes(opt), "share_bytes": share,
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "lr": adamw.schedule(opt_cfg, 1)}
+
+
+def embed_grid_serve(arch: str, device="cuda", mesh=None) -> dict:
+    """``serve.run`` of the reduced ``arch`` (``EMBED_GRID_REDUCED``'s
+    requests, the context's compute dtype float32) on ``device``, on
+    ``mesh`` (None: one rank): the whole batch's tokens and the launches."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    spec = EMBED_GRID_REDUCED
+    args = serve.parse_args(["--arch", arch, "--reduced", "--requests",
+                             str(spec["requests"]), "--prompt-len",
+                             str(spec["prompt"]), "--gen", str(spec["gen"])])
+    make = lm.make_context
+    lm.make_context = lambda *a, **kw: make(
+        *a, **{**kw, "compute_dtype": torch.float32})
+    wrappers = zero_counters()
+    try:
+        out = serve.run(args, device, mesh=mesh)
+    finally:
+        lm.make_context = make
+    return {"tokens": out["tokens"].cpu(),
+            "launches": {k: w.launches for k, w in wrappers.items()}}
+
+
+def embed_full_config(arch: str, spec: dict, serving: bool = False):
+    """``arch`` at ``spec``'s depth (reduced width with ``spec['reduced']``,
+    a rehearsal on the CPU): its decoder cut to ``layers``, seamless's
+    encoder to ``encoder`` in training (the serve keeps its own)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    cut = dict(n_layers=spec["layers"])
+    if cfg.family == "encdec" and not serving:
+        cut["encoder_layers"] = spec["encoder"]
+    return dataclasses.replace(cfg, **cut)
+
+
+def embed_full_step(arch: str, spec: dict, device="cuda", mesh=None) -> dict:
+    """``arch`` at ``spec``'s depth (:func:`embed_full_config`) in bf16 from
+    seed 0 (weights, then a ``zoo.make_smoke_batch`` batch of ``batch`` x
+    ``seq``, the vlm's at ``VL_LAYOUT``).  Without ``mesh``: the loss of
+    the whole batch on the card alone.  On ``mesh``: one AdamW step of this
+    rank's rows (ZeRO-1 over the data group), with the launch counters
+    zeroed just before and read just after; the loss, this rank's
+    parameter and AdamW bytes, its peak memory (GiB; None on the CPU) and
+    the launches."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, zoo
+    from repro_torch.optim import adamw
+    cfg = embed_full_config(arch, spec)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ctx = lm.make_context(cfg, device, mesh=mesh)
+    model = zoo.build(cfg, ctx)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen)
+    batch = zoo.make_smoke_batch(cfg, gen, spec["batch"], spec["seq"])
+    if cfg.family == "vlm":
+        batch["positions"] = zoo.vl_positions(
+            *(VL_REDUCED_LAYOUT if spec["seq"] == 16 else VL_LAYOUT),
+            device=device)
+    if mesh is None:
+        with torch.no_grad():
+            return {"loss": float(model.loss(params, batch)[0])}
+    opt_cfg = adamw.AdamWConfig(lr=EMBED_LR, warmup_steps=2, total_steps=4)
+    opt = steps.init_state(model, params)
+    wrappers = zero_counters()
+    t0 = time.perf_counter()
+    params, opt, m = steps.make_train_step(model, opt_cfg)(
+        params, opt, zoo.data_batch(batch, ctx))
+    seconds = time.perf_counter() - t0
+    return {"loss": float(m["loss"]), "seconds": seconds,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in adamw.leaves(params)),
+            "opt_bytes": adamw.state_bytes(opt),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else None),
+            "launches": {k: w.launches for k, w in wrappers.items()}}
+
+
+def embed_full_prefill(arch: str, spec: dict, device="cuda",
+                       mesh=None) -> dict:
+    """``serve.setup``'s lock-step prefill of ``spec``'s ``requests`` x
+    ``prompt`` at ``layers`` (bf16, seed 0) on ``device``, on ``mesh``
+    (None: the card alone), with the launch counters zeroed just before
+    and read just after: the first-token logits of the whole batch (each
+    data rank's rows gathered), the launches and the peak memory."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    argv = ["--arch", arch, "--layers", str(spec["layers"]), "--requests",
+            str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
+            "--gen", "2"] + (["--reduced"] if spec["reduced"] else [])
+    s = serve.setup(serve.parse_args(argv), device, mesh)
+    wrappers = zero_counters()
+    with torch.inference_mode():
+        logits, _ = s.bundle.prefill(s.params, s.batch, s.max_len)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        logits = lm.gather_rows(logits, s.ctx)
+    return {"first_logits": logits.float().cpu(), "launches": launches}
+
+
+def embed_grid_rank(rank, out_dir, device, mesh, spec) -> None:
+    """The vlm and encdec checks of one rank of ``grid_card_check``'s spawn
+    on ``mesh``: each family's reduced step and serve, then its full-width
+    step and prefill (``spec``), each result saved to ``out_dir``."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    for arch in EMBED_ARCHS:
+        t0 = time.perf_counter()
+        out = {"step": embed_grid_step(arch, device, mesh),
+               "serve": embed_grid_serve(arch, device, mesh)}
+        out["full"] = embed_full_step(arch, spec, device, mesh)
+        if on_card:
+            torch.cuda.empty_cache()
+        out["prefill"] = embed_full_prefill(arch, spec, device, mesh)
+        if on_card:
+            torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        torch.save(out, f"{out_dir}/embed-{arch}-rank{rank}.pt")
+
+
+def embed_grid_want(spec: dict, device="cuda") -> dict:
+    """The card alone's side of :func:`embed_grid_rank`, by family."""
+    import torch
+    want = {}
+    for arch in EMBED_ARCHS:
+        want[arch] = {"step": embed_grid_step(arch, device),
+                      "serve": embed_grid_serve(arch, device),
+                      "full": embed_full_step(arch, spec, device),
+                      "prefill": embed_full_prefill(arch, spec, device)}
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return want
+
+
+def embed_grid_check(out_dir, shape, spec, want) -> tuple[list[str], dict]:
+    """The vlm and encdec checks of ``grid_card_check``'s spawn on the
+    ``shape`` grid against the card alone.  Reduced, f32: on every rank the
+    loss, every gradient and the grad norm within ``TOL_TRAIN`` of max(1,
+    |x|) (a rank's shard of the vocab pair against its cut of the card's),
+    the updated params within 2 lr + 1e-5, the replicated leaves the same
+    bits on every rank and each vocab shard on the data ranks of its model
+    rank, the AdamW state its ZeRO-1 share; the served tokens the card's.
+    Full width, bf16: every rank's loss the same and within
+    ``TOL_TP_LOSS`` relative of the card's, its parameter and AdamW bytes
+    the reckoning (``held_params``: 2 bytes a parameter held, 12 / DP of
+    AdamW state under ZeRO-1); each rank's first-token logits of the
+    prefill within ``TOL_GRID_APART`` of the distance from each row's card
+    logits to the nearest other row's; rank 0's flash launches the count
+    the code implies (``train_flash``, ``prefill_flash``: the island runs
+    one flash forward a layer a rank) and no other kernel.  Returns the
+    lines and rank 0's launches by path."""
+    import torch
+    from repro_torch.configs import get_arch
+    data, model = shape
+    n = data * model
+    rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+    lines, launches = [], {}
+    for arch in EMBED_ARCHS:
+        w = want[arch]
+        got = [torch.load(f"{out_dir}/embed-{arch}-rank{r}.pt")
+               for r in range(n)]
+        ws, bad = w["step"], []
+        err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for r, g in enumerate(got):
+            gs = g["step"]
+            cut = lambda path, t: rank_cut(path, t, model, r % model, False)
+            err["loss"] = max(err["loss"], abs(gs["loss"] - ws["loss"]))
+            err["grad_norm"] = max(err["grad_norm"], abs(
+                gs["grad_norm"] - ws["grad_norm"]) / ws["grad_norm"])
+            for k, t in ws["grads"].items():
+                err["grads"] = max(err["grads"], rel(gs["grads"][k], cut(k, t)))
+            for k, t in ws["params"].items():
+                err["params"] = max(err["params"],
+                                    max_err(gs["params"][k], cut(k, t)))
+            if gs["state_bytes"] != gs["share_bytes"]:
+                bad.append(f"rank {r} AdamW {gs['state_bytes']} B, ZeRO-1 "
+                           f"share {gs['share_bytes']}")
+            if not gs["launches"]["flash_attention"]:
+                bad.append(f"rank {r} step launched no flash forward")
+            if g["serve"]["tokens"].tolist() != w["serve"]["tokens"].tolist():
+                bad.append(f"rank {r} served tokens "
+                           f"{g['serve']['tokens'].tolist()} against "
+                           f"{w['serve']['tokens'].tolist()}")
+        for k in got[0]["step"]["params"]:
+            pairs = ([(m, m + d * model) for m in range(model)
+                      for d in range(1, data)] if held_apart(k, False)
+                     else [(0, r) for r in range(1, n)])
+            bad += [f"{k} bits ranks {a}, {b}" for a, b in pairs
+                    if not same_bits(got[a]["step"]["params"][k],
+                                     got[b]["step"]["params"][k])]
+        p_tol = 2 * ws["lr"] + 1e-5
+        if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+                and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol):
+            bad.append(f"reduced step {err} (tol {TOL_TRAIN}, params "
+                       f"{p_tol:.3g})")
+        # full width: the train step and the prefill
+        cfg = embed_full_config(arch, spec)
+        held = held_params(cfg, model, tp=False)
+        losses = [g["full"]["loss"] for g in got]
+        first = abs(losses[0] - w["full"]["loss"]) / abs(w["full"]["loss"])
+        if first > TOL_TP_LOSS or len(set(losses)) != 1:
+            bad.append(f"full step losses {losses} against the card's "
+                       f"{w['full']['loss']} ({first:.3g} relative, tol "
+                       f"{TOL_TP_LOSS})")
+        for r, g in enumerate(got):
+            f = g["full"]
+            if f["param_bytes"] != 2 * held or f["opt_bytes"] != 12 * held // data:
+                bad.append(f"rank {r} full step params {f['param_bytes']} B, "
+                           f"AdamW {f['opt_bytes']} B, reckoned {2 * held} and "
+                           f"{12 * held // data}")
+        implied = dict.fromkeys(counters(), 0)
+        implied["flash_attention"] = train_flash(cfg)
+        if got[0]["full"]["launches"] != implied:
+            bad.append(f"rank 0 full step launches "
+                       f"{got[0]['full']['launches']}, implied {implied}")
+        want_p = w["prefill"]["first_logits"]
+        apart = [min(rel(want_p[j], want_p[i]) for j in range(len(want_p))
+                     if j != i) for i in range(len(want_p))]
+        errs = [max(rel(g["prefill"]["first_logits"][i], want_p[i])
+                    for i in range(len(want_p))) for g in got]
+        shares = [max(rel(g["prefill"]["first_logits"][i], want_p[i])
+                      / (TOL_GRID_APART * apart[i])
+                      for i in range(len(want_p))) for g in got]
+        scfg = embed_full_config(arch, spec, serving=True)
+        implied_p = dict.fromkeys(counters(), 0)
+        implied_p["flash_attention"] = prefill_flash(scfg)
+        if got[0]["prefill"]["launches"] != implied_p or max(shares) > 1.0:
+            bad.append(f"prefill: rank 0 launches "
+                       f"{got[0]['prefill']['launches']} (implied "
+                       f"{implied_p}); first-token logits {errs}, "
+                       f"{shares} of the tolerance")
+        if bad:
+            raise AssertionError(f"{arch} over the grid {shape}: {bad}")
+        launches[f"{arch} grid train"] = got[0]["full"]["launches"]
+        launches[f"{arch} grid prefill"] = got[0]["prefill"]["launches"]
+        launches[f"grid {shape} {arch} reduced step rank 0"] = got[0]["step"][
+            "launches"]
+        gib = lambda x: "n/a" if x is None else f"{x:.2f}"
+        enc = (f" + {cfg.encoder_layers} encoder" if cfg.family == "encdec"
+               else "")
+        lines.append(
+            f"{arch}: reduced f32 step, loss {err['loss']:.3g}, grads "
+            f"{err['grads']:.3g}, grad norm {err['grad_norm']:.3g} (tol "
+            f"{TOL_TRAIN}), params {err['params']:.3g} (tol {p_tol:.3g}), "
+            f"replicated leaves bit-equal on the {n} ranks and vocab shards "
+            f"on the data ranks of each model rank, AdamW per rank "
+            f"{[g['step']['state_bytes'] for g in got]} B (ZeRO-1 shares); "
+            f"lock-step serve {EMBED_GRID_REDUCED['requests']} requests x "
+            f"{EMBED_GRID_REDUCED['gen']} tokens equal to the card's on every "
+            f"rank.  Full width, {cfg.n_layers}{enc} layers bf16, B "
+            f"{spec['batch']} x S {spec['seq']}: one card loss "
+            f"{w['full']['loss']}, ranks' {losses} ({first:.3g} relative, tol "
+            f"{TOL_TP_LOSS}); params {[g['full']['param_bytes'] for g in got]}"
+            f" B, AdamW {[g['full']['opt_bytes'] for g in got]} B a rank "
+            f"(reckoned {2 * held} and {12 * held // data}: {held} parameters "
+            f"held, the vocab pair's half; ZeRO-1 over {data}); peak memory "
+            f"{[gib(g['full']['peak_gib']) for g in got]} GiB; the step "
+            f"{[round(g['full']['seconds'], 3) for g in got]} s a rank (gloo "
+            f"through the host: not a speed); rank 0 launches "
+            f"{json.dumps(got[0]['full']['launches'])} = implied.  Prefill "
+            f"{spec['requests']} x {spec['prompt']} at {scfg.n_layers}"
+            f"{f' + {scfg.encoder_layers} encoder' if scfg.family == 'encdec' else ''}"
+            f" layers: first-token logits against the card alone, worst row "
+            f"per rank {[f'{e:.3g}' for e in errs]} of max(1, |logit|), "
+            f"{max(shares):.3f} of the tolerance ({TOL_GRID_APART:g} x the "
+            f"distance to the nearest other request's, {min(apart):.3g} or "
+            f"more); rank 0 launches "
+            f"{json.dumps(got[0]['prefill']['launches'])} = implied; "
+            f"{got[0]['seconds']:.1f} s on rank 0")
+    return lines, launches
 
 
 def stamp(what: str) -> None:
@@ -6020,6 +6446,8 @@ def main() -> None:
     rows += hymba_flash_rows()
     embed_rows, lines = embed_flash_rows()
     rows += embed_rows
+    with torch.no_grad():
+        rows += embed_grid_flash_rows()
     for line in lines:
         print(f"flash held (vlm / encdec shapes): {line}")
     stamp("the kernel rows of the large paths")
@@ -6266,6 +6694,11 @@ def main() -> None:
     for line in grid_lines["pipeline"]:
         print(f"pipeline over the four gloo ranks sharing the card (GPipe, "
               f"forward and backward) vs the sequential stack: {line}")
+    for line in grid_lines["embed"]:
+        print(f"vlm and encdec on the (2, 2) grid on one card (four gloo "
+              f"ranks; attention head-parallel over the model group, embed "
+              f"and lm_head split in training, batch rows over the data "
+              f"group) vs the card alone: {line}")
     for r in grid_rows:
         print_row(r)
     rows += grid_rows

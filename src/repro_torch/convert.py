@@ -84,7 +84,8 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
     with ``tp``, the TP leaves (``sharding.TP_DIM``) cut to model rank r's
     shard of m, the reference's shard r of its ``model`` axis: the tree a
     training context over a model group of m holds (``models/lm.model_dim``;
-    ``tp``: ``lm.tensor_parallel``)."""
+    ``tp``: ``lm.tensor_parallel``, never on for the vlm and encdec trees,
+    whose model rank holds the vocab pair's shard alone)."""
     paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
     if paths not in KEYS.values():
         near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))

@@ -46,8 +46,10 @@ stubbed vision frontend's, drawn from the seed; decode feeds tokens)
 8 --prompt-len 512 --gen 16`` (the encdec family: each request is
 (prompt_len, d) frame embeddings, the stubbed audio frontend's, encoded
 once, and a first decoder token; the prefill is the encoder and that
-token's decode step).  Both run lock-step on one rank only: ``--continuous``
-refuses them, as the reference's engine cannot serve them
+token's decode step).  Both run lock-step, on one rank or over a grid
+under ``torchrun`` as below (each data rank prefills and decodes its rows,
+the model group runs their prefill's attention head-parallel):
+``--continuous`` refuses them, as the reference's engine cannot serve them
 
 ``python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layers 4
 --requests 8 --prompt-len 64 --gen 16 --continuous`` (the requests through

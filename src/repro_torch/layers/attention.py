@@ -1,6 +1,7 @@
 """Attention: GQA with qk-norm, RoPE or M-RoPE, position-masked attention,
-the attention sub-block with cross-attention over encoder memory, and the
-decode KV cache (port of ``repro/layers/attention.py``, the parts the
+the attention sub-block with cross-attention over encoder memory, the
+head-parallel island over a model group (:func:`sharded_flash_attention`),
+and the decode KV cache (port of ``repro/layers/attention.py``, the parts the
 serving of the attention families, lock-step or per-slot, and their
 training use; the hybrid family's decode masks its window with
 ``window_len``).
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import dcomm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.layers.common import apply_mrope, apply_rope, rms_norm
@@ -120,19 +122,77 @@ def mask_positions(positions: torch.Tensor, mrope_sections=None):
     return positions[0] if mrope_sections is not None else positions
 
 
+def sharded_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_positions: torch.Tensor,
+                            k_positions: torch.Tensor, *, group,
+                            causal: bool = True, window: int | None = None,
+                            q_norm=None, k_norm=None, rope_theta=None,
+                            mrope_sections=None,
+                            rope_positions=None) -> torch.Tensor:
+    """Head-parallel attention over the model group ``group`` (the
+    reference's island, attention.py:247-307): q (B, Sq, Hq, hd) and k/v
+    (B, Sk, Hkv, hd) whole on every rank (the replicated layout), the q
+    heads zero-padded up to a multiple of the group's size m; rank r takes
+    heads [r hl, (r + 1) hl) and the kv head of each,
+    ``min(head // g, Hkv - 1)`` (g = Hq / Hkv: a padded head reads the last
+    one), so :func:`attention` runs at group size 1.  ``q_norm`` /
+    ``k_norm`` (qk-norm) and RoPE at ``rope_positions`` (M-RoPE with
+    ``mrope_sections``; none without ``rope_theta``) act on this rank's
+    heads only.  The heads' outputs are all-gathered over the group
+    (``dcomm.gather_dim``, whose backward sums the ranks' cotangents and
+    gives each its heads': each rank differentiates its copy of the loss)
+    and the padding dropped.  Returns (B, Sq, Hq, hd) on every rank."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    m, r = dcomm.group_size(group), dcomm.lane_index(group)
+    hl = -(-hq // m)
+    lo, hi = r * hl, (r + 1) * hl
+    ql = q[:, :, min(lo, hq):min(hi, hq)]
+    if ql.shape[2] < hl:
+        ql = torch.cat([ql, ql.new_zeros((b, sq, hl - ql.shape[2], hd))], 2)
+    idx = (torch.arange(lo, hi, device=q.device) // (hq // hkv)).clamp(
+        max=hkv - 1)
+    ks, vs = k.index_select(2, idx), v.index_select(2, idx)
+    if q_norm is not None:
+        ql, ks = rms_norm(ql, q_norm), rms_norm(ks, k_norm)
+    if rope_theta is not None:
+        ql = rotate(ql, rope_positions, rope_theta, mrope_sections)
+        ks = rotate(ks, rope_positions, rope_theta, mrope_sections)
+    out = attention(ql, ks, vs, q_positions, k_positions, causal, window)
+    out = dcomm.gather_dim(out, 2, dcomm.process_group(group))
+    return out[:, :, :hq]
+
+
 def attention_block(x, params, *, n_heads, n_kv, head_dim, rope_theta,
                     positions, causal=True, window=None, qk_norm=False,
-                    mrope_sections=None, kv_override=None):
-    """The attention sub-block on one rank (the reference's attention.py:
-    420-471; pre-norm is the caller's): the GQA projection and optional
-    qk-norm, RoPE (M-RoPE with ``mrope_sections``, masking by the temporal
-    row) at ``positions``, :func:`attention`, then ``wo``.  x: (B, S, d).
+                    mrope_sections=None, kv_override=None, group=None):
+    """The attention sub-block (the reference's attention.py:420-471;
+    pre-norm is the caller's): the GQA projection and optional qk-norm,
+    RoPE (M-RoPE with ``mrope_sections``, masking by the temporal row) at
+    ``positions``, :func:`attention`, then ``wo``.  x: (B, S, d).
 
     ``kv_override`` = (k, v), (B, Sk, Hkv, hd): cross-attention over encoder
     memory.  Only q is projected (the reference projects k and v too and
     drops them); neither side is rotated, the keys sit at arange(Sk), and
-    the block is never causal."""
+    the block is never causal.
+
+    ``group``: a model group of more than one rank runs the attention as
+    the reference's island (:func:`sharded_flash_attention`, the
+    reference's ``shard_ctx``): self-attention with its qk-norm and RoPE
+    inside, cross-attention as it is (attention.py:432-444, 462-465)."""
     b, s, _ = x.shape
+    mask = mask_positions(positions, mrope_sections)
+    island = dcomm.group_size(group) > 1
+    if kv_override is None and island:
+        q, k, v = gqa_project(x, params["wq"], params["wk"], params["wv"],
+                              n_heads, n_kv, head_dim)
+        out = sharded_flash_attention(
+            q, k, v, mask, mask, group=group, causal=causal, window=window,
+            q_norm=params.get("q_norm") if qk_norm else None,
+            k_norm=params.get("k_norm") if qk_norm else None,
+            rope_theta=rope_theta, mrope_sections=mrope_sections,
+            rope_positions=positions)
+        return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
     if kv_override is None:
         q, k, v = gqa_project(
             x, params["wq"], params["wk"], params["wv"], n_heads, n_kv,
@@ -140,13 +200,17 @@ def attention_block(x, params, *, n_heads, n_kv, head_dim, rope_theta,
             params.get("k_norm") if qk_norm else None)
         q = rotate(q, positions, rope_theta, mrope_sections)
         k = rotate(k, positions, rope_theta, mrope_sections)
-        k_positions = mask_positions(positions, mrope_sections)
+        k_positions = mask
     else:
         q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
         if qk_norm:
             q = rms_norm(q, params["q_norm"])
         k, v = kv_override
         k_positions = torch.arange(k.shape[1], device=x.device)
-    out = attention(q, k, v, mask_positions(positions, mrope_sections),
-                    k_positions, causal and kv_override is None, window)
+    if island:
+        out = sharded_flash_attention(q, k, v, mask, k_positions, group=group,
+                                      causal=False, window=window)
+    else:
+        out = attention(q, k, v, mask, k_positions,
+                        causal and kv_override is None, window)
     return out.reshape(b, s, n_heads * head_dim) @ params["wo"]

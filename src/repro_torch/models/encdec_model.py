@@ -16,8 +16,17 @@ attention is ``decode_attention`` (plain torch, as the reference's jnp).
 
 The reference scans its layers; here a Python loop walks the stacked
 (L, ...) leaves, as ``models/lm`` does, so ``convert.params_from_jax`` maps
-the reference's tree leaf for leaf.  It runs on one rank
-(``lm.make_context``).
+the reference's tree leaf for leaf.
+
+Over a model group (``lm.make_context``) every attention of the encoder
+and of the teacher-forced decoder, cross-attention too, runs as the
+reference's head-parallel island (``lm.island_group``,
+``layers/attention.sharded_flash_attention``), the rest of each layer whole
+on every rank; a training context holds ``embed`` and ``lm_head`` split
+over the group (``lm.vocab_parallel``: the vocab, or d where the group does
+not divide it).  Over a data group each rank trains on its rows of the
+batch and prefills its rows (``lm.data_rows``); decode stays whole, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -32,8 +41,9 @@ from repro_torch.layers.attention import (KVCache, attention_block,
                                           gqa_project)
 from repro_torch.layers.common import (apply_rope, dense_init, embed_init,
                                        rms_norm)
-from repro_torch.models.lm import (ModelContext, _ce_chunk, _length, _mlp,
-                                   _traffic_needs_moe, _unstack, chunked_ce)
+from repro_torch.models import lm
+from repro_torch.models.lm import (ModelContext, _length, _mlp,
+                                   _traffic_needs_moe, _unstack)
 
 ATTN = ("wq", "wk", "wv", "wo")
 MLP = ("w_gate", "w_up", "w_down")
@@ -46,7 +56,9 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     ``ln2``, ``mlp``) of ``cfg.encoder_layers``; ``enc_norm``; ``decoder``
     (``ln1``, ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``)
     of ``cfg.n_layers``; ``final_norm``; ``lm_head``; layers stacked on a
-    leading (L,) axis."""
+    leading (L,) axis.  Under ``lm.vocab_parallel`` the vocab pair is drawn
+    whole and cut to this model rank's shard, as ``lm.init_params`` cuts
+    it."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
     init = lambda shape: dense_init(gen, shape, dtype=dtype, device=ctx.device)
     ones = lambda shape: torch.ones(shape, dtype=dtype, device=ctx.device)
@@ -63,7 +75,8 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
 
     le, ld = cfg.encoder_layers, cfg.n_layers
     return {
-        "embed": embed_init(gen, cfg.vocab, d, dtype, ctx.device),
+        "embed": lm._tp_own("embed", embed_init(gen, cfg.vocab, d, dtype,
+                                                ctx.device), ctx),
         "encoder": {"ln1": ones((le, d)), "attn": attn(le),
                     "ln2": ones((le, d)), "mlp": mlp(le)},
         "enc_norm": ones((d,)),
@@ -71,7 +84,7 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                     "ln_x": ones((ld, d)), "cross_attn": attn(ld),
                     "ln2": ones((ld, d)), "mlp": mlp(ld)},
         "final_norm": ones((d,)),
-        "lm_head": init((d, cfg.vocab)),
+        "lm_head": lm._tp_own("lm_head", init((d, cfg.vocab)), ctx),
     }
 
 
@@ -86,9 +99,10 @@ def param_count(cfg: ArchConfig) -> int:
     return enc + dec + 2 * cfg.vocab * d + 2 * d
 
 
-def _attn_args(cfg: ArchConfig) -> dict:
+def _attn_args(ctx: ModelContext) -> dict:
+    cfg = ctx.cfg
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                rope_theta=cfg.rope_theta)
+                rope_theta=cfg.rope_theta, group=lm.island_group(ctx))
 
 
 def encode(params, frames: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
@@ -101,7 +115,7 @@ def encode(params, frames: torch.Tensor, ctx: ModelContext) -> torch.Tensor:
     for lp in _unstack(params["encoder"], cd):
         h = h + attention_block(rms_norm(h, lp["ln1"]), lp["attn"],
                                 positions=positions, causal=False,
-                                **_attn_args(cfg))
+                                **_attn_args(ctx))
         h = h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"])
     return rms_norm(h, params["enc_norm"].to(cd))
 
@@ -121,16 +135,16 @@ def decode_train(params, memory: torch.Tensor, tokens: torch.Tensor,
     the final-normed hidden states (B, S_dec, d): causal self-attention at
     arange(S_dec), cross-attention over the memory, the MLP."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
-    h = params["embed"].to(cd)[tokens]
+    h = lm._embed(params["embed"].to(cd), tokens, ctx)
     positions = torch.arange(tokens.shape[1], device=h.device)
     for lp in _unstack(params["decoder"], cd):
         h = h + attention_block(rms_norm(h, lp["ln1"]), lp["self_attn"],
                                 positions=positions, causal=True,
-                                **_attn_args(cfg))
+                                **_attn_args(ctx))
         h = h + attention_block(
             rms_norm(h, lp["ln_x"]), lp["cross_attn"], positions=positions,
             kv_override=_cross_kv(memory, lp["cross_attn"], cfg),
-            **_attn_args(cfg))
+            **_attn_args(ctx))
         h = h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"])
     return rms_norm(h, params["final_norm"].to(cd))
 
@@ -139,15 +153,13 @@ def encdec_loss(params, batch, ctx: ModelContext, traffic=None):
     """Next-token CE of ``batch`` {"frames" (B, S_enc, d), "tokens",
     "labels" (B, S_dec)}, labels already shifted, -1 for none (the
     reference's ``encdec_loss``, encdec_model.py:117-139), chunked and
-    checkpointed as ``lm.lm_loss`` (``lm.chunked_ce``).  Returns (loss,
-    metrics).  ``traffic`` must be None: the family has no MoE layer."""
+    checkpointed as ``lm.lm_loss`` (``lm.head_loss``: through this rank's
+    shard of ``lm_head`` under the vocab split).  Returns (loss, metrics).
+    ``traffic`` must be None: the family has no MoE layer."""
     _traffic_needs_moe(ctx.cfg, traffic)
     memory = encode(params, batch["frames"], ctx)
     h = decode_train(params, memory, batch["tokens"], ctx)
-    tot, cnt = chunked_ce(h, params["lm_head"].to(ctx.compute_dtype),
-                          batch["labels"], _ce_chunk)
-    loss = tot / cnt.clamp_min(1.0)
-    return loss, {"loss": loss.detach(), "tokens": cnt}
+    return lm.head_loss(h, params["lm_head"], batch["labels"], ctx)
 
 
 class EncDecState(NamedTuple):
@@ -161,8 +173,18 @@ def prefill(params, frames: torch.Tensor, bos_tokens: torch.Tensor,
             ctx: ModelContext, max_len: int):
     """Encode the frames, project each decoder layer's cross K/V of the
     memory once, then decode the (B,) ``bos_tokens`` as the first step.
-    Returns (logits (B, V) float32, :class:`EncDecState`)."""
+    On a grid ``frames`` and ``bos_tokens`` are the global batch's, and
+    each rank runs and returns its rows (``lm.data_rows``; the data ranks
+    must divide B, else ValueError).  Returns (logits (B, V) float32,
+    :class:`EncDecState`)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
+    lm._serves_whole(ctx)
+    b, n = frames.shape[0], lm.data_size(ctx)
+    if b % n:
+        raise ValueError(f"a prefill batch of {b} rows does not split over "
+                         f"{n} data ranks")
+    rows = lm.data_rows(ctx, b)
+    frames, bos_tokens = frames[rows], bos_tokens[rows]
     memory = encode(params, frames, ctx)
     cross = [_cross_kv(memory, lp["cross_attn"], cfg)
              for lp in _unstack(params["decoder"], cd)]
@@ -181,9 +203,11 @@ def decode_step(params, state: EncDecState, tokens: torch.Tensor,
     """One decoder token for every row at ``state.length``: self-attention
     through the cache (written in place, as ``lm.decode_step`` writes its
     own), cross-attention by ``decode_attention`` over the full cache of
-    S_enc slots, the MLP.  tokens: (B,).  Returns (logits (B, V) float32,
+    S_enc slots, the MLP.  tokens: (B,), the rows of ``state`` (this
+    rank's on a grid).  Returns (logits (B, V) float32,
     the state, holding the same tensors)."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
+    lm._serves_whole(ctx)
     h = params["embed"].to(cd)[tokens][:, None, :]
     b = h.shape[0]
     pos = state.length

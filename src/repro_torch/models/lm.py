@@ -20,9 +20,12 @@ group only (:func:`make_context`), and their decode state carries each
 layer's SSD state and conv inputs (``DecodeState.ssm``).  The vlm family
 is the dense family's layers under M-RoPE: its inputs are (B, S, d)
 embeddings (a stubbed vision frontend's patches) with (3, S) position ids,
-whose temporal row masks attention; it runs on one rank only, as does the
-encoder-decoder family of ``models/encdec_model.py``, whose context this
-module builds too.
+whose temporal row masks attention.  Over a model group its attention, in
+training and in the prefill, runs as the reference's head-parallel island
+(``layers/attention.sharded_flash_attention``, M-RoPE inside), as does the
+encoder-decoder family's of ``models/encdec_model.py``, whose context this
+module builds too (:data:`ISLAND_FAMILIES`); both also run over a data
+group.
 Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
 Training over a model group (an EP group, or that of a (data, model)
 grid) runs the dense and moe families' attention and the dense MLP as
@@ -58,9 +61,10 @@ from repro_torch.core import traffic as traffic_lib
 from repro_torch.core.dcomm import (DcommConfig, all_gather_seq, group_size,
                                     seq_stripe)
 from repro_torch.core.routing import ExpertPlacement
-from repro_torch.layers.attention import (KVCache, cache_update,
-                                          causal_attention, decode_attention,
-                                          gqa_project, mask_positions, rotate)
+from repro_torch.layers.attention import (KVCache, attention_block,
+                                          cache_update, causal_attention,
+                                          decode_attention, gqa_project,
+                                          mask_positions, rotate)
 from repro_torch.layers.common import dense_init, embed_init, rms_norm
 from repro_torch.layers.hybrid import hymba_mixer
 from repro_torch.layers.ssm import SsmState, mamba2_mixer
@@ -137,10 +141,12 @@ HYBRID_NORMS = ("attn_out_norm", "ssm_out_norm")
 # the families that run on one rank or over a data group only: the split of
 # their layers over a model group is not ported (:func:`make_context`)
 WHOLE_LAYER_FAMILIES = ("ssm", "hybrid")
-# the families that run on one rank only: their split over a model or a
-# data group is not ported (:func:`make_context`); encdec's model is
+# the families whose attention runs as the head-parallel island over a
+# model group (the reference's ``shard_ctx``, :func:`island_group`); the
+# rest of their layers stays whole on every rank, and over a (pod, model)
+# EP axis they raise (:func:`make_context`); encdec's model is
 # ``models/encdec_model.py``
-ONE_RANK_FAMILIES = ("vlm", "encdec")
+ISLAND_FAMILIES = ("vlm", "encdec")
 
 
 def has_attention(cfg: ArchConfig) -> bool:
@@ -225,8 +231,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     and ``split_vocab=False``, since prefill and decode read whole weights.
     ``split_vocab``: a training context over a model group splits the vocab
     pair over it (:func:`vocab_parallel`), every family.  The vlm and encdec
-    families run on one rank; over a model or a data group of more than one
-    rank they raise NotImplementedError.  A family without MoE
+    families run on one rank, over a model group (their attention the
+    head-parallel island, :func:`island_group`), over a data group or on a
+    grid; with ``multi_pod`` they raise NotImplementedError.  A family
+    without MoE
     (dense) has no placement and no dcomm config, as the reference's; over
     a model group it runs TP (its replicated layout with
     ``explicit_tp=False``), and data parallelism over ``mesh``'s data
@@ -235,10 +243,10 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     NotImplementedError (the reference's column split of ``in_proj_zx``,
     ``conv_w`` and ``out_proj`` over it is not ported).  Raises if
     ``device`` is CUDA and no card is there."""
-    if cfg.family not in FAMILIES + ONE_RANK_FAMILIES:
+    if cfg.family not in FAMILIES + ISLAND_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (only "
-            f"{FAMILIES + ONE_RANK_FAMILIES})")
+            f"{FAMILIES + ISLAND_FAMILIES})")
     if mesh is not None:
         if ep_group is not None:
             raise ValueError("pass ep_group or mesh, not both")
@@ -254,12 +262,11 @@ def make_context(cfg: ArchConfig, device="cuda", *,
             "ported: ROADMAP queue 1 item 8, the ssm and hybrid families over "
             "a model group (the column split of in_proj_zx / conv_w / "
             "out_proj)")
-    dp = 1 if mesh is None else mesh.data
-    if cfg.family in ONE_RANK_FAMILIES and ep * dp > 1:
+    if cfg.family in ISLAND_FAMILIES and multi_pod:
         raise NotImplementedError(
-            f"the {cfg.family} family over a group of {ep * dp} ranks (model "
-            f"{ep}, data {dp}) is not ported: ROADMAP queue 1 item 8, the vlm "
-            "and encdec families over a group")
+            f"the {cfg.family} family over a (pod, model) axis is not ported: "
+            "ROADMAP queue 1 item 8, TP and the vocab split over (pod, model) "
+            "(its attention island and vocab split run over a model group)")
     if cfg.moe is None:
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
@@ -315,6 +322,17 @@ def fsdp_sharded(ctx: ModelContext):
     if fsdp_group(ctx) is None:
         return lambda path: False
     return sharding.fsdp_sharded
+
+
+def island_group(ctx: ModelContext):
+    """The model group the attention of ``ctx`` runs head-parallel over
+    (``layers/attention.sharded_flash_attention``, the reference's
+    ``shard_ctx``): ``ctx.ep_group`` for a family of
+    :data:`ISLAND_FAMILIES` over a model group of more than one rank, else
+    None (attention whole on every rank)."""
+    if ctx.cfg.family in ISLAND_FAMILIES and group_size(ctx.ep_group) > 1:
+        return ctx.ep_group
+    return None
 
 
 def tensor_parallel(ctx: ModelContext) -> bool:
@@ -792,16 +810,34 @@ def _seq_layer(h: torch.Tensor, lp, positions: torch.Tensor,
                ctx: ModelContext, traffic=None, traffic_mask=None):
     """One sequential block, h + attn(ln1 h), then + ffn(ln2 h): the MoE
     (moe) or the MLP (dense), with ``lp`` this layer's parameters in the
-    compute dtype (the reference's ``layer_fn``, lm.py:445-510).  Returns
-    the new h and the layer's RoPE'd k and v (B, S, Hkv, hd), and with
-    ``traffic`` (this layer's state; the moe family) the new state."""
+    compute dtype (the reference's ``layer_fn``, lm.py:445-510); the vlm's
+    attention over a model group is the head-parallel island
+    (:func:`island_group`).  Returns the new h and the layer's RoPE'd k and
+    v (B, S, Hkv, hd), and with ``traffic`` (this layer's state; the moe
+    family) the new state."""
     cfg = ctx.cfg
     b, s, _ = h.shape
     x = rms_norm(h, lp["ln1"])
-    q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
-    mask = mask_positions(positions, cfg.mrope_sections)
-    o = causal_attention(q, k, v, mask, mask, window=cfg.window)
-    h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+    group = island_group(ctx)
+    if group is None:
+        q, k, v = _attn_qkv(x, lp["attn"], cfg, positions)
+        mask = mask_positions(positions, cfg.mrope_sections)
+        o = causal_attention(q, k, v, mask, mask, window=cfg.window)
+        h = h + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+    else:
+        ap = lp["attn"]
+        h = h + attention_block(
+            x, ap, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+            rope_theta=cfg.rope_theta, positions=positions, causal=True,
+            window=cfg.window, qk_norm=cfg.qk_norm,
+            mrope_sections=cfg.mrope_sections, group=group)
+        # the cache's k and v, projected again outside the island (the
+        # reference's lm.py:861-874)
+        k = (x @ ap["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+        v = (x @ ap["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, ap["k_norm"])
+        k = rotate(k, positions, cfg.rope_theta, cfg.mrope_sections)
     if has_mlp(cfg):
         return h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"]), k, v
     y = _moe_seq_sharded(rms_norm(h, lp["ln2"]), lp["moe"], ctx, traffic,
@@ -1124,26 +1160,35 @@ def lm_loss(params, batch, ctx: ModelContext, traffic=None):
     new_traffic = None
     if traffic is not None:
         h, new_traffic = h
+    loss, metrics = head_loss(h, params["lm_head"], batch["labels"], ctx)
+    if new_traffic is not None:
+        metrics["traffic"] = new_traffic
+    return loss, metrics
+
+
+def head_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+              ctx: ModelContext):
+    """The CE of the final hidden states ``h`` through ``head`` (this
+    rank's ``lm_head`` under ``ctx``) against ``labels``, chunked
+    (:func:`chunked_ce`), as :func:`lm_loss` and the encoder-decoder's loss
+    take it: under :func:`vocab_parallel` through this rank's shard
+    (``h`` entering whole), under :func:`tensor_parallel` alone over
+    this rank's stripe.  Returns (loss, {"loss", "tokens"})."""
     tp, vocab = tensor_parallel(ctx), vocab_parallel(ctx)
-    labels = batch["labels"]
     chunk = _ce_chunk
     if vocab:
         h = (dcomm.all_gather_seq(h, ctx.ep_group) if tp
              else dcomm.copy_to_group(h, ctx.ep_group))
-        chunk = lambda hx, head, lx: _vocab_ce_chunk(
-            hx, head, lx, ctx.ep_group, vocab_dim(ctx, "lm_head"))
+        chunk = lambda hx, hd, lx: _vocab_ce_chunk(
+            hx, hd, lx, ctx.ep_group, vocab_dim(ctx, "lm_head"))
     elif tp:
         labels = seq_stripe(labels, ctx.ep_group)
-    _own_vocab(params["lm_head"], "lm_head", ctx)
-    tot, cnt = chunked_ce(h, params["lm_head"].to(ctx.compute_dtype), labels,
-                          chunk)
+    _own_vocab(head, "lm_head", ctx)
+    tot, cnt = chunked_ce(h, head.to(ctx.compute_dtype), labels, chunk)
     if tp and not vocab:
         tot, cnt = dcomm.sum_forward(torch.stack([tot, cnt]), ctx.ep_group)
     loss = tot / cnt.clamp_min(1.0)
-    metrics = {"loss": loss.detach(), "tokens": cnt}
-    if new_traffic is not None:
-        metrics["traffic"] = new_traffic
-    return loss, metrics
+    return loss, {"loss": loss.detach(), "tokens": cnt}
 
 
 def _blocks(tree, blk: int, n: int, cd: torch.dtype) -> list:

@@ -48,10 +48,13 @@ def build(cfg: ArchConfig, ctx: ModelContext) -> ModelBundle:
     decoder-only LM (``lm.FAMILIES``) on one rank, over an EP group or on a
     grid (the dense family's loss then runs Megatron-SP over the model
     group, ``lm.tensor_parallel``, and its prefill and decode refuse the
-    TP shards; ssm and hybrid on one rank or a data group only; the vlm on
-    one rank), or the encoder-decoder (``models/encdec_model.py``, one
-    rank), whose prefill takes {"frames" (B, S_enc, d), "tokens" (B,) the
-    first decoder token} and takes no traffic, as the reference's."""
+    TP shards; ssm and hybrid on one rank or a data group only; the vlm's
+    attention over a model group the head-parallel island), or the
+    encoder-decoder (``models/encdec_model.py``, on one rank or a grid as
+    the vlm), whose prefill takes {"frames" (B, S_enc, d), "tokens" (B,)
+    the first decoder token} and takes no traffic, as the reference's.
+    On a grid the loss takes this data rank's rows (:func:`data_batch`)
+    and the prefill the global batch, of which it runs this rank's rows."""
     if cfg.family == "encdec":
         def encdec_prefill(p, batch, max_len):
             return encdec_model.prefill(p, batch["frames"], batch["tokens"],
@@ -104,6 +107,19 @@ def make_smoke_batch(cfg: ArchConfig, gen: torch.Generator, batch: int = 4,
         return {"embeds": normal(), "positions": torch.stack([pos] * 3),
                 "labels": ints()}
     return {"tokens": ints(), "labels": ints()}
+
+
+def data_batch(batch: dict, ctx: ModelContext) -> dict:
+    """This data rank's rows of a global batch of any family
+    (``lm.data_rows``: its block of dim 0 of every leaf), the vlm's (3, S)
+    ``positions`` whole: what the bundle's loss takes on a grid.  The data
+    ranks must divide B, else ValueError."""
+    b, n = batch["labels"].shape[0], lm.data_size(ctx)
+    if b % n:
+        raise ValueError(f"a batch of {b} rows does not split over {n} data "
+                         "ranks")
+    rows = lm.data_rows(ctx, b)
+    return {k: v if k == "positions" else v[rows] for k, v in batch.items()}
 
 
 def vl_positions(text: int, grid: tuple[int, int], after: int,

@@ -26,6 +26,10 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.layers.attention import causal_attention
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 TOL = 2e-5
 
 

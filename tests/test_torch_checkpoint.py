@@ -61,6 +61,10 @@ from repro_torch.optim import adamw
 from repro_torch.runtime import elastic
 from repro_torch.runtime.fault_tolerance import RunConfig, run_training
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 TRAIN = ["--reduced", "--steps", "6", "--seq", "32", "--batch", "2",
          "--engine", "fused_flat", "--relayout-every", "2", "--log-every",

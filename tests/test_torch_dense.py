@@ -46,6 +46,10 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 from repro_torch.serving.engine import ContinuousServingEngine
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-1.7b"
 CFG = get_arch(ARCH).reduced()
 TOL = 1e-5

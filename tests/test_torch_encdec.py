@@ -9,7 +9,7 @@ through both sides: ``encdec_loss`` and every gradient leaf against
 cross K/V, the first decoder token) and its whole state (the self-attention
 cache, the cross K/V, the length), then three decode steps fed the same
 tokens; ``serve.run`` against the reference's bundle on the same weights
-and batch; ``convert``; what the family refuses.  (``attention_block``'s
+and batch; ``convert``; what the family takes and refuses.  (``attention_block``'s
 bidirectional and cross modes are held in ``tests/test_torch_vlm.py``.)
 
 Tolerances: the loss, each gradient leaf, logits and the decode state 1e-4
@@ -44,6 +44,10 @@ from repro_torch.models import encdec_model, lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import (ContinuousServingEngine,
                                         ServingEngine)
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 ARCH = "seamless-m4t-large-v2"
 CFG = get_arch(ARCH).reduced()
@@ -230,9 +234,10 @@ def test_convert_takes_the_encdec_tree():
 
 
 def test_encdec_refusals(monkeypatch):
-    """A group of 2 (model or data), ``--continuous`` (the reference's
-    serve refuses it too), both engines (the reference's continuous engine
-    too) and ``train.main`` refuse the family, each naming why."""
+    """A model group and a data group of 2 are taken; a (pod, model)
+    axis, ``--continuous`` (the reference's serve refuses it too), both
+    engines (the reference's continuous engine too) and ``train.main``
+    refuse the family, each naming why."""
     check_group_refusals(CFG, monkeypatch)
     with pytest.raises(SystemExit):
         serve.parse_args(["--arch", ARCH, "--continuous"])

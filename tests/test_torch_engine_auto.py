@@ -41,6 +41,10 @@ from repro_torch.launch import steps, train
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 MIXED = ("fused_flat", "fused_hier")
 TRAIN = ["--reduced", "--steps", "4", "--seq", "32", "--batch", "2",

@@ -33,6 +33,10 @@ from repro_torch.core.routing import (ExpertPlacement, router_logits,
                                       top_k_routing)
 from repro_torch.kernels import ref
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 E, K, D, F, CF = 8, 2, 16, 24, 8.0
 TOL = 1e-5
 # a hardware point at which pipesim slices the tiny test payloads: a slow

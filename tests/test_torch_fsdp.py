@@ -42,6 +42,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 SHAPE, NODE = (2, 2), 1
 # (arch, ((engine, moe_stream, pipe_slices), ...)): every MoE family
 ARCHS = (("qwen3-moe-30b-a3b", (("fused_hier", 0, 0),)),

@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro.core import fusco as jfusco
 from repro.core.dcomm import DcommConfig as JDcommConfig
 from repro.core.routing import ExpertPlacement as JPlacement
@@ -43,6 +44,10 @@ from repro_torch.core.dcomm import DcommConfig
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import grouped_matmul as gmm_k
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 TOL = 1e-5
 
@@ -441,9 +446,9 @@ def ep4_grads(tmp_path_factory):
              cot_tx=_f32(rng, B_TX, S_TX, D))
     data = tmp / "data.npz"
     np.savez(data, **d)
-    code = JAX_EP_CODE.format(data=str(data), ep=EP, k=K, e=E, hq=HQ,
-                              hkv=HKV, hd=HD, tx_keys=TX_KEYS,
-                              out=str(tmp / "jax.npz"))
+    code = PRELUDE + JAX_EP_CODE.format(
+        data=str(data), ep=EP, k=K, e=E, hq=HQ, hkv=HKV, hd=HD,
+        tx_keys=TX_KEYS, out=str(tmp / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, EP, 300)
         mp.spawn(_ep_rank_main, args=(EP, str(tmp / "rendezvous"), str(data),

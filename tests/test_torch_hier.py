@@ -36,6 +36,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro.core import balancer as jbalancer
 from repro.core import dcomm as jdcomm
 from repro.core import fusco as jfusco
@@ -46,6 +47,10 @@ from repro_torch.core import balancer, dcomm, fusco, planner
 from repro_torch.core.dcomm import DcommConfig
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.kernels import ref
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 E, K, D, F, CF = 8, 2, 16, 24, 8.0
 TOL = 1e-5
@@ -425,9 +430,9 @@ def test_engines_ep4_match_jax_rank_by_rank(tmp_path):
     vec = np.arange(EP * EP, dtype=np.int32).reshape(EP, EP) * 3 + 1
     data = tmp_path / "data.npz"
     np.savez(data, loads=LOADS, vec=vec, **p)
-    code = JAX_CODE.format(data=str(data), e=E, k=K, ep=EP, cf=CF,
-                           cases=CASES, grad_cases=GRAD_CASES,
-                           out=str(tmp_path / "jax.npz"))
+    code = PRELUDE + JAX_CODE.format(
+        data=str(data), e=E, k=K, ep=EP, cf=CF, cases=CASES,
+        grad_cases=GRAD_CASES, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, EP, 300)
         mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), str(data),

@@ -42,6 +42,10 @@ from repro_torch.checkpoint import checkpointer
 from repro_torch.layers import attention, hybrid
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 HYBRID = FamilyCase("hymba-1.5b")
 D, HQ, HKV, HD, WINDOW = 32, 4, 2, 8, 16
 SSM_ARGS = dict(MIXER, d_inner=2 * D, n_heads=2 * D // 8, n_groups=1)

@@ -36,6 +36,10 @@ from repro_torch.core.dcomm import DcommConfig
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.moe import stream_moe_layers, stream_tx_layers
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 FFN = get_arch("moe-ffn-stream").reduced()
 TX = get_arch("moe-tx-stream").reduced()
 N, D = FFN.n_layers, FFN.d_model

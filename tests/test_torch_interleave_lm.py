@@ -45,6 +45,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import ContinuousServingEngine, ServingEngine
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCHS = {"moe_ffn": "moe-ffn-stream", "moe_tx": "moe-tx-stream"}
 LANES = 2
 STREAM = dict(engine="fused_pipe", moe_stream=2, pipe_slices=2,

@@ -21,6 +21,10 @@ from repro.kernels.segment_scatter_add import (
     segment_scatter_add as scatter_pallas)
 from repro_torch.kernels import fused_staging, ops, ref
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 

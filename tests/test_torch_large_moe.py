@@ -40,6 +40,10 @@ from repro_torch.kernels import grouped_matmul as gmm_k
 from repro_torch.models import lm
 from repro_torch.parallel import sharding
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 NEW = ("mixtral-8x22b", "deepseek-v3-bench", "qwen3-4b", "qwen3-8b",
        "qwen3-14b")
 TOL_MODEL = 1e-4

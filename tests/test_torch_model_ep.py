@@ -20,9 +20,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro_torch.configs import get_arch
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.models import lm
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 ARCH = "qwen3-moe-30b-a3b"
 EP, B, S = 4, 4, 32
@@ -117,8 +122,9 @@ def test_moe_prefill_ep4_shards_the_sequence_like_jax(tmp_path):
     data = tmp_path / "data.npz"
     np.savez(data, tokens=tokens,
              **{k: v.numpy() for k, v in _flatten(params)})
-    code = JAX_CODE.format(data=str(data), arch=ARCH, ep=EP, cf=CF,
-                           max_len=S + 1, out=str(tmp_path / "jax.npz"))
+    code = PRELUDE + JAX_CODE.format(data=str(data), arch=ARCH, ep=EP, cf=CF,
+                                     max_len=S + 1,
+                                     out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, EP, 300)
         mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), str(data),

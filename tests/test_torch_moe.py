@@ -26,6 +26,10 @@ from repro_torch.core.routing import ExpertPlacement
 from repro_torch.kernels import ref
 from repro_torch.layers.moe import moe_decode_block
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 E, K, D, F, CF = 8, 2, 16, 24, 8.0
 TOL = 1e-5
 

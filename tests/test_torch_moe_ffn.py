@@ -56,6 +56,10 @@ from repro_torch.layers.moe import stream_moe_layers
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "moe-ffn-stream"
 CFG = get_arch(ARCH).reduced()
 N, D = CFG.n_layers, CFG.d_model

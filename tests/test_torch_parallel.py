@@ -34,9 +34,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro.parallel import compress as jcompress
 from repro_torch.optim import adamw
 from repro_torch.parallel import compress, pipeline
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 WORLD = 4
 TOL_OUT = 1e-6
@@ -156,7 +161,7 @@ def pipe_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
     data = tmp / "data.npz"
     np.savez(data, **_inputs())
-    code = JAX_CODE.format(
+    code = PRELUDE + JAX_CODE.format(
         data=str(data), out=str(tmp / "jax.npz"),
         cases=tuple((n, s, leaves) for n, s, _, _, _, leaves in CASES))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:

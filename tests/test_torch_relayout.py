@@ -37,6 +37,10 @@ from repro_torch.launch import steps, train
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 # (ep, node_size, slots_per_lane, n_experts): replicated and permutation
 # tables, one node and several
 GRIDS = [(4, 2, 4, 12), (8, 4, 2, 12), (8, 2, 3, 16), (2, 1, 5, 8),

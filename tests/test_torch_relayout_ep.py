@@ -35,6 +35,7 @@ import torch.multiprocessing as mp
 import torch_ep_train as harness
 from torch_adam import close_updated
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro_torch import convert
 from repro_torch.configs import get_arch
 from repro_torch.core import dcomm, fusco, relayout, routing, traffic
@@ -43,6 +44,10 @@ from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 EP, E, K, NS = 4, 12, 2, 2
 T, D, F = 16 * EP, 16, 24
@@ -478,7 +483,7 @@ def runs(tmp_path_factory):
                for k, v in harness.params(ARCH, ep=GRID[1], node=1).items()}
     np.savez(grid_data, **harness.batch(gcfg.vocab),
              **{"g/" + k: v for k, v in gparams.items()})
-    code = JAX_CODE.format(
+    code = PRELUDE + JAX_CODE.format(
         data=str(data), ep=EP, e=E, k=K, ns=NS, cf=CF, engines=ENGINES,
         fast=harness.FAST, names=NAMES, arch=ARCH, opt=OPT, spl=SPL,
         drift=DRIFT, out=str(tmp_path / "jax.npz"))

@@ -12,6 +12,10 @@ from repro.core import planner as jplanner
 from repro.core import routing as jrouting
 from repro_torch.core import dcomm, descriptors, planner, routing
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 
 def _logits(t, e, seed):
     """Tie-free logits: a random permutation of well-separated values per

@@ -23,6 +23,10 @@ from repro_torch.configs import get_arch
 from repro_torch.launch import serve
 from repro_torch.models import lm
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 TOL = 1e-4
 
@@ -121,7 +125,10 @@ def test_convert_rejects_other_trees_and_serve_flags():
         ARCH, "fused_hier", 4, 64, 16)
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "sparse"])
-    # what is still unported of the vlm family (item 8): over a group
+    # what is still unported of the vlm family (item 8): a (pod, model)
+    # axis; a data group is taken
     grid = type("Grid", (), dict(data=2, model=1, ep_group=None))()
+    assert lm.data_size(lm.make_context(get_arch("qwen2-vl-7b"), "cpu",
+                                        mesh=grid)) == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.make_context(get_arch("qwen2-vl-7b"), "cpu", mesh=grid)
+        lm.make_context(get_arch("qwen2-vl-7b"), "cpu", multi_pod=True)

@@ -45,6 +45,10 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm, zoo
 from repro_torch.serving.engine import ContinuousServingEngine, ServingEngine
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 SHAPE = (2, 2)
 WORLD = SHAPE[0] * SHAPE[1]

@@ -35,6 +35,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.serving.engine import (ContinuousServingEngine,
                                         ServingEngine, default_buckets)
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCHS = {"moe": "qwen3-moe-30b-a3b", "moe_tx": "moe-tx-stream",
          "dense": "qwen3-1.7b", "moe_ffn": "moe-ffn-stream"}
 TOL = 1e-4

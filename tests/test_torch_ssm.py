@@ -56,6 +56,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import ContinuousServingEngine
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 TOL_LAYER = 1e-5
 TOL = 1e-4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)

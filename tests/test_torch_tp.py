@@ -56,6 +56,10 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 from repro_torch.runtime import elastic
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 SHAPE, NODE = (2, 2), 1
 DENSE, MOE = "qwen3-1.7b", "qwen3-moe-30b-a3b"
 # (arch, ((engine, moe_stream, pipe_slices), ...)); the dense family has no

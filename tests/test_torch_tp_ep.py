@@ -41,6 +41,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.parallel import tp_blocks
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 SHAPE, NODE = (1, 4), 2
 DENSE, MOE = "qwen3-1.7b", "qwen3-moe-30b-a3b"
 ARCHS = ((DENSE, (("dense", 0, 0),)),

@@ -22,6 +22,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
 from repro.core import balancer as jbalancer
@@ -36,6 +37,10 @@ from repro_torch.core import balancer, commplan, dcomm, relayout, traffic
 from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.moe import moe_block, stream_tx_layers
 from repro_torch.models import lm
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 ARCH = "qwen3-moe-30b-a3b"
 TX = "moe-tx-stream"
@@ -226,8 +231,9 @@ def test_moe_prefill_traffic_ep4_matches_shard_map(tmp_path):
     data = tmp_path / "data.npz"
     np.savez(data, tokens=tokens, mask=mask, **dict(flat(params, "p/")),
              **{"t/" + f: getattr(warm, f) for f in traffic.TrafficState._fields})
-    code = JAX_CODE.format(data=str(data), arch=ARCH, ep=EP, node=NODE,
-                           max_len=S + 1, out=str(tmp_path / "jax.npz"))
+    code = PRELUDE + JAX_CODE.format(data=str(data), arch=ARCH, ep=EP,
+                                     node=NODE, max_len=S + 1,
+                                     out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, EP, 300)
         mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), str(data),

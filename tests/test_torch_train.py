@@ -38,6 +38,10 @@ from repro_torch.models import lm
 from repro_torch.models import zoo as tzoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 TOL = 1e-5
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -267,14 +271,15 @@ def test_train_run_on_the_cpu_gives_finite_losses_from_lm_loss():
 
 
 def test_training_raises_on_what_is_not_ported():
-    """What training still refuses: the encdec family over a data group
-    (at ``make_context``) and in ``train.main``, whose data sources yield
-    tokens only, the traffic state under serial accumulation, and
-    ``train.run`` without a card."""
+    """What training still refuses: the encdec family over a (pod, model)
+    axis (at ``make_context``, which takes it over a data group) and in
+    ``train.main``, whose data sources yield tokens only, the traffic
+    state under serial accumulation, and ``train.run`` without a card."""
+    seamless = get_arch("seamless-m4t-large-v2").reduced()
     grid = type("Grid", (), dict(data=2, model=1, ep_group=None))()
+    assert lm.data_size(lm.make_context(seamless, "cpu", mesh=grid)) == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.make_context(get_arch("seamless-m4t-large-v2").reduced(), "cpu",
-                        mesh=grid)
+        lm.make_context(seamless, "cpu", multi_pod=True)
     with pytest.raises(ValueError, match="tokens only"):
         train.main(["--arch", "seamless-m4t-large-v2", "--reduced"],
                    device="cpu")

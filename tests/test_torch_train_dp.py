@@ -44,6 +44,10 @@ from repro_torch.launch.train import data_rows
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 SHAPE, NODE = (2, 2), 1
 ARCH = "qwen3-moe-30b-a3b"
 # (arch, ((engine, moe_stream, pipe_slices), ...))

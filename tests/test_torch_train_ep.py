@@ -30,6 +30,10 @@ from repro_torch.launch import steps
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "qwen3-moe-30b-a3b"
 # (engine, moe_stream, pipe_slices)
 CASES = (("fused_flat", 0, 0), ("fused_hier", 0, 0), ("fused_pipe", 0, 2))

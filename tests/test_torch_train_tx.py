@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from torch_adam import check_step
 from repro.compat import make_mesh
 from repro.configs import get_arch as jget_arch
@@ -46,6 +47,10 @@ from repro_torch.data import pipeline
 from repro_torch.launch import steps, train
 from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 TX, MOE = "moe-tx-stream", "qwen3-moe-30b-a3b"
 TOL = 1e-5
@@ -349,8 +354,8 @@ def test_lm_loss_traffic_ep4_matches_shard_map_rank_by_rank(tmp_path):
         batch = _batch(cfg.vocab, B, S, seed=3)
         np.savez(data.format(arch=arch), **batch,
                  **{"p/" + k: v.numpy() for k, v in _flat(params).items()})
-    code = JAX_CODE.format(ep=EP, node=NODE, cases=EP4, data=data, fast=FAST,
-                           out=str(tmp_path / "jax.npz"))
+    code = PRELUDE + JAX_CODE.format(ep=EP, node=NODE, cases=EP4, data=data,
+                                     fast=FAST, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, EP, 300)
         mp.spawn(_rank_main, args=(EP, str(tmp_path / "rendezvous"), data,

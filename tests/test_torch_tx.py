@@ -37,6 +37,10 @@ from repro_torch.core.routing import ExpertPlacement
 from repro_torch.layers.moe import stream_tx_layers
 from repro_torch.models import lm
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 ARCH = "moe-tx-stream"
 CFG = get_arch(ARCH).reduced()        # d 64, 4/2 heads, hd 16, 8 experts top-2
 N, D, HQ, HKV, HD = CFG.n_layers, CFG.d_model, CFG.n_heads, CFG.n_kv_heads, CFG.hd
@@ -139,56 +143,109 @@ def test_tx_layer_stream_ep1_matches_jax_and_dense():
     np.testing.assert_allclose(h.numpy(), dense.numpy(), rtol=TOL, atol=TOL)
 
 
+def _plain_rank(rank, world, d: dict) -> dict:
+    """One EP rank's stripe and its lane's experts through the tx stream,
+    directly and through ``layers/moe.stream_tx_layers``."""
+    x = torch.from_numpy(d.pop("x"))
+    s_l = x.shape[1] // world
+    stripe = x[:, rank * s_l:(rank + 1) * s_l]
+    positions = torch.arange(x.shape[1])
+    placement = ExpertPlacement(n_experts=E, ep=world,
+                                node_size=max(1, world // 2))
+    cfg = DcommConfig(engine="fused_flat", capacity_factor=CF)
+    p = _t(d)
+    lane = {w: p[w].reshape(N, world, E // world, *p[w].shape[2:])
+            for w in ("w1", "w3", "w2")}
+    group = dist.group.WORLD
+    h, (k, v) = fusco.tx_layer_stream(
+        stripe, positions, {**p, **{w: lane[w][:, rank] for w in lane}},
+        placement, cfg, K, **HEADS, return_kv=True,
+        group=group)
+    y = stream_tx_layers(
+        stripe, {"router": p["router"],
+                 **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
+        {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
+        placement=placement, dcfg=cfg, top_k=K, positions=positions,
+        **HEADS, group=group)
+    return {"h": h.numpy(), "k": k.numpy(), "v": v.numpy(), "y": y.numpy()}
+
+
+def _streamed_rank(rank, world, d: dict) -> dict:
+    """One EP rank's stripe through the streamed fused_pipe schedule at
+    S = 1 and 4, through ``stream_tx_layers``."""
+    x = torch.from_numpy(d.pop("x"))
+    s_l = x.shape[1] // world
+    placement = ExpertPlacement(n_experts=E, ep=world,
+                                node_size=max(1, world // 2))
+    p = _t(d)
+    lane = {w: p[w].reshape(N, world, E // world, *p[w].shape[2:])
+            for w in ("w1", "w3", "w2")}
+    out = {}
+    for slices in (1, 4):
+        h, (k, v) = stream_tx_layers(
+            x[:, rank * s_l:(rank + 1) * s_l],
+            {"router": p["router"],
+             **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
+            {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
+            placement=placement,
+            dcfg=DcommConfig(engine="fused_pipe", capacity_factor=CF,
+                             pipe_slices=slices),
+            top_k=K, positions=torch.arange(x.shape[1]), **HEADS,
+            return_kv=True, group=dist.group.WORLD)
+        out.update({f"h{slices}": h.numpy(), f"k{slices}": k.numpy(),
+                    f"v{slices}": v.numpy()})
+    return out
+
+
 def _rank_main(rank, world, init_file, data, out_dir):
-    """One EP rank: its sequence stripe and its lane's experts through the
-    tx stream, directly and through ``layers/moe.stream_tx_layers``."""
+    """One EP rank of the module's spawn: ``data``'s "plain/" inputs through
+    :func:`_plain_rank`, its "streamed/" inputs through
+    :func:`_streamed_rank`."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
         d = dict(np.load(data))
-        x = torch.from_numpy(d.pop("x"))
-        s_l = x.shape[1] // world
-        stripe = x[:, rank * s_l:(rank + 1) * s_l]
-        positions = torch.arange(x.shape[1])
-        placement = ExpertPlacement(n_experts=E, ep=world,
-                                    node_size=max(1, world // 2))
-        cfg = DcommConfig(engine="fused_flat", capacity_factor=CF)
-        p = _t(d)
-        lane = {w: p[w].reshape(N, world, E // world, *p[w].shape[2:])
-                for w in ("w1", "w3", "w2")}
-        group = dist.group.WORLD
-        h, (k, v) = fusco.tx_layer_stream(
-            stripe, positions, {**p, **{w: lane[w][:, rank] for w in lane}},
-            placement, cfg, K, **HEADS, return_kv=True,
-            group=group)
-        y = stream_tx_layers(
-            stripe, {"router": p["router"],
-                     **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
-            {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
-            placement=placement, dcfg=cfg, top_k=K, positions=positions,
-            **HEADS, group=group)
-        np.savez(f"{out_dir}/rank{rank}.npz", h=h.numpy(), k=k.numpy(),
-                 v=v.numpy(), y=y.numpy())
+        cut = lambda prefix: {k[len(prefix):]: v for k, v in d.items()
+                              if k.startswith(prefix)}
+        out = {"plain/" + k: v for k, v in _plain_rank(
+            rank, world, cut("plain/")).items()}
+        out.update({"streamed/" + k: v for k, v in _streamed_rank(
+            rank, world, cut("streamed/")).items()})
+        np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
 
 
-def test_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
-    ep, b, s = 4, 2, 16
-    p = _params(5)
-    x = _x(6, b, s)
-    np.savez(tmp_path / "data.npz", x=x, **p)
-    mp.spawn(_rank_main, args=(ep, str(tmp_path / "rendezvous"),
-                               str(tmp_path / "data.npz"), str(tmp_path)),
-             nprocs=ep, join=True)
+EP4, EP4_B, EP4_S = 4, 2, 16
+
+
+@pytest.fixture(scope="module")
+def ep4_ranks(tmp_path_factory):
+    """One spawn of four gloo ranks for both EP = 4 tests: their inputs
+    (the plain stream's and the streamed one's) and each rank's arrays."""
+    tmp = tmp_path_factory.mktemp("tx_ep4")
+    inputs = {"plain": (_params(5), _x(6, EP4_B, EP4_S)),
+              "streamed": (_params(9), _x(10, EP4_B, EP4_S))}
+    np.savez(tmp / "data.npz", **{f"{n}/{k}": v for n, (p, x) in inputs.items()
+                                  for k, v in {**p, "x": x}.items()})
+    mp.spawn(_rank_main, args=(EP4, str(tmp / "rendezvous"),
+                               str(tmp / "data.npz"), str(tmp)),
+             nprocs=EP4, join=True)
+    return inputs, [np.load(tmp / f"rank{r}.npz") for r in range(EP4)]
+
+
+def test_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(ep4_ranks):
+    ep, b, s = EP4, EP4_B, EP4_S
+    inputs, ranks = ep4_ranks
+    p, x = inputs["plain"]
     h_j, k_j, v_j = _jax_stream(ep, p, x)
     for r in range(ep):
-        got = np.load(tmp_path / f"rank{r}.npz")
+        got = ranks[r]
         for name, want in (("h", h_j[r]), ("y", h_j[r]), ("k", k_j[r]),
                            ("v", v_j[r])):
-            np.testing.assert_allclose(got[name], want, rtol=TOL, atol=TOL,
-                                       err_msg=f"rank {r} {name}")
+            np.testing.assert_allclose(got["plain/" + name], want, rtol=TOL,
+                                       atol=TOL, err_msg=f"rank {r} {name}")
     dense = jfusco.tx_dense_reference(jnp.asarray(x), jnp.arange(s),
                                       jax.tree.map(jnp.asarray, p), K, **HEADS)
     joined = h_j.transpose(1, 0, 2, 3).reshape(b, s, D)
@@ -215,57 +272,18 @@ def test_streamed_tx_layer_stream_ep1_matches_jax(slices):
     np.testing.assert_allclose(h.numpy(), dense.numpy(), rtol=TOL, atol=TOL)
 
 
-def _streamed_rank_main(rank, world, init_file, data, out_dir):
-    """One EP rank: its stripe through the streamed fused_pipe schedule at
-    S = 1 and 4, through ``stream_tx_layers``."""
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                            rank=rank, world_size=world)
-    try:
-        d = dict(np.load(data))
-        x = torch.from_numpy(d.pop("x"))
-        s_l = x.shape[1] // world
-        placement = ExpertPlacement(n_experts=E, ep=world,
-                                    node_size=max(1, world // 2))
-        p = _t(d)
-        lane = {w: p[w].reshape(N, world, E // world, *p[w].shape[2:])
-                for w in ("w1", "w3", "w2")}
-        out = {}
-        for slices in (1, 4):
-            h, (k, v) = stream_tx_layers(
-                x[:, rank * s_l:(rank + 1) * s_l],
-                {"router": p["router"],
-                 **{w: t[:, rank:rank + 1] for w, t in lane.items()}},
-                {w: p[w] for w in ("wq", "wk", "wv", "wo")}, p["ln1"], p["ln2"],
-                placement=placement,
-                dcfg=DcommConfig(engine="fused_pipe", capacity_factor=CF,
-                                 pipe_slices=slices),
-                top_k=K, positions=torch.arange(x.shape[1]), **HEADS,
-                return_kv=True, group=dist.group.WORLD)
-            out.update({f"h{slices}": h.numpy(), f"k{slices}": k.numpy(),
-                        f"v{slices}": v.numpy()})
-        np.savez(f"{out_dir}/rank{rank}.npz", **out)
-    finally:
-        dist.destroy_process_group()
-
-
-def test_streamed_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(tmp_path):
-    ep, b, s = 4, 2, 16
-    p = _params(9)
-    x = _x(10, b, s)
-    np.savez(tmp_path / "data.npz", x=x, **p)
-    mp.spawn(_streamed_rank_main,
-             args=(ep, str(tmp_path / "rendezvous"), str(tmp_path / "data.npz"),
-                   str(tmp_path)), nprocs=ep, join=True)
-    got = [np.load(tmp_path / f"rank{r}.npz") for r in range(ep)]
+def test_streamed_tx_layer_stream_ep4_gloo_matches_jax_rank_by_rank(
+        ep4_ranks):
+    inputs, got = ep4_ranks
+    p, x = inputs["streamed"]
     for slices in (1, 4):
-        h_j, k_j, v_j = _jax_stream(ep, p, x, engine="fused_pipe",
+        h_j, k_j, v_j = _jax_stream(EP4, p, x, engine="fused_pipe",
                                     slices=slices)
-        for r in range(ep):
+        for r in range(EP4):
             for name, want in (("h", h_j[r]), ("k", k_j[r]), ("v", v_j[r])):
-                np.testing.assert_allclose(got[r][f"{name}{slices}"], want,
-                                           rtol=TOL, atol=TOL,
-                                           err_msg=f"S {slices} rank {r} {name}")
+                np.testing.assert_allclose(
+                    got[r][f"streamed/{name}{slices}"], want, rtol=TOL,
+                    atol=TOL, err_msg=f"S {slices} rank {r} {name}")
 
 
 def test_tx_stream_raises_on_what_is_not_ported(monkeypatch):

@@ -14,7 +14,7 @@ patch embeddings (``embed`` unreached: its gradient all zeros, as
 against the reference's ``make_train_step`` (``embed`` decayed), the
 prefill's logits and cache then three decode steps at both layouts;
 ``serve.run`` against the reference's bundle on the same weights and
-batch; ``convert``; what the family refuses.
+batch; ``convert``; what the family takes and refuses.
 
 Tolerances: the layer functions 1e-5 x max(1, |ref|); the loss, each
 gradient leaf, logits and caches 1e-4 relative to max(1, the leaf's max);
@@ -43,6 +43,10 @@ from repro_torch.models import lm, zoo
 from repro_torch.optim import adamw
 from repro_torch.serving.engine import (ContinuousServingEngine,
                                         ServingEngine)
+
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
 
 D, HQ, HKV, HD, THETA = 32, 4, 2, 16, 1e6
 SECTIONS = (2, 3, 3)
@@ -256,9 +260,11 @@ def test_convert_maps_the_vlm_tree_as_the_dense_one():
 
 
 def test_vlm_refusals(monkeypatch):
-    """A group of 2 (model or data), ``--continuous``, both engines and
-    ``train.main`` refuse the family, each naming why; tensor parallelism
-    stays off for it."""
+    """A model group and a data group of 2 are taken (the attention
+    head-parallel over the model group, the vocab pair split over it);
+    a (pod, model) axis, ``--continuous``, both engines and ``train.main``
+    refuse the family, each naming why; tensor parallelism stays off for
+    it."""
     check_group_refusals(VLM.cfg, monkeypatch)
     with pytest.raises(SystemExit):
         serve.parse_args(["--arch", "qwen2-vl-7b", "--continuous"])
@@ -272,13 +278,23 @@ def test_vlm_refusals(monkeypatch):
 
 
 def check_group_refusals(cfg, monkeypatch) -> None:
-    """``make_context`` of ``cfg`` over a model group of 2 and over a data
-    group of 2 raises, naming the queue item."""
+    """``make_context`` of ``cfg`` takes a model group of 2 (its attention
+    the island over it, the vocab pair split over it in training, whole in
+    serving, no TP) and a data group of 2 (no island); over a (pod, model)
+    axis it raises, naming the queue item."""
     monkeypatch.setattr(lm, "group_size", lambda g: 2 if g == "model" else 1)
-    for kw in (dict(ep_group="model"),
-               dict(mesh=type("Grid", (), dict(data=2, model=1,
-                                               ep_group=None))())):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8, the vlm and encdec"):
-            lm.make_context(cfg, "cpu", **kw)
+    model = lm.make_context(cfg, "cpu", ep_group="model")
+    assert lm.island_group(model) == "model" and lm.vocab_parallel(model)
+    assert not lm.tensor_parallel(model)
+    serving = lm.make_context(cfg, "cpu", ep_group="model", explicit_tp=False,
+                              split_vocab=False)
+    assert lm.island_group(serving) == "model"
+    assert not lm.vocab_parallel(serving)
+    data = lm.make_context(cfg, "cpu", mesh=type(
+        "Grid", (), dict(data=2, model=1, ep_group=None))())
+    assert lm.data_size(data) == 2 and lm.island_group(data) is None
+    with pytest.raises(NotImplementedError,
+                       match="queue 1 item 8, TP and the vocab split over"):
+        lm.make_context(cfg, "cpu", ep_group="model", multi_pod=True,
+                        node_size=1)
     monkeypatch.undo()

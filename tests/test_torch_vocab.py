@@ -45,6 +45,10 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
 from repro_torch.runtime import elastic
 
+# one intra-op thread: the suite runs its files on parallel workers that
+# share the host's cores
+torch.set_num_threads(1)
+
 DENSE, MOE = "qwen3-1.7b", "qwen3-moe-30b-a3b"
 TX, FFN = "moe-tx-stream", "moe-ffn-stream"
 ODD = 250           # a vocab four does not divide: the pair splits on d

@@ -44,6 +44,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from conftest import run_devices
+from xla_prelude import PRELUDE
 from torch_adam import close_updated, step_slack
 from repro_torch import convert
 from repro_torch.configs import get_arch
@@ -431,10 +432,10 @@ def run_grid(tmp_path, archs, extra=None, shape=(1, EP), node=NODE,
         runs += [(arch, data, *case) for case in cases]
     names = [f"{e}/{s}" for _, _, e, _, s in runs]
     assert len(set(names)) == len(names), names
-    code = JAX_CODE.format(shape=tuple(shape), node=node, runs=tuple(runs),
-                           two=shape[0] > 1 if two is None else two,
-                           fsdp=fsdp,
-                           opt=OPT, fast=FAST, out=str(tmp_path / "jax.npz"))
+    code = PRELUDE + JAX_CODE.format(
+        shape=tuple(shape), node=node, runs=tuple(runs),
+        two=shape[0] > 1 if two is None else two, fsdp=fsdp, opt=OPT,
+        fast=FAST, out=str(tmp_path / "jax.npz"))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(run_devices, code, world, 600)
         mp.spawn(_rank_main, args=(world, str(tmp_path / "rendezvous"),
