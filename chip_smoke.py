@@ -2587,24 +2587,28 @@ def _ep2_step(arch, engine, device, group=None, mesh=None,
             "lr": adamw.schedule(opt_cfg, 1), "tp": lm.tensor_parallel(ctx)}
 
 
-def rank_cut(path: str, t, model: int, r: int, tp: bool):
+def rank_cut(path: str, t, model: int, r: int, tp: bool, ssm=None):
     """A whole leaf as rank ``r`` of a model group of ``model`` holds it in
     training: an expert leaf its lane, ``embed`` and ``lm_head`` their
-    shards (``lm.vocab_parallel``), under ``tp`` a TP leaf its shard."""
+    shards (``lm.vocab_parallel``), under ``tp`` a TP leaf its shard, with
+    ``ssm`` (the model's ``lm.ssm_dims``) a Mamba2 leaf its SSM heads' cut
+    where the group divides the heads."""
     from repro_torch.models import lm
     t = lm.lane_cut(path, t, model, range(r, r + 1))
-    return lm.tp_cut(path, t, model, r, tp=tp)
+    return lm.tp_cut(path, t, model, r, tp=tp, ssm=ssm)
 
 
-def held_apart(path: str, tp: bool) -> bool:
+def held_apart(path: str, tp: bool, ssm=None, model: int = 1) -> bool:
     """Whether the model ranks of a training group hold different parts of
     the leaf at ``path``: an expert leaf, ``embed`` and ``lm_head`` (the
-    reduced configs' vocab splits over every group the smoke runs), and
-    under ``tp`` a TP leaf."""
+    reduced configs' vocab splits over every group the smoke runs), under
+    ``tp`` a TP leaf, and with ``ssm`` (``lm.ssm_dims``) a Mamba2 leaf cut
+    by SSM head over a group of ``model``."""
     from repro_torch.models import lm
     from repro_torch.parallel import sharding
     return (lm.lane_sharded(path) or path in sharding.VOCAB_DIM
-            or (tp and sharding.tp_sharded(path)))
+            or (tp and sharding.tp_sharded(path))
+            or sharding.ssm_segments(path, ssm, model) is not None)
 
 
 def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
@@ -3168,21 +3172,26 @@ def _grid_init(rank, port, device, shape=GRID):
     return make_host_mesh(*shape)
 
 
-def _grid_rank(rank, port, out_dir, device, grids, serve, pipe, embed):
+def _grid_rank(rank, port, out_dir, device, grids, serve, pipe, embed,
+               ssm):
     """One rank of the grid checks: each of ``grids``' (shape, cases), the
     same world in all, each case's step saved to ``out_dir``; then the
     serving checks on the first grid: each of ``GRID_SERVE_CASES`` reduced
     (``grid_serve_run``) and ``serve``'s full-width run
     (``grid_serve_full``); then ``pipe``'s pipeline phase on the world
     (:func:`pipeline_rank`); then the vlm and encdec families on the first
-    grid (:func:`embed_grid_rank`, ``embed``'s full-width spec)."""
+    grid (:func:`embed_grid_rank`, ``embed``'s full-width spec); then the
+    ssm and hybrid families on the grids of ``SSM_GRID_SHAPES``
+    (:func:`ssm_grid_rank`, ``ssm``'s full-width spec)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     mesh = first = _grid_init(rank, port, device, grids[0][0])
+    meshes = {grids[0][0]: first}
     try:
         for i, (shape, cases) in enumerate(grids):
             mesh = mesh if i == 0 else make_host_mesh(*shape)
+            meshes[shape] = mesh
             for arch, engine in cases:
                 torch.save(_ep2_step(arch, engine, device, mesh=mesh),
                            f"{out_dir}/{shape[0]}x{shape[1]}-{arch}-{engine}"
@@ -3207,13 +3216,17 @@ def _grid_rank(rank, port, out_dir, device, grids, serve, pipe, embed):
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
         embed_grid_rank(rank, out_dir, device, first, embed)
+        for shape in SSM_GRID_SHAPES:
+            if shape not in meshes:
+                meshes[shape] = make_host_mesh(*shape)
+        ssm_grid_rank(rank, out_dir, device, meshes, ssm)
     finally:
         dist.destroy_process_group()
 
 
 def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
-                    timer=time_ms, pipe=PIPE,
-                    embed: dict | None = None) -> tuple[dict, dict, list]:
+                    timer=time_ms, pipe=PIPE, embed: dict | None = None,
+                    ssm: dict | None = None) -> tuple[dict, dict, list]:
     """One f32 train step of each case of each (shape, cases) of ``grids``
     on a ``shape`` grid of ranks sharing the card (gloo; one spawn of the
     grids' common world for all) against the one-rank step on the card
@@ -3229,12 +3242,14 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
     on every rank (``family_kernels``).  The same spawn then serves
     ``serve`` on the first grid (``grid_serve_check``), and
     the serve kernels are held and timed (``timer``) on the inputs rank 0's
-    full-width serve gave them (``grid_serve_rows``), and the vlm and
+    full-width serve gave them (``grid_serve_rows``), the vlm and
     encdec families run on the first grid (``embed_grid_check``; ``embed``
-    their full-width spec, None: ``EMBED_GRID``).  Returns the lines of
-    each shape, one a case (the serving check's under "serve", the
-    families' under "embed"), rank 0's launches by grid and case, and the
-    kernel rows."""
+    their full-width spec, None: ``EMBED_GRID``), and the ssm and hybrid
+    families on both grids (``ssm_grid_check``; ``ssm`` their full-width
+    spec, None: ``SSM_GRID``).  Returns the lines of each shape, one a case
+    (the serving check's under "serve", the vlm and encdec families' under
+    "embed", the ssm and hybrid families' under "ssm"), rank 0's launches
+    by grid and case, and the kernel rows."""
     import shutil
     import torch
     from repro_torch.configs import get_arch
@@ -3251,19 +3266,25 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
     t0 = time.perf_counter()
     want_embed = embed_grid_want(embed, device)
     embed_one_s = time.perf_counter() - t0
+    ssm = SSM_GRID if ssm is None else ssm
+    t0 = time.perf_counter()
+    want_ssm = ssm_grid_want(ssm, device)
+    ssm_one_s = time.perf_counter() - t0
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     n = grids[0][0][0] * grids[0][0][1]
     assert all(a * b == n for (a, b), _ in grids), grids
     t0 = time.perf_counter()
     spawn_ranks(_grid_rank, n, (free_port(), str(out_dir), device, grids,
-                                serve, pipe, embed), 900)
+                                serve, pipe, embed, ssm), 900)
     spawn_s = time.perf_counter() - t0
     lines = {}
     lines["pipeline"], launches_pipe = pipeline_check(out_dir, pipe)
     lines["embed"], launches_embed = embed_grid_check(
         out_dir, grids[0][0], embed, want_embed)
     lines["embed"].append(f"seconds: the card alone's side {embed_one_s:.1f}")
+    lines["ssm"], launches_ssm = ssm_grid_check(out_dir, ssm, want_ssm)
+    lines["ssm"].append(f"seconds: the card alone's side {ssm_one_s:.1f}")
     lines["serve"], launches = grid_serve_check(
         out_dir, grids[0][0], serve, want_serve, want_full)
     with torch.inference_mode():
@@ -3276,6 +3297,7 @@ def grid_card_check(device="cuda", grids=GRIDS, serve=GRID_SERVE,
         f"pipeline) {spawn_s:.1f}")
     launches[f"{pipe['arch']} pipeline"] = launches_pipe
     launches.update(launches_embed)
+    launches.update(launches_ssm)
     for shape, (arch, engine) in ((s, c) for s, cases in grids
                                   for c in cases):
         w, model = want[arch, engine], shape[1]
@@ -3816,7 +3838,9 @@ def held_params(cfg, model: int, tp: bool = True) -> int:
     ``lm_head`` (``lm.vocab_param_count``: split on the vocab or on d) and,
     with ``tp`` where Megatron TP applies (``lm.ModelContext.tp_eligible``'s
     rule: the dense and moe families, the heads split evenly), of the TP
-    leaves (``lm.tp_param_count``); the rest whole."""
+    leaves (``lm.tp_param_count``); of the Mamba2 leaves its SSM heads' and
+    the B and C columns where the group divides the heads
+    (``lm.ssm_param_count``); the rest whole."""
     from repro_torch.models import encdec_model, lm
     replicated, experts = ((encdec_model.param_count(cfg), 0)
                            if cfg.family == "encdec" else lm.param_counts(cfg))
@@ -3824,7 +3848,8 @@ def held_params(cfg, model: int, tp: bool = True) -> int:
         lm.tp_param_count(cfg) if tp and model > 1
         and cfg.n_heads % model == 0 and cfg.family in ("dense", "moe")
         else 0)
-    return replicated - split + split // model + experts // model
+    ssm = lm.ssm_param_count(cfg) - lm.ssm_param_count(cfg, model)
+    return replicated - split + split // model - ssm + experts // model
 
 
 def _zero1_rank(rank, port, out_dir, argvs, device):
@@ -6063,7 +6088,8 @@ def embed_full_step(arch: str, spec: dict, device="cuda", mesh=None) -> dict:
     """``arch`` at ``spec``'s depth (:func:`embed_full_config`) in bf16 from
     seed 0 (weights, then a ``zoo.make_smoke_batch`` batch of ``batch`` x
     ``seq``, the vlm's at ``VL_LAYOUT``).  Without ``mesh``: the loss of
-    the whole batch on the card alone.  On ``mesh``: one AdamW step of this
+    the whole batch on the card alone and the whole leaves' shapes by path.
+    On ``mesh``: one AdamW step of this
     rank's rows (ZeRO-1 over the data group), with the launch counters
     zeroed just before and read just after; the loss, this rank's
     parameter and AdamW bytes, its peak memory (GiB; None on the CPU) and
@@ -6088,7 +6114,9 @@ def embed_full_step(arch: str, spec: dict, device="cuda", mesh=None) -> dict:
             device=device)
     if mesh is None:
         with torch.no_grad():
-            return {"loss": float(model.loss(params, batch)[0])}
+            return {"loss": float(model.loss(params, batch)[0]),
+                    "shapes": dict(zip(adamw.paths(params), (
+                        tuple(t.shape) for t in adamw.leaves(params))))}
     opt_cfg = adamw.AdamWConfig(lr=EMBED_LR, warmup_steps=2, total_steps=4)
     opt = steps.init_state(model, params)
     wrappers = zero_counters()
@@ -6106,19 +6134,28 @@ def embed_full_step(arch: str, spec: dict, device="cuda", mesh=None) -> dict:
 
 
 def embed_full_prefill(arch: str, spec: dict, device="cuda",
-                       mesh=None) -> dict:
+                       mesh=None, f32: bool = False) -> dict:
     """``serve.setup``'s lock-step prefill of ``spec``'s ``requests`` x
     ``prompt`` at ``layers`` (bf16, seed 0) on ``device``, on ``mesh``
     (None: the card alone), with the launch counters zeroed just before
     and read just after: the first-token logits of the whole batch (each
-    data rank's rows gathered), the launches and the peak memory."""
+    data rank's rows gathered) and the launches.  ``f32``: the context's
+    compute dtype float32 (the same bf16 weights, cast as they are
+    used)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import lm
     argv = ["--arch", arch, "--layers", str(spec["layers"]), "--requests",
             str(spec["requests"]), "--prompt-len", str(spec["prompt"]),
             "--gen", "2"] + (["--reduced"] if spec["reduced"] else [])
-    s = serve.setup(serve.parse_args(argv), device, mesh)
+    make = lm.make_context
+    if f32:
+        lm.make_context = lambda *a, **kw: make(
+            *a, **{**kw, "compute_dtype": torch.float32})
+    try:
+        s = serve.setup(serve.parse_args(argv), device, mesh)
+    finally:
+        lm.make_context = make
     wrappers = zero_counters()
     with torch.inference_mode():
         logits, _ = s.bundle.prefill(s.params, s.batch, s.max_len)
@@ -6299,6 +6336,285 @@ def embed_grid_check(out_dir, shape, spec, want) -> tuple[list[str], dict]:
     return lines, launches
 
 
+# the ssm and hybrid families over both grids of grid_card_check's spawn
+# (SSM_GRID_SHAPES), against the card alone: the reduced models' f32 step
+# and serve (EMBED_GRID_REDUCED's sizes), then each at full width, bf16,
+# SSM_GRID's depth: one AdamW step of B 4 x S 512 and an 8 x 512 prefill.
+# Over a model group that divides the SSM heads each mixer splits by head
+# (mamba2's 80 over 2 and 4, hymba's 50 over 2); hymba's 50 over 4 run
+# whole on every rank
+SSM_GRID = dict(reduced=False, layers=2, batch=4, seq=512, requests=8,
+                prompt=512)
+SSM_GRID_SHAPES = ((2, 2), (1, 4))
+TOL_SSM_LOGITS = 1e-2     # full-width f32 first-token logits, grid vs
+                          # card, of max(1, |logit|)
+# the bf16 prefill: the grid's first-token logits no farther from the card's
+# f32 ones than this many times the card's own bf16 ones are (the
+# reference's bf16 SSD parts from f32 by ~0.36-0.45 of the largest logit at
+# 2 full-width layers, so two bf16 roundings of one function part by ~0.1)
+TOL_SSM_BLUR = 1.5
+# the flash forward at hymba's island shard shapes on the (2, 2) grid: 25
+# heads padded to 26, 13 a rank at group size 1, B the rows of one data
+# rank of 2: (path, shape), each with the window of 1024 and global
+HYMBA_GRID_ATTN = (
+    (f"{HYMBA} grid train", dict(b=2, sq=512, sk=512, hq=13, hkv=13, hd=64)),
+    (f"{HYMBA} grid prefill", dict(b=4, sq=512, sk=512, hq=13, hkv=13,
+                                   hd=64)))
+
+
+def reckon_rank_bytes(shapes: dict, cfg, data: int, model: int):
+    """(parameter bytes, AdamW bytes) a rank of a (``data``, ``model``)
+    training grid holds of a bf16 model of whole leaf ``shapes`` (by path),
+    reckoned from the leaf rule: each Mamba2 leaf's SSM heads' share of its
+    split segments and its B and C columns whole where the group divides
+    the heads (``sharding.ssm_segments``), the vocab pair on the dim
+    ``sharding.vocab_dim`` gives; 12 bytes of AdamW state a held parameter,
+    over ``data`` where ZeRO-1 finds a dim (``adamw.zero_dim``)."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    dims = lm.ssm_dims(cfg)
+    params = opt = 0
+    for path, shape in shapes.items():
+        shape = list(shape)
+        seg = sharding.ssm_segments(path, dims, model)
+        if seg is not None:
+            split = seg[0]
+            shape[split] = sum(n // model if cut else n for n, cut in seg[1])
+        else:
+            split = sharding.vocab_dim(path, shape, model)
+            if split is not None:
+                shape[split] //= model
+        n = 1
+        for k in shape:
+            n *= k
+        params += 2 * n
+        zero = adamw.zero_dim(shape, data, False, split)
+        opt += 12 * n // (1 if zero is None else data)
+    return params, opt
+
+
+def ssm_grid_flash_rows(timer=time_ms, device="cuda") -> list[dict]:
+    """The flash forward at hymba's island shard shapes
+    (``HYMBA_GRID_ATTN``: 13 heads a rank, hd 64, group size 1), with its
+    window of 1024 and global, each held against its plain version and
+    timed beside SDPA (bool mask, and ``is_causal``: the window does not
+    bind at 512)."""
+    import torch
+    rows = []
+    for path, attn in HYMBA_GRID_ATTN:
+        with torch.inference_mode():
+            inp = attention_inputs(device, **attn)
+            rows += [dict(flash_row(*inp, window=w, timer=timer), path=path)
+                     for w in (1024, None)]
+            del inp
+    return rows
+
+
+def ssm_grid_rank(rank, out_dir, device, meshes, spec) -> None:
+    """The ssm and hybrid checks of one rank of ``grid_card_check``'s spawn
+    on each grid of ``SSM_GRID_SHAPES`` (``meshes`` by shape): each
+    family's reduced f32 step and serve, then its full-width step and
+    prefill (``spec``), each result saved to ``out_dir``."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    for shape in SSM_GRID_SHAPES:
+        mesh = meshes[shape]
+        for arch in SSM_ARCHS:
+            t0 = time.perf_counter()
+            out = {"step": embed_grid_step(arch, device, mesh),
+                   "serve": embed_grid_serve(arch, device, mesh)}
+            out["full"] = embed_full_step(arch, spec, device, mesh)
+            if on_card:
+                torch.cuda.empty_cache()
+            out["prefill"] = embed_full_prefill(arch, spec, device, mesh)
+            out["prefill32"] = embed_full_prefill(arch, spec, device, mesh,
+                                                  f32=True)
+            if on_card:
+                torch.cuda.empty_cache()
+            out["seconds"] = time.perf_counter() - t0
+            torch.save(out, f"{out_dir}/ssm-{shape[0]}x{shape[1]}-{arch}"
+                            f"-rank{rank}.pt")
+
+
+def ssm_grid_want(spec: dict, device="cuda") -> dict:
+    """The card alone's side of :func:`ssm_grid_rank`, by family."""
+    import torch
+    want = {}
+    for arch in SSM_ARCHS:
+        want[arch] = {"step": embed_grid_step(arch, device),
+                      "serve": embed_grid_serve(arch, device),
+                      "full": embed_full_step(arch, spec, device),
+                      "prefill": embed_full_prefill(arch, spec, device),
+                      "prefill32": embed_full_prefill(arch, spec, device,
+                                                      f32=True)}
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return want
+
+
+def ssm_grid_check(out_dir, spec, want) -> tuple[list[str], dict]:
+    """The ssm and hybrid checks of ``grid_card_check``'s spawn on each grid
+    of ``SSM_GRID_SHAPES`` against the card alone.  Reduced, f32: on every
+    rank the loss, every gradient (a rank's shard against its cut of the
+    card's: the vocab pair's and the Mamba2 leaves' by SSM head, whose B
+    and C columns every rank holds) and the grad norm within ``TOL_TRAIN``
+    of max(1, |x|), the updated params within 2 lr + 1e-5, the replicated
+    leaves the same bits on every rank and each split leaf on the data
+    ranks of its model rank, the AdamW state its ZeRO-1 share; the served
+    tokens the card's.  Full width, bf16: every rank's loss the same and
+    within ``TOL_TP_LOSS`` relative of the card's, its parameter and AdamW
+    bytes the reckoning (``reckon_rank_bytes``, and ``held_params``: its
+    SSM heads' columns and B and C whole where the group divides the heads,
+    its vocab shard; 12 bytes of AdamW state a parameter, / DP under
+    ZeRO-1 where a dim divides), its peak memory; each rank's first-token
+    logits of the prefill within ``TOL_SSM_LOGITS`` of max(1, |logit|) of
+    the card's in f32 (the same bf16 weights), and in bf16 no farther from
+    the card's f32 ones than ``TOL_SSM_BLUR`` times the card's own bf16
+    ones (the reference's bf16 SSD blurs its decays: two bf16 roundings of
+    the one function part by far more than ``TOL_SSM_LOGITS``); rank 0's
+    flash launches the count the code implies (one a hybrid layer: the
+    island runs one flash forward a layer a rank) and no other kernel.
+    Returns the lines and rank 0's launches by path; raises after every
+    grid and family has its line."""
+    import torch
+    from repro_torch.models import lm
+    rel = lambda a, b: max_err(a, b) / max(1.0, b.abs().max().item())
+    lines, launches, failures = [], {}, []
+    for (data, model), arch in ((s, a) for s in SSM_GRID_SHAPES
+                                for a in SSM_ARCHS):
+        n, w = data * model, want[arch]
+        grid = f"{data}x{model}"
+        got = [torch.load(f"{out_dir}/ssm-{grid}-{arch}-rank{r}.pt")
+               for r in range(n)]
+        cfg = embed_full_config(arch, spec)
+        dims = lm.ssm_dims(cfg)
+        split = dims.heads % model == 0
+        rdims = lm.ssm_dims(embed_full_config(arch, dict(spec, reduced=True)))
+        ws, bad = w["step"], []
+        err = {"loss": 0.0, "grads": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for r, g in enumerate(got):
+            gs = g["step"]
+            cut = lambda path, t: rank_cut(path, t, model, r % model, False,
+                                           rdims)
+            err["loss"] = max(err["loss"], abs(gs["loss"] - ws["loss"]))
+            err["grad_norm"] = max(err["grad_norm"], abs(
+                gs["grad_norm"] - ws["grad_norm"]) / ws["grad_norm"])
+            for k, t in ws["grads"].items():
+                err["grads"] = max(err["grads"], rel(gs["grads"][k], cut(k, t)))
+            for k, t in ws["params"].items():
+                err["params"] = max(err["params"],
+                                    max_err(gs["params"][k], cut(k, t)))
+            if gs["state_bytes"] != gs["share_bytes"]:
+                bad.append(f"rank {r} AdamW {gs['state_bytes']} B, ZeRO-1 "
+                           f"share {gs['share_bytes']}")
+            if g["serve"]["tokens"].tolist() != w["serve"]["tokens"].tolist():
+                bad.append(f"rank {r} served tokens "
+                           f"{g['serve']['tokens'].tolist()} against "
+                           f"{w['serve']['tokens'].tolist()}")
+        for k in got[0]["step"]["params"]:
+            pairs = ([(m, m + d * model) for m in range(model)
+                      for d in range(1, data)]
+                     if held_apart(k, False, rdims, model)
+                     else [(0, r) for r in range(1, n)])
+            bad += [f"{k} bits ranks {a}, {b}" for a, b in pairs
+                    if not same_bits(got[a]["step"]["params"][k],
+                                     got[b]["step"]["params"][k])]
+        p_tol = 2 * ws["lr"] + 1e-5
+        if not (err["loss"] <= TOL_TRAIN and err["grads"] <= TOL_TRAIN
+                and err["grad_norm"] <= TOL_TRAIN and err["params"] <= p_tol):
+            bad.append(f"reduced step {err} (tol {TOL_TRAIN}, params "
+                       f"{p_tol:.3g})")
+        # full width: the train step and the prefill
+        held = held_params(cfg, model, tp=False)
+        losses = [g["full"]["loss"] for g in got]
+        first = abs(losses[0] - w["full"]["loss"]) / abs(w["full"]["loss"])
+        if first > TOL_TP_LOSS or len(set(losses)) != 1:
+            bad.append(f"full step losses {losses} against the card's "
+                       f"{w['full']['loss']} ({first:.3g} relative, tol "
+                       f"{TOL_TP_LOSS})")
+        p_bytes, o_bytes = reckon_rank_bytes(w["full"]["shapes"], cfg, data,
+                                             model)
+        for r, g in enumerate(got):
+            f = g["full"]
+            if (f["param_bytes"], f["opt_bytes"]) != (p_bytes, o_bytes) or (
+                    p_bytes != 2 * held):
+                bad.append(f"rank {r} full step params {f['param_bytes']} B, "
+                           f"AdamW {f['opt_bytes']} B, reckoned {p_bytes} "
+                           f"({held} parameters held) and {o_bytes}")
+        hybrid = lm.has_attention(cfg)
+        implied = dict.fromkeys(counters(), 0)
+        implied["flash_attention"] = cfg.n_layers if hybrid else 0
+        if got[0]["full"]["launches"] != implied:
+            bad.append(f"rank 0 full step launches "
+                       f"{got[0]['full']['launches']}, implied {implied}")
+        if got[0]["prefill"]["launches"] != implied:
+            bad.append(f"rank 0 prefill launches "
+                       f"{got[0]['prefill']['launches']}, implied {implied}")
+        # the f32 prefill against the card's; the bf16 one against the card's
+        # bf16 and, with the card's own, against the card's f32
+        want32 = w["prefill32"]["first_logits"]
+        errs32 = [rel(g["prefill32"]["first_logits"], want32) for g in got]
+        errs = [rel(g["prefill"]["first_logits"], w["prefill"]["first_logits"])
+                for g in got]
+        card_gap = rel(w["prefill"]["first_logits"], want32)
+        gaps = [rel(g["prefill"]["first_logits"], want32) for g in got]
+        if max(errs32) > TOL_SSM_LOGITS:
+            bad.append(f"f32 prefill first-token logits {errs32} of max(1, "
+                       f"|logit|) (tol {TOL_SSM_LOGITS})")
+        if max(gaps) > TOL_SSM_BLUR * max(card_gap, TOL_SSM_LOGITS):
+            bad.append(f"bf16 prefill first-token logits {gaps} from the "
+                       f"card's f32, the card's own bf16 {card_gap} (tol "
+                       f"{TOL_SSM_BLUR} x)")
+        if bad:
+            failures.append(f"{arch} over the grid ({data}, {model}): {bad}")
+        suffix = "" if (data, model) == GRID else f" ({data}, {model})"
+        launches[f"{arch} grid{suffix} train"] = got[0]["full"]["launches"]
+        launches[f"{arch} grid{suffix} prefill"] = got[0]["prefill"][
+            "launches"]
+        launches[f"grid ({data}, {model}) {arch} reduced step rank 0"] = got[
+            0]["step"]["launches"]
+        gib = lambda x: "n/a" if x is None else f"{x:.2f}"
+        mixer = (f"its {dims.heads} SSM heads split {dims.heads // model} a "
+                 f"rank (B and C whole on each)" if split else
+                 f"its {dims.heads} SSM heads, which {model} ranks do not "
+                 f"divide: the whole-mixer path on every rank")
+        attn = (", attention head-parallel (the island)" if hybrid else "")
+        lines.append(
+            f"{arch} on ({data}, {model}), {mixer}{attn}: reduced f32 step, "
+            f"loss {err['loss']:.3g}, grads {err['grads']:.3g}, grad norm "
+            f"{err['grad_norm']:.3g} (tol {TOL_TRAIN}), params "
+            f"{err['params']:.3g} (tol {p_tol:.3g}), replicated leaves "
+            f"bit-equal on the {n} ranks and split leaves on the data ranks "
+            f"of each model rank, AdamW per rank "
+            f"{[g['step']['state_bytes'] for g in got]} B (ZeRO-1 shares); "
+            f"lock-step serve {EMBED_GRID_REDUCED['requests']} requests x "
+            f"{EMBED_GRID_REDUCED['gen']} tokens equal to the card's on every "
+            f"rank.  Full width, {cfg.n_layers} layers bf16, B "
+            f"{spec['batch']} x S {spec['seq']}: one card loss "
+            f"{w['full']['loss']}, ranks' {losses} ({first:.3g} relative, tol "
+            f"{TOL_TP_LOSS}); params {[g['full']['param_bytes'] for g in got]}"
+            f" B, AdamW {[g['full']['opt_bytes'] for g in got]} B a rank "
+            f"(reckoned {p_bytes} and {o_bytes}: {held} parameters held; "
+            f"ZeRO-1 over {data} where a dim divides); peak memory "
+            f"{[gib(g['full']['peak_gib']) for g in got]} GiB; the step "
+            f"{[round(g['full']['seconds'], 3) for g in got]} s a rank (gloo "
+            f"through the host: not a speed); rank 0 launches "
+            f"{json.dumps(got[0]['full']['launches'])} = implied.  Prefill "
+            f"{spec['requests']} x {spec['prompt']}: f32 first-token logits "
+            f"against the card alone's f32, worst per rank "
+            f"{[f'{e:.3g}' for e in errs32]} of max(1, |logit|) (tol "
+            f"{TOL_SSM_LOGITS}); bf16 against the card's bf16 "
+            f"{[f'{e:.3g}' for e in errs]}, against the card's f32 "
+            f"{[f'{e:.3g}' for e in gaps]} where the card's own bf16 is "
+            f"{card_gap:.3g} from it (tol {TOL_SSM_BLUR} x); rank 0 launches "
+            f"{json.dumps(got[0]['prefill']['launches'])} = implied; "
+            f"{got[0]['seconds']:.1f} s on rank 0")
+    if failures:
+        raise AssertionError("; ".join(failures) + " || " + " || ".join(lines))
+    return lines, launches
+
+
 def stamp(what: str) -> None:
     """The seconds since the script started, after ``what``."""
     print(f"[{time.perf_counter() - T0:.1f} s] {what} done", flush=True)
@@ -6448,6 +6764,7 @@ def main() -> None:
     rows += embed_rows
     with torch.no_grad():
         rows += embed_grid_flash_rows()
+        rows += ssm_grid_flash_rows()
     for line in lines:
         print(f"flash held (vlm / encdec shapes): {line}")
     stamp("the kernel rows of the large paths")
@@ -6697,6 +7014,12 @@ def main() -> None:
     for line in grid_lines["embed"]:
         print(f"vlm and encdec on the (2, 2) grid on one card (four gloo "
               f"ranks; attention head-parallel over the model group, embed "
+              f"and lm_head split in training, batch rows over the data "
+              f"group) vs the card alone: {line}")
+    for line in grid_lines["ssm"]:
+        print(f"ssm and hybrid over the grids on one card (four gloo ranks; "
+              f"Mamba2 mixers split by SSM head over the model group, "
+              f"hymba's prefill and training attention head-parallel, embed "
               f"and lm_head split in training, batch rows over the data "
               f"group) vs the card alone: {line}")
     for r in grid_rows:

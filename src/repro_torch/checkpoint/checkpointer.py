@@ -40,7 +40,12 @@ its ZeRO-1 slice over the data group, so the file holds the whole leaf, the
 reference's bits; a restore cuts it onto any grid, TP or not.  A training
 layout over a model group (``Layout.vocab``) holds the vocab pair split
 over it the same way, on the dim ``sharding.vocab_dim`` gives its whole
-shape (the vocab, or d where the group does not divide the vocab).
+shape (the vocab, or d where the group does not divide the vocab).  A
+layout whose Mamba2 mixers split by SSM head (``Layout.ssm``, the ssm and
+hybrid families over a model group that divides their heads) holds each
+Mamba2 leaf's head-aligned cut (``sharding.SSM_DIM``): a save gathers the
+ranks' cuts whole (``sharding.ssm_gather``), a restore cuts them again
+(``sharding.ssm_cut``), onto any grid.
 """
 
 from __future__ import annotations
@@ -73,7 +78,9 @@ class Layout:
     group (parameters and state; ZeRO-3 of the experts); ``tp``: the TP
     leaves are this rank's shard of ``ep`` over ``ep_group`` (the model
     group); ``vocab``: (V, d) of a model whose vocab pair is this rank's
-    shard of ``ep`` (``models/lm.vocab_parallel``; None: whole)."""
+    shard of ``ep`` (``models/lm.vocab_parallel``; None: whole); ``ssm``:
+    the ``sharding.SsmDims`` of a model whose Mamba2 leaves are this rank's
+    cut by SSM head of ``ep`` (``models/lm.ssm_group``; None: whole)."""
     ep: int = 1
     lane: int = 0
     dp: int = 1
@@ -84,6 +91,7 @@ class Layout:
     fsdp: bool = False
     tp: bool = False
     vocab: tuple[int, int] | None = None
+    ssm: sharding.SsmDims | None = None
 
     @property
     def writer(self) -> bool:
@@ -94,24 +102,31 @@ ONE = Layout()
 
 
 def layout(ep_group=None, mesh=None, fsdp: bool = False,
-           tp: bool = False, vocab: tuple[int, int] | None = None) -> Layout:
+           tp: bool = False, vocab: tuple[int, int] | None = None,
+           ssm: sharding.SsmDims | None = None) -> Layout:
     """The :class:`Layout` of a rank over ``ep_group`` (a group, a
     ``dcomm.EPGroups`` or None) or over ``mesh`` (a ``launch.mesh.HostMesh``,
     whose EP group is taken then), with the experts under FSDP over its
     data group (``fsdp``), the TP leaves sharded over its model group
-    (``tp``) and, with ``vocab`` = (V, d), the vocab pair split over it (a
-    training layout); that of a model context is :func:`context_layout`."""
+    (``tp``), with ``vocab`` = (V, d) the vocab pair split over it (a
+    training layout) and with ``ssm`` (a model's ``lm.ssm_dims``) the
+    Mamba2 leaves cut by SSM head where the group divides the heads
+    (``sharding.ssm_split``); that of a model context is
+    :func:`context_layout`."""
     if mesh is not None:
-        return Layout(mesh.model, dcomm.lane_index(mesh.ep_group), mesh.data,
+        m = mesh.model
+        return Layout(m, dcomm.lane_index(mesh.ep_group), mesh.data,
                       mesh.data_index, mesh.ep_group, mesh.data_group,
-                      mesh.grid, fsdp and mesh.data > 1, tp and mesh.model > 1,
-                      vocab if mesh.model > 1 else None)
+                      mesh.grid, fsdp and mesh.data > 1, tp and m > 1,
+                      vocab if m > 1 else None,
+                      ssm if sharding.ssm_split(ssm, m) else None)
     ep = dcomm.group_size(ep_group)
     if ep == 1:
         return ONE
     g = dcomm.process_group(ep_group)
     return Layout(ep, dcomm.lane_index(ep_group), ep_group=g, world=g, tp=tp,
-                  vocab=vocab)
+                  vocab=vocab,
+                  ssm=ssm if sharding.ssm_split(ssm, ep) else None)
 
 
 def context_layout(ctx) -> Layout:
@@ -119,7 +134,7 @@ def context_layout(ctx) -> Layout:
     return layout(ctx.ep_group, ctx.mesh, ctx.fsdp_experts,
                   lm.tensor_parallel(ctx),
                   (ctx.cfg.vocab, ctx.cfg.d_model) if lm.vocab_parallel(ctx)
-                  else None)
+                  else None, lm.ssm_dims(ctx.cfg))
 
 
 # --- the tree -----------------------------------------------------------------
@@ -186,9 +201,12 @@ class _Role:
     def split(self, lay: Layout) -> int | None:
         """The dim, from the end, this rank's part is cut on over the model
         group: a TP shard's under ``lay.tp``, the vocab pair's under
-        ``lay.vocab`` (``sharding.vocab_dim`` of its whole shape)."""
+        ``lay.vocab`` (``sharding.vocab_dim`` of its whole shape), a Mamba2
+        leaf's under ``lay.ssm`` (:meth:`ssm`)."""
         if self.model is None:
             return None
+        if self.ssm(lay):
+            return sharding.SSM_DIM[self.model][0]
         if lay.tp and sharding.tp_sharded(self.model):
             return sharding.tp_dim(self.model)
         if lay.vocab is None or self.model not in sharding.VOCAB_DIM:
@@ -196,6 +214,11 @@ class _Role:
         v, d = lay.vocab
         shape = (v, d) if self.model == "embed" else (d, v)
         return sharding.vocab_dim(self.model, shape, lay.ep)
+
+    def ssm(self, lay: Layout) -> bool:
+        """Whether this rank's part is a Mamba2 leaf's cut by SSM head."""
+        return self.model is not None and sharding.ssm_segments(
+            self.model, lay.ssm, lay.ep) is not None
 
     def zero(self, rank_param_shape, lay: Layout) -> int | None:
         if not self.state or rank_param_shape is None or self.fsdp(lay):
@@ -243,7 +266,11 @@ def _whole(role: _Role, t: torch.Tensor, lay: Layout) -> torch.Tensor:
     if role.sharded(lay):
         t = _all_gather(t, adamw.LANE_DIM, lay.ep_group, lay.ep)
     split = role.split(lay)
-    if split is not None:
+    if role.ssm(lay):
+        parts = [torch.empty_like(t) for _ in range(lay.ep)]
+        dist.all_gather(parts, t.contiguous(), group=lay.ep_group)
+        t = sharding.ssm_gather(role.model, parts, lay.ssm)
+    elif split is not None:
         t = _all_gather(t, split % t.dim(), lay.ep_group, lay.ep)
     return t
 
@@ -367,7 +394,9 @@ def _cut(role: _Role, a: np.ndarray, lay: Layout) -> np.ndarray:
     if role.sharded(lay):
         a = lm.lane_cut(role.model, a, lay.ep, range(lay.lane, lay.lane + 1))
     split = role.split(lay)
-    if split is not None:
+    if role.ssm(lay):
+        a = sharding.ssm_cut(role.model, a, lay.ssm, lay.ep, lay.lane)
+    elif split is not None:
         a = sharding.data_cut(a, split, lay.ep, lay.lane)
     if role.fsdp(lay):
         return sharding.data_cut(a, sharding.fsdp_dim(role.model), lay.dp,

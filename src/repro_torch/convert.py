@@ -13,8 +13,9 @@ cut to that lane, ``models/lm.lane_cut``), with ``data`` = (DP, d) the
 f-slice data rank d of DP holds under FSDP of the experts
 (``parallel/sharding``), and with ``model`` = (m, r) the shards model rank
 r of m holds in training (``models/lm.tp_cut``): the vocab pair's (on the
-dim ``sharding.vocab_dim`` gives its shape) and, with ``tp``, the TP
-leaves' under Megatron TP.
+dim ``sharding.vocab_dim`` gives its shape), the Mamba2 leaves' cut by SSM
+head where m divides the heads (``sharding.ssm_cut``; their sizes read
+from the tree itself) and, with ``tp``, the TP leaves' under Megatron TP.
 """
 
 from __future__ import annotations
@@ -82,10 +83,13 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
     ``sharding.data_cut``).  With ``model`` = (m, r): the vocab pair
     (``sharding.vocab_dim``: the vocab where m divides it, else d) and,
     with ``tp``, the TP leaves (``sharding.TP_DIM``) cut to model rank r's
-    shard of m, the reference's shard r of its ``model`` axis: the tree a
-    training context over a model group of m holds (``models/lm.model_dim``;
-    ``tp``: ``lm.tensor_parallel``, never on for the vlm and encdec trees,
-    whose model rank holds the vocab pair's shard alone)."""
+    shard of m, the reference's shard r of its ``model`` axis, and the
+    Mamba2 leaves cut by SSM head (``sharding.ssm_cut``, not the reference's
+    contiguous cut of ``in_proj_zx`` and ``conv_w``): the tree a training
+    context over a model group of m holds (``models/lm.model_dim``;
+    ``tp``: ``lm.tensor_parallel``, never on for the vlm, encdec, ssm and
+    hybrid trees, whose model rank holds the vocab pair's shard and its
+    SSM heads' alone)."""
     paths = {p for p, _ in _flatten(tree)} - _OPTIONAL
     if paths not in KEYS.values():
         near = min(KEYS, key=lambda f: len(KEYS[f] ^ paths))
@@ -93,6 +97,13 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
             f"not the parameter tree of a ported family ({sorted(KEYS)}): "
             f"against {near!r} missing {sorted(KEYS[near] - paths)}, "
             f"unexpected {sorted(paths - KEYS[near])}")
+
+    flat = dict(_flatten(tree))
+    ssm = None
+    if "layers/ssm/a_log" in flat:        # the Mamba2 leaves' sizes
+        din = np.shape(flat["layers/ssm/norm"])[-1]
+        ssm = sharding.SsmDims(din, np.shape(flat["layers/ssm/a_log"])[-1],
+                               np.shape(flat["layers/ssm/conv_w"])[-1] - din)
 
     def leaf(path, a):
         if lane is not None and lane_sharded(path):   # (L, EP, E_local, ...)
@@ -102,7 +113,7 @@ def params_from_jax(tree: dict, device="cuda", lane: int | None = None,
             a = sharding.data_cut(np.asarray(a), sharding.fsdp_dim(path),
                                   *data)
         if model is not None:
-            a = tp_cut(path, np.asarray(a), *model, tp=tp)
+            a = tp_cut(path, np.asarray(a), *model, tp=tp, ssm=ssm)
         return _tensor(a, device)
 
     def conv(t, prefix=""):

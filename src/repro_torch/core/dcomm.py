@@ -317,6 +317,37 @@ def sum_forward(t: torch.Tensor, group) -> torch.Tensor:
     return _SumForward.apply(t, group)
 
 
+class _Psum(torch.autograd.Function):
+    """All-reduce (sum) in the forward and in the backward: the
+    reference's ``psum``, whose transpose is a psum of the cotangents.  A
+    value every rank then uses alike carries on each rank a share of its
+    cotangent (each rank differentiates its own copy of the loss); the
+    backward sums the shares, so each addend gets the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=process_group(group))
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=process_group(ctx.group))
+        return g, None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (one ``all_reduce``; the identity for one
+    rank), whose backward sums the ranks' cotangents (:class:`_Psum`): the
+    exit of a region each rank computes a part of, such as the Mamba2
+    mixer's heads over a model group (``layers/ssm.py``)."""
+    if group_size(group) == 1:
+        return t
+    return _Psum.apply(t, group)
+
+
 def all_gather_seq(x: torch.Tensor,
                    group: dist.ProcessGroup | None) -> torch.Tensor:
     """The stripes of every rank joined along the sequence (dim 1), in lane

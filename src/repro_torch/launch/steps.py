@@ -80,6 +80,15 @@ the head.  Each rank then holds:
 - ZeRO-1 cuts each shard's state on a dim other than its model-split one
   (``adamw.zero_dim``: the vocab-split ``embed``'s on d).
 
+The ssm and hybrid families over a model group that divides their SSM
+heads (``models/lm.ssm_group``) split each Mamba2 mixer by head: a rank
+holds its heads' cut of the Mamba2 leaves (``parallel/sharding.SSM_DIM``),
+whose gradients are whole over the model group, like a TP shard's, except
+the B and C columns of ``in_proj_zx`` and ``conv_w``: every rank holds
+them whole and reads them for its own heads, so each rank's gradient of
+them is its share, summed over the model group (:func:`reduce_whole`, one
+bucket) before the data group's sum; the clip norm counts them once.
+
 Under serial accumulation the sync runs once per step, on the micro-batch
 sum; each micro-batch's denominator is its own global count, so the loss is
 the reference's mean of per-micro means.  The traffic statistics sum their
@@ -133,6 +142,26 @@ def reduce_lanes(grads: list, paths: list[str], group,
     and the same TP shard) the gradients of the leaves ``sharded`` names
     (the expert leaves, and under TP the TP shards)."""
     return _sum_leaves(grads, paths, group, sharded)
+
+
+def reduce_whole(grads: list, paths: list[str], group, whole) -> list:
+    """Sum over ``group`` (the model group) the columns ``whole`` (``fn(path)
+    -> (dim, [(start, stop)]) | None``, ``models/lm.ssm_whole``) names of
+    each leaf's gradient, the parts every rank holds alike of a leaf split
+    over the group: one flat bucket per dtype, one ``all_reduce`` each,
+    written back in place."""
+    spans: dict[torch.dtype, list[torch.Tensor]] = {}
+    for p, g in zip(paths, grads):
+        cols = whole(p)
+        for lo, hi in (cols[1] if cols else ()):
+            spans.setdefault(g.dtype, []).append(
+                g.narrow(cols[0] % g.dim(), lo, hi - lo))
+    for parts in spans.values():
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        dist.all_reduce(flat, group=group)
+        for t, part in zip(parts, flat.split([t.numel() for t in parts])):
+            t.copy_(part.view_as(t))
+    return grads
 
 
 def data_total(t: torch.Tensor, group) -> torch.Tensor:
@@ -202,6 +231,7 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
     div = (1 if lm.tensor_parallel(model.ctx) or lm.vocab_parallel(model.ctx)
            else ep)
     held = lm.model_sharded(model.ctx)
+    whole = lm.ssm_whole(model.ctx)
     # summed over the data group: FSDP's expert slices arrive
     # reduce-scattered in the backward, the TP shards do not
     lanes = lm.tp_sharded(model.ctx) if fsdp else held
@@ -255,6 +285,8 @@ def value_and_grad(model: zoo.ModelBundle, accum: int = 1):
             metrics = {"loss": lsum / accum}
         if ep * dp > 1:
             grads = reduce_replicated(grads, adamw.paths(params), grid, held)
+        if whole is not None:
+            grads = reduce_whole(grads, adamw.paths(params), group, whole)
         if dp > 1:
             grads = reduce_lanes(grads, adamw.paths(params), data, lanes)
         if accum > 1:
@@ -301,7 +333,7 @@ def make_train_step(model: zoo.ModelBundle, opt_cfg: adamw.AdamWConfig,
             adamw.unflatten(params, grads), opt_state, params, opt_cfg,
             group=group, sharded=lane_sharded, data_group=data,
             fsdp=lm.fsdp_sharded(ctx), split=split,
-            model_dim=lm.model_dim(ctx))
+            model_dim=lm.model_dim(ctx), whole=lm.ssm_whole(ctx))
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

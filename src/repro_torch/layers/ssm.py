@@ -9,6 +9,13 @@ recurrence, its products and sums in another order.  Decode is the O(1)
 recurrent update.  Every op keeps the reference's dtypes (the decays and
 the cumulative sums in the compute dtype); it is plain torch, as the
 reference's is jnp outside any Pallas kernel.
+
+Over a model group the mixer splits by SSM head (:func:`mamba2_mixer`'s
+``group``; the leaves' cut is ``parallel/sharding.SSM_DIM``): each rank
+projects, convolves and scans its own heads, so neither the SSD nor the
+decode step holds a collective (the reference pins the same inner layout
+with its ``mid_spec``); the gated RMSNorm's sum of squares and the
+``out_proj`` partial products are summed over the group.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dcomm
 from repro_torch.layers.common import rms_norm
 
 
@@ -120,35 +128,77 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return F.silu(y), xp[:, -(k - 1):] if k > 1 else prev
 
 
+def _own_groups(t: torch.Tensor, lo: int, hl: int, rep: int) -> torch.Tensor:
+    """The B or C groups (dim -2 of ``t``, ``rep`` heads a group) that the
+    heads [lo, lo + hl) read, as groups of equal size over those heads:
+    their whole groups, the one group they share, or else one a head."""
+    if hl % rep == 0:                       # lo is a multiple of hl, so of rep
+        return t[..., lo // rep:(lo + hl) // rep, :]
+    if rep % hl == 0:                       # the heads sit in one group
+        return t[..., lo // rep:lo // rep + 1, :]
+    idx = torch.arange(lo, lo + hl, device=t.device) // rep
+    return t.index_select(-2, idx)
+
+
+def _group_rms_norm(v: torch.Tensor, scale: torch.Tensor, width: int, group,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of the (..., width) rows whose columns the ranks of
+    ``group`` hold in slices: this rank's slice ``v`` and its ``scale``,
+    the mean of the squares taken over the whole row (the f32 sums of
+    squares summed over the group, ``dcomm.psum``)."""
+    xf = v.float()
+    var = dcomm.psum(xf.square().sum(dim=-1, keepdim=True), group) / width
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(v.dtype)
+
+
 def mamba2_mixer(x: torch.Tensor, params, *, d_inner: int, n_heads: int,
                  head_dim: int, d_state: int, n_groups: int, chunk: int,
-                 state: SsmState | None = None, single_step: bool = False):
+                 state: SsmState | None = None, single_step: bool = False,
+                 group=None):
     """The Mamba2 mixer: in_proj -> causal conv -> SSD -> gated RMSNorm ->
     out_proj.  x: (B, S, d_model); ``state``: the conv inputs and SSD state
     before x (None: zeros); ``single_step``: S is 1 and the SSD runs its
-    recurrent step.  Returns (y (B, S, d_model), the new SsmState)."""
+    recurrent step.  Returns (y (B, S, d_model), the new SsmState).
+
+    ``group``: a model group of m > 1 ranks (m dividing ``n_heads``) over
+    which the heads split: rank r runs heads [r H / m, (r + 1) H / m) from
+    ``params`` cut so (``parallel/sharding.ssm_cut``: its heads' z and x
+    columns and the B and C columns whole, its heads' dt, decay, skip and
+    norm entries, its rows of ``out_proj``), and ``state`` holds its
+    heads' SSD state and its conv inputs (its x columns, B and C).  ``x``
+    is whole on every rank.  The gated RMSNorm spans the whole d_inner:
+    its f32 sums of squares are summed over the group before this rank's
+    slice is normed, and the ``out_proj`` partial products are summed over
+    it in f32 (``dcomm.psum``, whose backward sums the ranks' cotangent
+    shares, so each rank's heads get the whole cotangent and their leaves
+    the whole gradient; the B and C columns', and x's, are this rank's
+    share, summed over the group by the train step)."""
     b, s, _ = x.shape
-    zxbc = x @ params["in_proj_zx"]                          # (B,S, din + conv)
-    dt = x @ params["in_proj_dt"]                            # (B,S,H)
-    z, xbc = zxbc[..., :d_inner], zxbc[..., d_inner:]
+    m, r = dcomm.group_size(group), dcomm.lane_index(group)
+    hl, dl = n_heads // m, d_inner // m              # this rank's heads
+    zxbc = x @ params["in_proj_zx"]                  # (B,S, 2 dl + 2 G N)
+    dt = x @ params["in_proj_dt"]                    # (B,S,hl)
+    z, xbc = zxbc[..., :dl], zxbc[..., dl:]
     dt = F.softplus(dt + params["dt_bias"])
 
     xbc, new_conv = causal_conv1d(xbc, params["conv_w"],
                                   None if state is None else state.conv)
     gn = n_groups * d_state
-    xs, bmat, cmat = xbc[..., :d_inner], xbc[..., d_inner:d_inner + gn], \
-        xbc[..., d_inner + gn:]
-    xh = xs.reshape(b, s, n_heads, head_dim)
+    xs, bmat, cmat = xbc[..., :dl], xbc[..., dl:dl + gn], xbc[..., dl + gn:]
+    xh = xs.reshape(b, s, hl, head_dim)
     bm = bmat.reshape(b, s, n_groups, d_state)
     cm = cmat.reshape(b, s, n_groups, d_state)
-    a = -torch.exp(params["a_log"])                          # (H,) negative
-    a_log = dt * a[None, None, :]                            # (B,S,H) log decay
+    if m > 1:
+        rep = n_heads // n_groups
+        bm, cm = (_own_groups(t, r * hl, hl, rep) for t in (bm, cm))
+    a = -torch.exp(params["a_log"])                          # (hl,) negative
+    a_log = dt * a[None, None, :]                            # (B,S,hl)
     xin = xh * dt[..., None].to(xh.dtype)                    # dt-scaled input
 
     if single_step:
         if s != 1:
             raise ValueError(f"single_step takes one token, got {s}")
-        st0 = (x.new_zeros((b, n_heads, head_dim, d_state)) if state is None
+        st0 = (x.new_zeros((b, hl, head_dim, d_state)) if state is None
                else state.ssd)
         new_ssd, yh = ssd_decode_step(st0, xin[:, 0], a_log[:, 0], bm[:, 0],
                                       cm[:, 0])
@@ -158,6 +208,11 @@ def mamba2_mixer(x: torch.Tensor, params, *, d_inner: int, n_heads: int,
                                  None if state is None else state.ssd)
 
     y = y + xh * params["d_skip"][None, None, :, None]       # D skip
-    y = y.reshape(b, s, d_inner)
-    y = rms_norm(y * F.silu(z), params["norm"])              # gated RMSNorm
-    return y @ params["out_proj"], SsmState(new_ssd, new_conv)
+    y = y.reshape(b, s, dl) * F.silu(z)
+    if m == 1:
+        y = rms_norm(y, params["norm"])                      # gated RMSNorm
+        return y @ params["out_proj"], SsmState(new_ssd, new_conv)
+    y = _group_rms_norm(y, params["norm"], d_inner, group)
+    # the partial products summed in f32, rounded once as the whole product
+    out = dcomm.psum((y @ params["out_proj"]).float(), group).to(y.dtype)
+    return out, SsmState(new_ssd, new_conv)

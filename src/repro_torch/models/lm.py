@@ -15,9 +15,14 @@ are ``torch.matmul`` (the reference's are jnp, outside any Pallas kernel).
 The ssm family's layers are ``h + mamba2(ln1 h)`` (``layers/ssm.py``), the
 hybrid family's Hymba's parallel attention and SSM heads
 (``layers/hybrid.py``) then the SwiGLU MLP, its attention windowed on
-every layer but ``cfg.global_layers``; both run on one rank or over a data
-group only (:func:`make_context`), and their decode state carries each
-layer's SSD state and conv inputs (``DecodeState.ssm``).  The vlm family
+every layer but ``cfg.global_layers``; their decode state carries each
+layer's SSD state and conv inputs (``DecodeState.ssm``).  Over a model
+group (:func:`ssm_group`) their Mamba2 mixers split by SSM head
+(``layers/ssm.mamba2_mixer``'s ``group``, each rank holding its heads'
+cut of the leaves, ``parallel/sharding.SSM_DIM``) in training, prefill
+and decode, and Hymba's attention runs as the head-parallel island in
+training and the prefill (:func:`island_group`); its MLP, and its
+decode's attention, stay whole on every rank.  The vlm family
 is the dense family's layers under M-RoPE: its inputs are (B, S, d)
 embeddings (a stubbed vision frontend's patches) with (3, S) position ids,
 whose temporal row masks attention.  Over a model group its attention, in
@@ -25,7 +30,7 @@ training and in the prefill, runs as the reference's head-parallel island
 (``layers/attention.sharded_flash_attention``, M-RoPE inside), as does the
 encoder-decoder family's of ``models/encdec_model.py``, whose context this
 module builds too (:data:`ISLAND_FAMILIES`); both also run over a data
-group.
+group, as the ssm and hybrid families do.
 Decode uses the replicated-token MoE (``layers/moe.moe_decode_block``).
 Training over a model group (an EP group, or that of a (data, model)
 grid) runs the dense and moe families' attention and the dense MLP as
@@ -138,9 +143,10 @@ FAMILY_PARTS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe"),
                 "vlm": ("attn", "mlp")}
 FAMILIES = tuple(FAMILY_PARTS)
 HYBRID_NORMS = ("attn_out_norm", "ssm_out_norm")
-# the families that run on one rank or over a data group only: the split of
-# their layers over a model group is not ported (:func:`make_context`)
-WHOLE_LAYER_FAMILIES = ("ssm", "hybrid")
+# the families whose layers hold a Mamba2 mixer: their stack is
+# :func:`_whole_stack`, whose mixers split by SSM head over a model group
+# (:func:`ssm_group`)
+SSM_FAMILIES = ("ssm", "hybrid")
 # the families whose attention runs as the head-parallel island over a
 # model group (the reference's ``shard_ctx``, :func:`island_group`); the
 # rest of their layers stays whole on every rank, and over a (pod, model)
@@ -185,6 +191,15 @@ def _ssm_dims(cfg: ArchConfig) -> tuple[int, int, int]:
     s = cfg.ssm
     din = s.expand * cfg.d_model
     return din, din // s.head_dim, din + 2 * s.n_groups * s.d_state
+
+
+def ssm_dims(cfg: ArchConfig) -> sharding.SsmDims | None:
+    """The sizes the Mamba2 leaves of ``cfg`` split by
+    (``parallel/sharding.SsmDims``); None for a family without them."""
+    if cfg.family not in SSM_FAMILIES:
+        return None
+    din, h, conv_dim = _ssm_dims(cfg)
+    return sharding.SsmDims(din, h, conv_dim - din)
 
 
 def make_context(cfg: ArchConfig, device="cuda", *,
@@ -233,16 +248,14 @@ def make_context(cfg: ArchConfig, device="cuda", *,
     pair over it (:func:`vocab_parallel`), every family.  The vlm and encdec
     families run on one rank, over a model group (their attention the
     head-parallel island, :func:`island_group`), over a data group or on a
-    grid; with ``multi_pod`` they raise NotImplementedError.  A family
-    without MoE
+    grid, and so do the ssm and hybrid families (their Mamba2 mixers split
+    by SSM head over the model group, :func:`ssm_group`; Hymba's attention
+    the island); with ``multi_pod`` these four raise NotImplementedError.
+    A family without MoE
     (dense) has no placement and no dcomm config, as the reference's; over
     a model group it runs TP (its replicated layout with
     ``explicit_tp=False``), and data parallelism over ``mesh``'s data
-    group.  The ssm and hybrid families run on one rank or over a data
-    group; over a model group of more than one rank they raise
-    NotImplementedError (the reference's column split of ``in_proj_zx``,
-    ``conv_w`` and ``out_proj`` over it is not ported).  Raises if
-    ``device`` is CUDA and no card is there."""
+    group.  Raises if ``device`` is CUDA and no card is there."""
     if cfg.family not in FAMILIES + ISLAND_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (only "
@@ -256,17 +269,12 @@ def make_context(cfg: ArchConfig, device="cuda", *,
         raise RuntimeError("device 'cuda' asked for, but torch sees no CUDA "
                            "device (pass device='cpu' to run the plain path)")
     ep = group_size(ep_group)
-    if cfg.family in WHOLE_LAYER_FAMILIES and ep > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family over a model group of {ep} ranks is not "
-            "ported: ROADMAP queue 1 item 8, the ssm and hybrid families over "
-            "a model group (the column split of in_proj_zx / conv_w / "
-            "out_proj)")
-    if cfg.family in ISLAND_FAMILIES and multi_pod:
+    if cfg.family in ISLAND_FAMILIES + SSM_FAMILIES and multi_pod:
         raise NotImplementedError(
             f"the {cfg.family} family over a (pod, model) axis is not ported: "
             "ROADMAP queue 1 item 8, TP and the vocab split over (pod, model) "
-            "(its attention island and vocab split run over a model group)")
+            "(its vocab split, attention island and SSM heads run over a "
+            "model group)")
     if cfg.moe is None:
         return ModelContext(cfg, device, ep_group, None, None, compute_dtype,
                             moe_stream, traffic_decay, mesh,
@@ -328,11 +336,39 @@ def island_group(ctx: ModelContext):
     """The model group the attention of ``ctx`` runs head-parallel over
     (``layers/attention.sharded_flash_attention``, the reference's
     ``shard_ctx``): ``ctx.ep_group`` for a family of
-    :data:`ISLAND_FAMILIES` over a model group of more than one rank, else
-    None (attention whole on every rank)."""
-    if ctx.cfg.family in ISLAND_FAMILIES and group_size(ctx.ep_group) > 1:
+    :data:`ISLAND_FAMILIES`, or the hybrid family (in training and the
+    prefill), over a model group of more than one rank, else None
+    (attention whole on every rank)."""
+    if ((ctx.cfg.family in ISLAND_FAMILIES or ctx.cfg.family == "hybrid")
+            and group_size(ctx.ep_group) > 1):
         return ctx.ep_group
     return None
+
+
+def ssm_group(ctx: ModelContext):
+    """The model group the Mamba2 mixers of ``ctx`` split their SSM heads
+    over (``layers/ssm.mamba2_mixer``'s ``group``): ``ctx.ep_group`` for
+    the ssm and hybrid families over a model group of m > 1 ranks that
+    divides the heads (``sharding.ssm_split``), in training and serving
+    alike; else None (the mixer whole on every rank, as the reference keeps
+    an undividable dim unsplit)."""
+    if sharding.ssm_split(ssm_dims(ctx.cfg), group_size(ctx.ep_group)):
+        return ctx.ep_group
+    return None
+
+
+def ssm_whole(ctx: ModelContext):
+    """``fn(path) -> (dim, [(start, stop)]) | None``: the columns of this
+    rank's shard of each Mamba2 leaf under ``ctx`` that every rank of the
+    model group holds alike (the B and C columns of ``in_proj_zx`` and
+    ``conv_w``, ``sharding.ssm_whole``); None (no function) without
+    :func:`ssm_group`.  Their gradients are this rank's shares, summed over
+    the model group by the train step, and the clip norm counts them
+    once."""
+    if ssm_group(ctx) is None:
+        return None
+    dims, m = ssm_dims(ctx.cfg), group_size(ctx.ep_group)
+    return lambda path: sharding.ssm_whole(path, dims, m)
 
 
 def tensor_parallel(ctx: ModelContext) -> bool:
@@ -380,14 +416,18 @@ def model_dim(ctx: ModelContext):
     holds a shard of over the model group under ``ctx`` (the reference's
     TP entries, its header's "TP over model: attention heads, FFN columns,
     vocab"): the TP leaves' (``sharding.TP_DIM``) under
-    :func:`tensor_parallel`, the vocab pair's under :func:`vocab_parallel`;
-    None for every other leaf (the expert leaves are cut by lane,
-    :func:`lane_sharded`)."""
+    :func:`tensor_parallel`, the vocab pair's under :func:`vocab_parallel`,
+    the Mamba2 leaves' (``sharding.SSM_DIM``: cut by SSM head) under
+    :func:`ssm_group`; None for every other leaf (the expert leaves are cut
+    by lane, :func:`lane_sharded`)."""
     tp, vocab = tensor_parallel(ctx), vocab_parallel(ctx)
+    ssm = ssm_group(ctx) is not None
 
     def dim(path: str) -> int | None:
         if tp and sharding.tp_sharded(path):
             return sharding.tp_dim(path)
+        if ssm and path in sharding.SSM_DIM:
+            return sharding.SSM_DIM[path][0]
         return vocab_dim(ctx, path) if vocab else None
 
     return dim
@@ -396,7 +436,7 @@ def model_dim(ctx: ModelContext):
 def tp_sharded(ctx: ModelContext):
     """The predicate on a leaf's path of the leaves this rank holds a shard
     of on a dim over the model group under ``ctx`` (:func:`model_dim`: the
-    TP leaves and the vocab pair; none at one rank)."""
+    TP leaves, the vocab pair and the Mamba2 leaves; none at one rank)."""
     dim = model_dim(ctx)
     return lambda path: dim(path) is not None
 
@@ -409,11 +449,16 @@ def model_sharded(ctx: ModelContext):
     return lambda path: lane_sharded(path) or tp(path)
 
 
-def tp_cut(path: str, t, m: int, r: int, *, tp: bool = True):
+def tp_cut(path: str, t, m: int, r: int, *, tp: bool = True,
+           ssm: sharding.SsmDims | None = None):
     """The whole leaf at ``path`` (a tensor or an array) as model rank
     ``r`` of ``m`` holds it in training: the vocab pair cut on the dim
     ``sharding.vocab_dim`` gives its shape, with ``tp`` a TP leaf on its
-    TP dim (a view); any other as it is."""
+    TP dim (a view), with ``ssm`` (the model's :func:`ssm_dims`) a Mamba2
+    leaf by SSM head where m divides the heads (``sharding.ssm_cut``, a
+    copy); any other as it is."""
+    if sharding.ssm_segments(path, ssm, m) is not None:
+        return sharding.ssm_cut(path, t, ssm, m, r)
     if tp and sharding.tp_sharded(path):
         dim = sharding.tp_dim(path)
     else:
@@ -427,8 +472,10 @@ def _tp_own(path: str, t, ctx: ModelContext):
     dim = model_dim(ctx)(path)
     if dim is None:
         return t
-    return sharding.data_cut(t, dim, group_size(ctx.ep_group),
-                             dcomm.lane_index(ctx.ep_group)).clone()
+    m, r = group_size(ctx.ep_group), dcomm.lane_index(ctx.ep_group)
+    if path in sharding.SSM_DIM:
+        return sharding.ssm_cut(path, t, ssm_dims(ctx.cfg), m, r)
+    return sharding.data_cut(t, dim, m, r).clone()
 
 
 def data_size(ctx: ModelContext) -> int:
@@ -530,9 +577,9 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
     this rank's lane only (lanes = 1), and the other lanes are never drawn;
     otherwise every lane of the placement; under :func:`fsdp_group` their
     f dim is cut to this data rank's slice (:func:`fsdp_cut`).  Under
-    :func:`tensor_parallel` each TP leaf, and under :func:`vocab_parallel`
-    the vocab pair, is drawn whole and cut to this model rank's shard
-    (:func:`model_dim`).  An expert's weights are the same
+    :func:`tensor_parallel` each TP leaf, under :func:`vocab_parallel`
+    the vocab pair, and under :func:`ssm_group` each Mamba2 leaf, is drawn
+    whole and cut to this model rank's shard (:func:`model_dim`).  An expert's weights are the same
     for every EP size from the same ``gen`` (:func:`_expert_leaf`), and so
     are the other leaves, whole."""
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
@@ -564,7 +611,8 @@ def init_params(cfg: ArchConfig, ctx: ModelContext, gen: torch.Generator,
                          "w3": experts("w3", (L, d, fe)),
                          "w2": experts("w2", (L, fe, d))}
     if has_ssm(cfg):
-        layers["ssm"] = _ssm_params(cfg, gen, dtype, ctx.device)
+        layers["ssm"] = {k: _tp_own(f"layers/ssm/{k}", v, ctx) for k, v in
+                         _ssm_params(cfg, gen, dtype, ctx.device).items()}
     if cfg.family == "hybrid":
         layers.update({name: ones((L, d)) for name in HYBRID_NORMS})
     return {
@@ -618,6 +666,23 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
         layer += d * cfg.moe.n_experts
         experts = L * 3 * cfg.moe.n_experts * d * cfg.moe.d_ff_expert
     return L * layer + 2 * cfg.vocab * d + d, experts
+
+
+def ssm_param_count(cfg: ArchConfig, m: int = 1) -> int:
+    """The parameters of ``cfg``'s Mamba2 leaves, of :func:`param_counts`'
+    replicated ones, that one rank of a model group of ``m`` holds: its
+    heads' share of each split segment and the B and C columns whole where
+    ``m`` divides the heads (:func:`ssm_group`), else all of them; 0 for a
+    family without them."""
+    dims = ssm_dims(cfg)
+    if dims is None:
+        return 0
+    din, h, gn = dims
+    k = m if sharding.ssm_split(dims, m) else 1
+    d, conv = cfg.d_model, cfg.ssm.conv_kernel
+    return cfg.n_layers * (d * (2 * din // k + gn) + d * h // k
+                           + conv * (din // k + gn) + 3 * h // k + din // k
+                           + din // k * d)
 
 
 def vocab_param_count(cfg: ArchConfig, m: int) -> int:
@@ -743,7 +808,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     makes ``length`` per row (one int32 a row), the continuous-batching
     slot pool.  No cache (``kv`` None) for a family without attention; the
     SSD states and conv inputs (``ssm``) for a family with a Mamba2
-    mixer."""
+    mixer, under :func:`ssm_group` those of this rank's heads (its x
+    columns of the conv inputs beside B and C)."""
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=ctx.device)
     rows = data_rows(ctx, batch)
     batch = rows.stop - rows.start
@@ -755,9 +821,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
         kv = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
     if has_ssm(cfg):
         s = cfg.ssm
-        _, h, conv_dim = _ssm_dims(cfg)
-        ssm = {"state": zeros((L, batch, h, s.head_dim, s.d_state), dtype),
-               "conv": zeros((L, batch, s.conv_kernel - 1, conv_dim), dtype)}
+        din, h, gn = ssm_dims(cfg)
+        m = group_size(ssm_group(ctx))
+        ssm = {"state": zeros((L, batch, h // m, s.head_dim, s.d_state),
+                              dtype),
+               "conv": zeros((L, batch, s.conv_kernel - 1, din // m + gn),
+                             dtype)}
     return DecodeState(kv, zeros((batch,) if per_slot else (), torch.int32),
                        ssm)
 
@@ -883,12 +952,22 @@ def _unstack(tree, cd: torch.dtype) -> list:
                              else tree))
 
 
-def _hymba(x, lp, positions, cfg: ArchConfig, i: int, **kw):
-    """Layer ``i``'s ``hymba_mixer`` of ``cfg``."""
+def _mixer_args(ctx: ModelContext) -> dict:
+    """``mamba2_mixer``'s dims of ``ctx``'s config and the model group its
+    heads split over (:func:`ssm_group`)."""
+    return dict(ssm_args(ctx.cfg), group=ssm_group(ctx))
+
+
+def _hymba(x, lp, positions, ctx: ModelContext, i: int, **kw):
+    """Layer ``i``'s ``hymba_mixer`` under ``ctx``: the SSM branch split by
+    :func:`ssm_group`; the attention of a prefill or training step over
+    :func:`island_group`."""
+    cfg = ctx.cfg
     return hymba_mixer(x, lp, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
                        positions=positions, window=layer_window(cfg, i),
-                       ssm_args=ssm_args(cfg), **kw)
+                       ssm_args=_mixer_args(ctx), group=island_group(ctx),
+                       **kw)
 
 
 def _whole_stack(params, h: torch.Tensor, positions: torch.Tensor,
@@ -896,25 +975,29 @@ def _whole_stack(params, h: torch.Tensor, positions: torch.Tensor,
     """The ssm or hybrid stack over (B, S, d) ``h`` (the reference's
     lm.py:447-457 and :499-503): ssm ``h + mamba2(ln1 h)``; hybrid ``h +
     hymba(ln1 h)`` then ``h + mlp(ln2 h)``, each layer's attention windowed
-    by :func:`layer_window`.  Returns the final-normed h; with ``cap``
-    (prefill) also the decode caches of the attention layers (the last
-    ``cap`` positions, at slot p % cap; None for ssm) and each layer's SSD
-    state and conv inputs, stacked."""
+    by :func:`layer_window`.  Over a model group the mixers split by SSM
+    head (:func:`ssm_group`) and Hymba's attention is the island
+    (:func:`island_group`); h stays whole on every rank.  Returns the
+    final-normed h; with ``cap`` (prefill) also the decode caches of the
+    attention layers (the last ``cap`` positions, at slot p % cap; None for
+    ssm) and each layer's SSD state and conv inputs (this rank's heads'),
+    stacked."""
     cfg, cd = ctx.cfg, ctx.compute_dtype
     s = h.shape[1]
     ks, vs, states, convs = [], [], [], []
     for i, lp in enumerate(_unstack(params["layers"], cd)):
         x = rms_norm(h, lp["ln1"])
         if cfg.family == "ssm":
-            y, st = mamba2_mixer(x, lp["ssm"], **ssm_args(cfg))
+            y, st = mamba2_mixer(x, lp["ssm"], **_mixer_args(ctx))
             h = h + y
         else:
-            mix, (k, v), st = _hymba(x, lp, positions, cfg, i)
+            mix, kv, st = _hymba(x, lp, positions, ctx, i,
+                                 return_kv=cap is not None)
             h = h + mix
             h = h + _mlp(rms_norm(h, lp["ln2"]), lp["mlp"])
             if cap is not None:
-                ks.append(_cache_slots(k, s, cap))
-                vs.append(_cache_slots(v, s, cap))
+                ks.append(_cache_slots(kv[0], s, cap))
+                vs.append(_cache_slots(kv[1], s, cap))
         if cap is not None:
             states.append(st.ssd)
             convs.append(st.conv)
@@ -991,7 +1074,7 @@ def forward_hidden(params, inputs: torch.Tensor, positions: torch.Tensor,
     if cfg.family == "moe_ffn":
         h, new_traffic = _ffn_stack(params, h, ctx, traffic, traffic_mask)
         return h if traffic is None else (h, new_traffic)
-    if cfg.family in WHOLE_LAYER_FAMILIES:
+    if cfg.family in SSM_FAMILIES:
         return _whole_stack(params, h, positions, ctx)
     trs = []
     for i, lctx in enumerate(_layer_contexts(ctx)):
@@ -1365,7 +1448,7 @@ def prefill(params, inputs: torch.Tensor, positions: torch.Tensor,
     h = inputs.to(cd) if inputs.dim() == 3 else params["embed"].to(cd)[inputs]
     s = h.shape[1]
     cap = _kv_capacity(cfg, max_len)
-    if cfg.family in WHOLE_LAYER_FAMILIES:
+    if cfg.family in SSM_FAMILIES:
         h, kv, ssm = _whole_stack(params, h, positions, ctx, cap)
         logits = (h[:, -1] @ params["lm_head"].to(cd)).float()
         return logits, DecodeState(kv, _length(s, h.device), ssm)
@@ -1432,18 +1515,18 @@ def decode_step(params, state: DecodeState, inputs: torch.Tensor,
     positions = pos[:, None] if pos.dim() == 1 else pos[None]   # (B, 1) / (1,)
     if cfg.mrope_sections:       # every M-RoPE row at the decode position
         positions = positions.expand(3, *positions.shape)
-    if cfg.family in WHOLE_LAYER_FAMILIES:
+    if cfg.family in SSM_FAMILIES:
         for i, lp in enumerate(_unstack(params["layers"], cd)):
             x = rms_norm(h, lp["ln1"])
             st = SsmState(state.ssm["state"][i], state.ssm["conv"][i])
             if cfg.family == "ssm":
                 y, new = mamba2_mixer(x, lp["ssm"], state=st,
-                                      single_step=True, **ssm_args(cfg))
+                                      single_step=True, **_mixer_args(ctx))
                 h = h + y
             else:
                 cache = KVCache(state.kv["k"][i], state.kv["v"][i], pos,
                                 max_len)
-                mix, _, new = _hymba(x, lp, positions, cfg, i,
+                mix, _, new = _hymba(x, lp, positions, ctx, i,
                                      attn_cache=cache, ssm_state=st,
                                      single_step=True)
                 h = h + mix

@@ -48,8 +48,9 @@ def build(cfg: ArchConfig, ctx: ModelContext) -> ModelBundle:
     decoder-only LM (``lm.FAMILIES``) on one rank, over an EP group or on a
     grid (the dense family's loss then runs Megatron-SP over the model
     group, ``lm.tensor_parallel``, and its prefill and decode refuse the
-    TP shards; ssm and hybrid on one rank or a data group only; the vlm's
-    attention over a model group the head-parallel island), or the
+    TP shards; the ssm and hybrid families' Mamba2 mixers split by SSM
+    head over a model group; the vlm's and hybrid's attention over one the
+    head-parallel island), or the
     encoder-decoder (``models/encdec_model.py``, on one rank or a grid as
     the vlm), whose prefill takes {"frames" (B, S_enc, d), "tokens" (B,)
     the first decoder token} and takes no traffic, as the reference's.

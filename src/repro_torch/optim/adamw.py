@@ -36,7 +36,10 @@ beside the lane-sharded leaves, and over a group where each shard is held
 by k ranks (the grid, under FSDP: k = DP) it weighs their squares by 1/k.
 ZeRO-1 cuts the local shard on its first dim that is not the model-split
 one (:func:`zero_dim`: a vocab-split ``embed`` (V / m, d) on d, as the
-reference's ``zero1_specs``).
+reference's ``zero1_specs``).  A Mamba2 leaf split by SSM head over the
+model group holds besides its heads' columns the B and C columns whole
+(``parallel/sharding.ssm_whole``): the caller's ``whole`` names those, and
+the clip norm counts their squares once.
 
 Parameters and optimizer state are dictionaries of tensors (the model's
 parameter tree).  Mixed precision as in the reference: the gradients, in
@@ -200,8 +203,24 @@ def _sum_squares(ts) -> torch.Tensor | None:
     return tot
 
 
+def _whole_parts(t: torch.Tensor, cols) -> tuple[list, list]:
+    """(the parts of ``t`` outside ``cols``, those inside): ``cols`` = (dim,
+    [(start, stop)]) names the columns of a shard every rank holds alike
+    (None: none)."""
+    if not cols:
+        return [t], []
+    dim = cols[0] % t.dim()
+    own, whole, at = [], [], 0
+    for lo, hi in cols[1]:
+        own.append(t.narrow(dim, at, lo - at))
+        whole.append(t.narrow(dim, lo, hi - lo))
+        at = hi
+    own.append(t.narrow(dim, at, t.shape[dim] - at))
+    return own, whole
+
+
 def global_norm(tree, group: dist.ProcessGroup | None = None,
-                sharded=None) -> torch.Tensor:
+                sharded=None, whole=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, on the leaves'
     device (no host synchronisation).  Over a ``group`` of more than one
     rank, ``sharded`` (a predicate on a leaf's path, :func:`paths`) names
@@ -209,8 +228,10 @@ def global_norm(tree, group: dist.ProcessGroup | None = None,
     over the group with one ``all_reduce``, and the other leaves, the same
     on every rank, count once.  Where ``sharded`` returns a count k > 1,
     k ranks of the group hold that shard, and its squares are divided by k
-    before the sum.  With no group, or one of one rank, no collective is
-    launched."""
+    before the sum.  ``whole`` (``fn(path) -> (dim, [(start, stop)]) |
+    None``) names the columns of a sharded leaf that every rank of the
+    group holds alike: they count once.  With no group, or one of one
+    rank, no collective is launched."""
     if group is None or dist.get_world_size(group) == 1:
         return _sum_squares(leaves(tree)).sqrt()
     if sharded is None:
@@ -219,7 +240,12 @@ def global_norm(tree, group: dist.ProcessGroup | None = None,
     own, rep = {}, []
     for path, t in zip(paths(tree), leaves(tree)):
         k = int(sharded(path))
-        (own.setdefault(k, []) if k else rep).append(t)
+        if not k:
+            rep.append(t)
+            continue
+        mine, alike = _whole_parts(t, whole and whole(path))
+        own.setdefault(k, []).extend(mine)
+        rep.extend(alike)
     part = torch.zeros((), device=leaves(tree)[0].device)
     for k, ts in own.items():
         sq = _sum_squares(ts)
@@ -247,7 +273,7 @@ def _gather(p: torch.Tensor, own: torch.Tensor, dim: int, group) -> None:
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
            group: dist.ProcessGroup | None = None, sharded=None,
            data_group: dist.ProcessGroup | None = None, fsdp=None,
-           split=None, model_dim=None):
+           split=None, model_dim=None, whole=None):
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
     norm (over ``group``, with ``split`` naming the leaves sharded over it,
     by default ``sharded``: :func:`global_norm`; ``sharded`` names the
@@ -259,10 +285,12 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     the updated slices are all-gathered over the data group into the
     parameters; an ``fsdp`` leaf (a predicate on its path) is the rank's
     slice, its state whole, and is not gathered; ``model_dim`` (as in
-    :func:`init`) names the dim ZeRO-1 skips.  Every leaf is written in
-    place (params, mu, nu, master).
+    :func:`init`) names the dim ZeRO-1 skips; ``whole`` the columns of a
+    split leaf the clip norm counts once (:func:`global_norm`).  Every leaf
+    is written in place (params, mu, nu, master).
     Returns (params, new state, metrics)."""
-    gnorm = global_norm(grads, group, sharded if split is None else split)
+    gnorm = global_norm(grads, group, sharded if split is None else split,
+                        whole)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -28,6 +28,19 @@ training (``vocab_parallel``), and the dim split over the data group
   ``embed`` on d (dim -1) and ``lm_head`` on its d rows (dim 0); where m
   divides neither, both whole (:func:`vocab_dim`).  ``models/lm.py`` reads
   the vocab pair so (``core/dcomm``'s vocab-parallel embed, head and CE);
+- over a model group of m > 1 ranks that divides the SSM heads (training
+  and serving), the Mamba2 leaves split by SSM head (:data:`SSM_DIM`,
+  ``layers/ssm.py``'s split mixer): rank r holds heads [r H / m, (r + 1) H
+  / m), and in ``in_proj_zx`` and ``conv_w`` their z and x columns beside
+  the B and C columns whole.  The reference cuts the concatenated
+  ``[z | x | B | C]`` columns contiguously over ``model``
+  (``sharding.py:43-44, :62-63``), a cut that is not head-aligned; under
+  GSPMD it computes the single-device function all the same, which the
+  port computes on this layout.  Where m does not divide the heads every
+  rank holds the leaves whole (the reference's undividable dims stay
+  unsplit, ``sharding.py:25-33``).  :func:`ssm_cut` and
+  :func:`ssm_gather` are the one cut and the one gather-whole of them;
+  a whole tree keeps the reference's shapes;
 - every other leaf replicated.  That includes ``wk`` and ``wv``: the
   reference's storage spec splits their columns too, but its
   ``megatron_attention`` reads them whole on every model rank
@@ -37,6 +50,9 @@ training (``vocab_parallel``), and the dim split over the data group
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import numpy as np
+import torch
 
 EXPERT_LEAVES = ("layers/moe/w1", "layers/moe/w3", "layers/moe/w2")
 LANE_DIM = 1                 # the lane axis of the (L, lanes, ...) experts
@@ -54,6 +70,29 @@ TP_DIM = {"layers/attn/wq": -1, "layers/mlp/w_gate": -1,
 # (its vocab dim, its d dim), the second where the group does not divide the
 # vocab (the reference's param_specs, sharding.py:34-42)
 VOCAB_DIM = {"embed": (-2, -1), "lm_head": (-1, -2)}
+# the Mamba2 leaves split over a model group by SSM head: each leaf's dim,
+# from the end, and the segments along it in order, by what they hold:
+# "inner" d_inner's columns, head-major (head h owns [h P, (h + 1) P)),
+# split by head; "heads" one entry a head, split by head; "groups" the B
+# and C columns (2 G N), which every rank holds whole
+SSM_DIM = {
+    "layers/ssm/in_proj_zx": (-1, ("inner", "inner", "groups")),  # z, x, B C
+    "layers/ssm/conv_w": (-1, ("inner", "groups")),               # x, B C
+    "layers/ssm/in_proj_dt": (-1, ("heads",)),
+    "layers/ssm/dt_bias": (-1, ("heads",)),
+    "layers/ssm/a_log": (-1, ("heads",)),
+    "layers/ssm/d_skip": (-1, ("heads",)),
+    "layers/ssm/norm": (-1, ("inner",)),
+    "layers/ssm/out_proj": (-2, ("inner",)),
+}
+WHOLE_SEGMENT = "groups"
+
+
+class SsmDims(NamedTuple):
+    """The sizes of the :data:`SSM_DIM` segments of a config."""
+    inner: int       # d_inner
+    heads: int       # SSM heads
+    groups: int      # the B and C columns, 2 G N
 
 
 class Spec(NamedTuple):
@@ -150,3 +189,79 @@ def data_cut(t, dim: int, dp: int, d: int):
                          "ranks")
     k = n // dp
     return t[(slice(None),) * dim + (slice(d * k, (d + 1) * k),)]
+
+
+def ssm_split(dims: SsmDims | None, m: int) -> bool:
+    """Whether a model group of ``m`` splits the Mamba2 leaves of ``dims``
+    (None: a model without them) by head: m > 1 divides the heads."""
+    return dims is not None and m > 1 and dims.heads % m == 0
+
+
+def ssm_segments(path: str, dims: SsmDims | None, m: int):
+    """(dim from the end, [(whole size, split by head)]) of the leaf at
+    ``path`` over a model group of ``m`` (:data:`SSM_DIM`); None for a
+    leaf not split so (:func:`ssm_split`)."""
+    if path not in SSM_DIM or not ssm_split(dims, m):
+        return None
+    dim, names = SSM_DIM[path]
+    return dim, [(getattr(dims, n), n != WHOLE_SEGMENT) for n in names]
+
+
+def ssm_columns(path: str, dims: SsmDims, m: int, r: int) -> list[int]:
+    """The indices, on its :data:`SSM_DIM` dim, of the whole leaf at
+    ``path`` that model rank ``r`` of ``m`` holds, in its shard's order:
+    of each segment the slice of its heads, or all of it (B and C)."""
+    _, segs = ssm_segments(path, dims, m)
+    out, start = [], 0
+    for size, split in segs:
+        k = size // m
+        out += (range(start + r * k, start + (r + 1) * k) if split
+                else range(start, start + size))
+        start += size
+    return out
+
+
+def ssm_cut(path: str, t, dims: SsmDims | None, m: int, r: int):
+    """Model rank ``r``'s shard of the whole leaf ``t`` (a tensor or an
+    array) at ``path`` over a model group of ``m`` (a copy); ``t`` as it
+    is for a leaf not split (:func:`ssm_segments`)."""
+    seg = ssm_segments(path, dims, m)
+    if seg is None:
+        return t
+    dim, cols = seg[0] % t.ndim, ssm_columns(path, dims, m, r)
+    if isinstance(t, torch.Tensor):
+        return t.index_select(dim, torch.tensor(cols, device=t.device))
+    return np.take(t, cols, axis=dim)
+
+
+def ssm_gather(path: str, parts: list, dims: SsmDims):
+    """The whole leaf at ``path`` from every model rank's shard ``parts``
+    (tensors, in rank order; the converse of :func:`ssm_cut`): the split
+    segments joined by rank, the whole ones taken from rank 0."""
+    m = len(parts)
+    dim, segs = ssm_segments(path, dims, m)
+    dim %= parts[0].ndim
+    shape = list(parts[0].shape)
+    shape[dim] = sum(size for size, _ in segs)
+    whole = parts[0].new_empty(shape)
+    for r in reversed(range(m)):          # rank 0's whole segments last
+        idx = torch.tensor(ssm_columns(path, dims, m, r),
+                           device=whole.device)
+        whole.index_copy_(dim, idx, parts[r])
+    return whole
+
+
+def ssm_whole(path: str, dims: SsmDims | None, m: int):
+    """(dim from the end, [(start, stop)]) of the columns of a model rank's
+    shard of the leaf at ``path`` that every rank of ``m`` holds alike (the
+    B and C columns); None for a leaf without them or not split."""
+    seg = ssm_segments(path, dims, m)
+    if seg is None:
+        return None
+    spans, start = [], 0
+    for size, split in seg[1]:
+        n = size // m if split else size
+        if not split:
+            spans.append((start, start + n))
+        start += n
+    return (seg[0], spans) if spans else None

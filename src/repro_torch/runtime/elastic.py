@@ -3,10 +3,10 @@
 
 When ranks are lost, training continues on the grid that survives: the
 parameters and optimizer state are restored from the committed checkpoint,
-each rank keeping its lane, its TP and vocab shards and its ZeRO-1 slice
-of the NEW (data, model) grid, whatever its model-group size (the
-checkpoint holds whole leaves, ``checkpoint/checkpointer.py``); the data
-pipeline keeps the global batch by gradient accumulation when the
+each rank keeping its lane, its TP, vocab and SSM-head shards and its
+ZeRO-1 slice of the NEW (data, model) grid, whatever its model-group size
+(the checkpoint holds whole leaves, ``checkpoint/checkpointer.py``); the
+data pipeline keeps the global batch by gradient accumulation when the
 data axis shrinks (:func:`accumulation_factor`).  Lane-major expert weights
 move between EP widths on the host (:func:`relayout_expert_weights`, numpy,
 the reference's function).
@@ -22,16 +22,20 @@ from repro_torch.core.routing import ExpertPlacement
 
 def remesh_restore(ckpt_dir: str, like_tree, mesh=None,
                    step: int | None = None, fsdp: bool = False,
-                   tp: bool = False, vocab: tuple[int, int] | None = None):
+                   tp: bool = False, vocab: tuple[int, int] | None = None,
+                   ssm=None):
     """Restore ``like_tree`` (this rank's leaves on ``mesh``, a
     ``launch.mesh.HostMesh``; None: one rank holding everything; ``fsdp``:
     the expert leaves' f dim split over its data group; ``tp``: the TP
     leaves sharded over its model group, ``models/lm.tensor_parallel``;
     ``vocab`` = (V, d): the vocab pair split over it, a training tree,
-    ``models/lm.vocab_parallel``) from ``ckpt_dir``, whatever grid saved
-    it and whether it ran FSDP or TP or not; returns (tree, step)."""
+    ``models/lm.vocab_parallel``; ``ssm``: the model's ``lm.ssm_dims``,
+    its Mamba2 leaves cut by SSM head where the model group divides the
+    heads) from ``ckpt_dir``, whatever grid saved it and whether it ran
+    FSDP or TP or not; returns (tree, step)."""
     lay = (checkpointer.ONE if mesh is None
-           else checkpointer.layout(mesh=mesh, fsdp=fsdp, tp=tp, vocab=vocab))
+           else checkpointer.layout(mesh=mesh, fsdp=fsdp, tp=tp, vocab=vocab,
+                                    ssm=ssm))
     return checkpointer.restore(ckpt_dir, like_tree, step, lay=lay)
 
 

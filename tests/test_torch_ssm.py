@@ -429,16 +429,24 @@ def check_convert(case: FamilyCase, full_counts: tuple) -> dict:
 
 def check_refusals(case: FamilyCase, monkeypatch) -> None:
     """Over a model group of 2 (an EP group, or a grid's model group)
-    ``make_context`` raises, naming the queue item; over a data group of 2
-    (model group 1) it builds."""
+    ``make_context`` builds, its Mamba2 mixers split by SSM head
+    (``lm.ssm_group``, the leaves' dims of ``sharding.SSM_DIM``); over a
+    (pod, model) axis it raises, naming the queue item; over a data group
+    of 2 (model group 1) it builds."""
     monkeypatch.setattr(lm, "group_size", lambda g: 2 if g == "model" else 1)
     for kw in (dict(ep_group="model"),
                dict(mesh=type("Grid", (), dict(data=1, model=2,
                                                ep_group="model"))())):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8, the ssm and hybrid "
-                                 "families over a model group"):
-            case.ctx(**kw)
+        ctx = case.ctx(**kw)
+        assert lm.ssm_group(ctx) == "model"
+        dim = lm.model_dim(ctx)
+        assert dim("layers/ssm/in_proj_zx") == -1
+        assert dim("layers/ssm/out_proj") == -2
+        assert (lm.island_group(ctx) == "model") == (case.cfg.family
+                                                     == "hybrid")
+    with pytest.raises(NotImplementedError,
+                       match="queue 1 item 8, TP and the vocab split over"):
+        case.ctx(ep_group="model", multi_pod=True)
     monkeypatch.undo()
     grid = type("Grid", (), dict(data=2, model=1, ep_group=None))()
     ctx = case.ctx(mesh=grid)

@@ -296,7 +296,8 @@ def _grid_norm(grid):
     """``adamw.global_norm`` with its group swapped for the whole grid: the
     clip norm summed over the data ranks too."""
     norm = adamw.global_norm
-    return lambda tree, group=None, sharded=None: norm(tree, grid, sharded)
+    return lambda tree, group=None, sharded=None, whole=None: norm(
+        tree, grid, sharded, whole)
 
 
 # the mutations of the data sync a grid run makes on each rank: (name, module,
@@ -599,7 +600,11 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
     With ``tp`` it also splits the TP leaves (``lm.tp_param_count``: wq,
     wo, the dense MLP), Megatron TP's layout, the same way, where EP
     divides the heads (``lm.ModelContext.tp_eligible``'s rule; else the
-    replicated attention).
+    replicated attention).  The ssm and hybrid families split their Mamba2
+    leaves by SSM head where EP divides the heads (``lm.ssm_param_count``:
+    each rank its heads' columns and the B and C columns whole); those
+    leave the replicated bucket, and their B and C columns are summed over
+    the model group in a bucket of their own.
 
         PYTHONPATH=src python tests/torch_ep_train.py
 
@@ -612,13 +617,20 @@ def state_gib_per_rank(arch: str = "qwen3-moe-30b-a3b",
         # one model rank: no TP, no vocab split
         tp_on = ep > 1 and cfg.n_heads % ep == 0
         cut = (split if tp_on else 0) + lm.vocab_param_count(cfg, ep)
-        whole = replicated - cut + cut / ep
+        ssm, ssm_held = lm.ssm_param_count(cfg), lm.ssm_param_count(cfg, ep)
+        whole = replicated - cut + cut / ep - ssm + ssm_held
         held = whole + experts / ep
         bf16 = whole + experts / ep / (dp if fsdp else 1)
-        return (4 * bf16 + 12 / dp * held + 2 * (replicated - cut)) / 2**30
+        bucket = replicated - cut
+        if ssm_held < ssm:       # split by head: the B and C columns alone
+            gn = lm.ssm_dims(cfg).groups
+            bucket += cfg.n_layers * (cfg.d_model + cfg.ssm.conv_kernel) * gn
+            bucket -= ssm
+        return (4 * bf16 + 12 / dp * held + 2 * bucket) / 2**30
 
     return {"replicated_params": replicated, "expert_params": experts,
             "tp_params": split, "vocab_params": 2 * cfg.vocab * cfg.d_model,
+            "ssm_params": lm.ssm_param_count(cfg),
             "gib_per_rank": {ep: gib(ep, 1) for ep in eps},
             "gib_per_rank_dp": {(ep, dp): gib(ep, dp) for ep in eps
                                 for dp in dps},
@@ -728,14 +740,18 @@ def tp_probe(shape, node, archs, rank, world) -> dict:
 if __name__ == "__main__":
     for arch, eps in (("qwen3-moe-30b-a3b", (1, 2, 4, 8, 16, 32, 64)),
                       ("mixtral-8x22b", (1, 2, 4, 8)),
-                      ("deepseek-v3-bench", (1, 8, 16, 32, 64))):
-        for tp in (False, True):
+                      ("deepseek-v3-bench", (1, 8, 16, 32, 64)),
+                      ("mamba2-2.7b", (1, 2, 4, 8, 16)),
+                      ("hymba-1.5b", (1, 2, 4))):
+        moe = get_arch(arch).moe is not None
+        for tp in (False, True) if moe else (False,):
             mem = state_gib_per_rank(arch, eps=eps, tp=tp)
             print(f"reckoned (not measured) per-rank training state of the "
                   f"full {arch} ({mem['replicated_params']} replicated, "
-                  f"{mem['tp_params']} of them split by TP and "
-                  f"{mem['vocab_params']} in embed and lm_head, split over "
-                  f"the EP group, and "
+                  f"{mem['tp_params']} of them split by TP, "
+                  f"{mem['ssm_params']} in the Mamba2 leaves, split by SSM "
+                  f"head, and {mem['vocab_params']} in embed and lm_head, "
+                  f"split over the EP group, and "
                   f"{mem['expert_params']} expert parameters), "
                   f"{'Megatron TP over the EP group' if tp else 'replicated attention'}, "
                   f"GiB, by EP (rows) and DP (columns), ZeRO-1 -> with FSDP "
